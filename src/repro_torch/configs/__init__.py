@@ -1,0 +1,19 @@
+"""Architecture configs of the port.
+
+``get_config(arch_id)`` returns the FULL configuration;
+``get_config(arch_id, smoke=True)`` the reduced variant the CPU tests use.
+"""
+from repro_torch.configs import qwen3_1_7b
+from repro_torch.configs.base import ModelConfig, PEFTConfig
+
+_BY_ID = {m.ARCH_ID: m for m in (qwen3_1_7b,)}
+
+
+def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
+    if arch_id not in _BY_ID:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_BY_ID)}")
+    mod = _BY_ID[arch_id]
+    return mod.SMOKE if smoke else mod.FULL
+
+
+__all__ = ["ModelConfig", "PEFTConfig", "get_config"]

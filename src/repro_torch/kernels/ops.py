@@ -1,0 +1,168 @@
+"""Dispatch to the port's CUDA kernels, or to their plain twins on the CPU.
+
+Each wrapper chooses by the device of the tensors it is given: a CPU tensor
+runs the plain twin in ``ref``; a CUDA tensor launches the hand-written
+kernel, or raises.  A kernel that fails to build or launch is an error,
+never a silent fall back to the twin.
+
+``launch_counts`` counts the kernel launches of each wrapper (the CPU twin
+is not counted), so a run can show that its main path went through the
+kernels: ``reset_launch_counts()`` before it, read the counts after.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}  # csrc/common.cuh DTypeCode
+MAX_LORA_RANK = 64  # csrc/segmented_lora.cu MAX_R
+MAX_GQA_REP = 8  # csrc/flash_decode.cu MAX_REP
+MAX_HEAD_DIM = 256  # csrc/flash_decode.cu MAX_D
+
+launch_counts: Dict[str, int] = {name: 0 for name in _build.KERNELS}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "segmented_lora": (
+        "segmented_lora_launch",
+        [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    ),
+    "flash_decode": (
+        "flash_decode_launch",
+        [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+    ),
+}
+_entry_points: Dict[str, ctypes._CFuncPtr] = {}
+
+
+def reset_launch_counts():
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def _entry(name: str):
+    fn = _entry_points.get(name)
+    if fn is None:
+        symbol, argtypes = _SIGNATURES[name]
+        fn = getattr(_build.load(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _entry_points[name] = fn
+    return fn
+
+
+def _on_cpu(*tensors) -> bool:
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"all tensors must lie on one device, got {sorted(map(str, devices))}")
+    device = devices.pop()
+    if device.type == "cpu":
+        return True
+    if device.type != "cuda":
+        raise ValueError(f"no kernel for device {device}")
+    return False
+
+
+def _require(cond: bool, msg: str):
+    if not cond:
+        raise ValueError(msg)
+
+
+def _check_launch(name: str, err: int):
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed (code {err})")
+    launch_counts[name] += 1
+
+
+def segmented_lora(x, w, a, b, idx, ranks):
+    """Multi-tenant LoRA matmul: row i uses adapter ``idx[i]`` of the pool.
+
+    x: (M, K); w: (K, N); a: (NA, K, r_max); b: (NA, r_max, N) with the
+    alpha/rank scale folded in; idx: (M,) int32 slots in ``[0, NA)`` (the
+    adapter pool hands out only such slots); ranks: (NA,) int32.
+    Returns (M, N) in ``x.dtype``.
+    """
+    if _on_cpu(x, w, a, b, idx, ranks):
+        return ref.segmented_lora_plain(x, w, a, b, idx, ranks)
+    m, k = x.shape
+    n = w.shape[1]
+    na, _, r = a.shape
+    _require(x.dtype in _DTYPE_CODE, f"segmented_lora takes float32 or bfloat16, got {x.dtype}")
+    _require(
+        w.dtype == a.dtype == b.dtype == x.dtype,
+        f"x, w, a, b must share one dtype, got {x.dtype}, {w.dtype}, {a.dtype}, {b.dtype}",
+    )
+    _require(
+        tuple(w.shape) == (k, n) and tuple(a.shape) == (na, k, r) and tuple(b.shape) == (na, r, n),
+        f"shapes do not agree: x {tuple(x.shape)}, w {tuple(w.shape)}, "
+        f"a {tuple(a.shape)}, b {tuple(b.shape)}",
+    )
+    _require(
+        tuple(idx.shape) == (m,) and tuple(ranks.shape) == (na,),
+        f"idx must be ({m},) and ranks ({na},), got {tuple(idx.shape)}, {tuple(ranks.shape)}",
+    )
+    _require(idx.dtype == ranks.dtype == torch.int32, "idx and ranks must be int32")
+    _require(0 < r <= MAX_LORA_RANK, f"pooled rank {r} outside 1..{MAX_LORA_RANK}")
+    for t in (x, w, a, b, idx, ranks):
+        _require(t.is_contiguous(), "segmented_lora takes contiguous tensors")
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if m == 0:
+        return y
+    err = _entry("segmented_lora")(
+        _DTYPE_CODE[x.dtype], x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
+        idx.data_ptr(), ranks.data_ptr(), y.data_ptr(), m, k, n, r,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _check_launch("segmented_lora", err)
+    return y
+
+
+def flash_decode(q, k_cache, v_cache, q_positions, k_positions, *, window: Optional[int] = None):
+    """Single-query GQA attention over a batched ring cache.
+
+    q: (B, H, D); k_cache, v_cache: (B, S, KV, D); q_positions: (B,) int32;
+    k_positions: (B, S) int32 absolute slot positions (INT32_MAX = never
+    written).  Slot j of row b is live iff ``kpos <= qpos`` (and
+    ``kpos > qpos - window``).  Returns (B, H, D) in ``q.dtype``.
+    """
+    if _on_cpu(q, k_cache, v_cache, q_positions, k_positions):
+        return ref.decode_attention_plain(
+            q, k_cache, v_cache, q_positions, k_positions, window=window
+        )
+    bsz, h, d = q.shape
+    _, s, kv, _ = k_cache.shape
+    _require(
+        (q.dtype, k_cache.dtype)
+        in ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16), (torch.float32, torch.float32)),
+        f"flash_decode takes (q, cache) dtypes bf16/bf16, f32/bf16 or f32/f32, got {q.dtype}/{k_cache.dtype}",
+    )
+    _require(v_cache.dtype == k_cache.dtype, "k_cache and v_cache must share one dtype")
+    _require(
+        tuple(k_cache.shape) == (bsz, s, kv, d) and tuple(v_cache.shape) == (bsz, s, kv, d),
+        f"caches must be ({bsz}, S, KV, {d}), got {tuple(k_cache.shape)}, {tuple(v_cache.shape)}",
+    )
+    _require(h % kv == 0 and h // kv <= MAX_GQA_REP, f"{h} heads over {kv} kv heads not supported")
+    _require(d % 32 == 0 and d <= MAX_HEAD_DIM, f"head dim {d} must be a multiple of 32, <= {MAX_HEAD_DIM}")
+    _require(
+        tuple(q_positions.shape) == (bsz,) and tuple(k_positions.shape) == (bsz, s),
+        f"positions must be ({bsz},) and ({bsz}, {s}), got "
+        f"{tuple(q_positions.shape)}, {tuple(k_positions.shape)}",
+    )
+    _require(q_positions.dtype == k_positions.dtype == torch.int32, "positions must be int32")
+    _require(window is None or window > 0, f"window must be None or positive, got {window}")
+    for t in (q, k_cache, v_cache, q_positions, k_positions):
+        _require(t.is_contiguous(), "flash_decode takes contiguous tensors")
+    out = torch.empty_like(q)
+    err = _entry("flash_decode")(
+        _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_cache.dtype], q.data_ptr(), k_cache.data_ptr(),
+        v_cache.data_ptr(), q_positions.data_ptr(), k_positions.data_ptr(), out.data_ptr(),
+        bsz, h, kv, d, s, window or 0, d**-0.5,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _check_launch("flash_decode", err)
+    return out

@@ -1,0 +1,83 @@
+"""Dense decoder: init, decode caches and the forward pass.
+
+The layer stack keeps the stacked ``(L, ...)`` layout of the JAX package;
+``lm_apply`` loops over the layers in Python (the semantics of the JAX
+``scan`` mode).  Serving runs no STLD drops.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import stacking
+from repro_torch.models.layers import init_layer_cache, layer_apply
+from repro_torch.nn.initializers import normal_init, truncated_lecun
+from repro_torch.nn.norms import apply_rmsnorm
+
+
+def init_lm(cfg, generator: torch.Generator):
+    """Parameters with the shapes and dtypes of ``transformer.init_lm``
+    (stacked layout, float32), drawn on the generator's device."""
+    d, hd, L = cfg.d_model, cfg.resolved_head_dim, cfg.num_layers
+    h, kv, ff = cfg.num_heads, cfg.num_kv_heads, cfg.d_ff
+    device = generator.device
+
+    def proj(d_in, d_out):
+        return {"w": truncated_lecun(generator, (L, d_in, d_out), fan_in_axis=1)}
+
+    def norm(dim):
+        return {"scale": torch.ones((L, dim), device=device)}
+
+    attn = {"wq": proj(d, h * hd), "wk": proj(d, kv * hd), "wv": proj(d, kv * hd), "wo": proj(h * hd, d)}
+    if cfg.attention_bias:
+        for name, width in (("wq", h * hd), ("wk", kv * hd), ("wv", kv * hd)):
+            attn[name]["b"] = torch.zeros((L, width), device=device)
+    if cfg.qk_norm:
+        attn["q_norm"] = norm(hd)
+        attn["k_norm"] = norm(hd)
+    params = {
+        "embed": normal_init(generator, (cfg.vocab_size, d)),
+        "layers": {
+            "norm1": norm(d),
+            "norm2": norm(d),
+            "attn": attn,
+            "mlp": {"gate": proj(d, ff), "up": proj(d, ff), "down": proj(ff, d)},
+        },
+        "final_norm": {"scale": torch.ones((d,), device=device)},
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = normal_init(generator, (d, cfg.vocab_size))
+    return params
+
+
+def init_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device=None):
+    """Stacked decode caches: ``{"k", "v": (L, B, S, KV, hd), "pos": (L,)}``."""
+    one = init_layer_cache(cfg, batch, max_len, dtype, device)
+    return {
+        name: t.unsqueeze(0).repeat((cfg.num_layers,) + (1,) * t.ndim)
+        for name, t in one.items()
+    }
+
+
+def lm_apply(params, cfg, tokens, *, positions=None, caches=None, peft=None, lora_scale: float = 1.0):
+    """Decoder-only LM forward.  tokens: (B, S) int.  Returns (logits,
+    new_caches); the caches' K/V tensors are updated in place."""
+    compute_dtype = getattr(torch, cfg.dtype)
+    h = params["embed"][tokens].to(compute_dtype)
+    if positions is None:
+        positions = torch.arange(h.shape[1], device=h.device)
+    new_pos = []
+    for l in range(stacking.stack_size(params["layers"])):
+        h, cache_l = layer_apply(
+            stacking.layer_view(params["layers"], l), cfg, h, positions=positions,
+            cache=stacking.layer_view(caches, l) if caches is not None else None,
+            peft=stacking.layer_view(peft, l) if peft is not None else None,
+            lora_scale=lora_scale,
+        )
+        if caches is not None:
+            new_pos.append(cache_l["pos"])
+    new_caches = None
+    if caches is not None:
+        new_caches = {"k": caches["k"], "v": caches["v"], "pos": torch.stack(new_pos)}
+    h = apply_rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return h @ head.to(compute_dtype), new_caches

@@ -1,0 +1,72 @@
+"""Linear projection with optional bias and LoRA side-branch.
+
+LoRA params for a projection are ``{"a": (in, r), "b": (r, out)}`` with the
+runtime ``scale`` passed explicitly.  For multi-tenant serving a
+projection's peft node can instead be an :class:`AdapterPool` (a stacked
+pool of adapters plus a per-row slot map), and ``apply_linear`` then
+dispatches to the segmented kernel, so every batch row applies its own
+tenant's adapter in one launch.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import ops
+
+
+@dataclass(frozen=True)
+class AdapterPool:
+    """Per-projection multi-tenant adapter pool riding inside a peft tree.
+
+    ``a: (n_slots, d_in, r_max)`` and ``b: (n_slots, r_max, d_out)`` hold
+    zero-padded adapters with the per-adapter scale (alpha/rank) folded
+    into ``b`` at slot-write time; ``ranks: (n_slots,)`` is each slot's true
+    rank for the in-kernel tail mask; ``idx: (batch,)`` maps each batch row
+    to its slot.  In the stacked layout every field has a leading layer
+    axis (``idx`` expanded to ``(L, batch)``), so ``stacking.layer_view``
+    slices a pool like any other leaf.
+    """
+
+    a: torch.Tensor
+    b: torch.Tensor
+    idx: torch.Tensor
+    ranks: torch.Tensor
+
+
+def lora_delta(x, lora, scale: float):
+    """``scale * (x @ a) @ b``: the LoRA contribution, rank-r bottleneck."""
+    a = lora["a"].to(x.dtype)
+    b = lora["b"].to(x.dtype)
+    return (x @ a) @ b * torch.tensor(scale, dtype=x.dtype, device=x.device)
+
+
+def _pooled_linear(params, x, pool: AdapterPool):
+    """Segmented multi-adapter projection: row i applies adapter
+    ``pool.idx[i]``; main product and gathered LoRA branch in one kernel."""
+    w = params["w"].to(x.dtype)
+    lead = x.shape[:-1]
+    xm = x.reshape(-1, x.shape[-1]).contiguous()
+    idx = pool.idx
+    if x.ndim == 3 and x.shape[1] != 1:
+        idx = torch.repeat_interleave(idx, x.shape[1])  # every token of a row shares its adapter
+    y = ops.segmented_lora(
+        xm, w, pool.a.to(x.dtype), pool.b.to(x.dtype), idx.contiguous(), pool.ranks
+    )
+    y = y.reshape(*lead, w.shape[-1])
+    if "b" in params:
+        y = y + params["b"].to(x.dtype)
+    return y
+
+
+def apply_linear(params, x, lora: Optional[dict] = None, lora_scale: float = 1.0):
+    if isinstance(lora, AdapterPool):
+        return _pooled_linear(params, x, lora)
+    y = x @ params["w"].to(x.dtype)
+    if "b" in params:
+        y = y + params["b"].to(x.dtype)
+    if lora is not None:
+        y = y + lora_delta(x, lora, lora_scale)
+    return y

@@ -1,0 +1,119 @@
+"""The port's CUDA kernels against their plain twins, on a CUDA card.
+
+Every test here is marked ``cuda`` and skips without a card.  The file
+imports neither JAX nor the JAX package, so that it runs on a machine that
+has only the port's dependencies; ``tests/conftest.py`` imports JAX, hence
+``--noconftest``::
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+
+Tolerances: float32 outputs within 1e-4 (segmented_lora: K-long float32 sums
+in another order) or 2e-5 (flash_decode); bfloat16 outputs within
+3e-2 + 1e-2 |ref|, about two bf16 roundings of an O(1) value.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops, ref
+from repro_torch.nn.attention import INT32_MAX, ring_positions
+
+
+def _pool(rng, *, m, k, n, ranks, stale):
+    """Mixed-rank pool; rows cycle through the slots.  With ``stale`` the
+    tails beyond each rank hold garbage, as a recycled slot may."""
+    r_max = 8
+    x = rng.standard_normal((m, k), dtype=np.float32)
+    w = rng.standard_normal((k, n), dtype=np.float32) * k**-0.5
+    a = rng.standard_normal((len(ranks), k, r_max), dtype=np.float32) * k**-0.5
+    b = rng.standard_normal((len(ranks), r_max, n), dtype=np.float32) * 0.1
+    if not stale:
+        for s, r in enumerate(ranks):
+            a[s, :, r:] = 0.0
+            b[s, r:, :] = 0.0
+    idx = (np.arange(m) % len(ranks)).astype(np.int32)
+    return x, w, a, b, idx, np.asarray(ranks, np.int32)
+
+
+def _to_torch(arrays, dtype, device):
+    out = []
+    for arr in arrays:
+        t = torch.from_numpy(arr)
+        out.append((t.to(getattr(torch, dtype)) if t.is_floating_point() else t).to(device))
+    return out
+
+
+def _decode_inputs(rng, b, h, kv, d, s):
+    return tuple(rng.standard_normal(shape, dtype=np.float32) for shape in ((b, h, d), (b, s, kv, d), (b, s, kv, d)))
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "m,k,n,stale", [(6, 200, 192, True), (10, 256, 2048, True), (8, 2048, 1024, False), (3, 96, 33, True)]
+)
+def test_cuda_segmented_lora_matches_twin(cuda, dtype, m, k, n, stale):
+    """N off the 16-column tile and off the 8-column vector (N=33), K off
+    the 128 slices, more rows than one pass (M=10), stale rank tails."""
+    arrays = _pool(np.random.default_rng(8), m=m, k=k, n=n, ranks=(4, 8, 2), stale=stale)
+    args = _to_torch(arrays, dtype, cuda)
+    ops.reset_launch_counts()
+    got = ops.segmented_lora(*args)
+    assert ops.launch_counts["segmented_lora"] == 1
+    want = ref.segmented_lora_plain(*args)
+    torch.cuda.synchronize()
+    atol, rtol = (3e-2, 1e-2) if dtype == "bfloat16" else (1e-4, 1e-5)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_cuda_segmented_lora_batch_invariant(cuda):
+    """A mixed-adapter batch gives bitwise the rows of uniform batches."""
+    x, w, a, b, idx, ranks = _to_torch(
+        _pool(np.random.default_rng(9), m=8, k=512, n=320, ranks=(2, 4, 8), stale=True), "bfloat16", cuda
+    )
+    mixed = ops.segmented_lora(x, w, a, b, idx, ranks)
+    for s in range(3):
+        uniform = ops.segmented_lora(x, w, a, b, torch.full_like(idx, s), ranks)
+        rows = idx == s
+        assert torch.equal(mixed[rows], uniform[rows])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,cache_dtype", [("bfloat16", "bfloat16"), ("float32", "bfloat16"), ("float32", "float32")])
+@pytest.mark.parametrize("window", [None, 40])
+def test_cuda_flash_decode_matches_twin(cuda, q_dtype, cache_dtype, window):
+    """S=100 (off the 32- and 16-slot steps), rep=4, per-row depths incl. a wrapped
+    ring and a recycled row, with and without a window."""
+    b, h, kv, d, s = 6, 8, 2, 128, 100
+    q, k, v = _decode_inputs(np.random.default_rng(10), b, h, kv, d, s)
+    q = torch.from_numpy(q).to(cuda, getattr(torch, q_dtype))
+    kc, vc = (torch.from_numpy(t).to(cuda, getattr(torch, cache_dtype)) for t in (k, v))
+    pos = torch.tensor([0, 7, 99, 150, 333, 3], dtype=torch.int32, device=cuda)
+    kpos = ring_positions(pos, s)
+    got = ops.flash_decode(q, kc, vc, pos, kpos, window=window)
+    want = ref.decode_attention_plain(q, kc, vc, pos, kpos, window=window)
+    torch.cuda.synchronize()
+    atol, rtol = (3e-2, 1e-2) if q_dtype == "bfloat16" else (2e-5, 1e-5)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_decode_all_masked_row_is_guarded(cuda):
+    """A row whose slots are all dead (INT32_MAX) stays finite: the TPU
+    kernel's finite -1e30 mask gives the mean of V, as the twin does."""
+    q, k, v = (torch.from_numpy(t).to(cuda) for t in _decode_inputs(np.random.default_rng(11), 1, 2, 1, 32, 70))
+    pos = torch.tensor([5], dtype=torch.int32, device=cuda)
+    kpos = torch.full((1, 70), INT32_MAX, dtype=torch.int32, device=cuda)
+    got = ops.flash_decode(q, k, v, pos, kpos)
+    want = ref.decode_attention_plain(q, k, v, pos, kpos)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-5)

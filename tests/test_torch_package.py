@@ -1,0 +1,75 @@
+"""The port's package boundary: it loads neither JAX nor the JAX package,
+its sources never import them, its entry points run on the card unless
+the caller asks for the CPU, and its configs are the JAX package's."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro.configs import PEFTConfig as JaxPEFTConfig
+from repro.configs import get_config as jax_get_config
+from repro_torch import api
+from repro_torch.configs import PEFTConfig, get_config
+
+ROOT = Path(__file__).resolve().parents[1]
+PACKAGE = ROOT / "src" / "repro_torch"
+_FORBIDDEN = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b|from\s+repro\b|from\s+repro\.)", re.M)
+
+
+def _modules():
+    return sorted(
+        ".".join(p.relative_to(ROOT / "src").with_suffix("").parts).removesuffix(".__init__")
+        for p in PACKAGE.rglob("*.py")
+    )
+
+
+def test_import_loads_neither_jax_nor_the_jax_package():
+    """In a fresh interpreter (this one has JAX loaded by the test suite)."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_modules()!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+        "or m == 'repro' or m.startswith('repro.'))\n"
+        "print(len(sys.modules)); assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"], ids=lambda p: p.name)
+def test_sources_never_import_jax_or_the_jax_package(path):
+    assert not _FORBIDDEN.findall(path.read_text()), path
+
+
+def test_serve_without_device_runs_on_the_card_or_raises():
+    """``device=None`` means the card: on a machine without one, torch raises
+    before any work, and nothing falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: serve() would run on it")
+    cfg = get_config("qwen3-1.7b", smoke=True)
+    tree = {"attn": {"q": {"a": torch.zeros(2, 128, 4), "b": torch.zeros(2, 4, 128)}}}
+    with pytest.raises((RuntimeError, AssertionError)):
+        api.serve(cfg=cfg, adapters={"t0": tree})
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+def test_configs_match_the_jax_package(smoke):
+    ours, theirs = get_config("qwen3-1.7b", smoke=smoke), jax_get_config("qwen3-1.7b", smoke=smoke)
+    for field in ours.__dataclass_fields__:
+        assert getattr(ours, field) == getattr(theirs, field), field
+    assert ours.resolved_head_dim == theirs.resolved_head_dim
+    for field in PEFTConfig.__dataclass_fields__:
+        assert getattr(PEFTConfig(), field) == getattr(JaxPEFTConfig(), field), field
+
+
+def test_full_config_is_qwen3_1_7b_width():
+    cfg = get_config("qwen3-1.7b")
+    assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim) == (28, 2048, 16, 8, 128)
+    assert (cfg.d_ff, cfg.vocab_size, cfg.qk_norm, cfg.rope_theta, cfg.tie_embeddings) == (6144, 151_936, True, 1e6, True)
+    with pytest.raises(KeyError):
+        get_config("yi-6b")
