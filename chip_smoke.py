@@ -9,17 +9,27 @@ CUDA toolkit::
 Phases, one line each before the last:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build of both CUDA kernels from the sources in the checkout;
+2. build of every CUDA kernel from the sources in the checkout, in parallel;
 3. each kernel held against its plain PyTorch twin on the card at the
-   serving shapes of qwen3-1.7b, with its time (CUDA events, L2 flushed,
-   median of repeats) beside the twin's, the library call's and the bound;
+   shapes of its path (serving: the decode step; training: batch 16 x 512
+   tokens of qwen3-1.7b), forward and backward, with its time (CUDA events,
+   L2 flushed, median of repeats) beside the twin's, the library call's
+   and the bound;
 4. full-width qwen3-1.7b (28 layers, random weights from ``--seed``)
    served through ``repro_torch.api.serve``: 12 requests over 4 LoRA
    tenants of rank 4/8 at batch 8, rows recycling mid-run; every completion
    arrives, every logit is finite, one request's batched tokens equal its
    tokens served in a uniform batch, and the smoke-size model on the card
    agrees with the same model on the CPU twins;
-5. the ``kernels`` JSON line: launches of each kernel in phase 4's run.
+5. one client's DropPEFT local training of full-width qwen3-1.7b through
+   ``repro_torch.federated.client.make_client_fns``: ``local_round`` of 4
+   steps at batch 16 x 512 (the synthetic task) and STLD mean rate 0.5,
+   then ``evaluate``; every loss and norm finite, one flash_attention
+   forward launch per active layer and step, two rounds from the same state
+   bit-identical; step time, idle share and peak memory at rates 0.0 and
+   0.5; and one smoke-size round on the card against the CPU twins;
+6. the ``kernels`` JSON line: launches of each kernel in its own path's
+   run (serving: phase 4's run; training: phase 5's round at rate 0.5).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits non-zero before it; without a CUDA card, or outside the checkout, the
@@ -28,6 +38,7 @@ script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import statistics
 import subprocess
@@ -163,6 +174,121 @@ def decode_case(ops, ref, ring_positions, timer, gen, *, q_dtype, b=8, h=16, kv=
         "shape": f"B={b} H={h} KV={kv} D={d} S={s} q {str(q_dtype).split('.')[-1]} cache bfloat16, {live} live slots",
         "max_abs_err": err, "atol": atol, "rtol": rtol, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+    }
+
+
+def visible_pairs(s: int, causal: bool, window) -> int:
+    """(query, key) pairs the attention mask lets through at length s."""
+    total = 0
+    for i in range(s):
+        lo = max(0, i - window + 1) if window else 0
+        hi = i + 1 if causal else s
+        total += hi - lo
+    return total
+
+
+def grads_close(got, want, dtype):
+    """Kernel gradients against the twin's autograd: float32 within
+    1e-4 + 1e-4 |ref|; bf16 within 2% of the gradient's largest element
+    (the kernels round P and dS, or the bottleneck, to bf16)."""
+    errs = []
+    for g, w in zip(got, want):
+        err = (g.float() - w.float()).abs().max().item()
+        if dtype == torch.float32:
+            ok = torch.allclose(g, w, atol=1e-4, rtol=1e-4)
+        else:
+            ok = err <= 2e-2 * w.float().abs().max().item()
+        errs.append(err)
+        if not ok:
+            return False, errs
+    return True, errs
+
+
+def attention_case(ops, ref, timer, gen, *, dtype, b=16, s=512, h=16, kv=8, d=128, window=None, time_it=True):
+    """flash_attention forward and backward against the twin (and autograd
+    through it) on the card; with ``time_it`` the times of both passes, the
+    twin's, SDPA's and the bounds."""
+    import torch.nn.functional as F
+
+    q, k, v, g = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                  for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d), (b, s, h, d)))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    twins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = ops.flash_attention(*leaves, window=window)
+    grads = torch.autograd.grad(out, leaves, g, retain_graph=True)
+    want = ref.attention_plain(*twins, window=window)
+    want_grads = torch.autograd.grad(want, twins, g, retain_graph=True)
+    torch.cuda.synchronize()
+    name = str(dtype).split(".")[-1]
+    err = (out.float() - want.float()).abs().max().item()
+    atol, rtol = (3e-2, 1e-2) if dtype == torch.bfloat16 else (2e-5, 1e-5)
+    check(torch.allclose(out.float(), want.float(), atol=atol, rtol=rtol),
+          f"flash_attention {name} S={s} window={window}: max abs err {err} vs twin")
+    ok, grad_errs = grads_close(grads, want_grads, dtype)
+    check(ok, f"flash_attention backward {name} S={s} window={window}: dq/dk/dv max abs errs {grad_errs}")
+    case = {"shape": f"B={b} S={s} H={h} KV={kv} D={d} causal window={window} {name}",
+            "max_abs_err": err, "atol": atol, "rtol": rtol, "bwd_max_abs_err": max(grad_errs)}
+    if not time_it:
+        return case
+    with torch.no_grad():
+        case["ms"] = timer(lambda: ops.flash_attention(q, k, v, window=window))
+        case["plain_ms"] = timer(lambda: ref.attention_plain(q, k, v, window=window))
+    case["bwd_ms"] = timer(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True))
+    case["plain_bwd_ms"] = timer(lambda: torch.autograd.grad(want, twins, g, retain_graph=True))
+    case["library_ms"] = case["library_bwd_ms"] = None
+    if window is None:  # the yardstick: SDPA on the same inputs (never used by the port)
+        lib = [t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v)]
+        with torch.no_grad():
+            case["library_ms"] = timer(lambda: F.scaled_dot_product_attention(*lib, is_causal=True, enable_gqa=True))
+        lib_out = F.scaled_dot_product_attention(*lib, is_causal=True, enable_gqa=True)
+        g_t = g.transpose(1, 2)
+        case["library_bwd_ms"] = timer(lambda: torch.autograd.grad(lib_out, lib, g_t, retain_graph=True))
+    elt = q.element_size()
+    pairs = b * h * visible_pairs(s, True, window)
+    qo_bytes, kv_bytes, lse_bytes = 2 * q.numel() * elt, 2 * k.numel() * elt, 4 * b * h * s
+    case["bound_ms"], case["bound_by"] = bound(qo_bytes + kv_bytes + lse_bytes, 4 * d * pairs, name)
+    # backward: read q, k, v, out, dout, lse; write dq, dk, dv; five products
+    case["bwd_bound_ms"], case["bwd_bound_by"] = bound(2 * qo_bytes + 2 * kv_bytes + lse_bytes, 10 * d * pairs, name)
+    return case
+
+
+def lora_case(ops, ref, timer, gen, *, dtype, n, m=8192, k=2048, r=8, alpha=2.0):
+    """lora_matmul forward, dX, dA and dB against the twin on the card, with
+    the forward's and dX's times, the twin's, cuBLAS's x @ W and the bounds."""
+    x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+    w = (torch.randn((k, n), generator=gen, device="cuda") * k**-0.5).to(dtype)
+    a = (torch.randn((k, r), generator=gen, device="cuda") * k**-0.5).to(dtype)
+    b = (torch.randn((r, n), generator=gen, device="cuda") * r**-0.5).to(dtype)
+    g = torch.randn((m, n), generator=gen, device="cuda").to(dtype)
+    leaves = [t.clone().requires_grad_(True) for t in (x, a, b)]
+    twins = [t.clone().requires_grad_(True) for t in (x, a, b)]
+    y = ops.lora_matmul(leaves[0], w, leaves[1], leaves[2], alpha=alpha)
+    grads = torch.autograd.grad(y, leaves, g)
+    want = ref.lora_matmul_plain(twins[0], w, twins[1], twins[2], alpha=alpha)
+    want_grads = torch.autograd.grad(want, twins, g)
+    torch.cuda.synchronize()
+    name = str(dtype).split(".")[-1]
+    err = (y.float() - want.float()).abs().max().item()
+    atol, rtol = (3e-2, 1e-2) if dtype == torch.bfloat16 else (1e-4, 1e-5)
+    check(torch.allclose(y.float(), want.float(), atol=atol, rtol=rtol),
+          f"lora_matmul {name} N={n}: max abs err {err} vs twin")
+    ok, grad_errs = grads_close(grads, want_grads, dtype)
+    check(ok, f"lora_matmul backward {name} N={n}: dx/da/db max abs errs {grad_errs}")
+    with torch.no_grad():
+        ms = timer(lambda: ops.lora_matmul(x, w, a, b, alpha=alpha))
+        plain_ms = timer(lambda: ref.lora_matmul_plain(x, w, a, b, alpha=alpha))
+        cublas_ms = timer(lambda: x @ w)
+    xl = x.clone().requires_grad_(True)
+    yl = ops.lora_matmul(xl, w, a, b, alpha=alpha)  # a, b take no grad: the backward is dX alone
+    dx_ms = timer(lambda: torch.autograd.grad(yl, xl, g, retain_graph=True))
+    elt = x.element_size()
+    nbytes = elt * (m * k + k * n + k * r + r * n + m * n)
+    bound_ms, bound_by = bound(nbytes, 2 * m * k * n + 2 * m * k * r + 2 * m * r * n, name)
+    return {
+        "shape": f"M={m} K={k} N={n} r={r} {name}", "max_abs_err": err, "atol": atol, "rtol": rtol,
+        "bwd_max_abs_err": max(grad_errs), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": None, "cublas_x_at_w_ms": cublas_ms, "dx_ms": dx_ms,
+        "dx_bound_ms": bound(nbytes, 2 * m * n * k + 2 * m * n * r + 2 * m * r * k, name)[0],
     }
 
 
@@ -323,6 +449,171 @@ def smoke_cuda_vs_cpu(seed: int):
     return {"steps": int(logits["cpu"].shape[0]), "max_abs_err": err, "atol": 1e-4}
 
 
+def train_batches(task, steps: int, batch: int, offset: int = 0):
+    """``local_round``'s batches: (steps, batch, ...) arrays of the task."""
+    per_step = [task.lm_batch(np.arange(offset + i * batch, offset + (i + 1) * batch)) for i in range(steps)]
+    return {key: np.stack([b[key] for b in per_step]) for key in ("tokens", "targets", "mask")}
+
+
+def profile_round(fns, params, peft, batches, rate: float, seed: int):
+    """Device busy and idle share of one local step under ``torch.profiler``
+    (a one-step round), beside its host clock.  None when the profiler sees
+    no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.optim import adamw_init
+
+    one = {key: val[:1] for key, val in batches.items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fns.local_round(params, peft, adamw_init(peft), one, rate, torch.Generator().manual_seed(seed), 0)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy == 0.0:
+        return None
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    top = [{"kernel": e.key[:80], "ms": e.self_device_time_total / 1e3, "calls": e.count} for e in kernels[:10]]
+    return {"wall_ms_profiled": wall_ms, "device_busy_ms": busy, "device_idle_share_profiled": 1.0 - busy / wall_ms,
+            "kernel_launches": sum(e.count for e in kernels), "top_kernels": top}
+
+
+def tree_equal(a, b) -> bool:
+    from repro_torch.models.stacking import tree_leaves
+
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def train_full(ops, card, seed: int):
+    """Phase 5: one client's DropPEFT local round of full-width qwen3-1.7b."""
+    from repro_torch.configs import FederatedConfig, PEFTConfig, STLDConfig, TrainConfig, get_config
+    from repro_torch.core.peft import init_peft
+    from repro_torch.data.synthetic import make_task
+    from repro_torch.federated.client import make_client_fns
+    from repro_torch.models.registry import init_params, place_params
+    from repro_torch.models.stacking import tree_leaves
+    from repro_torch.optim import adamw_init
+
+    gc.collect()  # the serving phase's weights sit in reference cycles: free them before measuring memory
+    cfg, fed, peft_cfg = get_config("qwen3-1.7b"), FederatedConfig(), PEFTConfig()
+    steps, batch, seq, rate = fed.local_steps, fed.batch_size, 512, 0.5
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    t0 = time.perf_counter()
+    params = place_params(init_params(cfg, gen), cfg)
+    peft = init_peft(cfg, peft_cfg, gen)
+    task = make_task(vocab_size=cfg.vocab_size, seq_len=seq, num_examples=(steps + 1) * batch, seed=seed)
+    batches = train_batches(task, steps, batch)
+    fns = make_client_fns(cfg, peft_cfg, STLDConfig(), TrainConfig())
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    def run(r, batches=batches):
+        out = fns.local_round(params, peft, adamw_init(peft), batches, r, torch.Generator().manual_seed(seed + 7), 0)
+        torch.cuda.synchronize()
+        return out
+
+    run(rate, {key: val[:1] for key, val in batches.items()})  # warm: library loads, cuBLAS heuristics
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    peft1, _, m1, imp1 = run(rate)
+    round_s = time.perf_counter() - t0
+    launches = dict(ops.launch_counts)
+    peak_05 = torch.cuda.max_memory_allocated()
+    metrics = {key: float(val) for key, val in m1.items()}
+    check(all(np.isfinite(list(metrics.values()))), f"non-finite round metrics {metrics}")
+    check(bool(torch.isfinite(imp1).all()), "non-finite importances")
+    check(all(bool(torch.isfinite(t).all()) for t in tree_leaves(peft1)), "non-finite PEFT tree")
+    active = round(metrics["active_layers"] * steps)
+    check(abs(metrics["active_layers"] * steps - active) < 1e-3, f"active layers {metrics['active_layers']}")
+    check(launches["flash_attention"] == active and launches["flash_attention_bwd"] == active,
+          f"{active} active layers over {steps} steps, but flash_attention launches {launches}")
+    # q and v forward in every active layer, their dX in all but each step's first active layer
+    check(launches["lora_matmul"] == 4 * active - 2 * steps, f"lora_matmul launches {launches} for {active} active layers")
+
+    peft2, _, m2, imp2 = run(rate)
+    check(tree_equal(peft1, peft2) and torch.equal(imp1, imp2)
+          and all(torch.equal(m1[key], m2[key]) for key in m1),
+          "two local rounds from the same state, gates and batches differ")
+
+    ops.reset_launch_counts()
+    acc = float(fns.evaluate(params, peft1, task.tokens[-batch:], task.labels[-batch:], np.arange(task.num_classes)))
+    eval_launches = dict(ops.launch_counts)
+    check(np.isfinite(acc) and 0.0 <= acc <= 1.0, f"accuracy {acc}")
+    check(eval_launches["flash_attention"] == cfg.num_layers and eval_launches["flash_attention_bwd"] == 0
+          and eval_launches["lora_matmul"] == 2 * cfg.num_layers, f"evaluate launched {eval_launches}")
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, _, m0, _ = run(0.0)
+    round0_s = time.perf_counter() - t0
+    peak_00 = torch.cuda.max_memory_allocated()
+    check(float(m0["active_layers"]) == cfg.num_layers, f"rate 0.0 ran {float(m0['active_layers'])} layers")
+    profile = profile_round(fns, params, peft, batches, rate, seed)
+    gib = 2.0**30
+    return {
+        "model": cfg.name, "layers": cfg.num_layers, "batch": batch, "seq": seq, "local_steps": steps,
+        "mean_rate": rate, "setup_s": setup_s, "round_s": round_s, "s_per_local_step": round_s / steps,
+        "active_layers_per_step": metrics["active_layers"], "metrics": metrics, "accuracy_after_round": acc,
+        "round_s_rate_0": round0_s, "s_per_local_step_rate_0": round0_s / steps,
+        "resident_gib": resident / gib, "peak_gib_rate_0.5": peak_05 / gib, "peak_gib_rate_0.0": peak_00 / gib,
+        "round_gib_above_resident_rate_0.5": (peak_05 - resident) / gib,
+        "round_gib_above_resident_rate_0.0": (peak_00 - resident) / gib,
+        "bit_identical_rounds": True, "evaluate_launches": eval_launches, "card": card,
+    }, profile, launches
+
+
+def smoke_train_cuda_vs_cpu(seed: int):
+    """Phase 5b: one local round of the smoke model, float32, on the card
+    (the kernels) and on the CPU (the twins), from the same params, LoRA
+    (``b`` off zero), batches and gates.  AdamW's first steps move an
+    element by about lr * sign(g), so an element whose gradient lies within
+    float error of 0 may move the other way: every element within
+    2 * (sum of the step sizes) + 1e-6, and 99% within 1e-6."""
+    from repro_torch.configs import PEFTConfig, STLDConfig, TrainConfig, get_config
+    from repro_torch.core.peft import init_peft
+    from repro_torch.data.synthetic import make_task
+    from repro_torch.federated.client import make_client_fns
+    from repro_torch.models.registry import init_params, place_params
+    from repro_torch.models.stacking import tree_leaves, tree_map
+    from repro_torch.optim import adamw_init, make_lr_schedule
+
+    cfg, train_cfg = get_config("qwen3-1.7b", smoke=True).replace(dtype="float32"), TrainConfig()
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    params = init_params(cfg, gen)
+    peft = init_peft(cfg, PEFTConfig(), gen)
+    for leaf in tree_leaves(peft):
+        leaf.add_(0.02 * torch.randn(leaf.shape, generator=gen))
+    task = make_task(vocab_size=cfg.vocab_size, seq_len=32, num_examples=8, seed=seed)
+    batches = train_batches(task, 2, 4)
+    out = {}
+    for device in ("cuda", "cpu"):
+        fns = make_client_fns(cfg, PEFTConfig(), STLDConfig(), train_cfg, device=device)
+        pf = tree_map(lambda t: t.to(device), peft)
+        res = fns.local_round(place_params(params, cfg, device), pf, adamw_init(pf), batches, 0.5,
+                              torch.Generator().manual_seed(seed), 0)
+        out[device] = [tree_map(lambda t: t.cpu() if isinstance(t, torch.Tensor) else t, part) for part in res]
+    (pc, _, mc, ic), (pp, _, mp, ip) = out["cuda"], out["cpu"]
+    diffs = torch.cat([(a - b).abs().flatten() for a, b in zip(tree_leaves(pc), tree_leaves(pp))])
+    sched = make_lr_schedule(train_cfg.schedule, train_cfg.learning_rate, train_cfg.warmup_steps, train_cfg.total_steps)
+    limit = 2 * (sched(0) + sched(1)) + 1e-6
+    within = float((diffs <= 1e-6).float().mean())
+    check(float(diffs.max()) <= limit and within >= 0.99,
+          f"smoke round on the card vs the CPU twins: PEFT max diff {float(diffs.max())}, {within} within 1e-6")
+    for key in mc:
+        check(torch.allclose(mc[key], mp[key], rtol=1e-5, atol=1e-6), f"smoke round metric {key}: {mc[key]} vs {mp[key]}")
+    check(torch.allclose(ic, ip, rtol=1e-4, atol=1e-7), f"smoke round importances {ic} vs {ip}")
+    return {"steps": 2, "peft_max_abs_diff": float(diffs.max()), "peft_share_within_1e-6": within,
+            "peft_limit": limit, "metric_rtol": 1e-5, "importance_rtol": 1e-4,
+            "importance_max_abs_diff": float((ic - ip).abs().max())}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -349,7 +640,7 @@ def main() -> int:
         log = _build.library_path(name).with_name(_build.library_path(name).name + ".log")
         usage = [ln.strip() for ln in log.read_text().splitlines() if "registers" in ln or "spill" in ln]
         print(f"build {name}: {build_s[name]:.1f} s; ptxas: {' | '.join(usage)}", flush=True)
-    print(f"build: both kernels in {time.perf_counter() - t0:.1f} s wall", flush=True)
+    print(f"build: {len(_build.KERNELS)} kernels in {time.perf_counter() - t0:.1f} s wall", flush=True)
 
     # 3. kernels against their twins, timed
     timer = Timer()
@@ -364,6 +655,17 @@ def main() -> int:
     for q_dtype in (torch.bfloat16, torch.float32):
         dec[q_dtype] = decode_case(ops, ref, ring_positions, timer, gen, q_dtype=q_dtype)
         print(f"flash_decode {json.dumps(dec[q_dtype])} [{card}]", flush=True)
+    attn = attention_case(ops, ref, timer, gen, dtype=torch.bfloat16)
+    print(f"flash_attention {json.dumps(attn)} [{card}]", flush=True)
+    for kw in ({"dtype": torch.float32, "b": 2}, {"dtype": torch.bfloat16, "s": 100, "window": 48},
+               {"dtype": torch.float32, "s": 100, "b": 4}):
+        print(f"flash_attention check {json.dumps(attention_case(ops, ref, timer, gen, time_it=False, **kw))}",
+              flush=True)
+    lora = {}
+    for dtype, m in ((torch.bfloat16, 8192), (torch.float32, 1024)):
+        for n in (2048, 1024):
+            lora[(dtype, n)] = lora_case(ops, ref, timer, gen, dtype=dtype, n=n, m=m)
+            print(f"lora_matmul {json.dumps(lora[(dtype, n)])} [{card}]", flush=True)
 
     # 4. serve full-width qwen3-1.7b
     serve_stats, breakdown, launches = serve_full(api, ops, card, args.seed)
@@ -371,11 +673,22 @@ def main() -> int:
     print(f"decode step profile: {json.dumps(breakdown) if breakdown else 'not measured'} [{card}]", flush=True)
     print(f"smoke model, card vs CPU twins: {json.dumps(smoke_cuda_vs_cpu(args.seed))}", flush=True)
 
-    # 5. kernels line: the main path's shapes (bf16; q and v projections
-    #    summed for segmented_lora, one launch each per layer and step)
-    check(all(launches[name] > 0 for name in _build.KERNELS), f"a kernel never launched: {launches}")
+    # 5. one client's local round of full-width qwen3-1.7b
+    train_stats, train_profile, train_launches = train_full(ops, card, args.seed)
+    print(f"train {json.dumps(train_stats)}", flush=True)
+    print(f"local step profile: {json.dumps(train_profile) if train_profile else 'not measured'} [{card}]",
+          flush=True)
+    print(f"smoke round, card vs CPU twins: {json.dumps(smoke_train_cuda_vs_cpu(args.seed))}", flush=True)
+
+    # 6. kernels line: each path's shapes (bf16) and launches; q and v
+    #    projections summed for segmented_lora and lora_matmul (forward)
+    for name in ("segmented_lora", "flash_decode"):
+        check(launches[name] > 0, f"{name} never launched while serving: {launches}")
+    for name in ("flash_attention", "flash_attention_bwd", "lora_matmul"):
+        check(train_launches[name] > 0, f"{name} never launched in the local round: {train_launches}")
     q_case, v_case = seg[(torch.bfloat16, 2048)], seg[(torch.bfloat16, 1024)]
     d_case = dec[torch.bfloat16]
+    lq, lv = lora[(torch.bfloat16, 2048)], lora[(torch.bfloat16, 1024)]
     kernels = [
         {
             "name": "segmented_lora", "route": "cuda",
@@ -394,6 +707,34 @@ def main() -> int:
             "launches": launches["flash_decode"],
             **{key: d_case[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "shape": d_case["shape"],
+        },
+        {
+            "name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:101",
+            "launches": train_launches["flash_attention"],
+            **{key: attn[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "shape": "forward, " + attn["shape"],
+        },
+        {
+            "name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:101",
+            "launches": train_launches["flash_attention_bwd"],
+            "max_abs_err": attn["bwd_max_abs_err"], "ms": attn["bwd_ms"], "plain_ms": attn["plain_bwd_ms"],
+            "bound_ms": attn["bwd_bound_ms"], "bound_by": attn["bwd_bound_by"], "library_ms": attn["library_bwd_ms"],
+            "shape": "backward (dQ, dK, dV), " + attn["shape"],
+        },
+        {
+            "name": "lora_matmul", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/lora_matmul.cu",
+            "replaces": "src/repro/kernels/lora_matmul.py:31",
+            "launches": train_launches["lora_matmul"],
+            "max_abs_err": max(lq["max_abs_err"], lv["max_abs_err"]),
+            **{key: lq[key] + lv[key] for key in ("ms", "plain_ms", "bound_ms")},
+            "bound_by": lq["bound_by"], "library_ms": None,
+            "cublas_x_at_w_ms": lq["cublas_x_at_w_ms"] + lv["cublas_x_at_w_ms"],
+            "shape": "q then v projection of one layer, forward: " + lq["shape"] + " + " + lv["shape"],
         },
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -23,24 +23,6 @@ from repro_torch.configs import get_config
 
 __all__ = ["serve"]
 
-_MATMUL_WEIGHTS = ("w", "b", "embed", "lm_head")
-
-
-def _cast_matmul_weights(tree, dtype, device):
-    """Move the base params to ``device`` and cast the matmul weights (and
-    biases) to the compute dtype, once.  Norm scales stay float32, as the
-    JAX package reads them."""
-    out = {}
-    for key, value in tree.items():
-        if isinstance(value, dict):
-            out[key] = _cast_matmul_weights(value, dtype, device)
-        elif key in _MATMUL_WEIGHTS:
-            out[key] = value.to(device=device, dtype=dtype)
-        else:
-            out[key] = value.to(device=device)
-    return out
-
-
 def serve(
     model: str = "qwen3-1.7b",
     *,
@@ -64,7 +46,7 @@ def serve(
     cast to ``cfg.dtype`` once here; the float32 masters are not kept.
     """
     from repro_torch.launch.steps import make_serve_step
-    from repro_torch.models.registry import init_params
+    from repro_torch.models.registry import init_params, place_params
     from repro_torch.serving.adapters import AdapterPoolCache, AdapterRegistry
     from repro_torch.serving.batcher import ContinuousBatcher
 
@@ -81,7 +63,7 @@ def serve(
         generator = torch.Generator(device=device)
         generator.manual_seed(seed)
         params = init_params(cfg, generator)
-    params = _cast_matmul_weights(params, compute_dtype, device)
+    params = place_params(params, cfg, device)
     pool = AdapterPoolCache(
         registry,
         n_slots=n_slots if n_slots is not None else max(batch, len(registry)),

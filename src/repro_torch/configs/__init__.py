@@ -4,7 +4,7 @@
 ``get_config(arch_id, smoke=True)`` the reduced variant the CPU tests use.
 """
 from repro_torch.configs import qwen3_1_7b
-from repro_torch.configs.base import ModelConfig, PEFTConfig
+from repro_torch.configs.base import FederatedConfig, ModelConfig, PEFTConfig, STLDConfig, TrainConfig
 
 _BY_ID = {m.ARCH_ID: m for m in (qwen3_1_7b,)}
 
@@ -16,4 +16,6 @@ def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
     return mod.SMOKE if smoke else mod.FULL
 
 
-__all__ = ["ModelConfig", "PEFTConfig", "get_config"]
+__all__ = [
+    "FederatedConfig", "ModelConfig", "PEFTConfig", "STLDConfig", "TrainConfig", "get_config",
+]

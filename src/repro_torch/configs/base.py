@@ -1,7 +1,7 @@
 """Model and PEFT configuration for the PyTorch port.
 
-A copy of the fields of ``repro.configs.base`` that the serving slice
-reads.  The port keeps its own copy so that it never imports the JAX
+A copy of the fields of ``repro.configs.base`` that the serving and
+local-training slices read.  The port keeps its own copy so that it never imports the JAX
 package; the field names, defaults and meanings are the same.
 """
 from __future__ import annotations
@@ -50,3 +50,39 @@ class PEFTConfig:
     lora_rank: int = 8
     lora_alpha: float = 16.0
     lora_targets: tuple = ("q", "v")
+
+
+@dataclass(frozen=True)
+class STLDConfig:
+    """Stochastic transformer layer dropout (paper §3.2-3.3).  The port runs
+    ``cond`` mode: a dropped layer is skipped by a host-side branch."""
+
+    enabled: bool = True
+    mode: str = "cond"
+    distribution: str = "incremental"  # uniform | decay | incremental | normal
+    mean_rate: float = 0.5
+    normal_std: float = 0.1
+    min_active_layers: int = 1
+
+
+@dataclass(frozen=True)
+class FederatedConfig:
+    """The fields of one client's local round (paper §6.1)."""
+
+    local_steps: int = 4
+    batch_size: int = 16
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer and learning-rate schedule."""
+
+    learning_rate: float = 2e-4
+    weight_decay: float = 0.01
+    beta1: float = 0.9
+    beta2: float = 0.999
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    warmup_steps: int = 20
+    schedule: str = "cosine"  # cosine | linear | constant
+    total_steps: int = 1000

@@ -18,7 +18,7 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
-KERNELS = ("segmented_lora", "flash_decode")
+KERNELS = ("segmented_lora", "flash_decode", "flash_attention", "flash_attention_bwd", "lora_matmul")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (

@@ -22,11 +22,14 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}  # csrc/common.cuh DTypeCode
 MAX_LORA_RANK = 64  # csrc/segmented_lora.cu MAX_R
 MAX_GQA_REP = 8  # csrc/flash_decode.cu MAX_REP
 MAX_HEAD_DIM = 256  # csrc/flash_decode.cu MAX_D
+MAX_ATTN_HEAD_DIM = 128  # csrc/tiles.cuh MAX_D, flash_attention forward and backward
 
 launch_counts: Dict[str, int] = {name: 0 for name in _build.KERNELS}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     "segmented_lora": (
         "segmented_lora_launch",
@@ -34,7 +37,19 @@ _SIGNATURES = {
     ),
     "flash_decode": (
         "flash_decode_launch",
-        [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+        [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    ),
+    "flash_attention": (
+        "flash_attention_fwd_launch",
+        [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    ),
+    "flash_attention_bwd": (
+        "flash_attention_bwd_launch",
+        [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    ),
+    "lora_matmul": (
+        "lora_matmul_launch",
+        [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _F, _P],
     ),
 }
 _entry_points: Dict[str, ctypes._CFuncPtr] = {}
@@ -166,3 +181,151 @@ def flash_decode(q, k_cache, v_cache, q_positions, k_positions, *, window: Optio
     )
     _check_launch("flash_decode", err)
     return out
+
+
+# ------------------------------------------------------------- training path
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check_attention(q, k, v, window):
+    bsz, s, h, d = q.shape
+    kv = k.shape[2]
+    _require(q.dtype in _DTYPE_CODE, f"flash_attention takes float32 or bfloat16, got {q.dtype}")
+    _require(k.dtype == v.dtype == q.dtype, f"q, k, v must share one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    _require(
+        k.ndim == 4 and tuple(k.shape) == (bsz, s, kv, d) and tuple(v.shape) == (bsz, s, kv, d),
+        f"k, v must be ({bsz}, {s}, KV, {d}), got {tuple(k.shape)}, {tuple(v.shape)}",
+    )
+    _require(h % kv == 0, f"{h} heads over {kv} kv heads")
+    _require(d % 16 == 0 and d <= MAX_ATTN_HEAD_DIM, f"head dim {d} must be a multiple of 16, <= {MAX_ATTN_HEAD_DIM}")
+    _require(window is None or window > 0, f"window must be None or positive, got {window}")
+    for t in (q, k, v):
+        _require(t.is_contiguous(), "flash_attention takes contiguous (B, S, heads, D) tensors")
+
+
+def _flash_attention_fwd(q, k, v, causal: bool, window: Optional[int]):
+    bsz, s, h, d = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((bsz, h, s), dtype=torch.float32, device=q.device)
+    err = _entry("flash_attention")(
+        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        bsz, s, h, k.shape[2], d, int(causal), window or 0, d**-0.5, _stream(q),
+    )
+    _check_launch("flash_attention", err)
+    return out, lse
+
+
+def _flash_attention_bwd(q, k, v, out, lse, dout, causal: bool, window: Optional[int]):
+    bsz, s, h, d = q.shape
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    delta = torch.empty((bsz, h, s), dtype=torch.float32, device=q.device)  # rowsum(dO * O)
+    err = _entry("flash_attention_bwd")(
+        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        bsz, s, h, k.shape[2], d, int(causal), window or 0, d**-0.5, _stream(q),
+    )
+    _check_launch("flash_attention_bwd", err)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel saves the row log-sum-exp; the backward kernel
+    recomputes the probabilities tile by tile from it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out, lse = _flash_attention_fwd(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_attention_bwd(q, k, v, out, lse, dout.contiguous(), ctx.causal, ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = None):
+    """Causal (or bidirectional), optionally windowed GQA attention over the
+    positions ``0 .. S-1`` of each sequence, differentiable.
+
+    q: (B, S, H, D); k, v: (B, S, KV, D), the model's own layout; the KV
+    head of query head h is ``h // (H // KV)``.  Returns (B, S, H, D) in
+    ``q.dtype``.  On the card: the ``flash_attention`` kernel forward and
+    the ``flash_attention_bwd`` kernel backward.
+    """
+    if _on_cpu(q, k, v):
+        return ref.attention_plain(q, k, v, causal=causal, window=window)
+    _check_attention(q, k, v, window)
+    return _FlashAttention.apply(q, k, v, causal, window)
+
+
+def _lora_matmul_launch(x, w, a, b, alpha: float):
+    """One ``lora_matmul`` kernel launch.  x: (M, K) contiguous; w (K, N),
+    a (K, r), b (r, N) may be strided views (the backward passes
+    transposes).  Returns (M, N) in ``x.dtype``."""
+    m, k = x.shape
+    n, r = w.shape[1], a.shape[1]
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if m == 0:
+        return y
+    err = _entry("lora_matmul")(
+        _DTYPE_CODE[x.dtype], x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(),
+        m, k, n, r, w.stride(0), w.stride(1), a.stride(0), a.stride(1), b.stride(0), b.stride(1),
+        alpha, _stream(x),
+    )
+    _check_launch("lora_matmul", err)
+    return y
+
+
+class _LoraMatmul(torch.autograd.Function):
+    """Forward and dX through the ``lora_matmul`` kernel; W is frozen.
+
+    dX = dY @ W^T + alpha * (dY @ B^T) @ A^T is the forward kernel on
+    transposed views (no copy of W).  dA = alpha * x^T (dY B^T) and
+    dB = alpha * t^T dY are rank-r products, left to ``torch.matmul`` as
+    the JAX package leaves them to XLA.
+    """
+
+    @staticmethod
+    def forward(ctx, x, w, a, b, alpha):
+        ctx.save_for_backward(x, w, a, b)
+        ctx.alpha = alpha
+        return _lora_matmul_launch(x, w, a, b, alpha)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, a, b = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = da = db = None
+        if ctx.needs_input_grad[0]:
+            dx = _lora_matmul_launch(dy, w.t(), b.t(), a.t(), ctx.alpha)
+        if ctx.needs_input_grad[2]:
+            da = ctx.alpha * (x.t() @ (dy @ b.t()))
+        if ctx.needs_input_grad[3]:
+            db = ctx.alpha * ((x @ a).t() @ dy)
+        return dx, None, da, db, None
+
+
+def lora_matmul(x, w, a, b, *, alpha: float = 1.0):
+    """``x @ W + alpha * (x @ A) @ B`` with a frozen W, differentiable in
+    x, A and B.  x: (M, K); w: (K, N); a: (K, r); b: (r, N), all of one
+    dtype.  Returns (M, N) in ``x.dtype``."""
+    if _on_cpu(x, w, a, b):
+        return ref.lora_matmul_plain(x, w, a, b, alpha=alpha)
+    m, k = x.shape
+    n, r = w.shape[1], a.shape[1]
+    _require(x.dtype in _DTYPE_CODE, f"lora_matmul takes float32 or bfloat16, got {x.dtype}")
+    _require(w.dtype == a.dtype == b.dtype == x.dtype,
+             f"x, w, a, b must share one dtype, got {x.dtype}, {w.dtype}, {a.dtype}, {b.dtype}")
+    _require(tuple(w.shape) == (k, n) and tuple(a.shape) == (k, r) and tuple(b.shape) == (r, n),
+             f"shapes do not agree: x {tuple(x.shape)}, w {tuple(w.shape)}, a {tuple(a.shape)}, b {tuple(b.shape)}")
+    _require(0 < r <= MAX_LORA_RANK, f"rank {r} outside 1..{MAX_LORA_RANK}")
+    for t in (x, w, a, b):
+        _require(t.is_contiguous(), "lora_matmul takes contiguous tensors")
+    _require(not w.requires_grad, "lora_matmul keeps W frozen: W must not require a gradient")
+    return _LoraMatmul.apply(x, w, a, b, alpha)

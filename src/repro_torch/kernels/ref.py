@@ -1,7 +1,8 @@
 """Plain PyTorch twins of the port's CUDA kernels.
 
 Each twin computes what its kernel computes, in the same op order, with
-ordinary tensor operations.  ``ops`` runs a twin for tensors on the CPU
+ordinary tensor operations (the attention twin keeps its probabilities in
+float32 where the bf16 kernel rounds them to bf16 for the tensor cores).  ``ops`` runs a twin for tensors on the CPU
 (the tests), and ``chip_smoke.py`` holds each kernel against its twin on
 the card.  The twins are no yardstick of speed.
 """
@@ -58,3 +59,41 @@ def decode_attention_plain(
     probs = torch.softmax(scores + bias[:, None, None, :], dim=-1)
     out = torch.einsum("bgrs,bsgd->bgrd", probs, v_cache.float())
     return out.reshape(b, h, d).to(q.dtype)
+
+
+def attention_plain(q, k, v, *, causal: bool = True, window: Optional[int] = None):
+    """Masked softmax attention in float32, as ``attention_ref``
+    (``repro/kernels/ref.py:8``) in the model's layout, with GQA indexed
+    by head group instead of repeated.
+
+    q: (B, S, H, D); k, v: (B, S, KV, D); query i sees key j iff ``j <= i``
+    (causal) and ``j > i - window`` (window); masked scores are -1e30.
+    Returns (B, S, H, D) in ``q.dtype``.  Differentiable by autograd.
+    """
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    qg = q.float().reshape(b, s, kv, h // kv, d)
+    scores = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.float()) * (d**-0.5)
+    pos = torch.arange(s, device=q.device)
+    ok = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        ok = ok & (pos[None, :] <= pos[:, None])
+    if window is not None and window > 0:
+        ok = ok & (pos[None, :] > pos[:, None] - window)
+    scores = torch.where(ok, scores, torch.full((), NEG_INF, device=q.device))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bgrqk,bkgd->bqgrd", probs, v.float())
+    return out.reshape(b, s, h, d).to(q.dtype)
+
+
+def lora_matmul_plain(x, w, a, b, *, alpha: float = 1.0):
+    """``x @ W + alpha * (x @ A) @ B`` in the op order of the TPU kernel
+    (``repro/kernels/lora_matmul.py:_lora_kernel``): float32 dots, the
+    rank-r bottleneck rounded to ``x.dtype`` before its second dot, one
+    cast of ``main + alpha * side``.  x: (M, K); w: (K, N); a: (K, r);
+    b: (r, N).  Returns (M, N) in ``x.dtype``.  Differentiable by autograd.
+    """
+    main = x.float() @ w.float()
+    t = (x.float() @ a.float()).to(x.dtype)
+    side = t.float() @ b.float()
+    return (main + alpha * side).to(x.dtype)

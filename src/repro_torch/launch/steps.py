@@ -1,9 +1,87 @@
-"""The serving step: one token per row against the batched KV cache."""
+"""Step functions: the PEFT train step and the serving step.
+
+``stld_mode`` of the train step selects the paper semantics:
+  * ``off``  — plain PEFT fine-tuning, every layer runs;
+  * ``cond`` — paper-faithful STLD: Bernoulli gates drawn on the host each
+    step, a dropped layer skipped by a Python branch.
+(The JAX package's ``gather`` mode is not ported.)
+"""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from repro_torch.core import peft as peft_lib
+from repro_torch.core import stld
+from repro_torch.core.schedules import unit_shape
+from repro_torch.models.losses import softmax_xent
+from repro_torch.models.registry import model_apply
+from repro_torch.models.stacking import tree_leaves, tree_map
 from repro_torch.models.transformer import lm_apply
+from repro_torch.optim import adamw_update, clip_by_global_norm
+
+
+def value_and_grad(fn):
+    """``fn(peft, *args) -> (loss, aux dict)`` into ``(peft, *args) -> ((loss,
+    aux), grads)``: the gradient of the loss with respect to every leaf of
+    the PEFT tree (zeros for a leaf the loss does not reach), as
+    ``jax.value_and_grad(fn, has_aux=True)``.  The other arguments take no
+    gradient."""
+
+    def wrapped(peft_params, *args):
+        params = tree_map(lambda p: p.detach().requires_grad_(True), peft_params)
+        loss, aux = fn(params, *args)
+        leaves = tree_leaves(params)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = iter(torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads))
+        aux = {k: v.detach() if isinstance(v, torch.Tensor) else v for k, v in aux.items()}
+        return (loss.detach(), aux), tree_map(lambda _: next(grads), params)
+
+    return wrapped
+
+
+def as_device_tensor(x, device):
+    """A batch array (numpy or tensor) as a tensor on ``device``."""
+    if isinstance(x, np.ndarray):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    return x.to(device)
+
+
+def make_train_step(cfg, peft_cfg, train_cfg, *, stld_mode: str = "off", mean_rate: float = 0.5,
+                    distribution: str = "incremental"):
+    """Next-token LM fine-tuning step over the PEFT params.
+
+    ``(base_params, peft_params, opt_state, batch, rng) -> (peft_params,
+    opt_state, metrics)`` with ``batch = {"tokens": (B, S+1)}`` (numpy or a
+    tensor; it goes to the device of the base params) and ``rng`` a CPU
+    ``torch.Generator`` that the STLD gates draw from (``cond`` only).
+    """
+    if stld_mode not in ("off", "cond"):
+        raise ValueError(f"stld_mode must be 'off' or 'cond', got {stld_mode!r}")
+    lora_sc = peft_lib.lora_scale(peft_cfg)
+    rates = None
+    if stld_mode == "cond":
+        rates = torch.clamp(unit_shape(distribution, cfg.num_layers) * mean_rate, 0.0, 0.95)
+
+    def loss_fn(peft_params, base_params, inputs, targets, drops):
+        logits, _, _ = model_apply(base_params, cfg, {"tokens": inputs}, drops=drops, peft=peft_params,
+                                   lora_scale=lora_sc)
+        return softmax_xent(logits, targets)
+
+    grad_fn = value_and_grad(loss_fn)
+
+    def train_step(base_params, peft_params, opt_state, batch, rng):
+        tokens = as_device_tensor(batch["tokens"], base_params["embed"].device)
+        drops = stld.sample_drops(rng, rates, 1) if rates is not None else None
+        (_, metrics), grads = grad_fn(peft_params, base_params, tokens[:, :-1], tokens[:, 1:], drops)
+        grads, gnorm = clip_by_global_norm(grads, train_cfg.grad_clip)
+        peft_params, opt_state = adamw_update(
+            grads, opt_state, peft_params, lr=train_cfg.learning_rate, beta1=train_cfg.beta1,
+            beta2=train_cfg.beta2, eps=train_cfg.eps, weight_decay=train_cfg.weight_decay,
+        )
+        return peft_params, opt_state, dict(metrics, grad_norm=gnorm)
+
+    return train_step
 
 
 def make_serve_step(cfg):

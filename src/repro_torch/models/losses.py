@@ -1,0 +1,23 @@
+"""Losses and metrics, as ``repro.models.losses``."""
+from __future__ import annotations
+
+import torch
+
+
+def softmax_xent(logits, labels, mask=None):
+    """Token-level cross entropy in float32.
+
+    logits: (..., V); labels: (...) integer; mask: (...) {0, 1} or None.
+    Returns (mean loss, {"loss", "accuracy", "tokens"}), all 0-d float32
+    tensors on the logits' device (no host sync).
+    """
+    logits = logits.float()
+    labels = labels.long()
+    lse = torch.logsumexp(logits, dim=-1)
+    label_logit = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = lse - label_logit
+    mask = torch.ones_like(nll) if mask is None else mask.float()
+    denom = torch.clamp(torch.sum(mask), min=1.0)
+    loss = torch.sum(nll * mask) / denom
+    acc = torch.sum((torch.argmax(logits, dim=-1) == labels).float() * mask) / denom
+    return loss, {"loss": loss, "accuracy": acc, "tokens": denom}

@@ -1,8 +1,9 @@
 """Dense decoder: init, decode caches and the forward pass.
 
 The layer stack keeps the stacked ``(L, ...)`` layout of the JAX package;
-``lm_apply`` loops over the layers in Python (the semantics of the JAX
-``scan`` mode).  Serving runs no STLD drops.
+``stack_apply`` loops over the layers in Python (the JAX ``unroll`` mode).
+STLD gates (``drops``) are host-side booleans: a dropped layer is skipped
+by a Python branch, so it launches no kernel and saves no activation.
 """
 from __future__ import annotations
 
@@ -58,26 +59,46 @@ def init_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device=None
     }
 
 
-def lm_apply(params, cfg, tokens, *, positions=None, caches=None, peft=None, lora_scale: float = 1.0):
+def stack_apply(layers, cfg, h, *, positions, causal: bool = True, drops=None, caches=None,
+                peft=None, lora_scale: float = 1.0):
+    """Run the layer stack.  Returns (h, new_caches).
+
+    ``drops``: None or L host-side gates (a CPU bool tensor or a sequence),
+    True = the layer is dropped and passes ``h`` (and its cache) through.
+    """
+    num_layers = stacking.stack_size(layers)
+    gates = [False] * num_layers if drops is None else [bool(d) for d in torch.as_tensor(drops).tolist()]
+    if len(gates) != num_layers:
+        raise ValueError(f"{len(gates)} gates for {num_layers} layers")
+    new_pos = []
+    for l in range(num_layers):
+        cache_l = stacking.layer_view(caches, l) if caches is not None else None
+        if not gates[l]:
+            h, cache_l = layer_apply(
+                stacking.layer_view(layers, l), cfg, h, positions=positions, causal=causal,
+                cache=cache_l, peft=stacking.layer_view(peft, l) if peft is not None else None,
+                lora_scale=lora_scale,
+            )
+        if caches is not None:
+            new_pos.append(cache_l["pos"])
+    new_caches = None
+    if caches is not None:
+        new_caches = {"k": caches["k"], "v": caches["v"], "pos": torch.stack(new_pos)}
+    return h, new_caches
+
+
+def lm_apply(params, cfg, tokens, *, positions=None, drops=None, caches=None, peft=None,
+             lora_scale: float = 1.0):
     """Decoder-only LM forward.  tokens: (B, S) int.  Returns (logits,
     new_caches); the caches' K/V tensors are updated in place."""
     compute_dtype = getattr(torch, cfg.dtype)
     h = params["embed"][tokens].to(compute_dtype)
     if positions is None:
         positions = torch.arange(h.shape[1], device=h.device)
-    new_pos = []
-    for l in range(stacking.stack_size(params["layers"])):
-        h, cache_l = layer_apply(
-            stacking.layer_view(params["layers"], l), cfg, h, positions=positions,
-            cache=stacking.layer_view(caches, l) if caches is not None else None,
-            peft=stacking.layer_view(peft, l) if peft is not None else None,
-            lora_scale=lora_scale,
-        )
-        if caches is not None:
-            new_pos.append(cache_l["pos"])
-    new_caches = None
-    if caches is not None:
-        new_caches = {"k": caches["k"], "v": caches["v"], "pos": torch.stack(new_pos)}
+    h, new_caches = stack_apply(
+        params["layers"], cfg, h, positions=positions, causal=True, drops=drops, caches=caches,
+        peft=peft, lora_scale=lora_scale,
+    )
     h = apply_rmsnorm(params["final_norm"], h, cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return h @ head.to(compute_dtype), new_caches

@@ -1,17 +1,15 @@
 """GQA attention: the cache-free path and the batched serving-cache path.
 
-* cache-free — ``multi_head_attention`` with the full (Sq, Skv) score
-  matrix (``_mask_bias`` + ``_sdpa``), causal / bidirectional / windowed.
-  The JAX package also has a q-blocked variant for 32k-token prefill; the
-  port has no caller at that size yet.
+* cache-free (training, evaluation) — the ``flash_attention`` kernel over
+  the positions 0..S-1 of each sequence, causal or bidirectional, with the
+  config's window, in the model's own (B, S, heads, hd) layout; GQA is
+  indexed inside the kernel.  Its backward is a kernel too.
 * batched serving cache — one new token per row, each row at its own
   depth: the token's K/V are written into a ring at ``pos % cache_len``
   (in place), and decode attention runs through the ``flash_decode``
   kernel with per-row query and slot positions.
 """
 from __future__ import annotations
-
-from typing import Optional
 
 import torch
 
@@ -20,42 +18,7 @@ from repro_torch.nn.linear import apply_linear
 from repro_torch.nn.norms import apply_rmsnorm
 from repro_torch.nn.rotary import apply_rotary
 
-NEG_INF = -1e30
 INT32_MAX = 2**31 - 1
-
-
-def _mask_bias(q_pos, k_pos, causal: bool, window: Optional[int]):
-    """Additive mask bias from absolute positions: 1D positions give
-    (Sq, Skv); batched (B, Sq) / (B, Skv) positions give (B, Sq, Skv)."""
-    qe, ke = q_pos[..., :, None], k_pos[..., None, :]
-    shape = torch.broadcast_shapes(qe.shape, ke.shape)
-    ok = torch.ones(shape, dtype=torch.bool, device=q_pos.device)
-    if causal:
-        ok = ok & (ke <= qe)
-    if window is not None:
-        ok = ok & (ke > qe - window)
-    return torch.where(ok, 0.0, NEG_INF).to(torch.float32)
-
-
-def _sdpa(q, k, v, bias):
-    """Grouped-GQA attention without repeating KV heads.
-
-    q: (B,Sq,H,hd); k,v: (B,Skv,KV,hd); bias: (Sq,Skv) or (B,Sq,Skv) fp32.
-    """
-    b, sq, h, hd = q.shape
-    kv = k.shape[2]
-    qg = q.reshape(b, sq, kv, h // kv, hd)
-    scores = torch.einsum("bqgrd,bkgd->bgrqk", qg, k).float()
-    bias = bias[:, None, None] if bias.ndim == 3 else bias[None, None, None]
-    scores = scores * (hd**-0.5) + bias
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = torch.einsum("bgrqk,bkgd->bqgrd", probs, v)
-    return out.reshape(b, sq, h, hd)
-
-
-def multi_head_attention(q, k, v, *, q_positions, k_positions, causal=True, window=None):
-    """Naive masked attention.  q: (B,S,H,hd); k,v: (B,S,KV,hd)."""
-    return _sdpa(q, k, v, _mask_bias(q_positions, k_positions, causal, window))
 
 
 def ring_positions(pos, cache_len: int):
@@ -92,10 +55,8 @@ def attention_apply(params, cfg, x, positions, *, causal=True, cache=None, peft=
     k = apply_rotary(k, positions, cfg.rope_theta)
 
     if cache is None:
-        out = multi_head_attention(
-            q, k, v, q_positions=positions, k_positions=positions,
-            causal=causal, window=cfg.sliding_window,
-        )
+        # positions only rotate q and k; the mask is over sequence indices
+        out = ops.flash_attention(q, k, v.contiguous(), causal=causal, window=cfg.sliding_window)
         out = apply_linear(params["wo"], out.reshape(b, s, h * hd), peft.get("o"), lora_scale)
         return out, None
 

@@ -1,7 +1,9 @@
 """Linear projection with optional bias and LoRA side-branch.
 
 LoRA params for a projection are ``{"a": (in, r), "b": (r, out)}`` with the
-runtime ``scale`` passed explicitly.  For multi-tenant serving a
+runtime ``scale`` passed explicitly.  A LoRA projection runs through
+``ops.lora_matmul`` (the main product and the rank-r branch in one kernel
+on the card, its plain twin on the CPU), differentiable in x, a and b.  For multi-tenant serving a
 projection's peft node can instead be an :class:`AdapterPool` (a stacked
 pool of adapters plus a per-row slot map), and ``apply_linear`` then
 dispatches to the segmented kernel, so every batch row applies its own
@@ -36,13 +38,6 @@ class AdapterPool:
     ranks: torch.Tensor
 
 
-def lora_delta(x, lora, scale: float):
-    """``scale * (x @ a) @ b``: the LoRA contribution, rank-r bottleneck."""
-    a = lora["a"].to(x.dtype)
-    b = lora["b"].to(x.dtype)
-    return (x @ a) @ b * torch.tensor(scale, dtype=x.dtype, device=x.device)
-
-
 def _pooled_linear(params, x, pool: AdapterPool):
     """Segmented multi-adapter projection: row i applies adapter
     ``pool.idx[i]``; main product and gathered LoRA branch in one kernel."""
@@ -64,9 +59,13 @@ def _pooled_linear(params, x, pool: AdapterPool):
 def apply_linear(params, x, lora: Optional[dict] = None, lora_scale: float = 1.0):
     if isinstance(lora, AdapterPool):
         return _pooled_linear(params, x, lora)
-    y = x @ params["w"].to(x.dtype)
+    w = params["w"].to(x.dtype)
+    if lora is None:
+        y = x @ w
+    else:
+        xm = x.reshape(-1, x.shape[-1]).contiguous()
+        y = ops.lora_matmul(xm, w, lora["a"].to(x.dtype), lora["b"].to(x.dtype), alpha=lora_scale)
+        y = y.reshape(*x.shape[:-1], w.shape[-1])
     if "b" in params:
         y = y + params["b"].to(x.dtype)
-    if lora is not None:
-        y = y + lora_delta(x, lora, lora_scale)
     return y

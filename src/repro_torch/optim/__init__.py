@@ -1,0 +1,5 @@
+"""Functional optimizers over trees of tensors (the AdamW of ``repro.optim``)."""
+from repro_torch.optim.adamw import adamw_init, adamw_update, clip_by_global_norm
+from repro_torch.optim.schedules import make_lr_schedule
+
+__all__ = ["adamw_init", "adamw_update", "clip_by_global_norm", "make_lr_schedule"]

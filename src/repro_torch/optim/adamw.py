@@ -1,0 +1,77 @@
+"""Functional AdamW over trees of tensors, as ``repro.optim.adamw``.
+
+The frozen base holds no optimizer state: only the PEFT tree (float32) has
+moments, which is the memory argument of paper Fig. 3.  The update is the
+reference's ``p - lr * (step + wd * p)`` (not ``torch.optim.AdamW``, which
+orders the same arithmetic differently).  Trees are in the stacked layout.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.models.stacking import tree_leaves, tree_map
+
+
+def _zip_map(fn, *trees):
+    """``fn`` over the leaves of trees of one structure (dicts of tensors)."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _zip_map(fn, *(t[k] for t in trees)) for k in first}
+    return fn(*trees)
+
+
+def _global_sq_sum(grads):
+    """Sum of squares over every element, reduced layer-major as the
+    reference's stacked branch does: per-leaf trailing-axis sums give (L,)
+    partials, arranged (L, leaves) and summed as one flat vector."""
+    leaves = [g.float() for g in tree_leaves(grads)]
+    if not leaves:
+        return torch.zeros((), dtype=torch.float32)
+    parts = [torch.sum(torch.square(g), dim=tuple(range(1, g.ndim))) for g in leaves]
+    return torch.sum(torch.stack(parts, dim=-1).reshape(-1))
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """Scale ``grads`` so that their global L2 norm is at most ``max_norm``.
+    Returns (clipped grads, the norm before clipping) without a host sync."""
+    gnorm = torch.sqrt(_global_sq_sum(grads))
+    scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+    return tree_map(lambda g: (g * scale).to(g.dtype), grads), gnorm
+
+
+def adamw_init(params):
+    return {
+        "m": tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params),
+        "v": tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params),
+        "count": 0,
+    }
+
+
+def adamw_update(grads, state, params, *, lr, beta1: float = 0.9, beta2: float = 0.999,
+                 eps: float = 1e-8, weight_decay: float = 0.01):
+    """One AdamW step.  Returns (new params, new state); nothing is updated
+    in place.  ``count`` is a host integer, so the bias corrections are
+    host scalars, computed in float32 as the reference computes them."""
+    count = state["count"] + 1
+    f32 = np.float32
+    b1c = float(f32(1.0) - f32(beta1) ** f32(count))
+    b2c = float(f32(1.0) - f32(beta2) ** f32(count))
+
+    def upd(g, m, v, p):
+        g = g.float()
+        m2 = beta1 * m + (1 - beta1) * g
+        v2 = beta2 * v + (1 - beta2) * torch.square(g)
+        step = (m2 / b1c) / (torch.sqrt(v2 / b2c) + eps)
+        pf = p.float()
+        return m2, v2, (pf - lr * (step + weight_decay * pf)).to(p.dtype)
+
+    flat = _zip_map(upd, grads, state["m"], state["v"], params)
+    return _pick(flat, 2), {"m": _pick(flat, 0), "v": _pick(flat, 1), "count": count}
+
+
+def _pick(tree, i):
+    """Element ``i`` of every tuple leaf of ``tree``."""
+    if isinstance(tree, dict):
+        return {k: _pick(v, i) for k, v in tree.items()}
+    return tree[i]

@@ -7,9 +7,13 @@ has only the port's dependencies; ``tests/conftest.py`` imports JAX, hence
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: float32 outputs within 1e-4 (segmented_lora: K-long float32 sums
-in another order) or 2e-5 (flash_decode); bfloat16 outputs within
-3e-2 + 1e-2 |ref|, about two bf16 roundings of an O(1) value.
+Tolerances: float32 outputs within 1e-4 (segmented_lora, lora_matmul:
+K-long float32 sums in another order) or 2e-5 (flash_decode,
+flash_attention); bfloat16 outputs within 3e-2 + 1e-2 |ref|, about two bf16
+roundings of an O(1) value.  Gradients: float32 within 1e-4 + 1e-4 |ref|;
+bfloat16 within 2% of the largest element of the gradient, since the
+kernels round P and dS (or the rank bottleneck) to bf16 for the tensor
+cores where the twin's autograd keeps float32.
 """
 import numpy as np
 import pytest
@@ -117,3 +121,99 @@ def test_cuda_flash_decode_all_masked_row_is_guarded(cuda):
     want = ref.decode_attention_plain(q, k, v, pos, kpos)
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-5)
+
+
+def _attn(rng, b, s, h, kv, d, dtype, device):
+    shapes = ((b, s, h, d), (b, s, kv, d), (b, s, kv, d), (b, s, h, d))
+    return [torch.from_numpy(rng.standard_normal(sh, dtype=np.float32)).to(device, getattr(torch, dtype)) for sh in shapes]
+
+
+def _grad_close(got, want, dtype):
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    else:
+        scale = want.float().abs().max().item()
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2 * scale, rtol=0)
+
+
+ATTN_CASES = [  # (B, S, H, KV, D, causal, window)
+    (2, 100, 4, 2, 64, True, None),  # ragged S, GQA
+    (1, 512, 16, 8, 128, True, None),  # the training shape's heads, batch 1
+    (2, 128, 2, 2, 32, True, 48),  # window
+    (1, 96, 4, 1, 64, False, None),  # bidirectional, one kv head
+    (1, 17, 1, 1, 128, True, None),  # one partial tile
+    (2, 100, 4, 2, 128, True, 40),  # ragged S with a window
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,kv,d,causal,window", ATTN_CASES)
+def test_cuda_flash_attention_matches_twin(cuda, dtype, b, s, h, kv, d, causal, window):
+    """Forward against the twin; dQ, dK, dV against autograd through it."""
+    q, k, v, g = _attn(np.random.default_rng(12), b, s, h, kv, d, dtype, cuda)
+    qk = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    qt = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ops.reset_launch_counts()
+    got = ops.flash_attention(*qk, causal=causal, window=window)
+    got_grads = torch.autograd.grad(got, qk, g)
+    assert ops.launch_counts["flash_attention"] == 1 and ops.launch_counts["flash_attention_bwd"] == 1
+    want = ref.attention_plain(*qt, causal=causal, window=window)
+    want_grads = torch.autograd.grad(want, qt, g)
+    torch.cuda.synchronize()
+    atol, rtol = (3e-2, 1e-2) if dtype == "bfloat16" else (2e-5, 1e-5)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    for gg, wg in zip(got_grads, want_grads):
+        assert gg.dtype == wg.dtype and gg.shape == wg.shape
+        _grad_close(gg, wg, dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_backward_is_deterministic(cuda):
+    """No float atomics: two backward passes give the same bits."""
+    q, k, v, g = _attn(np.random.default_rng(13), 2, 200, 8, 2, 128, "bfloat16", cuda)
+    grads = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        grads.append(torch.autograd.grad(ops.flash_attention(*leaves, window=64), leaves, g))
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+def _lora(rng, m, k, n, r, dtype, device):
+    x = rng.standard_normal((m, k), dtype=np.float32)
+    w = rng.standard_normal((k, n), dtype=np.float32) * k**-0.5
+    a = rng.standard_normal((k, r), dtype=np.float32) * k**-0.5
+    b = rng.standard_normal((r, n), dtype=np.float32) * r**-0.5
+    g = rng.standard_normal((m, n), dtype=np.float32)
+    return [torch.from_numpy(t).to(device, getattr(torch, dtype)) for t in (x, w, a, b, g)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n,r", [(100, 64, 72, 8), (300, 2048, 1024, 8), (64, 96, 40, 16), (7, 33, 5, 4), (130, 256, 2048, 64)])
+def test_cuda_lora_matmul_matches_twin(cuda, dtype, m, k, n, r):
+    """Forward against the twin; dX (the kernel on transposed views), dA
+    and dB against autograd through it.  K, N and M off the tiles."""
+    x, w, a, b, g = _lora(np.random.default_rng(14), m, k, n, r, dtype, cuda)
+    leaves = [t.clone().requires_grad_(True) for t in (x, a, b)]
+    twins = [t.clone().requires_grad_(True) for t in (x, a, b)]
+    ops.reset_launch_counts()
+    got = ops.lora_matmul(leaves[0], w, leaves[1], leaves[2], alpha=2.0)
+    got_grads = torch.autograd.grad(got, leaves, g)
+    assert ops.launch_counts["lora_matmul"] == 2  # forward and dX
+    want = ref.lora_matmul_plain(twins[0], w, twins[1], twins[2], alpha=2.0)
+    want_grads = torch.autograd.grad(want, twins, g)
+    torch.cuda.synchronize()
+    atol, rtol = (3e-2, 1e-2) if dtype == "bfloat16" else (1e-4, 1e-5)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    for gg, wg in zip(got_grads, want_grads):
+        assert gg.dtype == wg.dtype and gg.shape == wg.shape
+        _grad_close(gg, wg, dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_lora_matmul_takes_no_gradient_for_w(cuda):
+    x, w, a, b, _ = _lora(np.random.default_rng(15), 8, 32, 16, 4, "float32", cuda)
+    with pytest.raises(ValueError, match="frozen"):
+        ops.lora_matmul(x, w.requires_grad_(True), a, b)

@@ -1,17 +1,24 @@
 """The plain twins of the port's kernels against the JAX package's Pallas
-kernels, on the CPU (Pallas in interpret mode).  The CUDA kernels are held
+kernels, on the CPU (Pallas in interpret mode), and the twins' autograd
+gradients against ``jax.grad`` of the JAX oracles.  The CUDA kernels are held
 against the twins on the card by ``tests/test_torch_cuda.py``.
 
 Inputs come from ``np.random.default_rng`` and go to both frameworks as the
 same numbers.  Tolerances are those of ``tests/test_kernels.py``: 2e-5 in
 float32 and 3e-2 in bfloat16 (one bf16 rounding of an O(1) output).
+Gradients (float32) within 1e-4 abs + 1e-4 rel: sums of S or K float32
+products taken in another order.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels import ref as jax_ref
 from repro.kernels.flash_decode import flash_decode_pallas
+from repro.kernels.lora_matmul import lora_matmul_pallas
+from repro.kernels.ops import flash_attention as jax_flash_attention
 from repro.kernels.ops import segmented_lora as jax_segmented_lora
 from repro.kernels.ref import segmented_lora_ref
 from repro.nn.attention import multi_head_attention as jax_multi_head_attention
@@ -173,10 +180,109 @@ def test_cpu_tensors_run_the_twins_and_launch_nothing():
     pos = torch.tensor([3, 9], dtype=torch.int32)
     out = ops.flash_decode(q, kc, vc, pos, ring_positions(pos, 8))
     assert torch.equal(out, ref.decode_attention_plain(q, kc, vc, pos, ring_positions(pos, 8)))
-    assert ops.launch_counts == {"segmented_lora": 0, "flash_decode": 0}
+    assert set(ops.launch_counts) >= {"segmented_lora", "flash_decode"}
+    assert not any(ops.launch_counts.values())
 
 
 def test_mixed_devices_raise():
     x, w, a, b, idx, ranks = _to_torch(_pool(np.random.default_rng(7)), "float32")
     with pytest.raises(ValueError, match="one device"):
         ops.segmented_lora(x, w, a, b, idx, ranks.to("meta"))
+
+
+# ------------------------------------------------------------- training kernels
+ATTN_SWEEP = [  # tests/test_kernels.py:19-28
+    (2, 4, 4, 64, 32, True, None, 32, 32),
+    (1, 4, 2, 100, 64, True, None, 32, 32),  # GQA + padding
+    (2, 2, 2, 128, 32, True, 48, 32, 32),  # sliding window
+    (1, 2, 2, 96, 64, False, None, 64, 32),  # bidirectional
+    (1, 1, 1, 17, 128, True, None, 128, 128),  # single block, pad
+]
+
+
+def _attn_inputs(rng, b, h, kv, s, d):
+    """q (B, S, H, D), k and v (B, S, KV, D): the model's layout."""
+    return tuple(rng.standard_normal(shape, dtype=np.float32) for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d)))
+
+
+def _heads_first(arr, dtype):
+    return jnp.asarray(np.swapaxes(arr, 1, 2), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,kv,s,d,causal,window,bq,bk", ATTN_SWEEP)
+def test_attention_plain_matches_flash_attention_pallas(dtype, b, h, kv, s, d, causal, window, bq, bk):
+    q, k, v = _attn_inputs(np.random.default_rng(20), b, h, kv, s, d)
+    want = jax_flash_attention(
+        *(_heads_first(t, dtype) for t in (q, k, v)), causal=causal, window=window, block_q=bq, block_k=bk
+    )
+    got = ops.flash_attention(*_to_torch((q, k, v), dtype), causal=causal, window=window)
+    assert got.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(
+        got.float().numpy(), np.swapaxes(np.asarray(want, np.float32), 1, 2), atol=ATOL[dtype], rtol=0
+    )
+
+
+@pytest.mark.parametrize("b,h,kv,s,d,causal,window,bq,bk", ATTN_SWEEP[1:4])
+def test_attention_plain_grads_match_jax_grad(b, h, kv, s, d, causal, window, bq, bk):
+    rng = np.random.default_rng(21)
+    q, k, v = _attn_inputs(rng, b, h, kv, s, d)
+    g = rng.standard_normal((b, s, h, d), dtype=np.float32)
+
+    def jax_loss(q, k, v):
+        rep = h // kv
+        out = jax_ref.attention_ref(
+            q, jnp.repeat(k, rep, axis=1), jnp.repeat(v, rep, axis=1), causal=causal, window=window
+        )
+        return jnp.sum(out * jnp.swapaxes(jnp.asarray(g), 1, 2))
+
+    want = jax.grad(jax_loss, argnums=(0, 1, 2))(*(_heads_first(t, "float32") for t in (q, k, v)))
+    tq, tk, tv = (t.requires_grad_(True) for t in _to_torch((q, k, v), "float32"))
+    out = ops.flash_attention(tq, tk, tv, causal=causal, window=window)
+    got = torch.autograd.grad(torch.sum(out * torch.from_numpy(g)), (tq, tk, tv))
+    for gt, wt in zip(got, want):
+        np.testing.assert_allclose(gt.numpy(), np.swapaxes(np.asarray(wt), 1, 2), atol=1e-4, rtol=1e-4)
+
+
+def _lora_inputs(rng, m, k, n, r):
+    """Scaled so that every output is O(1), like a projection's."""
+    x = rng.standard_normal((m, k), dtype=np.float32)
+    w = rng.standard_normal((k, n), dtype=np.float32) * k**-0.5
+    a = rng.standard_normal((k, r), dtype=np.float32) * k**-0.5
+    b = rng.standard_normal((r, n), dtype=np.float32) * r**-0.5
+    return x, w, a, b
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n,r", [(100, 64, 72, 8), (32, 128, 128, 4), (128, 32, 40, 16)])  # tests/test_kernels.py:107
+def test_lora_matmul_plain_matches_pallas(dtype, m, k, n, r):
+    arrays = _lora_inputs(np.random.default_rng(22), m, k, n, r)
+    want = lora_matmul_pallas(*_to_jax(arrays, dtype), alpha=0.5, block_m=32, block_n=32, interpret=True)
+    got = ops.lora_matmul(*_to_torch(arrays, dtype), alpha=0.5)
+    assert got.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), atol=ATOL[dtype], rtol=0)
+
+
+def test_lora_matmul_plain_rounds_the_bottleneck_like_pallas():
+    """In bf16 the rank-r bottleneck is rounded before its second dot, as
+    in the TPU kernel (``ref.lora_matmul_ref`` does not round it)."""
+    x, w, a, b = _lora_inputs(np.random.default_rng(23), 16, 64, 32, 8)
+    tx, tw, ta, tb = _to_torch((x, w, a, b), "bfloat16")
+    t = (tx.float() @ ta.float()).to(torch.bfloat16).float()
+    want = (tx.float() @ tw.float() + 2.0 * (t @ tb.float())).to(torch.bfloat16)
+    assert torch.equal(ops.lora_matmul(tx, tw, ta, tb, alpha=2.0), want)
+
+
+def test_lora_matmul_plain_grads_match_jax_grad():
+    rng = np.random.default_rng(24)
+    x, w, a, b = _lora_inputs(rng, 48, 64, 40, 8)
+    g = rng.standard_normal((48, 40), dtype=np.float32)
+    want = jax.grad(
+        lambda x, a, b: jnp.sum(jax_ref.lora_matmul_ref(x, jnp.asarray(w), a, b, alpha=2.0) * g), argnums=(0, 1, 2)
+    )(jnp.asarray(x), jnp.asarray(a), jnp.asarray(b))
+    tx, tw, ta, tb = _to_torch((x, w, a, b), "float32")
+    for t in (tx, ta, tb):
+        t.requires_grad_(True)
+    got = torch.autograd.grad(torch.sum(ops.lora_matmul(tx, tw, ta, tb, alpha=2.0) * torch.from_numpy(g)), (tx, ta, tb))
+    for gt, wt in zip(got, want):
+        np.testing.assert_allclose(gt.numpy(), np.asarray(wt), atol=1e-4, rtol=1e-4)

@@ -7,13 +7,21 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
+from repro.configs import FederatedConfig as JaxFederatedConfig
 from repro.configs import PEFTConfig as JaxPEFTConfig
+from repro.configs import STLDConfig as JaxSTLDConfig
+from repro.configs import TrainConfig as JaxTrainConfig
 from repro.configs import get_config as jax_get_config
 from repro_torch import api
-from repro_torch.configs import PEFTConfig, get_config
+from repro_torch.configs import FederatedConfig, PEFTConfig, STLDConfig, TrainConfig, get_config
+from repro_torch.core import ptls
+from repro_torch.core.peft import init_peft
+from repro_torch.data.synthetic import make_task
+from repro_torch.federated.client import make_client_fns
 
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "src" / "repro_torch"
@@ -57,14 +65,43 @@ def test_serve_without_device_runs_on_the_card_or_raises():
         api.serve(cfg=cfg, adapters={"t0": tree})
 
 
+def test_scan_covers_the_training_modules():
+    """The import and source checks above walk every module of the package,
+    the training slice's included."""
+    modules = set(_modules())
+    for name in ("core.stld", "core.ptls", "core.schedules", "optim.adamw", "optim.schedules", "models.losses",
+                 "data.synthetic", "federated.client", "launch.steps", "kernels.ops"):
+        assert f"repro_torch.{name}" in modules, name
+
+
+def test_client_fns_without_device_run_on_the_card_or_raise():
+    """``make_client_fns``' tensors default to the card: on a machine
+    without one, a round raises before any work, with no CPU fall-back."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the round would run on it")
+    cfg = get_config("qwen3-1.7b", smoke=True)
+    fns = make_client_fns(cfg, PEFTConfig(), STLDConfig(), TrainConfig())
+    task = make_task(vocab_size=cfg.vocab_size, seq_len=8, num_examples=4)
+    batch = {k: v[None] for k, v in task.lm_batch(np.arange(4)).items()}
+    peft = init_peft(cfg, PEFTConfig(), torch.Generator())
+    with pytest.raises((RuntimeError, AssertionError)):
+        fns.local_round({}, peft, {}, batch, 0.5, torch.Generator(), 0)
+    with pytest.raises((RuntimeError, AssertionError)):
+        fns.evaluate({}, peft, task.tokens, task.labels, np.arange(4))
+    with pytest.raises((RuntimeError, AssertionError)):
+        ptls.ImportanceAccumulator.init(cfg.num_layers)
+
+
 @pytest.mark.parametrize("smoke", [False, True])
 def test_configs_match_the_jax_package(smoke):
     ours, theirs = get_config("qwen3-1.7b", smoke=smoke), jax_get_config("qwen3-1.7b", smoke=smoke)
     for field in ours.__dataclass_fields__:
         assert getattr(ours, field) == getattr(theirs, field), field
     assert ours.resolved_head_dim == theirs.resolved_head_dim
-    for field in PEFTConfig.__dataclass_fields__:
-        assert getattr(PEFTConfig(), field) == getattr(JaxPEFTConfig(), field), field
+    for ours_cls, theirs_cls in ((PEFTConfig, JaxPEFTConfig), (STLDConfig, JaxSTLDConfig),
+                                 (TrainConfig, JaxTrainConfig), (FederatedConfig, JaxFederatedConfig)):
+        for field in ours_cls.__dataclass_fields__:
+            assert getattr(ours_cls(), field) == getattr(theirs_cls(), field), (ours_cls.__name__, field)
 
 
 def test_full_config_is_qwen3_1_7b_width():
