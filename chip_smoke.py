@@ -12,9 +12,10 @@ Phases, one line each before the last:
 2. build of every CUDA kernel from the sources in the checkout, in parallel;
 3. each kernel held against its plain PyTorch twin on the card at the
    shapes of its path (serving: the decode step; training: batch 16 x 512
-   tokens of qwen3-1.7b), forward and backward, with its time (CUDA events,
-   L2 flushed, median of repeats) beside the twin's, the library call's
-   and the bound;
+   tokens of qwen3-1.7b, and of rwkv6-3b for wkv6 and the channel-mix
+   lora_matmul), forward and backward, with its time (CUDA events, L2
+   flushed, median of repeats) beside the twin's, the library call's and
+   the bound;
 4. full-width qwen3-1.7b (28 layers, random weights from ``--seed``)
    served through ``repro_torch.api.serve``: 12 requests over 4 LoRA
    tenants of rank 4/8 at batch 8, rows recycling mid-run; every completion
@@ -24,12 +25,15 @@ Phases, one line each before the last:
 5. one client's DropPEFT local training of full-width qwen3-1.7b through
    ``repro_torch.federated.client.make_client_fns``: ``local_round`` of 4
    steps at batch 16 x 512 (the synthetic task) and STLD mean rate 0.5,
-   then ``evaluate``; every loss and norm finite, one flash_attention
-   forward launch per active layer and step, two rounds from the same state
+   then ``evaluate``; every loss and norm finite, each kernel launched as
+   often as the active layers say, two rounds from the same state
    bit-identical; step time, idle share and peak memory at rates 0.0 and
    0.5; and one smoke-size round on the card against the CPU twins;
+5b. the same for full-width rwkv6-3b (32 layers, LoRA on the channel-mix
+   up and down), whose time-mix runs the wkv6 kernels;
 6. the ``kernels`` JSON line: launches of each kernel in its own path's
-   run (serving: phase 4's run; training: phase 5's round at rate 0.5).
+   run (serving: phase 4's run; training: phase 5's round at rate 0.5, and
+   phase 5b's for wkv6 and wkv6_bwd).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits non-zero before it; without a CUDA card, or outside the checkout, the
@@ -292,6 +296,67 @@ def lora_case(ops, ref, timer, gen, *, dtype, n, m=8192, k=2048, r=8, alpha=2.0)
     }
 
 
+def wkv6_case(ops, ref, timer, gen, *, dtype, b=16, s=512, h=40, k=64, state=False, time_it=True):
+    """wkv6 forward and backward against their twins on the card: out and
+    the final state, then dr, dk, dv, dlogw, du (and ds0 with a state in,
+    with a cotangent on the final state too).  With ``time_it`` the times
+    of both passes, the twins' (3 repeats: they loop over tokens) and the
+    bounds; no single PyTorch call computes WKV6, so there is no library
+    time.  Float32 outputs within 1e-4 abs + 1e-3 rel; bf16 dr, dk, dv
+    within 3e-2 abs + 1e-2 rel (one bf16 rounding of the same float32)."""
+    shape = (b, s, h, k)
+    r, kk, v = ((0.5 * torch.randn(shape, generator=gen, device="cuda")).to(dtype) for _ in range(3))
+    logw = torch.clamp(-torch.exp(torch.randn(shape, generator=gen, device="cuda")), -4.0, -1e-4)
+    u = 0.3 * torch.randn((h, k), generator=gen, device="cuda")
+    s0 = torch.randn((b, h, k, k), generator=gen, device="cuda") if state else None
+    dout = torch.randn(shape, generator=gen, device="cuda")
+    dstate = torch.randn((b, h, k, k), generator=gen, device="cuda") if state else None
+    inputs = [r, kk, v, logw, u] + ([s0] if state else [])
+    leaves = [t.clone().requires_grad_(True) for t in inputs]
+    out, st = ops.wkv6(*leaves, *([] if state else [None]))
+    loss = (out * dout).sum() + ((st * dstate).sum() if state else 0.0)
+    grads = torch.autograd.grad(loss, leaves, retain_graph=True)
+    want_out, want_st = ref.wkv6_plain(r, kk, v, logw, u, s0)
+    want_grads = [g for g in ref.wkv6_bwd_plain(r, kk, v, logw, u, s0, dout, dstate) if g is not None]
+    torch.cuda.synchronize()
+    name = str(dtype).split(".")[-1]
+    err = max((out - want_out).abs().max().item(), (st - want_st).abs().max().item())
+    check(torch.allclose(out, want_out, atol=1e-4, rtol=1e-3) and torch.allclose(st, want_st, atol=1e-4, rtol=1e-3),
+          f"wkv6 {name} {shape} state={state}: max abs err {err} vs twin")
+    grad_errs = []
+    for gname, g, w in zip(("dr", "dk", "dv", "dlogw", "du", "ds0"), grads, want_grads):
+        grad_errs.append((g.float() - w.float()).abs().max().item())
+        atol, rtol = (3e-2, 1e-2) if g.dtype == torch.bfloat16 else (1e-4, 1e-3)
+        check(g.dtype == w.dtype and torch.allclose(g.float(), w.float(), atol=atol, rtol=rtol),
+              f"wkv6 backward {name} {shape} state={state}: {gname} max abs err {grad_errs[-1]} vs twin")
+    again = torch.autograd.grad(loss, leaves, retain_graph=True)
+    check(all(torch.equal(x, y) for x, y in zip(grads, again)), f"wkv6 backward {name} {shape}: two runs differ")
+    case = {"shape": f"B={b} S={s} H={h} K={k} r/k/v {name} state={state}", "max_abs_err": err,
+            "atol": 1e-4, "rtol": 1e-3, "bwd_max_abs_err": max(grad_errs), "bwd_errs": grad_errs}
+    if not time_it:
+        return case
+    with torch.no_grad():
+        case["ms"] = timer(lambda: ops.wkv6(r, kk, v, logw, u, s0))
+        case["plain_ms"] = timer(lambda: ref.wkv6_plain(r, kk, v, logw, u, s0), repeats=3)
+    # the backward alone, its scratch included, as _WKV6.backward calls it
+    case["bwd_ms"] = timer(lambda: ops._wkv6_bwd(r, kk, v, logw, u, s0, dout, dstate))
+    case["plain_bwd_ms"] = timer(lambda: ref.wkv6_bwd_plain(r, kk, v, logw, u, s0, dout, dstate), repeats=3)
+    case["library_ms"] = case["library_bwd_ms"] = None
+    elt, n, state_bytes = r.element_size(), r.numel(), 4 * b * h * k * k
+    cells = n * k  # (token, head, k, v) state elements touched per pass
+    # forward: read r, k, v, logw (and s0), write out and the final state;
+    # per state element and token out += r S (2 operations), S = w S + k v (3)
+    case["bound_ms"], case["bound_by"] = bound(
+        3 * elt * n + 4 * n + 4 * n + state_bytes * (2 if state else 1), 5 * cells, "float32")
+    # backward: read r, k, v, logw, dout (and s0, dstate), write dr, dk, dv,
+    # dlogw (and ds0); per state element and token S again (3), G (3),
+    # dr', dk', dv (2 each); dlogw is stepped back from dr' and dk' per row,
+    # O(K) per token, not per state element
+    case["bwd_bound_ms"], case["bwd_bound_by"] = bound(
+        6 * elt * n + 3 * 4 * n + state_bytes * (3 if state else 0), 12 * cells, "float32")
+    return case
+
+
 def make_tenants(cfg, gen, n=4):
     from repro_torch.configs import PEFTConfig
     from repro_torch.core.peft import init_peft
@@ -487,8 +552,18 @@ def tree_equal(a, b) -> bool:
     return all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
 
 
-def train_full(ops, card, seed: int):
-    """Phase 5: one client's DropPEFT local round of full-width qwen3-1.7b."""
+def check_launches(launches: dict, want: dict, what: str):
+    """``launches`` equals ``want`` for the kernels it names, 0 for the rest."""
+    full = {name: want.get(name, 0) for name in launches}
+    check(launches == full, f"{what}: launches {launches}, expected {full}")
+
+
+def train_full(ops, card, seed: int, arch: str, round_launches, eval_launches):
+    """One client's DropPEFT local round of full-width ``arch`` through
+    ``make_client_fns``: 4 steps at batch 16 x 512, STLD mean rate 0.5, then
+    ``evaluate``, then a round at rate 0.0 for the comparison of step time
+    and peak memory.  ``round_launches(active, steps)`` and
+    ``eval_launches(layers)`` give each kernel's expected launches."""
     from repro_torch.configs import FederatedConfig, PEFTConfig, STLDConfig, TrainConfig, get_config
     from repro_torch.core.peft import init_peft
     from repro_torch.data.synthetic import make_task
@@ -497,8 +572,8 @@ def train_full(ops, card, seed: int):
     from repro_torch.models.stacking import tree_leaves
     from repro_torch.optim import adamw_init
 
-    gc.collect()  # the serving phase's weights sit in reference cycles: free them before measuring memory
-    cfg, fed, peft_cfg = get_config("qwen3-1.7b"), FederatedConfig(), PEFTConfig()
+    gc.collect()  # an earlier phase's weights may sit in reference cycles: free them before measuring memory
+    cfg, fed, peft_cfg = get_config(arch), FederatedConfig(), PEFTConfig()
     steps, batch, seq, rate = fed.local_steps, fed.batch_size, 512, 0.5
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
@@ -531,10 +606,7 @@ def train_full(ops, card, seed: int):
     check(all(bool(torch.isfinite(t).all()) for t in tree_leaves(peft1)), "non-finite PEFT tree")
     active = round(metrics["active_layers"] * steps)
     check(abs(metrics["active_layers"] * steps - active) < 1e-3, f"active layers {metrics['active_layers']}")
-    check(launches["flash_attention"] == active and launches["flash_attention_bwd"] == active,
-          f"{active} active layers over {steps} steps, but flash_attention launches {launches}")
-    # q and v forward in every active layer, their dX in all but each step's first active layer
-    check(launches["lora_matmul"] == 4 * active - 2 * steps, f"lora_matmul launches {launches} for {active} active layers")
+    check_launches(launches, round_launches(active, steps), f"{arch} round of {active} active layers over {steps} steps")
 
     peft2, _, m2, imp2 = run(rate)
     check(tree_equal(peft1, peft2) and torch.equal(imp1, imp2)
@@ -543,10 +615,9 @@ def train_full(ops, card, seed: int):
 
     ops.reset_launch_counts()
     acc = float(fns.evaluate(params, peft1, task.tokens[-batch:], task.labels[-batch:], np.arange(task.num_classes)))
-    eval_launches = dict(ops.launch_counts)
+    eval_launches_seen = dict(ops.launch_counts)
     check(np.isfinite(acc) and 0.0 <= acc <= 1.0, f"accuracy {acc}")
-    check(eval_launches["flash_attention"] == cfg.num_layers and eval_launches["flash_attention_bwd"] == 0
-          and eval_launches["lora_matmul"] == 2 * cfg.num_layers, f"evaluate launched {eval_launches}")
+    check_launches(eval_launches_seen, eval_launches(cfg.num_layers), f"{arch} evaluate")
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -564,12 +635,12 @@ def train_full(ops, card, seed: int):
         "resident_gib": resident / gib, "peak_gib_rate_0.5": peak_05 / gib, "peak_gib_rate_0.0": peak_00 / gib,
         "round_gib_above_resident_rate_0.5": (peak_05 - resident) / gib,
         "round_gib_above_resident_rate_0.0": (peak_00 - resident) / gib,
-        "bit_identical_rounds": True, "evaluate_launches": eval_launches, "card": card,
+        "bit_identical_rounds": True, "evaluate_launches": eval_launches_seen, "card": card,
     }, profile, launches
 
 
-def smoke_train_cuda_vs_cpu(seed: int):
-    """Phase 5b: one local round of the smoke model, float32, on the card
+def smoke_train_cuda_vs_cpu(seed: int, arch: str):
+    """One local round of the smoke model of ``arch``, float32, on the card
     (the kernels) and on the CPU (the twins), from the same params, LoRA
     (``b`` off zero), batches and gates.  AdamW's first steps move an
     element by about lr * sign(g), so an element whose gradient lies within
@@ -583,7 +654,7 @@ def smoke_train_cuda_vs_cpu(seed: int):
     from repro_torch.models.stacking import tree_leaves, tree_map
     from repro_torch.optim import adamw_init, make_lr_schedule
 
-    cfg, train_cfg = get_config("qwen3-1.7b", smoke=True).replace(dtype="float32"), TrainConfig()
+    cfg, train_cfg = get_config(arch, smoke=True).replace(dtype="float32"), TrainConfig()
     gen = torch.Generator()
     gen.manual_seed(seed)
     params = init_params(cfg, gen)
@@ -666,6 +737,15 @@ def main() -> int:
         for n in (2048, 1024):
             lora[(dtype, n)] = lora_case(ops, ref, timer, gen, dtype=dtype, n=n, m=m)
             print(f"lora_matmul {json.dumps(lora[(dtype, n)])} [{card}]", flush=True)
+    for name, k, n in (("up", 2560, 8960), ("down", 8960, 2560)):  # rwkv6-3b channel-mix
+        lora[name] = lora_case(ops, ref, timer, gen, dtype=torch.bfloat16, n=n, k=k)
+        print(f"lora_matmul rwkv cm {name} {json.dumps(lora[name])} [{card}]", flush=True)
+    wkv = wkv6_case(ops, ref, timer, gen, dtype=torch.bfloat16)
+    print(f"wkv6 {json.dumps(wkv)} [{card}]", flush=True)
+    for kw in ({"dtype": torch.float32, "b": 2, "s": 100}, {"dtype": torch.float32, "b": 2, "s": 100, "k": 32, "h": 4},
+               {"dtype": torch.float32, "b": 2, "s": 40, "state": True}, {"dtype": torch.bfloat16, "b": 1, "s": 33,
+                                                                           "h": 3, "k": 16, "state": True}):
+        print(f"wkv6 check {json.dumps(wkv6_case(ops, ref, timer, gen, time_it=False, **kw))}", flush=True)
 
     # 4. serve full-width qwen3-1.7b
     serve_stats, breakdown, launches = serve_full(api, ops, card, args.seed)
@@ -673,12 +753,35 @@ def main() -> int:
     print(f"decode step profile: {json.dumps(breakdown) if breakdown else 'not measured'} [{card}]", flush=True)
     print(f"smoke model, card vs CPU twins: {json.dumps(smoke_cuda_vs_cpu(args.seed))}", flush=True)
 
-    # 5. one client's local round of full-width qwen3-1.7b
-    train_stats, train_profile, train_launches = train_full(ops, card, args.seed)
+    # 5. one client's local round of full-width qwen3-1.7b: per step, the q
+    #    and v forward of every active layer and their dX in all but the
+    #    step's first active layer (whose input needs no gradient)
+    train_stats, train_profile, train_launches = train_full(
+        ops, card, args.seed, "qwen3-1.7b",
+        lambda active, steps: {"flash_attention": active, "flash_attention_bwd": active,
+                               "lora_matmul": 4 * active - 2 * steps},
+        lambda layers: {"flash_attention": layers, "lora_matmul": 2 * layers})
     print(f"train {json.dumps(train_stats)}", flush=True)
     print(f"local step profile: {json.dumps(train_profile) if train_profile else 'not measured'} [{card}]",
           flush=True)
-    print(f"smoke round, card vs CPU twins: {json.dumps(smoke_train_cuda_vs_cpu(args.seed))}", flush=True)
+    print(f"smoke round, card vs CPU twins: {json.dumps(smoke_train_cuda_vs_cpu(args.seed, 'qwen3-1.7b'))}",
+          flush=True)
+
+    # 5b. one client's local round of full-width rwkv6-3b: per step, the WKV
+    #     forward of every active layer and its backward in all but the
+    #     step's first active layer (the embedding and the time-mix are
+    #     frozen, and the layer's LoRA sits after its WKV); the channel-mix
+    #     up and down forward and down's dX in every active layer, up's dX in
+    #     all but the first
+    rwkv_stats, rwkv_profile, rwkv_launches = train_full(
+        ops, card, args.seed, "rwkv6-3b",
+        lambda active, steps: {"wkv6": active, "wkv6_bwd": active - steps, "lora_matmul": 4 * active - steps},
+        lambda layers: {"wkv6": layers, "lora_matmul": 2 * layers})
+    print(f"train rwkv {json.dumps(rwkv_stats)}", flush=True)
+    print(f"rwkv local step profile: {json.dumps(rwkv_profile) if rwkv_profile else 'not measured'} [{card}]",
+          flush=True)
+    print(f"rwkv smoke round, card vs CPU twins: {json.dumps(smoke_train_cuda_vs_cpu(args.seed, 'rwkv6-3b'))}",
+          flush=True)
 
     # 6. kernels line: each path's shapes (bf16) and launches; q and v
     #    projections summed for segmented_lora and lora_matmul (forward)
@@ -686,6 +789,8 @@ def main() -> int:
         check(launches[name] > 0, f"{name} never launched while serving: {launches}")
     for name in ("flash_attention", "flash_attention_bwd", "lora_matmul"):
         check(train_launches[name] > 0, f"{name} never launched in the local round: {train_launches}")
+    for name in ("wkv6", "wkv6_bwd"):
+        check(rwkv_launches[name] > 0, f"{name} never launched in the rwkv6-3b local round: {rwkv_launches}")
     q_case, v_case = seg[(torch.bfloat16, 2048)], seg[(torch.bfloat16, 1024)]
     d_case = dec[torch.bfloat16]
     lq, lv = lora[(torch.bfloat16, 2048)], lora[(torch.bfloat16, 1024)]
@@ -735,6 +840,23 @@ def main() -> int:
             "bound_by": lq["bound_by"], "library_ms": None,
             "cublas_x_at_w_ms": lq["cublas_x_at_w_ms"] + lv["cublas_x_at_w_ms"],
             "shape": "q then v projection of one layer, forward: " + lq["shape"] + " + " + lv["shape"],
+        },
+        {
+            "name": "wkv6", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/wkv6.cu",
+            "replaces": "src/repro/kernels/rwkv6_scan.py:63",
+            "launches": rwkv_launches["wkv6"],
+            **{key: wkv[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "shape": "forward, " + wkv["shape"],
+        },
+        {
+            "name": "wkv6_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/wkv6_bwd.cu",
+            "replaces": "src/repro/kernels/rwkv6_scan.py:63",
+            "launches": rwkv_launches["wkv6_bwd"],
+            "max_abs_err": wkv["bwd_max_abs_err"], "ms": wkv["bwd_ms"], "plain_ms": wkv["plain_bwd_ms"],
+            "bound_ms": wkv["bwd_bound_ms"], "bound_by": wkv["bwd_bound_by"], "library_ms": wkv["library_bwd_ms"],
+            "shape": "backward (dr, dk, dv, dlogw, du), " + wkv["shape"],
         },
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

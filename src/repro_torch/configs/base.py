@@ -1,7 +1,8 @@
 """Model and PEFT configuration for the PyTorch port.
 
 A copy of the fields of ``repro.configs.base`` that the serving and
-local-training slices read.  The port keeps its own copy so that it never imports the JAX
+local-training slices read (the dense family, and the ``ssm`` family of
+RWKV6).  The port keeps its own copy so that it never imports the JAX
 package; the field names, defaults and meanings are the same.
 """
 from __future__ import annotations
@@ -12,8 +13,19 @@ from typing import Optional
 
 
 @dataclass(frozen=True)
+class RWKVConfig:
+    """RWKV6 ("Finch") block hyper-parameters."""
+
+    head_dim: int = 64
+    decay_lora_dim: int = 64
+    gate_lora_dim: int = 128
+    token_shift_lora_dim: int = 32
+
+
+@dataclass(frozen=True)
 class ModelConfig:
-    """Dense decoder description (the ``dense`` family of the JAX package)."""
+    """Decoder description: ``family`` is ``dense`` (attention layers) or
+    ``ssm`` (RWKV6 layers), as in the JAX package."""
 
     name: str
     family: str
@@ -29,6 +41,8 @@ class ModelConfig:
     sliding_window: Optional[int] = None  # tokens; None = global attention
     rope_theta: float = 10_000.0
     attention_bias: bool = False
+
+    rwkv: Optional[RWKVConfig] = None
 
     norm_eps: float = 1e-5
     tie_embeddings: bool = False

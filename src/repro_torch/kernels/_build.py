@@ -18,7 +18,9 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
-KERNELS = ("segmented_lora", "flash_decode", "flash_attention", "flash_attention_bwd", "lora_matmul")
+KERNELS = (
+    "segmented_lora", "flash_decode", "flash_attention", "flash_attention_bwd", "lora_matmul", "wkv6", "wkv6_bwd",
+)
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (

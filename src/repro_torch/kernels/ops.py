@@ -3,7 +3,9 @@
 Each wrapper chooses by the device of the tensors it is given: a CPU tensor
 runs the plain twin in ``ref``; a CUDA tensor launches the hand-written
 kernel, or raises.  A kernel that fails to build or launch is an error,
-never a silent fall back to the twin.
+never a silent fall back to the twin.  ``wkv6`` is the one wrapper whose
+CPU path runs inside its ``autograd.Function``: forward ``wkv6_plain``,
+backward ``wkv6_bwd_plain``, so the CPU tests hold the backward twin too.
 
 ``launch_counts`` counts the kernel launches of each wrapper (the CPU twin
 is not counted), so a run can show that its main path went through the
@@ -23,6 +25,8 @@ MAX_LORA_RANK = 64  # csrc/segmented_lora.cu MAX_R
 MAX_GQA_REP = 8  # csrc/flash_decode.cu MAX_REP
 MAX_HEAD_DIM = 256  # csrc/flash_decode.cu MAX_D
 MAX_ATTN_HEAD_DIM = 128  # csrc/tiles.cuh MAX_D, flash_attention forward and backward
+WKV_HEAD_DIMS = (16, 32, 64)  # csrc/wkv6_common.cuh wkv_supported_head_dim
+WKV_CHUNK = 16  # csrc/wkv6_common.cuh WKV_CHUNK: the backward saves one state per chunk
 
 launch_counts: Dict[str, int] = {name: 0 for name in _build.KERNELS}
 
@@ -50,6 +54,11 @@ _SIGNATURES = {
     "lora_matmul": (
         "lora_matmul_launch",
         [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _F, _P],
+    ),
+    "wkv6": ("wkv6_fwd_launch", [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "wkv6_bwd": (
+        "wkv6_bwd_launch",
+        [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     ),
 }
 _entry_points: Dict[str, ctypes._CFuncPtr] = {}
@@ -329,3 +338,94 @@ def lora_matmul(x, w, a, b, *, alpha: float = 1.0):
         _require(t.is_contiguous(), "lora_matmul takes contiguous tensors")
     _require(not w.requires_grad, "lora_matmul keeps W frozen: W must not require a gradient")
     return _LoraMatmul.apply(x, w, a, b, alpha)
+
+
+def _ptr(t) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _wkv6_fwd(r, k, v, logw, u, s0):
+    bsz, s, h, kd = r.shape
+    out = torch.empty(r.shape, dtype=torch.float32, device=r.device)
+    state = torch.empty((bsz, h, kd, kd), dtype=torch.float32, device=r.device)
+    err = _entry("wkv6")(
+        _DTYPE_CODE[r.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(), _ptr(s0),
+        out.data_ptr(), state.data_ptr(), bsz, s, h, kd, _stream(r),
+    )
+    _check_launch("wkv6", err)
+    return out, state
+
+
+def _wkv6_bwd(r, k, v, logw, u, s0, dout, dstate):
+    bsz, s, h, kd = r.shape
+    dr, dk, dv = (torch.empty_like(t) for t in (r, k, v))
+    dlogw = torch.empty_like(logw)
+    du = torch.empty_like(u)
+    ds0 = None if s0 is None else torch.empty_like(s0)
+    n_chunks = -(-s // WKV_CHUNK)
+    # scratch, freed on return: the caching allocator hands it out again only
+    # to work queued after these kernels on this stream
+    states = torch.empty((bsz * h, n_chunks, kd, kd), dtype=torch.float32, device=r.device)
+    du_part = torch.empty((bsz, h, kd), dtype=torch.float32, device=r.device)
+    err = _entry("wkv6_bwd")(
+        _DTYPE_CODE[r.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(), _ptr(s0),
+        dout.data_ptr(), _ptr(dstate), dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dlogw.data_ptr(),
+        du.data_ptr(), _ptr(ds0), states.data_ptr(), du_part.data_ptr(), bsz, s, h, kd, _stream(r),
+    )
+    _check_launch("wkv6_bwd", err)
+    return dr, dk, dv, dlogw, du, ds0
+
+
+class _WKV6(torch.autograd.Function):
+    """The forward saves its inputs only; the backward recomputes the
+    states (the ``wkv6_bwd`` kernel on the card, ``ref.wkv6_bwd_plain`` on
+    the CPU).  Gradients flow from both outputs, out and the final state."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, s0):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, logw, u, s0)
+        if r.device.type == "cpu":
+            return ref.wkv6_plain(r, k, v, logw, u, s0)
+        return _wkv6_fwd(r, k, v, logw, u, s0)
+
+    @staticmethod
+    def backward(ctx, dout, dstate):
+        r, k, v, logw, u, s0 = ctx.saved_tensors
+        if dout is None:
+            dout = torch.zeros(r.shape, dtype=torch.float32, device=r.device)
+        dout = dout.float().contiguous()
+        dstate = None if dstate is None else dstate.float().contiguous()
+        if r.device.type == "cpu":
+            grads = ref.wkv6_bwd_plain(r, k, v, logw, u, s0, dout, dstate)
+        else:
+            grads = _wkv6_bwd(r, k, v, logw, u, s0, dout, dstate)
+        return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad))
+
+
+def wkv6(r, k, v, logw, u, s0=None):
+    """The RWKV6 WKV recurrence (``ref.wkv6_plain``), differentiable in
+    every input.  r, k, v: (B, S, H, K) of one dtype (float32 or bfloat16);
+    logw: (B, S, H, K) float32, the log decay (< 0); u: (H, K) float32;
+    s0: (B, H, K, K) float32 or None (a zero state).  Returns (out
+    (B, S, H, K) float32, final state (B, H, K, K) float32).  On the card:
+    the ``wkv6`` kernel forward and the ``wkv6_bwd`` kernel backward; on
+    the CPU: the plain twins, forward and backward.
+    """
+    tensors = (r, k, v, logw, u) + (() if s0 is None else (s0,))
+    if not _on_cpu(*tensors):
+        bsz, s, h, kd = r.shape
+        _require(r.dtype in _DTYPE_CODE, f"wkv6 takes float32 or bfloat16 r, k, v, got {r.dtype}")
+        _require(k.dtype == v.dtype == r.dtype, f"r, k, v must share one dtype, got {r.dtype}, {k.dtype}, {v.dtype}")
+        _require(logw.dtype == u.dtype == torch.float32, f"logw and u must be float32, got {logw.dtype}, {u.dtype}")
+        _require(tuple(k.shape) == tuple(v.shape) == tuple(logw.shape) == (bsz, s, h, kd) and tuple(u.shape) == (h, kd),
+                 f"shapes do not agree: r {tuple(r.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, "
+                 f"logw {tuple(logw.shape)}, u {tuple(u.shape)}")
+        _require(kd in WKV_HEAD_DIMS, f"wkv6 head dim {kd} not in {WKV_HEAD_DIMS}")
+        _require(s > 0, "wkv6 needs at least one token")
+        if s0 is not None:
+            _require(s0.dtype == torch.float32 and tuple(s0.shape) == (bsz, h, kd, kd),
+                     f"s0 must be ({bsz}, {h}, {kd}, {kd}) float32, got {tuple(s0.shape)} {s0.dtype}")
+        for t in tensors:
+            _require(t.is_contiguous(), "wkv6 takes contiguous tensors")
+    return _WKV6.apply(r, k, v, logw, u, s0)

@@ -97,3 +97,63 @@ def lora_matmul_plain(x, w, a, b, *, alpha: float = 1.0):
     t = (x.float() @ a.float()).to(x.dtype)
     side = t.float() @ b.float()
     return (main + alpha * side).to(x.dtype)
+
+
+def wkv6_plain(r, k, v, logw, u, s0=None):
+    """The WKV6 recurrence token by token, as ``wkv6_ref``
+    (``repro/kernels/ref.py:26``), with a state in and out.  With S the
+    (K, V) state of a head and w = exp(logw)::
+
+        out_t[v] = sum_k r_t[k] (S[k, v] + u[k] k_t[k] v_t[v])
+        S[k, v] <- w_t[k] S[k, v] + k_t[k] v_t[v]
+
+    r, k, v, logw: (B, S, H, K); u: (H, K); s0: (B, H, K, V) or None (zero).
+    Returns (out (B, S, H, V) float32, final state (B, H, K, V) float32).
+    """
+    b, s, h, kd = r.shape
+    rf, kf, vf, wf = (t.float() for t in (r, k, v, logw.exp()))
+    uf = u.float()[None, :, :, None]
+    state = torch.zeros((b, h, kd, vf.shape[-1]), dtype=torch.float32, device=r.device) if s0 is None else s0.float()
+    outs = []
+    for t in range(s):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]  # (B, H, K, V)
+        outs.append(torch.einsum("bhk,bhkv->bhv", rf[:, t], state + uf * kv))
+        state = wf[:, t, :, :, None] * state + kv
+    out = torch.stack(outs, dim=1) if outs else torch.zeros_like(vf)
+    return out, state
+
+
+def wkv6_bwd_plain(r, k, v, logw, u, s0, dout, dstate=None):
+    """The backward of ``wkv6_plain``, step by step.  With S_t the state
+    after token t (S_{-1} = s0) and G_t = dL/dS_t (G_{S-1} = ``dstate``)::
+
+        G_{t-1}   = diag(w_t) G_t + r_t do_t^T
+        dr_t[k]   = sum_v S_{t-1}[k, v] do_t[v] + u[k] k_t[k] (v_t . do_t)
+        dk_t[k]   = sum_v G_t[k, v] v_t[v] + u[k] r_t[k] (v_t . do_t)
+        dv_t[v]   = sum_k G_t[k, v] k_t[k] + (sum_k r_t[k] u[k] k_t[k]) do_t[v]
+        dlogw_t[k] = w_t[k] sum_v G_t[k, v] S_{t-1}[k, v]
+        du[k]     = sum_{b, t} r_t[k] k_t[k] (v_t . do_t)
+
+    Every per-token state is kept (the kernel recomputes them instead).
+    Returns (dr, dk, dv) in ``r.dtype``, dlogw and du float32, and ds0 =
+    G_{-1} (float32; None when ``s0`` is None).
+    """
+    b, s, h, kd = r.shape
+    rf, kf, vf, wf, do = (t.float() for t in (r, k, v, logw.exp(), dout))
+    uf = u.float()
+    states = [torch.zeros((b, h, kd, vf.shape[-1]), dtype=torch.float32, device=r.device) if s0 is None else s0.float()]
+    for t in range(s - 1):
+        states.append(wf[:, t, :, :, None] * states[-1] + kf[:, t, :, :, None] * vf[:, t, :, None, :])
+    g = torch.zeros_like(states[0]) if dstate is None else dstate.float()
+    dr, dk, dv, dlogw = (torch.empty_like(rf) for _ in range(4))
+    vdo = torch.sum(vf * do, dim=-1, keepdim=True)  # (B, S, H, 1)
+    ruk = torch.sum(rf * uf * kf, dim=-1, keepdim=True)
+    for t in reversed(range(s)):
+        prev = states[t]  # S_{t-1}
+        dr[:, t] = torch.einsum("bhkv,bhv->bhk", prev, do[:, t]) + uf * kf[:, t] * vdo[:, t]
+        dk[:, t] = torch.einsum("bhkv,bhv->bhk", g, vf[:, t]) + uf * rf[:, t] * vdo[:, t]
+        dv[:, t] = torch.einsum("bhkv,bhk->bhv", g, kf[:, t]) + ruk[:, t] * do[:, t]
+        dlogw[:, t] = wf[:, t] * torch.sum(g * prev, dim=-1)
+        g = wf[:, t, :, :, None] * g + rf[:, t, :, :, None] * do[:, t, :, None, :]
+    du = torch.sum(rf * kf * vdo, dim=(0, 1))
+    return dr.to(r.dtype), dk.to(r.dtype), dv.to(r.dtype), dlogw, du, (g if s0 is not None else None)

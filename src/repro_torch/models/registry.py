@@ -1,4 +1,4 @@
-"""Model registry of the port: the dense decoder family only, so far.
+"""Model registry of the port: the ``dense`` and ``ssm`` (RWKV6) families.
 
 ``init_params(cfg, generator)`` -> parameter tree;
 ``model_apply(params, cfg, batch, **kw)`` -> (logits, aux, caches), with
@@ -11,11 +11,17 @@ import torch
 
 from repro_torch.models import transformer
 
+FAMILIES = ("dense", "ssm")
+
+
+def _check_family(cfg):
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(f"the port runs the {FAMILIES} families, not {cfg.family!r}")
+
 
 def init_params(cfg, generator: torch.Generator):
     """Random parameters for ``cfg``, drawn from ``generator`` on its device."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"the port serves the dense family only, not {cfg.family!r}")
+    _check_family(cfg)
     return transformer.init_lm(cfg, generator)
 
 
@@ -37,7 +43,12 @@ def _cast_matmul_weights(tree, dtype, device):
 def place_params(params, cfg, device=None):
     """The base params on ``device`` (None = the card), the matmul weights
     (and biases) cast to ``cfg.dtype`` once; norm scales stay float32, as
-    the JAX package reads them.  The float32 masters are not kept, and the
+    the JAX package reads them.  In an RWKV6 layer the projections' ``w``
+    (time-mix r/k/v/o, channel-mix k/v/r) are cast; every other leaf stays
+    float32: the decay path (``w0``, ``wd_a``, ``wd_b``) and the bonus ``u``
+    compute in float32, and the low-rank ``ts_lora_*``, ``wg_*`` and the
+    ``mu*`` mixes are cast at the point of use, as the JAX package casts
+    them.  The float32 masters are not kept, and the
     tree takes no gradient (the base is frozen)."""
     device = torch.device("cuda" if device is None else device)
     return _cast_matmul_weights(params, getattr(torch, cfg.dtype), device)
@@ -45,8 +56,7 @@ def place_params(params, cfg, device=None):
 
 def model_apply(params, cfg, batch, *, drops=None, caches=None, positions=None, peft=None,
                 lora_scale: float = 1.0):
-    if cfg.family != "dense":
-        raise NotImplementedError(f"the port runs the dense family only, not {cfg.family!r}")
+    _check_family(cfg)
     logits, new_caches = transformer.lm_apply(
         params, cfg, batch["tokens"], positions=positions, drops=drops, caches=caches, peft=peft,
         lora_scale=lora_scale,

@@ -1,4 +1,5 @@
-"""Dense decoder: init, decode caches and the forward pass.
+"""The decoders of the port (dense, and the ``ssm`` family of RWKV6): init,
+dense decode caches and the forward pass.
 
 The layer stack keeps the stacked ``(L, ...)`` layout of the JAX package;
 ``stack_apply`` loops over the layers in Python (the JAX ``unroll`` mode).
@@ -10,14 +11,25 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import stacking
-from repro_torch.models.layers import init_layer_cache, layer_apply
+from repro_torch.models.layers import init_layer_cache, layer_apply, layer_kind, params_kind
 from repro_torch.nn.initializers import normal_init, truncated_lecun
 from repro_torch.nn.norms import apply_rmsnorm
+from repro_torch.nn.rwkv import init_rwkv_channel_mix, init_rwkv_time_mix
 
 
-def init_lm(cfg, generator: torch.Generator):
-    """Parameters with the shapes and dtypes of ``transformer.init_lm``
-    (stacked layout, float32), drawn on the generator's device."""
+def _init_rwkv_layers(cfg, generator: torch.Generator):
+    """The stacked ``(L, ...)`` layers of an ``ssm`` (RWKV6) stack."""
+    device, lead = generator.device, (cfg.num_layers,)
+    return {
+        "norm1": {"scale": torch.ones((*lead, cfg.d_model), device=device)},
+        "norm2": {"scale": torch.ones((*lead, cfg.d_model), device=device)},
+        "time_mix": init_rwkv_time_mix(cfg, generator, lead),
+        "channel_mix": init_rwkv_channel_mix(cfg, generator, lead),
+    }
+
+
+def _init_attn_layers(cfg, generator: torch.Generator):
+    """The stacked ``(L, ...)`` layers of a dense decoder."""
     d, hd, L = cfg.d_model, cfg.resolved_head_dim, cfg.num_layers
     h, kv, ff = cfg.num_heads, cfg.num_kv_heads, cfg.d_ff
     device = generator.device
@@ -35,18 +47,25 @@ def init_lm(cfg, generator: torch.Generator):
     if cfg.qk_norm:
         attn["q_norm"] = norm(hd)
         attn["k_norm"] = norm(hd)
+    return {
+        "norm1": norm(d),
+        "norm2": norm(d),
+        "attn": attn,
+        "mlp": {"gate": proj(d, ff), "up": proj(d, ff), "down": proj(ff, d)},
+    }
+
+
+def init_lm(cfg, generator: torch.Generator):
+    """Parameters with the shapes and dtypes of ``transformer.init_lm``
+    (stacked layout, float32), drawn on the generator's device."""
+    init_layers = _init_rwkv_layers if layer_kind(cfg, 0) == "rwkv" else _init_attn_layers
     params = {
-        "embed": normal_init(generator, (cfg.vocab_size, d)),
-        "layers": {
-            "norm1": norm(d),
-            "norm2": norm(d),
-            "attn": attn,
-            "mlp": {"gate": proj(d, ff), "up": proj(d, ff), "down": proj(ff, d)},
-        },
-        "final_norm": {"scale": torch.ones((d,), device=device)},
+        "embed": normal_init(generator, (cfg.vocab_size, cfg.d_model)),
+        "layers": init_layers(cfg, generator),
+        "final_norm": {"scale": torch.ones((cfg.d_model,), device=generator.device)},
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = normal_init(generator, (d, cfg.vocab_size))
+        params["lm_head"] = normal_init(generator, (cfg.d_model, cfg.vocab_size))
     return params
 
 
@@ -67,6 +86,8 @@ def stack_apply(layers, cfg, h, *, positions, causal: bool = True, drops=None, c
     True = the layer is dropped and passes ``h`` (and its cache) through.
     """
     num_layers = stacking.stack_size(layers)
+    if caches is not None and params_kind(layers) == "rwkv":
+        raise NotImplementedError("RWKV decode states are not ported: the port trains RWKV without caches")
     gates = [False] * num_layers if drops is None else [bool(d) for d in torch.as_tensor(drops).tolist()]
     if len(gates) != num_layers:
         raise ValueError(f"{len(gates)} gates for {num_layers} layers")

@@ -7,7 +7,7 @@ has only the port's dependencies; ``tests/conftest.py`` imports JAX, hence
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: float32 outputs within 1e-4 (segmented_lora, lora_matmul:
+Tolerances: float32 outputs within 1e-4 (segmented_lora, lora_matmul, wkv6:
 K-long float32 sums in another order) or 2e-5 (flash_decode,
 flash_attention); bfloat16 outputs within 3e-2 + 1e-2 |ref|, about two bf16
 roundings of an O(1) value.  Gradients: float32 within 1e-4 + 1e-4 |ref|;
@@ -217,3 +217,116 @@ def test_cuda_lora_matmul_takes_no_gradient_for_w(cuda):
     x, w, a, b, _ = _lora(np.random.default_rng(15), 8, 32, 16, 4, "float32", cuda)
     with pytest.raises(ValueError, match="frozen"):
         ops.lora_matmul(x, w.requires_grad_(True), a, b)
+
+
+def _wkv(rng, b, s, h, k, dtype, device, state):
+    r, kk, v = (0.5 * rng.standard_normal((b, s, h, k), dtype=np.float32) for _ in range(3))
+    logw = np.clip(-np.exp(rng.standard_normal((b, s, h, k), dtype=np.float32)), -4.0, -1e-4)
+    u = 0.3 * rng.standard_normal((h, k), dtype=np.float32)
+    dout = rng.standard_normal((b, s, h, k), dtype=np.float32)
+    s0, dstate = (rng.standard_normal((b, h, k, k), dtype=np.float32) if state else None for _ in range(2))
+    to = lambda a, dt=torch.float32: None if a is None else torch.from_numpy(a).to(device, dt)  # noqa: E731
+    return ([to(a, getattr(torch, dtype)) for a in (r, kk, v)] + [to(logw), to(u), to(s0)], to(dout), to(dstate))
+
+
+WKV_CASES = [  # (B, S, H, K, state)
+    (2, 100, 3, 64, False),  # S off the 16-token chunk
+    (1, 16, 2, 32, True),  # one chunk, a state in and out
+    (2, 33, 4, 16, True),
+    (1, 1, 1, 64, False),  # one token
+    (2, 512, 40, 64, False),  # the training shape's heads
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,k,state", WKV_CASES)
+def test_cuda_wkv6_matches_twins(cuda, dtype, b, s, h, k, state):
+    """Forward (out, final state) against ``wkv6_plain``; dr, dk, dv,
+    dlogw, du (and ds0, with a cotangent on the final state) against
+    ``wkv6_bwd_plain``.  Float32 outputs within 1e-4 + 1e-3 |ref|; bf16
+    dr, dk, dv within 3e-2 + 1e-2 |ref| (one bf16 rounding)."""
+    inputs, dout, dstate = _wkv(np.random.default_rng(16), b, s, h, k, dtype, cuda, state)
+    leaves = [t.clone().requires_grad_(True) for t in inputs if t is not None]
+    ops.reset_launch_counts()
+    out, st = ops.wkv6(*leaves, *([] if state else [None]))
+    loss = (out * dout).sum() + ((st * dstate).sum() if state else 0.0)
+    grads = torch.autograd.grad(loss, leaves)
+    assert ops.launch_counts["wkv6"] == 1 and ops.launch_counts["wkv6_bwd"] == 1
+    want_out, want_st = ref.wkv6_plain(*inputs)
+    want = [g for g in ref.wkv6_bwd_plain(*inputs, dout, dstate) if g is not None]
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, want_out, atol=1e-4, rtol=1e-3)
+    torch.testing.assert_close(st, want_st, atol=1e-4, rtol=1e-3)
+    assert len(grads) == len(want)
+    for g, w in zip(grads, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        atol, rtol = (3e-2, 1e-2) if g.dtype == torch.bfloat16 else (1e-4, 1e-3)
+        torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_cuda_wkv6_backward_is_deterministic(cuda):
+    """No atomics: two backward passes give the same bits (du sums over
+    the batch in a second pass, in order)."""
+    inputs, dout, _ = _wkv(np.random.default_rng(17), 4, 70, 3, 64, "bfloat16", cuda, False)
+    grads = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_(True) for t in inputs[:5]]
+        out, _ = ops.wkv6(*leaves)
+        grads.append(torch.autograd.grad(out, leaves, dout))
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_wkv6_rejects_what_the_kernel_does_not_take(cuda):
+    inputs, _, _ = _wkv(np.random.default_rng(18), 1, 8, 2, 48, "float32", cuda, False)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.wkv6(*inputs[:5])
+    inputs, _, _ = _wkv(np.random.default_rng(18), 1, 8, 2, 32, "float32", cuda, False)
+    with pytest.raises(ValueError, match="float32"):
+        ops.wkv6(*inputs[:3], inputs[3].to(torch.bfloat16), inputs[4])
+
+
+@pytest.mark.cuda
+def test_cuda_rwkv_smoke_round_matches_the_cpu(cuda):
+    """One local round of the rwkv6-3b smoke model in float32 on the card
+    (the kernels) and on the CPU (the twins), from the same params, LoRA,
+    batches and gates.  AdamW's first steps move an element by about
+    lr * sign(g): every PEFT element within 2 * (sum of the step sizes) +
+    1e-6, 99% within 1e-6; metrics within 1e-5 rel, importances 1e-4 rel."""
+    from repro_torch.configs import PEFTConfig, STLDConfig, TrainConfig, get_config
+    from repro_torch.core.peft import init_peft
+    from repro_torch.data.synthetic import make_task
+    from repro_torch.federated.client import make_client_fns
+    from repro_torch.models.registry import init_params, place_params
+    from repro_torch.models.stacking import tree_leaves, tree_map
+    from repro_torch.optim import adamw_init, make_lr_schedule
+
+    cfg, train_cfg = get_config("rwkv6-3b", smoke=True).replace(dtype="float32"), TrainConfig()
+    gen = torch.Generator().manual_seed(19)
+    params, peft = init_params(cfg, gen), init_peft(cfg, PEFTConfig(), gen)
+    for leaf in tree_leaves(peft):
+        leaf.add_(0.02 * torch.randn(leaf.shape, generator=gen))
+    task = make_task(vocab_size=cfg.vocab_size, seq_len=40, num_examples=8, seed=19)
+    per_step = [task.lm_batch(np.arange(4 * i, 4 * i + 4)) for i in range(2)]
+    batches = {key: np.stack([b[key] for b in per_step]) for key in ("tokens", "targets", "mask")}
+    out = {}
+    for device in ("cuda", "cpu"):
+        fns = make_client_fns(cfg, PEFTConfig(), STLDConfig(), train_cfg, device=device)
+        pf = tree_map(lambda t: t.to(device), peft)
+        ops.reset_launch_counts()
+        res = fns.local_round(place_params(params, cfg, device), pf, adamw_init(pf), batches, 0.5,
+                              torch.Generator().manual_seed(19), 0)
+        if device == "cuda":
+            assert ops.launch_counts["wkv6"] > 0
+        out[device] = [tree_map(lambda t: t.cpu() if isinstance(t, torch.Tensor) else t, part) for part in res]
+    (pc, _, mc, ic), (pp, _, mp, ip) = out["cuda"], out["cpu"]
+    diffs = torch.cat([(a - b).abs().flatten() for a, b in zip(tree_leaves(pc), tree_leaves(pp))])
+    sched = make_lr_schedule(train_cfg.schedule, train_cfg.learning_rate, train_cfg.warmup_steps, train_cfg.total_steps)
+    assert float(diffs.max()) <= 2 * (sched(0) + sched(1)) + 1e-6
+    assert float((diffs <= 1e-6).float().mean()) >= 0.99
+    for key in mc:
+        torch.testing.assert_close(mc[key], mp[key], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(ic, ip, rtol=1e-4, atol=1e-7)

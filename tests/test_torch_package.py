@@ -70,7 +70,7 @@ def test_scan_covers_the_training_modules():
     the training slice's included."""
     modules = set(_modules())
     for name in ("core.stld", "core.ptls", "core.schedules", "optim.adamw", "optim.schedules", "models.losses",
-                 "data.synthetic", "federated.client", "launch.steps", "kernels.ops"):
+                 "data.synthetic", "federated.client", "launch.steps", "kernels.ops", "nn.rwkv"):
         assert f"repro_torch.{name}" in modules, name
 
 
