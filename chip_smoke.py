@@ -12,10 +12,11 @@ Phases, one line each before the last:
 2. build of every CUDA kernel from the sources in the checkout, in parallel;
 3. each kernel held against its plain PyTorch twin on the card at the
    shapes of its path (serving: the decode step; training: batch 16 x 512
-   tokens of qwen3-1.7b, and of rwkv6-3b for wkv6 and the channel-mix
-   lora_matmul), forward and backward, with its time (CUDA events, L2
-   flushed, median of repeats) beside the twin's, the library call's and
-   the bound;
+   tokens of qwen3-1.7b, of rwkv6-3b for wkv6 and the channel-mix
+   lora_matmul, and of jamba-v0.1-52b for mamba_scan and the Mamba
+   projections' lora_matmul), forward and backward, with its time (CUDA
+   events, L2 flushed, median of repeats) beside the twin's, the library
+   call's and the bound;
 4. full-width qwen3-1.7b (28 layers, random weights from ``--seed``)
    served through ``repro_torch.api.serve``: 12 requests over 4 LoRA
    tenants of rank 4/8 at batch 8, rows recycling mid-run; every completion
@@ -31,9 +32,14 @@ Phases, one line each before the last:
    0.5; and one smoke-size round on the card against the CPU twins;
 5b. the same for full-width rwkv6-3b (32 layers, LoRA on the channel-mix
    up and down), whose time-mix runs the wkv6 kernels;
+5c. the same for full-width jamba-v0.1-52b cut to 8 layers (one period of
+   its interleave: 7 Mamba and 1 attention layer, 4 MoE and 4 MLP layers;
+   LoRA on the Mamba in and out and the attention q and v), drawn and
+   placed layer by layer, whose Mamba layers run the mamba_scan kernels;
 6. the ``kernels`` JSON line: launches of each kernel in its own path's
-   run (serving: phase 4's run; training: phase 5's round at rate 0.5, and
-   phase 5b's for wkv6 and wkv6_bwd).
+   run (serving: phase 4's run; training: phase 5's round at rate 0.5,
+   phase 5b's for wkv6 and wkv6_bwd, phase 5c's for mamba_scan and
+   mamba_scan_bwd).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits non-zero before it; without a CUDA card, or outside the checkout, the
@@ -59,6 +65,10 @@ sys.path.insert(0, str(ROOT / "src"))
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+# exp on the special function units: 16 results per clock per SM (CUDA C++
+# Programming Guide, arithmetic instruction throughput, compute capability
+# 9.0) on 132 SMs at the H100 SXM's 1.98 GHz boost clock.
+SFU_EXP_PER_S = 16 * 132 * 1.98e9
 REPEATS = 30
 FLUSH_BYTES = 256 << 20  # > 50 MB L2; also keeps the card busy while the host enqueues
 
@@ -357,6 +367,81 @@ def wkv6_case(ops, ref, timer, gen, *, dtype, b=16, s=512, h=40, k=64, state=Fal
     return case
 
 
+def mamba_case(ops, ref, timer, gen, *, dtype, b=16, s=512, d=8192, n=16, time_it=True):
+    """mamba_scan forward and backward against their twins on the card: y
+    and the final state, then d_dt, dx, dB, dC, dA, dD, and a second
+    backward bit-identical to the first.  With ``time_it`` the times of
+    both passes, the twins' (3 repeats: they loop over tokens) and the
+    bounds, whose terms are bytes, float32 operations and exp on the
+    special function units; no single PyTorch call computes the scan, so
+    there is no library time.  y, d_dt, dx within 1e-4 + 1e-3 |ref| in
+    float32 and 3e-2 + 1e-2 |ref| in bf16 (one bf16 rounding); the final
+    state within 1e-4 + 1e-3 |ref|; dB, dC, dA, dD (float32 sums over
+    channels, rows and time, in another order) within 1e-3 |ref| + 1e-5 of
+    their largest element."""
+    dt = torch.nn.functional.softplus(torch.randn((b, s, d), generator=gen, device="cuda") - 1.0).to(dtype)
+    x = torch.randn((b, s, d), generator=gen, device="cuda").to(dtype)
+    bm, cm = (torch.randn((b, s, n), generator=gen, device="cuda") for _ in range(2))
+    a = -torch.exp(torch.randn((d, n), generator=gen, device="cuda"))
+    dv = torch.randn((d,), generator=gen, device="cuda")
+    dy = torch.randn((b, s, d), generator=gen, device="cuda").to(dtype)
+    inputs = [dt, x, bm, cm, a, dv]
+    leaves = [t.clone().requires_grad_(True) for t in inputs]
+    y, st = ops.mamba_scan(*leaves)
+    grads = torch.autograd.grad(y, leaves, dy, retain_graph=True)
+    again = torch.autograd.grad(y, leaves, dy, retain_graph=True)
+    want_y, want_st = ref.mamba_scan_plain(*inputs)
+    want = ref.mamba_scan_bwd_plain(*inputs, dy)
+    torch.cuda.synchronize()
+    name = str(dtype).split(".")[-1]
+    shape = f"B={b} S={s} D={d} N={n} dt/x {name}"
+    atol, rtol = (3e-2, 1e-2) if dtype == torch.bfloat16 else (1e-4, 1e-3)
+    err = (y.float() - want_y.float()).abs().max().item()
+    check(torch.allclose(y.float(), want_y.float(), atol=atol, rtol=rtol)
+          and torch.allclose(st, want_st, atol=1e-4, rtol=1e-3),
+          f"mamba_scan {shape}: max abs err {err} (y), {(st - want_st).abs().max().item()} (state) vs twin")
+    grad_errs = []
+    for gname, g, w in zip(("d_dt", "dx", "dB", "dC", "dA", "dD"), grads, want):
+        grad_errs.append((g.float() - w.float()).abs().max().item())
+        if gname in ("d_dt", "dx"):
+            ok = torch.allclose(g.float(), w.float(), atol=atol, rtol=rtol)
+        else:
+            ok = torch.allclose(g, w, atol=1e-5 * w.abs().max().item() + 1e-6, rtol=1e-3)
+        check(g.dtype == w.dtype and ok, f"mamba_scan backward {shape}: {gname} max abs err {grad_errs[-1]} vs twin")
+    check(all(torch.equal(p, q) for p, q in zip(grads, again)), f"mamba_scan backward {shape}: two runs differ")
+    case = {"shape": shape, "max_abs_err": err, "atol": atol, "rtol": rtol, "bwd_max_abs_err": max(grad_errs),
+            "bwd_errs": grad_errs}
+    if not time_it:
+        return case
+    with torch.no_grad():
+        case["ms"] = timer(lambda: ops.mamba_scan(*inputs))
+        case["plain_ms"] = timer(lambda: ref.mamba_scan_plain(*inputs), repeats=3)
+    # the backward alone, its scratch included, as _MambaScan.backward calls it
+    case["bwd_ms"] = timer(lambda: ops._mamba_bwd(*inputs, dy))
+    case["plain_bwd_ms"] = timer(lambda: ref.mamba_scan_bwd_plain(*inputs, dy), repeats=3)
+    case["library_ms"] = case["library_bwd_ms"] = None
+    elt, cells, small = x.element_size(), b * s * d * n, 4 * (d * n + d)
+    # forward: read dt, x, B, C, A, D, write y and the final state; per state
+    # element and token one exp and 6 float32 operations (dt A, u B, the
+    # state's fma, the output's fma)
+    fwd = {"bytes": 3 * elt * b * s * d + 4 * 2 * b * s * n + small + 4 * b * d * n,
+           "float32": 6 * cells, "exp": cells}
+    # backward: read dt, x, dy, B, C, A, D, write d_dt, dx, dB, dC, dA, dD;
+    # the function needs a_t once per state element and token and 19
+    # float32 operations (the state again 4, g 3, q 2, the sums for d_dt,
+    # dA, du, dB, dC 2 each)
+    bwd = {"bytes": 5 * elt * b * s * d + 4 * 4 * b * s * n + 2 * small, "float32": 19 * cells, "exp": cells}
+    for prefix, terms in (("", fwd), ("bwd_", bwd)):
+        times = {"bytes": terms["bytes"] / HBM_BYTES_PER_S * 1e3,
+                 "float32": terms["float32"] / PEAK_OPS_PER_S["float32"] * 1e3,
+                 "exp": terms["exp"] / SFU_EXP_PER_S * 1e3}
+        top = max(times, key=times.get)
+        case[prefix + "bound_ms"] = times[top]
+        case[prefix + "bound_by"] = "bytes" if top == "bytes" else "operations"
+        case[prefix + "bound_terms_ms"] = times
+    return case
+
+
 def make_tenants(cfg, gen, n=4):
     from repro_torch.configs import PEFTConfig
     from repro_torch.core.peft import init_peft
@@ -552,33 +637,70 @@ def tree_equal(a, b) -> bool:
     return all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
 
 
+def active_count(gates) -> int:
+    """Active layers over a round's gates (one list per step, True = dropped)."""
+    return sum(g.count(False) for g in gates)
+
+
+def jamba_round_launches(cfg, gates) -> dict:
+    """Each kernel's launches in a hybrid round, from its gates.  Per step
+    and active layer: the two LoRA projections' forward (Mamba in and out,
+    attention q and v); a Mamba layer's scan forward and backward (the LoRA
+    on in sits before the scan) and its out dX; an attention layer's
+    attention forward and backward; and the dX of in, or of q and v, in
+    every active layer but the step's first, whose input comes from frozen
+    weights."""
+    from repro_torch.models.layers import layer_kind
+
+    want = {"mamba_scan": 0, "mamba_scan_bwd": 0, "flash_attention": 0, "flash_attention_bwd": 0, "lora_matmul": 0}
+    for step in gates:
+        active = [l for l, dropped in enumerate(step) if not dropped]
+        for l in active:
+            later = l != active[0]
+            want["lora_matmul"] += 2
+            if layer_kind(cfg, l) == "mamba":
+                want["mamba_scan"] += 1
+                want["mamba_scan_bwd"] += 1
+                want["lora_matmul"] += 1 + later
+            else:
+                want["flash_attention"] += 1
+                want["flash_attention_bwd"] += 1
+                want["lora_matmul"] += 2 * later
+    return want
+
+
 def check_launches(launches: dict, want: dict, what: str):
     """``launches`` equals ``want`` for the kernels it names, 0 for the rest."""
     full = {name: want.get(name, 0) for name in launches}
     check(launches == full, f"{what}: launches {launches}, expected {full}")
 
 
-def train_full(ops, card, seed: int, arch: str, round_launches, eval_launches):
-    """One client's DropPEFT local round of full-width ``arch`` through
+def train_full(ops, card, seed: int, cfg, round_launches, eval_launches):
+    """One client's DropPEFT local round of ``cfg`` (full width) through
     ``make_client_fns``: 4 steps at batch 16 x 512, STLD mean rate 0.5, then
     ``evaluate``, then a round at rate 0.0 for the comparison of step time
-    and peak memory.  ``round_launches(active, steps)`` and
-    ``eval_launches(layers)`` give each kernel's expected launches."""
-    from repro_torch.configs import FederatedConfig, PEFTConfig, STLDConfig, TrainConfig, get_config
+    and peak memory (at half the batch if batch 16 does not fit, a cut
+    written beside the numbers).  The weights are drawn and placed part by
+    part.  ``round_launches(gates)``, from the gates the round drew (one
+    list of booleans per step, True = dropped), and
+    ``eval_launches(cfg)`` give each kernel's expected launches."""
+    from repro_torch.configs import FederatedConfig, PEFTConfig, STLDConfig, TrainConfig
+    from repro_torch.core import stld
     from repro_torch.core.peft import init_peft
     from repro_torch.data.synthetic import make_task
     from repro_torch.federated.client import make_client_fns
-    from repro_torch.models.registry import init_params, place_params
+    from repro_torch.models.registry import init_params
     from repro_torch.models.stacking import tree_leaves
     from repro_torch.optim import adamw_init
 
     gc.collect()  # an earlier phase's weights may sit in reference cycles: free them before measuring memory
-    cfg, fed, peft_cfg = get_config(arch), FederatedConfig(), PEFTConfig()
+    torch.cuda.empty_cache()
+    arch, fed, peft_cfg = cfg.name, FederatedConfig(), PEFTConfig()
     steps, batch, seq, rate = fed.local_steps, fed.batch_size, 512, 0.5
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     t0 = time.perf_counter()
-    params = place_params(init_params(cfg, gen), cfg)
+    params = init_params(cfg, gen, place=True)
     peft = init_peft(cfg, peft_cfg, gen)
     task = make_task(vocab_size=cfg.vocab_size, seq_len=seq, num_examples=(steps + 1) * batch, seed=seed)
     batches = train_batches(task, steps, batch)
@@ -593,10 +715,21 @@ def train_full(ops, card, seed: int, arch: str, round_launches, eval_launches):
 
     run(rate, {key: val[:1] for key, val in batches.items()})  # warm: library loads, cuBLAS heuristics
     resident = torch.cuda.memory_allocated()
+    gates, sample_drops = [], stld.sample_drops
+
+    def recorded(*args, **kw):
+        drops = sample_drops(*args, **kw)
+        gates.append(drops.tolist())
+        return drops
+
+    stld.sample_drops = recorded
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    peft1, _, m1, imp1 = run(rate)
+    try:
+        peft1, _, m1, imp1 = run(rate)
+    finally:
+        stld.sample_drops = sample_drops
     round_s = time.perf_counter() - t0
     launches = dict(ops.launch_counts)
     peak_05 = torch.cuda.max_memory_allocated()
@@ -604,9 +737,10 @@ def train_full(ops, card, seed: int, arch: str, round_launches, eval_launches):
     check(all(np.isfinite(list(metrics.values()))), f"non-finite round metrics {metrics}")
     check(bool(torch.isfinite(imp1).all()), "non-finite importances")
     check(all(bool(torch.isfinite(t).all()) for t in tree_leaves(peft1)), "non-finite PEFT tree")
-    active = round(metrics["active_layers"] * steps)
-    check(abs(metrics["active_layers"] * steps - active) < 1e-3, f"active layers {metrics['active_layers']}")
-    check_launches(launches, round_launches(active, steps), f"{arch} round of {active} active layers over {steps} steps")
+    active = sum(g.count(False) for g in gates)
+    check(len(gates) == steps and abs(metrics["active_layers"] * steps - active) < 1e-3,
+          f"active layers {metrics['active_layers']} vs gates {gates}")
+    check_launches(launches, round_launches(gates), f"{arch} round of gates {gates}")
 
     peft2, _, m2, imp2 = run(rate)
     check(tree_equal(peft1, peft2) and torch.equal(imp1, imp2)
@@ -617,11 +751,21 @@ def train_full(ops, card, seed: int, arch: str, round_launches, eval_launches):
     acc = float(fns.evaluate(params, peft1, task.tokens[-batch:], task.labels[-batch:], np.arange(task.num_classes)))
     eval_launches_seen = dict(ops.launch_counts)
     check(np.isfinite(acc) and 0.0 <= acc <= 1.0, f"accuracy {acc}")
-    check_launches(eval_launches_seen, eval_launches(cfg.num_layers), f"{arch} evaluate")
+    check_launches(eval_launches_seen, eval_launches(cfg), f"{arch} evaluate")
 
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    _, _, m0, _ = run(0.0)
+    batch0 = batch
+    while True:
+        rate0_batches = {key: val[:, :batch0] for key, val in batches.items()}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            _, _, m0, _ = run(0.0, rate0_batches)
+            break
+        except torch.cuda.OutOfMemoryError:
+            check(batch0 > 1, "rate 0.0 does not fit at batch 1")
+        batch0 //= 2  # the cut is written beside the numbers
+        gc.collect()  # after the handler, whose traceback held the failed round's tensors
+        torch.cuda.empty_cache()
     round0_s = time.perf_counter() - t0
     peak_00 = torch.cuda.max_memory_allocated()
     check(float(m0["active_layers"]) == cfg.num_layers, f"rate 0.0 ran {float(m0['active_layers'])} layers")
@@ -631,7 +775,8 @@ def train_full(ops, card, seed: int, arch: str, round_launches, eval_launches):
         "model": cfg.name, "layers": cfg.num_layers, "batch": batch, "seq": seq, "local_steps": steps,
         "mean_rate": rate, "setup_s": setup_s, "round_s": round_s, "s_per_local_step": round_s / steps,
         "active_layers_per_step": metrics["active_layers"], "metrics": metrics, "accuracy_after_round": acc,
-        "round_s_rate_0": round0_s, "s_per_local_step_rate_0": round0_s / steps,
+        "round_s_rate_0": round0_s, "s_per_local_step_rate_0": round0_s / steps, "batch_rate_0": batch0,
+        "gates_rate_0.5": gates, "launches": launches,
         "resident_gib": resident / gib, "peak_gib_rate_0.5": peak_05 / gib, "peak_gib_rate_0.0": peak_00 / gib,
         "round_gib_above_resident_rate_0.5": (peak_05 - resident) / gib,
         "round_gib_above_resident_rate_0.0": (peak_00 - resident) / gib,
@@ -694,7 +839,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from repro_torch import api
+    from repro_torch.configs import get_config
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.models.layers import layer_kind
     from repro_torch.nn.attention import ring_positions
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -746,6 +893,15 @@ def main() -> int:
                {"dtype": torch.float32, "b": 2, "s": 40, "state": True}, {"dtype": torch.bfloat16, "b": 1, "s": 33,
                                                                            "h": 3, "k": 16, "state": True}):
         print(f"wkv6 check {json.dumps(wkv6_case(ops, ref, timer, gen, time_it=False, **kw))}", flush=True)
+    for name, k, n in (("in", 4096, 16384), ("out", 8192, 4096)):  # jamba's Mamba projections
+        lora[name] = lora_case(ops, ref, timer, gen, dtype=torch.bfloat16, n=n, k=k)
+        print(f"lora_matmul jamba mamba {name} {json.dumps(lora[name])} [{card}]", flush=True)
+    msc = mamba_case(ops, ref, timer, gen, dtype=torch.bfloat16)
+    print(f"mamba_scan {json.dumps(msc)} [{card}]", flush=True)
+    for kw in ({"dtype": torch.float32, "b": 2, "s": 70, "d": 512}, {"dtype": torch.float32, "b": 2, "s": 70, "d": 256,
+                                                                     "n": 8}, {"dtype": torch.bfloat16, "b": 1, "s": 33,
+                                                                               "d": 200, "n": 8}):
+        print(f"mamba_scan check {json.dumps(mamba_case(ops, ref, timer, gen, time_it=False, **kw))}", flush=True)
 
     # 4. serve full-width qwen3-1.7b
     serve_stats, breakdown, launches = serve_full(api, ops, card, args.seed)
@@ -757,10 +913,10 @@ def main() -> int:
     #    and v forward of every active layer and their dX in all but the
     #    step's first active layer (whose input needs no gradient)
     train_stats, train_profile, train_launches = train_full(
-        ops, card, args.seed, "qwen3-1.7b",
-        lambda active, steps: {"flash_attention": active, "flash_attention_bwd": active,
-                               "lora_matmul": 4 * active - 2 * steps},
-        lambda layers: {"flash_attention": layers, "lora_matmul": 2 * layers})
+        ops, card, args.seed, get_config("qwen3-1.7b"),
+        lambda gates: {"flash_attention": active_count(gates), "flash_attention_bwd": active_count(gates),
+                       "lora_matmul": 4 * active_count(gates) - 2 * len(gates)},
+        lambda cfg: {"flash_attention": cfg.num_layers, "lora_matmul": 2 * cfg.num_layers})
     print(f"train {json.dumps(train_stats)}", flush=True)
     print(f"local step profile: {json.dumps(train_profile) if train_profile else 'not measured'} [{card}]",
           flush=True)
@@ -774,14 +930,31 @@ def main() -> int:
     #     up and down forward and down's dX in every active layer, up's dX in
     #     all but the first
     rwkv_stats, rwkv_profile, rwkv_launches = train_full(
-        ops, card, args.seed, "rwkv6-3b",
-        lambda active, steps: {"wkv6": active, "wkv6_bwd": active - steps, "lora_matmul": 4 * active - steps},
-        lambda layers: {"wkv6": layers, "lora_matmul": 2 * layers})
+        ops, card, args.seed, get_config("rwkv6-3b"),
+        lambda gates: {"wkv6": active_count(gates), "wkv6_bwd": active_count(gates) - len(gates),
+                       "lora_matmul": 4 * active_count(gates) - len(gates)},
+        lambda cfg: {"wkv6": cfg.num_layers, "lora_matmul": 2 * cfg.num_layers})
     print(f"train rwkv {json.dumps(rwkv_stats)}", flush=True)
     print(f"rwkv local step profile: {json.dumps(rwkv_profile) if rwkv_profile else 'not measured'} [{card}]",
           flush=True)
     print(f"rwkv smoke round, card vs CPU twins: {json.dumps(smoke_train_cuda_vs_cpu(args.seed, 'rwkv6-3b'))}",
           flush=True)
+
+    # 5c. one client's local round of full-width jamba-v0.1-52b cut to one
+    #     period of 8 layers (7 Mamba, attention at layer 4; MoE at the odd
+    #     layers): 26.6 GB in bf16, where the 32 layers (~104 GB) exceed the
+    #     card's 80 GB
+    jamba_cfg = get_config("jamba-v0.1-52b").replace(num_layers=8)
+    jamba_stats, jamba_profile, jamba_launches = train_full(
+        ops, card, args.seed, jamba_cfg, lambda gates: jamba_round_launches(jamba_cfg, gates),
+        lambda cfg: {"mamba_scan": sum(layer_kind(cfg, l) == "mamba" for l in range(cfg.num_layers)),
+                     "flash_attention": sum(layer_kind(cfg, l) == "attn" for l in range(cfg.num_layers)),
+                     "lora_matmul": 2 * cfg.num_layers})
+    print(f"train jamba {json.dumps(jamba_stats)}", flush=True)
+    print(f"jamba local step profile: {json.dumps(jamba_profile) if jamba_profile else 'not measured'} [{card}]",
+          flush=True)
+    print(f"jamba smoke round, card vs CPU twins: "
+          f"{json.dumps(smoke_train_cuda_vs_cpu(args.seed, 'jamba-v0.1-52b'))}", flush=True)
 
     # 6. kernels line: each path's shapes (bf16) and launches; q and v
     #    projections summed for segmented_lora and lora_matmul (forward)
@@ -791,6 +964,8 @@ def main() -> int:
         check(train_launches[name] > 0, f"{name} never launched in the local round: {train_launches}")
     for name in ("wkv6", "wkv6_bwd"):
         check(rwkv_launches[name] > 0, f"{name} never launched in the rwkv6-3b local round: {rwkv_launches}")
+    for name in ("mamba_scan", "mamba_scan_bwd"):
+        check(jamba_launches[name] > 0, f"{name} never launched in the jamba local round: {jamba_launches}")
     q_case, v_case = seg[(torch.bfloat16, 2048)], seg[(torch.bfloat16, 1024)]
     d_case = dec[torch.bfloat16]
     lq, lv = lora[(torch.bfloat16, 2048)], lora[(torch.bfloat16, 1024)]
@@ -857,6 +1032,24 @@ def main() -> int:
             "max_abs_err": wkv["bwd_max_abs_err"], "ms": wkv["bwd_ms"], "plain_ms": wkv["plain_bwd_ms"],
             "bound_ms": wkv["bwd_bound_ms"], "bound_by": wkv["bwd_bound_by"], "library_ms": wkv["library_bwd_ms"],
             "shape": "backward (dr, dk, dv, dlogw, du), " + wkv["shape"],
+        },
+        {
+            "name": "mamba_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+            "replaces": "src/repro/kernels/mamba_scan.py:54",
+            "launches": jamba_launches["mamba_scan"],
+            **{key: msc[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "bound_terms_ms": msc["bound_terms_ms"], "shape": "forward, " + msc["shape"],
+        },
+        {
+            "name": "mamba_scan_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/mamba_scan_bwd.cu",
+            "replaces": "src/repro/kernels/mamba_scan.py:54",
+            "launches": jamba_launches["mamba_scan_bwd"],
+            "max_abs_err": msc["bwd_max_abs_err"], "ms": msc["bwd_ms"], "plain_ms": msc["plain_bwd_ms"],
+            "bound_ms": msc["bwd_bound_ms"], "bound_by": msc["bwd_bound_by"], "library_ms": msc["library_bwd_ms"],
+            "bound_terms_ms": msc["bwd_bound_terms_ms"],
+            "shape": "backward (d_dt, dx, dB, dC, dA, dD), " + msc["shape"],
         },
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

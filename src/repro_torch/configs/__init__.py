@@ -3,12 +3,12 @@
 ``get_config(arch_id)`` returns the FULL configuration;
 ``get_config(arch_id, smoke=True)`` the reduced variant the CPU tests use.
 """
-from repro_torch.configs import qwen3_1_7b, rwkv6_3b
+from repro_torch.configs import jamba_v0_1_52b, qwen3_1_7b, rwkv6_3b
 from repro_torch.configs.base import (
-    FederatedConfig, ModelConfig, PEFTConfig, RWKVConfig, STLDConfig, TrainConfig,
+    FederatedConfig, MambaConfig, ModelConfig, PEFTConfig, RWKVConfig, STLDConfig, TrainConfig,
 )
 
-_BY_ID = {m.ARCH_ID: m for m in (qwen3_1_7b, rwkv6_3b)}
+_BY_ID = {m.ARCH_ID: m for m in (qwen3_1_7b, rwkv6_3b, jamba_v0_1_52b)}
 
 
 def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
@@ -19,5 +19,5 @@ def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
 
 
 __all__ = [
-    "FederatedConfig", "ModelConfig", "PEFTConfig", "RWKVConfig", "STLDConfig", "TrainConfig", "get_config",
+    "FederatedConfig", "MambaConfig", "ModelConfig", "PEFTConfig", "RWKVConfig", "STLDConfig", "TrainConfig", "get_config",
 ]

@@ -1,15 +1,29 @@
 """Model and PEFT configuration for the PyTorch port.
 
 A copy of the fields of ``repro.configs.base`` that the serving and
-local-training slices read (the dense family, and the ``ssm`` family of
-RWKV6).  The port keeps its own copy so that it never imports the JAX
+local-training slices read (the dense family, the ``ssm`` family of RWKV6
+and the ``hybrid`` family of jamba).  The port keeps its own copy so that it never imports the JAX
 package; the field names, defaults and meanings are the same.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Optional
+
+
+@dataclass(frozen=True)
+class MambaConfig:
+    """Selective-SSM (Mamba) block hyper-parameters (used by hybrid archs)."""
+
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0  # 0 -> ceil(d_model / 16)
+
+    def resolved_dt_rank(self, d_model: int) -> int:
+        return self.dt_rank if self.dt_rank > 0 else max(1, -(-d_model // 16))
 
 
 @dataclass(frozen=True)
@@ -24,8 +38,9 @@ class RWKVConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """Decoder description: ``family`` is ``dense`` (attention layers) or
-    ``ssm`` (RWKV6 layers), as in the JAX package."""
+    """Decoder description: ``family`` is ``dense`` (attention layers),
+    ``ssm`` (RWKV6 layers) or ``hybrid`` (Mamba and attention layers,
+    MoE every ``moe_every`` layers), as in the JAX package."""
 
     name: str
     family: str
@@ -42,6 +57,19 @@ class ModelConfig:
     rope_theta: float = 10_000.0
     attention_bias: bool = False
 
+    num_experts: int = 0
+    top_k: int = 0
+    moe_every: int = 1  # a layer l hosts MoE iff l % moe_every == moe_offset
+    moe_offset: int = 0
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
+    shared_expert: bool = False
+    moe_dispatch: str = "einsum"  # einsum (GShard one-hot) | gather (not ported)
+
+    attn_every: int = 0  # 0 = every layer is attention
+    attn_offset: int = 0  # jamba: attention at l % attn_every == attn_offset
+    mamba: Optional[MambaConfig] = None
+
     rwkv: Optional[RWKVConfig] = None
 
     norm_eps: float = 1e-5
@@ -52,6 +80,26 @@ class ModelConfig:
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim if self.head_dim > 0 else self.d_model // self.num_heads
+
+    def is_attention_layer(self, l: int) -> bool:
+        if self.attn_every <= 0:
+            return True
+        return l % self.attn_every == self.attn_offset
+
+    def is_moe_layer(self, l: int) -> bool:
+        if self.num_experts <= 0:
+            return False
+        return l % self.moe_every == self.moe_offset
+
+    @property
+    def layer_period(self) -> int:
+        """Smallest period after which the layer pattern repeats."""
+        p = 1
+        if self.attn_every > 0:
+            p = math.lcm(p, self.attn_every)
+        if self.num_experts > 0:
+            p = math.lcm(p, self.moe_every)
+        return p
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

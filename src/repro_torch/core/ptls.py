@@ -5,8 +5,7 @@ Per-layer importance (Eq. 6) is the STLD-masked average gradient norm
     I_l = (1 / sum_b (1 - d_l^b)) * sum_b g_l^b (1 - d_l^b)
 
 The server half (the shared-layer mask and the masked layer mean) is not
-ported yet.  PEFT trees are in the stacked layout: every leaf has a leading
-``(L, ...)`` layer axis.
+ported yet.  PEFT trees are in either layout of ``models.stacking``.
 """
 from __future__ import annotations
 
@@ -16,7 +15,21 @@ from repro_torch.models import stacking
 
 
 def layer_grad_norms(peft_grads) -> torch.Tensor:
-    """L2 norm of each layer's PEFT gradient, shape ``(L,)`` float32."""
+    """L2 norm of each layer's PEFT gradient, shape ``(L,)`` float32.
+
+    Stacked layout: per-leaf trailing-axis sums of squares, added over the
+    leaves.  Per-layer list (a heterogeneous hybrid stack), as the
+    reference's list branch: each layer's per-leaf sums of squares added
+    in leaf order (0 for a layer without leaves), stacked.
+    """
+    if not stacking.is_stacked(peft_grads):
+        device = next((x.device for x in stacking.tree_leaves(peft_grads)), None)
+        norms = []
+        for layer in peft_grads:
+            leaves = stacking.tree_leaves(layer)
+            sq = sum(torch.sum(torch.square(x.float())) for x in leaves)
+            norms.append(torch.sqrt(sq) if leaves else torch.zeros((), dtype=torch.float32, device=device))
+        return torch.stack(norms)
     leaves = stacking.tree_leaves(peft_grads)
     if not leaves:
         raise ValueError("layer_grad_norms needs a tree with leaves (the port's PEFT method is LoRA)")

@@ -59,9 +59,10 @@ def make_client_fns(cfg, peft_cfg, stld_cfg, train_cfg, *, device=None) -> Clien
     shape = unit_shape(stld_cfg.distribution, num_layers, generator=torch.Generator().manual_seed(0))
 
     def loss_fn(peft_params, base_params, tokens, targets, mask, drops):
-        logits, _, _ = model_apply(base_params, cfg, {"tokens": tokens}, drops=drops, peft=peft_params,
-                                   lora_scale=lora_sc)
-        return softmax_xent(logits, targets, mask)
+        logits, aux, _ = model_apply(base_params, cfg, {"tokens": tokens}, drops=drops, peft=peft_params,
+                                     lora_scale=lora_sc)
+        loss, metrics = softmax_xent(logits, targets, mask)
+        return loss + cfg.router_aux_coef * aux, metrics  # the metrics' loss stays the cross-entropy
 
     grad_fn = value_and_grad(loss_fn)
 

@@ -20,6 +20,7 @@ from typing import Dict, Iterable
 
 KERNELS = (
     "segmented_lora", "flash_decode", "flash_attention", "flash_attention_bwd", "lora_matmul", "wkv6", "wkv6_bwd",
+    "mamba_scan", "mamba_scan_bwd",
 )
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"

@@ -3,9 +3,10 @@
 Each wrapper chooses by the device of the tensors it is given: a CPU tensor
 runs the plain twin in ``ref``; a CUDA tensor launches the hand-written
 kernel, or raises.  A kernel that fails to build or launch is an error,
-never a silent fall back to the twin.  ``wkv6`` is the one wrapper whose
-CPU path runs inside its ``autograd.Function``: forward ``wkv6_plain``,
-backward ``wkv6_bwd_plain``, so the CPU tests hold the backward twin too.
+never a silent fall back to the twin.  ``wkv6`` and ``mamba_scan`` run
+their CPU path inside their ``autograd.Function``: forward ``wkv6_plain``
+and ``mamba_scan_plain``, backward ``wkv6_bwd_plain`` and
+``mamba_scan_bwd_plain``, so the CPU tests hold the backward twins too.
 
 ``launch_counts`` counts the kernel launches of each wrapper (the CPU twin
 is not counted), so a run can show that its main path went through the
@@ -27,6 +28,8 @@ MAX_HEAD_DIM = 256  # csrc/flash_decode.cu MAX_D
 MAX_ATTN_HEAD_DIM = 128  # csrc/tiles.cuh MAX_D, flash_attention forward and backward
 WKV_HEAD_DIMS = (16, 32, 64)  # csrc/wkv6_common.cuh wkv_supported_head_dim
 WKV_CHUNK = 16  # csrc/wkv6_common.cuh WKV_CHUNK: the backward saves one state per chunk
+MAMBA_STATE_DIMS = (8, 16)  # csrc/mamba_common.cuh mamba_supported_state_dim
+MAMBA_THREADS = 128  # csrc/mamba_common.cuh MAMBA_THREADS: channels per block
 
 launch_counts: Dict[str, int] = {name: 0 for name in _build.KERNELS}
 
@@ -59,6 +62,11 @@ _SIGNATURES = {
     "wkv6_bwd": (
         "wkv6_bwd_launch",
         [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    ),
+    "mamba_scan": ("mamba_scan_fwd_launch", [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "mamba_scan_bwd": (
+        "mamba_scan_bwd_launch",
+        [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     ),
 }
 _entry_points: Dict[str, ctypes._CFuncPtr] = {}
@@ -429,3 +437,98 @@ def wkv6(r, k, v, logw, u, s0=None):
         for t in tensors:
             _require(t.is_contiguous(), "wkv6 takes contiguous tensors")
     return _WKV6.apply(r, k, v, logw, u, s0)
+
+
+def _mamba_fwd(dt, x, bmat, cmat, a, dvec):
+    bsz, s, d = x.shape
+    n = a.shape[1]
+    y = torch.empty_like(x)
+    state = torch.empty((bsz, d, n), dtype=torch.float32, device=x.device)
+    err = _entry("mamba_scan")(
+        _DTYPE_CODE[x.dtype], dt.data_ptr(), x.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), a.data_ptr(),
+        dvec.data_ptr(), y.data_ptr(), state.data_ptr(), bsz, s, d, n, _stream(x),
+    )
+    _check_launch("mamba_scan", err)
+    return y, state
+
+
+def _mamba_bwd(dt, x, bmat, cmat, a, dvec, dy):
+    bsz, s, d = x.shape
+    n = a.shape[1]
+    d_dt, dx = torch.empty_like(dt), torch.empty_like(x)
+    db, dc = torch.empty_like(bmat), torch.empty_like(cmat)
+    da, dd = torch.empty_like(a), torch.empty_like(dvec)
+    # scratch, freed on return (the caching allocator hands it out again
+    # only to work queued after these kernels on this stream): the state
+    # entering each chunk, per-block partial sums of dB and dC over the
+    # block's channels, per-row partial sums of dA and dD
+    n_chunks = -(-s // (128 // n))  # csrc/mamba_common.cuh MAMBA_CHUNK<N>: 128 / N tokens a chunk
+    n_blocks = -(-d // MAMBA_THREADS)
+    states = torch.empty((bsz, n_chunks, n, d), dtype=torch.float32, device=x.device)
+    bc_part = torch.empty((bsz, n_blocks, s, 2 * n), dtype=torch.float32, device=x.device)
+    da_part = torch.empty((bsz, n, d), dtype=torch.float32, device=x.device)
+    dd_part = torch.empty((bsz, d), dtype=torch.float32, device=x.device)
+    err = _entry("mamba_scan_bwd")(
+        _DTYPE_CODE[x.dtype], dt.data_ptr(), x.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), a.data_ptr(),
+        dvec.data_ptr(), dy.data_ptr(), d_dt.data_ptr(), dx.data_ptr(), db.data_ptr(), dc.data_ptr(), da.data_ptr(),
+        dd.data_ptr(), states.data_ptr(), bc_part.data_ptr(), da_part.data_ptr(), dd_part.data_ptr(),
+        bsz, s, d, n, _stream(x),
+    )
+    _check_launch("mamba_scan_bwd", err)
+    return d_dt, dx, db, dc, da, dd
+
+
+class _MambaScan(torch.autograd.Function):
+    """The forward saves its inputs only; the backward recomputes the
+    states (the ``mamba_scan_bwd`` kernel on the card,
+    ``ref.mamba_scan_bwd_plain`` on the CPU).  The final state is returned
+    but takes no gradient."""
+
+    @staticmethod
+    def forward(ctx, dt, x, bmat, cmat, a, dvec):
+        ctx.save_for_backward(dt, x, bmat, cmat, a, dvec)
+        if x.device.type == "cpu":
+            y, state = ref.mamba_scan_plain(dt, x, bmat, cmat, a, dvec)
+        else:
+            y, state = _mamba_fwd(dt, x, bmat, cmat, a, dvec)
+        ctx.mark_non_differentiable(state)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, _dstate):
+        dt, x, bmat, cmat, a, dvec = ctx.saved_tensors
+        dy = dy.to(x.dtype).contiguous()
+        if x.device.type == "cpu":
+            grads = ref.mamba_scan_bwd_plain(dt, x, bmat, cmat, a, dvec, dy)
+        else:
+            grads = _mamba_bwd(dt, x, bmat, cmat, a, dvec, dy)
+        return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad))
+
+
+def mamba_scan(dt, x, bmat, cmat, a, dvec):
+    """The Mamba selective scan (``ref.mamba_scan_plain``) from a zero
+    state, differentiable in every input.  dt, x: (B, S, D) of one dtype
+    (float32 or bfloat16); bmat, cmat: (B, S, N) float32; a: (D, N) float32
+    (negative); dvec: (D,) float32; N in ``MAMBA_STATE_DIMS``.  Returns (y
+    (B, S, D) in ``x.dtype``, final state (B, D, N) float32, which takes no
+    gradient).  On the card: the ``mamba_scan`` kernel forward and the
+    ``mamba_scan_bwd`` kernel backward; on the CPU: the plain twins,
+    forward and backward.
+    """
+    if not _on_cpu(dt, x, bmat, cmat, a, dvec):
+        bsz, s, d = x.shape
+        _require(x.dtype in _DTYPE_CODE, f"mamba_scan takes float32 or bfloat16 dt and x, got {x.dtype}")
+        _require(dt.dtype == x.dtype, f"dt and x must share one dtype, got {dt.dtype}, {x.dtype}")
+        _require(bmat.dtype == cmat.dtype == a.dtype == dvec.dtype == torch.float32,
+                 f"B, C, A and D must be float32, got {bmat.dtype}, {cmat.dtype}, {a.dtype}, {dvec.dtype}")
+        _require(a.ndim == 2 and a.shape[0] == d, f"A must be ({d}, N), got {tuple(a.shape)}")
+        n = a.shape[1]
+        _require(tuple(dt.shape) == (bsz, s, d) and tuple(bmat.shape) == tuple(cmat.shape) == (bsz, s, n)
+                 and tuple(dvec.shape) == (d,),
+                 f"shapes do not agree: dt {tuple(dt.shape)}, x {tuple(x.shape)}, B {tuple(bmat.shape)}, "
+                 f"C {tuple(cmat.shape)}, A {tuple(a.shape)}, D {tuple(dvec.shape)}")
+        _require(n in MAMBA_STATE_DIMS, f"mamba_scan state dim {n} not in {MAMBA_STATE_DIMS}")
+        _require(s > 0 and d > 0, "mamba_scan needs at least one token and one channel")
+        for t in (dt, x, bmat, cmat, a, dvec):
+            _require(t.is_contiguous(), "mamba_scan takes contiguous tensors")
+    return _MambaScan.apply(dt, x, bmat, cmat, a, dvec)

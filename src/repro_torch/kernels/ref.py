@@ -157,3 +157,72 @@ def wkv6_bwd_plain(r, k, v, logw, u, s0, dout, dstate=None):
         g = wf[:, t, :, :, None] * g + rf[:, t, :, :, None] * do[:, t, :, None, :]
     du = torch.sum(rf * kf * vdo, dim=(0, 1))
     return dr.to(r.dtype), dk.to(r.dtype), dv.to(r.dtype), dlogw, du, (g if s0 is not None else None)
+
+
+def mamba_scan_plain(dt, x, bmat, cmat, a, dvec):
+    """The selective scan token by token, as ``mamba_scan_ref``
+    (``repro/kernels/ref.py:45``), returning the final state too.  Per
+    batch row, channel d and state n, in float32::
+
+        h_t[d, n] = exp(dt_t[d] A[d, n]) h_{t-1}[d, n] + (dt_t[d] x_t[d]) B_t[n]
+        y_t[d]    = sum_n h_t[d, n] C_t[n] + D[d] x_t[d]
+
+    dt, x: (B, S, D); bmat, cmat: (B, S, N); a: (D, N) (negative); dvec:
+    (D,).  Returns (y (B, S, D) in ``x.dtype``, final state (B, D, N)
+    float32).
+    """
+    dtf, xf, bf, cf, af, df = (t.float() for t in (dt, x, bmat, cmat, a, dvec))
+    b, s, d = x.shape
+    h = torch.zeros((b, d, af.shape[-1]), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(s):
+        a_t = torch.exp(dtf[:, t, :, None] * af[None])  # (B, D, N)
+        h = a_t * h + (dtf[:, t] * xf[:, t])[..., None] * bf[:, t, None, :]
+        ys.append(torch.sum(h * cf[:, t, None, :], dim=-1) + df[None] * xf[:, t])
+    y = torch.stack(ys, dim=1) if ys else torch.zeros_like(xf)
+    return y.to(x.dtype), h
+
+
+def mamba_scan_bwd_plain(dt, x, bmat, cmat, a, dvec, dy):
+    """The backward of ``mamba_scan_plain`` (the final state takes no
+    cotangent), step by step.  With a_t = exp(dt_t A), u_t = dt_t x_t, h_t
+    the state after token t (h_{-1} = 0) and g_t = dL/dh_t::
+
+        g_t       = a_{t+1} g_{t+1} + dy_t C_t          (g_S = 0)
+        q_t       = g_t a_t h_{t-1}
+        d_dt_t[d] = sum_n q_t[d, n] A[d, n] + x_t[d] du_t[d],  du_t[d] = sum_n g_t[d, n] B_t[n]
+        dx_t[d]   = dt_t[d] du_t[d] + D[d] dy_t[d]
+        dB_t[n]   = sum_d g_t[d, n] u_t[d]
+        dC_t[n]   = sum_d dy_t[d] h_t[d, n]
+        dA[d, n]  = sum_{b, t} q_t[d, n] dt_t[d]
+        dD[d]     = sum_{b, t} dy_t[d] x_t[d]
+
+    Every per-token state is kept (the kernel recomputes them instead).
+    Returns (d_dt, dx) in the inputs' dtypes and dB, dC (B, S, N), dA
+    (D, N), dD (D,) in float32.
+    """
+    dtf, xf, bf, cf, af, df, dyf = (t.float() for t in (dt, x, bmat, cmat, a, dvec, dy))
+    b, s, d = x.shape
+    n = af.shape[-1]
+    states = [torch.zeros((b, d, n), dtype=torch.float32, device=x.device)]
+    for t in range(s):
+        a_t = torch.exp(dtf[:, t, :, None] * af[None])
+        states.append(a_t * states[-1] + (dtf[:, t] * xf[:, t])[..., None] * bf[:, t, None, :])
+    g = torch.zeros_like(states[0])
+    d_dt, dx = torch.empty_like(dtf), torch.empty_like(xf)
+    db, dc = torch.empty_like(bf), torch.empty_like(cf)
+    da = torch.zeros_like(af)
+    for t in reversed(range(s)):
+        dy_t, dt_t, x_t = dyf[:, t], dtf[:, t], xf[:, t]
+        g = g + dy_t[..., None] * cf[:, t, None, :]  # dL/dh_t
+        dc[:, t] = torch.einsum("bd,bdn->bn", dy_t, states[t + 1])
+        db[:, t] = torch.einsum("bdn,bd->bn", g, dt_t * x_t)
+        du = torch.einsum("bdn,bn->bd", g, bf[:, t])
+        a_t = torch.exp(dt_t[..., None] * af[None])
+        q = g * a_t * states[t]
+        d_dt[:, t] = torch.sum(q * af[None], dim=-1) + x_t * du
+        dx[:, t] = dt_t * du + df[None] * dy_t
+        da = da + torch.einsum("bdn,bd->dn", q, dt_t)
+        g = a_t * g
+    dd = torch.sum(dyf * xf, dim=(0, 1))
+    return d_dt.to(dt.dtype), dx.to(x.dtype), db, dc, da, dd

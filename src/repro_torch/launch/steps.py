@@ -64,9 +64,10 @@ def make_train_step(cfg, peft_cfg, train_cfg, *, stld_mode: str = "off", mean_ra
         rates = torch.clamp(unit_shape(distribution, cfg.num_layers) * mean_rate, 0.0, 0.95)
 
     def loss_fn(peft_params, base_params, inputs, targets, drops):
-        logits, _, _ = model_apply(base_params, cfg, {"tokens": inputs}, drops=drops, peft=peft_params,
-                                   lora_scale=lora_sc)
-        return softmax_xent(logits, targets)
+        logits, aux, _ = model_apply(base_params, cfg, {"tokens": inputs}, drops=drops, peft=peft_params,
+                                     lora_scale=lora_sc)
+        loss, metrics = softmax_xent(logits, targets)
+        return loss + cfg.router_aux_coef * aux, metrics
 
     grad_fn = value_and_grad(loss_fn)
 
@@ -97,7 +98,7 @@ def make_serve_step(cfg):
     @torch.no_grad()
     def serve_step(params, token, pos, caches, peft=None):
         positions = pos[:, None]  # (B, 1)
-        logits, caches = lm_apply(params, cfg, token, positions=positions, caches=caches, peft=peft)
+        logits, _, caches = lm_apply(params, cfg, token, positions=positions, caches=caches, peft=peft)
         logits = logits[:, -1]
         next_token = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
         return logits, next_token, caches

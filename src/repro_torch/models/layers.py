@@ -1,8 +1,9 @@
 """The residual blocks of the port's decoders, and the dense decode cache.
 
 Layer kinds (``layer_kind(cfg, l)``), as in ``repro.models.layers``:
-  * ``attn`` — pre-norm GQA attention + SwiGLU MLP   (dense archs)
-  * ``rwkv`` — RWKV6 time-mix + channel-mix           (ssm archs)
+  * ``attn``  — pre-norm GQA attention + (MoE | SwiGLU MLP)
+  * ``mamba`` — pre-norm Mamba block + (MoE | SwiGLU MLP)   (hybrid archs)
+  * ``rwkv``  — RWKV6 time-mix + channel-mix                (ssm archs)
 """
 from __future__ import annotations
 
@@ -11,18 +12,28 @@ from typing import Optional
 import torch
 
 from repro_torch.nn.attention import attention_apply
+from repro_torch.nn.mamba import mamba_apply
 from repro_torch.nn.mlp import mlp_apply
+from repro_torch.nn.moe import moe_apply
 from repro_torch.nn.norms import apply_rmsnorm
 from repro_torch.nn.rwkv import channel_mix_apply, time_mix_apply
 
 
 def layer_kind(cfg, l: int) -> str:
-    return "rwkv" if cfg.family == "ssm" else "attn"
+    if cfg.family == "ssm":
+        return "rwkv"
+    if cfg.family == "hybrid" and not cfg.is_attention_layer(l):
+        return "mamba"
+    return "attn"
 
 
 def params_kind(params) -> str:
     """The layer kind, from the layer's parameter structure."""
-    return "rwkv" if "time_mix" in params else "attn"
+    if "time_mix" in params:
+        return "rwkv"
+    if "mamba" in params:
+        return "mamba"
+    return "attn"
 
 
 def init_layer_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device=None):
@@ -42,11 +53,13 @@ def init_layer_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device
 
 def layer_apply(params, cfg, h, *, positions, causal=True, cache: Optional[dict] = None,
                 peft: Optional[dict] = None, lora_scale: float = 1.0):
-    """One residual block: pre-norm attention + SwiGLU MLP, or RWKV6
-    time-mix + channel-mix (LoRA on the channel-mix ``up`` and ``down``).
-    Returns (h, new_cache)."""
+    """One residual block: RWKV6 time-mix + channel-mix (LoRA on the
+    channel-mix ``up`` and ``down``), or a pre-norm mixer (attention, or
+    Mamba with LoRA on ``in`` and ``out``) followed by a pre-norm MoE or
+    SwiGLU MLP.  Returns (h, the MoE aux loss (0.0 without MoE), new_cache)."""
     peft = peft or {}
-    if params_kind(params) == "rwkv":
+    kind = params_kind(params)
+    if kind == "rwkv":
         tm_out, tm_state = time_mix_apply(
             params["time_mix"], cfg, apply_rmsnorm(params["norm1"], h, cfg.norm_eps), state=cache
         )
@@ -56,12 +69,19 @@ def layer_apply(params, cfg, h, *, positions, causal=True, cache: Optional[dict]
             peft=peft.get("cm"), lora_scale=lora_scale,
         )
         h = h + cm_out
-        return h, ({**tm_state, **cm_state} if cache is not None else None)
-    out, new_cache = attention_apply(
-        params["attn"], cfg, apply_rmsnorm(params["norm1"], h, cfg.norm_eps), positions,
-        causal=causal, cache=cache, peft=peft.get("attn"), lora_scale=lora_scale,
-    )
+        return h, 0.0, ({**tm_state, **cm_state} if cache is not None else None)
+    x = apply_rmsnorm(params["norm1"], h, cfg.norm_eps)
+    if kind == "mamba":
+        out, _ = mamba_apply(params["mamba"], cfg, x, state=cache, peft=peft.get("mamba"), lora_scale=lora_scale)
+        new_cache = None  # a state raises in mamba_apply: the decode state is not ported
+    else:
+        out, new_cache = attention_apply(params["attn"], cfg, x, positions, causal=causal, cache=cache,
+                                         peft=peft.get("attn"), lora_scale=lora_scale)
     h = h + out
     x = apply_rmsnorm(params["norm2"], h, cfg.norm_eps)
-    h = h + mlp_apply(params["mlp"], cfg, x, peft.get("mlp"), lora_scale)
-    return h, new_cache
+    aux = 0.0
+    if "moe" in params:
+        out, aux = moe_apply(params["moe"], cfg, x)
+    else:
+        out = mlp_apply(params["mlp"], cfg, x, peft.get("mlp"), lora_scale)
+    return h + out, aux, new_cache

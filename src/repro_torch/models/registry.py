@@ -1,9 +1,10 @@
-"""Model registry of the port: the ``dense`` and ``ssm`` (RWKV6) families.
+"""Model registry of the port: the ``dense``, ``ssm`` (RWKV6) and
+``hybrid`` (jamba) families.
 
 ``init_params(cfg, generator)`` -> parameter tree;
 ``model_apply(params, cfg, batch, **kw)`` -> (logits, aux, caches), with
-``batch = {"tokens": (B, S)}`` and ``aux`` the router loss (0.0 for a
-dense model), as in ``repro.models.registry``.
+``batch = {"tokens": (B, S)}`` and ``aux`` the router loss summed over the
+active MoE layers (0.0 without MoE), as in ``repro.models.registry``.
 """
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import torch
 
 from repro_torch.models import transformer
 
-FAMILIES = ("dense", "ssm")
+FAMILIES = ("dense", "ssm", "hybrid")
 
 
 def _check_family(cfg):
@@ -19,19 +20,31 @@ def _check_family(cfg):
         raise NotImplementedError(f"the port runs the {FAMILIES} families, not {cfg.family!r}")
 
 
-def init_params(cfg, generator: torch.Generator):
-    """Random parameters for ``cfg``, drawn from ``generator`` on its device."""
+def init_params(cfg, generator: torch.Generator, place: bool = False):
+    """Random parameters for ``cfg``, drawn from ``generator`` on its device.
+
+    With ``place``, each part is placed as soon as it is drawn, giving
+    ``place_params(init_params(cfg, generator), cfg, generator.device)``
+    while holding at most one layer's float32 draws (a hybrid stack) or one
+    top-level entry's (a stacked one)."""
     _check_family(cfg)
-    return transformer.init_lm(cfg, generator)
+    if not place:
+        return transformer.init_lm(cfg, generator)
+    dtype = getattr(torch, cfg.dtype)
+    return transformer.init_lm(
+        cfg, generator, place=lambda name, tree: _cast_matmul_weights({name: tree}, dtype, generator.device)[name]
+    )
 
 
 _MATMUL_WEIGHTS = ("w", "b", "embed", "lm_head")
 
 
 def _cast_matmul_weights(tree, dtype, device):
+    if isinstance(tree, (list, tuple)):
+        return [_cast_matmul_weights(layer, dtype, device) for layer in tree]
     out = {}
     for key, value in tree.items():
-        if isinstance(value, dict):
+        if isinstance(value, (dict, list, tuple)):
             out[key] = _cast_matmul_weights(value, dtype, device)
         elif key in _MATMUL_WEIGHTS:
             out[key] = value.to(device=device, dtype=dtype)
@@ -48,8 +61,11 @@ def place_params(params, cfg, device=None):
     float32: the decay path (``w0``, ``wd_a``, ``wd_b``) and the bonus ``u``
     compute in float32, and the low-rank ``ts_lora_*``, ``wg_*`` and the
     ``mu*`` mixes are cast at the point of use, as the JAX package casts
-    them.  The float32 masters are not kept, and the
-    tree takes no gradient (the base is frozen)."""
+    them.  In a hybrid layer the projections' ``w`` and ``b`` (Mamba
+    ``in_proj``, ``x_proj``, ``dt_proj``, ``out_proj``; the router and the
+    experts) are cast; ``A_log`` and ``D`` stay float32 and the conv
+    weights are cast at the point of use.  The float32 masters are not
+    kept, and the tree takes no gradient (the base is frozen)."""
     device = torch.device("cuda" if device is None else device)
     return _cast_matmul_weights(params, getattr(torch, cfg.dtype), device)
 
@@ -57,8 +73,7 @@ def place_params(params, cfg, device=None):
 def model_apply(params, cfg, batch, *, drops=None, caches=None, positions=None, peft=None,
                 lora_scale: float = 1.0):
     _check_family(cfg)
-    logits, new_caches = transformer.lm_apply(
+    return transformer.lm_apply(
         params, cfg, batch["tokens"], positions=positions, drops=drops, caches=caches, peft=peft,
         lora_scale=lora_scale,
     )
-    return logits, 0.0, new_caches

@@ -1,18 +1,29 @@
-"""Stacked layer layout: one tree whose leaves carry a leading ``(L, ...)``
-layer axis, as in ``repro.models.stacking``.  The port's layer loop runs in
-Python over ``layer_view(tree, l)`` slices, which are views."""
+"""The two layouts of a layer stack, as in ``repro.models.stacking``:
+
+* **stacked** -- one tree whose leaves carry a leading ``(L, ...)`` layer
+  axis (homogeneous stacks: the dense and RWKV6 decoders);
+* **list** -- one tree per layer (heterogeneous stacks: jamba's
+  Mamba/attention and MoE/MLP interleave).
+
+The port's layer loop runs in Python over ``layer_view(tree, l)``, a slice
+view in the stacked layout and the layer's own tree in the list layout.
+"""
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
+
+import torch
 
 from repro_torch.nn.linear import AdapterPool
 
 
 def tree_map(fn: Callable, tree):
-    """Apply ``fn`` to every leaf of a tree of dicts and ``AdapterPool``s."""
+    """Apply ``fn`` to every leaf of a tree of dicts, lists and ``AdapterPool``s."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
     if isinstance(tree, AdapterPool):
         return AdapterPool(**{f.name: fn(getattr(tree, f.name)) for f in dataclasses.fields(tree)})
     return fn(tree)
@@ -22,6 +33,31 @@ def tree_leaves(tree) -> list:
     leaves = []
     tree_map(leaves.append, tree)
     return leaves
+
+
+def _signature(tree):
+    """Structure, shapes and dtypes of a tree (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return tuple((k, _signature(tree[k])) for k in sorted(tree))
+    return (tuple(tree.shape), tree.dtype)
+
+
+def is_stackable(trees: Sequence) -> bool:
+    """True when every per-layer tree has one structure and one leaf shape
+    and dtype (a homogeneous stack)."""
+    return len({_signature(t) for t in trees}) <= 1
+
+
+def _stack(trees: Sequence):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(list(trees))
+
+
+def maybe_stack(trees: Sequence):
+    """A freshly built per-layer list in the layout of ``maybe_stack(...,
+    "auto")``: stacked when homogeneous, the list otherwise."""
+    return _stack(trees) if trees and is_stackable(trees) else list(trees)
 
 
 def is_stacked(layers) -> bool:

@@ -1,18 +1,23 @@
-"""The decoders of the port (dense, and the ``ssm`` family of RWKV6): init,
-dense decode caches and the forward pass.
+"""The decoders of the port (dense, the ``ssm`` family of RWKV6 and the
+``hybrid`` family of jamba): init, dense decode caches and the forward pass.
 
-The layer stack keeps the stacked ``(L, ...)`` layout of the JAX package;
-``stack_apply`` loops over the layers in Python (the JAX ``unroll`` mode).
-STLD gates (``drops``) are host-side booleans: a dropped layer is skipped
-by a Python branch, so it launches no kernel and saves no activation.
+Homogeneous stacks keep the stacked ``(L, ...)`` layout of the JAX
+package; jamba's heterogeneous stack is a per-layer list, as there.
+``stack_apply`` loops over the layers in Python: it computes what the JAX
+``unroll`` mode computes, and what its ``group`` mode (a ``lax.scan`` over
+periods of the layer pattern) computes too.  STLD gates (``drops``) are
+host-side booleans: a dropped layer is skipped by a Python branch, so it
+launches no kernel and saves no activation.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import stacking
-from repro_torch.models.layers import init_layer_cache, layer_apply, layer_kind, params_kind
+from repro_torch.models.layers import init_layer_cache, layer_apply, layer_kind
 from repro_torch.nn.initializers import normal_init, truncated_lecun
+from repro_torch.nn.mamba import init_mamba
+from repro_torch.nn.moe import init_moe
 from repro_torch.nn.norms import apply_rmsnorm
 from repro_torch.nn.rwkv import init_rwkv_channel_mix, init_rwkv_time_mix
 
@@ -28,44 +33,79 @@ def _init_rwkv_layers(cfg, generator: torch.Generator):
     }
 
 
-def _init_attn_layers(cfg, generator: torch.Generator):
-    """The stacked ``(L, ...)`` layers of a dense decoder."""
-    d, hd, L = cfg.d_model, cfg.resolved_head_dim, cfg.num_layers
-    h, kv, ff = cfg.num_heads, cfg.num_kv_heads, cfg.d_ff
-    device = generator.device
+def _proj(generator, lead, d_in, d_out):
+    return {"w": truncated_lecun(generator, (*lead, d_in, d_out), fan_in_axis=len(lead))}
 
-    def proj(d_in, d_out):
-        return {"w": truncated_lecun(generator, (L, d_in, d_out), fan_in_axis=1)}
 
-    def norm(dim):
-        return {"scale": torch.ones((L, dim), device=device)}
+def _norm(generator, lead, dim):
+    return {"scale": torch.ones((*lead, dim), device=generator.device)}
 
-    attn = {"wq": proj(d, h * hd), "wk": proj(d, kv * hd), "wv": proj(d, kv * hd), "wo": proj(h * hd, d)}
+
+def _init_attention(cfg, generator, lead):
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+    attn = {"wq": _proj(generator, lead, d, h * hd), "wk": _proj(generator, lead, d, kv * hd),
+            "wv": _proj(generator, lead, d, kv * hd), "wo": _proj(generator, lead, h * hd, d)}
     if cfg.attention_bias:
         for name, width in (("wq", h * hd), ("wk", kv * hd), ("wv", kv * hd)):
-            attn[name]["b"] = torch.zeros((L, width), device=device)
+            attn[name]["b"] = torch.zeros((*lead, width), device=generator.device)
     if cfg.qk_norm:
-        attn["q_norm"] = norm(hd)
-        attn["k_norm"] = norm(hd)
+        attn["q_norm"] = _norm(generator, lead, hd)
+        attn["k_norm"] = _norm(generator, lead, hd)
+    return attn
+
+
+def _init_mlp(cfg, generator, lead):
+    d, ff = cfg.d_model, cfg.d_ff
+    return {"gate": _proj(generator, lead, d, ff), "up": _proj(generator, lead, d, ff),
+            "down": _proj(generator, lead, ff, d)}
+
+
+def _init_attn_layers(cfg, generator: torch.Generator):
+    """The stacked ``(L, ...)`` layers of a dense decoder."""
+    lead = (cfg.num_layers,)
     return {
-        "norm1": norm(d),
-        "norm2": norm(d),
-        "attn": attn,
-        "mlp": {"gate": proj(d, ff), "up": proj(d, ff), "down": proj(ff, d)},
+        "norm1": _norm(generator, lead, cfg.d_model),
+        "norm2": _norm(generator, lead, cfg.d_model),
+        "attn": _init_attention(cfg, generator, lead),
+        "mlp": _init_mlp(cfg, generator, lead),
     }
 
 
-def init_lm(cfg, generator: torch.Generator):
+def init_layer(cfg, l: int, generator: torch.Generator):
+    """Layer ``l`` of a hybrid stack (float32), as ``repro.models.layers
+    .init_layer``: a Mamba or attention mixer, then MoE or a SwiGLU MLP."""
+    p = {"norm1": _norm(generator, (), cfg.d_model), "norm2": _norm(generator, (), cfg.d_model)}
+    if layer_kind(cfg, l) == "mamba":
+        p["mamba"] = init_mamba(cfg, generator)
+    else:
+        p["attn"] = _init_attention(cfg, generator, ())
+    if cfg.is_moe_layer(l):
+        p["moe"] = init_moe(cfg, generator)
+    else:
+        p["mlp"] = _init_mlp(cfg, generator, ())
+    return p
+
+
+def init_lm(cfg, generator: torch.Generator, place=None):
     """Parameters with the shapes and dtypes of ``transformer.init_lm``
-    (stacked layout, float32), drawn on the generator's device."""
-    init_layers = _init_rwkv_layers if layer_kind(cfg, 0) == "rwkv" else _init_attn_layers
-    params = {
-        "embed": normal_init(generator, (cfg.vocab_size, cfg.d_model)),
-        "layers": init_layers(cfg, generator),
-        "final_norm": {"scale": torch.ones((cfg.d_model,), device=generator.device)},
-    }
+    (float32; stacked layout, or a per-layer list for a heterogeneous
+    hybrid stack), drawn on the generator's device.  ``place(name, tree)``,
+    when given, takes each top-level entry (``embed``, ``lm_head``,
+    ``final_norm``, and ``layers`` whole or, for a hybrid stack, layer by
+    layer) as soon as it is drawn and returns what to keep, so that the
+    float32 draws of a large hybrid model are never held whole."""
+    place = place or (lambda name, tree: tree)
+    params = {"embed": place("embed", normal_init(generator, (cfg.vocab_size, cfg.d_model)))}
+    if cfg.family == "hybrid":
+        layers = [place("layers", init_layer(cfg, l, generator)) for l in range(cfg.num_layers)]
+        params["layers"] = stacking.maybe_stack(layers)
+    else:
+        init_layers = _init_rwkv_layers if layer_kind(cfg, 0) == "rwkv" else _init_attn_layers
+        params["layers"] = place("layers", init_layers(cfg, generator))
+    params["final_norm"] = place("final_norm", {"scale": torch.ones((cfg.d_model,), device=generator.device)})
     if not cfg.tie_embeddings:
-        params["lm_head"] = normal_init(generator, (cfg.d_model, cfg.vocab_size))
+        params["lm_head"] = place("lm_head", normal_init(generator, (cfg.d_model, cfg.vocab_size)))
     return params
 
 
@@ -80,46 +120,48 @@ def init_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device=None
 
 def stack_apply(layers, cfg, h, *, positions, causal: bool = True, drops=None, caches=None,
                 peft=None, lora_scale: float = 1.0):
-    """Run the layer stack.  Returns (h, new_caches).
+    """Run the layer stack (either layout).  Returns (h, the MoE aux loss
+    summed over the active layers, new_caches).
 
     ``drops``: None or L host-side gates (a CPU bool tensor or a sequence),
     True = the layer is dropped and passes ``h`` (and its cache) through.
     """
     num_layers = stacking.stack_size(layers)
-    if caches is not None and params_kind(layers) == "rwkv":
-        raise NotImplementedError("RWKV decode states are not ported: the port trains RWKV without caches")
+    if caches is not None and cfg.family != "dense":
+        raise NotImplementedError("RWKV and Mamba decode states are not ported: the port trains them without caches")
     gates = [False] * num_layers if drops is None else [bool(d) for d in torch.as_tensor(drops).tolist()]
     if len(gates) != num_layers:
         raise ValueError(f"{len(gates)} gates for {num_layers} layers")
-    new_pos = []
+    aux_sum, new_pos = 0.0, []
     for l in range(num_layers):
         cache_l = stacking.layer_view(caches, l) if caches is not None else None
         if not gates[l]:
-            h, cache_l = layer_apply(
+            h, aux, cache_l = layer_apply(
                 stacking.layer_view(layers, l), cfg, h, positions=positions, causal=causal,
                 cache=cache_l, peft=stacking.layer_view(peft, l) if peft is not None else None,
                 lora_scale=lora_scale,
             )
+            aux_sum = aux_sum + aux
         if caches is not None:
             new_pos.append(cache_l["pos"])
     new_caches = None
     if caches is not None:
         new_caches = {"k": caches["k"], "v": caches["v"], "pos": torch.stack(new_pos)}
-    return h, new_caches
+    return h, aux_sum, new_caches
 
 
 def lm_apply(params, cfg, tokens, *, positions=None, drops=None, caches=None, peft=None,
              lora_scale: float = 1.0):
-    """Decoder-only LM forward.  tokens: (B, S) int.  Returns (logits,
-    new_caches); the caches' K/V tensors are updated in place."""
+    """Decoder-only LM forward.  tokens: (B, S) int.  Returns (logits, the
+    MoE aux loss, new_caches); the caches' K/V tensors are updated in place."""
     compute_dtype = getattr(torch, cfg.dtype)
     h = params["embed"][tokens].to(compute_dtype)
     if positions is None:
         positions = torch.arange(h.shape[1], device=h.device)
-    h, new_caches = stack_apply(
+    h, aux, new_caches = stack_apply(
         params["layers"], cfg, h, positions=positions, causal=True, drops=drops, caches=caches,
         peft=peft, lora_scale=lora_scale,
     )
     h = apply_rmsnorm(params["final_norm"], h, cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return h @ head.to(compute_dtype), new_caches
+    return h @ head.to(compute_dtype), aux, new_caches

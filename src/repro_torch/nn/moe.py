@@ -1,0 +1,114 @@
+"""Mixture of experts with GShard-style capacity dispatch, as
+``repro.nn.moe`` in its default ``einsum`` dispatch.
+
+Tokens (B, S, d) are cut into groups of at most 4 096; per group a top-k
+router (softmax in float32, iterative argmax, gates renormalised over the
+chosen experts) gives each token a position in each chosen expert's queue
+of ``capacity`` slots (overflow is dropped), and one-hot dispatch and
+combine tensors move the tokens through the experts.  The expert SwiGLU
+products are ``(E, groups * capacity, d)`` batched matmuls, which the JAX
+package also leaves to XLA outside any Pallas kernel.  The aux loss is the
+Switch load-balance loss over the first choice.  Not ported yet, and
+raising: the ``gather`` dispatch, the shared expert and the decode-time
+weight gather for at most 8 tokens.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.nn.initializers import truncated_lecun
+
+_DEFAULT_GROUP = 4096
+_WEIGHT_GATHER_MAX_TOKENS = 8  # repro/nn/moe.py: at or below, decode gathers expert weights
+
+
+def init_moe(cfg, generator: torch.Generator):
+    """One layer's router and stacked SwiGLU experts (float32), with the
+    shapes of ``repro.nn.moe.init_moe``, drawn on the generator's device."""
+    if cfg.shared_expert:
+        raise NotImplementedError("the shared expert is not ported")
+    d, ff, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+
+    def proj(d_in, d_out):
+        return {"w": truncated_lecun(generator, (e, d_in, d_out), fan_in_axis=1)}
+
+    return {
+        "router": {"w": truncated_lecun(generator, (d, e))},
+        "experts": {"gate": proj(d, ff), "up": proj(d, ff), "down": proj(ff, d)},
+    }
+
+
+def _expert_ffn(experts, x):
+    """SwiGLU of each expert on its own tokens.  x: (E, C, d) -> (E, C, d)."""
+    g = torch.matmul(x, experts["gate"]["w"].to(x.dtype))
+    u = torch.matmul(x, experts["up"]["w"].to(x.dtype))
+    return torch.matmul(F.silu(g) * u, experts["down"]["w"].to(x.dtype))
+
+
+def _one_hot(values, n: int, dtype):
+    """``jax.nn.one_hot`` of integral values: rows outside [0, n) are zero."""
+    return (values[..., None] == torch.arange(n, device=values.device, dtype=values.dtype)).to(dtype)
+
+
+def moe_apply(params, cfg, x, group_size: Optional[int] = None, dispatch_mode: Optional[str] = None):
+    """x: (B, S, d) -> (out (B, S, d) in ``x.dtype``, aux loss float32)."""
+    dispatch_mode = dispatch_mode or cfg.moe_dispatch
+    if dispatch_mode != "einsum":
+        raise NotImplementedError(f"MoE dispatch {dispatch_mode!r} is not ported; the port runs 'einsum'")
+    if "shared" in params:
+        raise NotImplementedError("the shared expert is not ported")
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.top_k
+    tokens = x.reshape(-1, d)
+    t = tokens.shape[0]
+    if t <= _WEIGHT_GATHER_MAX_TOKENS:
+        raise NotImplementedError(f"the MoE weight gather for <= {_WEIGHT_GATHER_MAX_TOKENS} tokens is not ported")
+    g = group_size or min(t, _DEFAULT_GROUP)
+    if t % g:
+        g = t  # one group for odd token counts, as the JAX package does
+    n_groups = t // g
+    xg = tokens.reshape(n_groups, g, d)
+    cap = min(int(max(k, g / e * cfg.capacity_factor * k)), g)
+
+    logits = torch.einsum("gtd,de->gte", xg, params["router"]["w"].to(x.dtype)).float()
+    probs = torch.softmax(logits, dim=-1)  # (G, g, E)
+
+    # top-k routing: take the argmax (first index on ties), mask it, repeat
+    gates, masks = [], []
+    remaining = probs
+    for _ in range(k):
+        onehot = F.one_hot(torch.argmax(remaining, dim=-1), e).to(probs.dtype)
+        gates.append(torch.sum(probs * onehot, dim=-1))
+        masks.append(onehot)
+        remaining = remaining * (1.0 - onehot)
+    gate_stack = torch.stack(gates, dim=-1)  # (G, g, k)
+    gate_stack = gate_stack / (torch.sum(gate_stack, dim=-1, keepdim=True) + 1e-9)
+
+    # load-balance aux loss over the first choice (Switch convention)
+    frac_tokens = torch.mean(masks[0], dim=1)  # (G, E)
+    mean_probs = torch.mean(probs, dim=1)
+    aux = e * torch.mean(torch.sum(frac_tokens * mean_probs, dim=-1))
+
+    # capacity: each token's position in its expert's queue, overflow dropped
+    used = torch.zeros((n_groups, e), dtype=torch.int32, device=x.device)
+    dispatch = torch.zeros((n_groups, g, e, cap), dtype=x.dtype, device=x.device)
+    combine = torch.zeros_like(dispatch)
+    for i in range(k):
+        mask_i = masks[i]  # (G, g, E)
+        pos_in_e = torch.cumsum(mask_i, dim=1) - mask_i + used[:, None, :]
+        keep = (pos_in_e < cap) * mask_i
+        used = used + torch.sum(keep, dim=1).to(torch.int32)
+        onehot_cap = _one_hot(pos_in_e, cap, x.dtype) * keep.to(x.dtype)[..., None]
+        dispatch = dispatch + onehot_cap
+        combine = combine + onehot_cap * gate_stack[..., i].to(x.dtype)[..., None, None]
+
+    expert_in = torch.einsum("gtec,gtd->gecd", dispatch, xg)  # (G, E, C, d)
+    # groups folded into each expert's token axis: one (E, G*C, d) product per projection
+    ein = expert_in.permute(1, 0, 2, 3).reshape(e, n_groups * cap, d)
+    eout = _expert_ffn(params["experts"], ein)
+    eout = eout.reshape(e, n_groups, cap, d).permute(1, 0, 2, 3)
+    out = torch.einsum("gtec,gecd->gtd", combine, eout).reshape(b, s, d)
+    return out, aux

@@ -3,31 +3,39 @@
 The frozen base holds no optimizer state: only the PEFT tree (float32) has
 moments, which is the memory argument of paper Fig. 3.  The update is the
 reference's ``p - lr * (step + wd * p)`` (not ``torch.optim.AdamW``, which
-orders the same arithmetic differently).  Trees are in the stacked layout.
+orders the same arithmetic differently).  Trees are in either layout of
+``models.stacking``: stacked, or a per-layer list (a hybrid stack).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.models.stacking import tree_leaves, tree_map
+from repro_torch.models.stacking import is_stacked, tree_leaves, tree_map
 
 
 def _zip_map(fn, *trees):
-    """``fn`` over the leaves of trees of one structure (dicts of tensors)."""
+    """``fn`` over the leaves of trees of one structure (dicts and lists of
+    tensors)."""
     first = trees[0]
     if isinstance(first, dict):
         return {k: _zip_map(fn, *(t[k] for t in trees)) for k in first}
+    if isinstance(first, (list, tuple)):
+        return [_zip_map(fn, *parts) for parts in zip(*trees)]
     return fn(*trees)
 
 
 def _global_sq_sum(grads):
-    """Sum of squares over every element, reduced layer-major as the
-    reference's stacked branch does: per-leaf trailing-axis sums give (L,)
-    partials, arranged (L, leaves) and summed as one flat vector."""
+    """Sum of squares over every element, in the reference's order.
+    Stacked layout: per-leaf trailing-axis sums give (L,) partials,
+    arranged (L, leaves) and summed as one flat vector (layer-major).  A
+    per-layer list (a heterogeneous stack): one scalar sum per leaf, stacked
+    and summed."""
     leaves = [g.float() for g in tree_leaves(grads)]
     if not leaves:
         return torch.zeros((), dtype=torch.float32)
+    if not is_stacked(grads):
+        return torch.sum(torch.stack([torch.sum(torch.square(g)) for g in leaves]))
     parts = [torch.sum(torch.square(g), dim=tuple(range(1, g.ndim))) for g in leaves]
     return torch.sum(torch.stack(parts, dim=-1).reshape(-1))
 
@@ -74,4 +82,6 @@ def _pick(tree, i):
     """Element ``i`` of every tuple leaf of ``tree``."""
     if isinstance(tree, dict):
         return {k: _pick(v, i) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_pick(v, i) for v in tree]
     return tree[i]

@@ -7,10 +7,10 @@ has only the port's dependencies; ``tests/conftest.py`` imports JAX, hence
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: float32 outputs within 1e-4 (segmented_lora, lora_matmul, wkv6:
-K-long float32 sums in another order) or 2e-5 (flash_decode,
-flash_attention); bfloat16 outputs within 3e-2 + 1e-2 |ref|, about two bf16
-roundings of an O(1) value.  Gradients: float32 within 1e-4 + 1e-4 |ref|;
+Tolerances: float32 outputs within 1e-4 (segmented_lora, lora_matmul, wkv6,
+mamba_scan: K- or N-long float32 sums in another order) or 2e-5
+(flash_decode, flash_attention); bfloat16 outputs within 3e-2 + 1e-2 |ref|,
+about two bf16 roundings of an O(1) value.  Gradients: float32 within 1e-4 + 1e-4 |ref|;
 bfloat16 within 2% of the largest element of the gradient, since the
 kernels round P and dS (or the rank bottleneck) to bf16 for the tensor
 cores where the twin's autograd keeps float32.
@@ -321,6 +321,136 @@ def test_cuda_rwkv_smoke_round_matches_the_cpu(cuda):
                               torch.Generator().manual_seed(19), 0)
         if device == "cuda":
             assert ops.launch_counts["wkv6"] > 0
+        out[device] = [tree_map(lambda t: t.cpu() if isinstance(t, torch.Tensor) else t, part) for part in res]
+    (pc, _, mc, ic), (pp, _, mp, ip) = out["cuda"], out["cpu"]
+    diffs = torch.cat([(a - b).abs().flatten() for a, b in zip(tree_leaves(pc), tree_leaves(pp))])
+    sched = make_lr_schedule(train_cfg.schedule, train_cfg.learning_rate, train_cfg.warmup_steps, train_cfg.total_steps)
+    assert float(diffs.max()) <= 2 * (sched(0) + sched(1)) + 1e-6
+    assert float((diffs <= 1e-6).float().mean()) >= 0.99
+    for key in mc:
+        torch.testing.assert_close(mc[key], mp[key], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(ic, ip, rtol=1e-4, atol=1e-7)
+
+
+def _mamba(rng, b, s, d, n, dtype, device):
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, d), dtype=np.float32) - 1.0))  # softplus, as the model's dt
+    x = rng.standard_normal((b, s, d), dtype=np.float32)
+    bm, cm = (rng.standard_normal((b, s, n), dtype=np.float32) for _ in range(2))
+    a = -np.exp(rng.standard_normal((d, n), dtype=np.float32))
+    dv = rng.standard_normal((d,), dtype=np.float32)
+    dy = rng.standard_normal((b, s, d), dtype=np.float32)
+    to = lambda v, t=torch.float32: torch.from_numpy(v).to(device, t)  # noqa: E731
+    io = getattr(torch, dtype)
+    return [to(dt, io), to(x, io), to(bm), to(cm), to(a), to(dv)], to(dy, io)
+
+
+MAMBA_CASES = [  # (B, S, D, N)
+    (2, 70, 256, 8),  # S off the chunk
+    (1, 33, 200, 16),  # D off the 128-channel block
+    (2, 1, 128, 16),  # one token
+    (3, 16, 384, 8),  # whole chunks
+    (2, 512, 8192, 16),  # the training shape's channels and length
+]
+
+
+def _sum_close(got, want):
+    """A float32 sum over rows, time or channels, in another order: within
+    1e-3 |ref| + 1e-5 of the largest element."""
+    torch.testing.assert_close(got, want, atol=1e-5 * float(want.abs().max()) + 1e-6, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,d,n", MAMBA_CASES)
+def test_cuda_mamba_scan_matches_twins(cuda, dtype, b, s, d, n):
+    """Forward (y, final state) against ``mamba_scan_plain``; d_dt, dx,
+    dB, dC, dA, dD against ``mamba_scan_bwd_plain``.  y, d_dt, dx within
+    1e-4 + 1e-3 |ref| in float32 and 3e-2 + 1e-2 |ref| in bf16 (one bf16
+    rounding); the final state within 1e-4 + 1e-3 |ref|; dB, dC, dA, dD
+    (float32 sums over channels, rows and time) by ``_sum_close``."""
+    inputs, dy = _mamba(np.random.default_rng(20), b, s, d, n, dtype, cuda)
+    leaves = [t.clone().requires_grad_(True) for t in inputs]
+    ops.reset_launch_counts()
+    y, st = ops.mamba_scan(*leaves)
+    grads = torch.autograd.grad(y, leaves, dy)
+    assert ops.launch_counts["mamba_scan"] == 1 and ops.launch_counts["mamba_scan_bwd"] == 1
+    assert not st.requires_grad
+    want_y, want_st = ref.mamba_scan_plain(*inputs)
+    want = ref.mamba_scan_bwd_plain(*inputs, dy)
+    torch.cuda.synchronize()
+    atol, rtol = (3e-2, 1e-2) if dtype == "bfloat16" else (1e-4, 1e-3)
+    assert y.dtype == want_y.dtype and st.dtype == torch.float32
+    torch.testing.assert_close(y.float(), want_y.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(st, want_st, atol=1e-4, rtol=1e-3)
+    for name, g, w in zip(("d_dt", "dx", "dB", "dC", "dA", "dD"), grads, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        if name in ("d_dt", "dx"):
+            torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=rtol, msg=name)
+        else:
+            _sum_close(g, w)
+
+
+@pytest.mark.cuda
+def test_cuda_mamba_scan_backward_is_deterministic(cuda):
+    """No atomics: two backward passes give the same bits (dB, dC sum over
+    channel blocks, dA, dD over rows, each in a second pass, in order)."""
+    inputs, dy = _mamba(np.random.default_rng(21), 4, 70, 640, 16, "bfloat16", cuda)
+    grads = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_(True) for t in inputs]
+        y, _ = ops.mamba_scan(*leaves)
+        grads.append(torch.autograd.grad(y, leaves, dy))
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_mamba_scan_rejects_what_the_kernel_does_not_take(cuda):
+    inputs, _ = _mamba(np.random.default_rng(22), 1, 8, 64, 4, "float32", cuda)
+    with pytest.raises(ValueError, match="state dim"):
+        ops.mamba_scan(*inputs)
+    inputs, _ = _mamba(np.random.default_rng(22), 2, 8, 64, 8, "bfloat16", cuda)
+    with pytest.raises(ValueError, match="float32"):
+        ops.mamba_scan(*inputs[:2], inputs[2].to(torch.bfloat16), *inputs[3:])
+    with pytest.raises(ValueError, match="one dtype"):
+        ops.mamba_scan(inputs[0].float(), *inputs[1:])
+    with pytest.raises(ValueError, match="shapes"):
+        ops.mamba_scan(*inputs[:2], inputs[2][:, :4].contiguous(), *inputs[3:])
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.mamba_scan(inputs[0].transpose(0, 1).contiguous().transpose(0, 1), *inputs[1:])
+
+
+@pytest.mark.cuda
+def test_cuda_jamba_smoke_round_matches_the_cpu(cuda):
+    """One local round of the jamba smoke model (Mamba + MLP, attention +
+    MoE) in float32 on the card (the kernels) and on the CPU (the twins),
+    from the same params, LoRA, batches and gates; the limits of
+    ``test_cuda_rwkv_smoke_round_matches_the_cpu``."""
+    from repro_torch.configs import PEFTConfig, STLDConfig, TrainConfig, get_config
+    from repro_torch.core.peft import init_peft
+    from repro_torch.data.synthetic import make_task
+    from repro_torch.federated.client import make_client_fns
+    from repro_torch.models.registry import init_params, place_params
+    from repro_torch.models.stacking import tree_leaves, tree_map
+    from repro_torch.optim import adamw_init, make_lr_schedule
+
+    cfg, train_cfg = get_config("jamba-v0.1-52b", smoke=True).replace(dtype="float32"), TrainConfig()
+    gen = torch.Generator().manual_seed(23)
+    params, peft = init_params(cfg, gen), init_peft(cfg, PEFTConfig(), gen)
+    for leaf in tree_leaves(peft):
+        leaf.add_(0.02 * torch.randn(leaf.shape, generator=gen))
+    task = make_task(vocab_size=cfg.vocab_size, seq_len=40, num_examples=8, seed=23)
+    per_step = [task.lm_batch(np.arange(4 * i, 4 * i + 4)) for i in range(2)]
+    batches = {key: np.stack([b[key] for b in per_step]) for key in ("tokens", "targets", "mask")}
+    out = {}
+    for device in ("cuda", "cpu"):
+        fns = make_client_fns(cfg, PEFTConfig(), STLDConfig(), train_cfg, device=device)
+        pf = tree_map(lambda t: t.to(device), peft)
+        ops.reset_launch_counts()
+        res = fns.local_round(place_params(params, cfg, device), pf, adamw_init(pf), batches, 0.5,
+                              torch.Generator().manual_seed(23), 0)
+        if device == "cuda":
+            assert ops.launch_counts["mamba_scan"] > 0 and ops.launch_counts["mamba_scan_bwd"] > 0
         out[device] = [tree_map(lambda t: t.cpu() if isinstance(t, torch.Tensor) else t, part) for part in res]
     (pc, _, mc, ic), (pp, _, mp, ip) = out["cuda"], out["cpu"]
     diffs = torch.cat([(a - b).abs().flatten() for a, b in zip(tree_leaves(pc), tree_leaves(pp))])

@@ -67,10 +67,11 @@ def test_serve_without_device_runs_on_the_card_or_raises():
 
 def test_scan_covers_the_training_modules():
     """The import and source checks above walk every module of the package,
-    the training slice's included."""
+    the training slices' included (qwen3-1.7b, rwkv6-3b, jamba)."""
     modules = set(_modules())
     for name in ("core.stld", "core.ptls", "core.schedules", "optim.adamw", "optim.schedules", "models.losses",
-                 "data.synthetic", "federated.client", "launch.steps", "kernels.ops", "nn.rwkv"):
+                 "data.synthetic", "federated.client", "launch.steps", "kernels.ops", "nn.rwkv", "nn.mamba",
+                 "nn.moe", "configs.jamba_v0_1_52b"):
         assert f"repro_torch.{name}" in modules, name
 
 

@@ -191,7 +191,7 @@ def test_layer_apply_matches_jax(setup):
     want, _, _ = jax.jit(lambda p, x: jax_layer_apply(p, jcfg, x, positions=jnp.arange(4)))(
         jax_layer_view(jparams["layers"], 1), jnp.asarray(x)
     )
-    got, _ = layer_apply(layer_view(params["layers"], 1), cfg, _t(x), positions=torch.arange(4))
+    got, _, _ = layer_apply(layer_view(params["layers"], 1), cfg, _t(x), positions=torch.arange(4))
     _close(got, want, BLOCK_ATOL)
 
 
@@ -226,7 +226,7 @@ def test_lm_apply_logits_match_jax(setup, tenant):
     want, _, _ = jax.jit(lambda p, t, pf: jax_transformer.lm_apply(p, jcfg, t, peft=pf, lora_scale=4.0, stack_mode="scan"))(
         jparams, jnp.asarray(tokens), jtrees[tenant] if tenant else None
     )
-    got, caches = transformer.lm_apply(
+    got, _, caches = transformer.lm_apply(
         params, cfg, _t(tokens), peft=trees[tenant] if tenant else None, lora_scale=4.0
     )
     assert caches is None and tuple(got.shape) == (2, 6, cfg.vocab_size)

@@ -243,7 +243,7 @@ def test_lm_apply_with_drops_matches_jax(setup, drops):
     want, _, _ = jax.jit(
         lambda p, pf, t, d: jax_model_apply(p, jcfg, {"tokens": t}, drops=d, peft=pf, lora_scale=2.0, stack_mode="unroll")
     )(jparams, jpeft, jnp.asarray(tokens), jd)
-    got, _ = lm_apply(params, cfg, torch.from_numpy(tokens), drops=drops, peft=peft, lora_scale=2.0)
+    got, _, _ = lm_apply(params, cfg, torch.from_numpy(tokens), drops=drops, peft=peft, lora_scale=2.0)
     np.testing.assert_allclose(_np(got), np.asarray(want), atol=LOGIT_ATOL, rtol=0)
     targets = np.roll(tokens, -1, axis=1)
     jloss, _ = jax_softmax_xent(want, jnp.asarray(targets))
