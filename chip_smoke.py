@@ -9,14 +9,18 @@ CUDA toolkit::
 Phases, one line each before the last:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build of every CUDA kernel from the sources in the checkout, in parallel;
+2. build of every CUDA kernel from the sources in the checkout, in parallel,
+   and each attention kernel's registers, spills and shared memory (its
+   ``ptxas -v`` log and the bytes its launcher asks for);
 3. each kernel held against its plain PyTorch twin on the card at the
    shapes of its path (serving: the decode step; training: batch 16 x 512
    tokens of qwen3-1.7b, of rwkv6-3b for wkv6 and the channel-mix
    lora_matmul, and of jamba-v0.1-52b for mamba_scan and the Mamba
    projections' lora_matmul), forward and backward, with its time (CUDA
    events, L2 flushed, median of repeats) beside the twin's, the library
-   call's and the bound;
+   call's and the bound (attention also at jamba-v0.1-52b's 32 heads, with
+   ``torch.profiler``'s device times of its kernels and SDPA's beside the
+   CUDA-event times, and its backward's two kernels apart);
 4. full-width qwen3-1.7b (28 layers, random weights from ``--seed``)
    served through ``repro_torch.api.serve``: 12 requests over 4 LoRA
    tenants of rank 4/8 at batch 8, rows recycling mid-run; every completion
@@ -50,6 +54,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -106,6 +111,89 @@ class Timer:
             end.synchronize()
             times.append(start.elapsed_time(end))
         return statistics.median(times)
+
+
+def device_ms(fn, flush, keys=None, repeats: int = 10):
+    """Mean device time per call of ``fn`` from ``torch.profiler`` over
+    ``repeats`` calls, each after an L2 flush (left out of the sums): of
+    every kernel ``fn`` launches, or with ``keys`` a dict of the kernels
+    whose names hold each key.  None where the profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(repeats):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and "fill" not in e.key.lower()]
+    mean = lambda us: us / 1e3 / repeats if us > 0 else None  # noqa: E731
+    if keys is None:
+        return mean(sum(e.self_device_time_total for e in events))
+    return {key: mean(sum(e.self_device_time_total for e in events if key in e.key)) for key in keys}
+
+
+def kernel_name(mangled: str) -> str:
+    """``name<first template int>`` of a mangled ``..._kernel`` symbol: the
+    name is the length-prefixed component that ends in ``_kernel``."""
+    for m in re.finditer(r"\d+", mangled):
+        for k in range(len(m.group())):
+            n = int(m.group()[k:])
+            name = mangled[m.end():m.end() + n]
+            if len(name) == n and name.endswith("_kernel"):
+                arg = re.match(r"ILi(\d+)E", mangled[m.end() + n:])
+                return name + (f"<{arg.group(1)}>" if arg else "")
+    return mangled
+
+
+def ptxas_resources(log_text: str) -> list:
+    """Registers, spill bytes and static shared memory of each entry
+    function in a ``ptxas -v`` log, by the kernel's short name and its
+    first template argument."""
+    out, cur = [], None
+    for ln in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = {"kernel": kernel_name(m.group(1))}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", ln)
+            cur["static_smem"] = int(smem.group(1)) if smem else 0
+    return out
+
+
+def attention_resources(_build) -> dict:
+    """Each attention kernel's registers and spills (its build log) and the
+    dynamic shared memory its launcher asks for."""
+    import ctypes
+
+    fwd = _build.load("flash_attention").flash_attention_fwd_smem_bytes
+    bwd = _build.load("flash_attention_bwd").flash_attention_bwd_smem_bytes
+    fwd.argtypes, bwd.argtypes = [ctypes.c_int] * 2, [ctypes.c_int] * 3
+    out = {}
+    for name in ("flash_attention", "flash_attention_bwd"):
+        log = _build.library_path(name).with_name(_build.library_path(name).name + ".log").read_text()
+        rows = [r for r in ptxas_resources(log) if "probe" not in r["kernel"]]
+        for r in rows:
+            bf16 = "bf16" in r["kernel"]
+            dtype, d = (1, int(r["kernel"].split("<")[1].rstrip(">"))) if bf16 else (0, 128)
+            if name == "flash_attention":
+                r["dynamic_smem"] = fwd(dtype, d)
+            else:
+                r["dynamic_smem"] = bwd(dtype, d, 0 if "_dq_" in r["kernel"] else 1)
+            r["at_head_dim"] = d
+        out[name] = rows
+    return out
 
 
 def bound(nbytes: float, ops: float, dtype_name: str):
@@ -248,6 +336,12 @@ def attention_case(ops, ref, timer, gen, *, dtype, b=16, s=512, h=16, kv=8, d=12
         case["ms"] = timer(lambda: ops.flash_attention(q, k, v, window=window))
         case["plain_ms"] = timer(lambda: ref.attention_plain(q, k, v, window=window))
     case["bwd_ms"] = timer(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True))
+    if dtype == torch.bfloat16:  # device time alone (no host gaps), the backward's two kernels apart
+        with torch.no_grad():
+            case["kernel_ms"] = device_ms(lambda: ops.flash_attention(q, k, v, window=window), timer.flush)
+        split = device_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), timer.flush,
+                          ("flash_bwd_dq_bf16_kernel", "flash_bwd_dkv_bf16_kernel"))
+        case["bwd_dq_ms"], case["bwd_dkv_ms"] = split["flash_bwd_dq_bf16_kernel"], split["flash_bwd_dkv_bf16_kernel"]
     case["plain_bwd_ms"] = timer(lambda: torch.autograd.grad(want, twins, g, retain_graph=True))
     case["library_ms"] = case["library_bwd_ms"] = None
     if window is None:  # the yardstick: SDPA on the same inputs (never used by the port)
@@ -257,6 +351,11 @@ def attention_case(ops, ref, timer, gen, *, dtype, b=16, s=512, h=16, kv=8, d=12
         lib_out = F.scaled_dot_product_attention(*lib, is_causal=True, enable_gqa=True)
         g_t = g.transpose(1, 2)
         case["library_bwd_ms"] = timer(lambda: torch.autograd.grad(lib_out, lib, g_t, retain_graph=True))
+        with torch.no_grad():
+            case["library_kernel_ms"] = device_ms(
+                lambda: F.scaled_dot_product_attention(*lib, is_causal=True, enable_gqa=True), timer.flush)
+        case["library_bwd_kernel_ms"] = device_ms(
+            lambda: torch.autograd.grad(lib_out, lib, g_t, retain_graph=True), timer.flush)
     elt = q.element_size()
     pairs = b * h * visible_pairs(s, True, window)
     qo_bytes, kv_bytes, lse_bytes = 2 * q.numel() * elt, 2 * k.numel() * elt, 4 * b * h * s
@@ -859,6 +958,7 @@ def main() -> int:
         usage = [ln.strip() for ln in log.read_text().splitlines() if "registers" in ln or "spill" in ln]
         print(f"build {name}: {build_s[name]:.1f} s; ptxas: {' | '.join(usage)}", flush=True)
     print(f"build: {len(_build.KERNELS)} kernels in {time.perf_counter() - t0:.1f} s wall", flush=True)
+    print(f"attention kernels, resources: {json.dumps(attention_resources(_build))}", flush=True)
 
     # 3. kernels against their twins, timed
     timer = Timer()
@@ -875,6 +975,12 @@ def main() -> int:
         print(f"flash_decode {json.dumps(dec[q_dtype])} [{card}]", flush=True)
     attn = attention_case(ops, ref, timer, gen, dtype=torch.bfloat16)
     print(f"flash_attention {json.dumps(attn)} [{card}]", flush=True)
+    # jamba-v0.1-52b's heads, drawn from a generator of their own so that
+    # every later case sees the inputs it saw before this case was added
+    gen_jamba = torch.Generator(device="cuda")
+    gen_jamba.manual_seed(args.seed + 1)
+    attn_jamba = attention_case(ops, ref, timer, gen_jamba, dtype=torch.bfloat16, h=32)
+    print(f"flash_attention jamba {json.dumps(attn_jamba)} [{card}]", flush=True)
     for kw in ({"dtype": torch.float32, "b": 2}, {"dtype": torch.bfloat16, "s": 100, "window": 48},
                {"dtype": torch.float32, "s": 100, "b": 4}):
         print(f"flash_attention check {json.dumps(attention_case(ops, ref, timer, gen, time_it=False, **kw))}",
@@ -994,7 +1100,9 @@ def main() -> int:
             "replaces": "src/repro/kernels/flash_attention.py:101",
             "launches": train_launches["flash_attention"],
             **{key: attn[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-            "shape": "forward, " + attn["shape"],
+            "jamba_ms": attn_jamba["ms"], "jamba_library_ms": attn_jamba["library_ms"],
+            "device_only_ms": attn["kernel_ms"], "library_device_only_ms": attn["library_kernel_ms"],
+            "shape": "forward, " + attn["shape"] + "; jamba: " + attn_jamba["shape"],
         },
         {
             "name": "flash_attention_bwd", "route": "cuda",
@@ -1003,7 +1111,10 @@ def main() -> int:
             "launches": train_launches["flash_attention_bwd"],
             "max_abs_err": attn["bwd_max_abs_err"], "ms": attn["bwd_ms"], "plain_ms": attn["plain_bwd_ms"],
             "bound_ms": attn["bwd_bound_ms"], "bound_by": attn["bwd_bound_by"], "library_ms": attn["library_bwd_ms"],
-            "shape": "backward (dQ, dK, dV), " + attn["shape"],
+            "dq_kernel_ms": attn["bwd_dq_ms"], "dkv_kernel_ms": attn["bwd_dkv_ms"],
+            "library_device_only_ms": attn["library_bwd_kernel_ms"],
+            "jamba_ms": attn_jamba["bwd_ms"], "jamba_library_ms": attn_jamba["library_bwd_ms"],
+            "shape": "backward (dQ, dK, dV), " + attn["shape"] + "; jamba: " + attn_jamba["shape"],
         },
         {
             "name": "lora_matmul", "route": "cuda",

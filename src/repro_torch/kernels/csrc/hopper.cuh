@@ -1,0 +1,473 @@
+// Hopper (sm_90a) primitives for the port's tensor-core kernels: mbarriers,
+// TMA tensor maps with 4-D tiled loads and stores, wgmma shared-memory
+// descriptors for 128-byte-swizzled tiles, wgmma products (SS: both operands
+// in shared memory; RS: A from registers) and setmaxnreg.  Used by the bf16
+// route of flash_attention.cu and flash_attention_bwd.cu, each held alone
+// against torch.matmul by the hopper_wgmma_probe entry point
+// (flash_attention.cu) in tests/test_torch_cuda.py.
+//
+// Tile layout.  A bf16 tile of R rows and DP columns (DP a multiple of 64)
+// lives in shared memory as DP / 64 sub-tiles, each R rows of 128 bytes (64
+// elements) with TMA's 128-byte swizzle (16-byte chunk c of row r stored at
+// chunk c ^ (r % 8)), sub-tile s at byte s * R * 128, every sub-tile 1024-byte
+// aligned.  One TMA box fills one sub-tile.  wgmma reads such a tile
+//   K-major (the product's depth runs along the row): 8-row groups 1024 bytes
+//     apart (SBO), depth steps of 16 elements at +32 bytes inside a sub-tile
+//     and at the next sub-tile every 64 elements (kmajor_base, kmajor_step);
+//   MN-major (the depth runs down the rows, a transposed operand): 64-wide
+//     column chunks one sub-tile apart (LBO), 8-row groups 1024 bytes apart
+//     (SBO), depth steps of 16 rows at +2048 bytes (mnmajor_base,
+//     mnmajor_step).
+//
+// Fragments (PTX ISA, wgmma .m64nNk16 register layouts).  Thread t of a
+// warpgroup (warp w = t / 32, lane l) holds accumulator elements
+//   d[4j + e] = C[16w + l/4 + 8 * (e >= 2)][8j + 2 * (l % 4) + (e & 1)],
+// so each row's N values sit in the 4 threads of a quad.  The A fragment of
+// depth step kk is the same layout over 16 columns, two bf16 a register:
+//   a[0] = cols 16kk + 2(l%4) + {0,1} of row 16w + l/4, a[1] the same of
+//   row + 8, a[2] and a[3] those 8 columns on,
+// which is d[8kk .. 8kk + 7] rounded pairwise: an accumulator turns into
+// the next product's A operand in registers (acc_to_a).
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums only: the encoder is reached through the runtime
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace hopper {
+
+constexpr int WG_THREADS = 128;  // a warpgroup: four warps
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// This thread's warpgroup, through a shuffle so that the compiler sees a
+// warp-uniform value for the warpgroup-wide branches.
+__device__ __forceinline__ int warpgroup_index() {
+  return __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / WG_THREADS, 0);
+}
+
+// Dynamic shared memory rounded up to the 1024-byte alignment of the swizzle
+// pattern (the launch asks for 1024 bytes of slack).
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
+}
+
+// ------------------------------------------------------------------ mbarrier
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+// After the inits, before any other thread uses the barriers.
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Arrive and add `bytes` to the transactions the current phase waits for.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+
+// True once the phase of parity `parity` has completed.  A barrier starts in
+// phase 0, so waiting on parity 1 passes at once (an empty ring slot).
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// A wait that has not ended after ~2^31 polls (seconds) is a bug: trap, so
+// the launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  for (uint32_t polls = 0; !mbar_try_wait(bar, parity);) {
+    if (++polls == 0x80000000u) __trap();
+  }
+}
+
+// A ring of `Stages` slots: the slot in use and the parity its barriers wait on.
+template <int Stages>
+struct Ring {
+  int slot = 0;
+  uint32_t parity;
+  __device__ explicit Ring(uint32_t p) : parity(p) {}
+  __device__ void next() {
+    if (++slot == Stages) {
+      slot = 0;
+      parity ^= 1u;
+    }
+  }
+};
+
+// Named barrier over `threads` threads (ids 1..15; 0 is __syncthreads).
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ----------------------------------------------------------------------- TMA
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2,
+                                            int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Rows [row0, row0 + ROWS) of (b, head) into a swizzled tile of ROWS rows
+// and DP columns: one box per sub-tile and 64 rows (a map of 64-row boxes),
+// or per sub-tile when ROWS < 64 (a map of ROWS-row boxes).
+template <int DP, int ROWS>
+__device__ __forceinline__ void tma_load_tile(__nv_bfloat16* tile, const CUtensorMap* map, uint64_t* bar, int head,
+                                              int row0, int b) {
+  constexpr int BOX = ROWS < 64 ? ROWS : 64;
+#pragma unroll
+  for (int c = 0; c < DP / 64; ++c) {
+#pragma unroll
+    for (int r = 0; r < ROWS / BOX; ++r)
+      tma_load_4d(tile + (c * ROWS + BOX * r) * 64, map, bar, 64 * c, head, row0 + BOX * r, b);
+  }
+}
+
+// Shared -> global; the box's parts outside the tensor are not written.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0, int c1, int c2,
+                                             int c3) {
+  asm volatile("cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+               : "memory");
+}
+
+// Rows [64 r0, 64 r0 + 64) of a swizzled tile of `rows` rows and DP columns
+// to rows [row0, row0 + 64) of (b, head).
+template <int DP>
+__device__ __forceinline__ void tma_store_rows(const CUtensorMap* map, const __nv_bfloat16* tile, int rows, int r0,
+                                               int head, int row0, int b) {
+#pragma unroll
+  for (int c = 0; c < DP / 64; ++c) tma_store_4d(map, tile + (c * rows + 64 * r0) * 64, 64 * c, head, row0, b);
+}
+
+// Commit the issued stores and wait until they are complete.
+__device__ __forceinline__ void tma_store_flush() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Order this thread's generic shared-memory writes before later async-proxy
+// reads of them (wgmma or a TMA store).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Host: cuTensorMapEncodeTiled, reached through the runtime so that the
+// library needs no -lcuda.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A 4-D bf16 map over a contiguous (n3, n2, n1, n0) tensor, n0 innermost,
+// e.g. (B, S, heads, D) as (n0, n1, n2, n3) = (D, heads, S, B), with a box
+// of 64 x 1 x `rows` x 1 elements (rows of one sub-tile, 64 unless a tile
+// is shorter) and the 128-byte swizzle.  Elements outside the tensor load as
+// zero: a box may run past S, and past D when D < 64.  Returns 0, or -2 if
+// cuTensorMapEncodeTiled refuses the map.
+inline int make_map_4d(CUtensorMap* map, const void* base, int n0, int n1, int n2, int n3, int rows = 64) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return -2;
+  const cuuint64_t dims[4] = {(cuuint64_t)n0, (cuuint64_t)n1, (cuuint64_t)n2, (cuuint64_t)n3};
+  const cuuint64_t strides[3] = {(cuuint64_t)n0 * 2, (cuuint64_t)n0 * n1 * 2, (cuuint64_t)n0 * n1 * n2 * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box, step,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -2;
+}
+
+// --------------------------------------------------------------------- wgmma
+// Shared-memory matrix descriptor, 128-byte swizzle (layout type 1).  The
+// high word is constant (SBO 1024 bytes: 8 rows of 128 bytes; the layout
+// type); the low word holds the start address >> 4 and the LBO >> 4.  A
+// kernel keeps only the low word of a tile's base in a register, made
+// opaque so that the compiler rebuilds it in each loop iteration instead of
+// pinning one 64-bit descriptor per depth step, and adds a constant per step
+// (the address field cannot carry into the LBO: shared memory is < 256 KB).
+constexpr uint64_t SW128_DESC_HI = (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+
+struct SmemDesc {
+  uint32_t lo;
+  __device__ __forceinline__ uint64_t at(uint32_t step) const { return SW128_DESC_HI | (lo + step); }
+};
+
+__device__ __forceinline__ SmemDesc sw128_desc(uint32_t smem_addr, uint32_t lbo_bytes) {
+  uint32_t lo = ((smem_addr & 0x3FFFFu) >> 4) | (((lbo_bytes >> 4) & 0x3FFFu) << 16);
+  asm volatile("" : "+r"(lo));
+  return SmemDesc{lo};
+}
+
+// Rows [row0, ...) of a swizzled tile read K-major; depth step kk (16
+// elements) is at(kmajor_step(rows, kk)), rows being the tile's row count.
+__device__ __forceinline__ SmemDesc kmajor_base(uint32_t tile, int row0) { return sw128_desc(tile + row0 * 128, 16); }
+__device__ __forceinline__ SmemDesc kmajor_base(const __nv_bfloat16* tile, int row0) {
+  return kmajor_base(smem_u32(tile), row0);
+}
+__host__ __device__ constexpr uint32_t kmajor_step(int rows, int kk) {
+  return static_cast<uint32_t>(((kk >> 2) * rows * 128 + (kk & 3) * 32) >> 4);
+}
+
+// A swizzled tile of `rows` rows read MN-major (the product's N runs along
+// its columns); depth step kk (rows 16kk .. 16kk + 15) is at(mnmajor_step(kk)).
+__device__ __forceinline__ SmemDesc mnmajor_base(uint32_t tile, int rows) { return sw128_desc(tile, rows * 128); }
+__device__ __forceinline__ SmemDesc mnmajor_base(const __nv_bfloat16* tile, int rows) {
+  return mnmajor_base(smem_u32(tile), rows);
+}
+__host__ __device__ constexpr uint32_t mnmajor_step(int kk) { return static_cast<uint32_t>(kk * 128); }
+
+// Two floats from shared memory by 32-bit address, in program order with
+// the barrier waits around it.
+__device__ __forceinline__ float2 lds_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of a wgmma's registers
+// (accumulators, A fragments) across its fence, issue or wait: a write
+// sunk past wgmma_fence() makes ptxas serialize the wgmma pipeline.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+  }
+}
+
+// d[64 x N] = (scale_d ? d : 0) + A B, A (64 x 16) and B (16 x N) bf16 in
+// shared memory; A K-major, B K-major (TRANS_B 0) or MN-major (1).
+template <int N, int TRANS_B>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  static_assert(N == 32 || N == 64 || N == 128, "wgmma_ss: N is 32, 64 or 128");
+  if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, 0, %19;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+  } else if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+  }
+}
+
+// d[64 x N] = A B, the first depth step of a product: d's earlier values
+// are no input, so its registers are free until the product writes them.
+template <int N, int TRANS_B>
+__device__ __forceinline__ void wgmma_ss_init(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b) {
+  static_assert(N == 32 || N == 64 || N == 128, "wgmma_ss_init: N is 32, 64 or 128");
+  if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %19, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, 0, %18;\n}\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+          "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15])
+        : "l"(desc_a), "l"(desc_b), "n"(TRANS_B), "r"(0));
+  } else if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %35, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, %34;\n}\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+          "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+          "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+          "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+        : "l"(desc_a), "l"(desc_b), "n"(TRANS_B), "r"(0));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %67, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, %66;\n}\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+          "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+          "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+          "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
+          "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]), "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
+          "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]), "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]),
+          "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]), "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
+          "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]), "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
+        : "l"(desc_a), "l"(desc_b), "n"(TRANS_B), "r"(0));
+  }
+}
+
+// The same with A from registers (the A fragment above).
+template <int N, int TRANS_B>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+  static_assert(N == 64 || N == 128, "wgmma_rs: N is 64 or 128");
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// An m64nN float accumulator as the bf16 A fragments of N / 16 depth steps.
+template <int N>
+__device__ __forceinline__ void acc_to_a(const float (&d)[N / 2], uint32_t (&a)[N / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
+  }
+}
+
+// Write an m64nN accumulator (times row scales s0 for rows 16w + l/4 and s1
+// for the row 8 below) as bf16 into rows [row0, row0 + 64) of a swizzled
+// tile of `rows` rows.  Each quad writes 4-byte pairs inside one 16-byte
+// chunk, and the swizzle puts the 8 rows of a warp in distinct chunks.
+template <int N>
+__device__ __forceinline__ void acc_to_tile(const float (&d)[N / 2], float s0, float s1, __nv_bfloat16* tile,
+                                            int rows, int row0) {
+  const int t = threadIdx.x % WG_THREADS, lane = t & 31;
+  const int r = row0 + 16 * (t >> 5) + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int col = 8 * j + 2 * (lane & 3);
+    __nv_bfloat16* sub = tile + (col >> 6) * rows * 64;
+    const int chunk = ((col & 63) >> 3);
+    const int off = (col & 7);
+    *reinterpret_cast<uint32_t*>(sub + r * 64 + ((chunk ^ (r & 7)) << 3) + off) = pack_bf16(d[4 * j] * s0, d[4 * j + 1] * s0);
+    *reinterpret_cast<uint32_t*>(sub + (r + 8) * 64 + ((chunk ^ ((r + 8) & 7)) << 3) + off) =
+        pack_bf16(d[4 * j + 2] * s1, d[4 * j + 3] * s1);
+  }
+}
+
+// Registers of a warpgroup; all four warps execute it together.  The
+// producer's decrease must free what the consumers' increase takes from
+// the block's pool: 128 (L - dec) >= 256 (inc - L), L the launch count
+// (168 at three warpgroups: 24/240 and 40/232 fit).  ptxas lets ordinary
+// code after an increase use up to the new count, but it budgets wgmma code
+// by the launch bound (65 536 registers over the block's threads, counted
+// in whole warpgroups): at three warpgroups, 168 whatever the increase
+// says.  A kernel whose consumers need more runs two warpgroups and no
+// producer warpgroup (flash_attention.cu, flash_attention_bwd.cu (2)).
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+}  // namespace hopper

@@ -1,5 +1,7 @@
-// Shared-memory tile helpers for the port's training kernels (flash_attention
-// forward and backward, lora_matmul).
+// Shared-memory tile helpers for lora_matmul (both dtypes) and the float32
+// route of flash_attention forward and backward (whose bf16 route runs on
+// hopper.cuh's TMA and wgmma instead).  The attention kernels' mask and
+// tile-skip predicates below serve both of their routes.
 //
 // A kernel stages tiles of its operands in shared memory and multiplies them
 // with tile_mma.  For bfloat16 tiles the product runs on the tensor cores
@@ -139,6 +141,26 @@ __device__ __forceinline__ bool tile_relevant(int q0, int k0, int bq, int bk, in
   if (causal) ok = ok && k0 <= q0 + bq - 1;
   if (window > 0) ok = ok && k0 + bk > q0 - window + 1;
   return ok;
+}
+
+// tile_relevant's kv tiles for the q tile at q0, [first, last) of the nk
+// tiles of bk keys (the predicate keeps a contiguous run).
+__device__ __forceinline__ void relevant_kv_tiles(int q0, int bq, int bk, int nk, int causal, int window, int& first,
+                                                  int& last) {
+  first = 0;
+  while (first < nk && !tile_relevant(q0, first * bk, bq, bk, causal, window)) ++first;
+  last = first;
+  while (last < nk && tile_relevant(q0, last * bk, bq, bk, causal, window)) ++last;
+}
+
+// The same from the other side: the q tiles of bq queries, of nq, that see
+// the kv tile at k0.
+__device__ __forceinline__ void relevant_q_tiles(int k0, int bq, int bk, int nq, int causal, int window, int& first,
+                                                 int& last) {
+  first = 0;
+  while (first < nq && !tile_relevant(first * bq, k0, bq, bk, causal, window)) ++first;
+  last = first;
+  while (last < nq && tile_relevant(last * bq, k0, bq, bk, causal, window)) ++last;
 }
 
 // Element mask: key kj is visible to query qi.

@@ -143,6 +143,11 @@ ATTN_CASES = [  # (B, S, H, KV, D, causal, window)
     (1, 96, 4, 1, 64, False, None),  # bidirectional, one kv head
     (1, 17, 1, 1, 128, True, None),  # one partial tile
     (2, 100, 4, 2, 128, True, 40),  # ragged S with a window
+    (1, 512, 32, 8, 128, True, None),  # jamba-v0.1-52b's attention heads
+    (2, 300, 8, 2, 128, True, 200),  # ragged causal window at the training head dim
+    (1, 1024, 4, 1, 128, True, None),  # a longer causal sequence: the kv ring turns several times
+    (2, 300, 4, 2, 32, True, None),  # ragged S at a head dim under one 64-column box
+    (1, 17, 2, 1, 64, False, None),  # one partial tile, bidirectional, D 64
 ]
 
 
@@ -169,15 +174,47 @@ def test_cuda_flash_attention_matches_twin(cuda, dtype, b, s, h, kv, d, causal, 
 
 
 @pytest.mark.cuda
-def test_cuda_flash_attention_backward_is_deterministic(cuda):
-    """No float atomics: two backward passes give the same bits."""
-    q, k, v, g = _attn(np.random.default_rng(13), 2, 200, 8, 2, 128, "bfloat16", cuda)
+@pytest.mark.parametrize("b,s,h,kv,window", [(2, 200, 8, 2, 64), (2, 512, 16, 8, None)])
+def test_cuda_flash_attention_backward_is_deterministic(cuda, b, s, h, kv, window):
+    """No float atomics: two backward passes give the same bits, with a
+    window and at the training shape's heads without one."""
+    q, k, v, g = _attn(np.random.default_rng(13), b, s, h, kv, 128, "bfloat16", cuda)
     grads = []
     for _ in range(2):
         leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-        grads.append(torch.autograd.grad(ops.flash_attention(*leaves, window=64), leaves, g))
-    for a, b in zip(*grads):
-        assert torch.equal(a, b)
+        grads.append(torch.autograd.grad(ops.flash_attention(*leaves, window=window), leaves, g))
+    for first, second in zip(*grads):
+        assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rs", [False, True], ids=["ss", "rs"])
+@pytest.mark.parametrize("b_mn", [False, True], ids=["b_kmajor", "b_mnmajor"])
+@pytest.mark.parametrize("n,k", [(64, 64), (64, 128), (128, 64), (128, 128)])
+def test_cuda_wgmma_forms_match_matmul(cuda, rs, b_mn, n, k):
+    """Each wgmma form of the bf16 attention kernels (csrc/hopper.cuh), one
+    warpgroup's (64 x k) @ (k x n) through the flash_attention library's
+    probe entry point, against torch.matmul in float32: A from shared
+    memory (SS) or registers (RS), B K-major (given transposed) or MN-major,
+    both loaded by TMA into 128-byte-swizzled tiles.  Exact bf16 products
+    summed in float32 in another order: within 1e-3 + 1e-4 |ref|."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    rng = np.random.default_rng(24)
+    a = torch.from_numpy(rng.standard_normal((64, k), dtype=np.float32)).to(cuda, torch.bfloat16)
+    b = torch.from_numpy(rng.standard_normal((k, n), dtype=np.float32)).to(cuda, torch.bfloat16)
+    b_arg = b.contiguous() if b_mn else b.t().contiguous()
+    c = torch.empty((64, n), dtype=torch.float32, device=cuda)
+    fn = _build.load("flash_attention").hopper_wgmma_probe
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+    err = fn(int(rs), int(b_mn), n, k, a.data_ptr(), b_arg.data_ptr(), c.data_ptr(),
+             torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    torch.cuda.synchronize()
+    torch.testing.assert_close(c, a.float() @ b.float(), atol=1e-3, rtol=1e-4)
 
 
 def _lora(rng, m, k, n, r, dtype, device):
