@@ -10,17 +10,23 @@ Phases, one line each before the last:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build of every CUDA kernel from the sources in the checkout, in parallel,
-   and each attention kernel's registers, spills and shared memory (its
-   ``ptxas -v`` log and the bytes its launcher asks for);
+   and the registers, spills and shared memory of the attention kernels,
+   lora_matmul's and flash_decode's (their ``ptxas -v`` logs, any wgmma
+   serialization warning, and the bytes the launchers ask for);
 3. each kernel held against its plain PyTorch twin on the card at the
    shapes of its path (serving: the decode step; training: batch 16 x 512
    tokens of qwen3-1.7b, of rwkv6-3b for wkv6 and the channel-mix
    lora_matmul, and of jamba-v0.1-52b for mamba_scan and the Mamba
    projections' lora_matmul), forward and backward, with its time (CUDA
    events, L2 flushed, median of repeats) beside the twin's, the library
-   call's and the bound (attention also at jamba-v0.1-52b's 32 heads, with
-   ``torch.profiler``'s device times of its kernels and SDPA's beside the
-   CUDA-event times, and its backward's two kernels apart);
+   call's and the bound; ``torch.profiler``'s device times of the kernels
+   of attention (also at jamba-v0.1-52b's 32 heads; its backward's two
+   kernels apart), flash_decode (split and merge passes apart) and
+   lora_matmul (bottleneck and main kernels apart, and the route taken)
+   beside their yardsticks' (SDPA, cuBLAS's x @ W); and lora_matmul on the
+   fixed draw that failed its first bf16 design, on the route it takes and
+   on that design's WMMA route, with the bf16 roundings of the bottleneck t
+   that differ from the twin's;
 4. full-width qwen3-1.7b (28 layers, random weights from ``--seed``)
    served through ``repro_torch.api.serve``: 12 requests over 4 LoRA
    tenants of rank 4/8 at batch 8, rows recycling mid-run; every completion
@@ -31,9 +37,10 @@ Phases, one line each before the last:
    ``repro_torch.federated.client.make_client_fns``: ``local_round`` of 4
    steps at batch 16 x 512 (the synthetic task) and STLD mean rate 0.5,
    then ``evaluate``; every loss and norm finite, each kernel launched as
-   often as the active layers say, two rounds from the same state
-   bit-identical; step time, idle share and peak memory at rates 0.0 and
-   0.5; and one smoke-size round on the card against the CPU twins;
+   often as the active layers say (every bf16 lora_matmul call on the
+   wgmma route), two rounds from the same state bit-identical; step time,
+   idle share and peak memory at rates 0.0 and 0.5; and one smoke-size
+   round on the card against the CPU twins;
 5b. the same for full-width rwkv6-3b (32 layers, LoRA on the channel-mix
    up and down), whose time-mix runs the wkv6 kernels;
 5c. the same for full-width jamba-v0.1-52b cut to 8 layers (one period of
@@ -135,6 +142,39 @@ def device_ms(fn, flush, keys=None, repeats: int = 10):
     return {key: mean(sum(e.self_device_time_total for e in events if key in e.key)) for key in keys}
 
 
+def device_span_ms(fn, flush, repeats: int = 10):
+    """Median device time per call of ``fn`` from ``torch.profiler``: from
+    its first kernel's start to its last kernel's end, each call after an
+    L2 flush.  Unlike a sum of kernel times it counts once the time in
+    which a kernel launched as a programmatic dependent overlaps the kernel
+    before it.  None where the profiler saw fewer than half the calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(repeats):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA), key=lambda e: e.time_range.start)
+    spans, cur = [], None
+    for e in kernels:
+        if "fill" in e.name.lower():  # the flush: a call ends
+            if cur is not None:
+                spans.append(cur[1] - cur[0])
+            cur = None
+        elif cur is None:
+            cur = [e.time_range.start, e.time_range.end]
+        else:
+            cur[1] = max(cur[1], e.time_range.end)
+    if cur is not None:
+        spans.append(cur[1] - cur[0])
+    spans = [x for x in spans if x > 0]
+    return statistics.median(spans) / 1e3 if 2 * len(spans) >= repeats else None
+
+
 def kernel_name(mangled: str) -> str:
     """``name<first template int>`` of a mangled ``..._kernel`` symbol: the
     name is the length-prefixed component that ends in ``_kernel``."""
@@ -172,18 +212,29 @@ def ptxas_resources(log_text: str) -> list:
     return out
 
 
-def attention_resources(_build) -> dict:
-    """Each attention kernel's registers and spills (its build log) and the
-    dynamic shared memory its launcher asks for."""
+def build_log(_build, name: str) -> str:
+    return _build.library_path(name).with_name(_build.library_path(name).name + ".log").read_text()
+
+
+def serialization_warnings(log_text: str) -> list:
+    """ptxas's wgmma serialization warnings (C7510-C7515) in a build log."""
+    return [ln.strip() for ln in log_text.splitlines() if re.search(r"C751[0-5]", ln)]
+
+
+def kernel_resources(_build) -> dict:
+    """The registers and spills (from the build logs) of the attention
+    kernels, lora_matmul's and flash_decode's, the dynamic shared memory the
+    attention and lora_matmul launchers ask for, and any wgmma
+    serialization warning."""
     import ctypes
 
     fwd = _build.load("flash_attention").flash_attention_fwd_smem_bytes
     bwd = _build.load("flash_attention_bwd").flash_attention_bwd_smem_bytes
-    fwd.argtypes, bwd.argtypes = [ctypes.c_int] * 2, [ctypes.c_int] * 3
+    lora = _build.load("lora_matmul").lora_matmul_wgmma_smem_bytes
+    fwd.argtypes, bwd.argtypes, lora.argtypes = [ctypes.c_int] * 2, [ctypes.c_int] * 3, []
     out = {}
     for name in ("flash_attention", "flash_attention_bwd"):
-        log = _build.library_path(name).with_name(_build.library_path(name).name + ".log").read_text()
-        rows = [r for r in ptxas_resources(log) if "probe" not in r["kernel"]]
+        rows = [r for r in ptxas_resources(build_log(_build, name)) if "probe" not in r["kernel"]]
         for r in rows:
             bf16 = "bf16" in r["kernel"]
             dtype, d = (1, int(r["kernel"].split("<")[1].rstrip(">"))) if bf16 else (0, 128)
@@ -193,6 +244,15 @@ def attention_resources(_build) -> dict:
                 r["dynamic_smem"] = bwd(dtype, d, 0 if "_dq_" in r["kernel"] else 1)
             r["at_head_dim"] = d
         out[name] = rows
+    out["lora_matmul"] = ptxas_resources(build_log(_build, "lora_matmul"))
+    for r in out["lora_matmul"]:
+        if "wgmma" in r["kernel"]:
+            r["dynamic_smem"] = lora()
+    out["flash_decode"] = ptxas_resources(build_log(_build, "flash_decode"))
+    out["wgmma_serialization_warnings"] = {
+        name: serialization_warnings(build_log(_build, name))
+        for name in ("flash_attention", "flash_attention_bwd", "lora_matmul")
+    }
     return out
 
 
@@ -261,12 +321,20 @@ def decode_case(ops, ref, ring_positions, timer, gen, *, q_dtype, b=8, h=16, kv=
           f"flash_decode q {q_dtype}: max abs err {err} vs twin")
     ms = timer(lambda: ops.flash_decode(q, kc, vc, pos, kpos))
     plain_ms = timer(lambda: ref.decode_attention_plain(q, kc, vc, pos, kpos))
-    library_ms = None
+    # device time alone: the call's span, and the split pass and the merge
+    # pass apart (the merge, launched as the split pass's programmatic
+    # dependent, waits inside its own time for the split pass to end)
+    split = device_ms(lambda: ops.flash_decode(q, kc, vc, pos, kpos), timer.flush,
+                      ("flash_decode_split_kernel", "flash_decode_combine_kernel"))
+    span = device_span_ms(lambda: ops.flash_decode(q, kc, vc, pos, kpos), timer.flush)
+    library_ms = library_kernel_ms = None
     if q_dtype == kc.dtype:
         # the yardstick: one SDPA call on the same inputs (never used by the port)
         mask = (kpos <= pos[:, None])[:, None, None, :]
         q4, k4, v4 = q[:, :, None, :], kc.transpose(1, 2), vc.transpose(1, 2)
         library_ms = timer(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, enable_gqa=True))
+        library_kernel_ms = device_ms(
+            lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, enable_gqa=True), timer.flush)
     live = int((kpos <= pos[:, None]).sum().item())
     nbytes = (q.numel() * 2 * q.element_size() + live * kv * d * 2 * kc.element_size()
               + 4 * (b + b * s))
@@ -276,6 +344,9 @@ def decode_case(ops, ref, ring_positions, timer, gen, *, q_dtype, b=8, h=16, kv=
         "shape": f"B={b} H={h} KV={kv} D={d} S={s} q {str(q_dtype).split('.')[-1]} cache bfloat16, {live} live slots",
         "max_abs_err": err, "atol": atol, "rtol": rtol, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+        "splits": ops._decode_splits(s, q.device), "kernel_ms": span,
+        "split_kernel_ms": split["flash_decode_split_kernel"],
+        "combine_kernel_ms": split["flash_decode_combine_kernel"], "library_kernel_ms": library_kernel_ms,
     }
 
 
@@ -397,12 +468,86 @@ def lora_case(ops, ref, timer, gen, *, dtype, n, m=8192, k=2048, r=8, alpha=2.0)
     elt = x.element_size()
     nbytes = elt * (m * k + k * n + k * r + r * n + m * n)
     bound_ms, bound_by = bound(nbytes, 2 * m * k * n + 2 * m * k * r + 2 * m * r * n, name)
-    return {
+    case = {
         "shape": f"M={m} K={k} N={n} r={r} {name}", "max_abs_err": err, "atol": atol, "rtol": rtol,
         "bwd_max_abs_err": max(grad_errs), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None, "cublas_x_at_w_ms": cublas_ms, "dx_ms": dx_ms,
         "dx_bound_ms": bound(nbytes, 2 * m * n * k + 2 * m * n * r + 2 * m * r * k, name)[0],
+        "route": ops.lora_matmul_route(x, w), "dx_route": ops.lora_matmul_route(g, w.t()),
     }
+    if dtype == torch.bfloat16:
+        # the first design's WMMA route on the same inputs, for the change on one card
+        with torch.no_grad():
+            case["wmma_route_ms"] = timer(lambda: ops._lora_matmul_launch(x, w, a, b, alpha, "wmma"))
+        # device time alone: the call's span, and the bottleneck and main
+        # kernels apart (the main kernel, the bottleneck's programmatic
+        # dependent, may start before the bottleneck ends)
+        keys = ("lora_bottleneck_kernel", "lora_matmul_wgmma_kernel", "lora_matmul_wmma_kernel")
+        fwd_fn = lambda: ops.lora_matmul(x, w, a, b, alpha=alpha)  # noqa: E731
+        dx_fn = lambda: torch.autograd.grad(yl, xl, g, retain_graph=True)  # noqa: E731
+        with torch.no_grad():
+            fwd = device_ms(fwd_fn, timer.flush, keys)
+            fwd["span"] = device_span_ms(fwd_fn, timer.flush)
+            case["cublas_x_at_w_kernel_ms"] = device_ms(lambda: x @ w, timer.flush)
+        dxk = device_ms(dx_fn, timer.flush, keys)
+        dxk["span"] = device_span_ms(dx_fn, timer.flush)
+        for prefix, parts in (("", fwd), ("dx_", dxk)):
+            case[prefix + "kernel_ms"] = parts["span"]
+            case[prefix + "bottleneck_kernel_ms"] = parts["lora_bottleneck_kernel"]
+            case[prefix + "main_kernel_ms"] = parts["lora_matmul_wgmma_kernel"] or parts["lora_matmul_wmma_kernel"]
+    return case
+
+
+def bottleneck_of(ops, x, a, route=None):
+    """The rounded t = T(x @ A) that a lora_matmul route computes, read
+    through its own launch: with W = 0, B the identity and alpha 2, y =
+    T(2 t) = 2 t exactly."""
+    k, r = a.shape
+    n = -(-r // 8) * 8
+    eye = torch.zeros((r, n), dtype=x.dtype, device=x.device)
+    eye[:, :r] = torch.eye(r, dtype=x.dtype, device=x.device)
+    y = ops._lora_matmul_launch(x, torch.zeros((k, n), dtype=x.dtype, device=x.device), a, eye, 2.0, route)
+    return y[:, :r].float() / 2
+
+
+LORA_FAULT_OFFSET = 1100  # Philox offset of the card's generator seeded 0 at the failing draw
+
+
+def lora_fault_case(ops, ref, *, m=8192, k=2560, n=8960, r=8, alpha=2.0):
+    """The draw on which lora_matmul's first bf16 design failed its check
+    (max abs error 0.0625 at the rwkv6-3b channel-mix up shape), pinned by
+    a generator of its own: the card's generator seeded 0 at Philox offset
+    1100, drawn as ``lora_case`` draws.  On the route the launcher picks
+    (checked: 3e-2 + 1e-2 |ref|, and the bottleneck t within one bf16 ulp
+    of the twin's, the ulp floored at 2^-19) and on the WMMA route of that
+    design (reported only): the error, the elements out of tolerance and
+    the bf16 roundings of t that differ from the twin's."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    gen.set_offset(LORA_FAULT_OFFSET)
+    rn = lambda shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
+    x = rn((m, k)).to(torch.bfloat16)
+    w = (rn((k, n)) * k**-0.5).to(torch.bfloat16)
+    a = (rn((k, r)) * k**-0.5).to(torch.bfloat16)
+    b = (rn((r, n)) * r**-0.5).to(torch.bfloat16)
+    want = ref.lora_matmul_plain(x, w, a, b, alpha=alpha).float()
+    t_ref = (x.float() @ a.float()).to(torch.bfloat16).float()
+    ulp = torch.exp2(torch.floor(torch.log2(t_ref.abs().clamp_min(2.0**-12))) - 7)
+    out = {"shape": f"M={m} K={k} N={n} r={r} bfloat16, alpha {alpha}"}
+    for route in (ops.lora_matmul_route(x, w), "wmma"):
+        y = ops._lora_matmul_launch(x, w, a, b, alpha, route).float()
+        t = bottleneck_of(ops, x, a, route)
+        torch.cuda.synchronize()
+        err = (y - want).abs()
+        out[route] = {"max_abs_err": err.max().item(),
+                      "n_out_of_tolerance": int((err > 3e-2 + 1e-2 * want.abs()).sum()),
+                      "t_roundings_differing": int((t != t_ref).sum()),
+                      "t_beyond_one_ulp": int(((t - t_ref).abs() > ulp).sum())}
+    picked = out[ops.lora_matmul_route(x, w)]
+    check(picked["n_out_of_tolerance"] == 0, f"lora_matmul on the fixed draw: {picked}")
+    check(picked["t_beyond_one_ulp"] == 0, f"lora_matmul bottleneck on the fixed draw: {picked}")
+    out["route"] = ops.lora_matmul_route(x, w)
+    return out
 
 
 def wkv6_case(ops, ref, timer, gen, *, dtype, b=16, s=512, h=40, k=64, state=False, time_it=True):
@@ -831,6 +976,7 @@ def train_full(ops, card, seed: int, cfg, round_launches, eval_launches):
         stld.sample_drops = sample_drops
     round_s = time.perf_counter() - t0
     launches = dict(ops.launch_counts)
+    routes = dict(ops.lora_matmul_routes)
     peak_05 = torch.cuda.max_memory_allocated()
     metrics = {key: float(val) for key, val in m1.items()}
     check(all(np.isfinite(list(metrics.values()))), f"non-finite round metrics {metrics}")
@@ -840,6 +986,8 @@ def train_full(ops, card, seed: int, cfg, round_launches, eval_launches):
     check(len(gates) == steps and abs(metrics["active_layers"] * steps - active) < 1e-3,
           f"active layers {metrics['active_layers']} vs gates {gates}")
     check_launches(launches, round_launches(gates), f"{arch} round of gates {gates}")
+    check(routes == {"fma": 0, "wmma": 0, "wgmma": launches["lora_matmul"]},
+          f"{arch}: lora_matmul routes {routes}, every call expected on wgmma")
 
     peft2, _, m2, imp2 = run(rate)
     check(tree_equal(peft1, peft2) and torch.equal(imp1, imp2)
@@ -875,7 +1023,7 @@ def train_full(ops, card, seed: int, cfg, round_launches, eval_launches):
         "mean_rate": rate, "setup_s": setup_s, "round_s": round_s, "s_per_local_step": round_s / steps,
         "active_layers_per_step": metrics["active_layers"], "metrics": metrics, "accuracy_after_round": acc,
         "round_s_rate_0": round0_s, "s_per_local_step_rate_0": round0_s / steps, "batch_rate_0": batch0,
-        "gates_rate_0.5": gates, "launches": launches,
+        "gates_rate_0.5": gates, "launches": launches, "lora_matmul_routes": routes,
         "resident_gib": resident / gib, "peak_gib_rate_0.5": peak_05 / gib, "peak_gib_rate_0.0": peak_00 / gib,
         "round_gib_above_resident_rate_0.5": (peak_05 - resident) / gib,
         "round_gib_above_resident_rate_0.0": (peak_00 - resident) / gib,
@@ -958,7 +1106,7 @@ def main() -> int:
         usage = [ln.strip() for ln in log.read_text().splitlines() if "registers" in ln or "spill" in ln]
         print(f"build {name}: {build_s[name]:.1f} s; ptxas: {' | '.join(usage)}", flush=True)
     print(f"build: {len(_build.KERNELS)} kernels in {time.perf_counter() - t0:.1f} s wall", flush=True)
-    print(f"attention kernels, resources: {json.dumps(attention_resources(_build))}", flush=True)
+    print(f"kernel resources: {json.dumps(kernel_resources(_build))}", flush=True)
 
     # 3. kernels against their twins, timed
     timer = Timer()
@@ -993,6 +1141,7 @@ def main() -> int:
     for name, k, n in (("up", 2560, 8960), ("down", 8960, 2560)):  # rwkv6-3b channel-mix
         lora[name] = lora_case(ops, ref, timer, gen, dtype=torch.bfloat16, n=n, k=k)
         print(f"lora_matmul rwkv cm {name} {json.dumps(lora[name])} [{card}]", flush=True)
+    print(f"lora_matmul fixed failing draw {json.dumps(lora_fault_case(ops, ref))}", flush=True)
     wkv = wkv6_case(ops, ref, timer, gen, dtype=torch.bfloat16)
     print(f"wkv6 {json.dumps(wkv)} [{card}]", flush=True)
     for kw in ({"dtype": torch.float32, "b": 2, "s": 100}, {"dtype": torch.float32, "b": 2, "s": 100, "k": 32, "h": 4},
@@ -1092,6 +1241,9 @@ def main() -> int:
             "replaces": "src/repro/kernels/flash_decode.py:78",
             "launches": launches["flash_decode"],
             **{key: d_case[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "device_only_ms": d_case["kernel_ms"],
+            "split_kernel_ms": d_case["split_kernel_ms"], "combine_kernel_ms": d_case["combine_kernel_ms"],
+            "library_device_only_ms": d_case["library_kernel_ms"], "splits": d_case["splits"],
             "shape": d_case["shape"],
         },
         {
@@ -1125,6 +1277,9 @@ def main() -> int:
             **{key: lq[key] + lv[key] for key in ("ms", "plain_ms", "bound_ms")},
             "bound_by": lq["bound_by"], "library_ms": None,
             "cublas_x_at_w_ms": lq["cublas_x_at_w_ms"] + lv["cublas_x_at_w_ms"],
+            **{key: None if lq[key] is None or lv[key] is None else lq[key] + lv[key]
+               for key in ("kernel_ms", "bottleneck_kernel_ms", "main_kernel_ms", "cublas_x_at_w_kernel_ms")},
+            "routes_in_round": train_stats["lora_matmul_routes"],
             "shape": "q then v projection of one layer, forward: " + lq["shape"] + " + " + lv["shape"],
         },
         {

@@ -32,9 +32,16 @@ class ClientFns(NamedTuple):
     evaluate: Callable
 
 
-def make_client_fns(cfg, peft_cfg, stld_cfg, train_cfg, *, device=None) -> ClientFns:
+def make_client_fns(cfg, peft_cfg, stld_cfg, train_cfg, *, device=None, shape=None) -> ClientFns:
     """Build one client's round programs; their tensors live on ``device``
     (None = the card).
+
+    ``shape`` is the (L,) per-layer rate shape (mean 1.0, unclipped) that a
+    round scales by its mean rate.  None takes ``unit_shape`` of
+    ``stld_cfg.distribution`` with a torch generator seeded 0, never the
+    global generator, so two builds give the same rates.  For ``normal``
+    that noise is not the reference's ``PRNGKey(0)`` draw: pass the JAX
+    package's ``unit_shape("normal", L)`` to get its rates.
 
     ``local_round(base_params, peft_params, opt_state, batches, mean_rate,
     rng, global_step) -> (peft_params, opt_state, metrics, importance)``:
@@ -56,7 +63,9 @@ def make_client_fns(cfg, peft_cfg, stld_cfg, train_cfg, *, device=None) -> Clien
     lora_sc = peft_lib.lora_scale(peft_cfg)
     sched = make_lr_schedule(train_cfg.schedule, train_cfg.learning_rate, train_cfg.warmup_steps,
                              train_cfg.total_steps)
-    shape = unit_shape(stld_cfg.distribution, num_layers, generator=torch.Generator().manual_seed(0))
+    if shape is None:
+        shape = unit_shape(stld_cfg.distribution, num_layers, generator=torch.Generator().manual_seed(0))
+    shape = torch.as_tensor(shape, dtype=torch.float32)
 
     def loss_fn(peft_params, base_params, tokens, targets, mask, drops):
         logits, aux, _ = model_apply(base_params, cfg, {"tokens": tokens}, drops=drops, peft=peft_params,

@@ -393,7 +393,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, float* ls
 // (SS) or as register fragments read from global memory (RS); B given as
 // its transpose, N x K row-major (K-major), or as K x N row-major
 // (MN-major).  The accumulator goes out through its fragment layout.  It
-// holds each form the attention kernels use against torch.matmul.
+// holds each form the attention kernels and lora_matmul use against
+// torch.matmul.
 template <int N, int K, bool RS, bool B_MN>
 __global__ void __launch_bounds__(WG_THREADS)
 wgmma_probe_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
@@ -493,10 +494,12 @@ extern "C" int flash_attention_fwd_launch(int dtype, const void* q, const void* 
 }
 
 // Test entry: one wgmma product of a (64 x k) by b, see wgmma_probe_kernel;
-// n and k are 64 or 128.  a, b bf16 and c float32, contiguous.
+// n and k are 64 or 128, or n 256 and k 64 with A from shared memory (the
+// forms of lora_matmul.cu).  a, b bf16 and c float32, contiguous.
 extern "C" int hopper_wgmma_probe(int rs, int b_mn, int n, int k, const void* a, const void* b, void* c,
                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n == 256 && k == 64 && !rs) return b_mn ? probe<256, 64, false, true>(a, b, c, s) : probe<256, 64, false, false>(a, b, c, s);
   if (n == 64 && k == 64) return probe_forms<64, 64>(rs, b_mn, a, b, c, s);
   if (n == 64 && k == 128) return probe_forms<64, 128>(rs, b_mn, a, b, c, s);
   if (n == 128 && k == 64) return probe_forms<128, 64>(rs, b_mn, a, b, c, s);

@@ -13,19 +13,26 @@
 //
 // What bounds it: each cache element is used once per query of its GQA
 // group (rep = 2 for qwen3-1.7b), a few FLOP per byte, so it is bound by
-// reading the K and V cache once.  One block per (row, kv head) holds the
-// group's rep queries in shared memory and streams the cache in steps of BK
-// slots with an online softmax, so the group shares every cache read and
-// each cache byte is read from memory once.  Each step's K, V and slot
-// positions arrive by 16-byte loads into registers, issued one step ahead
-// (while the block computes on the step before), and are staged through
-// shared memory.  A slot's scores are computed by SEG threads, each over a
-// contiguous part of the head dim, and meet in a fixed shuffle tree; the
-// rows of the staged tile are padded by 16 bytes so those reads do not
-// collide in shared-memory banks.
-//
-// Simple first: CUDA-core FMAs, one block per (row, kv head), no split of
-// the sequence across blocks.
+// reading the live slots of the K and V cache once (~2.5 us at the decode
+// step's B 8, S 512).  Hiding the memory's latency needs several MB in
+// flight, so the cache is split across blocks:
+//  * the grid is (kv head, row, split); the number of splits comes from S
+//    and the card's SM count alone (about 64 slots a block, at most one
+//    split per SM), never from B, so a row's sums do not depend on the
+//    batch;
+//  * a block reads its slab's slot positions first, then loads the K and V
+//    rows of the live slots of each 64-slot chunk in one burst of 16-byte
+//    cp.async (dead slots zero-filled, a chunk with no live slot not loaded
+//    at all), and runs the group's rep queries over them with an online
+//    softmax kept by each warp for its quarter of the slots (scores by 2
+//    threads a slot and a fixed shuffle, the max, sum and P V by shuffles),
+//    the warps merged once at the end of the slab;
+//  * each block writes a float32 partial (m, l, acc[D]) per query, and a
+//    second kernel merges a row's splits in order: no atomics.
+// A dead slot of a row that has a live slot adds exactly 0 to l and acc
+// (exp(-1e30 - m) is 0 in float32), so skipping it changes no bit.  A row
+// whose slots are all dead gets the mean of V over all S slots, what the
+// finite mask gives: the merge computes it when no split had a live slot.
 #include <cstdint>
 
 #include "common.cuh"
@@ -36,7 +43,8 @@ constexpr int THREADS = 128;  // 4 warps
 constexpr int WARPS = THREADS / 32;
 constexpr int MAX_REP = 8;    // query heads per kv head
 constexpr int MAX_D = 256;    // head dim
-constexpr int DPT = MAX_D / THREADS;  // output dims per thread
+constexpr int SLAB = 64;      // slots a block aims for
+constexpr int ROW_PAD = 32;   // bytes after each staged cache row
 constexpr float NEG_INF = -1e30f;
 
 // 16 bytes of shared memory as floats: 8 bf16 or 4 float32
@@ -56,213 +64,325 @@ __device__ __forceinline__ void load_vec(const float* p, float* out) {
   out[0] = f.x; out[1] = f.y; out[2] = f.z; out[3] = f.w;
 }
 
-template <typename TQ, typename TC>
-__global__ void __launch_bounds__(THREADS)
-flash_decode_kernel(const TQ* __restrict__ q,      // (B, H, D)
-                    const TC* __restrict__ k,      // (B, S, KV, D)
-                    const TC* __restrict__ v,      // (B, S, KV, D)
-                    const int* __restrict__ qpos,  // (B,)
-                    const int* __restrict__ kpos,  // (B, S)
-                    TQ* __restrict__ out,          // (B, H, D)
-                    int H, int KV, int D, int S, int window, float scale) {
-  constexpr int VEC = 16 / sizeof(TC);               // elements per 16-byte load
-  constexpr int BK = 64 / sizeof(TC);                // slots per step: 32 bf16, 16 f32
-  constexpr int SEG = THREADS / BK;                  // threads per slot for the scores
-  constexpr int SPW = 32 / SEG;                      // slots per warp for the scores
-  constexpr int ROW = MAX_D + VEC;                   // padded row: 16 bytes more
-  constexpr int LOADS = BK * MAX_D / VEC / THREADS;  // 16-byte loads per thread per step
-  static_assert(BK <= THREADS && WARPS * SPW == BK, "one score group per slot");
-  __shared__ __align__(16) TC k_s[BK][ROW];
-  __shared__ __align__(16) TC v_s[BK][ROW];
-  __shared__ float q_s[MAX_REP][MAX_D];
-  __shared__ float p_s[MAX_REP][BK];  // scores, then probabilities, of one step
-  __shared__ int kpos_s[BK];
-  __shared__ float m_s[MAX_REP];
-  __shared__ float l_s[MAX_REP];
-  __shared__ float alpha_s[MAX_REP];
+// Slots of a chunk: 64 bf16 or 32 float32 rows, so that a chunk of K and V
+// at D 256 takes 64 KB of shared memory either way.
+template <typename TC>
+struct Chunk {
+  static constexpr int CH = 128 / sizeof(TC);
+  static constexpr int VEC = 16 / sizeof(TC);  // elements per 16-byte load
+  static constexpr int SEG = THREADS / CH;     // threads per slot for the scores
+  static_assert(CH <= THREADS && 32 % SEG == 0, "a slot's score threads share a warp");
+  __host__ __device__ static int row_bytes(int D) { return D * static_cast<int>(sizeof(TC)) + ROW_PAD; }
+  __host__ __device__ static int smem_bytes(int D) { return 2 * CH * row_bytes(D); }
+};
 
-  const int kvh = blockIdx.x;
-  const int row = blockIdx.y;
-  const int rep = H / KV;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int dvecs = D / VEC;  // 16-byte vectors per slot
+// part: (B, H, splits, D + 2) float32, per query and split (m, l, acc[D]);
+// l = 0 marks a split without a live slot (nothing else written).
+//
+// Inside a block each warp owns CH / 4 slots of every chunk and keeps its
+// own online softmax (m, l and acc in registers, lane l holding head dims
+// l, l + 32, ...): scores by SEG lanes a slot and a fixed shuffle, the
+// warp's max and sum by shuffles, P V with each slot's probability
+// broadcast by a shuffle.  The four warps' states merge once, in warp
+// order, at the end of the slab, through the K buffer.
+template <typename TQ, typename TC, int REP>
+__global__ void __launch_bounds__(THREADS)
+flash_decode_split_kernel(const TQ* __restrict__ q,      // (B, H, D)
+                          const TC* __restrict__ k,      // (B, S, KV, D)
+                          const TC* __restrict__ v,      // (B, S, KV, D)
+                          const int* __restrict__ qpos,  // (B,)
+                          const int* __restrict__ kpos,  // (B, S)
+                          float* __restrict__ part, int H, int KV, int D, int S, int window, int slab,
+                          float scale) {
+  using C = Chunk<TC>;
+  constexpr int CH = C::CH, VEC = C::VEC, SEG = C::SEG, SPW = CH / WARPS;  // slots a warp
+  static_assert(SPW * SEG == 32, "a warp's slots fill its lanes");
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float q_s[MAX_REP][MAX_D];
+  __shared__ int live_s[CH];
+  __shared__ float wm_s[WARPS][MAX_REP];
+  __shared__ float wl_s[WARPS][MAX_REP];
+
+  pdl_launch_dependents();  // the merge kernel may start; it waits for this grid before reading
+  const int kvh = blockIdx.x, row = blockIdx.y, split = blockIdx.z, splits = gridDim.z;
+  const int rep = H / KV;  // <= REP
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rowb = C::row_bytes(D), dvecs = D / VEC, dpl = D / 32;  // head dims a lane
+  unsigned char* k_s = smem;
+  unsigned char* v_s = smem + CH * rowb;
 
   const TQ* qg = q + ((size_t)row * H + (size_t)kvh * rep) * D;
   for (int i = tid; i < rep * D; i += THREADS) q_s[i / D][i % D] = to_float(qg[i]);
-  if (tid < rep) {
-    m_s[tid] = NEG_INF;
-    l_s[tid] = 0.f;
-  }
   const int qp = qpos[row];
   const int* kp = kpos + (size_t)row * S;
   const size_t slot_stride = (size_t)KV * D;
   const TC* kb = k + ((size_t)row * S * KV + kvh) * D;
   const TC* vb = v + ((size_t)row * S * KV + kvh) * D;
 
-  uint4 kr[LOADS], vr[LOADS];
-  int kpr = 0;
-  auto fetch = [&](int j0) {
-    const int nb = min(BK, S - j0);
+  float m[REP], l[REP], acc[REP][MAX_D / 32];
 #pragma unroll
-    for (int u = 0; u < LOADS; ++u) {
-      const int e = tid + u * THREADS;
-      if (e < nb * dvecs) {
-        const size_t off = (size_t)(j0 + e / dvecs) * slot_stride + (size_t)(e % dvecs) * VEC;
-        kr[u] = *reinterpret_cast<const uint4*>(kb + off);
-        vr[u] = *reinterpret_cast<const uint4*>(vb + off);
-      }
+  for (int r = 0; r < REP; ++r) {
+    m[r] = NEG_INF;
+    l[r] = 0.f;
+#pragma unroll
+    for (int u = 0; u < MAX_D / 32; ++u) acc[r][u] = 0.f;
+  }
+
+  // score roles: slot js of the chunk (this warp's), part seg of the head
+  // dim (vectors seg, seg + SEG, ...: with the padded rows the 8 lanes of a
+  // quarter warp read 8 distinct 16-byte bank groups for bf16)
+  const int js = warp * SPW + lane / SEG, seg = lane % SEG;
+  const int j_end = min(S, (split + 1) * slab);
+  for (int j0 = split * slab; j0 < j_end; j0 += CH) {
+    const int nb = min(CH, j_end - j0);
+
+    // (0) the chunk's slot positions first
+    bool live = false;
+    if (tid < nb) {
+      const int p = kp[j0 + tid];
+      live = p <= qp && (window <= 0 || p > qp - window);
     }
-    if (tid < nb) kpr = kp[j0 + tid];
-  };
+    if (tid < CH) live_s[tid] = live;
+    if (!__syncthreads_or(live)) continue;  // adds exactly 0 to this row: skip it
 
-  float acc[MAX_REP][DPT];
-#pragma unroll
-  for (int r = 0; r < MAX_REP; ++r)
-#pragma unroll
-    for (int i = 0; i < DPT; ++i) acc[r][i] = 0.f;
-
-  // score-phase roles: slot js of this step, part seg of the head dim
-  const int js = warp * SPW + lane % SPW;
-  const int seg = lane / SPW;
-  const int seg_vecs = dvecs / SEG;
-
-  fetch(0);
-  for (int j0 = 0; j0 < S; j0 += BK) {
-    const int nb = min(BK, S - j0);
-
-    // (0) stage this step's K, V and slot positions, then start the next step's loads
-#pragma unroll
-    for (int u = 0; u < LOADS; ++u) {
-      const int e = tid + u * THREADS;
-      if (e < nb * dvecs) {
-        *reinterpret_cast<uint4*>(&k_s[e / dvecs][(e % dvecs) * VEC]) = kr[u];
-        *reinterpret_cast<uint4*>(&v_s[e / dvecs][(e % dvecs) * VEC]) = vr[u];
-      }
+    // (1) the live slots' K rows, then their V rows, in one burst (two
+    //     groups: the scores need only K); dead slots zero-filled
+    for (int e = tid; e < nb * dvecs; e += THREADS) {
+      const int j = e / dvecs, c = e % dvecs;
+      const size_t off = (size_t)(j0 + j) * slot_stride + (size_t)c * VEC;
+      cp_async16(k_s + j * rowb + c * 16, kb + off, live_s[j] ? 16 : 0);
     }
-    if (tid < nb) kpos_s[tid] = kpr;
+    cp_async_commit();
+    for (int e = tid; e < nb * dvecs; e += THREADS) {
+      const int j = e / dvecs, c = e % dvecs;
+      const size_t off = (size_t)(j0 + j) * slot_stride + (size_t)c * VEC;
+      cp_async16(v_s + j * rowb + c * 16, vb + off, live_s[j] ? 16 : 0);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this thread's K rows
     __syncthreads();
-    if (j0 + BK < S) fetch(j0 + BK);
 
-    // (1) scores: SEG threads per slot, each over seg_vecs contiguous
-    //     vectors of the head dim, then a fixed shuffle tree across them.
-    float sc[MAX_REP];
+    // (2) scores, then the warp's online-softmax update
+    float sc[REP];
 #pragma unroll
-    for (int r = 0; r < MAX_REP; ++r) sc[r] = 0.f;
+    for (int r = 0; r < REP; ++r) sc[r] = 0.f;
     if (js < nb) {
-      for (int u = 0; u < seg_vecs; ++u) {
-        const int d0 = (seg * seg_vecs + u) * VEC;
+      const TC* krow = reinterpret_cast<const TC*>(k_s + js * rowb);
+      for (int u = seg; u < dvecs; u += SEG) {
         float kv[VEC];
-        load_vec(&k_s[js][d0], kv);
+        load_vec(krow + u * VEC, kv);
 #pragma unroll
-        for (int r = 0; r < MAX_REP; ++r)
+        for (int r = 0; r < REP; ++r)
           if (r < rep) {
 #pragma unroll
-            for (int e = 0; e < VEC; ++e) sc[r] += q_s[r][d0 + e] * kv[e];
+            for (int e = 0; e < VEC; ++e) sc[r] += q_s[r][u * VEC + e] * kv[e];
           }
       }
     }
-    const int kpj = kpos_s[js < nb ? js : 0];
-    const bool live = js < nb && kpj <= qp && (window <= 0 || kpj > qp - window);
+    const bool slot_live = js < nb && live_s[js];
+    float p[REP];
 #pragma unroll
-    for (int r = 0; r < MAX_REP; ++r) {
-      if (r < rep) {
-        float s = sc[r];
+    for (int r = 0; r < REP; ++r) {
 #pragma unroll
-        for (int off = SPW; off < 32; off <<= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-        if (seg == 0 && js < nb) p_s[r][js] = live ? s * scale : NEG_INF;
-      }
+      for (int off = 1; off < SEG; off <<= 1) sc[r] += __shfl_xor_sync(0xffffffffu, sc[r], off);
+      const float s = slot_live ? sc[r] * scale : NEG_INF;
+      float mx = s;
+#pragma unroll
+      for (int off = SEG; off < 32; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[r], mx);
+      p[r] = js < nb ? expf(s - m_new) : 0.f;  // past the chunk: no slot
+      float sum = seg == 0 ? p[r] : 0.f;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      const float alpha = expf(m[r] - m_new);
+      l[r] = alpha * l[r] + sum;
+      m[r] = m_new;
+#pragma unroll
+      for (int u = 0; u < MAX_D / 32; ++u) acc[r][u] *= alpha;
     }
+    cp_async_wait<0>();  // this thread's V rows
     __syncthreads();
 
-    // (2) online-softmax update, one warp per query of the group.
-    for (int r = warp; r < rep; r += WARPS) {
-      float mx = NEG_INF;
-      for (int j = lane; j < nb; j += 32) mx = fmaxf(mx, p_s[r][j]);
-      mx = warp_max(mx);
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int j = lane; j < nb; j += 32) {
-        const float e = expf(p_s[r][j] - m_new);
-        p_s[r][j] = e;
-        sum += e;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        l_s[r] = alpha * l_s[r] + sum;
-        m_s[r] = m_new;
-        alpha_s[r] = alpha;
-      }
-    }
-    __syncthreads();
-
-    // (3) acc = acc * alpha + p @ V: each thread owns DPT dims of the output.
+    // (3) acc += p V over this warp's slots; lane holds dims lane + 32 u
+    for (int jj = 0; jj < SPW; ++jj) {
+      const int j = warp * SPW + jj;
+      float pj[REP];
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) {
-      const int d = tid + i * THREADS;
-      if (d < D) {
+      for (int r = 0; r < REP; ++r) pj[r] = __shfl_sync(0xffffffffu, p[r], jj * SEG);
+      if (j >= nb) continue;
+      const TC* vrow = reinterpret_cast<const TC*>(v_s + j * rowb);
 #pragma unroll
-        for (int r = 0; r < MAX_REP; ++r)
-          if (r < rep) acc[r][i] *= alpha_s[r];
-#pragma unroll 8
-        for (int j = 0; j < nb; ++j) {
-          const float vd = to_float(v_s[j][d]);
+      for (int u = 0; u < MAX_D / 32; ++u) {
+        if (u < dpl) {
+          const float vd = to_float(vrow[lane + 32 * u]);
 #pragma unroll
-          for (int r = 0; r < MAX_REP; ++r)
-            if (r < rep) acc[r][i] += p_s[r][j] * vd;
+          for (int r = 0; r < REP; ++r) acc[r][u] += pj[r] * vd;
         }
       }
     }
-    __syncthreads();
   }
 
-  TQ* og = out + ((size_t)row * H + (size_t)kvh * rep) * D;
+  // (4) the warps' states, merged in warp order, into this split's partial
+  __syncthreads();  // the K buffer is free
+  float* wacc_s = reinterpret_cast<float*>(k_s);  // [WARPS][REP][D]
+  if (lane == 0) {
 #pragma unroll
-  for (int i = 0; i < DPT; ++i) {
-    const int d = tid + i * THREADS;
-    if (d < D) {
+    for (int r = 0; r < REP; ++r) {
+      wm_s[warp][r] = m[r];
+      wl_s[warp][r] = l[r];
+    }
+  }
 #pragma unroll
-      for (int r = 0; r < MAX_REP; ++r)
-        if (r < rep) og[(size_t)r * D + d] = from_float<TQ>(acc[r][i] / fmaxf(l_s[r], 1e-30f));
+  for (int r = 0; r < REP; ++r)
+#pragma unroll
+    for (int u = 0; u < MAX_D / 32; ++u)
+      if (u < dpl) wacc_s[(warp * REP + r) * D + lane + 32 * u] = acc[r][u];
+  __syncthreads();
+  for (int e = tid; e < rep * D; e += THREADS) {
+    const int r = e / D, d = e % D;
+    float mb = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) mb = fmaxf(mb, wm_s[w][r]);
+    float lb = 0.f, ab = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const float wt = expf(wm_s[w][r] - mb);
+      lb += wt * wl_s[w][r];
+      ab += wt * wacc_s[(w * REP + r) * D + d];
+    }
+    float* pb = part + (((size_t)row * H + (size_t)kvh * rep + r) * splits + split) * (D + 2);
+    if (d == 0) {
+      pb[0] = mb;
+      pb[1] = lb;
+    }
+    if (lb > 0.f) pb[2 + d] = ab;
+  }
+}
+
+// out[b, h] from the row's splits, merged in order; a row without a live
+// slot gets the mean of V over its S slots.  One round trip: each thread
+// loads every split's (m, l) and its own dims' partials at once, 8 splits
+// at a time (a split without a live slot is selected out, never
+// multiplied: its acc was not written).
+template <typename TQ, typename TC>
+__global__ void __launch_bounds__(THREADS)
+flash_decode_combine_kernel(const float* __restrict__ part, const TC* __restrict__ v, TQ* __restrict__ out, int H,
+                            int KV, int D, int S, int splits) {
+  pdl_wait();  // the split kernel's partials are written
+  const int h = blockIdx.x, row = blockIdx.y, tid = threadIdx.x;
+  const int g = h / (H / KV);
+  const float* pp = part + ((size_t)row * H + h) * splits * (D + 2);
+  TQ* og = out + ((size_t)row * H + h) * D;
+  for (int d = tid; d < D; d += THREADS) {
+    float M = NEG_INF, l = 0.f, acc = 0.f;
+    for (int s0 = 0; s0 < splits; s0 += 8) {
+      float ms[8], ls[8], as[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float* ps = pp + (size_t)min(s0 + i, splits - 1) * (D + 2);
+        ms[i] = ps[0];
+        ls[i] = s0 + i < splits ? ps[1] : 0.f;
+        as[i] = ps[2 + d];
+      }
+      float mc = M;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if (ls[i] > 0.f) mc = fmaxf(mc, ms[i]);
+      const float alpha = expf(M - mc);  // the splits before, to this group's max
+      l *= alpha;
+      acc *= alpha;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        if (ls[i] > 0.f) {
+          const float w = expf(ms[i] - mc);
+          l += w * ls[i];
+          acc += w * as[i];
+        }
+      }
+      M = mc;
+    }
+    if (l > 0.f) {
+      og[d] = from_float<TQ>(acc / l);
+    } else {  // every slot dead: the finite mask weighs every slot alike
+      const TC* vg = v + ((size_t)row * S * KV + g) * D + d;
+      float sum = 0.f;
+      for (int j = 0; j < S; ++j) sum += to_float(vg[(size_t)j * KV * D]);
+      og[d] = from_float<TQ>(sum / static_cast<float>(S));
     }
   }
 }
 
+int sm_count() {
+  static int count[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 1;
+  if (count[dev] == 0 && cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 1;
+  return count[dev];
+}
+
+int splits_for(int S) { return max(1, min((S + SLAB - 1) / SLAB, sm_count())); }
+
+template <typename TQ, typename TC, int REP>
+int launch_rep(const void* q, const void* k, const void* v, const int* qpos, const int* kpos, void* out, float* part,
+               int B, int H, int KV, int D, int S, int window, float scale, int splits, cudaStream_t stream) {
+  const int slab = (S + splits - 1) / splits;
+  const int bytes = Chunk<TC>::smem_bytes(D);
+  auto split_kernel = flash_decode_split_kernel<TQ, TC, REP>;
+  cudaError_t err = cudaFuncSetAttribute(split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  split_kernel<<<dim3(KV, B, splits), THREADS, bytes, stream>>>(static_cast<const TQ*>(q), static_cast<const TC*>(k),
+                                                                static_cast<const TC*>(v), qpos, kpos, part, H, KV,
+                                                                D, S, window, slab, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // the merge as the split kernel's programmatic dependent: its launch
+  // overlaps the split kernel's tail
+  return static_cast<int>(launch_dependent(flash_decode_combine_kernel<TQ, TC>, dim3(H, B), dim3(THREADS), 0, stream,
+                                           static_cast<const float*>(part), static_cast<const TC*>(v),
+                                           static_cast<TQ*>(out), H, KV, D, S, splits));
+}
+
+// The group's loops unrolled for 1, 2, 4 or 8 queries (a group of 3 runs
+// the 4-query code with the fourth masked off).
 template <typename TQ, typename TC>
-int launch(const void* q, const void* k, const void* v, const int* qpos, const int* kpos,
-           void* out, int B, int H, int KV, int D, int S, int window, float scale,
-           cudaStream_t stream) {
-  dim3 grid(KV, B);
-  flash_decode_kernel<TQ, TC><<<grid, THREADS, 0, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TC*>(k), static_cast<const TC*>(v), qpos,
-      kpos, static_cast<TQ*>(out), H, KV, D, S, window, scale);
-  return static_cast<int>(cudaGetLastError());
+int launch(const void* q, const void* k, const void* v, const int* qpos, const int* kpos, void* out, float* part,
+           int B, int H, int KV, int D, int S, int window, float scale, int splits, cudaStream_t stream) {
+  const int rep = H / KV;
+  auto go = rep == 1   ? launch_rep<TQ, TC, 1>
+            : rep == 2 ? launch_rep<TQ, TC, 2>
+            : rep <= 4 ? launch_rep<TQ, TC, 4>
+                       : launch_rep<TQ, TC, MAX_REP>;
+  return go(q, k, v, qpos, kpos, out, part, B, H, KV, D, S, window, scale, splits, stream);
 }
 
 }  // namespace
 
+// The splits of a cache of S slots on the current card: the wrapper sizes
+// the partials' scratch, (B, H, splits, D + 2) float32, with it.
+extern "C" int flash_decode_splits(int S) { return S > 0 ? splits_for(S) : -1; }
+
 // Returns 0 on a good launch, the cudaError_t of a refused launch, or -1 for
-// arguments the kernel does not take.  Shapes, dtypes and devices are
-// checked by the Python wrapper (repro_torch/kernels/ops.py) before this.
+// arguments the kernel does not take (splits must be flash_decode_splits(S)).
+// Shapes, dtypes and devices are checked by the Python wrapper
+// (repro_torch/kernels/ops.py) before this.
 extern "C" int flash_decode_launch(int q_dtype, int cache_dtype, const void* q, const void* k,
-                                   const void* v, const int* qpos, const int* kpos, void* out,
-                                   int B, int H, int KV, int D, int S, int window, float scale,
+                                   const void* v, const int* qpos, const int* kpos, void* out, void* part,
+                                   int B, int H, int KV, int D, int S, int window, float scale, int splits,
                                    void* stream) {
   if (B <= 0 || KV <= 0 || S <= 0 || H % KV != 0 || H / KV > MAX_REP || D > MAX_D || D % 32)
     return -1;
+  if (B > 65535 || H > 65535 || splits != splits_for(S)) return -1;
   // the cache is read by 16-byte loads
   if (reinterpret_cast<uintptr_t>(k) % 16 || reinterpret_cast<uintptr_t>(v) % 16) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* p = static_cast<float*>(part);
   if (q_dtype == kBFloat16 && cache_dtype == kBFloat16)
-    return launch<__nv_bfloat16, __nv_bfloat16>(q, k, v, qpos, kpos, out, B, H, KV, D, S,
-                                                window, scale, st);
+    return launch<__nv_bfloat16, __nv_bfloat16>(q, k, v, qpos, kpos, out, p, B, H, KV, D, S, window, scale,
+                                                splits, st);
   if (q_dtype == kFloat32 && cache_dtype == kBFloat16)
-    return launch<float, __nv_bfloat16>(q, k, v, qpos, kpos, out, B, H, KV, D, S, window,
-                                        scale, st);
+    return launch<float, __nv_bfloat16>(q, k, v, qpos, kpos, out, p, B, H, KV, D, S, window, scale, splits, st);
   if (q_dtype == kFloat32 && cache_dtype == kFloat32)
-    return launch<float, float>(q, k, v, qpos, kpos, out, B, H, KV, D, S, window, scale, st);
+    return launch<float, float>(q, k, v, qpos, kpos, out, p, B, H, KV, D, S, window, scale, splits, st);
   return -1;
 }

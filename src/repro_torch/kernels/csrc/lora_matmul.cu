@@ -15,29 +15,45 @@
 // by passing (dY, W^T, B^T, A^T) as strided views.  dA and dB are rank-r
 // products that stay torch.matmul, as the JAX package leaves them to XLA.
 //
-// Design.  The TPU grid (M blocks, N blocks) keeps K whole in VMEM; here a
-// block owns a tile of y and loops over K in chunks of 32, accumulating both
-// x @ W and the bottleneck x @ A (A's columns padded with zeros to a multiple
-// of 16) in float32; after the loop it rounds t, stages B's rows for its
-// columns and adds alpha * t @ B.  Each block recomputes t for its rows:
-// 2 M K r extra FLOPs per N tile, r / BN of the main product.
-//  * bf16 (the training path), v2: tensor cores through WMMA (mma.sync), a
-//    128 x 128 tile per block of 8 warps, each warp's 32 x 64 accumulators
-//    in registers for the whole K loop, operands staged by 16-byte cp.async
-//    into two shared-memory buffers so the next chunk loads while this one
-//    multiplies.  A transposed view (dX) is staged as it lies in memory and
-//    read as column-major fragments.
+// Three routes; the wrapper (repro_torch/kernels/ops.py) picks one by dtype
+// and shape, and the launcher refuses a route that cannot take the
+// arguments:
+//  * wgmma (bf16, K and N multiples of 8, W row-major or a transposed view
+//    of a row-major matrix): every training shape of the port.  Two
+//    kernels.  The bottleneck kernel computes t = T(x @ A) once per row
+//    with float32 FMAs on the CUDA cores, in a fixed order (each lane of a
+//    warp sums its 8-element slices of K in order, then a butterfly across
+//    the lanes), into an (M, RT) scratch; the tensor cores would truncate
+//    each partial sum, and one flipped rounding of t at |t| >= 2 moves a
+//    whole row of y by alpha * ulp(t) * B.  The main kernel is launched as
+//    its programmatic dependent and waits for t only before its epilogue.  The main kernel runs x @ W on
+//    the tensor cores: a 128 x 256 tile of y per block, two warpgroups of
+//    64 rows, each holding its 64 x 256 float32 accumulator in registers
+//    for the whole K loop (wgmma m64n256k16 from shared memory); thread 0
+//    keeps a 4-slot ring of 64-deep chunks of x and W in flight by TMA
+//    (mbarriers; W read MN-major in the forward, K-major as the dX's
+//    transposed view).  The epilogue adds alpha * t @ B with FMAs in
+//    registers (B's rows for the tile staged in shared memory; above rank
+//    8, alpha times each group of 8 ranks' sum in turn), writes the
+//    rounded tile to shared memory and stores it by TMA, which clips the
+//    ragged edges.  Tiles are walked in groups of 16 row tiles so that
+//    concurrent blocks share their W columns in L2.  No split-K and no
+//    atomics: every sum has one order, set by the shapes.
+//  * wmma (bf16, the other shapes: K or N not a multiple of 8): the first
+//    design, WMMA mma.sync on cp.async double buffers, each block
+//    recomputing t on the tensor cores.
 //  * float32: CUDA-core FMAs on 32 x 32 tiles with the accumulators in
 //    shared memory (full float32; the tensor cores would round to TF32).
 //
 // What bounds it on the card: at the training shape of the q projection
 // (M 8192, K 2048, N 2048, r 8, bf16) it does ~6.9e10 FLOPs over ~50 MB, so
-// the tensor cores bound it (~70 us at 989 TFLOP/s).  Still simple: WMMA's
-// mma.sync reaches a fraction of what wgmma with TMA would.
+// the tensor cores bound it (~70 us at 989 TFLOP/s); the bottleneck kernel
+// reads x once more (~10 us at 3.35 TB/s).
 #include <cuda_pipeline_primitives.h>
 
 #include <type_traits>
 
+#include "hopper.cuh"
 #include "tiles.cuh"
 
 namespace {
@@ -355,18 +371,386 @@ int launch_wmma(const void* x, const void* w, const void* a, const void* b, void
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---------------------------------------------------------- bf16, Hopper
+// (1) The bottleneck t = T(x @ A) in float32 FMAs.  A block of 8 warps owns
+// 32 rows (4 a warp) and 8 columns of t.  Lane l takes the 8-element
+// slices v = l, l + 32, ... of K in order and accumulates 4 rows x 8
+// columns.  Each thread prefetches its own slices of x (its 4 rows) by
+// 16-byte cp.async into a ring of BT_XD slots in shared memory, so several
+// iterations' loads stay in flight while it computes; A's 8 columns are
+// staged in passes of BT_KC rows, two buffers, the next pass loading while
+// this one computes.  One cp.async group per iteration carries the slices
+// it prefetches and, at a pass's start, the next pass of A.  Staged layouts
+// of A: a row-major A keeps one 16-byte unit (8 columns) per k, the units
+// of slice v rotated by v so that the 8 lanes of a quarter warp reading
+// unit e of their slices hit 8 distinct 16-byte bank groups; a transposed
+// view keeps each column's BT_KC values contiguous; other strides or a
+// partial column group load element by element.
+constexpr int BT_THREADS = 256, BT_WARPS = 8, BT_ROWS = 4, BT_KC = 1024, BT_XD = 4;
+constexpr int BT_IPP = BT_KC / 8 / 32;  // a lane's iterations per pass
+static_assert(BT_XD - 1 <= BT_IPP, "a pass of A lands before the pass that reads it");
+constexpr int BT_SMEM = 2 * BT_KC * 8 * 2 + BT_XD * BT_WARPS * BT_ROWS * 32 * 16;
+enum BtLayout { kBtScalar = 0, kBtRows = 1, kBtCols = 2 };
+
+__device__ __forceinline__ int bt_unit(int k) { return (k & ~7) | ((k + (k >> 3)) & 7); }
+
+__device__ __forceinline__ void bf16x8_to_float(const uint4& u, float (&f)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 v = __bfloat1622float2(h[i]);
+    f[2 * i] = v.x;
+    f[2 * i + 1] = v.y;
+  }
+}
+
+template <int LAYOUT>
+__global__ void __launch_bounds__(BT_THREADS, 2)
+lora_bottleneck_kernel(const bf16* __restrict__ x, const bf16* __restrict__ a, bf16* __restrict__ t, int M, int K,
+                       int R, int RT, long long sa0, long long sa1) {
+  extern __shared__ __align__(16) unsigned char bt_smem[];
+  bf16* a_s = reinterpret_cast<bf16*>(bt_smem);                      // [2][BT_KC * 8]
+  uint4* x_s = reinterpret_cast<uint4*>(bt_smem + 2 * BT_KC * 8 * 2);  // [BT_XD][BT_WARPS][BT_ROWS][32]
+  pdl_launch_dependents();  // the main kernel's blocks may take the SMs this grid frees
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c0 = blockIdx.y * 8;
+  const int row0 = blockIdx.x * (BT_WARPS * BT_ROWS) + warp * BT_ROWS;
+  const int nvec = K / 8, n_i = (nvec + 31) / 32, np = (K + BT_KC - 1) / BT_KC;
+  float acc[BT_ROWS][8];
+#pragma unroll
+  for (int r = 0; r < BT_ROWS; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+
+  auto x_slot = [&](int i, int r) { return x_s + (((i % BT_XD) * BT_WARPS + warp) * BT_ROWS + r) * 32 + lane; };
+  auto issue_x = [&](int i) {  // this thread's slice of iteration i, its 4 rows (zero past M and K)
+    const int v = lane + 32 * i;
+#pragma unroll
+    for (int r = 0; r < BT_ROWS; ++r) {
+      const bool in = v < nvec && row0 + r < M;
+      cp_async16(x_slot(i, r), in ? x + (long long)(row0 + r) * K + 8 * v : x, in ? 16 : 0);
+    }
+  };
+  auto stage = [&](int p) {  // pass p of A into a_s[p & 1]
+    const int k0 = p * BT_KC, kc = min(BT_KC, K - k0);
+    bf16* dst = a_s + (p & 1) * BT_KC * 8;
+    if constexpr (LAYOUT == kBtRows) {
+      for (int k = threadIdx.x; k < kc; k += BT_THREADS)
+        cp_async16(dst + bt_unit(k) * 8, a + (long long)(k0 + k) * sa0 + c0, 16);
+    } else if constexpr (LAYOUT == kBtCols) {
+      for (int e = threadIdx.x; e < kc; e += BT_THREADS) {  // kc / 8 vectors of each of 8 columns
+        const int c = e / (kc / 8), q = e % (kc / 8);
+        cp_async16(dst + c * BT_KC + 8 * q, a + (long long)(c0 + c) * sa1 + k0 + 8 * q, 16);
+      }
+    } else {
+      for (int e = threadIdx.x; e < kc * 8; e += BT_THREADS) {
+        int k, c;
+        if (sa1 == 1) {  // neighbouring threads along A's rows
+          k = e >> 3;
+          c = e & 7;
+        } else {  // along its columns
+          c = e / kc;
+          k = e % kc;
+        }
+        dst[bt_unit(k) * 8 + c] =
+            c0 + c < R ? a[(long long)(k0 + k) * sa0 + (long long)(c0 + c) * sa1] : __float2bfloat16(0.f);
+      }
+    }
+  };
+  // groups 0 .. BT_XD - 2: iterations 0 .. BT_XD - 2 (and pass 0 of A)
+  stage(0);
+  for (int i = 0; i < BT_XD - 1; ++i) {
+    if (i < n_i) issue_x(i);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n_i; ++i) {
+    cp_async_wait<BT_XD - 2>();  // groups 0 .. i have landed
+    const int p = i / BT_IPP;
+    if (i % BT_IPP == 0) {
+      __syncthreads();  // pass p of A is complete; pass p - 1's buffer is free
+      if (p + 1 < np) stage(p + 1);
+    }
+    if (i + BT_XD - 1 < n_i) issue_x(i + BT_XD - 1);
+    cp_async_commit();  // group i + BT_XD - 1
+    const int v = lane + 32 * i;
+    if (v >= nvec) continue;
+    const int vl = v - p * (BT_KC / 8);  // the slice within its pass
+    const bf16* as = a_s + (p & 1) * BT_KC * 8;
+    float xf[BT_ROWS][8];
+#pragma unroll
+    for (int r = 0; r < BT_ROWS; ++r) bf16x8_to_float(*x_slot(i, r), xf[r]);
+    if constexpr (LAYOUT == kBtCols) {
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        float af[8];  // column c at k = 8v .. 8v + 7
+        bf16x8_to_float(*reinterpret_cast<const uint4*>(as + c * BT_KC + 8 * vl), af);
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+#pragma unroll
+          for (int r = 0; r < BT_ROWS; ++r) acc[r][c] = fmaf(xf[r][e], af[e], acc[r][c]);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        float af[8];  // the 8 columns at k = 8v + e
+        bf16x8_to_float(*reinterpret_cast<const uint4*>(as + (8 * vl + ((e + vl) & 7)) * 8), af);
+#pragma unroll
+        for (int r = 0; r < BT_ROWS; ++r)
+#pragma unroll
+          for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(xf[r][e], af[c], acc[r][c]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int r = 0; r < BT_ROWS; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) acc[r][c] += __shfl_xor_sync(0xffffffffu, acc[r][c], off);
+#pragma unroll
+  for (int r = 0; r < BT_ROWS; ++r) {
+    if (lane == r && row0 + r < M) {
+      __align__(16) bf16 out[8];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) out[c] = __float2bfloat16(acc[r][c]);  // zero past R, as A's staged columns
+      *reinterpret_cast<uint4*>(t + (long long)(row0 + r) * RT + c0) = *reinterpret_cast<const uint4*>(out);
+    }
+  }
+}
+
+// (2) y = T(x @ W + alpha * t @ B).  Shared memory: the ring (x chunks
+// 128 x 64, W chunks 64 x 256 as four 64-column sub-tiles or one 256-row
+// sub-tile), B's rows for the tile's 256 columns, the barriers; the y tile
+// reuses the x chunks.
+constexpr int GM = 128, GN = 256, GK = 64, GSTAGES = 4, GTHREADS = 2 * hopper::WG_THREADS, GROUP_M = 16;
+
+struct GemmLayout {
+  static constexpr int x = 0;
+  static constexpr int w = x + GSTAGES * GM * GK * 2;
+  static constexpr int b = w + GSTAGES * GK * GN * 2;
+  static constexpr int bars = b + MAX_R * GN * 2;  // full[GSTAGES], empty[GSTAGES]
+  static constexpr int bytes = bars + 16 * GSTAGES + 1024;  // + alignment slack
+  static_assert(GM * GN * 2 <= w - x, "the y tile fits in the x chunks");
+};
+
+// One 64-deep chunk of this warpgroup's 64 x 256 product.
+template <bool B_MN, bool FIRST>
+__device__ __forceinline__ void gemm_chunk(float (&acc)[GN / 2], uint32_t xs, uint32_t ws, int cw) {
+  using namespace hopper;
+  const SmemDesc xd = kmajor_base(xs, 64 * cw);
+  const SmemDesc wd = B_MN ? mnmajor_base(ws, GK) : kmajor_base(ws, 0);
+#pragma unroll
+  for (int kk = 0; kk < GK / 16; ++kk) {
+    const uint64_t db = B_MN ? wd.at(mnmajor_step(kk)) : wd.at(kmajor_step(GN, kk));
+    if (FIRST && kk == 0) {
+      wgmma_ss_init<GN, B_MN ? 1 : 0>(acc, xd.at(kmajor_step(GM, 0)), db);
+    } else {
+      wgmma_ss<GN, B_MN ? 1 : 0>(acc, xd.at(kmajor_step(GM, kk)), db, 1);
+    }
+  }
+}
+
+// 8 values of t's row (zeros past M) from column g on.
+__device__ __forceinline__ void load_t8(const bf16* __restrict__ t, int row, int M, int RT, int g, float (&f)[8]) {
+  uint4 u = make_uint4(0u, 0u, 0u, 0u);
+  if (row < M) u = *reinterpret_cast<const uint4*>(t + (long long)row * RT + g);
+  bf16x8_to_float(u, f);
+}
+
+template <bool B_MN>
+__global__ void __launch_bounds__(GTHREADS, 1)
+lora_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
+                         const __grid_constant__ CUtensorMap ty, const bf16* __restrict__ t,
+                         const bf16* __restrict__ b, int M, int K, int N, int R, int RT, long long sb0,
+                         long long sb1, float alpha) {
+  using namespace hopper;
+  using L = GemmLayout;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  bf16* x_s = reinterpret_cast<bf16*>(smem + L::x);
+  bf16* w_s = reinterpret_cast<bf16*>(smem + L::w);
+  bf16* b_s = reinterpret_cast<bf16*>(smem + L::b);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* empty = full + GSTAGES;
+
+  // this block's tile: groups of GROUP_M row tiles, rows fastest
+  const int tiles_m = (M + GM - 1) / GM, tiles_n = (N + GN - 1) / GN;
+  const int per_group = GROUP_M * tiles_n, first_m = (blockIdx.x / per_group) * GROUP_M;
+  const int group_m = min(GROUP_M, tiles_m - first_m), in_group = blockIdx.x % per_group;
+  const int m0 = (first_m + in_group % group_m) * GM, n0 = (in_group / group_m) * GN;
+  const int cw = warpgroup_index();  // rows [m0 + 64 cw, m0 + 64 cw + 64) of the tile
+  const int tid = threadIdx.x % WG_THREADS, lane = tid & 31;
+  const bool feeder = threadIdx.x == 0;
+  if (feeder) {
+    for (int s = 0; s < GSTAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // lane 0 of each warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int nk = (K + GK - 1) / GK;
+  // chunk c into slot c % GSTAGES once the chunk before it there is done
+  auto feed = [&](int c) {
+    const int slot = c % GSTAGES;
+    mbar_wait(&empty[slot], ((c / GSTAGES) & 1) ^ 1);
+    mbar_arrive_expect_tx(&full[slot], (GM * GK + GK * GN) * 2);
+    bf16* xs = x_s + slot * GM * GK;
+    bf16* ws = w_s + slot * GK * GN;
+    tma_load_2d(xs, &tx, &full[slot], c * GK, m0);
+    tma_load_2d(xs + 64 * 64, &tx, &full[slot], c * GK, m0 + 64);
+#pragma unroll
+    for (int i = 0; i < GN / 64; ++i) {
+      if constexpr (B_MN) {
+        tma_load_2d(ws + i * 64 * 64, &tw, &full[slot], n0 + 64 * i, c * GK);  // W: 64 k x 64 n
+      } else {
+        tma_load_2d(ws + i * 64 * 64, &tw, &full[slot], c * GK, n0 + 64 * i);  // W^T's rows: 64 n x 64 k
+      }
+    }
+  };
+  if (feeder) {
+    for (int c = 0; c < nk && c < GSTAGES; ++c) feed(c);
+  }
+  // B's rows for the tile's columns (zero past R and N), for the epilogue
+  for (int e = threadIdx.x; e < RT * GN; e += GTHREADS) {
+    int j, col;
+    if (sb1 == 1) {
+      j = e / GN;
+      col = e % GN;
+    } else {
+      col = e / RT;
+      j = e % RT;
+    }
+    b_s[j * GN + col] =
+        j < R && n0 + col < N ? b[(long long)j * sb0 + (long long)(n0 + col) * sb1] : __float2bfloat16(0.f);
+  }
+
+  float acc[GN / 2];
+  mbar_wait(&full[0], 0);
+  wgmma_fence();
+  gemm_chunk<B_MN, true>(acc, smem_u32(x_s), smem_u32(w_s), cw);
+  wgmma_commit();
+  for (int c = 1; c < nk; ++c) {
+    const int slot = c % GSTAGES;
+    mbar_wait(&full[slot], (c / GSTAGES) & 1);
+    fence_regs(acc);
+    wgmma_fence();
+    gemm_chunk<B_MN, false>(acc, smem_u32(x_s + slot * GM * GK), smem_u32(w_s + slot * GK * GN), cw);
+    wgmma_commit();
+    wgmma_wait<1>();  // chunk c - 1 is done: its slot is free
+    fence_regs(acc);
+    if (lane == 0) mbar_arrive(&empty[(c - 1) % GSTAGES]);
+    if (feeder && c - 1 + GSTAGES < nk) feed(c - 1 + GSTAGES);
+    __syncwarp();
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  __syncthreads();  // both products done (the ring is free for y); b_s complete
+  pdl_wait();       // t is written
+
+  // y += alpha * t @ B: this thread's rows ra, ra + 8 and its 64 columns,
+  // t @ B summed over 8 ranks at a time (one group at the port's rank 8)
+  const int ra = m0 + 64 * cw + 16 * (tid >> 5) + (lane >> 2);
+  for (int g = 0; g < RT; g += 8) {
+    float t0[8], t1[8];
+    load_t8(t, ra, M, RT, g, t0);
+    load_t8(t, ra + 8, M, RT, g, t1);
+#pragma unroll
+    for (int jj = 0; jj < GN / 8; ++jj) {
+      const int col = 8 * jj + 2 * (lane & 3);
+      float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 bv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b_s + (g + j) * GN + col));
+        s0 = fmaf(t0[j], bv.x, s0);
+        s1 = fmaf(t0[j], bv.y, s1);
+        s2 = fmaf(t1[j], bv.x, s2);
+        s3 = fmaf(t1[j], bv.y, s3);
+      }
+      acc[4 * jj] += alpha * s0;
+      acc[4 * jj + 1] += alpha * s1;
+      acc[4 * jj + 2] += alpha * s2;
+      acc[4 * jj + 3] += alpha * s3;
+    }
+  }
+
+  // y rounded once, through this warpgroup's rows of a swizzled tile, by TMA
+  bf16* y_s = x_s;
+  acc_to_tile<GN>(acc, 1.f, 1.f, y_s, GM, 64 * cw);
+  fence_proxy_async();
+  named_sync(1 + cw, WG_THREADS);
+  if (tid == 0 && m0 + 64 * cw < M) {
+#pragma unroll
+    for (int i = 0; i < GN / 64; ++i) tma_store_2d(&ty, y_s + (i * GM + 64 * cw) * 64, n0 + 64 * i, m0 + 64 * cw);
+    tma_store_flush();
+  }
+}
+
+int launch_wgmma(const void* x, const void* w, const void* a, const void* b, void* y, void* t, int M, int K, int N,
+                 int R, long long sw0, long long sw1, long long sa0, long long sa1, long long sb0, long long sb1,
+                 float alpha, cudaStream_t stream) {
+  const bool b_mn = sw1 == 1 && sw0 % 8 == 0;  // W row-major: the forward
+  const bool b_k = sw0 == 1 && sw1 % 8 == 0;   // a transposed view: dX
+  if (!b_mn && !b_k) return -1;
+  if (K % 8 || N % 8 || !aligned16(x) || !aligned16(w) || !aligned16(y) || !aligned16(t)) return -1;
+  const int RT = (R + 7) / 8 * 8;
+  const dim3 bt_grid((M + BT_WARPS * BT_ROWS - 1) / (BT_WARPS * BT_ROWS), RT / 8);
+  // 16-byte staging of A when its 8-column groups are whole and aligned
+  const bool a16 = aligned16(a) && R % 8 == 0;
+  auto bottleneck = a16 && sa1 == 1 && sa0 % 8 == 0   ? lora_bottleneck_kernel<kBtRows>
+                    : a16 && sa0 == 1 && sa1 % 8 == 0 ? lora_bottleneck_kernel<kBtCols>
+                                                       : lora_bottleneck_kernel<kBtScalar>;
+  cudaError_t err = cudaFuncSetAttribute(bottleneck, cudaFuncAttributeMaxDynamicSharedMemorySize, BT_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  bottleneck<<<bt_grid, BT_THREADS, BT_SMEM, stream>>>(static_cast<const bf16*>(x), static_cast<const bf16*>(a),
+                                                       static_cast<bf16*>(t), M, K, R, RT, sa0, sa1);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap tx, tw, ty;
+  int e = hopper::make_map_2d(&tx, x, K, M, K);
+  if (!e) e = b_mn ? hopper::make_map_2d(&tw, w, N, K, sw0) : hopper::make_map_2d(&tw, w, K, N, sw1);
+  if (!e) e = hopper::make_map_2d(&ty, y, N, M, N);
+  if (e) return e;
+  auto kernel = b_mn ? lora_matmul_wgmma_kernel<true> : lora_matmul_wgmma_kernel<false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, GemmLayout::bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // launched as the bottleneck's programmatic dependent: its main loop may
+  // start before the bottleneck ends, and it waits for t before the epilogue
+  const unsigned tiles = static_cast<unsigned>((long long)((M + GM - 1) / GM) * ((N + GN - 1) / GN));
+  err = launch_dependent(kernel, dim3(tiles), dim3(GTHREADS), GemmLayout::bytes, stream, tx, tw, ty,
+                         static_cast<const bf16*>(t), static_cast<const bf16*>(b), M, K, N, R, RT, sb0, sb1, alpha);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Returns 0 on a good launch, the cudaError_t of a refused launch, or -1 for
-// arguments the kernel does not take.  Shapes, dtypes, devices and x's
-// contiguity are checked by the Python wrapper (repro_torch/kernels/ops.py).
-extern "C" int lora_matmul_launch(int dtype, const void* x, const void* w, const void* a, const void* b, void* y,
-                                  int M, int K, int N, int R, long long sw0, long long sw1, long long sa0,
-                                  long long sa1, long long sb0, long long sb1, float alpha, void* stream) {
+// Route codes, shared with repro_torch/kernels/ops.py.
+enum LoraRoute { kRouteFma = 0, kRouteWmma = 1, kRouteWgmma = 2 };
+
+// Returns 0 on a good launch, the cudaError_t of a refused launch, -1 for
+// arguments the route does not take, or -2 if CUDA refuses a tensor map.
+// t: the wgmma route's (M, ceil(r / 8) * 8) bf16 scratch for the
+// bottleneck, 16-byte aligned (unused by the other routes).  Shapes,
+// dtypes, devices and x's contiguity are checked by the Python wrapper.
+extern "C" int lora_matmul_launch(int dtype, int route, const void* x, const void* w, const void* a, const void* b,
+                                  void* y, void* t, int M, int K, int N, int R, long long sw0, long long sw1,
+                                  long long sa0, long long sa1, long long sb0, long long sb1, float alpha,
+                                  void* stream) {
   if (M <= 0 || K <= 0 || N <= 0 || R <= 0 || R > MAX_R) return -1;
-  if ((M + 31) / 32 > 65535) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32) return launch_fma(x, w, a, b, y, M, K, N, R, sw0, sw1, sa0, sa1, sb0, sb1, alpha, s);
-  if (dtype == kBFloat16) return launch_wmma(x, w, a, b, y, M, K, N, R, sw0, sw1, sa0, sa1, sb0, sb1, alpha, s);
+  if (route == kRouteWgmma && dtype == kBFloat16)
+    return launch_wgmma(x, w, a, b, y, t, M, K, N, R, sw0, sw1, sa0, sa1, sb0, sb1, alpha, s);
+  if ((M + 31) / 32 > 65535) return -1;
+  if (route == kRouteFma && dtype == kFloat32)
+    return launch_fma(x, w, a, b, y, M, K, N, R, sw0, sw1, sa0, sa1, sb0, sb1, alpha, s);
+  if (route == kRouteWmma && dtype == kBFloat16)
+    return launch_wmma(x, w, a, b, y, M, K, N, R, sw0, sw1, sa0, sa1, sb0, sb1, alpha, s);
   return -1;
 }
+
+// Dynamic shared memory a wgmma-route launch asks for (for reports).
+extern "C" int lora_matmul_wgmma_smem_bytes() { return GemmLayout::bytes; }

@@ -11,6 +11,7 @@ and ``mamba_scan_plain``, backward ``wkv6_bwd_plain`` and
 ``launch_counts`` counts the kernel launches of each wrapper (the CPU twin
 is not counted), so a run can show that its main path went through the
 kernels: ``reset_launch_counts()`` before it, read the counts after.
+``lora_matmul_routes`` counts ``lora_matmul``'s launches by route.
 """
 from __future__ import annotations
 
@@ -32,6 +33,8 @@ MAMBA_STATE_DIMS = (8, 16)  # csrc/mamba_common.cuh mamba_supported_state_dim
 MAMBA_THREADS = 128  # csrc/mamba_common.cuh MAMBA_THREADS: channels per block
 
 launch_counts: Dict[str, int] = {name: 0 for name in _build.KERNELS}
+LORA_ROUTES = ("fma", "wmma", "wgmma")  # csrc/lora_matmul.cu LoraRoute
+lora_matmul_routes: Dict[str, int] = {route: 0 for route in LORA_ROUTES}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,7 +47,7 @@ _SIGNATURES = {
     ),
     "flash_decode": (
         "flash_decode_launch",
-        [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+        [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     ),
     "flash_attention": (
         "flash_attention_fwd_launch",
@@ -56,7 +59,7 @@ _SIGNATURES = {
     ),
     "lora_matmul": (
         "lora_matmul_launch",
-        [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _F, _P],
+        [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _F, _P],
     ),
     "wkv6": ("wkv6_fwd_launch", [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "wkv6_bwd": (
@@ -73,8 +76,9 @@ _entry_points: Dict[str, ctypes._CFuncPtr] = {}
 
 
 def reset_launch_counts():
-    for name in launch_counts:
-        launch_counts[name] = 0
+    for counts in (launch_counts, lora_matmul_routes):
+        for name in counts:
+            counts[name] = 0
 
 
 def _entry(name: str):
@@ -154,6 +158,22 @@ def segmented_lora(x, w, a, b, idx, ranks):
     return y
 
 
+_splits: Dict[tuple, int] = {}
+
+
+def _decode_splits(s: int, device) -> int:
+    """How many blocks share a row's cache of ``s`` slots on ``device``:
+    from ``s`` and the card's SM count alone (``csrc/flash_decode.cu``)."""
+    key = (device.index, s)
+    if key not in _splits:
+        fn = _build.load("flash_decode").flash_decode_splits
+        fn.argtypes, fn.restype = [_I], ctypes.c_int
+        with torch.cuda.device(device):
+            _splits[key] = fn(s)
+        _require(_splits[key] > 0, f"flash_decode takes no cache of {s} slots")
+    return _splits[key]
+
+
 def flash_decode(q, k_cache, v_cache, q_positions, k_positions, *, window: Optional[int] = None):
     """Single-query GQA attention over a batched ring cache.
 
@@ -190,10 +210,13 @@ def flash_decode(q, k_cache, v_cache, q_positions, k_positions, *, window: Optio
     for t in (q, k_cache, v_cache, q_positions, k_positions):
         _require(t.is_contiguous(), "flash_decode takes contiguous tensors")
     out = torch.empty_like(q)
+    splits = _decode_splits(s, q.device)
+    # scratch, freed on return: each split's (m, l, acc[D]) per query
+    part = torch.empty((bsz, h, splits, d + 2), dtype=torch.float32, device=q.device)
     err = _entry("flash_decode")(
         _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_cache.dtype], q.data_ptr(), k_cache.data_ptr(),
-        v_cache.data_ptr(), q_positions.data_ptr(), k_positions.data_ptr(), out.data_ptr(),
-        bsz, h, kv, d, s, window or 0, d**-0.5,
+        v_cache.data_ptr(), q_positions.data_ptr(), k_positions.data_ptr(), out.data_ptr(), part.data_ptr(),
+        bsz, h, kv, d, s, window or 0, d**-0.5, splits,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _check_launch("flash_decode", err)
@@ -281,21 +304,46 @@ def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = Non
     return _FlashAttention.apply(q, k, v, causal, window)
 
 
-def _lora_matmul_launch(x, w, a, b, alpha: float):
-    """One ``lora_matmul`` kernel launch.  x: (M, K) contiguous; w (K, N),
-    a (K, r), b (r, N) may be strided views (the backward passes
-    transposes).  Returns (M, N) in ``x.dtype``."""
+def lora_matmul_route(x, w) -> str:
+    """The ``lora_matmul`` route for these operands, by dtype and shape:
+    ``fma`` for float32; for bf16 ``wgmma`` (TMA and the tensor cores, the
+    bottleneck in float32 FMAs) when K and N are multiples of 8 and W is
+    row-major or a transposed view of a row-major matrix, 16-byte aligned
+    (TMA's rule), else ``wmma``."""
+    if x.dtype == torch.float32:
+        return "fma"
+    k, n = w.shape
+    if w.stride(1) == 1:
+        ld = w.stride(0)
+    elif w.stride(0) == 1:
+        ld = w.stride(1)
+    else:
+        return "wmma"
+    aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    return "wgmma" if k % 8 == 0 and n % 8 == 0 and ld % 8 == 0 and aligned else "wmma"
+
+
+def _lora_matmul_launch(x, w, a, b, alpha: float, route: Optional[str] = None):
+    """One ``lora_matmul`` launch.  x: (M, K) contiguous; w (K, N), a (K, r),
+    b (r, N) may be strided views (the backward passes transposes).
+    ``route`` None takes ``lora_matmul_route``'s; a route given by name
+    (for measurements) raises if it cannot take the operands.  Returns
+    (M, N) in ``x.dtype``."""
     m, k = x.shape
     n, r = w.shape[1], a.shape[1]
+    route = lora_matmul_route(x, w) if route is None else route
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0:
         return y
+    # the wgmma route's scratch, freed on return: t = T(x @ A), (M, r rounded up to 8)
+    t = torch.empty((m, -(-r // 8) * 8) if route == "wgmma" else (0,), dtype=x.dtype, device=x.device)
     err = _entry("lora_matmul")(
-        _DTYPE_CODE[x.dtype], x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(),
-        m, k, n, r, w.stride(0), w.stride(1), a.stride(0), a.stride(1), b.stride(0), b.stride(1),
-        alpha, _stream(x),
+        _DTYPE_CODE[x.dtype], LORA_ROUTES.index(route), x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
+        y.data_ptr(), t.data_ptr(), m, k, n, r, w.stride(0), w.stride(1), a.stride(0), a.stride(1),
+        b.stride(0), b.stride(1), alpha, _stream(x),
     )
     _check_launch("lora_matmul", err)
+    lora_matmul_routes[route] += 1
     return y
 
 

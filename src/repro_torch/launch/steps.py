@@ -48,20 +48,29 @@ def as_device_tensor(x, device):
 
 
 def make_train_step(cfg, peft_cfg, train_cfg, *, stld_mode: str = "off", mean_rate: float = 0.5,
-                    distribution: str = "incremental"):
+                    distribution: str = "incremental", shape=None):
     """Next-token LM fine-tuning step over the PEFT params.
 
     ``(base_params, peft_params, opt_state, batch, rng) -> (peft_params,
     opt_state, metrics)`` with ``batch = {"tokens": (B, S+1)}`` (numpy or a
     tensor; it goes to the device of the base params) and ``rng`` a CPU
     ``torch.Generator`` that the STLD gates draw from (``cond`` only).
+
+    ``shape`` is the (L,) per-layer rate shape (mean 1.0, unclipped) scaled
+    by ``mean_rate``.  None takes ``unit_shape(distribution, L)`` with a
+    torch generator seeded 0, never the global generator, so two calls give
+    the same rates.  For ``normal`` that noise is not the reference's
+    ``PRNGKey(0)`` draw: pass the JAX package's ``unit_shape("normal", L)``
+    to get its rates.
     """
     if stld_mode not in ("off", "cond"):
         raise ValueError(f"stld_mode must be 'off' or 'cond', got {stld_mode!r}")
     lora_sc = peft_lib.lora_scale(peft_cfg)
     rates = None
     if stld_mode == "cond":
-        rates = torch.clamp(unit_shape(distribution, cfg.num_layers) * mean_rate, 0.0, 0.95)
+        if shape is None:
+            shape = unit_shape(distribution, cfg.num_layers, generator=torch.Generator().manual_seed(0))
+        rates = torch.clamp(torch.as_tensor(shape, dtype=torch.float32) * mean_rate, 0.0, 0.95)
 
     def loss_fn(peft_params, base_params, inputs, targets, drops):
         logits, aux, _ = model_apply(base_params, cfg, {"tokens": inputs}, drops=drops, peft=peft_params,

@@ -123,6 +123,91 @@ def test_cuda_flash_decode_all_masked_row_is_guarded(cuda):
     torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-5)
 
 
+DECODE_CASES = [  # (B, H, KV, D, S, window)
+    (3, 8, 8, 64, 1000, None),  # rep 1, D 64, S off the split (16 splits of 62-63 slots)
+    (4, 16, 8, 128, 512, None),  # rep 2, the decode step's heads
+    (2, 8, 1, 256, 70, 33),  # rep 8, D 256, a window
+    (2, 16, 2, 128, 300, 100),  # rep 8, a window over a wrapped ring
+]
+DECODE_DTYPES = [("bfloat16", "bfloat16"), ("float32", "bfloat16"), ("float32", "float32")]
+
+
+def _decode_case(rng, b, h, kv, d, s, q_dtype, cache_dtype, device):
+    q, k, v = _decode_inputs(rng, b, h, kv, d, s)
+    q = torch.from_numpy(q).to(device, getattr(torch, q_dtype))
+    kc, vc = (torch.from_numpy(t).to(device, getattr(torch, cache_dtype)) for t in (k, v))
+    # a fresh row, a shallow row (its later slabs dead), a full ring, a wrapped ring
+    pos = torch.tensor([0, 3, s - 1, 2 * s + 17, s // 2, 5][:b], dtype=torch.int32, device=device)
+    return q, kc, vc, pos, ring_positions(pos, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,cache_dtype", DECODE_DTYPES)
+@pytest.mark.parametrize("b,h,kv,d,s,window", DECODE_CASES)
+def test_cuda_flash_decode_shapes_match_twin(cuda, q_dtype, cache_dtype, b, h, kv, d, s, window):
+    """rep 1, 2 and 8; D 64, 128 and 256; S off the split; windows; rows
+    whose later slabs are dead."""
+    q, kc, vc, pos, kpos = _decode_case(np.random.default_rng(30), b, h, kv, d, s, q_dtype, cache_dtype, cuda)
+    ops.reset_launch_counts()
+    got = ops.flash_decode(q, kc, vc, pos, kpos, window=window)
+    assert ops.launch_counts["flash_decode"] == 1
+    want = ref.decode_attention_plain(q, kc, vc, pos, kpos, window=window)
+    torch.cuda.synchronize()
+    atol, rtol = (3e-2, 1e-2) if q_dtype == "bfloat16" else (2e-5, 1e-5)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 20])
+def test_cuda_flash_decode_dead_slabs_add_nothing(cuda, window):
+    """In a row with a live slot, the dead slots (never written, or outside
+    the window) add exactly 0: other K/V in them leave every bit of the
+    output as it was."""
+    b, h, kv, d, s = 3, 16, 8, 128, 512
+    q, kc, vc, pos, kpos = _decode_case(np.random.default_rng(31), b, h, kv, d, s, "bfloat16", "bfloat16", cuda)
+    pos = torch.tensor([3, 700, 260], dtype=torch.int32, device=cuda)
+    kpos = ring_positions(pos, s)
+    got = ops.flash_decode(q, kc, vc, pos, kpos, window=window)
+    live = (kpos <= pos[:, None]) & ((kpos > pos[:, None] - window) if window else True)
+    kc2, vc2 = kc.clone(), vc.clone()
+    kc2[~live] = 7.0
+    vc2[~live] = -3.0
+    torch.testing.assert_close(got.float(), ref.decode_attention_plain(q, kc, vc, pos, kpos, window=window).float(),
+                               atol=3e-2, rtol=1e-2)
+    assert torch.equal(got, ops.flash_decode(q, kc2, vc2, pos, kpos, window=window))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,cache_dtype", DECODE_DTYPES)
+def test_cuda_flash_decode_all_masked_row_in_a_batch(cuda, q_dtype, cache_dtype):
+    """A row whose 512 slots are all dead, between live rows: finite, the
+    mean of V as the twin gives it; its neighbours unchanged."""
+    q, kc, vc, pos, kpos = _decode_case(np.random.default_rng(32), 3, 16, 8, 128, 512, q_dtype, cache_dtype, cuda)
+    kpos[1] = INT32_MAX
+    got = ops.flash_decode(q, kc, vc, pos, kpos)
+    want = ref.decode_attention_plain(q, kc, vc, pos, kpos)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    atol, rtol = (3e-2, 1e-2) if q_dtype == "bfloat16" else (2e-5, 1e-5)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,cache_dtype", DECODE_DTYPES)
+def test_cuda_flash_decode_row_is_batch_invariant(cuda, q_dtype, cache_dtype):
+    """A row alone and the same row inside a batch of 8 other rows give the
+    same bits: the splits come from S and the card, never from B."""
+    b, h, kv, d, s = 9, 16, 8, 128, 512
+    q, kc, vc, _, _ = _decode_case(np.random.default_rng(33), b, h, kv, d, s, q_dtype, cache_dtype, cuda)
+    pos = torch.tensor([0, 3, 17, 130, 511, 611, 1543, 5, 300], dtype=torch.int32, device=cuda)
+    kpos = ring_positions(pos, s)
+    batched = ops.flash_decode(q, kc, vc, pos, kpos)
+    for i in range(b):
+        alone = ops.flash_decode(q[i:i + 1].contiguous(), kc[i:i + 1].contiguous(), vc[i:i + 1].contiguous(),
+                                 pos[i:i + 1].contiguous(), kpos[i:i + 1].contiguous())
+        assert torch.equal(alone[0], batched[i]), i
+
+
 def _attn(rng, b, s, h, kv, d, dtype, device):
     shapes = ((b, s, h, d), (b, s, kv, d), (b, s, kv, d), (b, s, h, d))
     return [torch.from_numpy(rng.standard_normal(sh, dtype=np.float32)).to(device, getattr(torch, dtype)) for sh in shapes]
@@ -187,17 +272,25 @@ def test_cuda_flash_attention_backward_is_deterministic(cuda, b, s, h, kv, windo
         assert torch.equal(first, second)
 
 
+WGMMA_FORMS = [  # (rs, b_mn, n, k): the attention kernels' forms, then lora_matmul's m64n256k16
+    (rs, b_mn, n, k) for rs in (False, True) for b_mn in (False, True)
+    for n, k in ((64, 64), (64, 128), (128, 64), (128, 128))
+] + [(False, False, 256, 64), (False, True, 256, 64)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("rs", [False, True], ids=["ss", "rs"])
-@pytest.mark.parametrize("b_mn", [False, True], ids=["b_kmajor", "b_mnmajor"])
-@pytest.mark.parametrize("n,k", [(64, 64), (64, 128), (128, 64), (128, 128)])
+@pytest.mark.parametrize(
+    "rs,b_mn,n,k", WGMMA_FORMS,
+    ids=[f"{'rs' if f[0] else 'ss'}-{'b_mnmajor' if f[1] else 'b_kmajor'}-n{f[2]}-k{f[3]}" for f in WGMMA_FORMS],
+)
 def test_cuda_wgmma_forms_match_matmul(cuda, rs, b_mn, n, k):
-    """Each wgmma form of the bf16 attention kernels (csrc/hopper.cuh), one
-    warpgroup's (64 x k) @ (k x n) through the flash_attention library's
-    probe entry point, against torch.matmul in float32: A from shared
-    memory (SS) or registers (RS), B K-major (given transposed) or MN-major,
-    both loaded by TMA into 128-byte-swizzled tiles.  Exact bf16 products
-    summed in float32 in another order: within 1e-3 + 1e-4 |ref|."""
+    """Each wgmma form of the bf16 attention kernels and of lora_matmul
+    (csrc/hopper.cuh), one warpgroup's (64 x k) @ (k x n) through the
+    flash_attention library's probe entry point, against torch.matmul in
+    float32: A from shared memory (SS) or registers (RS), B K-major (given
+    transposed) or MN-major, both loaded by TMA into 128-byte-swizzled
+    tiles.  Exact bf16 products summed in float32 in another order: within
+    1e-3 + 1e-4 |ref|."""
     import ctypes
 
     from repro_torch.kernels import _build
@@ -226,12 +319,20 @@ def _lora(rng, m, k, n, r, dtype, device):
     return [torch.from_numpy(t).to(device, getattr(torch, dtype)) for t in (x, w, a, b, g)]
 
 
+LORA_CASES = [  # (M, K, N, r)
+    (100, 64, 72, 8), (300, 2048, 1024, 8), (64, 96, 40, 16), (7, 33, 5, 4), (130, 256, 2048, 64),
+    (257, 520, 264, 1), (129, 136, 520, 33), (1, 8, 8, 5),  # ragged M, K and N off the tiles, multiples of 8
+    (50, 44, 24, 8), (33, 64, 100, 2),  # K or N not a multiple of 8: the WMMA route
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("m,k,n,r", [(100, 64, 72, 8), (300, 2048, 1024, 8), (64, 96, 40, 16), (7, 33, 5, 4), (130, 256, 2048, 64)])
+@pytest.mark.parametrize("m,k,n,r", LORA_CASES)
 def test_cuda_lora_matmul_matches_twin(cuda, dtype, m, k, n, r):
     """Forward against the twin; dX (the kernel on transposed views), dA
-    and dB against autograd through it.  K, N and M off the tiles."""
+    and dB against autograd through it.  K, N and M off the tiles; bf16
+    takes the wgmma route when K and N are multiples of 8, else WMMA."""
     x, w, a, b, g = _lora(np.random.default_rng(14), m, k, n, r, dtype, cuda)
     leaves = [t.clone().requires_grad_(True) for t in (x, a, b)]
     twins = [t.clone().requires_grad_(True) for t in (x, a, b)]
@@ -239,6 +340,8 @@ def test_cuda_lora_matmul_matches_twin(cuda, dtype, m, k, n, r):
     got = ops.lora_matmul(leaves[0], w, leaves[1], leaves[2], alpha=2.0)
     got_grads = torch.autograd.grad(got, leaves, g)
     assert ops.launch_counts["lora_matmul"] == 2  # forward and dX
+    route = "fma" if dtype == "float32" else ("wgmma" if k % 8 == 0 and n % 8 == 0 else "wmma")
+    assert ops.lora_matmul_routes[route] == 2
     want = ref.lora_matmul_plain(twins[0], w, twins[1], twins[2], alpha=2.0)
     want_grads = torch.autograd.grad(want, twins, g)
     torch.cuda.synchronize()
@@ -254,6 +357,101 @@ def test_cuda_lora_matmul_takes_no_gradient_for_w(cuda):
     x, w, a, b, _ = _lora(np.random.default_rng(15), 8, 32, 16, 4, "float32", cuda)
     with pytest.raises(ValueError, match="frozen"):
         ops.lora_matmul(x, w.requires_grad_(True), a, b)
+
+
+LORA_FAULT_OFFSET = 1100  # Philox offset of the card's generator seeded 0 at the failing draw (chip_smoke.py)
+
+
+def _lora_fixed_draw(device, m=8192, k=2560, n=8960, r=8):
+    """The draw on which the first bf16 design failed its check, at the
+    rwkv6-3b channel-mix ``up`` shape: the card's generator seeded 0 at
+    Philox offset 1100, drawn as ``chip_smoke.lora_case`` draws."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    gen.set_offset(LORA_FAULT_OFFSET)
+    rn = lambda shape: torch.randn(shape, generator=gen, device=device)  # noqa: E731
+    x = rn((m, k)).to(torch.bfloat16)
+    w = (rn((k, n)) * k**-0.5).to(torch.bfloat16)
+    a = (rn((k, r)) * k**-0.5).to(torch.bfloat16)
+    b = (rn((r, n)) * r**-0.5).to(torch.bfloat16)
+    return x, w, a, b, rn((m, n)).to(torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("draw", ["fixed", 1, 2, 3, 4, 5])
+def test_cuda_lora_matmul_rwkv_up_shape(cuda, draw):
+    """The rwkv6-3b channel-mix ``up`` shape (M 8192, K 2560, N 8960, r 8,
+    alpha 2): the fixed draw that failed the first design, and 5 numpy
+    draws; forward within 3e-2 + 1e-2 |ref|, dX, dA, dB within 2% of the
+    largest element, both products on the wgmma route."""
+    m, k, n, r = 8192, 2560, 8960, 8
+    if draw == "fixed":
+        x, w, a, b, g = _lora_fixed_draw(cuda)
+    else:
+        x, w, a, b, g = _lora(np.random.default_rng(100 + draw), m, k, n, r, "bfloat16", cuda)
+    leaves = [t.clone().requires_grad_(True) for t in (x, a, b)]
+    twins = [t.clone().requires_grad_(True) for t in (x, a, b)]
+    ops.reset_launch_counts()
+    got = ops.lora_matmul(leaves[0], w, leaves[1], leaves[2], alpha=2.0)
+    got_grads = torch.autograd.grad(got, leaves, g)
+    assert ops.lora_matmul_routes["wgmma"] == 2
+    want = ref.lora_matmul_plain(twins[0], w, twins[1], twins[2], alpha=2.0)
+    want_grads = torch.autograd.grad(want, twins, g)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=1e-2)
+    for gg, wg in zip(got_grads, want_grads):
+        _grad_close(gg, wg, "bfloat16")
+
+
+def _bottleneck(x, a):
+    """The kernel's rounded t = T(x @ A), read through the public call: with
+    W = 0, B the identity and alpha 2, y = T(2 t) = 2 t exactly."""
+    k, r = a.shape
+    n = -(-r // 8) * 8
+    eye = torch.zeros((r, n), dtype=x.dtype, device=x.device)
+    eye[:, :r] = torch.eye(r, dtype=x.dtype, device=x.device)
+    y = ops.lora_matmul(x, torch.zeros((k, n), dtype=x.dtype, device=x.device), a, eye, alpha=2.0)
+    return y[:, :r].float() / 2
+
+
+def _bf16_ulp(v):
+    """The spacing of bf16 values at |v|, floored at 2^-19 (|v| below
+    2^-12): there two float32 sums of ~2 000 products in other orders
+    already differ by more than a bf16 ulp."""
+    return torch.exp2(torch.floor(torch.log2(v.abs().clamp_min(2.0**-12))) - 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,r,draw", [(8192, 2560, 8, "fixed"), (8192, 2560, 8, 1), (300, 2048, 1, 2),
+                                        (300, 2048, 16, 3), (257, 520, 64, 4)])
+def test_cuda_lora_bottleneck_within_one_ulp(cuda, m, k, r, draw):
+    """The wgmma route's bottleneck t (float32 FMAs, one rounding to bf16)
+    lies within one bf16 ulp of the twin's T(x.float() @ a.float())
+    everywhere; the tensor cores' truncated sums did not."""
+    if draw == "fixed":
+        x, _, a, _, _ = _lora_fixed_draw(cuda)
+    else:
+        x, _, a, _, _ = _lora(np.random.default_rng(200 + draw), m, k, 8, r, "bfloat16", cuda)
+    ops.reset_launch_counts()
+    got = _bottleneck(x, a)
+    assert ops.lora_matmul_routes["wgmma"] == 1
+    want = (x.float() @ a.float()).to(torch.bfloat16).float()
+    torch.cuda.synchronize()
+    assert bool(((got - want).abs() <= _bf16_ulp(want)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,r", [(1000, 2560, 1024, 8), (50, 44, 24, 8)])
+def test_cuda_lora_matmul_is_deterministic(cuda, m, k, n, r):
+    """No split-K and no atomics: two forward passes and two dX passes give
+    the same bits, on the wgmma and the WMMA route."""
+    x, w, a, b, g = _lora(np.random.default_rng(16), m, k, n, r, "bfloat16", cuda)
+    outs = []
+    for _ in range(2):
+        xl = x.clone().requires_grad_(True)
+        y = ops.lora_matmul(xl, w, a, b, alpha=2.0)
+        outs.append((y, torch.autograd.grad(y, xl, g)[0]))
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
 
 
 def _wkv(rng, b, s, h, k, dtype, device, state):

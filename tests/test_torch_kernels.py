@@ -286,3 +286,27 @@ def test_lora_matmul_plain_grads_match_jax_grad():
     got = torch.autograd.grad(torch.sum(ops.lora_matmul(tx, tw, ta, tb, alpha=2.0) * torch.from_numpy(g)), (tx, ta, tb))
     for gt, wt in zip(got, want):
         np.testing.assert_allclose(gt.numpy(), np.asarray(wt), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype,k,n,view,route", [
+    ("float32", 64, 72, "rows", "fma"),
+    ("bfloat16", 2048, 1024, "rows", "wgmma"),  # a forward of the training path
+    ("bfloat16", 2048, 1024, "transposed", "wgmma"),  # its dX: W^T as a view
+    ("bfloat16", 33, 40, "rows", "wmma"),  # K off TMA's 16-byte rows
+    ("bfloat16", 40, 5, "transposed", "wmma"),  # N off them
+    ("bfloat16", 64, 64, "strided", "wmma"),  # neither stride 1
+])
+def test_lora_matmul_route_follows_dtype_and_shape(dtype, k, n, view, route):
+    """``lora_matmul_route`` picks the route by dtype and shape alone: the
+    Hopper route for bf16 with K and N multiples of 8 and W row-major or a
+    transposed view, the WMMA route for the other bf16 shapes."""
+    dt = getattr(torch, dtype)
+    x = torch.zeros((16, k), dtype=dt)
+    if view == "rows":
+        w = torch.zeros((k, n), dtype=dt)
+    elif view == "transposed":
+        w = torch.zeros((n, k), dtype=dt).t()
+    else:
+        w = torch.zeros((k, 2 * n), dtype=dt)[:, ::2]
+    assert tuple(w.shape) == (k, n)
+    assert ops.lora_matmul_route(x, w) == route

@@ -344,3 +344,60 @@ def test_local_round_with_jax_gates_matches_jax(setup, monkeypatch):
     want = jfns.evaluate(jparams, jp, jnp.asarray(toks), jnp.asarray(labels), jnp.arange(task.num_classes))
     got = fns.evaluate(params, tp, toks, labels, np.arange(task.num_classes))
     assert float(got) == float(want)
+
+
+def _record_rates(monkeypatch):
+    """Patch the port's sampler to keep the rates of each draw."""
+    seen, sample = [], stld.sample_drops
+
+    def recorded(generator, rates, min_active=1):
+        seen.append(rates.clone())
+        return sample(generator, rates, min_active)
+
+    monkeypatch.setattr(stld, "sample_drops", recorded)
+    return seen
+
+
+@pytest.mark.parametrize("entry", ["client", "train_step"])
+def test_normal_shape_from_jax_gives_the_reference_rates(setup, monkeypatch, entry):
+    """JAX's ``unit_shape("normal", L)`` handed to the port gives the
+    reference's per-layer rates, clip included (the port's own default
+    draws other noise)."""
+    jcfg, jparams, jpeft, cfg, params, peft, task = setup
+    mean_rate = 0.5
+    jshape = np.array(jax_unit_shape("normal", cfg.num_layers))
+    want = np.clip(jshape * mean_rate, 0.0, 0.95)
+    seen = _record_rates(monkeypatch)
+    if entry == "client":
+        fns = make_client_fns(cfg, PEFTConfig(), STLDConfig(distribution="normal"), TrainConfig(), device="cpu",
+                              shape=torch.from_numpy(jshape))
+        batch = task.lm_batch(np.arange(4))
+        fns.local_round(params, peft, adamw_init(peft), {k: v[None] for k, v in batch.items()}, mean_rate,
+                        torch.Generator().manual_seed(0), 0)
+    else:
+        step = make_train_step(cfg, PEFTConfig(), TrainConfig(), stld_mode="cond", mean_rate=mean_rate,
+                               distribution="normal", shape=jshape)
+        step(params, peft, adamw_init(peft), {"tokens": task.tokens[:4]}, torch.Generator().manual_seed(0))
+    assert len(seen) == 1
+    np.testing.assert_allclose(_np(seen[0]), want, rtol=1e-6)
+
+
+def test_train_step_normal_default_shape_ignores_the_global_generator(setup, monkeypatch):
+    """Two ``make_train_step`` calls with ``distribution="normal"`` and no
+    shape, with the global generator moved between them, draw the same
+    rates and give the same step from the same ``rng``."""
+    jcfg, jparams, jpeft, cfg, params, peft, task = setup
+    seen = _record_rates(monkeypatch)
+    outs = []
+    for seed in (11, 12):
+        torch.manual_seed(seed)
+        torch.randn(7)
+        step = make_train_step(cfg, PEFTConfig(), TrainConfig(), stld_mode="cond", distribution="normal")
+        outs.append(step(params, peft, adamw_init(peft), {"tokens": task.tokens[:4]}, torch.Generator().manual_seed(5)))
+    assert len(seen) == 2 and torch.equal(seen[0], seen[1])
+    shape = unit_shape("normal", cfg.num_layers, generator=torch.Generator().manual_seed(0))
+    want = torch.clamp(shape * 0.5, 0.0, 0.95)
+    assert torch.equal(seen[0], want)
+    (p1, _, m1), (p2, _, m2) = outs
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(p1), tree_leaves(p2)))
+    assert all(torch.equal(m1[k], m2[k]) for k in m1)
