@@ -11,8 +11,9 @@ Phases, one line each before the last:
 1. the card's name and power limit (``nvidia-smi``);
 2. build of every CUDA kernel from the sources in the checkout, in parallel,
    and the registers, spills and shared memory of the attention kernels,
-   lora_matmul's and flash_decode's (their ``ptxas -v`` logs, any wgmma
-   serialization warning, and the bytes the launchers ask for);
+   lora_matmul's, flash_decode's, segmented_lora's and the wkv6 kernels'
+   (their ``ptxas -v`` logs, any wgmma serialization warning, and the bytes
+   the launchers ask for);
 3. each kernel held against its plain PyTorch twin on the card at the
    shapes of its path (serving: the decode step; training: batch 16 x 512
    tokens of qwen3-1.7b, of rwkv6-3b for wkv6 and the channel-mix
@@ -21,18 +22,20 @@ Phases, one line each before the last:
    events, L2 flushed, median of repeats) beside the twin's, the library
    call's and the bound; ``torch.profiler``'s device times of the kernels
    of attention (also at jamba-v0.1-52b's 32 heads; its backward's two
-   kernels apart), flash_decode (split and merge passes apart) and
-   lora_matmul (bottleneck and main kernels apart, and the route taken)
+   kernels apart), flash_decode (split and merge passes apart),
+   lora_matmul and segmented_lora (bottleneck and main kernels apart, and
+   lora_matmul's route) and the wkv6 backward (its three kernels apart)
    beside their yardsticks' (SDPA, cuBLAS's x @ W); and lora_matmul on the
    fixed draw that failed its first bf16 design, on the route it takes and
-   on that design's WMMA route, with the bf16 roundings of the bottleneck t
-   that differ from the twin's;
+   on the WMMA route, with the bf16 roundings of the bottleneck t that
+   differ from the twin's, both routes checked;
 4. full-width qwen3-1.7b (28 layers, random weights from ``--seed``)
    served through ``repro_torch.api.serve``: 12 requests over 4 LoRA
    tenants of rank 4/8 at batch 8, rows recycling mid-run; every completion
    arrives, every logit is finite, one request's batched tokens equal its
-   tokens served in a uniform batch, and the smoke-size model on the card
-   agrees with the same model on the CPU twins;
+   tokens served in a uniform batch, every segmented_lora call of the
+   profiled steps runs both of its kernels, and the smoke-size model on the
+   card agrees with the same model on the CPU twins;
 5. one client's DropPEFT local training of full-width qwen3-1.7b through
    ``repro_torch.federated.client.make_client_fns``: ``local_round`` of 4
    steps at batch 16 x 512 (the synthetic task) and STLD mean rate 0.5,
@@ -196,7 +199,8 @@ def ptxas_resources(log_text: str) -> list:
     for ln in log_text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
-            cur = {"kernel": kernel_name(m.group(1))}
+            cur = {"kernel": kernel_name(m.group(1)), "bf16": "__nv_bfloat16" in m.group(1),
+                   "template_ints": [int(v) for v in re.findall(r"Li(\d+)E", m.group(1))]}
             out.append(cur)
             continue
         if cur is None:
@@ -223,15 +227,19 @@ def serialization_warnings(log_text: str) -> list:
 
 def kernel_resources(_build) -> dict:
     """The registers and spills (from the build logs) of the attention
-    kernels, lora_matmul's and flash_decode's, the dynamic shared memory the
-    attention and lora_matmul launchers ask for, and any wgmma
-    serialization warning."""
+    kernels, lora_matmul's, flash_decode's, segmented_lora's and the wkv6
+    kernels', the dynamic shared memory the attention, lora_matmul,
+    segmented_lora (at the decode step's q and v) and wkv6_bwd (K 64)
+    launchers ask for, and any wgmma serialization warning."""
     import ctypes
 
     fwd = _build.load("flash_attention").flash_attention_fwd_smem_bytes
     bwd = _build.load("flash_attention_bwd").flash_attention_bwd_smem_bytes
     lora = _build.load("lora_matmul").lora_matmul_wgmma_smem_bytes
+    seg = _build.load("segmented_lora").segmented_lora_smem_bytes
+    wkv = _build.load("wkv6_bwd").wkv6_bwd_smem_bytes
     fwd.argtypes, bwd.argtypes, lora.argtypes = [ctypes.c_int] * 2, [ctypes.c_int] * 3, []
+    seg.argtypes, wkv.argtypes = [ctypes.c_int] * 3, [ctypes.c_int] * 3
     out = {}
     for name in ("flash_attention", "flash_attention_bwd"):
         rows = [r for r in ptxas_resources(build_log(_build, name)) if "probe" not in r["kernel"]]
@@ -249,6 +257,15 @@ def kernel_resources(_build) -> dict:
         if "wgmma" in r["kernel"]:
             r["dynamic_smem"] = lora()
     out["flash_decode"] = ptxas_resources(build_log(_build, "flash_decode"))
+    out["segmented_lora"] = ptxas_resources(build_log(_build, "segmented_lora"))
+    for r in out["segmented_lora"]:
+        if "stream" in r["kernel"] and r["bf16"]:
+            r["dynamic_smem_q_v"] = [seg(1, 2048, 2048), seg(1, 2048, 1024)]
+    out["wkv6"] = ptxas_resources(build_log(_build, "wkv6"))
+    out["wkv6_bwd"] = ptxas_resources(build_log(_build, "wkv6_bwd"))
+    for r in out["wkv6_bwd"]:
+        if r["bf16"] and r["template_ints"] == [64]:
+            r["dynamic_smem"] = wkv(1, 64, int("fused" in r["kernel"]))
     out["wgmma_serialization_warnings"] = {
         name: serialization_warnings(build_log(_build, name))
         for name in ("flash_attention", "flash_attention_bwd", "lora_matmul")
@@ -286,18 +303,31 @@ def segmented_case(ops, ref, timer, gen, *, dtype, n, m=8, k=2048, ranks=(4, 8, 
     check(torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol),
           f"segmented_lora {dtype} N={n}: max abs err {err} vs twin")
     check(torch.equal(got, clean), f"segmented_lora {dtype} N={n}: stale rank tail not inert")
-    ms = timer(lambda: ops.segmented_lora(x, w, a, b, idx, rk))
+    fn = lambda: ops.segmented_lora(x, w, a, b, idx, rk)  # noqa: E731
+    ms = timer(fn)
     plain_ms = timer(lambda: ref.segmented_lora_plain(x, w, a, b, idx, rk))
     elt = x.element_size()
     distinct = len(set(idx.tolist()))
     nbytes = elt * (m * k + k * n + distinct * (k * r_max + r_max * n) + m * n) + 4 * (m + na)
     ops_count = 2 * m * k * n + 2 * m * k * r_max + 2 * m * r_max * n
     bound_ms, bound_by = bound(nbytes, ops_count, str(dtype).split(".")[-1])
-    return {
+    case = {
         "shape": f"M={m} K={k} N={n} r_max={r_max} {str(dtype).split('.')[-1]}",
         "max_abs_err": err, "atol": atol, "rtol": rtol, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "splits": ops._segmented_plan(ops._DTYPE_CODE[dtype], k, n, x.device)[0],
     }
+    if dtype == torch.bfloat16:
+        # device time alone: the call's span (the stream kernel, the
+        # bottleneck's programmatic dependent, starts before it ends), the
+        # two kernels apart, and cuBLAS's x @ W at M 8 as a yardstick
+        parts = device_ms(fn, timer.flush, ("segmented_bottleneck_kernel", "segmented_stream_kernel"))
+        case["kernel_ms"] = device_span_ms(fn, timer.flush)
+        case["bottleneck_kernel_ms"] = parts["segmented_bottleneck_kernel"]
+        case["stream_kernel_ms"] = parts["segmented_stream_kernel"]
+        case["cublas_x_at_w_ms"] = timer(lambda: x @ w)
+        case["cublas_x_at_w_kernel_ms"] = device_ms(lambda: x @ w, timer.flush)
+    return case
 
 
 def decode_case(ops, ref, ring_positions, timer, gen, *, q_dtype, b=8, h=16, kv=8, d=128, s=512):
@@ -518,10 +548,10 @@ def lora_fault_case(ops, ref, *, m=8192, k=2560, n=8960, r=8, alpha=2.0):
     (max abs error 0.0625 at the rwkv6-3b channel-mix up shape), pinned by
     a generator of its own: the card's generator seeded 0 at Philox offset
     1100, drawn as ``lora_case`` draws.  On the route the launcher picks
-    (checked: 3e-2 + 1e-2 |ref|, and the bottleneck t within one bf16 ulp
-    of the twin's, the ulp floored at 2^-19) and on the WMMA route of that
-    design (reported only): the error, the elements out of tolerance and
-    the bf16 roundings of t that differ from the twin's."""
+    and on the WMMA route, each checked (3e-2 + 1e-2 |ref|, and the
+    bottleneck t within one bf16 ulp of the twin's, the ulp floored at
+    2^-19): the error, the elements out of tolerance and the bf16 roundings
+    of t that differ from the twin's."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     gen.set_offset(LORA_FAULT_OFFSET)
@@ -543,9 +573,10 @@ def lora_fault_case(ops, ref, *, m=8192, k=2560, n=8960, r=8, alpha=2.0):
                       "n_out_of_tolerance": int((err > 3e-2 + 1e-2 * want.abs()).sum()),
                       "t_roundings_differing": int((t != t_ref).sum()),
                       "t_beyond_one_ulp": int(((t - t_ref).abs() > ulp).sum())}
-    picked = out[ops.lora_matmul_route(x, w)]
-    check(picked["n_out_of_tolerance"] == 0, f"lora_matmul on the fixed draw: {picked}")
-    check(picked["t_beyond_one_ulp"] == 0, f"lora_matmul bottleneck on the fixed draw: {picked}")
+    for route in (ops.lora_matmul_route(x, w), "wmma"):
+        check(out[route]["n_out_of_tolerance"] == 0, f"lora_matmul {route} route on the fixed draw: {out[route]}")
+        check(out[route]["t_beyond_one_ulp"] == 0,
+              f"lora_matmul {route} route's bottleneck on the fixed draw: {out[route]}")
     out["route"] = ops.lora_matmul_route(x, w)
     return out
 
@@ -593,7 +624,15 @@ def wkv6_case(ops, ref, timer, gen, *, dtype, b=16, s=512, h=40, k=64, state=Fal
         case["ms"] = timer(lambda: ops.wkv6(r, kk, v, logw, u, s0))
         case["plain_ms"] = timer(lambda: ref.wkv6_plain(r, kk, v, logw, u, s0), repeats=3)
     # the backward alone, its scratch included, as _WKV6.backward calls it
-    case["bwd_ms"] = timer(lambda: ops._wkv6_bwd(r, kk, v, logw, u, s0, dout, dstate))
+    bwd_fn = lambda: ops._wkv6_bwd(r, kk, v, logw, u, s0, dout, dstate)  # noqa: E731
+    case["bwd_ms"] = timer(bwd_fn)
+    # device time alone: the forward kernel; the backward's span and its
+    # three kernels apart
+    with torch.no_grad():
+        case["kernel_ms"] = device_ms(lambda: ops.wkv6(r, kk, v, logw, u, s0), timer.flush)
+    case["bwd_kernel_ms"] = device_span_ms(bwd_fn, timer.flush)
+    keys = ("wkv6_bwd_sweep_kernel", "wkv6_bwd_fused_kernel", "wkv6_du_reduce_kernel")
+    case["bwd_kernels_ms"] = dict(zip(("sweep", "fused", "du_reduce"), device_ms(bwd_fn, timer.flush, keys).values()))
     case["plain_bwd_ms"] = timer(lambda: ref.wkv6_bwd_plain(r, kk, v, logw, u, s0, dout, dstate), repeats=3)
     case["library_ms"] = case["library_bwd_ms"] = None
     elt, n, state_bytes = r.element_size(), r.numel(), 4 * b * h * k * k
@@ -761,6 +800,10 @@ def serve_full(api, ops, card, seed: int):
     breakdown = profile_steps(profiled, [
         Request(prompt=r.prompt, adapter=r.adapter, max_new_tokens=32, uid=r.uid) for r in requests[:8]
     ])
+    if breakdown is not None:  # q and v of every layer: both kernels of the redesigned segmented_lora
+        for key in ("segmented_bottleneck_kernel", "segmented_stream_kernel"):
+            calls = breakdown[f"{key}_calls_per_step"]
+            check(calls == 2 * cfg.num_layers, f"{key}: {calls} calls a step, expected {2 * cfg.num_layers}")
     return {
         "model": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model, "vocab": cfg.vocab_size,
         "requests": len(done), "steps": steps, "generated_tokens": gen_tokens,
@@ -798,10 +841,15 @@ def profile_steps(batcher, requests, n_steps: int = 8):
     kernels.sort(key=lambda e: -e.self_device_time_total)
     top = [{"kernel": e.key[:80], "ms_per_step": e.self_device_time_total / 1e3 / n_steps,
             "calls_per_step": e.count / n_steps} for e in kernels[:8]]
+    named = {key: [e for e in kernels if key in e.key]
+             for key in ("segmented_bottleneck_kernel", "segmented_stream_kernel", "flash_decode")}
     return {"steps": n_steps, "wall_ms_per_step_profiled": wall_ms / n_steps,
             "device_busy_ms_per_step": busy / n_steps,
             "device_idle_share_profiled": 1.0 - busy / wall_ms,
-            "kernel_launches_per_step": sum(e.count for e in kernels) / n_steps, "top_kernels": top}
+            "kernel_launches_per_step": sum(e.count for e in kernels) / n_steps, "top_kernels": top,
+            **{f"{key}_calls_per_step": sum(e.count for e in evs) / n_steps for key, evs in named.items()},
+            **{f"{key}_ms_per_step": sum(e.self_device_time_total for e in evs) / 1e3 / n_steps
+               for key, evs in named.items()}}
 
 
 def recording(step, seen: list):
@@ -1233,6 +1281,11 @@ def main() -> int:
             "max_abs_err": max(q_case["max_abs_err"], v_case["max_abs_err"]),
             **{key: q_case[key] + v_case[key] for key in ("ms", "plain_ms", "bound_ms")},
             "bound_by": q_case["bound_by"], "library_ms": None,
+            **{key: None if q_case[key] is None or v_case[key] is None else q_case[key] + v_case[key]
+               for key in ("kernel_ms", "bottleneck_kernel_ms", "stream_kernel_ms", "cublas_x_at_w_ms",
+                           "cublas_x_at_w_kernel_ms")},
+            "device_only_ms_q_v": [q_case["kernel_ms"], v_case["kernel_ms"]],
+            "splits_q_v": [q_case["splits"], v_case["splits"]],
             "shape": "q then v projection of one layer: " + q_case["shape"] + " + " + v_case["shape"],
         },
         {
@@ -1288,7 +1341,7 @@ def main() -> int:
             "replaces": "src/repro/kernels/rwkv6_scan.py:63",
             "launches": rwkv_launches["wkv6"],
             **{key: wkv[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-            "shape": "forward, " + wkv["shape"],
+            "device_only_ms": wkv["kernel_ms"], "shape": "forward, " + wkv["shape"],
         },
         {
             "name": "wkv6_bwd", "route": "cuda",
@@ -1297,6 +1350,7 @@ def main() -> int:
             "launches": rwkv_launches["wkv6_bwd"],
             "max_abs_err": wkv["bwd_max_abs_err"], "ms": wkv["bwd_ms"], "plain_ms": wkv["plain_bwd_ms"],
             "bound_ms": wkv["bwd_bound_ms"], "bound_by": wkv["bwd_bound_by"], "library_ms": wkv["library_bwd_ms"],
+            "device_only_ms": wkv["bwd_kernel_ms"], "kernels_ms": wkv["bwd_kernels_ms"],
             "shape": "backward (dr, dk, dv, dlogw, du), " + wkv["shape"],
         },
         {

@@ -39,9 +39,10 @@
 //    ragged edges.  Tiles are walked in groups of 16 row tiles so that
 //    concurrent blocks share their W columns in L2.  No split-K and no
 //    atomics: every sum has one order, set by the shapes.
-//  * wmma (bf16, the other shapes: K or N not a multiple of 8): the first
-//    design, WMMA mma.sync on cp.async double buffers, each block
-//    recomputing t on the tensor cores.
+//  * wmma (bf16, the other shapes: K or N not a multiple of 8): the same
+//    bottleneck kernel (loading x element by element where its rows are
+//    not 16-byte vectors), then the first design's main kernel, WMMA
+//    mma.sync on cp.async double buffers, which reads t in its epilogue.
 //  * float32: CUDA-core FMAs on 32 x 32 tiles with the accumulators in
 //    shared memory (full float32; the tensor cores would round to TF32).
 //
@@ -145,12 +146,13 @@ int launch_fma(const void* x, const void* w, const void* a, const void* b, void*
 // ---------------------------------------------------------------- bfloat16
 // Tensor cores.  A 128 x 128 tile of y per block, 8 warps in a 4 x 2 grid,
 // each warp 32 x 64 of y in 2 x 4 accumulator fragments held in registers
-// across K, and one 16-row strip of t (up to 4 fragments).  Operands are
-// staged by 16-byte cp.async copies into two buffers, so chunk c + 1 loads
-// while chunk c multiplies.  COL = false: W, A and B row-major (the
-// forward).  COL = true: W, A and B are transposed views of row-major
-// tensors (dX); each is staged as it lies in memory and read as
-// column-major fragments, so no copy of W is made.
+// across K.  Operands are staged by 16-byte cp.async copies into two
+// buffers, so chunk c + 1 loads while chunk c multiplies.  The bottleneck t
+// comes from the bottleneck kernel below (float32 FMAs, rounded once), read
+// in the epilogue.  COL = false: W and B row-major (the forward).  COL =
+// true: W and B are transposed views of row-major tensors (dX); each is
+// staged as it lies in memory and read as column-major fragments, so no
+// copy of W is made.
 using bf16 = __nv_bfloat16;
 constexpr int WM = 128, WN = 128, WK = 32, WTHREADS = 256;
 
@@ -158,15 +160,13 @@ constexpr size_t cmax(size_t a, size_t b) { return a > b ? a : b; }
 
 struct WmmaSmem {
   static constexpr int ldx = WK + PAD_T;
-  static constexpr int ldt = MAX_RP + PAD_F;
   static constexpr int ldc = WN + PAD_F;
   static constexpr int ldtt = MAX_RP + PAD_T;
   static constexpr size_t x_bytes = align128(sizeof(bf16) * WM * ldx);
   static constexpr size_t w_bytes = align128(sizeof(bf16) * cmax(WK * (WN + PAD_T), WN * (WK + PAD_T)));
-  static constexpr size_t a_bytes = align128(sizeof(bf16) * cmax(WK * (MAX_RP + PAD_T), MAX_RP * (WK + PAD_T)));
-  static constexpr size_t buf = x_bytes + w_bytes + a_bytes;
-  static constexpr size_t t = 2 * buf;  // t after the loop; y's float tile then reuses [0, region)
-  static constexpr size_t region = cmax(t + align128(sizeof(float) * WM * ldt), align128(sizeof(float) * WM * ldc));
+  static constexpr size_t buf = x_bytes + w_bytes;
+  // y's float tile reuses the operand buffers after the loop
+  static constexpr size_t region = cmax(2 * buf, align128(sizeof(float) * WM * ldc));
   static constexpr size_t tt = region;
   static constexpr size_t b = tt + align128(sizeof(bf16) * WM * ldtt);
   static constexpr size_t bytes = b + align128(sizeof(bf16) * cmax(MAX_RP * (WN + PAD_T), WN * (MAX_RP + PAD_T)));
@@ -193,10 +193,9 @@ __device__ __forceinline__ void stage(bf16* dst, int ldd, const bf16* src, long 
 
 template <bool COL>
 __global__ void __launch_bounds__(WTHREADS)
-lora_matmul_wmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w, const bf16* __restrict__ a,
-                        const bf16* __restrict__ b, bf16* __restrict__ y, int M, int K, int N, int R, long long ldw,
-                        long long lda, long long ldb, int vec_x, int vec_w, int vec_a, int vec_b, int vec_y,
-                        float alpha) {
+lora_matmul_wmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w, const bf16* __restrict__ t,
+                        const bf16* __restrict__ b, bf16* __restrict__ y, int M, int K, int N, int R, int RT,
+                        long long ldw, long long ldb, int vec_x, int vec_w, int vec_b, int vec_y, float alpha) {
   using namespace nvcuda;
   using L = WmmaSmem;
   using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
@@ -204,7 +203,6 @@ lora_matmul_wmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w, 
                                typename std::conditional<COL, wmma::col_major, wmma::row_major>::type>;
   using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
   constexpr int ldws = COL ? WK + PAD_T : WN + PAD_T;      // staged W: [n][k] or [k][n]
-  constexpr int ldas = COL ? WK + PAD_T : MAX_RP + PAD_T;  // staged A: [r][k] or [k][r]
   constexpr int ldbs = COL ? MAX_RP + PAD_T : WN + PAD_T;  // staged B: [n][r] or [r][n]
   extern __shared__ __align__(128) unsigned char smem[];
 
@@ -226,24 +224,19 @@ lora_matmul_wmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w, 
     unsigned char* base = smem + buf * L::buf;
     bf16* xs = reinterpret_cast<bf16*>(base);
     bf16* ws = reinterpret_cast<bf16*>(base + L::x_bytes);
-    bf16* as = reinterpret_cast<bf16*>(base + L::x_bytes + L::w_bytes);
     stage(xs, L::ldx, x + (long long)m0 * K + k0, K, WM, WK, mvalid, K - k0, vec_x);
     if constexpr (COL) {
       stage(ws, ldws, w + (long long)n0 * ldw + k0, ldw, WN, WK, nvalid, K - k0, vec_w);
-      stage(as, ldas, a + k0, lda, RP, WK, R, K - k0, vec_a);
     } else {
       stage(ws, ldws, w + (long long)k0 * ldw + n0, ldw, WK, WN, K - k0, nvalid, vec_w);
-      stage(as, ldas, a + (long long)k0 * lda, lda, WK, RP, K - k0, R, vec_a);
     }
   };
 
-  FragC acc[2][4], tacc[4];
+  FragC acc[2][4];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) wmma::fill_fragment(tacc[j], 0.f);
 
   const int nk = (K + WK - 1) / WK;
   stage_chunk(0, 0);
@@ -256,7 +249,6 @@ lora_matmul_wmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w, 
     const unsigned char* base = smem + (c & 1) * L::buf;
     const bf16* xs = reinterpret_cast<const bf16*>(base);
     const bf16* ws = reinterpret_cast<const bf16*>(base + L::x_bytes);
-    const bf16* as = reinterpret_cast<const bf16*>(base + L::x_bytes + L::w_bytes);
 #pragma unroll
     for (int kk = 0; kk < WK; kk += 16) {
       FragA af[2];
@@ -269,44 +261,29 @@ lora_matmul_wmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w, 
 #pragma unroll
         for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][j], af[i], bfr, acc[i][j]);
       }
-      FragA at;  // t: this warp's 16-row strip
-      wmma::load_matrix_sync(at, xs + (warp * 16) * L::ldx + kk, L::ldx);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (j * 16 < RP) {
-          FragB bfr;
-          load_b(bfr, as, ldas, kk, j * 16);
-          wmma::mma_sync(tacc[j], at, bfr, tacc[j]);
-        }
-      }
     }
     __syncthreads();
   }
 
-  // t -> float tile -> rounded to bf16; B's rows for this block's columns
-  float* ts = reinterpret_cast<float*>(smem + L::t);
+  // the tile's rows of t (zero past M and RT) and B's rows for its columns
   bf16* tts = reinterpret_cast<bf16*>(smem + L::tt);
   bf16* bs = reinterpret_cast<bf16*>(smem + L::b);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    if (j * 16 < RP) wmma::store_matrix_sync(ts + warp * 16 * L::ldt + j * 16, tacc[j], L::ldt, wmma::mem_row_major);
-  }
   if constexpr (COL) {
     stage(bs, ldbs, b + (long long)n0 * ldb, ldb, WN, RP, nvalid, R, vec_b);
   } else {
     stage(bs, ldbs, b + n0, ldb, RP, WN, R, nvalid, vec_b);
   }
   __pipeline_commit();
-  __syncthreads();
+  pdl_wait();  // t is written
   for (int e = threadIdx.x; e < WM * RP; e += blockDim.x) {
     const int i = e / RP, r = e % RP;
-    tts[i * L::ldtt + r] = __float2bfloat16(ts[i * L::ldt + r]);
+    tts[i * L::ldtt + r] = i < mvalid && r < RT ? t[(long long)(m0 + i) * RT + r] : __float2bfloat16(0.f);
   }
   __pipeline_wait_prior(0);
   __syncthreads();
 
   // y = main + alpha * (t @ B), combined in the fragments, then staged as float
-  float* cs = reinterpret_cast<float*>(smem);  // reuses the operand buffers and t
+  float* cs = reinterpret_cast<float*>(smem);  // reuses the operand buffers
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
 #pragma unroll
@@ -349,44 +326,25 @@ lora_matmul_wmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w, 
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-int launch_wmma(const void* x, const void* w, const void* a, const void* b, void* y, int M, int K, int N, int R,
-                long long sw0, long long sw1, long long sa0, long long sa1, long long sb0, long long sb1, float alpha,
-                cudaStream_t stream) {
-  const bool row = sw1 == 1 && sa1 == 1 && sb1 == 1;
-  const bool col = sw0 == 1 && sa0 == 1 && sb0 == 1;
-  if (!row && !col) return -1;  // W, A, B all row-major (forward) or all transposed views (dX)
-  const long long ldw = row ? sw0 : sw1, lda = row ? sa0 : sa1, ldb = row ? sb0 : sb1;
-  const int vec_x = aligned16(x) && K % 8 == 0, vec_y = aligned16(y) && N % 8 == 0;
-  const int vec_w = aligned16(w) && ldw % 8 == 0, vec_a = aligned16(a) && lda % 8 == 0;
-  const int vec_b = aligned16(b) && ldb % 8 == 0;
-  const dim3 grid((N + WN - 1) / WN, (M + WM - 1) / WM);
-  auto kernel = row ? lora_matmul_wmma_kernel<false> : lora_matmul_wmma_kernel<true>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(WmmaSmem::bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, WTHREADS, WmmaSmem::bytes, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const bf16*>(a),
-      static_cast<const bf16*>(b), static_cast<bf16*>(y), M, K, N, R, ldw, lda, ldb, vec_x, vec_w, vec_a, vec_b,
-      vec_y, alpha);
-  return static_cast<int>(cudaGetLastError());
-}
-
 
 // ---------------------------------------------------------- bf16, Hopper
-// (1) The bottleneck t = T(x @ A) in float32 FMAs.  A block of 8 warps owns
-// 32 rows (4 a warp) and 8 columns of t.  Lane l takes the 8-element
-// slices v = l, l + 32, ... of K in order and accumulates 4 rows x 8
-// columns.  Each thread prefetches its own slices of x (its 4 rows) by
-// 16-byte cp.async into a ring of BT_XD slots in shared memory, so several
-// iterations' loads stay in flight while it computes; A's 8 columns are
+// (1) The bottleneck t = T(x @ A) in float32 FMAs, for both bf16 routes.  A
+// block of 8 warps owns 32 rows (4 a warp) and 8 columns of t.  Lane l
+// takes the 8-element slices v = l, l + 32, ... of K in order and
+// accumulates 4 rows x 8 columns.  Each thread prefetches its own slices of
+// x (its 4 rows) by 16-byte cp.async into a ring of BT_XD slots in shared
+// memory, so several iterations' loads stay in flight while it computes
+// (XV false: x's rows are not 16-byte vectors, K off 8 or x unaligned, and
+// each slice is loaded element by element, zero past K); A's 8 columns are
 // staged in passes of BT_KC rows, two buffers, the next pass loading while
 // this one computes.  One cp.async group per iteration carries the slices
 // it prefetches and, at a pass's start, the next pass of A.  Staged layouts
 // of A: a row-major A keeps one 16-byte unit (8 columns) per k, the units
 // of slice v rotated by v so that the 8 lanes of a quarter warp reading
 // unit e of their slices hit 8 distinct 16-byte bank groups; a transposed
-// view keeps each column's BT_KC values contiguous; other strides or a
-// partial column group load element by element.
+// view (K a multiple of 8) keeps each column's BT_KC values contiguous;
+// other strides or a partial column group load element by element.  The
+// rows of A past K, up to the last slice's end, are staged as zeros.
 constexpr int BT_THREADS = 256, BT_WARPS = 8, BT_ROWS = 4, BT_KC = 1024, BT_XD = 4;
 constexpr int BT_IPP = BT_KC / 8 / 32;  // a lane's iterations per pass
 static_assert(BT_XD - 1 <= BT_IPP, "a pass of A lands before the pass that reads it");
@@ -405,7 +363,7 @@ __device__ __forceinline__ void bf16x8_to_float(const uint4& u, float (&f)[8]) {
   }
 }
 
-template <int LAYOUT>
+template <int LAYOUT, bool XV>
 __global__ void __launch_bounds__(BT_THREADS, 2)
 lora_bottleneck_kernel(const bf16* __restrict__ x, const bf16* __restrict__ a, bf16* __restrict__ t, int M, int K,
                        int R, int RT, long long sa0, long long sa1) {
@@ -416,7 +374,7 @@ lora_bottleneck_kernel(const bf16* __restrict__ x, const bf16* __restrict__ a, b
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int c0 = blockIdx.y * 8;
   const int row0 = blockIdx.x * (BT_WARPS * BT_ROWS) + warp * BT_ROWS;
-  const int nvec = K / 8, n_i = (nvec + 31) / 32, np = (K + BT_KC - 1) / BT_KC;
+  const int nvec = (K + 7) / 8, n_i = (nvec + 31) / 32, np = (K + BT_KC - 1) / BT_KC;
   float acc[BT_ROWS][8];
 #pragma unroll
   for (int r = 0; r < BT_ROWS; ++r)
@@ -429,32 +387,40 @@ lora_bottleneck_kernel(const bf16* __restrict__ x, const bf16* __restrict__ a, b
 #pragma unroll
     for (int r = 0; r < BT_ROWS; ++r) {
       const bool in = v < nvec && row0 + r < M;
-      cp_async16(x_slot(i, r), in ? x + (long long)(row0 + r) * K + 8 * v : x, in ? 16 : 0);
+      if constexpr (XV) {
+        cp_async16(x_slot(i, r), in ? x + (long long)(row0 + r) * K + 8 * v : x, in ? 16 : 0);
+      } else {  // the thread's own slot, read back by this thread alone
+        __align__(16) bf16 xv[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          xv[e] = in && 8 * v + e < K ? x[(long long)(row0 + r) * K + 8 * v + e] : __float2bfloat16(0.f);
+        *x_slot(i, r) = *reinterpret_cast<const uint4*>(xv);
+      }
     }
   };
   auto stage = [&](int p) {  // pass p of A into a_s[p & 1]
-    const int k0 = p * BT_KC, kc = min(BT_KC, K - k0);
+    const int k0 = p * BT_KC, kc = min(BT_KC, K - k0), kc8 = (kc + 7) / 8 * 8;
     bf16* dst = a_s + (p & 1) * BT_KC * 8;
     if constexpr (LAYOUT == kBtRows) {
-      for (int k = threadIdx.x; k < kc; k += BT_THREADS)
-        cp_async16(dst + bt_unit(k) * 8, a + (long long)(k0 + k) * sa0 + c0, 16);
+      for (int k = threadIdx.x; k < kc8; k += BT_THREADS)
+        cp_async16(dst + bt_unit(k) * 8, a + (long long)(k0 + min(k, kc - 1)) * sa0 + c0, k < kc ? 16 : 0);
     } else if constexpr (LAYOUT == kBtCols) {
       for (int e = threadIdx.x; e < kc; e += BT_THREADS) {  // kc / 8 vectors of each of 8 columns
         const int c = e / (kc / 8), q = e % (kc / 8);
         cp_async16(dst + c * BT_KC + 8 * q, a + (long long)(c0 + c) * sa1 + k0 + 8 * q, 16);
       }
     } else {
-      for (int e = threadIdx.x; e < kc * 8; e += BT_THREADS) {
+      for (int e = threadIdx.x; e < kc8 * 8; e += BT_THREADS) {
         int k, c;
         if (sa1 == 1) {  // neighbouring threads along A's rows
           k = e >> 3;
           c = e & 7;
         } else {  // along its columns
-          c = e / kc;
-          k = e % kc;
+          c = e / kc8;
+          k = e % kc8;
         }
-        dst[bt_unit(k) * 8 + c] =
-            c0 + c < R ? a[(long long)(k0 + k) * sa0 + (long long)(c0 + c) * sa1] : __float2bfloat16(0.f);
+        dst[bt_unit(k) * 8 + c] = k < kc && c0 + c < R ? a[(long long)(k0 + k) * sa0 + (long long)(c0 + c) * sa1]
+                                                       : __float2bfloat16(0.f);
       }
     }
   };
@@ -518,6 +484,56 @@ lora_bottleneck_kernel(const bf16* __restrict__ x, const bf16* __restrict__ a, b
       *reinterpret_cast<uint4*>(t + (long long)(row0 + r) * RT + c0) = *reinterpret_cast<const uint4*>(out);
     }
   }
+}
+
+// t = T(x @ A) into the (M, RT) scratch t, RT = R rounded up to 8.
+int launch_bottleneck(const void* x, const void* a, void* t, int M, int K, int R, int RT, long long sa0,
+                      long long sa1, cudaStream_t stream) {
+  // 16-byte staging of x's slices when its rows are whole vectors, of A
+  // when its 8-column groups are whole and aligned
+  const bool xv = aligned16(x) && K % 8 == 0, a16 = aligned16(a) && R % 8 == 0;
+  const int layout = a16 && sa1 == 1 && sa0 % 8 == 0                 ? kBtRows
+                     : a16 && sa0 == 1 && sa1 % 8 == 0 && K % 8 == 0 ? kBtCols
+                                                                     : kBtScalar;
+  using Kernel = void (*)(const bf16*, const bf16*, bf16*, int, int, int, int, long long, long long);
+  const Kernel kernels[2][3] = {
+      {lora_bottleneck_kernel<kBtScalar, false>, lora_bottleneck_kernel<kBtRows, false>,
+       lora_bottleneck_kernel<kBtCols, false>},
+      {lora_bottleneck_kernel<kBtScalar, true>, lora_bottleneck_kernel<kBtRows, true>,
+       lora_bottleneck_kernel<kBtCols, true>}};
+  const Kernel bottleneck = kernels[xv][layout];
+  cudaError_t err = cudaFuncSetAttribute(bottleneck, cudaFuncAttributeMaxDynamicSharedMemorySize, BT_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((M + BT_WARPS * BT_ROWS - 1) / (BT_WARPS * BT_ROWS), RT / 8);
+  bottleneck<<<grid, BT_THREADS, BT_SMEM, stream>>>(static_cast<const bf16*>(x), static_cast<const bf16*>(a),
+                                                    static_cast<bf16*>(t), M, K, R, RT, sa0, sa1);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_wmma(const void* x, const void* w, const void* a, const void* b, void* y, void* t, int M, int K, int N,
+                int R, long long sw0, long long sw1, long long sa0, long long sa1, long long sb0, long long sb1,
+                float alpha, cudaStream_t stream) {
+  const bool row = sw1 == 1 && sa1 == 1 && sb1 == 1;
+  const bool col = sw0 == 1 && sa0 == 1 && sb0 == 1;
+  if (!row && !col) return -1;  // W, A, B all row-major (forward) or all transposed views (dX)
+  if (!aligned16(t)) return -1;
+  const long long ldw = row ? sw0 : sw1, ldb = row ? sb0 : sb1;
+  const int vec_x = aligned16(x) && K % 8 == 0, vec_y = aligned16(y) && N % 8 == 0;
+  const int vec_w = aligned16(w) && ldw % 8 == 0, vec_b = aligned16(b) && ldb % 8 == 0;
+  const int RT = (R + 7) / 8 * 8;
+  int e = launch_bottleneck(x, a, t, M, K, R, RT, sa0, sa1, stream);
+  if (e) return e;
+  const dim3 grid((N + WN - 1) / WN, (M + WM - 1) / WM);
+  auto kernel = row ? lora_matmul_wmma_kernel<false> : lora_matmul_wmma_kernel<true>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(WmmaSmem::bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // the bottleneck's programmatic dependent: it waits for t before its epilogue
+  err = launch_dependent(kernel, grid, dim3(WTHREADS), WmmaSmem::bytes, stream, static_cast<const bf16*>(x),
+                         static_cast<const bf16*>(w), static_cast<const bf16*>(t), static_cast<const bf16*>(b),
+                         static_cast<bf16*>(y), M, K, N, R, RT, ldw, ldb, vec_x, vec_w, vec_b, vec_y, alpha);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // (2) y = T(x @ W + alpha * t @ B).  Shared memory: the ring (x chunks
@@ -697,25 +713,15 @@ int launch_wgmma(const void* x, const void* w, const void* a, const void* b, voi
   if (!b_mn && !b_k) return -1;
   if (K % 8 || N % 8 || !aligned16(x) || !aligned16(w) || !aligned16(y) || !aligned16(t)) return -1;
   const int RT = (R + 7) / 8 * 8;
-  const dim3 bt_grid((M + BT_WARPS * BT_ROWS - 1) / (BT_WARPS * BT_ROWS), RT / 8);
-  // 16-byte staging of A when its 8-column groups are whole and aligned
-  const bool a16 = aligned16(a) && R % 8 == 0;
-  auto bottleneck = a16 && sa1 == 1 && sa0 % 8 == 0   ? lora_bottleneck_kernel<kBtRows>
-                    : a16 && sa0 == 1 && sa1 % 8 == 0 ? lora_bottleneck_kernel<kBtCols>
-                                                       : lora_bottleneck_kernel<kBtScalar>;
-  cudaError_t err = cudaFuncSetAttribute(bottleneck, cudaFuncAttributeMaxDynamicSharedMemorySize, BT_SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  bottleneck<<<bt_grid, BT_THREADS, BT_SMEM, stream>>>(static_cast<const bf16*>(x), static_cast<const bf16*>(a),
-                                                       static_cast<bf16*>(t), M, K, R, RT, sa0, sa1);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  int e = launch_bottleneck(x, a, t, M, K, R, RT, sa0, sa1, stream);
+  if (e) return e;
   CUtensorMap tx, tw, ty;
-  int e = hopper::make_map_2d(&tx, x, K, M, K);
+  e = hopper::make_map_2d(&tx, x, K, M, K);
   if (!e) e = b_mn ? hopper::make_map_2d(&tw, w, N, K, sw0) : hopper::make_map_2d(&tw, w, K, N, sw1);
   if (!e) e = hopper::make_map_2d(&ty, y, N, M, N);
   if (e) return e;
   auto kernel = b_mn ? lora_matmul_wgmma_kernel<true> : lora_matmul_wgmma_kernel<false>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, GemmLayout::bytes);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, GemmLayout::bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   // launched as the bottleneck's programmatic dependent: its main loop may
   // start before the bottleneck ends, and it waits for t before the epilogue
@@ -733,8 +739,8 @@ enum LoraRoute { kRouteFma = 0, kRouteWmma = 1, kRouteWgmma = 2 };
 
 // Returns 0 on a good launch, the cudaError_t of a refused launch, -1 for
 // arguments the route does not take, or -2 if CUDA refuses a tensor map.
-// t: the wgmma route's (M, ceil(r / 8) * 8) bf16 scratch for the
-// bottleneck, 16-byte aligned (unused by the other routes).  Shapes,
+// t: the bf16 routes' (M, ceil(r / 8) * 8) bf16 scratch for the bottleneck,
+// 16-byte aligned (unused by the float32 route).  Shapes,
 // dtypes, devices and x's contiguity are checked by the Python wrapper.
 extern "C" int lora_matmul_launch(int dtype, int route, const void* x, const void* w, const void* a, const void* b,
                                   void* y, void* t, int M, int K, int N, int R, long long sw0, long long sw1,
@@ -748,7 +754,7 @@ extern "C" int lora_matmul_launch(int dtype, int route, const void* x, const voi
   if (route == kRouteFma && dtype == kFloat32)
     return launch_fma(x, w, a, b, y, M, K, N, R, sw0, sw1, sa0, sa1, sb0, sb1, alpha, s);
   if (route == kRouteWmma && dtype == kBFloat16)
-    return launch_wmma(x, w, a, b, y, M, K, N, R, sw0, sw1, sa0, sa1, sb0, sb1, alpha, s);
+    return launch_wmma(x, w, a, b, y, t, M, K, N, R, sw0, sw1, sa0, sa1, sb0, sb1, alpha, s);
   return -1;
 }
 

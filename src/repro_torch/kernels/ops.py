@@ -43,7 +43,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "segmented_lora": (
         "segmented_lora_launch",
-        [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     ),
     "flash_decode": (
         "flash_decode_launch",
@@ -149,13 +149,47 @@ def segmented_lora(x, w, a, b, idx, ranks):
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0:
         return y
+    code, stream = _DTYPE_CODE[x.dtype], torch.cuda.current_stream(x.device).cuda_stream
+    splits, tiles = _segmented_plan(code, k, n, x.device)
+    # scratch, freed on return: the K-slabs' partial sums (splits, M, N), then
+    # the rounded bottleneck t (M, r), float32
+    scratch = torch.empty(splits * m * n + m * r, dtype=torch.float32, device=x.device)
     err = _entry("segmented_lora")(
-        _DTYPE_CODE[x.dtype], x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
-        idx.data_ptr(), ranks.data_ptr(), y.data_ptr(), m, k, n, r,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        code, x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(), idx.data_ptr(), ranks.data_ptr(),
+        scratch.data_ptr() + 4 * splits * m * n, scratch.data_ptr(), _tickets(x.device, stream, tiles).data_ptr(),
+        y.data_ptr(), m, k, n, r, splits, stream,
     )
     _check_launch("segmented_lora", err)
     return y
+
+
+_segmented_plans: Dict[tuple, tuple] = {}
+_segmented_tickets: Dict[tuple, torch.Tensor] = {}
+
+
+def _segmented_plan(code: int, k: int, n: int, device):
+    """(K-splits, column tiles) of a ``segmented_lora`` call on ``device``:
+    from the dtype, K, N and the card's SM count alone (``csrc/segmented_lora.cu``)."""
+    key = (device.index, code, k, n)
+    if key not in _segmented_plans:
+        lib = _build.load("segmented_lora")
+        for fn in (lib.segmented_lora_splits, lib.segmented_lora_tiles):
+            fn.restype = ctypes.c_int
+        lib.segmented_lora_splits.argtypes, lib.segmented_lora_tiles.argtypes = [_I] * 3, [_I] * 2
+        with torch.cuda.device(device):
+            _segmented_plans[key] = (lib.segmented_lora_splits(code, k, n), lib.segmented_lora_tiles(code, n))
+        _require(min(_segmented_plans[key]) > 0, f"segmented_lora takes no K={k}, N={n}")
+    return _segmented_plans[key]
+
+
+def _tickets(device, stream: int, tiles: int) -> torch.Tensor:
+    """The column tiles' tickets of ``segmented_lora`` calls on one stream:
+    zero between calls (each call's merging blocks reset theirs)."""
+    key = (device.index, stream)
+    t = _segmented_tickets.get(key)
+    if t is None or t.numel() < tiles:
+        t = _segmented_tickets[key] = torch.zeros(max(tiles, 256), dtype=torch.int32, device=device)
+    return t
 
 
 _splits: Dict[tuple, int] = {}
@@ -306,10 +340,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = Non
 
 def lora_matmul_route(x, w) -> str:
     """The ``lora_matmul`` route for these operands, by dtype and shape:
-    ``fma`` for float32; for bf16 ``wgmma`` (TMA and the tensor cores, the
-    bottleneck in float32 FMAs) when K and N are multiples of 8 and W is
-    row-major or a transposed view of a row-major matrix, 16-byte aligned
-    (TMA's rule), else ``wmma``."""
+    ``fma`` for float32; for bf16 ``wgmma`` (TMA and the tensor cores) when
+    K and N are multiples of 8 and W is row-major or a transposed view of a
+    row-major matrix, 16-byte aligned (TMA's rule), else ``wmma``.  Both
+    bf16 routes take the bottleneck from one float32-FMA kernel."""
     if x.dtype == torch.float32:
         return "fma"
     k, n = w.shape
@@ -335,8 +369,8 @@ def _lora_matmul_launch(x, w, a, b, alpha: float, route: Optional[str] = None):
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0:
         return y
-    # the wgmma route's scratch, freed on return: t = T(x @ A), (M, r rounded up to 8)
-    t = torch.empty((m, -(-r // 8) * 8) if route == "wgmma" else (0,), dtype=x.dtype, device=x.device)
+    # the bf16 routes' scratch, freed on return: t = T(x @ A), (M, r rounded up to 8)
+    t = torch.empty((m, -(-r // 8) * 8) if route != "fma" else (0,), dtype=x.dtype, device=x.device)
     err = _entry("lora_matmul")(
         _DTYPE_CODE[x.dtype], LORA_ROUTES.index(route), x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
         y.data_ptr(), t.data_ptr(), m, k, n, r, w.stride(0), w.stride(1), a.stride(0), a.stride(1),
@@ -401,6 +435,7 @@ def _ptr(t) -> Optional[int]:
 
 
 def _wkv6_fwd(r, k, v, logw, u, s0):
+    r, k, v, logw = (_aligned16(t) for t in (r, k, v, logw))
     bsz, s, h, kd = r.shape
     out = torch.empty(r.shape, dtype=torch.float32, device=r.device)
     state = torch.empty((bsz, h, kd, kd), dtype=torch.float32, device=r.device)
@@ -412,7 +447,14 @@ def _wkv6_fwd(r, k, v, logw, u, s0):
     return out, state
 
 
+def _aligned16(t):
+    """``t``, or a copy of it where its data is not 16-byte aligned (the WKV
+    kernels stage their chunks by 16-byte copies)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _wkv6_bwd(r, k, v, logw, u, s0, dout, dstate):
+    r, k, v, logw, dout = (_aligned16(t) for t in (r, k, v, logw, dout))
     bsz, s, h, kd = r.shape
     dr, dk, dv = (torch.empty_like(t) for t in (r, k, v))
     dlogw = torch.empty_like(logw)

@@ -23,10 +23,9 @@ from repro_torch.kernels import ops, ref
 from repro_torch.nn.attention import INT32_MAX, ring_positions
 
 
-def _pool(rng, *, m, k, n, ranks, stale):
+def _pool(rng, *, m, k, n, ranks, stale, r_max=8):
     """Mixed-rank pool; rows cycle through the slots.  With ``stale`` the
     tails beyond each rank hold garbage, as a recycled slot may."""
-    r_max = 8
     x = rng.standard_normal((m, k), dtype=np.float32)
     w = rng.standard_normal((k, n), dtype=np.float32) * k**-0.5
     a = rng.standard_normal((len(ranks), k, r_max), dtype=np.float32) * k**-0.5
@@ -89,6 +88,49 @@ def test_cuda_segmented_lora_batch_invariant(cuda):
         uniform = ops.segmented_lora(x, w, a, b, torch.full_like(idx, s), ranks)
         rows = idx == s
         assert torch.equal(mixed[rows], uniform[rows])
+
+
+SEGMENTED_SHAPES = [  # (K, N): the decode step's v; K off the 128-row slab steps, N off the 64- and 32-column tiles
+    (2048, 1024), (1000, 1000), (2100, 333),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k,n", SEGMENTED_SHAPES)
+@pytest.mark.parametrize("m", [1, 3, 8, 13, 64])
+def test_cuda_segmented_lora_shapes_match_twin(cuda, dtype, m, k, n):
+    """M of one row to several passes of 8, K and N off the slabs, splits
+    and tiles (N = 333 off the 16-byte vector too), a pooled rank of 64
+    with slots of rank 64, 8, 33 and 1 over stale tails."""
+    arrays = _pool(np.random.default_rng(40 + m), m=m, k=k, n=n, ranks=(64, 8, 33, 1), stale=True, r_max=64)
+    args = _to_torch(arrays, dtype, cuda)
+    ops.reset_launch_counts()
+    got = ops.segmented_lora(*args)
+    assert ops.launch_counts["segmented_lora"] == 1
+    want = ref.segmented_lora_plain(*args)
+    torch.cuda.synchronize()
+    atol, rtol = (3e-2, 1e-2) if dtype == "bfloat16" else (1e-4, 1e-5)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k,n", [(2048, 2048), (2100, 333)])
+def test_cuda_segmented_lora_row_is_batch_invariant(cuda, dtype, k, n):
+    """A row gives the same bits alone, in a batch of 8 and in a batch of 13
+    with other tenants: the slabs and splits come from K, N and the card,
+    never from M or the slots."""
+    x, w, a, b, idx, ranks = _to_torch(
+        _pool(np.random.default_rng(41), m=13, k=k, n=n, ranks=(8, 4, 2, 8), stale=True), dtype, cuda
+    )
+    idx = torch.tensor([0, 1, 2, 3, 1, 0, 2, 3, 3, 1, 0, 2, 1], dtype=torch.int32, device=cuda)
+    all13 = ops.segmented_lora(x, w, a, b, idx, ranks)
+    first8 = ops.segmented_lora(x[:8].contiguous(), w, a, b, idx[:8].contiguous(), ranks)
+    assert torch.equal(first8, all13[:8])
+    for i in (0, 5, 7):
+        alone = ops.segmented_lora(x[i:i + 1].contiguous(), w, a, b, idx[i:i + 1].contiguous(), ranks)
+        assert torch.equal(alone[0], all13[i]), i
 
 
 @pytest.mark.cuda
@@ -441,6 +483,23 @@ def test_cuda_lora_bottleneck_within_one_ulp(cuda, m, k, r, draw):
 
 
 @pytest.mark.cuda
+def test_cuda_lora_matmul_wmma_route_bottleneck_at_large_k(cuda):
+    """K off 8 takes the WMMA route; at K 8 190 its bottleneck t (from the
+    float32-FMA kernel, one rounding to bf16) lies within one bf16 ulp of
+    the twin's everywhere, and y within 3e-2 + 1e-2 |ref|."""
+    x, w, a, b, _ = _lora(np.random.default_rng(300), 512, 8190, 1000, 8, "bfloat16", cuda)
+    ops.reset_launch_counts()
+    got = ops.lora_matmul(x, w, a, b, alpha=2.0)
+    t = _bottleneck(x, a)
+    assert ops.lora_matmul_routes["wmma"] == 2
+    want = ref.lora_matmul_plain(x, w, a, b, alpha=2.0)
+    t_ref = (x.float() @ a.float()).to(torch.bfloat16).float()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=1e-2)
+    assert bool(((t - t_ref).abs() <= _bf16_ulp(t_ref)).all())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n,r", [(1000, 2560, 1024, 8), (50, 44, 24, 8)])
 def test_cuda_lora_matmul_is_deterministic(cuda, m, k, n, r):
     """No split-K and no atomics: two forward passes and two dX passes give
@@ -470,6 +529,10 @@ WKV_CASES = [  # (B, S, H, K, state)
     (2, 33, 4, 16, True),
     (1, 1, 1, 64, False),  # one token
     (2, 512, 40, 64, False),  # the training shape's heads
+    (2, 65, 3, 64, False),  # S off the chunk by one token
+    (2, 65, 3, 64, True),
+    (1, 200, 2, 32, False),  # S off the chunk and off a 64-token spacing
+    (1, 200, 2, 64, True),
 ]
 
 
@@ -512,6 +575,38 @@ def test_cuda_wkv6_backward_is_deterministic(cuda):
         grads.append(torch.autograd.grad(out, leaves, dout))
     for a, b in zip(*grads):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("state", [False, True])
+def test_cuda_wkv6_backward_bits_repeat_off_the_chunk(cuda, state):
+    """Two backward passes at S 200 (off the chunk), with and without a
+    state in and a cotangent on the final state, give the same bits."""
+    inputs, dout, dstate = _wkv(np.random.default_rng(25), 2, 200, 3, 64, "bfloat16", cuda, state)
+    r, kk, v, logw, u, s0 = inputs
+    first = ops._wkv6_bwd(r, kk, v, logw, u, s0, dout, dstate)
+    second = ops._wkv6_bwd(r, kk, v, logw, u, s0, dout, dstate)
+    for a, b in zip(first, second):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_wkv6_bwd_scratch_is_one_state_per_chunk(cuda):
+    """The backward asks for no more memory than its outputs, one float32
+    state per 16-token chunk of every (batch, head) and the per-block du
+    partials (each allocation rounded up to 512 bytes)."""
+    b, s, h, k = 2, 200, 4, 64
+    inputs, dout, dstate = _wkv(np.random.default_rng(26), b, s, h, k, "bfloat16", cuda, True)
+    r, kk, v, logw, u, s0 = inputs
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    grads = ops._wkv6_bwd(r, kk, v, logw, u, s0, dout, dstate)
+    torch.cuda.synchronize()
+    asked = torch.cuda.max_memory_allocated() - before
+    outputs = sum(g.numel() * g.element_size() for g in grads)
+    scratch = b * h * -(-s // 16) * k * k * 4 + b * h * k * 4
+    assert asked <= outputs + scratch + 512 * 10
 
 
 @pytest.mark.cuda
