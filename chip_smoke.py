@@ -6,14 +6,21 @@ CUDA toolkit::
 
     python3 chip_smoke.py [--seed 0]
 
+With ``--scans-of SRC`` it runs only the scan kernels' timed cases of phase
+3 (wkv6 and mamba_scan, forward and backward, bf16, held against their
+twins) with the ``repro_torch`` under SRC, another tree's ``src``, and
+prints no result: two trees (the parent's unpacked under the git-ignored
+``build/``, and this one's ``src``) are compared on one card by running it
+for each in turns, parent, change, change, parent.
+
 Phases, one line each before the last:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build of every CUDA kernel from the sources in the checkout, in parallel,
    and the registers, spills and shared memory of the attention kernels,
-   lora_matmul's, flash_decode's, segmented_lora's and the wkv6 kernels'
-   (their ``ptxas -v`` logs, any wgmma serialization warning, and the bytes
-   the launchers ask for);
+   lora_matmul's, flash_decode's, segmented_lora's, the wkv6 and the
+   mamba_scan kernels' (their ``ptxas -v`` logs, any wgmma serialization
+   warning, and the bytes the launchers ask for);
 3. each kernel held against its plain PyTorch twin on the card at the
    shapes of its path (serving: the decode step; training: batch 16 x 512
    tokens of qwen3-1.7b, of rwkv6-3b for wkv6 and the channel-mix
@@ -24,11 +31,12 @@ Phases, one line each before the last:
    of attention (also at jamba-v0.1-52b's 32 heads; its backward's two
    kernels apart), flash_decode (split and merge passes apart),
    lora_matmul and segmented_lora (bottleneck and main kernels apart, and
-   lora_matmul's route) and the wkv6 backward (its three kernels apart)
-   beside their yardsticks' (SDPA, cuBLAS's x @ W); and lora_matmul on the
-   fixed draw that failed its first bf16 design, on the route it takes and
-   on the WMMA route, with the bf16 roundings of the bottleneck t that
-   differ from the twin's, both routes checked;
+   lora_matmul's route), the wkv6 backward (its three kernels apart), the
+   wkv6 forward and the mamba_scan forward and backward (its four kernels
+   apart) beside their yardsticks' (SDPA, cuBLAS's x @ W); and lora_matmul
+   on the fixed draw that failed its first bf16 design, on the route it
+   takes and on the WMMA route, with the bf16 roundings of the bottleneck t
+   that differ from the twin's, both routes checked;
 4. full-width qwen3-1.7b (28 layers, random weights from ``--seed``)
    served through ``repro_torch.api.serve``: 12 requests over 4 LoRA
    tenants of rank 4/8 at batch 8, rows recycling mid-run; every completion
@@ -127,7 +135,8 @@ def device_ms(fn, flush, keys=None, repeats: int = 10):
     """Mean device time per call of ``fn`` from ``torch.profiler`` over
     ``repeats`` calls, each after an L2 flush (left out of the sums): of
     every kernel ``fn`` launches, or with ``keys`` a dict of the kernels
-    whose names hold each key.  None where the profiler saw no device time."""
+    whose names match each key (a regular expression).  None where the
+    profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -142,7 +151,7 @@ def device_ms(fn, flush, keys=None, repeats: int = 10):
     mean = lambda us: us / 1e3 / repeats if us > 0 else None  # noqa: E731
     if keys is None:
         return mean(sum(e.self_device_time_total for e in events))
-    return {key: mean(sum(e.self_device_time_total for e in events if key in e.key)) for key in keys}
+    return {key: mean(sum(e.self_device_time_total for e in events if re.search(key, e.key))) for key in keys}
 
 
 def device_span_ms(fn, flush, repeats: int = 10):
@@ -227,10 +236,11 @@ def serialization_warnings(log_text: str) -> list:
 
 def kernel_resources(_build) -> dict:
     """The registers and spills (from the build logs) of the attention
-    kernels, lora_matmul's, flash_decode's, segmented_lora's and the wkv6
-    kernels', the dynamic shared memory the attention, lora_matmul,
-    segmented_lora (at the decode step's q and v) and wkv6_bwd (K 64)
-    launchers ask for, and any wgmma serialization warning."""
+    kernels, lora_matmul's, flash_decode's, segmented_lora's, the wkv6 and
+    the mamba_scan kernels', the dynamic shared memory the attention,
+    lora_matmul, segmented_lora (at the decode step's q and v), wkv6 (each
+    head dim), wkv6_bwd (K 64) and mamba_scan (each state dim) launchers ask
+    for, and any wgmma serialization warning."""
     import ctypes
 
     fwd = _build.load("flash_attention").flash_attention_fwd_smem_bytes
@@ -238,8 +248,11 @@ def kernel_resources(_build) -> dict:
     lora = _build.load("lora_matmul").lora_matmul_wgmma_smem_bytes
     seg = _build.load("segmented_lora").segmented_lora_smem_bytes
     wkv = _build.load("wkv6_bwd").wkv6_bwd_smem_bytes
+    wkv_fwd = _build.load("wkv6").wkv6_fwd_smem_bytes
+    mamba_bwd = _build.load("mamba_scan_bwd").mamba_scan_bwd_smem_bytes
     fwd.argtypes, bwd.argtypes, lora.argtypes = [ctypes.c_int] * 2, [ctypes.c_int] * 3, []
     seg.argtypes, wkv.argtypes = [ctypes.c_int] * 3, [ctypes.c_int] * 3
+    wkv_fwd.argtypes, mamba_bwd.argtypes = [ctypes.c_int] * 2, [ctypes.c_int] * 3
     out = {}
     for name in ("flash_attention", "flash_attention_bwd"):
         rows = [r for r in ptxas_resources(build_log(_build, name)) if "probe" not in r["kernel"]]
@@ -262,10 +275,19 @@ def kernel_resources(_build) -> dict:
         if "stream" in r["kernel"] and r["bf16"]:
             r["dynamic_smem_q_v"] = [seg(1, 2048, 2048), seg(1, 2048, 1024)]
     out["wkv6"] = ptxas_resources(build_log(_build, "wkv6"))
+    for r in out["wkv6"]:
+        r["dynamic_smem"] = wkv_fwd(int(r["bf16"]), r["template_ints"][0])
     out["wkv6_bwd"] = ptxas_resources(build_log(_build, "wkv6_bwd"))
     for r in out["wkv6_bwd"]:
         if r["bf16"] and r["template_ints"] == [64]:
             r["dynamic_smem"] = wkv(1, 64, int("fused" in r["kernel"]))
+    out["mamba_scan"] = ptxas_resources(build_log(_build, "mamba_scan"))
+    for r in out["mamba_scan"]:
+        r["dynamic_smem"] = 0
+    out["mamba_scan_bwd"] = ptxas_resources(build_log(_build, "mamba_scan_bwd"))
+    for r in out["mamba_scan_bwd"]:
+        which = {"mamba_chunk_states_kernel": 0, "mamba_bwd_kernel": 1}.get(r["kernel"])
+        r["dynamic_smem"] = 0 if which is None else mamba_bwd(int(r["bf16"]), r["template_ints"][0], which)
     out["wgmma_serialization_warnings"] = {
         name: serialization_warnings(build_log(_build, name))
         for name in ("flash_attention", "flash_attention_bwd", "lora_matmul")
@@ -700,7 +722,28 @@ def mamba_case(ops, ref, timer, gen, *, dtype, b=16, s=512, d=8192, n=16, time_i
         case["ms"] = timer(lambda: ops.mamba_scan(*inputs))
         case["plain_ms"] = timer(lambda: ref.mamba_scan_plain(*inputs), repeats=3)
     # the backward alone, its scratch included, as _MambaScan.backward calls it
-    case["bwd_ms"] = timer(lambda: ops._mamba_bwd(*inputs, dy))
+    bwd_fn = lambda: ops._mamba_bwd(*inputs, dy)  # noqa: E731
+    case["bwd_ms"] = timer(bwd_fn)
+    # device time alone: the forward kernel; the backward's span and its
+    # four kernels apart
+    with torch.no_grad():
+        case["kernel_ms"] = device_ms(lambda: ops.mamba_scan(*inputs), timer.flush)
+    case["bwd_kernel_ms"] = device_span_ms(bwd_fn, timer.flush)
+    # (mamba_forward_sweep, mamba_bwd_sweep: the earlier design's names, for
+    # a tree compared by --scans-of)
+    keys = ("mamba_chunk_states|mamba_forward_sweep", "mamba_bwd_", "mamba_bc_reduce", "mamba_ad_reduce")
+    case["bwd_kernels_ms"] = dict(zip(("chunk_states", "walk", "bc_reduce", "ad_reduce"),
+                                      device_ms(bwd_fn, timer.flush, keys).values()))
+    # the scratch: the allocator's requested bytes at the peak of one
+    # backward, less what it returns
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    torch.cuda.reset_peak_memory_stats()
+    got = bwd_fn()
+    torch.cuda.synchronize()
+    outputs = sum(g.numel() * g.element_size() for g in got)
+    case["bwd_scratch_bytes"] = torch.cuda.memory_stats()["requested_bytes.all.peak"] - before - outputs
+    del got
     case["plain_bwd_ms"] = timer(lambda: ref.mamba_scan_bwd_plain(*inputs, dy), repeats=3)
     case["library_ms"] = case["library_bwd_ms"] = None
     elt, cells, small = x.element_size(), b * s * d * n, 4 * (d * n + d)
@@ -723,6 +766,26 @@ def mamba_case(ops, ref, timer, gen, *, dtype, b=16, s=512, d=8192, n=16, time_i
         case[prefix + "bound_by"] = "bytes" if top == "bytes" else "operations"
         case[prefix + "bound_terms_ms"] = times
     return case
+
+
+def scans_of(src: str, card: str, seed: int) -> int:
+    """The scan kernels of the repro_torch already imported from ``src``:
+    built into that tree's build/, their registers and spills, and the
+    timed wkv6 and mamba_scan cases at the training shapes, one line each."""
+    from repro_torch.kernels import _build, ops, ref
+
+    names = ("wkv6", "wkv6_bwd", "mamba_scan", "mamba_scan_bwd")
+    _build.build(names)
+    print(f"scans of {src}: kernel resources {json.dumps({n: ptxas_resources(build_log(_build, n)) for n in names})}",
+          flush=True)
+    timer = Timer()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    print(f"scans of {src}: wkv6 {json.dumps(wkv6_case(ops, ref, timer, gen, dtype=torch.bfloat16))} [{card}]",
+          flush=True)
+    print(f"scans of {src}: mamba_scan {json.dumps(mamba_case(ops, ref, timer, gen, dtype=torch.bfloat16))} "
+          f"[{card}]", flush=True)
+    return 0
 
 
 def make_tenants(cfg, gen, n=4):
@@ -1128,11 +1191,17 @@ def smoke_train_cuda_vs_cpu(seed: int, arch: str):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--scans-of", metavar="SRC",
+                        help="run only the scan kernels' timed cases (phase 3's wkv6 and mamba_scan, bf16) with the "
+                             "repro_torch under SRC, another tree's src directory, and print no result; run once "
+                             "for each tree, in turns, to compare two trees on one card")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.scans_of:
+        sys.path.insert(0, str(Path(args.scans_of).resolve()))
     from repro_torch import api
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build, ops, ref
@@ -1145,6 +1214,8 @@ def main() -> int:
     # 1. the card
     card = card_line()
     print(card, flush=True)
+    if args.scans_of:
+        return scans_of(args.scans_of, card, args.seed)
 
     # 2. build
     t0 = time.perf_counter()
@@ -1359,6 +1430,7 @@ def main() -> int:
             "replaces": "src/repro/kernels/mamba_scan.py:54",
             "launches": jamba_launches["mamba_scan"],
             **{key: msc[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "device_only_ms": msc["kernel_ms"], "kernels_ms": {"forward": msc["kernel_ms"]},
             "bound_terms_ms": msc["bound_terms_ms"], "shape": "forward, " + msc["shape"],
         },
         {
@@ -1368,7 +1440,8 @@ def main() -> int:
             "launches": jamba_launches["mamba_scan_bwd"],
             "max_abs_err": msc["bwd_max_abs_err"], "ms": msc["bwd_ms"], "plain_ms": msc["plain_bwd_ms"],
             "bound_ms": msc["bwd_bound_ms"], "bound_by": msc["bwd_bound_by"], "library_ms": msc["library_bwd_ms"],
-            "bound_terms_ms": msc["bwd_bound_terms_ms"],
+            "device_only_ms": msc["bwd_kernel_ms"], "kernels_ms": msc["bwd_kernels_ms"],
+            "scratch_bytes": msc["bwd_scratch_bytes"], "bound_terms_ms": msc["bwd_bound_terms_ms"],
             "shape": "backward (d_dt, dx, dB, dC, dA, dD), " + msc["shape"],
         },
     ]

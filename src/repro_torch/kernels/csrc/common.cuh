@@ -35,6 +35,17 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// f(e) for this thread's share e = tid, tid + NT, .. of 0 .. COUNT - 1 (of
+// NT threads), the trip count known at compile time.
+template <int NT, int COUNT, typename F>
+__device__ __forceinline__ void for_share(int tid, F&& f) {
+#pragma unroll
+  for (int e0 = 0; e0 < COUNT; e0 += NT) {
+    const int e = e0 + tid;
+    if (COUNT % NT == 0 || e < COUNT) f(e);
+  }
+}
+
 // 16 bytes global -> shared by cp.async; `bytes` 16 copies, 0 zero-fills.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));

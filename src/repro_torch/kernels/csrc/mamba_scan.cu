@@ -14,8 +14,8 @@
 // materialises -- 4.3 GB each per layer at the training shape -- never
 // exist.  Changed: no (d_block, N) tiles walked by a sequential grid; one
 // thread per (b, d) channel with its N states in registers walks the whole
-// sequence (mamba_common.cuh), and all B * D channels run in parallel.  New:
-// the final state, which the decode path of repro/nn/mamba.py carries.
+// sequence, and all B * D channels run in parallel.  New: the final state,
+// which the decode path of repro/nn/mamba.py carries.
 //
 // What bounds it on the card: at the training shape (B 16, S 512, D 8192,
 // N 16, bf16 dt/x/y) it takes 1.07e9 exp, ~0.26 ms on the special function
@@ -23,16 +23,84 @@
 // does ~6.4e9 other float32 operations (~0.10 ms at 67 TFLOP/s): the exp
 // bounds it.  131 072 threads give ~31 warps per SM to hide the sequential
 // chain of each channel.
+//
+// A block holds MAMBA_THREADS consecutive channels of one batch row, so every
+// per-token load of dt and x is one coalesced row segment.  A block walks
+// its sequence in chunks of 128 / N tokens: the threads stage the chunk's
+// B_t and C_t rows into shared memory, which every thread then reads (a
+// broadcast), and load the chunk's dt and x into registers before the
+// first use.
 #include "mamba_common.cuh"
 
 namespace {
+
+template <int N>
+constexpr int MAMBA_FWD_CHUNK = 128 / N;
+
+// y (B, S, D) in T and, when hT is not null, the final state (B, D, N)
+// float32.
+template <typename T, int N>
+__global__ void __launch_bounds__(MAMBA_THREADS) mamba_forward_kernel(
+    const T* __restrict__ dt, const T* __restrict__ x, const float* __restrict__ Bm, const float* __restrict__ Cm,
+    const float* __restrict__ A, const float* __restrict__ Dv, T* __restrict__ y, float* __restrict__ hT, int S,
+    int D) {
+  constexpr int TC = MAMBA_FWD_CHUNK<N>;
+  __shared__ __align__(16) float sB[TC][N];
+  __shared__ __align__(16) float sC[TC][N];
+  const int b = blockIdx.y, d = blockIdx.x * MAMBA_THREADS + threadIdx.x;
+  const bool live = d < D;  // threads past D run with zeros and store nothing
+  float a[N], h[N];
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    a[n] = live ? A[(size_t)d * N + n] : 0.f;
+    h[n] = 0.f;
+  }
+  const float dd = live ? Dv[d] : 0.f;
+  const size_t base = (size_t)b * S * D + d;
+  const float* Bb = Bm + (size_t)b * S * N;
+  const float* Cb = Cm + (size_t)b * S * N;
+  const int nc = (S + TC - 1) / TC;
+  for (int c = 0; c < nc; ++c) {
+    const int t0 = c * TC, nt = min(TC, S - t0);
+    float ldt[TC], lx[TC];
+#pragma unroll
+    for (int i = 0; i < TC; ++i) {
+      const bool ok = live && i < nt;
+      ldt[i] = ok ? to_float(dt[base + (size_t)(t0 + i) * D]) : 0.f;
+      lx[i] = ok ? to_float(x[base + (size_t)(t0 + i) * D]) : 0.f;
+    }
+    __syncthreads();  // the previous chunk is no longer read
+    for (int j = threadIdx.x; j < nt * N; j += MAMBA_THREADS) {
+      (&sB[0][0])[j] = Bb[(size_t)t0 * N + j];
+      (&sC[0][0])[j] = Cb[(size_t)t0 * N + j];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < TC; ++i) {
+      if (i < nt) {
+        const float u = ldt[i] * lx[i];
+        float acc = 0.f;
+#pragma unroll
+        for (int n = 0; n < N; ++n) {
+          h[n] = fmaf(expf(ldt[i] * a[n]), h[n], u * sB[i][n]);
+          acc = fmaf(h[n], sC[i][n], acc);
+        }
+        if (live) y[base + (size_t)(t0 + i) * D] = from_float<T>(fmaf(dd, lx[i], acc));
+      }
+    }
+  }
+  if (hT && live) {
+#pragma unroll
+    for (int n = 0; n < N; ++n) hT[((size_t)b * D + d) * N + n] = h[n];
+  }
+}
 
 template <typename T, int N>
 int launch(const void* dt, const void* x, const float* Bm, const float* Cm, const float* A, const float* Dv, void* y,
            float* hT, int B, int S, int D, cudaStream_t stream) {
   const dim3 grid((D + MAMBA_THREADS - 1) / MAMBA_THREADS, B);
-  mamba_forward_sweep<T, N, true, false><<<grid, MAMBA_THREADS, 0, stream>>>(
-      static_cast<const T*>(dt), static_cast<const T*>(x), Bm, Cm, A, Dv, static_cast<T*>(y), hT, nullptr, S, D);
+  mamba_forward_kernel<T, N><<<grid, MAMBA_THREADS, 0, stream>>>(
+      static_cast<const T*>(dt), static_cast<const T*>(x), Bm, Cm, A, Dv, static_cast<T*>(y), hT, S, D);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -88,19 +88,20 @@ __global__ void __launch_bounds__(K) wkv6_bwd_sweep_kernel(
 #pragma unroll
   for (int vv = 0; vv < K; ++vv) st[vv] = s0 ? s0[sbase + (size_t)j * K + vv] : 0.f;
   const int nc = (S + C - 1) / C;
-  wkv_issue_chunk<T, K>(sm.raw[0], nullptr, k, v, logw, base, row, 0, min(C, S), j, K);
-  wkv_issue<float, K>(sm.dout[0], dout, base, row, 0, min(C, S), j, K);
+  wkv_issue_chunk<K>(sm.raw[0], static_cast<const T*>(nullptr), k, v, logw, base, row, 0, min(C, S), j);
+  wkv_issue<K>(sm.dout[0], dout, base, row, 0, min(C, S), j);
   cp_async_commit();
   for (int c = 0; c < nc; ++c) {
     const int t0 = c * C, n = min(C, S - t0), buf = c & 1;
     cp_async_wait<0>();
     __syncthreads();  // chunk c has landed; the previous chunk is no longer read
     if (c + 1 < nc) {
-      wkv_issue_chunk<T, K>(sm.raw[buf ^ 1], nullptr, k, v, logw, base, row, t0 + C, min(C, S - t0 - C), j, K);
-      wkv_issue<float, K>(sm.dout[buf ^ 1], dout, base, row, t0 + C, min(C, S - t0 - C), j, K);
+      wkv_issue_chunk<K>(sm.raw[buf ^ 1], static_cast<const T*>(nullptr), k, v, logw, base, row, t0 + C,
+                         min(C, S - t0 - C), j);
+      wkv_issue<K>(sm.dout[buf ^ 1], dout, base, row, t0 + C, min(C, S - t0 - C), j);
     }
     cp_async_commit();
-    wkv_convert<T, K, false>(sm.s, sm.raw[buf], j, K);
+    wkv_convert<K, false>(sm.s, sm.raw[buf], j);
     __syncthreads();
     const float(*sdo)[K] = sm.dout[buf];
     if (j < n) {
@@ -171,9 +172,9 @@ __global__ void __launch_bounds__(2 * K, K == 64 ? 3 : 1) wkv6_bwd_fused_kernel(
   const int nc = (S + C - 1) / C;
   auto issue = [&](int c) {  // chunk c's inputs and dr' into buffer c & 1
     const int t0 = c * C, n = min(C, S - t0);
-    wkv_issue_chunk<T, K>(sm.raw[c & 1], r, k, v, logw, base, row, t0, n, tid, NT);
-    wkv_issue<float, K>(sm.dout[c & 1], dout, base, row, t0, n, tid, NT);
-    wkv_issue<float, K>(sm.drp[c & 1], dlogw, base, row, t0, n, tid, NT);
+    wkv_issue_chunk<NT>(sm.raw[c & 1], r, k, v, logw, base, row, t0, n, tid);
+    wkv_issue<NT>(sm.dout[c & 1], dout, base, row, t0, n, tid);
+    wkv_issue<NT>(sm.drp[c & 1], dlogw, base, row, t0, n, tid);
   };
   auto issue_state = [&](int c) {
     const float* src = states + ((size_t)bh * nc + c) * K * K;
@@ -195,7 +196,7 @@ __global__ void __launch_bounds__(2 * K, K == 64 ? 3 : 1) wkv6_bwd_fused_kernel(
 #pragma unroll
       for (int vv = 0; vv < K; ++vv) p = fmaf(g[vv], sm.st[vv * K + j], p);
     }
-    wkv_convert<T, K>(sm.s, sm.raw[buf], tid, NT);
+    wkv_convert<NT>(sm.s, sm.raw[buf], tid);
     __syncthreads();  // the staged chunk is complete; every row thread has read the state
     if (c > 0) {
       issue_state(c - 1);

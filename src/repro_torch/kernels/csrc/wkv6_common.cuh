@@ -44,40 +44,39 @@ struct WkvStaged {
 // Four consecutive staged floats; p is 16-byte aligned.
 __device__ __forceinline__ float4 wkv_ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
 
-// This thread's share (of nthreads) of the cp.async copies of tokens t0 ..
-// t0 + n - 1 of one (b, h) of src into dst; rows from n on are zero-filled.
-template <typename T, int K>
-__device__ __forceinline__ void wkv_issue(T (*dst)[K], const T* src, size_t base, size_t row, int t0, int n, int tid,
-                                          int nthreads) {
+// This thread's share (of NT) of the cp.async copies of tokens t0 .. t0 +
+// n - 1 of one (b, h) of src into dst; rows from n on are zero-filled.
+template <int NT, typename T, int K>
+__device__ __forceinline__ void wkv_issue(T (*dst)[K], const T* src, size_t base, size_t row, int t0, int n,
+                                          int tid) {
   constexpr int E = 16 / sizeof(T), U = K / E;  // elements per copy, copies per token
-  for (int e = tid; e < WKV_CHUNK * U; e += nthreads) {
+  for_share<NT, WKV_CHUNK * U>(tid, [&](int e) {
     const int t = e / U, x = (e % U) * E;
     const bool in = t < n;
     cp_async16(&dst[t][x], in ? src + base + (size_t)(t0 + t) * row + x : src, in ? 16 : 0);
-  }
+  });
 }
 
-template <typename T, int K>
+template <int NT, typename T, int K>
 __device__ __forceinline__ void wkv_issue_chunk(WkvChunk<T, K>& dst, const T* r, const T* k, const T* v,
-                                                const float* logw, size_t base, size_t row, int t0, int n, int tid,
-                                                int nthreads) {
-  if (r) wkv_issue<T, K>(dst.r, r, base, row, t0, n, tid, nthreads);  // r may be left out
-  wkv_issue<T, K>(dst.k, k, base, row, t0, n, tid, nthreads);
-  wkv_issue<T, K>(dst.v, v, base, row, t0, n, tid, nthreads);
-  wkv_issue<float, K>(dst.lw, logw, base, row, t0, n, tid, nthreads);
+                                                const float* logw, size_t base, size_t row, int t0, int n, int tid) {
+  if (r) wkv_issue<NT>(dst.r, r, base, row, t0, n, tid);  // r may be left out
+  wkv_issue<NT>(dst.k, k, base, row, t0, n, tid);
+  wkv_issue<NT>(dst.v, v, base, row, t0, n, tid);
+  wkv_issue<NT>(dst.lw, logw, base, row, t0, n, tid);
 }
 
 // The landed chunk to float32, the decay w = exp(logw) once per element
-// (r only WITH_R).
-template <typename T, int K, bool WITH_R = true>
-__device__ __forceinline__ void wkv_convert(WkvStaged<K>& dst, const WkvChunk<T, K>& src, int tid, int nthreads) {
-  for (int e = tid; e < WKV_CHUNK * K; e += nthreads) {
+// (r only WITH_R), by NT threads.
+template <int NT, bool WITH_R = true, typename T, int K>
+__device__ __forceinline__ void wkv_convert(WkvStaged<K>& dst, const WkvChunk<T, K>& src, int tid) {
+  for_share<NT, WKV_CHUNK * K>(tid, [&](int e) {
     const int t = e / K, x = e % K;
     if (WITH_R) dst.r[t][x] = to_float(src.r[t][x]);
     dst.k[t][x] = to_float(src.k[t][x]);
     dst.v[t][x] = to_float(src.v[t][x]);
     dst.w[t][x] = expf(src.lw[t][x]);
-  }
+  });
 }
 
 // sum_j a[j] b[j] c[j] over one staged token.

@@ -30,7 +30,12 @@ MAX_ATTN_HEAD_DIM = 128  # csrc/tiles.cuh MAX_D, flash_attention forward and bac
 WKV_HEAD_DIMS = (16, 32, 64)  # csrc/wkv6_common.cuh wkv_supported_head_dim
 WKV_CHUNK = 16  # csrc/wkv6_common.cuh WKV_CHUNK: the backward saves one state per chunk
 MAMBA_STATE_DIMS = (8, 16)  # csrc/mamba_common.cuh mamba_supported_state_dim
-MAMBA_THREADS = 128  # csrc/mamba_common.cuh MAMBA_THREADS: channels per block
+# csrc/mamba_common.cuh, the backward: threads a block, tokens a chunk, and
+# the states of how many channels a thread holds in its walk
+MAMBA_BWD_THREADS = 256
+MAMBA_BWD_CHUNK = 8
+MAMBA_LANE_STATES = 4
+MAMBA_LANE_CHANNELS = 2
 
 launch_counts: Dict[str, int] = {name: 0 for name in _build.KERNELS}
 LORA_ROUTES = ("fma", "wmma", "wgmma")  # csrc/lora_matmul.cu LoraRoute
@@ -436,6 +441,7 @@ def _ptr(t) -> Optional[int]:
 
 def _wkv6_fwd(r, k, v, logw, u, s0):
     r, k, v, logw = (_aligned16(t) for t in (r, k, v, logw))
+    s0 = None if s0 is None else _aligned16(s0)
     bsz, s, h, kd = r.shape
     out = torch.empty(r.shape, dtype=torch.float32, device=r.device)
     state = torch.empty((bsz, h, kd, kd), dtype=torch.float32, device=r.device)
@@ -542,26 +548,35 @@ def _mamba_fwd(dt, x, bmat, cmat, a, dvec):
     return y, state
 
 
+def mamba_bwd_scratch_shapes(bsz, s, d, n):
+    """The float32 scratch of the ``mamba_scan_bwd`` kernel at dt, x of
+    shape (bsz, s, d) and state dim n, as csrc/mamba_scan_bwd.cu lays it
+    out: the state entering each chunk of ``MAMBA_BWD_CHUNK`` tokens,
+    per-block partial sums of dB and dC over a block's channels, per-row
+    partial sums of dA and dD."""
+    channels = MAMBA_BWD_THREADS * MAMBA_LANE_STATES * MAMBA_LANE_CHANNELS // n  # a block's, in the walk
+    return {
+        "states": (bsz, -(-s // MAMBA_BWD_CHUNK), d, n),
+        "bc_part": (bsz, -(-d // channels), s, 2 * n),
+        "da_part": (bsz, d, n),
+        "dd_part": (bsz, d),
+    }
+
+
 def _mamba_bwd(dt, x, bmat, cmat, a, dvec, dy):
     bsz, s, d = x.shape
     n = a.shape[1]
     d_dt, dx = torch.empty_like(dt), torch.empty_like(x)
     db, dc = torch.empty_like(bmat), torch.empty_like(cmat)
     da, dd = torch.empty_like(a), torch.empty_like(dvec)
-    # scratch, freed on return (the caching allocator hands it out again
-    # only to work queued after these kernels on this stream): the state
-    # entering each chunk, per-block partial sums of dB and dC over the
-    # block's channels, per-row partial sums of dA and dD
-    n_chunks = -(-s // (128 // n))  # csrc/mamba_common.cuh MAMBA_CHUNK<N>: 128 / N tokens a chunk
-    n_blocks = -(-d // MAMBA_THREADS)
-    states = torch.empty((bsz, n_chunks, n, d), dtype=torch.float32, device=x.device)
-    bc_part = torch.empty((bsz, n_blocks, s, 2 * n), dtype=torch.float32, device=x.device)
-    da_part = torch.empty((bsz, n, d), dtype=torch.float32, device=x.device)
-    dd_part = torch.empty((bsz, d), dtype=torch.float32, device=x.device)
+    # scratch, freed on return: the caching allocator hands it out again
+    # only to work queued after these kernels on this stream
+    scratch = {name: torch.empty(shape, dtype=torch.float32, device=x.device)
+               for name, shape in mamba_bwd_scratch_shapes(bsz, s, d, n).items()}
     err = _entry("mamba_scan_bwd")(
         _DTYPE_CODE[x.dtype], dt.data_ptr(), x.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), a.data_ptr(),
         dvec.data_ptr(), dy.data_ptr(), d_dt.data_ptr(), dx.data_ptr(), db.data_ptr(), dc.data_ptr(), da.data_ptr(),
-        dd.data_ptr(), states.data_ptr(), bc_part.data_ptr(), da_part.data_ptr(), dd_part.data_ptr(),
+        dd.data_ptr(), *(scratch[name].data_ptr() for name in ("states", "bc_part", "da_part", "dd_part")),
         bsz, s, d, n, _stream(x),
     )
     _check_launch("mamba_scan_bwd", err)

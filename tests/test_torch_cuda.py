@@ -610,6 +610,24 @@ def test_cuda_wkv6_bwd_scratch_is_one_state_per_chunk(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("k", [16, 32, 64])
+def test_cuda_wkv6_forward_bits_repeat_off_the_chunk(cuda, k, state):
+    """The forward's register tiles at each head dim, S off the 16-token
+    chunk: out and the final state match ``wkv6_plain`` (1e-4 + 1e-3 |ref|)
+    and two runs give the same bits (the row groups' shares of out are
+    summed in one order)."""
+    inputs, _, _ = _wkv(np.random.default_rng(29), 2, 37, 3, k, "bfloat16", cuda, state)
+    with torch.no_grad():
+        first = ops.wkv6(*inputs)
+        second = ops.wkv6(*inputs)
+    want = ref.wkv6_plain(*inputs)
+    for got, again, w in zip(first, second, want):
+        assert torch.equal(got, again)
+        torch.testing.assert_close(got, w, atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.cuda
 def test_cuda_wkv6_rejects_what_the_kernel_does_not_take(cuda):
     inputs, _, _ = _wkv(np.random.default_rng(18), 1, 8, 2, 48, "float32", cuda, False)
     with pytest.raises(ValueError, match="head dim"):
@@ -732,6 +750,58 @@ def test_cuda_mamba_scan_backward_is_deterministic(cuda):
         grads.append(torch.autograd.grad(y, leaves, dy))
     for a, b in zip(*grads):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [8, 16])
+@pytest.mark.parametrize("d", [100, 200, 8192])
+@pytest.mark.parametrize("s", [1, 33, 70, 512])
+def test_cuda_mamba_scan_bwd_splits_match_twin(cuda, s, d, n, dtype):
+    """The backward alone (``ops._mamba_bwd``) against
+    ``mamba_scan_bwd_plain`` at S off the 8-token chunk and whole, D off
+    the block of 256 * 8 / N channels (100, 200; 100 bf16 channels are no
+    whole 16-byte row, so they stage element by element) and at jamba's
+    8 192, N 8 (two lanes a channel) and 16 (four): d_dt, dx within
+    1e-4 + 1e-3 |ref| in float32 and 3e-2 + 1e-2 |ref| in bf16, dB, dC, dA,
+    dD by ``_sum_close``.  The backward asks for no more bytes than its
+    outputs, one float32 state per 8-token chunk of every channel, the
+    per-block dB, dC partials and the per-row dA, dD partials (the
+    allocator's requested bytes, before it rounds them up)."""
+    b = 1 if d == 8192 else 2
+    inputs, dy = _mamba(np.random.default_rng(27), b, s, d, n, dtype, cuda)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    torch.cuda.reset_peak_memory_stats()
+    got = ops._mamba_bwd(*inputs, dy)
+    torch.cuda.synchronize()
+    asked = torch.cuda.memory_stats()["requested_bytes.all.peak"] - before
+    outputs = sum(g.numel() * g.element_size() for g in got)
+    scratch = 4 * (b * -(-s // 8) * d * n + b * -(-d // (2048 // n)) * s * 2 * n + b * d * n + b * d)
+    assert asked <= outputs + scratch
+    want = ref.mamba_scan_bwd_plain(*inputs, dy)
+    atol, rtol = (3e-2, 1e-2) if dtype == "bfloat16" else (1e-4, 1e-3)
+    for name, g, w in zip(("d_dt", "dx", "dB", "dC", "dA", "dD"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        if name in ("d_dt", "dx"):
+            torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=rtol, msg=name)
+        else:
+            _sum_close(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b3_row", [0, 2])
+@pytest.mark.parametrize("s,d,n", [(70, 200, 8), (70, 200, 16), (33, 8192, 16)])
+def test_cuda_mamba_scan_bwd_row_is_batch_invariant(cuda, s, d, n, b3_row):
+    """A row's d_dt, dx, dB, dC are the same bits alone (B 1) as in a batch
+    of 3 (at row 0 and at row 2): the backward splits channels and time,
+    never rows."""
+    inputs, dy = _mamba(np.random.default_rng(28), 3, s, d, n, "bfloat16", cuda)
+    batched = ops._mamba_bwd(*inputs, dy)
+    pick = lambda t: t[b3_row:b3_row + 1].contiguous()  # noqa: E731
+    alone = ops._mamba_bwd(*(pick(t) for t in inputs[:4]), *inputs[4:], pick(dy))
+    for name, g, w in zip(("d_dt", "dx", "dB", "dC"), alone, batched):
+        assert torch.equal(g, w[b3_row:b3_row + 1]), name
 
 
 @pytest.mark.cuda
