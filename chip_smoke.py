@@ -7,11 +7,12 @@ CUDA toolkit::
     python3 chip_smoke.py [--seed 0]
 
 With ``--scans-of SRC`` it runs only the scan kernels' timed cases of phase
-3 (wkv6 and mamba_scan, forward and backward, bf16, held against their
-twins) with the ``repro_torch`` under SRC, another tree's ``src``, and
-prints no result: two trees (the parent's unpacked under the git-ignored
-``build/``, and this one's ``src``) are compared on one card by running it
-for each in turns, parent, change, change, parent.
+3 (wkv6 and mamba_scan, or those ``--scans`` names, forward and backward,
+bf16, held against their twins) with the ``repro_torch`` under SRC,
+another tree's ``src``, and prints no result: two trees (the parent's
+unpacked under the git-ignored ``build/``, and this one's ``src``) are
+compared on one card by running it for each in turns, parent, change,
+change, parent.
 
 Phases, one line each before the last:
 
@@ -283,7 +284,7 @@ def kernel_resources(_build) -> dict:
             r["dynamic_smem"] = wkv(1, 64, int("fused" in r["kernel"]))
     out["mamba_scan"] = ptxas_resources(build_log(_build, "mamba_scan"))
     for r in out["mamba_scan"]:
-        r["dynamic_smem"] = 0
+        r.update(mamba_fwd_occupancy(_build, int(r["bf16"]), r["template_ints"][0]))
     out["mamba_scan_bwd"] = ptxas_resources(build_log(_build, "mamba_scan_bwd"))
     for r in out["mamba_scan_bwd"]:
         which = {"mamba_chunk_states_kernel": 0, "mamba_bwd_kernel": 1}.get(r["kernel"])
@@ -293,6 +294,37 @@ def kernel_resources(_build) -> dict:
         for name in ("flash_attention", "flash_attention_bwd", "lora_matmul")
     }
     return out
+
+
+def mamba_fwd_occupancy(_build, dtype: int, n: int) -> dict:
+    """The dynamic shared memory of the mamba_scan forward kernel at
+    (dtype code, state dim n) and the blocks an SM holds, as its launcher
+    reports them; None for a tree whose library does not report them (the
+    earlier design, 128 threads a block and no dynamic shared memory)."""
+    import ctypes
+
+    lib = _build.load("mamba_scan")
+    if not hasattr(lib, "mamba_scan_fwd_blocks_per_sm"):
+        return {"dynamic_smem": None, "blocks_per_sm": None}
+    out = {"dynamic_smem": lib.mamba_scan_fwd_smem_bytes, "blocks_per_sm": lib.mamba_scan_fwd_blocks_per_sm}
+    for key, fn in out.items():
+        fn.argtypes = [ctypes.c_int] * 2
+        out[key] = fn(dtype, n)
+    return out
+
+
+def mamba_fwd_resources(dtype, n: int) -> dict:
+    """The mamba_scan forward kernel's registers and spills at (dtype, n)
+    from its ptxas log, and the blocks an SM holds: what sets its waves."""
+    from repro_torch.kernels import _build
+
+    bf16 = dtype == torch.bfloat16
+    rows = [r for r in ptxas_resources(build_log(_build, "mamba_scan"))
+            if r["bf16"] == bf16 and r["template_ints"][:1] == [n]]
+    check(len(rows) == 1, f"mamba_scan forward: {len(rows)} kernels at {dtype} N={n} in the ptxas log")
+    row = rows[0]
+    return {"kernel": row["kernel"], "registers": row["registers"], "spill_stores": row["spill_stores"],
+            "spill_loads": row["spill_loads"], **mamba_fwd_occupancy(_build, int(bf16), n)}
 
 
 def bound(nbytes: float, ops: float, dtype_name: str):
@@ -724,10 +756,15 @@ def mamba_case(ops, ref, timer, gen, *, dtype, b=16, s=512, d=8192, n=16, time_i
     # the backward alone, its scratch included, as _MambaScan.backward calls it
     bwd_fn = lambda: ops._mamba_bwd(*inputs, dy)  # noqa: E731
     case["bwd_ms"] = timer(bwd_fn)
-    # device time alone: the forward kernel; the backward's span and its
-    # four kernels apart
+    # device time alone: the forward kernel, also by its name (and by the
+    # earlier design's, for a tree compared by --scans-of) with its
+    # registers, spills and blocks an SM; the backward's span and its four
+    # kernels apart
     with torch.no_grad():
         case["kernel_ms"] = device_ms(lambda: ops.mamba_scan(*inputs), timer.flush)
+        fwd_key = "mamba_scan_fwd_kernel|mamba_forward_kernel"
+        case["fwd_kernel_ms"] = device_ms(lambda: ops.mamba_scan(*inputs), timer.flush, (fwd_key,))[fwd_key]
+    case["fwd_resources"] = mamba_fwd_resources(dtype, n)
     case["bwd_kernel_ms"] = device_span_ms(bwd_fn, timer.flush)
     # (mamba_forward_sweep, mamba_bwd_sweep: the earlier design's names, for
     # a tree compared by --scans-of)
@@ -768,23 +805,26 @@ def mamba_case(ops, ref, timer, gen, *, dtype, b=16, s=512, d=8192, n=16, time_i
     return case
 
 
-def scans_of(src: str, card: str, seed: int) -> int:
+def scans_of(src: str, card: str, seed: int, scans=("wkv6", "mamba_scan")) -> int:
     """The scan kernels of the repro_torch already imported from ``src``:
     built into that tree's build/, their registers and spills, and the
-    timed wkv6 and mamba_scan cases at the training shapes, one line each."""
+    timed wkv6 and mamba_scan cases at the training shapes (those named in
+    ``scans``), one line each."""
     from repro_torch.kernels import _build, ops, ref
 
-    names = ("wkv6", "wkv6_bwd", "mamba_scan", "mamba_scan_bwd")
+    names = [name for scan in scans for name in (scan, scan + "_bwd")]
     _build.build(names)
     print(f"scans of {src}: kernel resources {json.dumps({n: ptxas_resources(build_log(_build, n)) for n in names})}",
           flush=True)
     timer = Timer()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
-    print(f"scans of {src}: wkv6 {json.dumps(wkv6_case(ops, ref, timer, gen, dtype=torch.bfloat16))} [{card}]",
-          flush=True)
-    print(f"scans of {src}: mamba_scan {json.dumps(mamba_case(ops, ref, timer, gen, dtype=torch.bfloat16))} "
-          f"[{card}]", flush=True)
+    if "wkv6" in scans:
+        print(f"scans of {src}: wkv6 {json.dumps(wkv6_case(ops, ref, timer, gen, dtype=torch.bfloat16))} [{card}]",
+              flush=True)
+    if "mamba_scan" in scans:
+        print(f"scans of {src}: mamba_scan {json.dumps(mamba_case(ops, ref, timer, gen, dtype=torch.bfloat16))} "
+              f"[{card}]", flush=True)
     return 0
 
 
@@ -1195,6 +1235,8 @@ def main() -> int:
                         help="run only the scan kernels' timed cases (phase 3's wkv6 and mamba_scan, bf16) with the "
                              "repro_torch under SRC, another tree's src directory, and print no result; run once "
                              "for each tree, in turns, to compare two trees on one card")
+    parser.add_argument("--scans", default="wkv6,mamba_scan",
+                        help="with --scans-of, the scans to time, a comma-separated subset of wkv6,mamba_scan")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -1215,7 +1257,9 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)
     if args.scans_of:
-        return scans_of(args.scans_of, card, args.seed)
+        scans = tuple(args.scans.split(","))
+        check(set(scans) <= {"wkv6", "mamba_scan"}, f"--scans takes wkv6 and mamba_scan, got {args.scans}")
+        return scans_of(args.scans_of, card, args.seed, scans)
 
     # 2. build
     t0 = time.perf_counter()

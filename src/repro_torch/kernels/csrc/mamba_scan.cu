@@ -12,95 +12,197 @@
 // the sequential chunk grid, here registers), so the (B, S, D, N) tensors
 // that the JAX training path (repro/nn/mamba.py, an associative scan)
 // materialises -- 4.3 GB each per layer at the training shape -- never
-// exist.  Changed: no (d_block, N) tiles walked by a sequential grid; one
-// thread per (b, d) channel with its N states in registers walks the whole
-// sequence, and all B * D channels run in parallel.  New: the final state,
-// which the decode path of repro/nn/mamba.py carries.
+// exist.  Changed: no (d_block, N) tiles walked by a sequential grid; each
+// thread holds all N states of MAMBA_FWD_CHANNELS (2) neighbouring channels
+// of one batch row in registers and walks the whole sequence, and all
+// channels of all rows run in parallel.  New: the final state, which the
+// decode path of repro/nn/mamba.py carries.
 //
 // What bounds it on the card: at the training shape (B 16, S 512, D 8192,
 // N 16, bf16 dt/x/y) it takes 1.07e9 exp, ~0.26 ms on the special function
-// units (16 per clock per SM), moves ~0.40 GB (~0.12 ms at 3.35 TB/s) and
-// does ~6.4e9 other float32 operations (~0.10 ms at 67 TFLOP/s): the exp
-// bounds it.  131 072 threads give ~31 warps per SM to hide the sequential
-// chain of each channel.
+// units at their listed 16 a clock per SM, moves ~0.40 GB (~0.12 ms at
+// 3.35 TB/s) and does ~6.4e9 other float32 operations (~0.10 ms at 67
+// TFLOP/s): the exp bounds it.  So a decay is one multiply and one
+// ex2.approx of dt * A log2 e (no accurate expf, whose range reduction
+// issued ~8 more instructions an element), and a state element issues ~5
+// instructions: the multiply, the exp, u B_t, the state's fma and y's fma;
+// the staged B_t, C_t and a2 = A log2 e values come four to a shared-memory
+// load.  Measured on the H100 (PERF.md), the special function units and the
+// issue of the float32 work bind together, near 0.36 ms: a second exp an
+// element costs as much again, and taking a share of the exps by a
+// polynomial on the FMA pipe gains nothing.
 //
-// A block holds MAMBA_THREADS consecutive channels of one batch row, so every
-// per-token load of dt and x is one coalesced row segment.  A block walks
-// its sequence in chunks of 128 / N tokens: the threads stage the chunk's
-// B_t and C_t rows into shared memory, which every thread then reads (a
-// broadcast), and load the chunk's dt and x into registers before the
-// first use.
+// Occupancy: 128 threads hold 256 channels, capped at 128 registers
+// (MAMBA_FWD_BLOCKS, 4 blocks an SM, 16 warps; 42 KB of shared memory a
+// block in bf16, while float32's 66 KB fit 3), so the training shape's 512
+// blocks fill 528 slots on 132 SMs: one wave, where a partial second wave
+// would cost a whole walk of S tokens.  A thread's 32 independent state
+// chains hide the exp's and the fma's latency (32 warps an SM, one channel a
+// thread, ran no faster).  a2 sits in shared memory, each thread's values
+// read by that thread alone: held in registers it pushed the 128-register
+// cap into spills and cost ~10%.
+//
+// A block walks its sequence in chunks of MAMBA_FWD_CHUNK (8) tokens.  The
+// next chunk's dt and x rows (the block's channels, one coalesced segment
+// a token) and its B_t, C_t rows land in shared memory by 16-byte cp.async
+// while the current chunk computes (element by element when D is no whole
+// 16-byte row or a pointer is unaligned), and a chunk's y leaves through
+// shared memory as 16-byte rows while the next chunk computes: one barrier
+// a chunk.  Tokens past S stage as zeros (a decay of 1, no input), so the
+// state carries through them unchanged.  y's sum over n runs in one fixed
+// order, n = 0 .. N - 1, then D x: a row gives the same bits alone and in a
+// batch.  No atomics.
+#include <cstdint>
+#include <initializer_list>
+
 #include "mamba_common.cuh"
 
 namespace {
 
-template <int N>
-constexpr int MAMBA_FWD_CHUNK = 128 / N;
+constexpr int NT = MAMBA_THREADS, CL = MAMBA_FWD_CHANNELS, TC = MAMBA_FWD_CHUNK, CH = NT * CL;
+
+// One chunk of the block's CH channels as it lands, zero past S and D.
+template <typename T, int N>
+struct FwdChunk {
+  alignas(16) T dt[TC][CH];
+  alignas(16) T x[TC][CH];
+  alignas(16) float B[TC][N];
+  alignas(16) float C[TC][N];
+};
+
+template <typename T, int N>
+struct FwdSmem {
+  FwdChunk<T, N> buf[2];
+  alignas(16) T y[2][TC][CH];
+  float4 a2[CL][N / 4][NT];  // A log2 e of each thread's channels, four states a float4, read by that thread alone
+};
+
+// Two neighbouring channels' y into a staged row.
+__device__ __forceinline__ void st2(float* p, float a, float b) { *reinterpret_cast<float2*>(p) = make_float2(a, b); }
+__device__ __forceinline__ void st2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
 
 // y (B, S, D) in T and, when hT is not null, the final state (B, D, N)
-// float32.
+// float32.  Thread tid holds channels d0 + 2 tid and d0 + 2 tid + 1.
 template <typename T, int N>
-__global__ void __launch_bounds__(MAMBA_THREADS) mamba_forward_kernel(
+__global__ void __launch_bounds__(NT, MAMBA_FWD_BLOCKS) mamba_scan_fwd_kernel(
     const T* __restrict__ dt, const T* __restrict__ x, const float* __restrict__ Bm, const float* __restrict__ Cm,
     const float* __restrict__ A, const float* __restrict__ Dv, T* __restrict__ y, float* __restrict__ hT, int S,
-    int D) {
-  constexpr int TC = MAMBA_FWD_CHUNK<N>;
-  __shared__ __align__(16) float sB[TC][N];
-  __shared__ __align__(16) float sC[TC][N];
-  const int b = blockIdx.y, d = blockIdx.x * MAMBA_THREADS + threadIdx.x;
-  const bool live = d < D;  // threads past D run with zeros and store nothing
-  float a[N], h[N];
+    int D, bool vec) {
+  static_assert(CL == 2 && N % 4 == 0, "a thread's channels travel as pairs, its states as float4s");
+  extern __shared__ __align__(16) unsigned char smem[];
+  FwdSmem<T, N>& sm = *reinterpret_cast<FwdSmem<T, N>*>(smem);
+  const int tid = threadIdx.x, b = blockIdx.y, d0 = blockIdx.x * CH, dp = d0 + CL * tid;
+  bool live[CL];
+  float h[CL][N], dd[CL];
 #pragma unroll
-  for (int n = 0; n < N; ++n) {
-    a[n] = live ? A[(size_t)d * N + n] : 0.f;
-    h[n] = 0.f;
+  for (int k = 0; k < CL; ++k) {
+    live[k] = dp + k < D;  // channels past D run with zeros and store nothing
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      (&sm.a2[k][n / 4][tid].x)[n % 4] = live[k] ? A[(size_t)(dp + k) * N + n] * kLog2e : 0.f;
+      h[k][n] = 0.f;
+    }
+    dd[k] = live[k] ? Dv[dp + k] : 0.f;
   }
-  const float dd = live ? Dv[d] : 0.f;
-  const size_t base = (size_t)b * S * D + d;
-  const float* Bb = Bm + (size_t)b * S * N;
-  const float* Cb = Cm + (size_t)b * S * N;
   const int nc = (S + TC - 1) / TC;
-  for (int c = 0; c < nc; ++c) {
+  auto stage = [&](int c) {
     const int t0 = c * TC, nt = min(TC, S - t0);
-    float ldt[TC], lx[TC];
+    const size_t row0 = ((size_t)b * S + t0) * D, bc0 = ((size_t)b * S + t0) * N;
+    FwdChunk<T, N>& dst = sm.buf[c & 1];
+    stage_rows<NT, TC>(dst.dt, dt, row0, d0, nt, D, vec, tid);
+    stage_rows<NT, TC>(dst.x, x, row0, d0, nt, D, vec, tid);
+    stage_bc<NT, TC, N>(dst.B, Bm, bc0, nt, vec, tid);
+    stage_bc<NT, TC, N>(dst.C, Cm, bc0, nt, vec, tid);
+    cp_async_commit();
+  };
+  // chunk c's y rows from shared memory to y, rows past S and channels
+  // past D left out
+  auto emit = [&](int c) {
+    const int t0 = c * TC, nt = min(TC, S - t0);
+    const size_t row0 = ((size_t)b * S + t0) * D;
+    const T(*src)[CH] = sm.y[c & 1];
+    if (vec) {
+      constexpr int E = 16 / sizeof(T), U = CH / E;
+      for_share<NT, TC * U>(tid, [&](int e) {
+        const int t = e / U, k = (e % U) * E;
+        if (t < nt && d0 + k < D)
+          *reinterpret_cast<uint4*>(y + row0 + (size_t)t * D + d0 + k) = *reinterpret_cast<const uint4*>(&src[t][k]);
+      });
+    } else {
+      for_share<NT, TC * CH>(tid, [&](int e) {
+        const int t = e / CH, k = e % CH;
+        if (t < nt && d0 + k < D) y[row0 + (size_t)t * D + d0 + k] = src[t][k];
+      });
+    }
+  };
+  stage(0);
+  for (int c = 0; c < nc; ++c) {
+    cp_async_wait<0>();
+    __syncthreads();  // chunk c has landed; chunk c - 1's rows are no longer read and its y is whole
+    if (c + 1 < nc) stage(c + 1);
+    if (c > 0) emit(c - 1);
+    const FwdChunk<T, N>& ck = sm.buf[c & 1];
 #pragma unroll
     for (int i = 0; i < TC; ++i) {
-      const bool ok = live && i < nt;
-      ldt[i] = ok ? to_float(dt[base + (size_t)(t0 + i) * D]) : 0.f;
-      lx[i] = ok ? to_float(x[base + (size_t)(t0 + i) * D]) : 0.f;
-    }
-    __syncthreads();  // the previous chunk is no longer read
-    for (int j = threadIdx.x; j < nt * N; j += MAMBA_THREADS) {
-      (&sB[0][0])[j] = Bb[(size_t)t0 * N + j];
-      (&sC[0][0])[j] = Cb[(size_t)t0 * N + j];
-    }
-    __syncthreads();
+      const float2 dtv = ld2(&ck.dt[i][CL * tid]), xv = ld2(&ck.x[i][CL * tid]);
+      float u[CL], acc[CL];
 #pragma unroll
-    for (int i = 0; i < TC; ++i) {
-      if (i < nt) {
-        const float u = ldt[i] * lx[i];
-        float acc = 0.f;
-#pragma unroll
-        for (int n = 0; n < N; ++n) {
-          h[n] = fmaf(expf(ldt[i] * a[n]), h[n], u * sB[i][n]);
-          acc = fmaf(h[n], sC[i][n], acc);
-        }
-        if (live) y[base + (size_t)(t0 + i) * D] = from_float<T>(fmaf(dd, lx[i], acc));
+      for (int k = 0; k < CL; ++k) {
+        u[k] = at(dtv, k) * at(xv, k);
+        acc[k] = 0.f;
       }
+#pragma unroll
+      for (int q = 0; q < N / 4; ++q) {
+        const float4 bv = ld4(&ck.B[i][4 * q]), cv = ld4(&ck.C[i][4 * q]);
+        const float4 av[CL] = {sm.a2[0][q][tid], sm.a2[1][q][tid]};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+#pragma unroll
+          for (int k = 0; k < CL; ++k) {
+            const int n = 4 * q + j;
+            h[k][n] = fmaf(exp2_approx(at(dtv, k) * at(av[k], j)), h[k][n], u[k] * at(bv, j));
+            acc[k] = fmaf(h[k][n], at(cv, j), acc[k]);
+          }
+        }
+      }
+      st2(&sm.y[c & 1][i][CL * tid], fmaf(dd[0], at(xv, 0), acc[0]), fmaf(dd[1], at(xv, 1), acc[1]));
     }
   }
-  if (hT && live) {
+  __syncthreads();  // the last chunk's y is whole
+  emit(nc - 1);
+  if (hT) {
 #pragma unroll
-    for (int n = 0; n < N; ++n) hT[((size_t)b * D + d) * N + n] = h[n];
+    for (int k = 0; k < CL; ++k) {
+      if (!live[k]) continue;
+      float* dst = hT + ((size_t)b * D + dp + k) * N;
+#pragma unroll
+      for (int q = 0; q < N / 4; ++q)
+        *reinterpret_cast<float4*>(dst + 4 * q) =
+            make_float4(h[k][4 * q], h[k][4 * q + 1], h[k][4 * q + 2], h[k][4 * q + 3]);
+    }
   }
+}
+
+template <typename T, int N>
+constexpr int smem_bytes() {
+  return sizeof(FwdSmem<T, N>);
 }
 
 template <typename T, int N>
 int launch(const void* dt, const void* x, const float* Bm, const float* Cm, const float* A, const float* Dv, void* y,
            float* hT, int B, int S, int D, cudaStream_t stream) {
-  const dim3 grid((D + MAMBA_THREADS - 1) / MAMBA_THREADS, B);
-  mamba_forward_kernel<T, N><<<grid, MAMBA_THREADS, 0, stream>>>(
-      static_cast<const T*>(dt), static_cast<const T*>(x), Bm, Cm, A, Dv, static_cast<T*>(y), hT, S, D);
+  bool vec = D % (16 / sizeof(T)) == 0;
+  for (const void* p : {dt, x, (const void*)Bm, (const void*)Cm, (const void*)y})
+    vec = vec && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  constexpr int smem = smem_bytes<T, N>();
+  cudaError_t err =
+      cudaFuncSetAttribute(mamba_scan_fwd_kernel<T, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((D + CH - 1) / CH, B);
+  mamba_scan_fwd_kernel<T, N><<<grid, NT, smem, stream>>>(static_cast<const T*>(dt), static_cast<const T*>(x), Bm,
+                                                           Cm, A, Dv, static_cast<T*>(y), hT, S, D, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -112,7 +214,35 @@ int dispatch(int N, const void* dt, const void* x, const float* Bm, const float*
   return -1;
 }
 
+// Blocks of the forward kernel resident on one SM, as the runtime counts
+// them from its registers and shared memory.
+template <typename T, int N>
+int blocks_per_sm() {
+  constexpr int smem = smem_bytes<T, N>();
+  cudaError_t err =
+      cudaFuncSetAttribute(mamba_scan_fwd_kernel<T, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, mamba_scan_fwd_kernel<T, N>, NT, smem);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
 }  // namespace
+
+// Dynamic shared memory of the forward kernel at state dim N, or -1.
+extern "C" int mamba_scan_fwd_smem_bytes(int dtype, int N) {
+  if (!mamba_supported_state_dim(N) || (dtype != kFloat32 && dtype != kBFloat16)) return -1;
+  if (dtype == kFloat32) return N == 8 ? smem_bytes<float, 8>() : smem_bytes<float, 16>();
+  return N == 8 ? smem_bytes<__nv_bfloat16, 8>() : smem_bytes<__nv_bfloat16, 16>();
+}
+
+// Blocks of the forward kernel an SM holds at state dim N (a CUDA error
+// code negated on failure, -1: arguments not supported).
+extern "C" int mamba_scan_fwd_blocks_per_sm(int dtype, int N) {
+  if (!mamba_supported_state_dim(N) || (dtype != kFloat32 && dtype != kBFloat16)) return -1;
+  if (dtype == kFloat32) return N == 8 ? blocks_per_sm<float, 8>() : blocks_per_sm<float, 16>();
+  return N == 8 ? blocks_per_sm<__nv_bfloat16, 8>() : blocks_per_sm<__nv_bfloat16, 16>();
+}
 
 // dt, x (B, S, D) of dtype; Bm, Cm (B, S, N), A (D, N), Dv (D,) float32;
 // y (B, S, D) of dtype and hT (B, D, N) float32.  Returns 0 or a CUDA

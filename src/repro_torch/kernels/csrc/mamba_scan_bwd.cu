@@ -74,17 +74,7 @@ namespace {
 
 constexpr int NT = MAMBA_BWD_THREADS, TC = MAMBA_BWD_CHUNK, L = MAMBA_LANE_STATES, CL = MAMBA_LANE_CHANNELS;
 constexpr int NW = NT / 32;
-constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
-
-// 2^x on the special function unit; results below 2^-126 flush to zero.
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
-__device__ __forceinline__ float at(const float4& v, int j) { return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w; }
+constexpr float kLn2 = 0.6931471805599453f;
 
 // P lanes per channel pair and CH channels a block at state dim N.
 template <int N>
@@ -103,54 +93,18 @@ struct Chunk {
   alignas(16) float C[WITH_DY ? TC : 1][N];
 };
 
-// Tokens t0 .. t0 + nt - 1, channels d0 .. d0 + CH - 1 of one batch row of
-// src (B, S, D) into dst[TC][CH], zero past nt and D: 16-byte cp.async
-// copies with vec (D a multiple of a copy, 16-byte aligned rows), else
-// element by element.
-template <typename T, int CH>
-__device__ __forceinline__ void stage_rows(T (*dst)[CH], const T* src, size_t row0, int d0, int nt, int D, bool vec,
-                                           int tid) {
-  if (vec) {
-    constexpr int E = 16 / sizeof(T), U = CH / E;
-    for_share<NT, TC * U>(tid, [&](int e) {
-      const int t = e / U, c = (e % U) * E;
-      const bool in = t < nt && d0 + c < D;
-      cp_async16(&dst[t][c], in ? src + row0 + (size_t)t * D + d0 + c : src, in ? 16 : 0);
-    });
-  } else {
-    for_share<NT, TC * CH>(tid, [&](int e) {
-      const int t = e / CH, c = e % CH;
-      dst[t][c] = t < nt && d0 + c < D ? src[row0 + (size_t)t * D + d0 + c] : from_float<T>(0.f);
-    });
-  }
-}
-
-// Rows t0 .. t0 + nt - 1 of one batch row of src (B, S, N) float32 into
-// dst[TC][N], zero past nt.
-template <int N>
-__device__ __forceinline__ void stage_bc(float (*dst)[N], const float* src, size_t off, int nt, bool vec, int tid) {
-  if (vec) {
-    for_share<NT, TC * N / 4>(tid, [&](int e) {
-      const bool in = e / (N / 4) < nt;
-      cp_async16(&dst[0][0] + 4 * e, in ? src + off + 4 * e : src, in ? 16 : 0);
-    });
-  } else {
-    for_share<NT, TC * N>(tid, [&](int e) { (&dst[0][0])[e] = e / N < nt ? src[off + e] : 0.f; });
-  }
-}
-
 template <typename T, int N, bool WITH_DY>
 __device__ __forceinline__ void stage_chunk(Chunk<T, N, WITH_DY>& dst, const T* dt, const T* x, const T* dy,
                                             const float* Bm, const float* Cm, int b, int c, int S, int D, int d0,
                                             bool vec, int tid) {
   const int t0 = c * TC, nt = min(TC, S - t0);
   const size_t row0 = ((size_t)b * S + t0) * D, bc0 = ((size_t)b * S + t0) * N;
-  stage_rows(dst.dt, dt, row0, d0, nt, D, vec, tid);
-  stage_rows(dst.x, x, row0, d0, nt, D, vec, tid);
-  stage_bc<N>(dst.B, Bm, bc0, nt, vec, tid);
+  stage_rows<NT, TC>(dst.dt, dt, row0, d0, nt, D, vec, tid);
+  stage_rows<NT, TC>(dst.x, x, row0, d0, nt, D, vec, tid);
+  stage_bc<NT, TC, N>(dst.B, Bm, bc0, nt, vec, tid);
   if constexpr (WITH_DY) {
-    stage_rows(dst.dy, dy, row0, d0, nt, D, vec, tid);
-    stage_bc<N>(dst.C, Cm, bc0, nt, vec, tid);
+    stage_rows<NT, TC>(dst.dy, dy, row0, d0, nt, D, vec, tid);
+    stage_bc<NT, TC, N>(dst.C, Cm, bc0, nt, vec, tid);
   }
   cp_async_commit();
 }
@@ -161,13 +115,6 @@ __device__ __forceinline__ float4 decays(float dt, const float* a2) {
   return make_float4(exp2_approx(dt * a2[0]), exp2_approx(dt * a2[1]), exp2_approx(dt * a2[2]),
                      exp2_approx(dt * a2[3]));
 }
-
-// Two neighbouring channels' values of one staged row, as floats.
-__device__ __forceinline__ float2 ld2(const float* p) { return *reinterpret_cast<const float2*>(p); }
-__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-__device__ __forceinline__ float at(const float2& v, int c) { return c == 0 ? v.x : v.y; }
 
 // Step 1: the state entering each chunk, states (B, n_chunks, D, N); the
 // threads hold their states as in step 2.

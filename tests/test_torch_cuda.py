@@ -698,6 +698,7 @@ MAMBA_CASES = [  # (B, S, D, N)
     (2, 1, 128, 16),  # one token
     (3, 16, 384, 8),  # whole chunks
     (2, 512, 8192, 16),  # the training shape's channels and length
+    (2, 45, 129, 16),  # odd D: no pair of channels at the row's end, rows staged element by element
 ]
 
 
@@ -736,6 +737,48 @@ def test_cuda_mamba_scan_matches_twins(cuda, dtype, b, s, d, n):
             torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=rtol, msg=name)
         else:
             _sum_close(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [8, 16])
+@pytest.mark.parametrize("d", [129, 200, 8192])
+@pytest.mark.parametrize("s", [1, 7, 33, 70, 512])
+def test_cuda_mamba_scan_fwd_matches_twin(cuda, s, d, n, dtype):
+    """The forward alone (``ops._mamba_fwd``) against ``mamba_scan_plain``
+    at S within one 8-token chunk, off it and whole, D odd (129: the last
+    thread holds one live channel, and no row is a whole 16-byte copy),
+    off the block of 256 channels (200) and at jamba's 8 192, N 8 and 16:
+    y within 1e-4 + 1e-3 |ref| in float32 and 3e-2 + 1e-2 |ref| in bf16
+    (one bf16 rounding), the final state within 1e-4 + 1e-3 |ref|."""
+    b = 1 if d == 8192 else 2
+    inputs, _ = _mamba(np.random.default_rng(29), b, s, d, n, dtype, cuda)
+    y, st = ops._mamba_fwd(*inputs)
+    want_y, want_st = ref.mamba_scan_plain(*inputs)
+    torch.cuda.synchronize()
+    atol, rtol = (3e-2, 1e-2) if dtype == "bfloat16" else (1e-4, 1e-3)
+    assert y.dtype == want_y.dtype and y.shape == want_y.shape
+    assert st.dtype == torch.float32 and st.shape == (b, d, n)
+    torch.testing.assert_close(y.float(), want_y.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(st, want_st, atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b3_row", [0, 2])
+@pytest.mark.parametrize("s,d,n,dtype", [(70, 200, 8, "bfloat16"), (33, 129, 16, "float32"),
+                                         (70, 8192, 16, "bfloat16")])
+def test_cuda_mamba_scan_fwd_row_is_batch_invariant(cuda, s, d, n, dtype, b3_row):
+    """A row's y and final state are the same bits alone (B 1) as in a
+    batch of 3 (at row 0 and at row 2), and two forwards of the same inputs
+    give the same bits: the forward splits channels, never rows or time,
+    and sums y over n in one order."""
+    inputs, _ = _mamba(np.random.default_rng(30), 3, s, d, n, dtype, cuda)
+    y, st = ops._mamba_fwd(*inputs)
+    y2, st2 = ops._mamba_fwd(*inputs)
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+    pick = lambda t: t[b3_row:b3_row + 1].contiguous()  # noqa: E731
+    y1, st1 = ops._mamba_fwd(*(pick(t) for t in inputs[:4]), *inputs[4:])
+    assert torch.equal(y1, y[b3_row:b3_row + 1]) and torch.equal(st1, st[b3_row:b3_row + 1])
 
 
 @pytest.mark.cuda
