@@ -26,7 +26,8 @@ Phases, one line each before the last:
    shapes of its path (serving: the decode step; training: batch 16 x 512
    tokens of qwen3-1.7b, of rwkv6-3b for wkv6 and the channel-mix
    lora_matmul, and of jamba-v0.1-52b for mamba_scan and the Mamba
-   projections' lora_matmul), forward and backward, with its time (CUDA
+   projections' lora_matmul; the federated rounds: batch 16 x 32 tokens
+   of qwen3-1.7b for flash_attention and lora_matmul), forward and backward, with its time (CUDA
    events, L2 flushed, median of repeats) beside the twin's, the library
    call's and the bound; ``torch.profiler``'s device times of the kernels
    of attention (also at jamba-v0.1-52b's 32 heads; its backward's two
@@ -59,10 +60,22 @@ Phases, one line each before the last:
    its interleave: 7 Mamba and 1 attention layer, 4 MoE and 4 MLP layers;
    LoRA on the Mamba in and out and the attention q and v), drawn and
    placed layer by layer, whose Mamba layers run the mamba_scan kernels;
+5d. three federated rounds of droppeft on full-width qwen3-1.7b through
+   ``repro_torch.api.build`` at its defaults (100 devices with their
+   Dirichlet shards, 10 a round, 4 local steps of batch 16 x 32 tokens,
+   the rate bandit, PTLS): 3 finite history rows, the first round's rates
+   the bandit's start-up arms round-robin, 14 shared layers per device,
+   layers shared by nobody kept bit for bit, each kernel launched as often
+   as the gates say (local rounds, each evaluate, final_accuracy's 100),
+   two runs from one seed bit-identical; seconds per round split into
+   local rounds, evaluate, aggregation and the rest, the idle share of one
+   profiled round, peak memory; and a smoke-size run on the card against
+   the CPU twins;
 6. the ``kernels`` JSON line: launches of each kernel in its own path's
    run (serving: phase 4's run; training: phase 5's round at rate 0.5,
    phase 5b's for wkv6 and wkv6_bwd, phase 5c's for mamba_scan and
-   mamba_scan_bwd).
+   mamba_scan_bwd), and for the training kernels also phase 5d's rounds
+   (``launches_by_path``).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits non-zero before it; without a CUDA card, or outside the checkout, the
@@ -1228,6 +1241,225 @@ def smoke_train_cuda_vs_cpu(seed: int, arch: str):
             "importance_max_abs_diff": float((ic - ip).abs().max())}
 
 
+FED_ROUNDS = 3
+STARTUP_RATES = (0.2, 0.5, 0.7)  # the bandit's start-up arms (OnlineConfigurator's default)
+
+
+def instrument_runner(runner, ops, clock: dict, rounds: list):
+    """Record each round of ``runner``: its plan, shared layers per device,
+    accuracies, active layers, gates and launches, whether the layers no
+    device shared kept the previous global bit for bit, and its host
+    seconds.  ``clock`` sums the host seconds of the local rounds,
+    ``evaluate`` and aggregation (each call ends with a device sync), and
+    of ``final_accuracy``'s evaluations apart."""
+    from repro_torch.core import stld
+    from repro_torch.models.stacking import layer_view, tree_leaves
+
+    engine, algo, sched = runner.ctx.engine, runner.algorithm, runner.scheduler
+    phase = {"name": "final_accuracy_"}
+
+    def timed(fn, name):
+        def wrapped(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            key = phase["name"] + name
+            clock[key] = clock.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return wrapped
+
+    engine.local_round = timed(engine.local_round, "local_round")
+    engine.evaluate = timed(engine.evaluate, "evaluate")
+    aggregate, report, sync_round, sample_drops = algo.aggregate, algo.report, sched._sync_round, stld.sample_drops
+
+    def aggregate_checked(state, results):
+        t0 = time.perf_counter()
+        new = aggregate(state, results)
+        torch.cuda.synchronize()
+        clock["aggregate"] = clock.get("aggregate", 0.0) + time.perf_counter() - t0
+        unshared = [l for l in range(runner.ctx.cfg.num_layers) if not results.masks[:, l].any()]
+        rounds[-1]["unshared_layers"] = unshared
+        rounds[-1]["unshared_kept_bit_for_bit"] = all(
+            torch.equal(a, b) for l in unshared
+            for a, b in zip(tree_leaves(layer_view(new.global_peft, l)), tree_leaves(layer_view(state.global_peft, l))))
+        return new
+
+    def report_recorded(state, results):
+        rounds[-1].update(cohort=list(results.plan.cohort), rates=[float(r) for r in results.plan.rates],
+                          shared_per_device=results.masks.sum(axis=1).tolist(), accuracies=list(results.accuracies),
+                          active=[float(m["active_layers"]) for m in results.metrics])
+        return report(state, results)
+
+    def gates_recorded(*args, **kw):
+        drops = sample_drops(*args, **kw)
+        rounds[-1]["gates"].append(drops.tolist())
+        return drops
+
+    def round_recorded(*args, **kw):
+        phase["name"] = ""
+        rounds.append({"gates": []})
+        ops.reset_launch_counts()
+        stld.sample_drops = gates_recorded
+        t0 = time.perf_counter()
+        try:
+            row = sync_round(*args, **kw)
+        finally:
+            stld.sample_drops = sample_drops
+        torch.cuda.synchronize()
+        rounds[-1].update(seconds=time.perf_counter() - t0, launches=dict(ops.launch_counts),
+                          routes=dict(ops.lora_matmul_routes))
+        ops.reset_launch_counts()  # what follows the last round is final_accuracy's
+        phase["name"] = "final_accuracy_"
+        return row
+
+    algo.aggregate, algo.report, sched._sync_round = aggregate_checked, report_recorded, round_recorded
+
+
+def profile_fed_round(runner):
+    """Device busy and idle share of one federated round (the next round of
+    ``runner``) under ``torch.profiler``, beside its host clock.  None when
+    the profiler sees no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        runner.scheduler._sync_round(runner.state.round_index + 1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy == 0.0:
+        return None
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    top = [{"kernel": e.key[:80], "ms": e.self_device_time_total / 1e3, "calls": e.count} for e in kernels[:10]]
+    return {"round": runner.state.round_index, "wall_ms_profiled": wall_ms, "device_busy_ms": busy,
+            "device_idle_share_profiled": 1.0 - busy / wall_ms,
+            "kernel_launches": sum(e.count for e in kernels), "top_kernels": top}
+
+
+def federated_full(api, ops, card, seed: int):
+    """Phase 5d: ``api.build("droppeft", "qwen3-1.7b", smoke=False)`` run for
+    3 rounds on the card at the defaults (100 devices, 10 a round, 4 local
+    steps of batch 16 x 32 tokens, LoRA r 8 on q and v, 28 layers), then a
+    second run from the same seed and one profiled round after it."""
+    from repro_torch.models.stacking import tree_leaves
+
+    phase_t0 = time.perf_counter()
+    gc.collect()  # the earlier phases' weights may sit in reference cycles
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    runner = api.build("droppeft", "qwen3-1.7b", smoke=False, seed=seed)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    cfg, fed, seq = runner.ctx.cfg, runner.ctx.fed_cfg, runner.ctx.task.seq_len
+    resident = torch.cuda.memory_allocated()
+    clock, rounds = {}, []
+    instrument_runner(runner, ops, clock, rounds)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = runner.run(rounds=FED_ROUNDS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    final_launches = dict(ops.launch_counts)
+
+    hist = list(runner.state.history)
+    check(len(hist) == FED_ROUNDS == result.rounds, f"{len(hist)} history rows")
+    check(all(np.isfinite(v) for row in hist for v in row.values()), f"non-finite history {hist}")
+    check(np.isfinite(result.final_accuracy), f"final accuracy {result.final_accuracy}")
+    check(rounds[0]["rates"] == [STARTUP_RATES[i % 3] for i in range(fed.devices_per_round)],
+          f"first round's rates {rounds[0]['rates']}")
+    k = int(fed.ptls_share_fraction * cfg.num_layers)
+    for j, r in enumerate(rounds):
+        check(r["shared_per_device"] == [k] * fed.devices_per_round, f"shared layers per device {r['shared_per_device']}")
+        check(r["unshared_kept_bit_for_bit"], f"layers {r['unshared_layers']} shared by nobody changed")
+        check(len(r["gates"]) == fed.devices_per_round * fed.local_steps, f"{len(r['gates'])} gate draws in a round")
+        active = active_count(r["gates"])
+        check(abs(sum(r["active"]) * fed.local_steps - active) < 1e-3, f"active layers {r['active']} vs the gates")
+        # phase 5's counts per local round, summed over the cohort, and one
+        # evaluate (28 attention, 56 lora_matmul) per member
+        want = {"flash_attention": active + fed.devices_per_round * cfg.num_layers, "flash_attention_bwd": active,
+                "lora_matmul": 4 * active - 2 * len(r["gates"]) + fed.devices_per_round * 2 * cfg.num_layers}
+        check_launches(r["launches"], want, f"federated round {j + 1}")
+        check(r["routes"] == {"fma": 0, "wmma": 0, "wgmma": r["launches"]["lora_matmul"]}, f"routes {r['routes']}")
+    check_launches(final_launches, {"flash_attention": fed.num_devices * cfg.num_layers,
+                                    "lora_matmul": fed.num_devices * 2 * cfg.num_layers}, "final_accuracy")
+    global1 = [t.clone() for t in tree_leaves(runner.state.global_peft)]
+    del runner
+    gc.collect()
+
+    runner = api.build("droppeft", "qwen3-1.7b", smoke=False, seed=seed)
+    result2 = runner.run(rounds=FED_ROUNDS)
+    check(all(torch.equal(a, b) for a, b in zip(global1, tree_leaves(runner.state.global_peft)))
+          and list(runner.state.history) == hist and result2.final_accuracy == result.final_accuracy,
+          "two runs from one seed differ")
+    profile = profile_fed_round(runner)
+    del runner
+    gc.collect()
+
+    per_round = [r["seconds"] for r in rounds]
+    split = {"local_round_s": clock["local_round"], "evaluate_s": clock["evaluate"], "aggregate_s": clock["aggregate"]}
+    split["rest_s"] = sum(per_round) - sum(split.values())
+    gib = 2.0**30
+    launches = {name: sum(r["launches"][name] for r in rounds) + final_launches[name] for name in final_launches}
+    return {
+        "model": cfg.name, "layers": cfg.num_layers, "devices": fed.num_devices,
+        "devices_per_round": fed.devices_per_round, "local_steps": fed.local_steps, "batch": fed.batch_size,
+        "seq": seq, "rounds": FED_ROUNDS, "setup_s": setup_s, "run_s": run_s,
+        "s_per_round": per_round, "s_per_round_mean": sum(per_round) / FED_ROUNDS,
+        "split_over_rounds_s": split, "final_accuracy_evaluate_s": clock["final_accuracy_evaluate"],
+        "resident_gib": resident / gib, "peak_gib": peak / gib,
+        "launches_per_round": [r["launches"] for r in rounds], "launches_final_accuracy": final_launches,
+        "cohorts": [r["cohort"] for r in rounds], "rates": [r["rates"] for r in rounds],
+        "unshared_layers": [r["unshared_layers"] for r in rounds], "history": hist,
+        "final_accuracy": result.final_accuracy, "deterministic_rounds": FED_ROUNDS,
+        "phase_s": time.perf_counter() - phase_t0, "card": card,
+    }, profile, launches
+
+
+def federated_smoke_cuda_vs_cpu(seed: int):
+    """Two rounds of droppeft at the qwen3-1.7b smoke size in float32 on the
+    card (the kernels) and on the CPU (the twins), from the same base
+    weights (drawn on the CPU), seed and gates: cohorts, rates and PTLS
+    masks equal; the global LoRA within phase 5's tree tolerance, the step
+    sizes summed over every local step of both rounds."""
+    from repro_torch import api
+    from repro_torch.configs import FederatedConfig, TrainConfig, get_config
+    from repro_torch.models.registry import init_params
+    from repro_torch.models.stacking import tree_leaves
+    from repro_torch.optim import make_lr_schedule
+
+    cfg, train_cfg = get_config("qwen3-1.7b", smoke=True).replace(dtype="float32"), TrainConfig()
+    fed = FederatedConfig(num_devices=6, devices_per_round=4, local_steps=2, batch_size=8)
+    params = init_params(cfg, torch.Generator().manual_seed(seed))
+    runs = {}
+    for device in ("cuda", "cpu"):
+        runner = api.build("droppeft", cfg=cfg, fed_cfg=fed, train_cfg=train_cfg, seed=seed, params=params,
+                           device=device)
+        plans, report = [], runner.algorithm.report
+
+        def recorded(state, results, plans=plans, report=report):
+            plans.append((results.plan.cohort, results.plan.rates, results.masks.tolist()))
+            return report(state, results)
+
+        runner.algorithm.report = recorded
+        runner.run(rounds=2)
+        runs[device] = plans, [t.cpu() for t in tree_leaves(runner.state.global_peft)]
+    (plans_c, peft_c), (plans_p, peft_p) = runs["cuda"], runs["cpu"]
+    check(plans_c == plans_p, f"cohorts, rates or masks differ: card {plans_c}, CPU {plans_p}")
+    diffs = torch.cat([(a - b).abs().flatten() for a, b in zip(peft_c, peft_p)])
+    sched = make_lr_schedule(train_cfg.schedule, train_cfg.learning_rate, train_cfg.warmup_steps, train_cfg.total_steps)
+    limit = 2 * sum(sched(step) for step in range(2 * fed.devices_per_round * fed.local_steps)) + 1e-6
+    within = float((diffs <= 1e-6).float().mean())
+    check(float(diffs.max()) <= limit and within >= 0.99,
+          f"federated smoke run, card vs CPU twins: LoRA max diff {float(diffs.max())}, {within} within 1e-6")
+    return {"rounds": 2, "cohorts_rates_masks_equal": True, "peft_max_abs_diff": float(diffs.max()),
+            "peft_share_within_1e-6": within, "peft_limit": limit}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1305,6 +1537,14 @@ def main() -> int:
         lora[name] = lora_case(ops, ref, timer, gen, dtype=torch.bfloat16, n=n, k=k)
         print(f"lora_matmul rwkv cm {name} {json.dumps(lora[name])} [{card}]", flush=True)
     print(f"lora_matmul fixed failing draw {json.dumps(lora_fault_case(ops, ref))}", flush=True)
+    # the federated rounds' shapes (phase 5d: batch 16 x 32 tokens), drawn
+    # from a generator of their own, as jamba's heads above
+    gen_fed = torch.Generator(device="cuda")
+    gen_fed.manual_seed(args.seed + 2)
+    attn_fed = attention_case(ops, ref, timer, gen_fed, dtype=torch.bfloat16, s=32)
+    print(f"flash_attention federated {json.dumps(attn_fed)} [{card}]", flush=True)
+    lora_fed = {n: lora_case(ops, ref, timer, gen_fed, dtype=torch.bfloat16, n=n, m=16 * 32) for n in (2048, 1024)}
+    print(f"lora_matmul federated {json.dumps(lora_fed)} [{card}]", flush=True)
     wkv = wkv6_case(ops, ref, timer, gen, dtype=torch.bfloat16)
     print(f"wkv6 {json.dumps(wkv)} [{card}]", flush=True)
     for kw in ({"dtype": torch.float32, "b": 2, "s": 100}, {"dtype": torch.float32, "b": 2, "s": 100, "k": 32, "h": 4},
@@ -1374,12 +1614,22 @@ def main() -> int:
     print(f"jamba smoke round, card vs CPU twins: "
           f"{json.dumps(smoke_train_cuda_vs_cpu(args.seed, 'jamba-v0.1-52b'))}", flush=True)
 
+    # 5d. three federated rounds of droppeft on full-width qwen3-1.7b through
+    #     api.build: 100 devices, 10 a round, batch 16 x 32 tokens
+    fed_stats, fed_profile, fed_launches = federated_full(api, ops, card, args.seed)
+    print(f"federated {json.dumps(fed_stats)}", flush=True)
+    print(f"federated round profile: {json.dumps(fed_profile) if fed_profile else 'not measured'} [{card}]",
+          flush=True)
+    print(f"federated smoke run, card vs CPU twins: {json.dumps(federated_smoke_cuda_vs_cpu(args.seed))}",
+          flush=True)
+
     # 6. kernels line: each path's shapes (bf16) and launches; q and v
     #    projections summed for segmented_lora and lora_matmul (forward)
     for name in ("segmented_lora", "flash_decode"):
         check(launches[name] > 0, f"{name} never launched while serving: {launches}")
     for name in ("flash_attention", "flash_attention_bwd", "lora_matmul"):
         check(train_launches[name] > 0, f"{name} never launched in the local round: {train_launches}")
+        check(fed_launches[name] > 0, f"{name} never launched in the federated rounds: {fed_launches}")
     for name in ("wkv6", "wkv6_bwd"):
         check(rwkv_launches[name] > 0, f"{name} never launched in the rwkv6-3b local round: {rwkv_launches}")
     for name in ("mamba_scan", "mamba_scan_bwd"):
@@ -1419,9 +1669,13 @@ def main() -> int:
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:101",
             "launches": train_launches["flash_attention"],
+            "launches_by_path": {"local_round": train_launches["flash_attention"],
+                                 "federated_rounds": fed_launches["flash_attention"]},
             **{key: attn[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "jamba_ms": attn_jamba["ms"], "jamba_library_ms": attn_jamba["library_ms"],
             "device_only_ms": attn["kernel_ms"], "library_device_only_ms": attn["library_kernel_ms"],
+            "federated_shape": {key: attn_fed[key] for key in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                               "library_ms", "kernel_ms", "library_kernel_ms")},
             "shape": "forward, " + attn["shape"] + "; jamba: " + attn_jamba["shape"],
         },
         {
@@ -1429,11 +1683,18 @@ def main() -> int:
             "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
             "replaces": "src/repro/kernels/flash_attention.py:101",
             "launches": train_launches["flash_attention_bwd"],
+            "launches_by_path": {"local_round": train_launches["flash_attention_bwd"],
+                                 "federated_rounds": fed_launches["flash_attention_bwd"]},
             "max_abs_err": attn["bwd_max_abs_err"], "ms": attn["bwd_ms"], "plain_ms": attn["plain_bwd_ms"],
             "bound_ms": attn["bwd_bound_ms"], "bound_by": attn["bwd_bound_by"], "library_ms": attn["library_bwd_ms"],
             "dq_kernel_ms": attn["bwd_dq_ms"], "dkv_kernel_ms": attn["bwd_dkv_ms"],
             "library_device_only_ms": attn["library_bwd_kernel_ms"],
             "jamba_ms": attn_jamba["bwd_ms"], "jamba_library_ms": attn_jamba["library_bwd_ms"],
+            "federated_shape": {"shape": attn_fed["shape"], "max_abs_err": attn_fed["bwd_max_abs_err"],
+                                "ms": attn_fed["bwd_ms"], "plain_ms": attn_fed["plain_bwd_ms"],
+                                "bound_ms": attn_fed["bwd_bound_ms"], "library_ms": attn_fed["library_bwd_ms"],
+                                "dq_kernel_ms": attn_fed["bwd_dq_ms"], "dkv_kernel_ms": attn_fed["bwd_dkv_ms"],
+                                "library_kernel_ms": attn_fed["library_bwd_kernel_ms"]},
             "shape": "backward (dQ, dK, dV), " + attn["shape"] + "; jamba: " + attn_jamba["shape"],
         },
         {
@@ -1441,6 +1702,8 @@ def main() -> int:
             "source": "src/repro_torch/kernels/csrc/lora_matmul.cu",
             "replaces": "src/repro/kernels/lora_matmul.py:31",
             "launches": train_launches["lora_matmul"],
+            "launches_by_path": {"local_round": train_launches["lora_matmul"],
+                                 "federated_rounds": fed_launches["lora_matmul"]},
             "max_abs_err": max(lq["max_abs_err"], lv["max_abs_err"]),
             **{key: lq[key] + lv[key] for key in ("ms", "plain_ms", "bound_ms")},
             "bound_by": lq["bound_by"], "library_ms": None,
@@ -1448,6 +1711,11 @@ def main() -> int:
             **{key: None if lq[key] is None or lv[key] is None else lq[key] + lv[key]
                for key in ("kernel_ms", "bottleneck_kernel_ms", "main_kernel_ms", "cublas_x_at_w_kernel_ms")},
             "routes_in_round": train_stats["lora_matmul_routes"],
+            "federated_shape": {
+                "shape": "q then v, forward: " + lora_fed[2048]["shape"] + " + " + lora_fed[1024]["shape"],
+                "max_abs_err": max(c["max_abs_err"] for c in lora_fed.values()),
+                **{key: lora_fed[2048][key] + lora_fed[1024][key]
+                   for key in ("ms", "plain_ms", "bound_ms", "cublas_x_at_w_ms", "kernel_ms")}},
             "shape": "q then v projection of one layer, forward: " + lq["shape"] + " + " + lv["shape"],
         },
         {

@@ -1,4 +1,25 @@
-"""Entry points of the port.
+"""Entry points of the port, as ``repro.api``.
+
+``experiment`` runs one federated fine-tuning experiment and returns its
+:class:`~repro_torch.federated.runner.SimResult`; ``build`` returns the
+:class:`~repro_torch.federated.runner.ExperimentRunner` when the caller
+needs the trained state afterwards::
+
+    from repro_torch import api
+
+    result = api.experiment("droppeft", "qwen3-1.7b", smoke=False, rounds=3)
+    print(result.final_accuracy, result.accuracy, result.cum_time_s)
+
+    runner = api.build("droppeft", "qwen3-1.7b", smoke=False, seed=0)
+    result = runner.run(rounds=3)
+    peft = runner.state.global_peft  # the global LoRA tree, on the card
+
+They take the reference's keywords plus ``device``.  A keyword that names
+a feature the port lacks raises ``NotImplementedError`` with its ROADMAP
+item: ``checkpoint_dir``/``resume`` (4), ``cohort_mode="batched"`` (2),
+``stld_mode="gather"`` (5), ``compression``, ``fault_plan`` and a schedule
+other than ``"sync"`` (6), ``peft`` other than ``"lora"`` (7).
+``cohort_mode="auto"`` runs ``"sequential"``.
 
 ``serve`` builds a ready multi-tenant LoRA server::
 
@@ -15,13 +36,154 @@ Every entry point runs on the CUDA card unless the caller passes
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Sequence, Union
 
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import FederatedConfig, PEFTConfig, STLDConfig, TrainConfig, get_config
+from repro_torch.federated.algorithms import FederatedAlgorithm, get_algorithm, registered_methods
+from repro_torch.federated.runner import ExperimentRunner, SimResult, fresh_algorithm, unported
+from repro_torch.federated.scheduler import ScheduleConfig, resolve_schedule
 
-__all__ = ["serve"]
+__all__ = ["build", "experiment", "replicate", "serve", "list_methods", "ScheduleConfig"]
+
+
+def list_methods() -> List[str]:
+    """Names accepted by ``method=`` (the algorithm registry)."""
+    return registered_methods()
+
+
+def _resolve_algorithm(method, fixed_rate: Optional[float]) -> FederatedAlgorithm:
+    if isinstance(method, str):
+        algorithm: FederatedAlgorithm = get_algorithm(method)()
+    elif isinstance(method, FederatedAlgorithm):
+        algorithm = method
+    else:
+        raise TypeError(f"method must be a registered name or a FederatedAlgorithm, got {method!r}")
+    if fixed_rate is not None:
+        # an explicit fixed rate overrides the bandit (0.0 is a valid
+        # point); copy first so a caller-owned instance is never mutated
+        algorithm = fresh_algorithm(algorithm)
+        algorithm.use_configurator = False
+        algorithm.fixed_rate = float(fixed_rate)
+    return algorithm
+
+
+def build(
+    method: Union[str, FederatedAlgorithm] = "droppeft",
+    model: str = "qwen3-1.7b",
+    *,
+    smoke: bool = True,
+    cfg=None,
+    model_overrides: Optional[dict] = None,
+    # PEFT
+    peft: str = "lora",
+    lora_rank: Optional[int] = None,
+    adapter_dim: Optional[int] = None,
+    peft_cfg: Optional[PEFTConfig] = None,
+    # STLD
+    stld_mode: str = "cond",
+    mean_rate: Optional[float] = None,
+    distribution: str = "incremental",
+    stld_cfg: Optional[STLDConfig] = None,
+    # federated round structure
+    fed_cfg: Optional[FederatedConfig] = None,
+    train_cfg: Optional[TrainConfig] = None,
+    # method policy
+    fixed_rate: Optional[float] = None,
+    # scheduling: a policy name or a ScheduleConfig; the scalar kwargs
+    # override fields of whichever config `schedule` resolves to
+    schedule: Union[str, ScheduleConfig, None] = None,
+    deadline_s: Optional[float] = None,
+    straggler: Optional[str] = None,
+    buffer_size: Optional[int] = None,
+    staleness_alpha: Optional[float] = None,
+    compression=None,
+    topk_fraction: Optional[float] = None,
+    # pinned hardware mix (one profile name per device); None -> sampled
+    device_profile: Optional[Sequence[str]] = None,
+    # system-model cost scale: None -> the training cfg; an arch name or a
+    # ModelConfig -> cost accounting at that scale
+    cost_model=None,
+    task=None,
+    seed: int = 0,
+    cohort_mode: str = "auto",
+    checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 1,
+    resume: bool = False,
+    fault_plan=None,
+    params=None,
+    device=None,
+) -> ExperimentRunner:
+    """A fully wired :class:`ExperimentRunner` (not run yet) on ``device``
+    (None = the card).  ``params`` (float32 base weights) replaces the
+    weights drawn from ``seed``."""
+    if peft != "lora" and peft_cfg is None:
+        raise unported(f"peft={peft!r}", 7)
+    if compression is not None or topk_fraction is not None:
+        raise unported(f"compression={compression!r}", 6)
+    if cfg is None:
+        cfg = get_config(model, smoke=smoke)
+    if model_overrides:
+        cfg = cfg.replace(**model_overrides)
+    if peft_cfg is None:
+        peft_cfg = PEFTConfig() if lora_rank is None else PEFTConfig(lora_rank=lora_rank)
+    if stld_cfg is None:
+        if mean_rate is None:
+            mean_rate = 0.5 if fixed_rate is None else fixed_rate
+        stld_cfg = STLDConfig(mode=stld_mode, mean_rate=mean_rate, distribution=distribution)
+    if isinstance(cost_model, str):
+        cost_model = get_config(cost_model)
+    return ExperimentRunner(
+        cfg,
+        peft_cfg,
+        stld_cfg,
+        fed_cfg or FederatedConfig(),
+        train_cfg or TrainConfig(),
+        algorithm=_resolve_algorithm(method, fixed_rate),
+        task=task,
+        cost_cfg=cost_model,
+        seed=seed,
+        cohort_mode=cohort_mode,
+        schedule=resolve_schedule(schedule, deadline_s=deadline_s, straggler=straggler, buffer_size=buffer_size,
+                                  staleness_alpha=staleness_alpha),
+        device_profile=device_profile,
+        checkpoint_dir=checkpoint_dir,
+        checkpoint_every=checkpoint_every,
+        resume=resume,
+        fault_plan=fault_plan,
+        params=params,
+        device=device,
+    )
+
+
+def experiment(
+    method: Union[str, FederatedAlgorithm] = "droppeft",
+    model: str = "qwen3-1.7b",
+    *,
+    rounds: Optional[int] = None,
+    target_accuracy: Optional[float] = None,
+    **kwargs,
+) -> SimResult:
+    """Build and run one federated experiment; returns its SimResult."""
+    return build(method, model, **kwargs).run(rounds=rounds, target_accuracy=target_accuracy)
+
+
+def replicate(
+    method: Union[str, FederatedAlgorithm] = "droppeft",
+    model: str = "qwen3-1.7b",
+    *,
+    seeds: Sequence[int] = (0, 1, 2),
+    rounds: Optional[int] = None,
+    target_accuracy: Optional[float] = None,
+    **kwargs,
+) -> List[SimResult]:
+    """Multi-seed replication: one independent experiment per seed."""
+    results = []
+    for seed in seeds:
+        runner = build(fresh_algorithm(method), model, **dict(kwargs, seed=seed))
+        results.append(runner.run(rounds=rounds, target_accuracy=target_accuracy))
+    return results
 
 def serve(
     model: str = "qwen3-1.7b",

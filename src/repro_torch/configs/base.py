@@ -1,8 +1,8 @@
 """Model and PEFT configuration for the PyTorch port.
 
-A copy of the fields of ``repro.configs.base`` that the serving and
-local-training slices read (the dense family, the ``ssm`` family of RWKV6
-and the ``hybrid`` family of jamba).  The port keeps its own copy so that it never imports the JAX
+A copy of the fields of ``repro.configs.base`` that the serving, the
+local-training and the federated slices read (the dense family, the
+``ssm`` family of RWKV6 and the ``hybrid`` family of jamba).  The port keeps its own copy so that it never imports the JAX
 package; the field names, defaults and meanings are the same.
 """
 from __future__ import annotations
@@ -104,6 +104,51 @@ class ModelConfig:
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+    def param_counts(self) -> dict:
+        """Analytic parameter counts (total, active under MoE top-k,
+        embedding) for the system model, as the reference counts them for
+        these three families (SwiGLU MLPs, no encoder)."""
+        d, hd = self.d_model, self.resolved_head_dim
+        h, kv, ff = self.num_heads, self.num_kv_heads, self.d_ff
+        attn = d * (h * hd) + 2 * d * (kv * hd) + (h * hd) * d
+        mlp = 3 * d * ff
+        norms = 2 * d
+        mamba_p = 0
+        if self.mamba is not None:
+            m = self.mamba
+            d_in = m.expand * d
+            dtr = m.resolved_dt_rank(d)
+            mamba_p = (d * 2 * d_in + d_in * m.d_conv + d_in * (dtr + 2 * m.d_state) + dtr * d_in
+                       + d_in * m.d_state + d_in + d_in * d)
+        rwkv_p = 0
+        if self.rwkv is not None:
+            r = self.rwkv
+            rwkv_p = (4 * d * d + d * r.gate_lora_dim + r.gate_lora_dim * d + d * r.decay_lora_dim
+                      + r.decay_lora_dim * d + 2 * (d * r.token_shift_lora_dim * 5) + (d * ff + ff * d + d * d))
+        total = active = 0
+        for l in range(self.num_layers):
+            if self.family == "ssm":
+                layer_tot = layer_act = rwkv_p + norms
+            elif self.is_attention_layer(l):
+                layer_tot = layer_act = attn + norms
+            else:
+                layer_tot = layer_act = mamba_p + norms
+            if self.family != "ssm":
+                if self.is_moe_layer(l):
+                    layer_tot += self.num_experts * mlp + d * self.num_experts
+                    layer_act += max(self.top_k, 1) * mlp + d * self.num_experts
+                    if self.shared_expert:
+                        layer_tot += mlp
+                        layer_act += mlp
+                else:
+                    layer_tot += mlp
+                    layer_act += mlp
+            total += layer_tot
+            active += layer_act
+        emb = self.vocab_size * d
+        head = emb + d + (0 if self.tie_embeddings else emb)
+        return {"total": total + head, "active": active + head, "embedding": emb}
+
 
 @dataclass(frozen=True)
 class PEFTConfig:
@@ -129,10 +174,27 @@ class STLDConfig:
 
 @dataclass(frozen=True)
 class FederatedConfig:
-    """The fields of one client's local round (paper §6.1)."""
+    """Federated fine-tuning round configuration (paper §6.1)."""
 
+    num_devices: int = 100
+    devices_per_round: int = 10
+    local_epochs: int = 1
     local_steps: int = 4
     batch_size: int = 16
+    rounds: int = 100
+    dirichlet_alpha: float = 1.0
+    target_accuracy: float = 0.9
+    # PTLS
+    ptls_enabled: bool = True
+    ptls_share_fraction: float = 0.5  # k = fraction * L layers shared
+    # bandit configurator
+    configurator_enabled: bool = True
+    explore_rate: float = 0.3
+    explore_interval: int = 5
+    num_candidates: int = 4
+    window_size: int = 8
+    rate_grid: tuple = (0.0, 0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9)
+    seed: int = 0
 
 
 @dataclass(frozen=True)

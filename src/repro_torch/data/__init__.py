@@ -1,1 +1,2 @@
-"""Data of the port: the numpy synthetic task."""
+"""Data of the port, numpy only: the synthetic task, the Dirichlet device
+partition and the per-device pipeline."""

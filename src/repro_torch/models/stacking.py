@@ -18,15 +18,18 @@ import torch
 from repro_torch.nn.linear import AdapterPool
 
 
-def tree_map(fn: Callable, tree):
-    """Apply ``fn`` to every leaf of a tree of dicts, lists and ``AdapterPool``s."""
+def tree_map(fn: Callable, tree, *rest):
+    """Apply ``fn`` to every leaf of a tree of dicts, lists and
+    ``AdapterPool``s; with ``rest``, to the matching leaves of trees of the
+    same structure (``fn(leaf, *other_leaves)``), as ``jax.tree.map``."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [tree_map(fn, v) for v in tree]
+        return [tree_map(fn, *parts) for parts in zip(tree, *rest)]
     if isinstance(tree, AdapterPool):
-        return AdapterPool(**{f.name: fn(getattr(tree, f.name)) for f in dataclasses.fields(tree)})
-    return fn(tree)
+        return AdapterPool(**{f.name: fn(getattr(tree, f.name), *(getattr(r, f.name) for r in rest))
+                              for f in dataclasses.fields(tree)})
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree) -> list:
@@ -78,3 +81,18 @@ def layer_view(layers, l: int):
     if not is_stacked(layers):
         return layers[l]
     return tree_map(lambda x: x[l], layers)
+
+
+def select_layers(mask, take_tree, keep_tree, axis: int = 0):
+    """Per-layer select on stacked trees: layer ``l`` comes from
+    ``take_tree`` where ``mask[l]`` else from ``keep_tree``.  ``axis`` is
+    the layer axis (1 for cohort-stacked ``(N, L, ...)`` leaves).  Exact
+    copies (``torch.where`` on a bool mask), so it is bit-identical to the
+    list-layout per-layer selection."""
+    mask = torch.as_tensor(mask, dtype=torch.bool)
+
+    def pick(t, k):
+        m = mask.to(t.device).reshape((1,) * axis + tuple(mask.shape) + (1,) * (t.ndim - axis - 1))
+        return torch.where(m, t, k)
+
+    return tree_map(pick, take_tree, keep_tree)

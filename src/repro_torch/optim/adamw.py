@@ -14,17 +14,6 @@ import torch
 from repro_torch.models.stacking import is_stacked, tree_leaves, tree_map
 
 
-def _zip_map(fn, *trees):
-    """``fn`` over the leaves of trees of one structure (dicts and lists of
-    tensors)."""
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _zip_map(fn, *(t[k] for t in trees)) for k in first}
-    if isinstance(first, (list, tuple)):
-        return [_zip_map(fn, *parts) for parts in zip(*trees)]
-    return fn(*trees)
-
-
 def _global_sq_sum(grads):
     """Sum of squares over every element, in the reference's order.
     Stacked layout: per-leaf trailing-axis sums give (L,) partials,
@@ -74,7 +63,7 @@ def adamw_update(grads, state, params, *, lr, beta1: float = 0.9, beta2: float =
         pf = p.float()
         return m2, v2, (pf - lr * (step + weight_decay * pf)).to(p.dtype)
 
-    flat = _zip_map(upd, grads, state["m"], state["v"], params)
+    flat = tree_map(upd, grads, state["m"], state["v"], params)
     return _pick(flat, 2), {"m": _pick(flat, 0), "v": _pick(flat, 1), "count": count}
 
 

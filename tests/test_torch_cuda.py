@@ -275,6 +275,7 @@ ATTN_CASES = [  # (B, S, H, KV, D, causal, window)
     (1, 1024, 4, 1, 128, True, None),  # a longer causal sequence: the kv ring turns several times
     (2, 300, 4, 2, 32, True, None),  # ragged S at a head dim under one 64-column box
     (1, 17, 2, 1, 64, False, None),  # one partial tile, bidirectional, D 64
+    (16, 32, 16, 8, 128, True, None),  # the federated runner's shape: batch 16 x 32 tokens, one partial tile
 ]
 
 
@@ -903,3 +904,48 @@ def test_cuda_jamba_smoke_round_matches_the_cpu(cuda):
     for key in mc:
         torch.testing.assert_close(mc[key], mp[key], rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(ic, ip, rtol=1e-4, atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_cuda_federated_smoke_run_matches_the_cpu(cuda):
+    """Two rounds of ``api.experiment``'s droppeft at the qwen3-1.7b smoke
+    size in float32, on the card (the kernels) and on the CPU (the twins),
+    from the same base weights (drawn on the CPU), seed and gates: cohorts,
+    rates and PTLS masks equal; the global LoRA within the limits of
+    ``test_cuda_rwkv_smoke_round_matches_the_cpu``, the step sizes summed
+    over every local step of both rounds."""
+    from repro_torch import api
+    from repro_torch.configs import FederatedConfig, TrainConfig, get_config
+    from repro_torch.models.registry import init_params
+    from repro_torch.models.stacking import tree_leaves
+    from repro_torch.optim import make_lr_schedule
+
+    cfg, train_cfg = get_config("qwen3-1.7b", smoke=True).replace(dtype="float32"), TrainConfig()
+    fed = FederatedConfig(num_devices=6, devices_per_round=4, local_steps=2, batch_size=8)
+    params = init_params(cfg, torch.Generator().manual_seed(29))
+    runs = {}
+    for device in ("cuda", "cpu"):
+        runner = api.build("droppeft", cfg=cfg, fed_cfg=fed, train_cfg=train_cfg, seed=29, params=params,
+                           device=device)
+        plans, report = [], runner.algorithm.report
+
+        def recorded(state, results, plans=plans, report=report):
+            plans.append((results.plan.cohort, results.plan.rates, results.masks.tolist()))
+            return report(state, results)
+
+        runner.algorithm.report = recorded
+        ops.reset_launch_counts()
+        result = runner.run(rounds=2)
+        if device == "cuda":
+            for name in ("flash_attention", "flash_attention_bwd", "lora_matmul"):
+                assert ops.launch_counts[name] > 0, name
+        runs[device] = plans, [t.cpu() for t in tree_leaves(runner.state.global_peft)], result
+    (plans_c, peft_c, res_c), (plans_p, peft_p, res_p) = runs["cuda"], runs["cpu"]
+    assert plans_c == plans_p and len(plans_c) == 2
+    diffs = torch.cat([(a - b).abs().flatten() for a, b in zip(peft_c, peft_p)])
+    sched = make_lr_schedule(train_cfg.schedule, train_cfg.learning_rate, train_cfg.warmup_steps, train_cfg.total_steps)
+    lr_sum = sum(sched(step) for step in range(2 * fed.devices_per_round * fed.local_steps))
+    assert float(diffs.max()) <= 2 * lr_sum + 1e-6
+    assert float((diffs <= 1e-6).float().mean()) >= 0.99
+    np.testing.assert_array_equal(res_c.rates, res_p.rates)
+    np.testing.assert_array_equal(res_c.active_fraction, res_p.active_fraction)

@@ -16,6 +16,7 @@ from repro.configs import PEFTConfig as JaxPEFTConfig
 from repro.configs import STLDConfig as JaxSTLDConfig
 from repro.configs import TrainConfig as JaxTrainConfig
 from repro.configs import get_config as jax_get_config
+from repro.federated.algorithms import registered_methods as jax_registered_methods
 from repro_torch import api
 from repro_torch.configs import FederatedConfig, PEFTConfig, STLDConfig, TrainConfig, get_config
 from repro_torch.core import ptls
@@ -67,12 +68,36 @@ def test_serve_without_device_runs_on_the_card_or_raises():
 
 def test_scan_covers_the_training_modules():
     """The import and source checks above walk every module of the package,
-    the training slices' included (qwen3-1.7b, rwkv6-3b, jamba)."""
+    the training slices' (qwen3-1.7b, rwkv6-3b, jamba) and the federated
+    slice's included."""
     modules = set(_modules())
     for name in ("core.stld", "core.ptls", "core.schedules", "optim.adamw", "optim.schedules", "models.losses",
                  "data.synthetic", "federated.client", "launch.steps", "kernels.ops", "nn.rwkv", "nn.mamba",
-                 "nn.moe", "configs.jamba_v0_1_52b"):
+                 "nn.moe", "configs.jamba_v0_1_52b", "core.configurator", "data.partition", "data.pipeline",
+                 "federated.system_model", "federated.server", "federated.state", "federated.engine",
+                 "federated.scheduler", "federated.runner", "federated.algorithms", "federated.algorithms.base",
+                 "federated.algorithms.droppeft", "federated.algorithms.baselines", "api"):
         assert f"repro_torch.{name}" in modules, name
+
+
+@pytest.mark.parametrize("entry", ["build", "experiment"])
+def test_federated_entry_points_without_device_run_on_the_card_or_raise(monkeypatch, entry):
+    """``api.build``/``experiment`` with ``device=None`` mean the card: on a
+    machine without one they raise before any work (no task is drawn), and
+    nothing falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the experiment would run on it")
+    from repro_torch.federated import runner
+
+    tasks = []
+    monkeypatch.setattr(runner, "make_task", lambda **kw: tasks.append(kw))
+    with pytest.raises((RuntimeError, AssertionError)):
+        getattr(api, entry)("droppeft", "qwen3-1.7b", smoke=True)
+    assert tasks == []
+
+
+def test_list_methods_is_the_jax_registry():
+    assert api.list_methods() == jax_registered_methods()
 
 
 def test_client_fns_without_device_run_on_the_card_or_raise():
