@@ -38,7 +38,13 @@ Phases, one line each before the last:
    apart) beside their yardsticks' (SDPA, cuBLAS's x @ W); and lora_matmul
    on the fixed draw that failed its first bf16 design, on the route it
    takes and on the WMMA route, with the bf16 roundings of the bottleneck t
-   that differ from the twin's, both routes checked;
+   that differ from the twin's, both routes checked; the grouped
+   lora_matmul of the batched cohort (one adapter per group of rows)
+   against its twin, forward, dX, dA and dB, on the wgmma route at phase
+   5d's shape (10 groups of 512 rows, q and v), off the 128-row tile, on
+   the WMMA route and in float32, each group's rows and G = 1 bit-equal to
+   ungrouped launches, timed beside ten ungrouped launches, cuBLAS's x @ W
+   at M 5 120 and its bound;
 4. full-width qwen3-1.7b (28 layers, random weights from ``--seed``)
    served through ``repro_torch.api.serve``: 12 requests over 4 LoRA
    tenants of rank 4/8 at batch 8, rows recycling mid-run; every completion
@@ -63,14 +69,18 @@ Phases, one line each before the last:
 5d. three federated rounds of droppeft on full-width qwen3-1.7b through
    ``repro_torch.api.build`` at its defaults (100 devices with their
    Dirichlet shards, 10 a round, 4 local steps of batch 16 x 32 tokens,
-   the rate bandit, PTLS): 3 finite history rows, the first round's rates
-   the bandit's start-up arms round-robin, 14 shared layers per device,
-   layers shared by nobody kept bit for bit, each kernel launched as often
-   as the gates say (local rounds, each evaluate, final_accuracy's 100),
-   two runs from one seed bit-identical; seconds per round split into
-   local rounds, evaluate, aggregation and the rest, the idle share of one
-   profiled round, peak memory; and a smoke-size run on the card against
-   the CPU twins;
+   the rate bandit, PTLS), in its default batched cohort mode: 3 finite
+   history rows, the first round's rates the bandit's start-up arms
+   round-robin, 14 shared layers per device, layers shared by nobody kept
+   bit for bit, each kernel launched as often as the gates say (per cohort
+   step a layer once if any device's gate opens it, one fused evaluate a
+   cohort, final_accuracy once per chunk of 10 devices), every lora_matmul
+   on wgmma, two runs from one seed bit-identical; then the sequential
+   mode from the same seed (its own launch checks); for each, seconds per
+   round and their split, the idle share and launches of one profiled
+   round, peak memory and final_accuracy's seconds; and smoke-size runs
+   of qwen3-1.7b, rwkv6-3b and jamba, batched on the card against
+   sequential on the card and batched on the CPU twins;
 6. the ``kernels`` JSON line: launches of each kernel in its own path's
    run (serving: phase 4's run; training: phase 5's round at rate 0.5,
    phase 5b's for wkv6 and wkv6_bwd, phase 5c's for mamba_scan and
@@ -646,6 +656,89 @@ def lora_fault_case(ops, ref, *, m=8192, k=2560, n=8960, r=8, alpha=2.0):
               f"lora_matmul {route} route's bottleneck on the fixed draw: {out[route]}")
     out["route"] = ops.lora_matmul_route(x, w)
     return out
+
+
+def grouped_lora_case(ops, ref, timer, gen, *, dtype, g=10, rows=512, k=2048, n=2048, r=8, alpha=2.0,
+                      time_it=True):
+    """The grouped lora_matmul (A (G, K, r), B (G, r, N): the rows of group
+    g take A_g and B_g, as the batched cohort's G devices do) against its
+    twin on the card: forward and dX as ``lora_matmul`` checks them, dA and
+    dB (batched products, summed in another order than the twin's
+    per-group ones) in float32 within 1e-5 of the gradient's largest
+    element, on the route ``lora_matmul_route`` names; G = 1 against the
+    ungrouped kernel, and every group's rows against an ungrouped launch on
+    them with A_g and B_g on the same route, bit for bit, forward and dX.
+    With ``time_it``: the grouped launch beside G ungrouped launches (one
+    a group), one ungrouped launch over all M = G x rows rows (one
+    adapter: the same tiles without the groups' epilogue), cuBLAS's x @ W
+    at M, the twin and the bound; device times by ``torch.profiler``."""
+    m = g * rows
+    x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+    w = (torch.randn((k, n), generator=gen, device="cuda") * k**-0.5).to(dtype)
+    a = (torch.randn((g, k, r), generator=gen, device="cuda") * k**-0.5).to(dtype)
+    b = (torch.randn((g, r, n), generator=gen, device="cuda") * r**-0.5).to(dtype)
+    dy = torch.randn((m, n), generator=gen, device="cuda").to(dtype)
+    name, route = str(dtype).split(".")[-1], ops.lora_matmul_route(x, w, a)
+    shape = f"G={g} x {rows} rows, K={k} N={n} r={r} {name}"
+    leaves = [t.clone().requires_grad_(True) for t in (x, a, b)]
+    twins = [t.clone().requires_grad_(True) for t in (x, a, b)]
+    ops.reset_launch_counts()
+    y = ops.lora_matmul(leaves[0], w, leaves[1], leaves[2], alpha=alpha)
+    grads = torch.autograd.grad(y, leaves, dy)
+    routes = dict(ops.lora_matmul_routes)
+    want = ref.lora_matmul_plain(twins[0], w, twins[1], twins[2], alpha=alpha)
+    want_grads = torch.autograd.grad(want, twins, dy)
+    torch.cuda.synchronize()
+    check(routes[route] == 2 == sum(routes.values()), f"grouped lora_matmul {shape}: routes {routes}, 2 on {route}")
+    err = (y.float() - want.float()).abs().max().item()
+    atol, rtol = (3e-2, 1e-2) if dtype == torch.bfloat16 else (1e-4, 1e-5)
+    check(torch.allclose(y.float(), want.float(), atol=atol, rtol=rtol),
+          f"grouped lora_matmul {shape}: max abs err {err} vs twin")
+    ok, grad_errs = grads_close(grads[:1], want_grads[:1], dtype)
+    for got, ref_grad in zip(grads[1:], want_grads[1:]):
+        grad_err = (got.float() - ref_grad.float()).abs().max().item()
+        grad_errs.append(grad_err)
+        ok = ok and grad_err <= (1e-5 if dtype == torch.float32 else 2e-2) * ref_grad.float().abs().max().item()
+    check(ok, f"grouped lora_matmul backward {shape}: dx/da/db max abs errs {grad_errs}")
+
+    dx_route = ops.lora_matmul_route(dy, w.t(), b.transpose(-1, -2))
+
+    def launches(x_, a_, b_, dy_):  # forward and dX on the grouped call's routes
+        return (ops._lora_matmul_launch(x_, w, a_, b_, alpha, route),
+                ops._lora_matmul_launch(dy_, w.t(), b_.transpose(-1, -2), a_.transpose(-1, -2), alpha, dx_route))
+
+    xl = x.clone().requires_grad_(True)
+    y_all = ops.lora_matmul(xl, w, a, b, alpha=alpha)
+    dx_all = torch.autograd.grad(y_all, xl, dy)[0]
+    for i in range(g):
+        part = slice(i * rows, (i + 1) * rows)
+        y_i, dx_i = launches(x[part], a[i], b[i], dy[part])
+        check(torch.equal(y_all[part], y_i) and torch.equal(dx_all[part], dx_i),
+              f"grouped lora_matmul {shape}: group {i}'s rows differ from an ungrouped launch on them")
+    one, alone = launches(x[:rows], a[:1], b[:1], dy[:rows]), launches(x[:rows], a[0], b[0], dy[:rows])
+    check(all(torch.equal(p, q) for p, q in zip(one, alone)), f"grouped lora_matmul {shape}: G = 1 differs")
+    case = {"shape": shape, "route": route, "max_abs_err": err, "atol": atol, "rtol": rtol,
+            "bwd_max_abs_err": max(grad_errs), "groups_bit_equal_to_ungrouped": True, "g1_bit_equal": True}
+    if not time_it:
+        return case
+    xs = [x[i * rows:(i + 1) * rows] for i in range(g)]
+    grouped_fn = lambda: ops.lora_matmul(x, w, a, b, alpha=alpha)  # noqa: E731
+    ungrouped_fn = lambda: [ops.lora_matmul(xs[i], w, a[i], b[i], alpha=alpha) for i in range(g)]  # noqa: E731
+    with torch.no_grad():
+        case["ms"] = timer(grouped_fn)
+        case["ungrouped_launches_ms"] = timer(ungrouped_fn)
+        case["cublas_x_at_w_ms"] = timer(lambda: x @ w)
+        case["plain_ms"] = timer(lambda: ref.lora_matmul_plain(x, w, a, b, alpha=alpha), repeats=3)
+        case["kernel_ms"] = device_span_ms(grouped_fn, timer.flush)
+        case["kernels_device_ms"] = device_ms(grouped_fn, timer.flush)
+        case["ungrouped_launches_device_ms"] = device_ms(ungrouped_fn, timer.flush)
+        case["one_adapter_kernel_ms"] = device_span_ms(lambda: ops.lora_matmul(x, w, a[0], b[0], alpha=alpha),
+                                                       timer.flush)
+        case["cublas_x_at_w_kernel_ms"] = device_ms(lambda: x @ w, timer.flush)
+    nbytes = x.element_size() * (m * k + k * n + g * k * r + g * r * n + m * n)
+    case["bound_ms"], case["bound_by"] = bound(nbytes, 2 * m * k * n + 2 * m * k * r + 2 * m * r * n, name)
+    case["library_ms"] = None  # no single PyTorch call computes x @ W plus a LoRA per group
+    return case
 
 
 def wkv6_case(ops, ref, timer, gen, *, dtype, b=16, s=512, h=40, k=64, state=False, time_it=True):
@@ -1249,9 +1342,11 @@ def instrument_runner(runner, ops, clock: dict, rounds: list):
     """Record each round of ``runner``: its plan, shared layers per device,
     accuracies, active layers, gates and launches, whether the layers no
     device shared kept the previous global bit for bit, and its host
-    seconds.  ``clock`` sums the host seconds of the local rounds,
-    ``evaluate`` and aggregation (each call ends with a device sync), and
-    of ``final_accuracy``'s evaluations apart."""
+    seconds.  ``clock`` sums the host seconds of the client programs (the
+    sequential mode's ``local_round`` and ``evaluate``, the batched mode's
+    ``cohort_round_eval``, ``cohort_round`` and ``cohort_evaluate``) and of
+    aggregation (each call ends with a device sync), and of
+    ``final_accuracy``'s evaluations apart."""
     from repro_torch.core import stld
     from repro_torch.models.stacking import layer_view, tree_leaves
 
@@ -1270,6 +1365,8 @@ def instrument_runner(runner, ops, clock: dict, rounds: list):
 
     engine.local_round = timed(engine.local_round, "local_round")
     engine.evaluate = timed(engine.evaluate, "evaluate")
+    engine.client = engine.client._replace(**{name: timed(getattr(engine.client, name), name)
+                                              for name in ("cohort_round_eval", "cohort_round", "cohort_evaluate")})
     aggregate, report, sync_round, sample_drops = algo.aggregate, algo.report, sched._sync_round, stld.sample_drops
 
     def aggregate_checked(state, results):
@@ -1339,22 +1436,39 @@ def profile_fed_round(runner):
             "kernel_launches": sum(e.count for e in kernels), "top_kernels": top}
 
 
-def federated_full(api, ops, card, seed: int):
-    """Phase 5d: ``api.build("droppeft", "qwen3-1.7b", smoke=False)`` run for
-    3 rounds on the card at the defaults (100 devices, 10 a round, 4 local
-    steps of batch 16 x 32 tokens, LoRA r 8 on q and v, 28 layers), then a
-    second run from the same seed and one profiled round after it."""
+def cohort_step_layers(gates, devices: int, steps: int) -> list:
+    """The layers each cohort step runs: a layer runs once in a step if any
+    device's gate opens it.  ``gates`` are the round's draws in their order,
+    device by device, step by step (True = dropped)."""
+    return [sorted({l for i in range(devices) for l, dropped in enumerate(gates[i * steps + s]) if not dropped})
+            for s in range(steps)]
+
+
+def federated_run(api, ops, seed: int, cohort_mode: str):
+    """``api.build("droppeft", "qwen3-1.7b", smoke=False)`` in ``cohort_mode``
+    for 3 rounds, instrumented, with every per-round check: finite history,
+    the start-up rates, PTLS's k, unshared layers kept, launches exactly
+    from the gates (sequential: a local round and an ``evaluate`` per
+    member; batched: per cohort step each layer once if any gate opens it,
+    the step's first run layer without dX, one fused evaluate a cohort) and
+    every lora_matmul on wgmma; and ``final_accuracy``'s launches (100
+    evaluations, or one ``cohort_evaluate`` per chunk of 10 devices).
+    Returns (runner, stats, the history, the global LoRA, the summed
+    launches)."""
     from repro_torch.models.stacking import tree_leaves
 
-    phase_t0 = time.perf_counter()
     gc.collect()  # the earlier phases' weights may sit in reference cycles
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    runner = api.build("droppeft", "qwen3-1.7b", smoke=False, seed=seed)
+    # batched is what api.build runs when the caller names no mode
+    runner = api.build("droppeft", "qwen3-1.7b", smoke=False, seed=seed,
+                       **({} if cohort_mode == "batched" else {"cohort_mode": cohort_mode}))
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    check(runner.cohort_mode == cohort_mode, f"cohort mode {runner.cohort_mode}, expected {cohort_mode}")
     cfg, fed, seq = runner.ctx.cfg, runner.ctx.fed_cfg, runner.ctx.task.seq_len
+    layers, n, steps = cfg.num_layers, fed.devices_per_round, fed.local_steps
     resident = torch.cuda.memory_allocated()
     clock, rounds = {}, []
     instrument_runner(runner, ops, clock, rounds)
@@ -1370,75 +1484,114 @@ def federated_full(api, ops, card, seed: int):
     check(len(hist) == FED_ROUNDS == result.rounds, f"{len(hist)} history rows")
     check(all(np.isfinite(v) for row in hist for v in row.values()), f"non-finite history {hist}")
     check(np.isfinite(result.final_accuracy), f"final accuracy {result.final_accuracy}")
-    check(rounds[0]["rates"] == [STARTUP_RATES[i % 3] for i in range(fed.devices_per_round)],
-          f"first round's rates {rounds[0]['rates']}")
-    k = int(fed.ptls_share_fraction * cfg.num_layers)
+    check(rounds[0]["rates"] == [STARTUP_RATES[i % 3] for i in range(n)], f"first round's rates {rounds[0]['rates']}")
+    k = int(fed.ptls_share_fraction * layers)
+    step_layers = []
     for j, r in enumerate(rounds):
-        check(r["shared_per_device"] == [k] * fed.devices_per_round, f"shared layers per device {r['shared_per_device']}")
+        check(r["shared_per_device"] == [k] * n, f"shared layers per device {r['shared_per_device']}")
         check(r["unshared_kept_bit_for_bit"], f"layers {r['unshared_layers']} shared by nobody changed")
-        check(len(r["gates"]) == fed.devices_per_round * fed.local_steps, f"{len(r['gates'])} gate draws in a round")
+        check(len(r["gates"]) == n * steps, f"{len(r['gates'])} gate draws in a round")
         active = active_count(r["gates"])
-        check(abs(sum(r["active"]) * fed.local_steps - active) < 1e-3, f"active layers {r['active']} vs the gates")
-        # phase 5's counts per local round, summed over the cohort, and one
-        # evaluate (28 attention, 56 lora_matmul) per member
-        want = {"flash_attention": active + fed.devices_per_round * cfg.num_layers, "flash_attention_bwd": active,
-                "lora_matmul": 4 * active - 2 * len(r["gates"]) + fed.devices_per_round * 2 * cfg.num_layers}
-        check_launches(r["launches"], want, f"federated round {j + 1}")
+        check(abs(sum(r["active"]) * steps - active) < 1e-3, f"active layers {r['active']} vs the gates")
+        if cohort_mode == "batched":
+            run = [len(ls) for ls in cohort_step_layers(r["gates"], n, steps)]
+            step_layers.append(run)
+            want = {"flash_attention": sum(run) + layers, "flash_attention_bwd": sum(run),
+                    "lora_matmul": 4 * sum(run) - 2 * steps + 2 * layers}
+        else:
+            # phase 5's counts per local round, summed over the cohort, and
+            # one evaluate (28 attention, 56 lora_matmul) per member
+            want = {"flash_attention": active + n * layers, "flash_attention_bwd": active,
+                    "lora_matmul": 4 * active - 2 * len(r["gates"]) + n * 2 * layers}
+        check_launches(r["launches"], want, f"{cohort_mode} federated round {j + 1}")
         check(r["routes"] == {"fma": 0, "wmma": 0, "wgmma": r["launches"]["lora_matmul"]}, f"routes {r['routes']}")
-    check_launches(final_launches, {"flash_attention": fed.num_devices * cfg.num_layers,
-                                    "lora_matmul": fed.num_devices * 2 * cfg.num_layers}, "final_accuracy")
-    global1 = [t.clone() for t in tree_leaves(runner.state.global_peft)]
+    evaluations = -(-fed.num_devices // n) if cohort_mode == "batched" else fed.num_devices
+    check_launches(final_launches, {"flash_attention": evaluations * layers, "lora_matmul": evaluations * 2 * layers},
+                   f"{cohort_mode} final_accuracy")
+    per_round = [r["seconds"] for r in rounds]
+    split = {f"{name}_s": clock[name] for name in ("local_round", "evaluate", "cohort_round_eval", "aggregate")
+             if name in clock}
+    split["rest_s"] = sum(per_round) - sum(split.values())
+    gib = 2.0**30
+    launches = {name: sum(r["launches"][name] for r in rounds) + final_launches[name] for name in final_launches}
+    stats = {
+        "cohort_mode": cohort_mode, "setup_s": setup_s, "run_s": run_s, "s_per_round": per_round,
+        "s_per_round_mean": sum(per_round) / FED_ROUNDS, "split_over_rounds_s": split,
+        "final_accuracy_s": sum(v for key, v in clock.items() if key.startswith("final_accuracy_")),
+        "final_accuracy_calls": evaluations, "resident_gib": resident / gib, "peak_gib": peak / gib,
+        "launches_per_round": [r["launches"] for r in rounds], "launches_final_accuracy": final_launches,
+        "cohorts": [r["cohort"] for r in rounds], "rates": [r["rates"] for r in rounds],
+        "unshared_layers": [r["unshared_layers"] for r in rounds], "history": hist,
+        "final_accuracy": result.final_accuracy,
+    }
+    if step_layers:
+        stats["layers_run_per_cohort_step"] = step_layers
+    return runner, stats, hist, [t.clone() for t in tree_leaves(runner.state.global_peft)], launches
+
+
+def federated_full(api, ops, card, seed: int):
+    """Phase 5d: ``api.build("droppeft", "qwen3-1.7b", smoke=False)`` on the
+    card at the defaults (100 devices, 10 a round, 4 local steps of batch
+    16 x 32 tokens, LoRA r 8 on q and v, 28 layers), batched (its default
+    mode): 3 rounds, a second run from the same seed that must give the
+    same bits, and one profiled round after it; then the sequential mode
+    from the same seed, 3 rounds and a profiled round, for the
+    comparison."""
+    from repro_torch.models.stacking import tree_leaves
+
+    phase_t0 = time.perf_counter()
+    runner, batched, hist, global1, launches = federated_run(api, ops, seed, "batched")
+    cfg, fed = runner.ctx.cfg, runner.ctx.fed_cfg
+    seq = runner.ctx.task.seq_len
     del runner
     gc.collect()
 
     runner = api.build("droppeft", "qwen3-1.7b", smoke=False, seed=seed)
     result2 = runner.run(rounds=FED_ROUNDS)
     check(all(torch.equal(a, b) for a, b in zip(global1, tree_leaves(runner.state.global_peft)))
-          and list(runner.state.history) == hist and result2.final_accuracy == result.final_accuracy,
-          "two runs from one seed differ")
-    profile = profile_fed_round(runner)
+          and list(runner.state.history) == hist and result2.final_accuracy == batched["final_accuracy"],
+          "two batched runs from one seed differ")
+    batched["profile"] = profile_fed_round(runner)
     del runner
     gc.collect()
 
-    per_round = [r["seconds"] for r in rounds]
-    split = {"local_round_s": clock["local_round"], "evaluate_s": clock["evaluate"], "aggregate_s": clock["aggregate"]}
-    split["rest_s"] = sum(per_round) - sum(split.values())
-    gib = 2.0**30
-    launches = {name: sum(r["launches"][name] for r in rounds) + final_launches[name] for name in final_launches}
+    runner, sequential, _, _, _ = federated_run(api, ops, seed, "sequential")
+    sequential["profile"] = profile_fed_round(runner)
+    del runner
+    gc.collect()
+    for stats, per_step in ((batched, fed.local_steps), (sequential, fed.devices_per_round * fed.local_steps)):
+        prof = stats["profile"]
+        if prof:  # the profiled round's launches (with its evaluate and aggregation) per step
+            stats["profiled_launches_per_step"] = prof["kernel_launches"] / per_step
     return {
         "model": cfg.name, "layers": cfg.num_layers, "devices": fed.num_devices,
         "devices_per_round": fed.devices_per_round, "local_steps": fed.local_steps, "batch": fed.batch_size,
-        "seq": seq, "rounds": FED_ROUNDS, "setup_s": setup_s, "run_s": run_s,
-        "s_per_round": per_round, "s_per_round_mean": sum(per_round) / FED_ROUNDS,
-        "split_over_rounds_s": split, "final_accuracy_evaluate_s": clock["final_accuracy_evaluate"],
-        "resident_gib": resident / gib, "peak_gib": peak / gib,
-        "launches_per_round": [r["launches"] for r in rounds], "launches_final_accuracy": final_launches,
-        "cohorts": [r["cohort"] for r in rounds], "rates": [r["rates"] for r in rounds],
-        "unshared_layers": [r["unshared_layers"] for r in rounds], "history": hist,
-        "final_accuracy": result.final_accuracy, "deterministic_rounds": FED_ROUNDS,
-        "phase_s": time.perf_counter() - phase_t0, "card": card,
-    }, profile, launches
+        "seq": seq, "rounds": FED_ROUNDS, "deterministic_rounds": FED_ROUNDS, "batched": batched,
+        "sequential": sequential, "phase_s": time.perf_counter() - phase_t0, "card": card,
+    }, launches
 
 
-def federated_smoke_cuda_vs_cpu(seed: int):
-    """Two rounds of droppeft at the qwen3-1.7b smoke size in float32 on the
-    card (the kernels) and on the CPU (the twins), from the same base
-    weights (drawn on the CPU), seed and gates: cohorts, rates and PTLS
-    masks equal; the global LoRA within phase 5's tree tolerance, the step
-    sizes summed over every local step of both rounds."""
+def federated_smoke_cuda_vs_cpu(seed: int, arch: str):
+    """Two rounds of droppeft at the smoke size of ``arch`` in float32,
+    batched on the card (the kernels), sequential on the card and batched
+    on the CPU (the twins), from the same base weights (drawn on the CPU),
+    seed and gates: cohorts, rates and PTLS masks equal; the global LoRA
+    of the card's batched run within phase 5's tree tolerance of each of
+    the others, the step sizes summed over every local step of both
+    rounds."""
     from repro_torch import api
     from repro_torch.configs import FederatedConfig, TrainConfig, get_config
     from repro_torch.models.registry import init_params
     from repro_torch.models.stacking import tree_leaves
     from repro_torch.optim import make_lr_schedule
 
-    cfg, train_cfg = get_config("qwen3-1.7b", smoke=True).replace(dtype="float32"), TrainConfig()
+    cfg, train_cfg = get_config(arch, smoke=True).replace(dtype="float32"), TrainConfig()
     fed = FederatedConfig(num_devices=6, devices_per_round=4, local_steps=2, batch_size=8)
     params = init_params(cfg, torch.Generator().manual_seed(seed))
     runs = {}
-    for device in ("cuda", "cpu"):
+    for device, mode in (("cuda", "batched"), ("cuda", "sequential"), ("cpu", "batched")):
         runner = api.build("droppeft", cfg=cfg, fed_cfg=fed, train_cfg=train_cfg, seed=seed, params=params,
-                           device=device)
+                           device=device, cohort_mode=mode)
         plans, report = [], runner.algorithm.report
 
         def recorded(state, results, plans=plans, report=report):
@@ -1447,17 +1600,21 @@ def federated_smoke_cuda_vs_cpu(seed: int):
 
         runner.algorithm.report = recorded
         runner.run(rounds=2)
-        runs[device] = plans, [t.cpu() for t in tree_leaves(runner.state.global_peft)]
-    (plans_c, peft_c), (plans_p, peft_p) = runs["cuda"], runs["cpu"]
-    check(plans_c == plans_p, f"cohorts, rates or masks differ: card {plans_c}, CPU {plans_p}")
-    diffs = torch.cat([(a - b).abs().flatten() for a, b in zip(peft_c, peft_p)])
+        runs[(device, mode)] = plans, [t.cpu() for t in tree_leaves(runner.state.global_peft)]
     sched = make_lr_schedule(train_cfg.schedule, train_cfg.learning_rate, train_cfg.warmup_steps, train_cfg.total_steps)
     limit = 2 * sum(sched(step) for step in range(2 * fed.devices_per_round * fed.local_steps)) + 1e-6
-    within = float((diffs <= 1e-6).float().mean())
-    check(float(diffs.max()) <= limit and within >= 0.99,
-          f"federated smoke run, card vs CPU twins: LoRA max diff {float(diffs.max())}, {within} within 1e-6")
-    return {"rounds": 2, "cohorts_rates_masks_equal": True, "peft_max_abs_diff": float(diffs.max()),
-            "peft_share_within_1e-6": within, "peft_limit": limit}
+    plans_c, peft_c = runs[("cuda", "batched")]
+    out = {"arch": arch, "rounds": 2, "cohorts_rates_masks_equal": True, "peft_limit": limit}
+    for other in (("cuda", "sequential"), ("cpu", "batched")):
+        plans_o, peft_o = runs[other]
+        what = f"{arch}: batched on the card vs {other[1]} on the {other[0]}"
+        check(plans_c == plans_o, f"{what}: cohorts, rates or masks differ: {plans_c} vs {plans_o}")
+        diffs = torch.cat([(a - b).abs().flatten() for a, b in zip(peft_c, peft_o)])
+        within = float((diffs <= 1e-6).float().mean())
+        check(float(diffs.max()) <= limit and within >= 0.99,
+              f"{what}: LoRA max diff {float(diffs.max())}, {within} within 1e-6")
+        out[f"vs_{other[1]}_{other[0]}"] = {"peft_max_abs_diff": float(diffs.max()), "peft_share_within_1e-6": within}
+    return out
 
 
 def main() -> int:
@@ -1545,6 +1702,21 @@ def main() -> int:
     print(f"flash_attention federated {json.dumps(attn_fed)} [{card}]", flush=True)
     lora_fed = {n: lora_case(ops, ref, timer, gen_fed, dtype=torch.bfloat16, n=n, m=16 * 32) for n in (2048, 1024)}
     print(f"lora_matmul federated {json.dumps(lora_fed)} [{card}]", flush=True)
+    # the batched cohort's grouped launch at phase 5d's shape (10 devices x
+    # 16 x 32 tokens, q and v), then the other routes' checks: groups off
+    # the 128-row tile (the wgmma route stages 3 groups' B a tile), K off 8
+    # and 3 groups of rank 64 (the WMMA route), float32; drawn from a
+    # generator of their own
+    gen_grouped = torch.Generator(device="cuda")
+    gen_grouped.manual_seed(args.seed + 3)
+    grouped = {n: grouped_lora_case(ops, ref, timer, gen_grouped, dtype=torch.bfloat16, n=n) for n in (2048, 1024)}
+    print(f"lora_matmul grouped {json.dumps(grouped)} [{card}]", flush=True)
+    for kw in ({"dtype": torch.bfloat16, "g": 4, "rows": 100, "k": 136, "n": 520},
+               {"dtype": torch.bfloat16, "g": 4, "rows": 100, "k": 1004, "n": 512},
+               {"dtype": torch.bfloat16, "g": 3, "rows": 100, "k": 256, "n": 264, "r": 64},
+               {"dtype": torch.float32, "g": 10, "rows": 64, "k": 256, "n": 264}):
+        case = grouped_lora_case(ops, ref, timer, gen_grouped, time_it=False, **kw)
+        print(f"lora_matmul grouped check {json.dumps(case)}", flush=True)
     wkv = wkv6_case(ops, ref, timer, gen, dtype=torch.bfloat16)
     print(f"wkv6 {json.dumps(wkv)} [{card}]", flush=True)
     for kw in ({"dtype": torch.float32, "b": 2, "s": 100}, {"dtype": torch.float32, "b": 2, "s": 100, "k": 32, "h": 4},
@@ -1615,13 +1787,13 @@ def main() -> int:
           f"{json.dumps(smoke_train_cuda_vs_cpu(args.seed, 'jamba-v0.1-52b'))}", flush=True)
 
     # 5d. three federated rounds of droppeft on full-width qwen3-1.7b through
-    #     api.build: 100 devices, 10 a round, batch 16 x 32 tokens
-    fed_stats, fed_profile, fed_launches = federated_full(api, ops, card, args.seed)
+    #     api.build: 100 devices, 10 a round, batch 16 x 32 tokens; batched
+    #     (the default), then sequential for the comparison
+    fed_stats, fed_launches = federated_full(api, ops, card, args.seed)
     print(f"federated {json.dumps(fed_stats)}", flush=True)
-    print(f"federated round profile: {json.dumps(fed_profile) if fed_profile else 'not measured'} [{card}]",
-          flush=True)
-    print(f"federated smoke run, card vs CPU twins: {json.dumps(federated_smoke_cuda_vs_cpu(args.seed))}",
-          flush=True)
+    for arch in ("qwen3-1.7b", "rwkv6-3b", "jamba-v0.1-52b"):
+        print(f"federated smoke run, batched on the card vs sequential and the CPU twins: "
+              f"{json.dumps(federated_smoke_cuda_vs_cpu(args.seed, arch))}", flush=True)
 
     # 6. kernels line: each path's shapes (bf16) and launches; q and v
     #    projections summed for segmented_lora and lora_matmul (forward)
@@ -1711,6 +1883,17 @@ def main() -> int:
             **{key: None if lq[key] is None or lv[key] is None else lq[key] + lv[key]
                for key in ("kernel_ms", "bottleneck_kernel_ms", "main_kernel_ms", "cublas_x_at_w_kernel_ms")},
             "routes_in_round": train_stats["lora_matmul_routes"],
+            "grouped": {  # phase 5d's cohort launch: 10 devices' q, then v
+                "shape": "q then v, forward: " + grouped[2048]["shape"] + " + " + grouped[1024]["shape"],
+                "route": grouped[2048]["route"], "launches_in_batched_rounds": fed_launches["lora_matmul"],
+                "max_abs_err": max(c["max_abs_err"] for c in grouped.values()),
+                **{key: grouped[2048][key] + grouped[1024][key]
+                   for key in ("ms", "plain_ms", "bound_ms", "ungrouped_launches_ms", "cublas_x_at_w_ms")},
+                **{key: None if grouped[2048][key] is None or grouped[1024][key] is None
+                   else grouped[2048][key] + grouped[1024][key]
+                   for key in ("kernel_ms", "kernels_device_ms", "ungrouped_launches_device_ms",
+                               "one_adapter_kernel_ms", "cublas_x_at_w_kernel_ms")},
+                "bound_by": grouped[2048]["bound_by"], "library_ms": None},
             "federated_shape": {
                 "shape": "q then v, forward: " + lora_fed[2048]["shape"] + " + " + lora_fed[1024]["shape"],
                 "max_abs_err": max(c["max_abs_err"] for c in lora_fed.values()),

@@ -16,10 +16,11 @@ needs the trained state afterwards::
 
 They take the reference's keywords plus ``device``.  A keyword that names
 a feature the port lacks raises ``NotImplementedError`` with its ROADMAP
-item: ``checkpoint_dir``/``resume`` (4), ``cohort_mode="batched"`` (2),
-``stld_mode="gather"`` (5), ``compression``, ``fault_plan`` and a schedule
-other than ``"sync"`` (6), ``peft`` other than ``"lora"`` (7).
-``cohort_mode="auto"`` runs ``"sequential"``.
+item: ``checkpoint_dir``/``resume`` (4), ``stld_mode="gather"`` (5),
+``compression``, ``fault_plan`` and a schedule other than ``"sync"`` (6),
+``peft`` other than ``"lora"`` (7).  ``cohort_mode="auto"`` runs
+``"batched"`` (one grouped launch a layer for the whole cohort) for every
+method but one that ``requires_sequential``, as the reference does.
 
 ``serve`` builds a ready multi-tenant LoRA server::
 

@@ -12,19 +12,32 @@ in either layout of ``models.stacking``.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.models import stacking
 
 
-def layer_grad_norms(peft_grads) -> torch.Tensor:
+def layer_grad_norms(peft_grads, devices: Optional[int] = None) -> torch.Tensor:
     """L2 norm of each layer's PEFT gradient, shape ``(L,)`` float32.
 
     Stacked layout: per-leaf trailing-axis sums of squares, added over the
     leaves.  Per-layer list (a heterogeneous hybrid stack), as the
     reference's list branch: each layer's per-leaf sums of squares added
     in leaf order (0 for a layer without leaves), stacked.
+
+    ``devices`` N: a cohort's per-layer list with (N, ...) leaves gives
+    ``(N, L)``, each device's norms summed as the stacked layout sums them.
     """
+    if devices is not None:
+        device = next((x.device for x in stacking.tree_leaves(peft_grads)), None)
+        norms = []
+        for layer in peft_grads:
+            leaves = stacking.tree_leaves(layer)
+            sq = sum(torch.sum(torch.square(x.float()), dim=tuple(range(1, x.ndim))) for x in leaves)
+            norms.append(torch.sqrt(sq) if leaves else torch.zeros((devices,), dtype=torch.float32, device=device))
+        return torch.stack(norms, dim=1)
     if not stacking.is_stacked(peft_grads):
         device = next((x.device for x in stacking.tree_leaves(peft_grads)), None)
         norms = []
@@ -44,11 +57,14 @@ class ImportanceAccumulator:
     """Running Eq.-6 accumulator over the local batches of one round."""
 
     @staticmethod
-    def init(num_layers: int, device=None):
+    def init(num_layers: int, device=None, devices: Optional[int] = None):
+        """(L,) sums, or (N, L) for a cohort of ``devices`` N, whose
+        ``update`` then takes (N, L) norms and drops."""
         device = torch.device("cuda" if device is None else device)
+        shape = (num_layers,) if devices is None else (devices, num_layers)
         return {
-            "g_sum": torch.zeros((num_layers,), dtype=torch.float32, device=device),
-            "count": torch.zeros((num_layers,), dtype=torch.float32, device=device),
+            "g_sum": torch.zeros(shape, dtype=torch.float32, device=device),
+            "count": torch.zeros(shape, dtype=torch.float32, device=device),
         }
 
     @staticmethod

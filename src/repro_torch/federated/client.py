@@ -8,9 +8,21 @@
   PEFT-only gradients, accumulates the Eq.-6 PTLS importance statistics,
   clips, and AdamW-updates the PEFT tree.
 * ``evaluate`` — full-model (no dropout) classification accuracy.
+* ``cohort_round`` — the batched cohort: one call trains N devices'
+  local rounds together, each from a fresh AdamW state, with its own
+  gates, LR offset, clip norm, Eq.-6 importances and metrics.  The
+  reference vmaps ``local_round``; the port carries the device axis
+  explicitly: the devices fold into the batch, each layer runs once a step
+  on the devices whose gate is open, every LoRA projection is one grouped
+  ``lora_matmul`` launch, and the backward runs on the sum of the N
+  per-device losses (the adapters are independent and the base frozen, so
+  each device's gradient is its own).
+* ``cohort_evaluate`` — every device's accuracy from validation rows padded
+  to one size, with a ``valid`` row mask.
+* ``cohort_round_eval`` — ``cohort_round`` then ``cohort_evaluate`` of the
+  trained adapters, in one call.
 
-The batched cohort programs (``cohort_round``, ``cohort_evaluate``,
-``cohort_round_eval``) and gather-mode STLD are not ported yet.
+Gather-mode STLD is not ported yet.
 """
 from __future__ import annotations
 
@@ -22,14 +34,20 @@ from repro_torch.core import peft as peft_lib
 from repro_torch.core import ptls, stld
 from repro_torch.core.schedules import unit_shape
 from repro_torch.launch.steps import as_device_tensor, value_and_grad
-from repro_torch.models.losses import softmax_xent
+from repro_torch.models.losses import cohort_softmax_xent, softmax_xent
 from repro_torch.models.registry import model_apply
-from repro_torch.optim import adamw_update, clip_by_global_norm, make_lr_schedule
+from repro_torch.models.stacking import from_layer_list, is_stacked, layer_list
+from repro_torch.optim import adamw_init, adamw_update, clip_by_global_norm, make_lr_schedule
+
+METRICS = ("loss", "accuracy", "grad_norm", "active_layers")
 
 
 class ClientFns(NamedTuple):
     local_round: Callable
     evaluate: Callable
+    cohort_round: Callable
+    cohort_evaluate: Callable
+    cohort_round_eval: Callable
 
 
 def make_client_fns(cfg, peft_cfg, stld_cfg, train_cfg, *, device=None, shape=None) -> ClientFns:
@@ -55,6 +73,24 @@ def make_client_fns(cfg, peft_cfg, stld_cfg, train_cfg, *, device=None, shape=No
 
     ``evaluate(base_params, peft_params, tokens, labels, num_classes_arr)
     -> accuracy``: argmax over the label-token logits at the final position.
+
+    ``cohort_round(base_params, peft_stack, batch_stack, rates, rngs,
+    global_steps) -> (peft_stack, metrics, importances)``: ``peft_stack``
+    is N devices' trees stacked on a leading device axis (stacked layout:
+    ``(N, L, ...)`` leaves; list layout: a per-layer list of ``(N, ...)``
+    leaves), ``batch_stack`` has ``(N, steps, ...)`` arrays, ``rates``,
+    ``rngs`` and ``global_steps`` one entry per device.  Before the first
+    step every device draws all of its round's gates, device by device and
+    within a device step by step, so that the calls into
+    ``stld.sample_drops`` come in the order of N ``local_round`` calls.
+    ``metrics`` are (N,) step means, ``importances`` (N, L); device i's
+    outputs are what ``local_round`` gives it alone.
+
+    ``cohort_evaluate(base_params, peft_stack, tokens, labels, valid,
+    num_classes_arr) -> (N,) accuracies`` from (N, P, S) tokens padded to
+    P rows with the (N, P) ``valid`` mask; ``cohort_round_eval`` takes the
+    arguments of both and returns ``(peft_stack, metrics, importances,
+    accuracies)``.
     """
     if stld_cfg.mode != "cond":
         raise NotImplementedError(f"STLD mode {stld_cfg.mode!r} is not ported; the port runs 'cond'")
@@ -75,10 +111,13 @@ def make_client_fns(cfg, peft_cfg, stld_cfg, train_cfg, *, device=None, shape=No
 
     grad_fn = value_and_grad(loss_fn)
 
-    def local_round(base_params, peft_params, opt_state, batches, mean_rate, rng, global_step):
-        rates = torch.clamp(shape * mean_rate, 0.0, 0.95)
+    def round_rates(mean_rate):
         if not stld_cfg.enabled:
-            rates = torch.zeros((num_layers,))
+            return torch.zeros((num_layers,))
+        return torch.clamp(shape * mean_rate, 0.0, 0.95)
+
+    def local_round(base_params, peft_params, opt_state, batches, mean_rate, rng, global_step):
+        rates = round_rates(mean_rate)
         imp = ptls.ImportanceAccumulator.init(num_layers, device)
         tokens, targets, mask = (as_device_tensor(batches[k], device) for k in ("tokens", "targets", "mask"))
         steps = []
@@ -96,7 +135,7 @@ def make_client_fns(cfg, peft_cfg, stld_cfg, train_cfg, *, device=None, shape=No
                 torch.tensor(float(num_layers - int(drops.sum())), device=device),
             ]))
         means = torch.stack(steps).mean(dim=0)
-        metrics = dict(zip(("loss", "accuracy", "grad_norm", "active_layers"), means.unbind()))
+        metrics = dict(zip(METRICS, means.unbind()))
         return peft_params, opt_state, metrics, ptls.ImportanceAccumulator.importance(imp)
 
     @torch.no_grad()
@@ -107,4 +146,67 @@ def make_client_fns(cfg, peft_cfg, stld_cfg, train_cfg, *, device=None, shape=No
         pred = torch.argmax(class_logits, dim=-1)
         return torch.mean((pred == labels.long()).float())
 
-    return ClientFns(local_round, evaluate)
+    # ------------------------------------------------------------ the cohort
+    def cohort_loss_fn(layers, base_params, tokens, targets, mask, drops):
+        n = tokens.shape[0]
+        logits, aux, _ = model_apply(base_params, cfg, {"tokens": tokens}, drops=drops, peft=layers,
+                                     lora_scale=lora_sc, devices=n)
+        loss, metrics = cohort_softmax_xent(logits.view(n, -1, *logits.shape[1:]), targets, mask)
+        return torch.sum(loss + cfg.router_aux_coef * aux), metrics
+
+    cohort_grad_fn = value_and_grad(cohort_loss_fn)
+
+    def cohort_train(base_params, layers, batch_stack, rates, rngs, global_steps):
+        """The cohort's local rounds on a per-layer list of (N, ...) leaves
+        (each layer's adapters a leaf of their own, so a step's gradient
+        is written layer by layer, never as a whole stack)."""
+        n = len(rngs)
+        tokens, targets, mask = (as_device_tensor(batch_stack[k], device) for k in ("tokens", "targets", "mask"))
+        steps = tokens.shape[1]
+        gates = [[stld.sample_drops(rng, round_rates(float(rate)), stld_cfg.min_active_layers) for _ in range(steps)]
+                 for rate, rng in zip(rates, rngs)]
+        opt_state = adamw_init(layers)
+        imp = ptls.ImportanceAccumulator.init(num_layers, device, devices=n)
+        rows = []
+        for i in range(steps):
+            drops = torch.stack([g[i] for g in gates])  # (N, L)
+            (_, metrics), grads = cohort_grad_fn(layers, base_params, tokens[:, i], targets[:, i], mask[:, i], drops)
+            imp = ptls.ImportanceAccumulator.update(imp, ptls.layer_grad_norms(grads, devices=n), drops)
+            grads, gnorm = clip_by_global_norm(grads, train_cfg.grad_clip, devices=n)
+            lr = torch.tensor([sched(g + i) for g in global_steps], dtype=torch.float32, device=device)
+            layers, opt_state = adamw_update(
+                grads, opt_state, layers, lr=lr, beta1=train_cfg.beta1, beta2=train_cfg.beta2, eps=train_cfg.eps,
+                weight_decay=train_cfg.weight_decay,
+            )
+            active = (num_layers - drops.sum(dim=1)).float().to(device)
+            rows.append(torch.stack([metrics["loss"], metrics["accuracy"], gnorm, active]))
+        means = torch.stack(rows).mean(dim=0)  # (4, N)
+        return layers, dict(zip(METRICS, means.unbind())), ptls.ImportanceAccumulator.importance(imp)
+
+    @torch.no_grad()
+    def cohort_accuracy(base_params, layers, tokens, labels, valid, num_classes_arr):
+        tokens, labels, valid = (as_device_tensor(t, device) for t in (tokens, labels, valid))
+        n, rows = labels.shape
+        logits, _, _ = model_apply(base_params, cfg, {"tokens": tokens}, peft=layers, lora_scale=lora_sc, devices=n)
+        class_logits = logits[:, -1].float()[:, 1 : 1 + len(num_classes_arr)].view(n, rows, -1)
+        pred = torch.argmax(class_logits, dim=-1)
+        correct = (pred == labels.long()).float() * valid.float()
+        return torch.sum(correct, dim=1) / torch.clamp(torch.sum(valid.float(), dim=1), min=1.0)
+
+    def cohort_round(base_params, peft_stack, batch_stack, rates, rngs, global_steps):
+        layers, metrics, importances = cohort_train(
+            base_params, layer_list(peft_stack, num_layers, axis=1), batch_stack, rates, rngs, global_steps)
+        return from_layer_list(layers, is_stacked(peft_stack), axis=1), metrics, importances
+
+    def cohort_evaluate(base_params, peft_stack, tokens, labels, valid, num_classes_arr):
+        return cohort_accuracy(base_params, layer_list(peft_stack, num_layers, axis=1), tokens, labels, valid,
+                               num_classes_arr)
+
+    def cohort_round_eval(base_params, peft_stack, batch_stack, rates, rngs, global_steps, val_tokens, val_labels,
+                          val_valid, num_classes_arr):
+        layers, metrics, importances = cohort_train(
+            base_params, layer_list(peft_stack, num_layers, axis=1), batch_stack, rates, rngs, global_steps)
+        accs = cohort_accuracy(base_params, layers, val_tokens, val_labels, val_valid, num_classes_arr)
+        return from_layer_list(layers, is_stacked(peft_stack), axis=1), metrics, importances, accs
+
+    return ClientFns(local_round, evaluate, cohort_round, cohort_evaluate, cohort_round_eval)

@@ -141,8 +141,11 @@ class ExperimentRunner:
     """Round loop and state threading for one experiment.
 
     ``device`` (None = the card) holds the base weights and every PEFT
-    tree.  ``cohort_mode`` ``"auto"`` runs ``"sequential"``, the only mode
-    ported.  ``checkpoint_dir``/``resume``, ``fault_plan`` and
+    tree.  ``cohort_mode`` ``"auto"`` resolves as the reference's:
+    ``"batched"`` for every algorithm but one whose ``requires_sequential``
+    is set (its per-device trees cannot share a device axis), which runs
+    ``"sequential"``; ``"batched"`` for such an algorithm raises
+    ``ValueError``.  ``checkpoint_dir``/``resume``, ``fault_plan`` and
     ``compression`` are not ported and raise."""
 
     def __init__(self, cfg, peft_cfg, stld_cfg, fed_cfg, train_cfg, *,
@@ -156,14 +159,18 @@ class ExperimentRunner:
                                     ("fault_plan", fault_plan, 6), ("compression", compression, 6)):
             if value:
                 raise unported(f"{option}={value!r}", item)
-        if cohort_mode == "batched":
-            raise unported("cohort_mode='batched'", 2)
         if stld_cfg.mode != "cond":
             raise unported(f"stld_mode={stld_cfg.mode!r}", 5)
         if isinstance(algorithm, str):
             algorithm = get_algorithm(algorithm)()
         else:
             algorithm = fresh_algorithm(algorithm)
+        if cohort_mode == "batched" and algorithm.requires_sequential:
+            name = getattr(algorithm, "name", type(algorithm).__name__)
+            raise ValueError(f"cohort_mode='batched' cannot stack {name}'s heterogeneous PEFT trees; "
+                             "use 'sequential' (or 'auto')")
+        if cohort_mode == "auto":
+            cohort_mode = "sequential" if algorithm.requires_sequential else "batched"
         self.algorithm = algorithm
         self.schedule = resolve_schedule(schedule)
         self.scheduler = VirtualClockScheduler(self, self.schedule)  # raises for an unported policy
@@ -175,9 +182,9 @@ class ExperimentRunner:
         )
         self.ctx = ctx
         global_peft = algorithm.bind(ctx)
-        self.cohort_mode = "sequential"
+        self.cohort_mode = cohort_mode
         ctx.engine = CohortEngine(cfg, peft_cfg, stld_cfg, fed_cfg, train_cfg, ctx.task, ctx.devices, base_params,
-                                  device=self.device)
+                                  cohort_mode=cohort_mode, device=self.device)
         self.state = RoundState(key=key, global_peft=global_peft, rng=rng,
                                 configurator=algorithm.build_configurator(ctx))
 

@@ -5,6 +5,14 @@
 // x (M, K) contiguous; W (K, N), A (K, r) and B (r, N) given by pointer and
 // two strides each, so a transposed view needs no copy; y (M, N).
 //
+// Grouped: with G groups of rows = M / G rows each, A and B carry a group
+// axis (A_g at a + g * sag, B_g at b + g * sbg), and row i of group
+// g = i / rows takes A_g and B_g; W stays shared.  One launch then runs a
+// LoRA projection for a whole cohort of devices, each with its own
+// adapter.  G = 1 (group strides unused) is the ungrouped call.  Every sum
+// keeps the order it has in the ungrouped call on the group's rows alone,
+// so group g's rows equal, bit for bit, that call with A_g and B_g.
+//
 // Replaces src/repro/kernels/lora_matmul.py: lora_matmul_pallas (kernel
 // body _lora_kernel), with its op order: the main product and the rank-r
 // bottleneck t accumulate in float32, t is rounded to the input dtype T,
@@ -46,6 +54,15 @@
 //  * float32: CUDA-core FMAs on 32 x 32 tiles with the accumulators in
 //    shared memory (full float32; the tensor cores would round to TF32).
 //
+// Groups on each route: the float32 and WMMA kernels and the bottleneck
+// kernel tile each group's rows apart (a block never spans two groups, so
+// it stages one A_g or B_g).  The wgmma kernel tiles all M rows as one
+// matrix (x @ W is the same for every group); its epilogue stages the B_g of
+// every group its 128 rows touch and adds each row its own group's t @ B_g.
+// The launcher refuses the wgmma route when those B_g would not fit beside
+// the ring (span * RT > MAX_R, span = the groups one tile can touch: 1 when
+// rows is a multiple of 128), and the wrapper then takes the WMMA route.
+//
 // What bounds it on the card: at the training shape of the q projection
 // (M 8192, K 2048, N 2048, r 8, bf16) it does ~6.9e10 FLOPs over ~50 MB, so
 // the tensor cores bound it (~70 us at 989 TFLOP/s); the bottleneck kernel
@@ -84,8 +101,9 @@ struct LoraSmem {
 template <typename T>
 __global__ void __launch_bounds__(TILE_THREADS)
 lora_matmul_fma_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ a,
-                   const T* __restrict__ b, T* __restrict__ y, int M, int K, int N, int R, long long sw0,
-                   long long sw1, long long sa0, long long sa1, long long sb0, long long sb1, float alpha) {
+                   const T* __restrict__ b, T* __restrict__ y, int rows, int K, int N, int R, long long sw0,
+                   long long sw1, long long sa0, long long sa1, long long sag, long long sb0, long long sb1,
+                   long long sbg, float alpha) {
   using L = LoraSmem<T>;
   constexpr int BM = L::BM, BN = L::BN;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -98,9 +116,13 @@ lora_matmul_fma_kernel(const T* __restrict__ x, const T* __restrict__ w, const T
   T* b_s = reinterpret_cast<T*>(smem + L::b);
   float* side_s = reinterpret_cast<float*>(smem + L::side);
 
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  // this block's rows: tile i0 / BM of group g
+  const int tpg = (rows + BM - 1) / BM, g = blockIdx.y / tpg, i0 = (blockIdx.y % tpg) * BM;
+  const int m0 = g * rows + i0, n0 = blockIdx.x * BN;
   const int RP = (R + 15) / 16 * 16;
-  const int mvalid = min(BM, M - m0), nvalid = min(BN, N - n0);
+  const int mvalid = min(BM, rows - i0), nvalid = min(BN, N - n0);
+  a += g * sag;
+  b += g * sbg;
 
   for (int k0 = 0; k0 < K; k0 += KC) {
     const int kvalid = min(KC, K - k0);
@@ -128,18 +150,18 @@ lora_matmul_fma_kernel(const T* __restrict__ x, const T* __restrict__ w, const T
   }
 }
 
-int launch_fma(const void* x, const void* w, const void* a, const void* b, void* y, int M, int K, int N, int R,
-               long long sw0, long long sw1, long long sa0, long long sa1, long long sb0, long long sb1,
-               float alpha, cudaStream_t stream) {
+int launch_fma(const void* x, const void* w, const void* a, const void* b, void* y, int G, int rows, int K, int N,
+               int R, long long sw0, long long sw1, long long sa0, long long sa1, long long sag, long long sb0,
+               long long sb1, long long sbg, float alpha, cudaStream_t stream) {
   using T = float;
   using L = LoraSmem<T>;
   cudaError_t err = cudaFuncSetAttribute(lora_matmul_fma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(L::bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((N + L::BN - 1) / L::BN, (M + L::BM - 1) / L::BM);
+  const dim3 grid((N + L::BN - 1) / L::BN, G * ((rows + L::BM - 1) / L::BM));
   lora_matmul_fma_kernel<T><<<grid, TILE_THREADS, L::bytes, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(a), static_cast<const T*>(b),
-      static_cast<T*>(y), M, K, N, R, sw0, sw1, sa0, sa1, sb0, sb1, alpha);
+      static_cast<T*>(y), rows, K, N, R, sw0, sw1, sa0, sa1, sag, sb0, sb1, sbg, alpha);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -194,8 +216,9 @@ __device__ __forceinline__ void stage(bf16* dst, int ldd, const bf16* src, long 
 template <bool COL>
 __global__ void __launch_bounds__(WTHREADS)
 lora_matmul_wmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w, const bf16* __restrict__ t,
-                        const bf16* __restrict__ b, bf16* __restrict__ y, int M, int K, int N, int R, int RT,
-                        long long ldw, long long ldb, int vec_x, int vec_w, int vec_b, int vec_y, float alpha) {
+                        const bf16* __restrict__ b, bf16* __restrict__ y, int rows, int K, int N, int R, int RT,
+                        long long ldw, long long ldb, long long sbg, int vec_x, int vec_w, int vec_b, int vec_y,
+                        float alpha) {
   using namespace nvcuda;
   using L = WmmaSmem;
   using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
@@ -208,9 +231,12 @@ lora_matmul_wmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w, 
 
   const int warp = threadIdx.x >> 5;
   const int wr = warp >> 1, wc = warp & 1;
-  const int m0 = blockIdx.y * WM, n0 = blockIdx.x * WN;
+  // this block's rows: tile i0 / WM of group g, which takes B_g
+  const int tpg = (rows + WM - 1) / WM, g = blockIdx.y / tpg, i0 = (blockIdx.y % tpg) * WM;
+  const int m0 = g * rows + i0, n0 = blockIdx.x * WN;
   const int RP = (R + 15) / 16 * 16;
-  const int mvalid = min(WM, M - m0), nvalid = min(WN, N - n0);
+  const int mvalid = min(WM, rows - i0), nvalid = min(WN, N - n0);
+  b += g * sbg;
 
   // B fragment (k0, n0) of a staged operand: row-major [k][n] or column-major [n][k]
   auto load_b = [](FragB& f, const bf16* base, int ld, int k0, int n0) {
@@ -366,14 +392,19 @@ __device__ __forceinline__ void bf16x8_to_float(const uint4& u, float (&f)[8]) {
 template <int LAYOUT, bool XV>
 __global__ void __launch_bounds__(BT_THREADS, 2)
 lora_bottleneck_kernel(const bf16* __restrict__ x, const bf16* __restrict__ a, bf16* __restrict__ t, int M, int K,
-                       int R, int RT, long long sa0, long long sa1) {
+                       int R, int RT, long long sa0, long long sa1, long long sag) {
   extern __shared__ __align__(16) unsigned char bt_smem[];
   bf16* a_s = reinterpret_cast<bf16*>(bt_smem);                      // [2][BT_KC * 8]
   uint4* x_s = reinterpret_cast<uint4*>(bt_smem + 2 * BT_KC * 8 * 2);  // [BT_XD][BT_WARPS][BT_ROWS][32]
   pdl_launch_dependents();  // the main kernel's blocks may take the SMs this grid frees
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int c0 = blockIdx.y * 8;
-  const int row0 = blockIdx.x * (BT_WARPS * BT_ROWS) + warp * BT_ROWS;
+  // M is the rows of one group here; the block's group g takes A_g
+  const int bpg = (M + BT_WARPS * BT_ROWS - 1) / (BT_WARPS * BT_ROWS), g = blockIdx.x / bpg;
+  x += (long long)g * M * K;
+  t += (long long)g * M * RT;
+  a += g * sag;
+  const int row0 = (blockIdx.x % bpg) * (BT_WARPS * BT_ROWS) + warp * BT_ROWS;
   const int nvec = (K + 7) / 8, n_i = (nvec + 31) / 32, np = (K + BT_KC - 1) / BT_KC;
   float acc[BT_ROWS][8];
 #pragma unroll
@@ -486,16 +517,16 @@ lora_bottleneck_kernel(const bf16* __restrict__ x, const bf16* __restrict__ a, b
   }
 }
 
-// t = T(x @ A) into the (M, RT) scratch t, RT = R rounded up to 8.
-int launch_bottleneck(const void* x, const void* a, void* t, int M, int K, int R, int RT, long long sa0,
-                      long long sa1, cudaStream_t stream) {
+// t = T(x @ A_g) into the (G * rows, RT) scratch t, RT = R rounded up to 8.
+int launch_bottleneck(const void* x, const void* a, void* t, int G, int rows, int K, int R, int RT, long long sa0,
+                      long long sa1, long long sag, cudaStream_t stream) {
   // 16-byte staging of x's slices when its rows are whole vectors, of A
-  // when its 8-column groups are whole and aligned
-  const bool xv = aligned16(x) && K % 8 == 0, a16 = aligned16(a) && R % 8 == 0;
+  // when its 8-column groups are whole and aligned (in every group)
+  const bool xv = aligned16(x) && K % 8 == 0, a16 = aligned16(a) && R % 8 == 0 && sag % 8 == 0;
   const int layout = a16 && sa1 == 1 && sa0 % 8 == 0                 ? kBtRows
                      : a16 && sa0 == 1 && sa1 % 8 == 0 && K % 8 == 0 ? kBtCols
                                                                      : kBtScalar;
-  using Kernel = void (*)(const bf16*, const bf16*, bf16*, int, int, int, int, long long, long long);
+  using Kernel = void (*)(const bf16*, const bf16*, bf16*, int, int, int, int, long long, long long, long long);
   const Kernel kernels[2][3] = {
       {lora_bottleneck_kernel<kBtScalar, false>, lora_bottleneck_kernel<kBtRows, false>,
        lora_bottleneck_kernel<kBtCols, false>},
@@ -504,26 +535,26 @@ int launch_bottleneck(const void* x, const void* a, void* t, int M, int K, int R
   const Kernel bottleneck = kernels[xv][layout];
   cudaError_t err = cudaFuncSetAttribute(bottleneck, cudaFuncAttributeMaxDynamicSharedMemorySize, BT_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((M + BT_WARPS * BT_ROWS - 1) / (BT_WARPS * BT_ROWS), RT / 8);
+  const dim3 grid(G * ((rows + BT_WARPS * BT_ROWS - 1) / (BT_WARPS * BT_ROWS)), RT / 8);
   bottleneck<<<grid, BT_THREADS, BT_SMEM, stream>>>(static_cast<const bf16*>(x), static_cast<const bf16*>(a),
-                                                    static_cast<bf16*>(t), M, K, R, RT, sa0, sa1);
+                                                    static_cast<bf16*>(t), rows, K, R, RT, sa0, sa1, sag);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_wmma(const void* x, const void* w, const void* a, const void* b, void* y, void* t, int M, int K, int N,
-                int R, long long sw0, long long sw1, long long sa0, long long sa1, long long sb0, long long sb1,
-                float alpha, cudaStream_t stream) {
+int launch_wmma(const void* x, const void* w, const void* a, const void* b, void* y, void* t, int G, int rows, int K,
+                int N, int R, long long sw0, long long sw1, long long sa0, long long sa1, long long sag, long long sb0,
+                long long sb1, long long sbg, float alpha, cudaStream_t stream) {
   const bool row = sw1 == 1 && sa1 == 1 && sb1 == 1;
   const bool col = sw0 == 1 && sa0 == 1 && sb0 == 1;
   if (!row && !col) return -1;  // W, A, B all row-major (forward) or all transposed views (dX)
   if (!aligned16(t)) return -1;
   const long long ldw = row ? sw0 : sw1, ldb = row ? sb0 : sb1;
   const int vec_x = aligned16(x) && K % 8 == 0, vec_y = aligned16(y) && N % 8 == 0;
-  const int vec_w = aligned16(w) && ldw % 8 == 0, vec_b = aligned16(b) && ldb % 8 == 0;
+  const int vec_w = aligned16(w) && ldw % 8 == 0, vec_b = aligned16(b) && ldb % 8 == 0 && sbg % 8 == 0;
   const int RT = (R + 7) / 8 * 8;
-  int e = launch_bottleneck(x, a, t, M, K, R, RT, sa0, sa1, stream);
+  int e = launch_bottleneck(x, a, t, G, rows, K, R, RT, sa0, sa1, sag, stream);
   if (e) return e;
-  const dim3 grid((N + WN - 1) / WN, (M + WM - 1) / WM);
+  const dim3 grid((N + WN - 1) / WN, G * ((rows + WM - 1) / WM));
   auto kernel = row ? lora_matmul_wmma_kernel<false> : lora_matmul_wmma_kernel<true>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(WmmaSmem::bytes));
@@ -531,16 +562,17 @@ int launch_wmma(const void* x, const void* w, const void* a, const void* b, void
   // the bottleneck's programmatic dependent: it waits for t before its epilogue
   err = launch_dependent(kernel, grid, dim3(WTHREADS), WmmaSmem::bytes, stream, static_cast<const bf16*>(x),
                          static_cast<const bf16*>(w), static_cast<const bf16*>(t), static_cast<const bf16*>(b),
-                         static_cast<bf16*>(y), M, K, N, R, RT, ldw, ldb, vec_x, vec_w, vec_b, vec_y, alpha);
+                         static_cast<bf16*>(y), rows, K, N, R, RT, ldw, ldb, sbg, vec_x, vec_w, vec_b, vec_y, alpha);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-// (2) y = T(x @ W + alpha * t @ B).  Shared memory: the ring (x chunks
+// (2) y = T(x @ W + alpha * t @ B_g).  Shared memory: the ring (x chunks
 // 128 x 64, W chunks 64 x 256 as four 64-column sub-tiles or one 256-row
-// sub-tile), B's rows for the tile's 256 columns, the barriers; the y tile
-// reuses the x chunks.
-constexpr int GM = 128, GN = 256, GK = 64, GSTAGES = 4, GTHREADS = 2 * hopper::WG_THREADS, GROUP_M = 16;
+// sub-tile), the RT rows of each B_g that the tile's rows take, for its 256
+// columns (MAX_R rows in all), the barriers; the y tile reuses the x chunks.
+constexpr int GM = 128;  // a tile's rows (ops.LORA_TILE_ROWS)
+constexpr int GN = 256, GK = 64, GSTAGES = 4, GTHREADS = 2 * hopper::WG_THREADS, GROUP_M = 16;
 
 struct GemmLayout {
   static constexpr int x = 0;
@@ -579,8 +611,8 @@ template <bool B_MN>
 __global__ void __launch_bounds__(GTHREADS, 1)
 lora_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
                          const __grid_constant__ CUtensorMap ty, const bf16* __restrict__ t,
-                         const bf16* __restrict__ b, int M, int K, int N, int R, int RT, long long sb0,
-                         long long sb1, float alpha) {
+                         const bf16* __restrict__ b, int M, int K, int N, int R, int RT, int G, int rows,
+                         long long sb0, long long sb1, long long sbg, float alpha) {
   using namespace hopper;
   using L = GemmLayout;
   extern __shared__ unsigned char smem_raw[];
@@ -630,18 +662,23 @@ lora_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_co
   if (feeder) {
     for (int c = 0; c < nk && c < GSTAGES; ++c) feed(c);
   }
-  // B's rows for the tile's columns (zero past R and N), for the epilogue
-  for (int e = threadIdx.x; e < RT * GN; e += GTHREADS) {
+  // the groups g0 .. g0 + ng - 1 of the tile's rows (below M); B_{g0 + s}'s
+  // rows for the tile's columns (zero past R and N) at b_s[s * RT ..], for
+  // the epilogue
+  const int g0 = m0 / rows, ng = (min(m0 + GM, M) - 1) / rows - g0 + 1;
+  for (int e = threadIdx.x; e < ng * RT * GN; e += GTHREADS) {
+    const int s = e / (RT * GN), f = e % (RT * GN);
     int j, col;
     if (sb1 == 1) {
-      j = e / GN;
-      col = e % GN;
+      j = f / GN;
+      col = f % GN;
     } else {
-      col = e / RT;
-      j = e % RT;
+      col = f / RT;
+      j = f % RT;
     }
-    b_s[j * GN + col] =
-        j < R && n0 + col < N ? b[(long long)j * sb0 + (long long)(n0 + col) * sb1] : __float2bfloat16(0.f);
+    const bf16* bg = b + (long long)(g0 + s) * sbg;
+    b_s[(s * RT + j) * GN + col] =
+        j < R && n0 + col < N ? bg[(long long)j * sb0 + (long long)(n0 + col) * sb1] : __float2bfloat16(0.f);
   }
 
   float acc[GN / 2];
@@ -667,9 +704,13 @@ lora_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_co
   __syncthreads();  // both products done (the ring is free for y); b_s complete
   pdl_wait();       // t is written
 
-  // y += alpha * t @ B: this thread's rows ra, ra + 8 and its 64 columns,
-  // t @ B summed over 8 ranks at a time (one group at the port's rank 8)
+  // y += alpha * t @ B_g: this thread's rows ra, ra + 8 (each with its own
+  // group's staged B; rows past M, whose t is zero, take the last one) and
+  // its 64 columns, t @ B summed over 8 ranks at a time (one pass at the
+  // port's rank 8)
   const int ra = m0 + 64 * cw + 16 * (tid >> 5) + (lane >> 2);
+  const bf16* b0 = b_s + (min(ra, M - 1) / rows - g0) * RT * GN;
+  const bf16* b1 = b_s + (min(ra + 8, M - 1) / rows - g0) * RT * GN;
   for (int g = 0; g < RT; g += 8) {
     float t0[8], t1[8];
     load_t8(t, ra, M, RT, g, t0);
@@ -680,11 +721,12 @@ lora_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_co
       float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const float2 bv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b_s + (g + j) * GN + col));
-        s0 = fmaf(t0[j], bv.x, s0);
-        s1 = fmaf(t0[j], bv.y, s1);
-        s2 = fmaf(t1[j], bv.x, s2);
-        s3 = fmaf(t1[j], bv.y, s3);
+        const float2 bv0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b0 + (g + j) * GN + col));
+        const float2 bv1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b1 + (g + j) * GN + col));
+        s0 = fmaf(t0[j], bv0.x, s0);
+        s1 = fmaf(t0[j], bv0.y, s1);
+        s2 = fmaf(t1[j], bv1.x, s2);
+        s3 = fmaf(t1[j], bv1.y, s3);
       }
       acc[4 * jj] += alpha * s0;
       acc[4 * jj + 1] += alpha * s1;
@@ -705,15 +747,23 @@ lora_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_co
   }
 }
 
-int launch_wgmma(const void* x, const void* w, const void* a, const void* b, void* y, void* t, int M, int K, int N,
-                 int R, long long sw0, long long sw1, long long sa0, long long sa1, long long sb0, long long sb1,
-                 float alpha, cudaStream_t stream) {
+// The most groups of `rows` rows that one GM-row tile can touch (mirrored
+// by ops.lora_group_span, which sends a refused grouped call to WMMA).
+int group_span(int G, int rows) {
+  const int span = rows % GM == 0 ? 1 : (GM - 1 + rows - 1) / rows + 1;
+  return span < G ? span : G;
+}
+
+int launch_wgmma(const void* x, const void* w, const void* a, const void* b, void* y, void* t, int G, int rows,
+                 int K, int N, int R, long long sw0, long long sw1, long long sa0, long long sa1, long long sag,
+                 long long sb0, long long sb1, long long sbg, float alpha, cudaStream_t stream) {
   const bool b_mn = sw1 == 1 && sw0 % 8 == 0;  // W row-major: the forward
   const bool b_k = sw0 == 1 && sw1 % 8 == 0;   // a transposed view: dX
   if (!b_mn && !b_k) return -1;
   if (K % 8 || N % 8 || !aligned16(x) || !aligned16(w) || !aligned16(y) || !aligned16(t)) return -1;
-  const int RT = (R + 7) / 8 * 8;
-  int e = launch_bottleneck(x, a, t, M, K, R, RT, sa0, sa1, stream);
+  const int RT = (R + 7) / 8 * 8, M = G * rows;
+  if (group_span(G, rows) * RT > MAX_R) return -1;  // the B_g a tile takes would not fit
+  int e = launch_bottleneck(x, a, t, G, rows, K, R, RT, sa0, sa1, sag, stream);
   if (e) return e;
   CUtensorMap tx, tw, ty;
   e = hopper::make_map_2d(&tx, x, K, M, K);
@@ -727,7 +777,8 @@ int launch_wgmma(const void* x, const void* w, const void* a, const void* b, voi
   // start before the bottleneck ends, and it waits for t before the epilogue
   const unsigned tiles = static_cast<unsigned>((long long)((M + GM - 1) / GM) * ((N + GN - 1) / GN));
   err = launch_dependent(kernel, dim3(tiles), dim3(GTHREADS), GemmLayout::bytes, stream, tx, tw, ty,
-                         static_cast<const bf16*>(t), static_cast<const bf16*>(b), M, K, N, R, RT, sb0, sb1, alpha);
+                         static_cast<const bf16*>(t), static_cast<const bf16*>(b), M, K, N, R, RT, G, rows, sb0, sb1,
+                         sbg, alpha);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -739,22 +790,25 @@ enum LoraRoute { kRouteFma = 0, kRouteWmma = 1, kRouteWgmma = 2 };
 
 // Returns 0 on a good launch, the cudaError_t of a refused launch, -1 for
 // arguments the route does not take, or -2 if CUDA refuses a tensor map.
-// t: the bf16 routes' (M, ceil(r / 8) * 8) bf16 scratch for the bottleneck,
-// 16-byte aligned (unused by the float32 route).  Shapes,
-// dtypes, devices and x's contiguity are checked by the Python wrapper.
+// G groups of M / G rows (G divides M); sag and sbg are A's and B's group
+// strides (unused at G = 1).  t: the bf16 routes' (M, ceil(r / 8) * 8) bf16
+// scratch for the bottleneck, 16-byte aligned (unused by the float32
+// route).  Shapes, dtypes, devices and x's contiguity are checked by the
+// Python wrapper.
 extern "C" int lora_matmul_launch(int dtype, int route, const void* x, const void* w, const void* a, const void* b,
-                                  void* y, void* t, int M, int K, int N, int R, long long sw0, long long sw1,
-                                  long long sa0, long long sa1, long long sb0, long long sb1, float alpha,
-                                  void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0 || R <= 0 || R > MAX_R) return -1;
+                                  void* y, void* t, int M, int K, int N, int R, int G, long long sw0, long long sw1,
+                                  long long sa0, long long sa1, long long sag, long long sb0, long long sb1,
+                                  long long sbg, float alpha, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || R <= 0 || R > MAX_R || G <= 0 || M % G) return -1;
+  const int rows = M / G;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == kRouteWgmma && dtype == kBFloat16)
-    return launch_wgmma(x, w, a, b, y, t, M, K, N, R, sw0, sw1, sa0, sa1, sb0, sb1, alpha, s);
-  if ((M + 31) / 32 > 65535) return -1;
+    return launch_wgmma(x, w, a, b, y, t, G, rows, K, N, R, sw0, sw1, sa0, sa1, sag, sb0, sb1, sbg, alpha, s);
+  if ((long long)G * ((rows + 31) / 32) > 65535) return -1;
   if (route == kRouteFma && dtype == kFloat32)
-    return launch_fma(x, w, a, b, y, M, K, N, R, sw0, sw1, sa0, sa1, sb0, sb1, alpha, s);
+    return launch_fma(x, w, a, b, y, G, rows, K, N, R, sw0, sw1, sa0, sa1, sag, sb0, sb1, sbg, alpha, s);
   if (route == kRouteWmma && dtype == kBFloat16)
-    return launch_wmma(x, w, a, b, y, t, M, K, N, R, sw0, sw1, sa0, sa1, sb0, sb1, alpha, s);
+    return launch_wmma(x, w, a, b, y, t, G, rows, K, N, R, sw0, sw1, sa0, sa1, sag, sb0, sb1, sbg, alpha, s);
   return -1;
 }
 

@@ -11,7 +11,8 @@ and ``mamba_scan_plain``, backward ``wkv6_bwd_plain`` and
 ``launch_counts`` counts the kernel launches of each wrapper (the CPU twin
 is not counted), so a run can show that its main path went through the
 kernels: ``reset_launch_counts()`` before it, read the counts after.
-``lora_matmul_routes`` counts ``lora_matmul``'s launches by route.
+``lora_matmul_routes`` counts ``lora_matmul``'s launches by route; a
+grouped ``lora_matmul`` (one adapter per group of rows) is one launch.
 """
 from __future__ import annotations
 
@@ -23,7 +24,8 @@ import torch
 from repro_torch.kernels import _build, ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}  # csrc/common.cuh DTypeCode
-MAX_LORA_RANK = 64  # csrc/segmented_lora.cu MAX_R
+MAX_LORA_RANK = 64  # csrc/segmented_lora.cu and csrc/lora_matmul.cu MAX_R
+LORA_TILE_ROWS = 128  # csrc/lora_matmul.cu GM: the rows of a wgmma-route tile
 MAX_GQA_REP = 8  # csrc/flash_decode.cu MAX_REP
 MAX_HEAD_DIM = 256  # csrc/flash_decode.cu MAX_D
 MAX_ATTN_HEAD_DIM = 128  # csrc/tiles.cuh MAX_D, flash_attention forward and backward
@@ -64,7 +66,7 @@ _SIGNATURES = {
     ),
     "lora_matmul": (
         "lora_matmul_launch",
-        [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _F, _P],
+        [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _L, _L, _F, _P],
     ),
     "wkv6": ("wkv6_fwd_launch", [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "wkv6_bwd": (
@@ -343,12 +345,24 @@ def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = Non
     return _FlashAttention.apply(q, k, v, causal, window)
 
 
-def lora_matmul_route(x, w) -> str:
+def lora_group_span(groups: int, rows: int) -> int:
+    """The most groups of ``rows`` rows that one 128-row tile of the wgmma
+    route can touch: 1 when ``rows`` is a multiple of the tile
+    (``csrc/lora_matmul.cu`` group_span)."""
+    if rows % LORA_TILE_ROWS == 0:
+        return 1
+    return min(groups, (LORA_TILE_ROWS - 1 + rows - 1) // rows + 1)
+
+
+def lora_matmul_route(x, w, a=None) -> str:
     """The ``lora_matmul`` route for these operands, by dtype and shape:
     ``fma`` for float32; for bf16 ``wgmma`` (TMA and the tensor cores) when
     K and N are multiples of 8 and W is row-major or a transposed view of a
-    row-major matrix, 16-byte aligned (TMA's rule), else ``wmma``.  Both
-    bf16 routes take the bottleneck from one float32-FMA kernel."""
+    row-major matrix, 16-byte aligned (TMA's rule), and, for a grouped ``a``
+    (G, K, r), the B_g of every group that a 128-row tile touches fit its
+    staging (``lora_group_span`` times r rounded up to 8 at most
+    ``MAX_LORA_RANK``), else ``wmma``.  Both bf16 routes take the
+    bottleneck from one float32-FMA kernel."""
     if x.dtype == torch.float32:
         return "fma"
     k, n = w.shape
@@ -358,41 +372,52 @@ def lora_matmul_route(x, w) -> str:
         ld = w.stride(1)
     else:
         return "wmma"
+    if a is not None and a.ndim == 3:
+        groups, r = a.shape[0], a.shape[-1]
+        if lora_group_span(groups, x.shape[0] // groups) * (-(-r // 8) * 8) > MAX_LORA_RANK:
+            return "wmma"
     aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
     return "wgmma" if k % 8 == 0 and n % 8 == 0 and ld % 8 == 0 and aligned else "wmma"
 
 
 def _lora_matmul_launch(x, w, a, b, alpha: float, route: Optional[str] = None):
-    """One ``lora_matmul`` launch.  x: (M, K) contiguous; w (K, N), a (K, r),
-    b (r, N) may be strided views (the backward passes transposes).
-    ``route`` None takes ``lora_matmul_route``'s; a route given by name
-    (for measurements) raises if it cannot take the operands.  Returns
-    (M, N) in ``x.dtype``."""
+    """One ``lora_matmul`` launch.  x: (M, K) contiguous; w (K, N), a (K, r)
+    or grouped (G, K, r), b (r, N) or (G, r, N) may be strided views (the
+    backward passes transposes).  ``route`` None takes
+    ``lora_matmul_route``'s; a route given by name (for measurements)
+    raises if it cannot take the operands.  Returns (M, N) in ``x.dtype``."""
     m, k = x.shape
-    n, r = w.shape[1], a.shape[1]
-    route = lora_matmul_route(x, w) if route is None else route
+    n, r = w.shape[1], a.shape[-1]
+    groups, sag, sbg = (a.shape[0], a.stride(0), b.stride(0)) if a.ndim == 3 else (1, 0, 0)
+    route = lora_matmul_route(x, w, a) if route is None else route
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0:
         return y
-    # the bf16 routes' scratch, freed on return: t = T(x @ A), (M, r rounded up to 8)
+    # the bf16 routes' scratch, freed on return: t = T(x @ A_g), (M, r rounded up to 8)
     t = torch.empty((m, -(-r // 8) * 8) if route != "fma" else (0,), dtype=x.dtype, device=x.device)
     err = _entry("lora_matmul")(
         _DTYPE_CODE[x.dtype], LORA_ROUTES.index(route), x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
-        y.data_ptr(), t.data_ptr(), m, k, n, r, w.stride(0), w.stride(1), a.stride(0), a.stride(1),
-        b.stride(0), b.stride(1), alpha, _stream(x),
+        y.data_ptr(), t.data_ptr(), m, k, n, r, groups, w.stride(0), w.stride(1), a.stride(-2), a.stride(-1), sag,
+        b.stride(-2), b.stride(-1), sbg, alpha, _stream(x),
     )
     _check_launch("lora_matmul", err)
     lora_matmul_routes[route] += 1
     return y
 
 
+def _by_group(t, a):
+    """``t`` (M, ·) as (G, M / G, ·) views for a grouped ``a`` (G, K, r)."""
+    return t if a.ndim == 2 else t.view(a.shape[0], -1, t.shape[-1])
+
+
 class _LoraMatmul(torch.autograd.Function):
     """Forward and dX through the ``lora_matmul`` kernel; W is frozen.
 
-    dX = dY @ W^T + alpha * (dY @ B^T) @ A^T is the forward kernel on
-    transposed views (no copy of W).  dA = alpha * x^T (dY B^T) and
-    dB = alpha * t^T dY are rank-r products, left to ``torch.matmul`` as
-    the JAX package leaves them to XLA.
+    dX = dY @ W^T + alpha * (dY @ B_g^T) @ A_g^T is the forward kernel on
+    transposed views (no copy of W; grouped, one launch for every group).
+    dA = alpha * x^T (dY B^T) and dB = alpha * t^T dY are rank-r products,
+    left to ``torch.matmul`` (batched over the groups) as the JAX package
+    leaves them to XLA.
     """
 
     @staticmethod
@@ -407,26 +432,31 @@ class _LoraMatmul(torch.autograd.Function):
         dy = dy.contiguous()
         dx = da = db = None
         if ctx.needs_input_grad[0]:
-            dx = _lora_matmul_launch(dy, w.t(), b.t(), a.t(), ctx.alpha)
+            dx = _lora_matmul_launch(dy, w.t(), b.transpose(-1, -2), a.transpose(-1, -2), ctx.alpha)
+        xg, dyg = _by_group(x, a), _by_group(dy, a)
         if ctx.needs_input_grad[2]:
-            da = ctx.alpha * (x.t() @ (dy @ b.t()))
+            da = ctx.alpha * (xg.transpose(-1, -2) @ (dyg @ b.transpose(-1, -2)))
         if ctx.needs_input_grad[3]:
-            db = ctx.alpha * ((x @ a).t() @ dy)
+            db = ctx.alpha * ((xg @ a).transpose(-1, -2) @ dyg)
         return dx, None, da, db, None
 
 
 def lora_matmul(x, w, a, b, *, alpha: float = 1.0):
     """``x @ W + alpha * (x @ A) @ B`` with a frozen W, differentiable in
     x, A and B.  x: (M, K); w: (K, N); a: (K, r); b: (r, N), all of one
-    dtype.  Returns (M, N) in ``x.dtype``."""
+    dtype.  Grouped: a (G, K, r) and b (G, r, N), and row i of group
+    ``i // (M / G)`` takes A_g and B_g (G divides M), in one launch.
+    Returns (M, N) in ``x.dtype``."""
     if _on_cpu(x, w, a, b):
         return ref.lora_matmul_plain(x, w, a, b, alpha=alpha)
     m, k = x.shape
-    n, r = w.shape[1], a.shape[1]
+    n, r = w.shape[1], a.shape[-1]
+    lead = tuple(a.shape[:-2])
     _require(x.dtype in _DTYPE_CODE, f"lora_matmul takes float32 or bfloat16, got {x.dtype}")
     _require(w.dtype == a.dtype == b.dtype == x.dtype,
              f"x, w, a, b must share one dtype, got {x.dtype}, {w.dtype}, {a.dtype}, {b.dtype}")
-    _require(tuple(w.shape) == (k, n) and tuple(a.shape) == (k, r) and tuple(b.shape) == (r, n),
+    _require(a.ndim in (2, 3) and tuple(w.shape) == (k, n) and tuple(a.shape) == (*lead, k, r)
+             and tuple(b.shape) == (*lead, r, n) and (not lead or (lead[0] > 0 and m % lead[0] == 0)),
              f"shapes do not agree: x {tuple(x.shape)}, w {tuple(w.shape)}, a {tuple(a.shape)}, b {tuple(b.shape)}")
     _require(0 < r <= MAX_LORA_RANK, f"rank {r} outside 1..{MAX_LORA_RANK}")
     for t in (x, w, a, b):

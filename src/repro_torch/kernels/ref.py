@@ -91,8 +91,15 @@ def lora_matmul_plain(x, w, a, b, *, alpha: float = 1.0):
     (``repro/kernels/lora_matmul.py:_lora_kernel``): float32 dots, the
     rank-r bottleneck rounded to ``x.dtype`` before its second dot, one
     cast of ``main + alpha * side``.  x: (M, K); w: (K, N); a: (K, r);
-    b: (r, N).  Returns (M, N) in ``x.dtype``.  Differentiable by autograd.
+    b: (r, N).  Grouped: a (G, K, r), b (G, r, N), and the rows of group g
+    (the g-th of G equal slices of x) take the ungrouped twin with A_g and
+    B_g, group by group.  Returns (M, N) in ``x.dtype``.  Differentiable by
+    autograd.
     """
+    if a.ndim == 3:
+        rows = x.shape[0] // a.shape[0]
+        return torch.cat([lora_matmul_plain(x[g * rows:(g + 1) * rows], w, a[g], b[g], alpha=alpha)
+                          for g in range(a.shape[0])])
     main = x.float() @ w.float()
     t = (x.float() @ a.float()).to(x.dtype)
     side = t.float() @ b.float()

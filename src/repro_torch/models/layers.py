@@ -52,11 +52,15 @@ def init_layer_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device
 
 
 def layer_apply(params, cfg, h, *, positions, causal=True, cache: Optional[dict] = None,
-                peft: Optional[dict] = None, lora_scale: float = 1.0):
+                peft: Optional[dict] = None, lora_scale: float = 1.0, devices: Optional[int] = None):
     """One residual block: RWKV6 time-mix + channel-mix (LoRA on the
     channel-mix ``up`` and ``down``), or a pre-norm mixer (attention, or
     Mamba with LoRA on ``in`` and ``out``) followed by a pre-norm MoE or
-    SwiGLU MLP.  Returns (h, the MoE aux loss (0.0 without MoE), new_cache)."""
+    SwiGLU MLP.  Returns (h, the MoE aux loss (0.0 without MoE), new_cache).
+
+    ``devices`` N: ``h`` folds N devices' equal row blocks into its batch
+    and every LoRA node holds one adapter per device (``(N, in, r)``); the
+    MoE routes each device's tokens apart and its aux loss is (N,)."""
     peft = peft or {}
     kind = params_kind(params)
     if kind == "rwkv":
@@ -81,7 +85,7 @@ def layer_apply(params, cfg, h, *, positions, causal=True, cache: Optional[dict]
     x = apply_rmsnorm(params["norm2"], h, cfg.norm_eps)
     aux = 0.0
     if "moe" in params:
-        out, aux = moe_apply(params["moe"], cfg, x)
+        out, aux = moe_apply(params["moe"], cfg, x, devices=devices)
     else:
         out = mlp_apply(params["mlp"], cfg, x, peft.get("mlp"), lora_scale)
     return h + out, aux, new_cache

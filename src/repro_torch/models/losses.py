@@ -21,3 +21,23 @@ def softmax_xent(logits, labels, mask=None):
     loss = torch.sum(nll * mask) / denom
     acc = torch.sum((torch.argmax(logits, dim=-1) == labels).float() * mask) / denom
     return loss, {"loss": loss, "accuracy": acc, "tokens": denom}
+
+
+def cohort_softmax_xent(logits, labels, mask=None):
+    """``softmax_xent`` of each device of a cohort apart.
+
+    logits: (N, B, S, V); labels: (N, B, S); mask: (N, B, S) or None.
+    Returns ((N,) mean losses, {"loss", "accuracy", "tokens"}: (N,) each),
+    every device's means over its own tokens and its own mask denominator.
+    """
+    logits = logits.float()
+    labels = labels.long()
+    lse = torch.logsumexp(logits, dim=-1)
+    label_logit = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = lse - label_logit
+    mask = torch.ones_like(nll) if mask is None else mask.float()
+    dims = tuple(range(1, nll.ndim))
+    denom = torch.clamp(torch.sum(mask, dim=dims), min=1.0)
+    loss = torch.sum(nll * mask, dim=dims) / denom
+    acc = torch.sum((torch.argmax(logits, dim=-1) == labels).float() * mask, dim=dims) / denom
+    return loss, {"loss": loss, "accuracy": acc, "tokens": denom}

@@ -8,6 +8,8 @@ active MoE layers (0.0 without MoE), as in ``repro.models.registry``.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.models import transformer
@@ -71,9 +73,11 @@ def place_params(params, cfg, device=None):
 
 
 def model_apply(params, cfg, batch, *, drops=None, caches=None, positions=None, peft=None,
-                lora_scale: float = 1.0):
+                lora_scale: float = 1.0, devices: Optional[int] = None):
+    """``devices`` N: a cohort, ``batch["tokens"]`` (N, B, S), drops (N, L),
+    the PEFT tree a per-layer list of (N, ...) leaves (``lm_apply``)."""
     _check_family(cfg)
     return transformer.lm_apply(
         params, cfg, batch["tokens"], positions=positions, drops=drops, caches=caches, peft=peft,
-        lora_scale=lora_scale,
+        lora_scale=lora_scale, devices=devices,
     )

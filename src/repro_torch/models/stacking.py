@@ -96,3 +96,21 @@ def select_layers(mask, take_tree, keep_tree, axis: int = 0):
         return torch.where(m, t, k)
 
     return tree_map(pick, take_tree, keep_tree)
+
+
+def layer_list(tree, num_layers: int, axis: int = 0) -> list:
+    """A tree in either layout as a per-layer list: the list layout as it
+    is, the stacked layout's layer ``axis`` (1 for a cohort's ``(N, L,
+    ...)`` leaves) cut into contiguous per-layer copies, so that each layer
+    is a leaf of its own for autograd."""
+    if not is_stacked(tree):
+        return list(tree)
+    return [tree_map(lambda x: x.select(axis, l).contiguous(), tree) for l in range(num_layers)]
+
+
+def from_layer_list(layers: Sequence, stacked: bool, axis: int = 0):
+    """The inverse of ``layer_list``: the layers stacked on ``axis`` when
+    ``stacked``, else the list."""
+    if not stacked:
+        return list(layers)
+    return tree_map(lambda *xs: torch.stack(xs, dim=axis), *layers)

@@ -8,6 +8,13 @@ package; jamba's heterogeneous stack is a per-layer list, as there.
 periods of the layer pattern) computes too.  STLD gates (``drops``) are
 host-side booleans: a dropped layer is skipped by a Python branch, so it
 launches no kernel and saves no activation.
+
+A cohort of N devices (``devices``) folds its devices into the batch: the
+gates are (N, L), and each layer runs once, on the rows of the devices
+whose gate is open (gathered by ``index_select`` and written back out of
+place by ``index_copy``); a layer no device opens runs nothing, and one
+every device opens runs on ``h`` itself.  Each device's rows see exactly
+the layers its own gates open, as its own forward would.
 """
 from __future__ import annotations
 
@@ -118,14 +125,56 @@ def init_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device=None
     }
 
 
+def _cohort_stack_apply(layers, cfg, h, *, positions, causal, drops, peft, lora_scale, devices: int):
+    """``stack_apply`` for a cohort: ``h`` (N * B, S, d) device-major, drops
+    None or (N, L) host-side gates, ``peft`` None or a per-layer list of
+    trees with (N, ...) leaves.  The aux loss is (N,), each device's summed
+    over its own active layers (0.0 without MoE)."""
+    num_layers = stacking.stack_size(layers)
+    gates = torch.zeros((devices, num_layers), dtype=torch.bool) if drops is None else torch.as_tensor(drops)
+    if tuple(gates.shape) != (devices, num_layers):
+        raise ValueError(f"gates of shape {tuple(gates.shape)} for {devices} devices and {num_layers} layers")
+    open_rows = (~gates.bool()).t().tolist()  # per layer, per device
+    aux_sum = 0.0
+    for l in range(num_layers):
+        take = [i for i, is_open in enumerate(open_rows[l]) if is_open]
+        if not take:
+            continue
+        params_l = stacking.layer_view(layers, l)
+        peft_l = stacking.layer_view(peft, l) if peft is not None else None
+        if len(take) == devices:
+            h, aux, _ = layer_apply(params_l, cfg, h, positions=positions, causal=causal, peft=peft_l,
+                                    lora_scale=lora_scale, devices=devices)
+            aux_sum = aux_sum + aux
+            continue
+        idx = torch.tensor(take, device=h.device)
+        hd = h.view(devices, -1, *h.shape[1:])
+        sub = hd.index_select(0, idx).view(-1, *h.shape[1:])
+        if peft_l is not None:
+            peft_l = stacking.tree_map(lambda t: t.index_select(0, idx), peft_l)
+        out, aux, _ = layer_apply(params_l, cfg, sub, positions=positions, causal=causal, peft=peft_l,
+                                  lora_scale=lora_scale, devices=len(take))
+        h = hd.index_copy(0, idx, out.view(len(take), *hd.shape[1:])).view(h.shape)
+        if isinstance(aux, torch.Tensor):  # 0.0 for a layer without MoE
+            aux_sum = aux_sum + torch.zeros((devices,), dtype=aux.dtype, device=aux.device).index_copy(0, idx, aux)
+    return h, aux_sum, None
+
+
 def stack_apply(layers, cfg, h, *, positions, causal: bool = True, drops=None, caches=None,
-                peft=None, lora_scale: float = 1.0):
+                peft=None, lora_scale: float = 1.0, devices=None):
     """Run the layer stack (either layout).  Returns (h, the MoE aux loss
     summed over the active layers, new_caches).
 
     ``drops``: None or L host-side gates (a CPU bool tensor or a sequence),
     True = the layer is dropped and passes ``h`` (and its cache) through.
+    ``devices`` N: a cohort (``_cohort_stack_apply``), with (N, L) gates,
+    no caches and a per-layer list PEFT tree; the aux loss is then (N,).
     """
+    if devices is not None:
+        if caches is not None:
+            raise ValueError("a cohort runs without decode caches")
+        return _cohort_stack_apply(layers, cfg, h, positions=positions, causal=causal, drops=drops, peft=peft,
+                                   lora_scale=lora_scale, devices=devices)
     num_layers = stacking.stack_size(layers)
     if caches is not None and cfg.family != "dense":
         raise NotImplementedError("RWKV and Mamba decode states are not ported: the port trains them without caches")
@@ -151,16 +200,21 @@ def stack_apply(layers, cfg, h, *, positions, causal: bool = True, drops=None, c
 
 
 def lm_apply(params, cfg, tokens, *, positions=None, drops=None, caches=None, peft=None,
-             lora_scale: float = 1.0):
+             lora_scale: float = 1.0, devices=None):
     """Decoder-only LM forward.  tokens: (B, S) int.  Returns (logits, the
-    MoE aux loss, new_caches); the caches' K/V tensors are updated in place."""
+    MoE aux loss, new_caches); the caches' K/V tensors are updated in place.
+
+    ``devices`` N: a cohort, tokens (N, B, S); the logits come back
+    (N * B, S, V), device-major, and the aux loss (N,) (``stack_apply``)."""
     compute_dtype = getattr(torch, cfg.dtype)
+    if devices is not None:
+        tokens = tokens.reshape(-1, tokens.shape[-1])
     h = params["embed"][tokens].to(compute_dtype)
     if positions is None:
         positions = torch.arange(h.shape[1], device=h.device)
     h, aux, new_caches = stack_apply(
         params["layers"], cfg, h, positions=positions, causal=True, drops=drops, caches=caches,
-        peft=peft, lora_scale=lora_scale,
+        peft=peft, lora_scale=lora_scale, devices=devices,
     )
     h = apply_rmsnorm(params["final_norm"], h, cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]

@@ -3,7 +3,11 @@
 LoRA params for a projection are ``{"a": (in, r), "b": (r, out)}`` with the
 runtime ``scale`` passed explicitly.  A LoRA projection runs through
 ``ops.lora_matmul`` (the main product and the rank-r branch in one kernel
-on the card, its plain twin on the CPU), differentiable in x, a and b.  For multi-tenant serving a
+on the card, its plain twin on the CPU), differentiable in x, a and b.  A
+cohort's node holds one adapter per device, ``{"a": (G, in, r), "b": (G,
+r, out)}``, and the leading axis of ``x`` folds the G devices' equal row
+blocks in device order: the grouped kernel gives each block its own
+adapter in the same one launch.  For multi-tenant serving a
 projection's peft node can instead be an :class:`AdapterPool` (a stacked
 pool of adapters plus a per-row slot map), and ``apply_linear`` then
 dispatches to the segmented kernel, so every batch row applies its own

@@ -8,7 +8,11 @@ of ``capacity`` slots (overflow is dropped), and one-hot dispatch and
 combine tensors move the tokens through the experts.  The expert SwiGLU
 products are ``(E, groups * capacity, d)`` batched matmuls, which the JAX
 package also leaves to XLA outside any Pallas kernel.  The aux loss is the
-Switch load-balance loss over the first choice.  Not ported yet, and
+Switch load-balance loss over the first choice.  A cohort (``devices``)
+folds its devices' equal token blocks into the batch: the groups are cut
+from one device's tokens, so no group spans two devices and each device
+keeps its own capacity and drops, and the aux loss comes back per device.
+Not ported yet, and
 raising: the ``gather`` dispatch, the shared expert and the decode-time
 weight gather for at most 8 tokens.
 """
@@ -53,8 +57,13 @@ def _one_hot(values, n: int, dtype):
     return (values[..., None] == torch.arange(n, device=values.device, dtype=values.dtype)).to(dtype)
 
 
-def moe_apply(params, cfg, x, group_size: Optional[int] = None, dispatch_mode: Optional[str] = None):
-    """x: (B, S, d) -> (out (B, S, d) in ``x.dtype``, aux loss float32)."""
+def moe_apply(params, cfg, x, group_size: Optional[int] = None, dispatch_mode: Optional[str] = None,
+              devices: Optional[int] = None):
+    """x: (B, S, d) -> (out (B, S, d) in ``x.dtype``, aux loss float32).
+
+    ``devices`` N: x holds N devices' rows, device-major, and each device's
+    tokens are routed as ``moe_apply`` routes them alone; the aux loss is
+    then (N,), one per device."""
     dispatch_mode = dispatch_mode or cfg.moe_dispatch
     if dispatch_mode != "einsum":
         raise NotImplementedError(f"MoE dispatch {dispatch_mode!r} is not ported; the port runs 'einsum'")
@@ -63,13 +72,14 @@ def moe_apply(params, cfg, x, group_size: Optional[int] = None, dispatch_mode: O
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.top_k
     tokens = x.reshape(-1, d)
-    t = tokens.shape[0]
+    n_dev = devices or 1
+    t = tokens.shape[0] // n_dev  # one device's tokens
     if t <= _WEIGHT_GATHER_MAX_TOKENS:
         raise NotImplementedError(f"the MoE weight gather for <= {_WEIGHT_GATHER_MAX_TOKENS} tokens is not ported")
     g = group_size or min(t, _DEFAULT_GROUP)
     if t % g:
         g = t  # one group for odd token counts, as the JAX package does
-    n_groups = t // g
+    n_groups = n_dev * (t // g)
     xg = tokens.reshape(n_groups, g, d)
     cap = min(int(max(k, g / e * cfg.capacity_factor * k)), g)
 
@@ -90,7 +100,8 @@ def moe_apply(params, cfg, x, group_size: Optional[int] = None, dispatch_mode: O
     # load-balance aux loss over the first choice (Switch convention)
     frac_tokens = torch.mean(masks[0], dim=1)  # (G, E)
     mean_probs = torch.mean(probs, dim=1)
-    aux = e * torch.mean(torch.sum(frac_tokens * mean_probs, dim=-1))
+    per_group = torch.sum(frac_tokens * mean_probs, dim=-1)  # (G,)
+    aux = e * (torch.mean(per_group) if devices is None else torch.mean(per_group.view(n_dev, -1), dim=1))
 
     # capacity: each token's position in its expert's queue, overflow dropped
     used = torch.zeros((n_groups, e), dtype=torch.int32, device=x.device)

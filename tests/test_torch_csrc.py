@@ -34,6 +34,14 @@ def test_mirror_matches_header(header, name):
     assert getattr(ops, name) == header_constant(header, name)
 
 
+@pytest.mark.parametrize("name,mirror", [("GM", "LORA_TILE_ROWS"), ("MAX_R", "MAX_LORA_RANK")])
+def test_lora_matmul_mirror_matches_source(name, mirror):
+    """The wgmma route's tile rows and the largest rank, which
+    ``ops.lora_matmul_route`` reads to send a grouped call whose B_g would
+    not fit the kernel's staging to the WMMA route."""
+    assert getattr(ops, mirror) == header_constant("lora_matmul.cu", name)
+
+
 @pytest.mark.parametrize("b,s,d,n", [
     (16, 512, 8192, 16),  # jamba-v0.1-52b's training shape
     (2, 70, 200, 8),  # S off the chunk, D off the block

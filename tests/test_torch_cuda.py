@@ -514,6 +514,93 @@ def test_cuda_lora_matmul_is_deterministic(cuda, m, k, n, r):
     assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
 
 
+def _grouped_lora(rng, g, rows, k, n, r, dtype, device):
+    x, w, _, _, dy = _lora(rng, g * rows, k, n, r, dtype, device)
+    a = rng.standard_normal((g, k, r), dtype=np.float32) * k**-0.5
+    b = rng.standard_normal((g, r, n), dtype=np.float32) * r**-0.5
+    return x, w, *(torch.from_numpy(t).to(device, getattr(torch, dtype)) for t in (a, b)), dy
+
+
+GROUPED_CASES = [  # (G, rows a group, K, N, r, the bf16 route)
+    (3, 256, 256, 264, 8, "wgmma"),  # rows on the 128-row tile
+    (4, 100, 136, 520, 8, "wgmma"),  # off it: a tile stages the B_g of up to 3 groups
+    (5, 33, 64, 72, 8, "wgmma"),  # 5 groups a tile
+    (3, 100, 64, 40, 64, "wmma"),  # 3 groups of rank 64 would not fit: the wgmma route refuses
+    (2, 50, 44, 24, 8, "wmma"),  # K off 8
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("g,rows,k,n,r,route", GROUPED_CASES)
+def test_cuda_grouped_lora_matmul_matches_twin(cuda, dtype, g, rows, k, n, r, route):
+    """A (G, K, r) and B (G, r, N): one launch forward and one for dX, on
+    the route ``lora_matmul_route`` names, against the grouped twin; dA
+    and dB against autograd through it.  dA and dB are batched products
+    over the groups, whose float32 sums run in another order than the
+    twin's per-group products: in float32 they are held within 1e-5 of the
+    gradient's largest element."""
+    x, w, a, b, dy = _grouped_lora(np.random.default_rng(17), g, rows, k, n, r, dtype, cuda)
+    leaves = [t.clone().requires_grad_(True) for t in (x, a, b)]
+    twins = [t.clone().requires_grad_(True) for t in (x, a, b)]
+    ops.reset_launch_counts()
+    got = ops.lora_matmul(leaves[0], w, leaves[1], leaves[2], alpha=2.0)
+    got_grads = torch.autograd.grad(got, leaves, dy)
+    assert ops.launch_counts["lora_matmul"] == 2
+    assert ops.lora_matmul_routes["fma" if dtype == "float32" else route] == 2
+    want = ref.lora_matmul_plain(twins[0], w, twins[1], twins[2], alpha=2.0)
+    want_grads = torch.autograd.grad(want, twins, dy)
+    torch.cuda.synchronize()
+    atol, rtol = (3e-2, 1e-2) if dtype == "bfloat16" else (1e-4, 1e-5)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    for i, (gg, wg) in enumerate(zip(got_grads, want_grads)):
+        assert gg.dtype == wg.dtype and gg.shape == wg.shape
+        if i == 0 or dtype == "bfloat16":
+            _grad_close(gg, wg, dtype)
+        else:
+            torch.testing.assert_close(gg, wg, atol=1e-5 * wg.abs().max().item(), rtol=0)
+
+
+def _forward_and_dx(x, w, a, b, dy):
+    xl = x.clone().requires_grad_(True)
+    y = ops.lora_matmul(xl, w, a, b, alpha=2.0)
+    return y, torch.autograd.grad(y, xl, dy)[0]
+
+
+def _launches(x, w, a, b, dy, route, dx_route):
+    """Forward and dX as two launches on the routes given."""
+    return (ops._lora_matmul_launch(x, w, a, b, 2.0, route),
+            ops._lora_matmul_launch(dy, w.t(), b.transpose(-1, -2), a.transpose(-1, -2), 2.0, dx_route))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,k,n", [("float32", 64, 72), ("bfloat16", 256, 264), ("bfloat16", 44, 24)])
+def test_cuda_grouped_lora_matmul_of_one_group_is_the_ungrouped_kernel(cuda, dtype, k, n):
+    """G = 1 gives the ungrouped call's bits, forward and dX, on each route."""
+    x, w, a, b, dy = _grouped_lora(np.random.default_rng(18), 1, 300, k, n, 8, dtype, cuda)
+    grouped = _forward_and_dx(x, w, a, b, dy)
+    plain = _forward_and_dx(x, w, a[0], b[0], dy)
+    assert all(torch.equal(p, q) for p, q in zip(grouped, plain))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("g,rows,k,n,r,route", GROUPED_CASES)
+def test_cuda_grouped_lora_matmul_rows_equal_ungrouped_launches(cuda, dtype, g, rows, k, n, r, route):
+    """Every sum keeps its order whatever M and G: the rows of group g,
+    forward and dX, equal bit for bit the ungrouped launch on those rows
+    with A_g and B_g on the same route (on the wgmma route also where a
+    tile spans groups)."""
+    x, w, a, b, dy = _grouped_lora(np.random.default_rng(19), g, rows, k, n, r, dtype, cuda)
+    y, dx = _forward_and_dx(x, w, a, b, dy)
+    routes = ops.lora_matmul_route(x, w, a), ops.lora_matmul_route(dy, w.t(), b.transpose(-1, -2))
+    assert routes[0] == ("fma" if dtype == "float32" else route)
+    for i in range(g):
+        part = slice(i * rows, (i + 1) * rows)
+        y_i, dx_i = _launches(x[part], w, a[i], b[i], dy[part], *routes)
+        assert torch.equal(y[part], y_i) and torch.equal(dx[part], dx_i), i
+
+
 def _wkv(rng, b, s, h, k, dtype, device, state):
     r, kk, v = (0.5 * rng.standard_normal((b, s, h, k), dtype=np.float32) for _ in range(3))
     logw = np.clip(-np.exp(rng.standard_normal((b, s, h, k), dtype=np.float32)), -4.0, -1e-4)

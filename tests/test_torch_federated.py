@@ -8,12 +8,16 @@ system model, the rate bandit) give identical outputs.
 The runner against JAX's: ``droppeft`` for 3 rounds, ``droppeft_b3`` (the
 FedAvg path) and ``fedadaopt`` (progressive depth) for 2, at the smoke
 sizes of ``tests/test_cohort_parity.py`` (4 layers, d_model 32, float32, 6
-devices with 4 a round, 2 local steps, batch 8, LoRA rank 2).  The port
+devices with 4 a round, 2 local steps, batch 8, LoRA rank 2); and the
+batched runner for 2 rounds of ``droppeft`` at the smoke configs of
+rwkv6-3b and jamba (float32, 4 devices with 2 a round, 2 local steps,
+batch 4).  The port
 gets JAX's base weights and initial global LoRA through ``convert`` and
 JAX's STLD gates through a patched ``stld.sample_drops`` that replays the
 reference's key stream (the seed key split in three; one fan-out of n+1
 keys a round; one split per local step).  The JAX runner runs
-``cohort_mode="sequential"``.  Every round: cohorts, rates, active layers,
+``cohort_mode="sequential"``; the port's runs in both of its modes,
+``sequential`` and ``batched``, each held to that one JAX run.  Every round: cohorts, rates, active layers,
 PTLS masks and accuracies equal; the history's time, traffic, energy and
 memory within 1e-12 relative; loss within 1e-5; the global LoRA within the
 after-AdamW bound of ``tests/test_torch_training.py`` (every element within
@@ -47,6 +51,7 @@ from repro_torch.core import configurator, ptls, stld
 from repro_torch.data import partition, pipeline
 from repro_torch.data.synthetic import make_task
 from repro_torch.federated import runner as runner_lib
+from repro_torch.federated.algorithms.droppeft import DropPEFT
 from repro_torch.federated import server, system_model
 from repro_torch.models import stacking
 
@@ -352,12 +357,12 @@ def jax_runs():
     return {}
 
 
-def _jax_run(jax_runs, method, rounds):
-    if method not in jax_runs:
+def _jax_run(jax_runs, method, rounds, arch="qwen3-1.7b", cfg_kw=_CFG_KW, fed_kw=_FED_KW):
+    if (method, arch) not in jax_runs:
         runner = jax_api.build(
-            method, cfg=jax_get_config("qwen3-1.7b", smoke=True).replace(**_CFG_KW),
+            method, cfg=jax_get_config(arch, smoke=True).replace(**cfg_kw),
             peft_cfg=JaxPEFTConfig(method="lora", lora_rank=2), stld_cfg=JaxSTLDConfig(mode="cond", mean_rate=0.5),
-            fed_cfg=JaxFederatedConfig(**_FED_KW), train_cfg=JaxTrainConfig(**_TRAIN_KW), seed=SEED,
+            fed_cfg=JaxFederatedConfig(**fed_kw), train_cfg=JaxTrainConfig(**_TRAIN_KW), seed=SEED,
             cohort_mode="sequential",
         )
         base = jax.tree.map(np.asarray, runner.ctx.engine.base_params)
@@ -365,25 +370,32 @@ def _jax_run(jax_runs, method, rounds):
         rows = []
         _record(runner, rows)
         result = runner.run(rounds=rounds)
-        jax_runs[method] = (base, peft0, rows, result)
-    return jax_runs[method]
+        jax_runs[(method, arch)] = (base, peft0, rows, result)
+    return jax_runs[(method, arch)]
 
 
-@pytest.mark.parametrize("method,rounds", [("droppeft", 3), ("droppeft_b3", 2), ("fedadaopt", 2)])
-def test_runner_follows_jax_round_by_round(jax_runs, monkeypatch, method, rounds):
-    base, peft0, want_rows, want = _jax_run(jax_runs, method, rounds)
-    fed = FederatedConfig(**_FED_KW)
+def _port_run(monkeypatch, method, rounds, base, peft0, arch="qwen3-1.7b", cfg_kw=_CFG_KW, fed_kw=_FED_KW,
+              cohort_mode="batched"):
+    """The port's runner given JAX's weights, initial LoRA and key stream;
+    returns its recorded rows and result."""
+    fed = FederatedConfig(**fed_kw)
     monkeypatch.setattr(runner_lib, "init_peft", lambda cfg, peft_cfg, gen: convert.peft_from_jax(peft0, "cpu"))
     monkeypatch.setattr(stld, "sample_drops", _JaxGates(SEED, fed.devices_per_round, fed.local_steps))
     runner = api.build(
-        method, cfg=get_config("qwen3-1.7b", smoke=True).replace(**_CFG_KW), peft_cfg=PEFTConfig(lora_rank=2),
+        method, cfg=get_config(arch, smoke=True).replace(**cfg_kw), peft_cfg=PEFTConfig(lora_rank=2),
         stld_cfg=STLDConfig(mode="cond", mean_rate=0.5), fed_cfg=fed, train_cfg=TrainConfig(**_TRAIN_KW), seed=SEED,
-        params=convert.params_from_jax(base, "cpu"), device="cpu",
+        params=convert.params_from_jax(base, "cpu"), device="cpu", cohort_mode=cohort_mode,
     )
+    assert runner.cohort_mode == cohort_mode
     rows = []
     _record(runner, rows)
-    got = runner.run(rounds=rounds)
+    return rows, runner.run(rounds=rounds)
 
+
+def _assert_follows_jax(rows, want_rows, got, want, fed, rounds):
+    """Every round's plan, active layers, masks and accuracies equal; the
+    global LoRA within the after-AdamW bound; the history as the module
+    docstring says."""
     sched = jax_make_lr_schedule("cosine", _TRAIN_KW["learning_rate"], _TRAIN_KW["warmup_steps"],
                                  _TRAIN_KW["total_steps"])
     per_round = fed.devices_per_round * fed.local_steps
@@ -407,13 +419,35 @@ def test_runner_follows_jax_round_by_round(jax_runs, monkeypatch, method, rounds
     assert got.rounds == want.rounds == rounds
 
 
+@pytest.mark.parametrize("cohort_mode", ["sequential", "batched"])
+@pytest.mark.parametrize("method,rounds", [("droppeft", 3), ("droppeft_b3", 2), ("fedadaopt", 2)])
+def test_runner_follows_jax_round_by_round(jax_runs, monkeypatch, method, rounds, cohort_mode):
+    base, peft0, want_rows, want = _jax_run(jax_runs, method, rounds)
+    rows, got = _port_run(monkeypatch, method, rounds, base, peft0, cohort_mode=cohort_mode)
+    _assert_follows_jax(rows, want_rows, got, want, FederatedConfig(**_FED_KW), rounds)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-v0.1-52b"])
+def test_batched_runner_follows_jax_for_ssm_and_hybrid_stacks(jax_runs, monkeypatch, arch):
+    """The batched runner against JAX's for 2 rounds of ``droppeft`` at the
+    smoke configs of rwkv6-3b (the ``ssm`` family, stacked layout) and
+    jamba (``hybrid``: a per-layer list, Mamba and MoE layers), float32, 4
+    devices with 2 a round, 2 local steps of batch 4; the same checks and
+    tolerances as the qwen3 runs."""
+    fed_kw = dict(num_devices=4, devices_per_round=2, local_steps=2, batch_size=4)
+    kw = dict(arch=arch, cfg_kw={"dtype": "float32"}, fed_kw=fed_kw)
+    base, peft0, want_rows, want = _jax_run(jax_runs, "droppeft", 2, **kw)
+    rows, got = _port_run(monkeypatch, "droppeft", 2, base, peft0, **kw)
+    _assert_follows_jax(rows, want_rows, got, want, FederatedConfig(**fed_kw), 2)
+
+
 # ------------------------------------------------------------- unported options
 _TINY = dict(cfg=get_config("qwen3-1.7b", smoke=True).replace(**_CFG_KW),
              fed_cfg=FederatedConfig(num_devices=4, devices_per_round=2, local_steps=1, batch_size=2), device="cpu")
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"checkpoint_dir": "ckpts"}, {"resume": True}, {"cohort_mode": "batched"}, {"stld_mode": "gather"},
+    {"checkpoint_dir": "ckpts"}, {"resume": True}, {"stld_mode": "gather"},
     {"compression": "int8"}, {"fault_plan": {"drop_rate": 0.1}}, {"schedule": "deadline"},
     {"schedule": "async-buffer"}, {"deadline_s": 30.0}, {"buffer_size": 2}, {"peft": "adapter"},
     {"method": "fedhetlora"},
@@ -425,5 +459,19 @@ def test_unported_options_raise(kwargs):
         api.build(method, **_TINY, **kwargs)
 
 
+class _NeedsSequential(DropPEFT):
+    """DropPEFT flagged as hetlora is: its trees cannot share a device axis."""
+
+    requires_sequential = True
+
+
 def test_auto_cohort_mode_runs_sequential():
-    assert api.build("droppeft", **_TINY).cohort_mode == "sequential"
+    """``auto`` resolves as the reference's runner: ``sequential`` only for
+    an algorithm that ``requires_sequential``, ``batched`` for the others;
+    ``batched`` for such an algorithm raises ``ValueError``."""
+    assert api.build(_NeedsSequential(), **_TINY).cohort_mode == "sequential"
+    assert api.build("droppeft", **_TINY).cohort_mode == "batched"
+    assert api.build("droppeft", cohort_mode="sequential", **_TINY).cohort_mode == "sequential"
+    for method in (_NeedsSequential(), "fedhetlora"):
+        with pytest.raises(ValueError, match="cannot stack"):
+            api.build(method, cohort_mode="batched", **_TINY)
