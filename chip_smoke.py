@@ -8,7 +8,8 @@ CUDA toolkit::
 
 With ``--scans-of SRC`` it runs only the scan kernels' timed cases of phase
 3 (wkv6 and mamba_scan, or those ``--scans`` names, forward and backward,
-bf16, held against their twins) with the ``repro_torch`` under SRC,
+bf16, held against their twins; ``--scans flash_decode`` times
+flash_decode at qwen3-1.7b's decode step) with the ``repro_torch`` under SRC,
 another tree's ``src``, and prints no result: two trees (the parent's
 unpacked under the git-ignored ``build/``, and this one's ``src``) are
 compared on one card by running it for each in turns, parent, change,
@@ -44,7 +45,13 @@ Phases, one line each before the last:
    5d's shape (10 groups of 512 rows, q and v), off the 128-row tile, on
    the WMMA route and in float32, each group's rows and G = 1 bit-equal to
    ungrouped launches, timed beside ten ungrouped launches, cuBLAS's x @ W
-   at M 5 120 and its bound;
+   at M 5 120 and its bound; and at the other dense decoders' shapes:
+   flash_decode at glm4-9b's serving step (32 heads over 2 KV heads) and
+   h2o-danube-1.8b's (head dim 80, its window; another over a wrapped
+   ring), flash_attention forward and backward at their training shapes
+   (batch 16 x 512), both dtypes, and the q and v projections'
+   lora_matmul (batch 16 x 512) and segmented_lora (8 rows) at glm4-9b's,
+   h2o-danube-1.8b's and yi-6b's widths;
 4. full-width qwen3-1.7b (28 layers, random weights from ``--seed``)
    served through ``repro_torch.api.serve``: 12 requests over 4 LoRA
    tenants of rank 4/8 at batch 8, rows recycling mid-run; every completion
@@ -80,12 +87,22 @@ Phases, one line each before the last:
    round and their split, the idle share and launches of one profiled
    round, peak memory and final_accuracy's seconds; and smoke-size runs
    of qwen3-1.7b, rwkv6-3b and jamba, batched on the card against
-   sequential on the card and batched on the CPU twins;
+   sequential on the card and batched on the CPU twins; and checkpoints:
+   the batched run saved after 2 rounds and resumed by a fresh runner to
+   round 3 gives the uninterrupted run's bits, and ``api.serve`` from the
+   checkpoint serves the global and two clients' adapters with the tokens
+   of ``api.serve`` given the same trees;
+5e. full-width glm4-9b, h2o-danube-1.8b and yi-6b, each served as phase 4
+   (and its smoke model on the card against the CPU twins) and trained
+   for one local round as phase 5, at full depth where the round fits the
+   card (else at three quarters of the layers, again, until it fits; the
+   cut printed), with the smoke round on the card against the CPU twins;
 6. the ``kernels`` JSON line: launches of each kernel in its own path's
    run (serving: phase 4's run; training: phase 5's round at rate 0.5,
    phase 5b's for wkv6 and wkv6_bwd, phase 5c's for mamba_scan and
    mamba_scan_bwd), and for the training kernels also phase 5d's rounds
-   (``launches_by_path``).
+   and for every kernel of the dense path phase 5e's runs
+   (``launches_by_path``), the other dense decoders' shapes beside.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits non-zero before it; without a CUDA card, or outside the checkout, the
@@ -407,7 +424,7 @@ def segmented_case(ops, ref, timer, gen, *, dtype, n, m=8, k=2048, ranks=(4, 8, 
     return case
 
 
-def decode_case(ops, ref, ring_positions, timer, gen, *, q_dtype, b=8, h=16, kv=8, d=128, s=512):
+def decode_case(ops, ref, ring_positions, timer, gen, *, q_dtype, b=8, h=16, kv=8, d=128, s=512, window=None):
     """One flash_decode shape: kernel vs twin, with times, bound and SDPA."""
     import torch.nn.functional as F
 
@@ -419,36 +436,38 @@ def decode_case(ops, ref, ring_positions, timer, gen, *, q_dtype, b=8, h=16, kv=
     # K/V from the previous tenant)
     pos = torch.tensor([0, 17, 130, s - 1, s + 100, 3 * s + 7, 5, 300], dtype=torch.int32, device="cuda")[:b]
     kpos = ring_positions(pos, s)
-    got = ops.flash_decode(q, kc, vc, pos, kpos)
-    want = ref.decode_attention_plain(q, kc, vc, pos, kpos)
+    fn = lambda: ops.flash_decode(q, kc, vc, pos, kpos, window=window)  # noqa: E731
+    got = fn()
+    want = ref.decode_attention_plain(q, kc, vc, pos, kpos, window=window)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     atol, rtol = (3e-2, 1e-2) if q_dtype == torch.bfloat16 else (2e-5, 1e-5)
     check(torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol),
-          f"flash_decode q {q_dtype}: max abs err {err} vs twin")
-    ms = timer(lambda: ops.flash_decode(q, kc, vc, pos, kpos))
-    plain_ms = timer(lambda: ref.decode_attention_plain(q, kc, vc, pos, kpos))
+          f"flash_decode q {q_dtype} H={h} KV={kv} D={d} window={window}: max abs err {err} vs twin")
+    ms = timer(fn)
+    plain_ms = timer(lambda: ref.decode_attention_plain(q, kc, vc, pos, kpos, window=window))
     # device time alone: the call's span, and the split pass and the merge
     # pass apart (the merge, launched as the split pass's programmatic
     # dependent, waits inside its own time for the split pass to end)
-    split = device_ms(lambda: ops.flash_decode(q, kc, vc, pos, kpos), timer.flush,
-                      ("flash_decode_split_kernel", "flash_decode_combine_kernel"))
-    span = device_span_ms(lambda: ops.flash_decode(q, kc, vc, pos, kpos), timer.flush)
+    split = device_ms(fn, timer.flush, ("flash_decode_split_kernel", "flash_decode_combine_kernel"))
+    span = device_span_ms(fn, timer.flush)
+    live_mask = (kpos <= pos[:, None]) & ((kpos > pos[:, None] - window) if window else True)
     library_ms = library_kernel_ms = None
     if q_dtype == kc.dtype:
         # the yardstick: one SDPA call on the same inputs (never used by the port)
-        mask = (kpos <= pos[:, None])[:, None, None, :]
+        mask = live_mask[:, None, None, :]
         q4, k4, v4 = q[:, :, None, :], kc.transpose(1, 2), vc.transpose(1, 2)
         library_ms = timer(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, enable_gqa=True))
         library_kernel_ms = device_ms(
             lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, enable_gqa=True), timer.flush)
-    live = int((kpos <= pos[:, None]).sum().item())
+    live = int(live_mask.sum().item())
     nbytes = (q.numel() * 2 * q.element_size() + live * kv * d * 2 * kc.element_size()
               + 4 * (b + b * s))
     ops_count = 4 * live * h * d
     bound_ms, bound_by = bound(nbytes, ops_count, str(q_dtype).split(".")[-1])
     return {
-        "shape": f"B={b} H={h} KV={kv} D={d} S={s} q {str(q_dtype).split('.')[-1]} cache bfloat16, {live} live slots",
+        "shape": f"B={b} H={h} KV={kv} D={d} S={s} window={window} q {str(q_dtype).split('.')[-1]} cache bfloat16, "
+                 f"{live} live slots",
         "max_abs_err": err, "atol": atol, "rtol": rtol, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
         "splits": ops._decode_splits(s, q.device), "kernel_ms": span,
@@ -522,7 +541,7 @@ def attention_case(ops, ref, timer, gen, *, dtype, b=16, s=512, h=16, kv=8, d=12
         case["bwd_dq_ms"], case["bwd_dkv_ms"] = split["flash_bwd_dq_bf16_kernel"], split["flash_bwd_dkv_bf16_kernel"]
     case["plain_bwd_ms"] = timer(lambda: torch.autograd.grad(want, twins, g, retain_graph=True))
     case["library_ms"] = case["library_bwd_ms"] = None
-    if window is None:  # the yardstick: SDPA on the same inputs (never used by the port)
+    if window is None or window >= s:  # the yardstick: SDPA on the same inputs (never used by the port)
         lib = [t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v)]
         with torch.no_grad():
             case["library_ms"] = timer(lambda: F.scaled_dot_product_attention(*lib, is_causal=True, enable_gqa=True))
@@ -912,13 +931,15 @@ def mamba_case(ops, ref, timer, gen, *, dtype, b=16, s=512, d=8192, n=16, time_i
 
 
 def scans_of(src: str, card: str, seed: int, scans=("wkv6", "mamba_scan")) -> int:
-    """The scan kernels of the repro_torch already imported from ``src``:
-    built into that tree's build/, their registers and spills, and the
-    timed wkv6 and mamba_scan cases at the training shapes (those named in
+    """The scan kernels (and flash_decode) of the repro_torch already
+    imported from ``src``: built into that tree's build/, their registers
+    and spills, and the timed wkv6 and mamba_scan cases at the training
+    shapes and flash_decode's at qwen3-1.7b's decode step (those named in
     ``scans``), one line each."""
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.nn.attention import ring_positions
 
-    names = [name for scan in scans for name in (scan, scan + "_bwd")]
+    names = [name for scan in scans for name in ((scan,) if scan == "flash_decode" else (scan, scan + "_bwd"))]
     _build.build(names)
     print(f"scans of {src}: kernel resources {json.dumps({n: ptxas_resources(build_log(_build, n)) for n in names})}",
           flush=True)
@@ -931,6 +952,10 @@ def scans_of(src: str, card: str, seed: int, scans=("wkv6", "mamba_scan")) -> in
     if "mamba_scan" in scans:
         print(f"scans of {src}: mamba_scan {json.dumps(mamba_case(ops, ref, timer, gen, dtype=torch.bfloat16))} "
               f"[{card}]", flush=True)
+    if "flash_decode" in scans:
+        for q_dtype in (torch.bfloat16, torch.float32):
+            case = decode_case(ops, ref, ring_positions, timer, gen, q_dtype=q_dtype)
+            print(f"scans of {src}: flash_decode {json.dumps(case)} [{card}]", flush=True)
     return 0
 
 
@@ -947,16 +972,19 @@ def make_tenants(cfg, gen, n=4):
     return trees
 
 
-def serve_full(api, ops, card, seed: int):
-    """Phase 4: full-width qwen3-1.7b through api.serve."""
+def serve_full(api, ops, card, seed: int, arch: str = "qwen3-1.7b"):
+    """Phase 4 (and 5e for the other dense archs): full-width ``arch``
+    through api.serve."""
     from repro_torch.configs import get_config
     from repro_torch.serving.batcher import ContinuousBatcher, Request
 
-    cfg = get_config("qwen3-1.7b")
+    gc.collect()  # an earlier phase's weights may sit in reference cycles
+    torch.cuda.empty_cache()
+    cfg = get_config(arch)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed + 1)
     t0 = time.perf_counter()
-    batcher = api.serve("qwen3-1.7b", smoke=False, adapters=make_tenants(cfg, gen),
+    batcher = api.serve(arch, smoke=False, adapters=make_tenants(cfg, gen),
                         batch=8, max_len=512, seed=seed)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
@@ -1009,12 +1037,28 @@ def serve_full(api, ops, card, seed: int):
     breakdown = profile_steps(profiled, [
         Request(prompt=r.prompt, adapter=r.adapter, max_new_tokens=32, uid=r.uid) for r in requests[:8]
     ])
-    if breakdown is not None:  # q and v of every layer: both kernels of the redesigned segmented_lora
-        for key in ("segmented_bottleneck_kernel", "segmented_stream_kernel"):
-            calls = breakdown[f"{key}_calls_per_step"]
-            check(calls == 2 * cfg.num_layers, f"{key}: {calls} calls a step, expected {2 * cfg.num_layers}")
+    if breakdown is not None:
+        # q and v of every layer: both kernels of the redesigned segmented_lora,
+        # counted over one more step.  The profiler drops a few of an 8-step
+        # window's ~28 000 kernel events at random (glm4-9b: 638 of 640 calls
+        # in 5 of 6 windows, 27 977 of 28 000 kernels), so the count takes
+        # one-step windows, up to 5, the first whole one kept: a call that
+        # skipped a kernel would repeat in every step
+        keys = ("segmented_bottleneck_kernel", "segmented_stream_kernel")
+        windows = []
+        for _ in range(5):
+            windows.append(kernel_calls(profiled, keys))
+            if all(windows[-1][key] == 2 * cfg.num_layers for key in keys):
+                break
+        breakdown["one_step_windows_counted"] = windows
+        for key in keys:
+            check(windows[-1][key] == 2 * cfg.num_layers,
+                  f"{key}: calls a step {[w[key] for w in windows]}, expected {2 * cfg.num_layers}; "
+                  f"the windows' counts {windows}")
     return {
         "model": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+        "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads, "head_dim": cfg.resolved_head_dim,
+        "window": cfg.sliding_window, "cache_slots": batcher.caches["k"].shape[2],
         "requests": len(done), "steps": steps, "generated_tokens": gen_tokens,
         "prompt_tokens": prompt_tokens, "setup_s": setup_s, "run_s": run_s,
         "generated_tokens_per_s": gen_tokens / run_s,
@@ -1022,6 +1066,31 @@ def serve_full(api, ops, card, seed: int):
         "ms_per_step": run_s / steps * 1e3, "peak_mem_gib_during_run": peak_gib,
         "batched_equals_per_request": True, "card": card,
     }, breakdown, launches
+
+
+SPIN_KERNELS = 64
+
+
+def kernel_calls(batcher, keys) -> dict:
+    """Launches of the kernels named by ``keys`` (substrings) in one step of
+    ``batcher``, as ``torch.profiler`` records them, beside its count of
+    ``SPIN_KERNELS`` short spin kernels launched first in the window (what
+    the profiler drops at a window's start falls on them) and of all the
+    window's kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(SPIN_KERNELS):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        batcher.step()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    calls = {key: sum(e.count for e in events if key in e.key) for key in (*keys, "spin_kernel")}
+    calls["all_kernels"] = sum(e.count for e in events)
+    return calls
 
 
 def profile_steps(batcher, requests, n_steps: int = 8):
@@ -1072,15 +1141,16 @@ def recording(step, seen: list):
     return wrapped
 
 
-def smoke_cuda_vs_cpu(seed: int):
-    """Phase 4b: the smoke model, float32, one batched run on the card (the
-    kernels) and one on the CPU (the twins): the logits of every step agree."""
+def smoke_cuda_vs_cpu(seed: int, arch: str = "qwen3-1.7b"):
+    """Phase 4b: the smoke model of ``arch``, float32, one batched run on
+    the card (the kernels) and one on the CPU (the twins): the logits of
+    every step agree."""
     from repro_torch import api
     from repro_torch.configs import get_config
     from repro_torch.models.registry import init_params
     from repro_torch.serving.batcher import Request
 
-    cfg = get_config("qwen3-1.7b", smoke=True).replace(dtype="float32")
+    cfg = get_config(arch, smoke=True).replace(dtype="float32")
     gen = torch.Generator()
     gen.manual_seed(seed)
     params = init_params(cfg, gen)
@@ -1096,8 +1166,8 @@ def smoke_cuda_vs_cpu(seed: int):
         b.run()
         logits[device] = torch.stack(seen)
     err = (logits["cuda"] - logits["cpu"]).abs().max().item()
-    check(err <= 1e-4, f"smoke model on the card vs the CPU twins: max abs logit err {err}")
-    return {"steps": int(logits["cpu"].shape[0]), "max_abs_err": err, "atol": 1e-4}
+    check(err <= 1e-4, f"{arch} smoke model on the card vs the CPU twins: max abs logit err {err}")
+    return {"arch": arch, "steps": int(logits["cpu"].shape[0]), "max_abs_err": err, "atol": 1e-4}
 
 
 def train_batches(task, steps: int, batch: int, offset: int = 0):
@@ -1334,6 +1404,54 @@ def smoke_train_cuda_vs_cpu(seed: int, arch: str):
             "importance_max_abs_diff": float((ic - ip).abs().max())}
 
 
+def dense_round_launches(gates) -> dict:
+    """A dense decoder's launches in a local round: per step, the q and v
+    forward of every active layer and their dX in all but the step's first
+    active layer (whose input needs no gradient)."""
+    return {"flash_attention": active_count(gates), "flash_attention_bwd": active_count(gates),
+            "lora_matmul": 4 * active_count(gates) - 2 * len(gates)}
+
+
+def dense_eval_launches(cfg) -> dict:
+    return {"flash_attention": cfg.num_layers, "lora_matmul": 2 * cfg.num_layers}
+
+
+DENSE_ARCHS = ("glm4-9b", "h2o-danube-1.8b", "yi-6b")
+
+
+def dense_arch_full(api, ops, card, seed: int, arch: str):
+    """Phase 5e for one of the other dense decoders: serving at full width
+    as phase 4 (and the smoke model on the card against the CPU twins),
+    then one client's local round as phase 5, at full depth unless the
+    round does not fit the card: each time it does not, three quarters of
+    the layers are kept and the round is run again (the cut is returned
+    beside the numbers); then the smoke round on the card against the CPU
+    twins."""
+    from repro_torch.configs import get_config
+
+    serve_stats, breakdown, serve_launches = serve_full(api, ops, card, seed, arch)
+    serve_stats["decode_step_profile"] = breakdown
+    serve_stats["smoke_card_vs_cpu"] = smoke_cuda_vs_cpu(seed, arch)
+    cfg = get_config(arch)
+    layers, cuts = cfg.num_layers, []
+    while True:
+        try:
+            train_stats, profile, train_launches = train_full(
+                ops, card, seed, cfg.replace(num_layers=layers), dense_round_launches, dense_eval_launches)
+            break
+        except torch.cuda.OutOfMemoryError as err:
+            cuts.append({"layers": layers, "error": str(err).splitlines()[0][:200]})
+            check(layers > 4, f"{arch}: a local round does not fit at {layers} layers")
+        layers = layers * 3 // 4
+        gc.collect()  # after the handler, whose traceback held the failed round's tensors
+        torch.cuda.empty_cache()
+    train_stats["depth_cut"] = (None if not cuts else
+                                {"layers": layers, "of": cfg.num_layers, "did_not_fit": cuts})
+    train_stats["local_step_profile"] = profile
+    train_stats["smoke_card_vs_cpu"] = smoke_train_cuda_vs_cpu(seed, arch)
+    return serve_stats, serve_launches, train_stats, train_launches
+
+
 FED_ROUNDS = 3
 STARTUP_RATES = (0.2, 0.5, 0.7)  # the bandit's start-up arms (OnlineConfigurator's default)
 
@@ -1529,6 +1647,65 @@ def federated_run(api, ops, seed: int, cohort_mode: str):
     return runner, stats, hist, [t.clone() for t in tree_leaves(runner.state.global_peft)], launches
 
 
+def resume_and_serve(api, seed: int, global_leaves, hist, final_accuracy):
+    """Phase 5d's checkpoints: the batched run saved after round 2
+    (``checkpoint_dir``), a fresh runner resumed from it (``resume=True``)
+    and run to round 3 gives the uninterrupted run's global LoRA, history
+    and final accuracy bit for bit; then ``api.serve(checkpoint_dir=...)``
+    serves the global adapter and two clients' with the tokens of
+    ``api.serve(adapters=...)`` given the resumed runner's own trees."""
+    import shutil
+
+    from repro_torch.models.stacking import tree_leaves
+    from repro_torch.serving.batcher import Request
+
+    ckpt_dir = ROOT / "build" / "chip_smoke_checkpoints"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    runner = api.build("droppeft", "qwen3-1.7b", smoke=False, seed=seed, checkpoint_dir=str(ckpt_dir))
+    runner.run(rounds=2)
+    del runner
+    gc.collect()
+    saved = sorted(p.name for p in ckpt_dir.iterdir())
+    check(saved == ["step_00000001", "step_00000002"], f"checkpoints {saved}")
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    runner = api.build("droppeft", "qwen3-1.7b", smoke=False, seed=seed, checkpoint_dir=str(ckpt_dir), resume=True)
+    check(runner.state.round_index == 2, f"resumed at round {runner.state.round_index}")
+    result = runner.run(rounds=FED_ROUNDS)
+    resume_s = time.perf_counter() - t0
+    check(all(torch.equal(a, b) for a, b in zip(global_leaves, tree_leaves(runner.state.global_peft)))
+          and list(runner.state.history) == hist and result.final_accuracy == final_accuracy,
+          "the run resumed at round 2 differs from the uninterrupted run")
+    clients = sorted(runner.state.device_peft)[:2]
+    trees = {"client_global": runner.state.global_peft,
+             **{f"client{d}": runner.state.device_peft[d] for d in clients}}
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(seed + 5)
+    names = list(trees)
+    requests = [(rng.integers(0, 151_936, int(rng.integers(16, 65))).tolist(), names[j % 3]) for j in range(6)]
+    tokens = {}
+    for source in ("checkpoint", "trees"):
+        kw = {"checkpoint_dir": str(ckpt_dir)} if source == "checkpoint" else {"adapters": trees}
+        batcher = api.serve("qwen3-1.7b", smoke=False, batch=8, max_len=512, seed=seed, **kw)
+        for j, (prompt, name) in enumerate(requests):
+            batcher.submit(Request(prompt=prompt, adapter=name, max_new_tokens=16, uid=j))
+        tokens[source] = {c.uid: c.tokens for c in batcher.run()}
+        if source == "checkpoint":
+            registered = len(batcher.pool.registry)
+        del batcher
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(tokens["checkpoint"] == tokens["trees"] and len(tokens["trees"]) == 6,
+          f"served from the checkpoint {tokens['checkpoint']} vs from the same trees {tokens['trees']}")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return {"saved_rounds": 2, "resumed_to": FED_ROUNDS, "bit_identical": True, "save_run_s": save_s,
+            "resume_run_s": resume_s, "adapters_in_checkpoint": registered, "served": names,
+            "requests": len(requests), "tokens_equal": True}
+
+
 def federated_full(api, ops, card, seed: int):
     """Phase 5d: ``api.build("droppeft", "qwen3-1.7b", smoke=False)`` on the
     card at the defaults (100 devices, 10 a round, 4 local steps of batch
@@ -1554,6 +1731,7 @@ def federated_full(api, ops, card, seed: int):
     batched["profile"] = profile_fed_round(runner)
     del runner
     gc.collect()
+    batched["resume"] = resume_and_serve(api, seed, global1, hist, batched["final_accuracy"])
 
     runner, sequential, _, _, _ = federated_run(api, ops, seed, "sequential")
     sequential["profile"] = profile_fed_round(runner)
@@ -1625,7 +1803,8 @@ def main() -> int:
                              "repro_torch under SRC, another tree's src directory, and print no result; run once "
                              "for each tree, in turns, to compare two trees on one card")
     parser.add_argument("--scans", default="wkv6,mamba_scan",
-                        help="with --scans-of, the scans to time, a comma-separated subset of wkv6,mamba_scan")
+                        help="with --scans-of, the kernels to time, a comma-separated subset of "
+                             "wkv6,mamba_scan,flash_decode")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -1647,7 +1826,8 @@ def main() -> int:
     print(card, flush=True)
     if args.scans_of:
         scans = tuple(args.scans.split(","))
-        check(set(scans) <= {"wkv6", "mamba_scan"}, f"--scans takes wkv6 and mamba_scan, got {args.scans}")
+        check(set(scans) <= {"wkv6", "mamba_scan", "flash_decode"},
+              f"--scans takes wkv6, mamba_scan and flash_decode, got {args.scans}")
         return scans_of(args.scans_of, card, args.seed, scans)
 
     # 2. build
@@ -1733,6 +1913,43 @@ def main() -> int:
                                                                                "d": 200, "n": 8}):
         print(f"mamba_scan check {json.dumps(mamba_case(ops, ref, timer, gen, time_it=False, **kw))}", flush=True)
 
+    # the other dense decoders' shapes, drawn from a generator of their own:
+    # glm4-9b (32 heads over 2 KV heads, 16 a KV head), h2o-danube-1.8b
+    # (head dim 80, its window of 4096 and one over a wrapped ring), yi-6b;
+    # flash_decode at their serving step (batch 8, 512 slots),
+    # flash_attention at their training shape (batch 16 x 512), and the q
+    # and v projections' lora_matmul (batch 16 x 512) and segmented_lora
+    # (the serving step's 8 rows)
+    gen_dense = torch.Generator(device="cuda")
+    gen_dense.manual_seed(args.seed + 4)
+    dense = {
+        "decode_glm4": decode_case(ops, ref, ring_positions, timer, gen_dense, q_dtype=torch.bfloat16, h=32, kv=2),
+        "decode_danube": decode_case(ops, ref, ring_positions, timer, gen_dense, q_dtype=torch.bfloat16, h=32, kv=8,
+                                     d=80, window=4096),
+        "attention_glm4": attention_case(ops, ref, timer, gen_dense, dtype=torch.bfloat16, h=32, kv=2),
+        "attention_danube": attention_case(ops, ref, timer, gen_dense, dtype=torch.bfloat16, h=32, kv=8, d=80,
+                                           window=4096),
+    }
+    for name in dense:
+        print(f"{name} {json.dumps(dense[name])} [{card}]", flush=True)
+    for kw in ({"q_dtype": torch.bfloat16, "h": 32, "kv": 8, "d": 80, "window": 100},
+               {"q_dtype": torch.float32, "h": 32, "kv": 2}, {"q_dtype": torch.float32, "h": 32, "kv": 8, "d": 80}):
+        case = decode_case(ops, ref, ring_positions, timer, gen_dense, **kw)
+        print(f"flash_decode check {json.dumps({k: case[k] for k in ('shape', 'max_abs_err', 'atol')})}", flush=True)
+    for kw in ({"dtype": torch.bfloat16, "h": 32, "kv": 8, "d": 80, "window": 100},
+               {"dtype": torch.float32, "b": 2, "h": 32, "kv": 8, "d": 80},
+               {"dtype": torch.float32, "b": 2, "h": 32, "kv": 8, "d": 80, "window": 100},
+               {"dtype": torch.float32, "b": 2, "h": 32, "kv": 2}):
+        print(f"flash_attention check {json.dumps(attention_case(ops, ref, timer, gen_dense, time_it=False, **kw))}",
+              flush=True)
+    dense_widths = {"glm4 q": (4096, 4096), "glm4 v": (4096, 256), "danube q": (2560, 2560),
+                    "danube v": (2560, 640), "yi v": (4096, 512)}  # (K, N); yi's q is glm4's
+    for name, (k, n) in dense_widths.items():
+        dense[f"lora {name}"] = lora_case(ops, ref, timer, gen_dense, dtype=torch.bfloat16, n=n, k=k)
+        dense[f"segmented {name}"] = segmented_case(ops, ref, timer, gen_dense, dtype=torch.bfloat16, n=n, k=k)
+        print(f"lora_matmul {name} {json.dumps(dense[f'lora {name}'])} [{card}]", flush=True)
+        print(f"segmented_lora {name} {json.dumps(dense[f'segmented {name}'])} [{card}]", flush=True)
+
     # 4. serve full-width qwen3-1.7b
     serve_stats, breakdown, launches = serve_full(api, ops, card, args.seed)
     print(f"serve {json.dumps(serve_stats)}", flush=True)
@@ -1795,6 +2012,19 @@ def main() -> int:
         print(f"federated smoke run, batched on the card vs sequential and the CPU twins: "
               f"{json.dumps(federated_smoke_cuda_vs_cpu(args.seed, arch))}", flush=True)
 
+    # 5e. the other dense decoders at full width: serving as phase 4, a local
+    #     round as phase 5 (at full depth where it fits the card)
+    dense_runs = {}
+    for arch in DENSE_ARCHS:
+        serve_a, serve_launches_a, train_a, train_launches_a = dense_arch_full(api, ops, card, args.seed, arch)
+        dense_runs[arch] = {"serve_launches": serve_launches_a, "train_launches": train_launches_a}
+        print(f"serve {arch} {json.dumps(serve_a)}", flush=True)
+        print(f"train {arch} {json.dumps(train_a)}", flush=True)
+        for name in ("segmented_lora", "flash_decode"):
+            check(serve_launches_a[name] > 0, f"{name} never launched while serving {arch}: {serve_launches_a}")
+        for name in ("flash_attention", "flash_attention_bwd", "lora_matmul"):
+            check(train_launches_a[name] > 0, f"{name} never launched in the {arch} local round: {train_launches_a}")
+
     # 6. kernels line: each path's shapes (bf16) and launches; q and v
     #    projections summed for segmented_lora and lora_matmul (forward)
     for name in ("segmented_lora", "flash_decode"):
@@ -1806,6 +2036,21 @@ def main() -> int:
         check(rwkv_launches[name] > 0, f"{name} never launched in the rwkv6-3b local round: {rwkv_launches}")
     for name in ("mamba_scan", "mamba_scan_bwd"):
         check(jamba_launches[name] > 0, f"{name} never launched in the jamba local round: {jamba_launches}")
+    def pick(case, keys, **renamed):
+        return {**{key: case.get(key) for key in keys}, **{new: case.get(old) for new, old in renamed.items()}}
+
+    fwd_keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "kernel_ms",
+                "library_kernel_ms")
+    bwd_renamed = {"max_abs_err": "bwd_max_abs_err", "ms": "bwd_ms", "plain_ms": "plain_bwd_ms",
+                   "bound_ms": "bwd_bound_ms", "bound_by": "bwd_bound_by", "library_ms": "library_bwd_ms",
+                   "dq_kernel_ms": "bwd_dq_ms", "dkv_kernel_ms": "bwd_dkv_ms",
+                   "library_kernel_ms": "library_bwd_kernel_ms"}
+    proj_keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "kernel_ms", "cublas_x_at_w_ms",
+                 "cublas_x_at_w_kernel_ms")
+    dense_shapes = {kind: {name: pick(dense[f"{kind} {name}"], proj_keys) for name in dense_widths}
+                    for kind in ("lora", "segmented")}
+    dense_launches = {role: {arch: dense_runs[arch][role] for arch in DENSE_ARCHS}
+                      for role in ("serve_launches", "train_launches")}
     q_case, v_case = seg[(torch.bfloat16, 2048)], seg[(torch.bfloat16, 1024)]
     d_case = dec[torch.bfloat16]
     lq, lv = lora[(torch.bfloat16, 2048)], lora[(torch.bfloat16, 1024)]
@@ -1824,6 +2069,10 @@ def main() -> int:
             "device_only_ms_q_v": [q_case["kernel_ms"], v_case["kernel_ms"]],
             "splits_q_v": [q_case["splits"], v_case["splits"]],
             "shape": "q then v projection of one layer: " + q_case["shape"] + " + " + v_case["shape"],
+            "dense_arch_shapes": dense_shapes["segmented"],
+            "launches_by_path": {"serve_qwen3": launches["segmented_lora"],
+                                 **{f"serve_{a}": dense_launches["serve_launches"][a]["segmented_lora"]
+                                    for a in DENSE_ARCHS}},
         },
         {
             "name": "flash_decode", "route": "cuda",
@@ -1835,6 +2084,11 @@ def main() -> int:
             "split_kernel_ms": d_case["split_kernel_ms"], "combine_kernel_ms": d_case["combine_kernel_ms"],
             "library_device_only_ms": d_case["library_kernel_ms"], "splits": d_case["splits"],
             "shape": d_case["shape"],
+            "glm4_shape": pick(dense["decode_glm4"], fwd_keys),
+            "danube_shape": pick(dense["decode_danube"], fwd_keys),
+            "launches_by_path": {"serve_qwen3": launches["flash_decode"],
+                                 **{f"serve_{a}": dense_launches["serve_launches"][a]["flash_decode"]
+                                    for a in DENSE_ARCHS}},
         },
         {
             "name": "flash_attention", "route": "cuda",
@@ -1842,7 +2096,11 @@ def main() -> int:
             "replaces": "src/repro/kernels/flash_attention.py:101",
             "launches": train_launches["flash_attention"],
             "launches_by_path": {"local_round": train_launches["flash_attention"],
-                                 "federated_rounds": fed_launches["flash_attention"]},
+                                 "federated_rounds": fed_launches["flash_attention"],
+                                 **{f"local_round_{a}": dense_launches["train_launches"][a]["flash_attention"]
+                                    for a in DENSE_ARCHS}},
+            "glm4_shape": pick(dense["attention_glm4"], fwd_keys),
+            "danube_shape": pick(dense["attention_danube"], fwd_keys),
             **{key: attn[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "jamba_ms": attn_jamba["ms"], "jamba_library_ms": attn_jamba["library_ms"],
             "device_only_ms": attn["kernel_ms"], "library_device_only_ms": attn["library_kernel_ms"],
@@ -1856,7 +2114,11 @@ def main() -> int:
             "replaces": "src/repro/kernels/flash_attention.py:101",
             "launches": train_launches["flash_attention_bwd"],
             "launches_by_path": {"local_round": train_launches["flash_attention_bwd"],
-                                 "federated_rounds": fed_launches["flash_attention_bwd"]},
+                                 "federated_rounds": fed_launches["flash_attention_bwd"],
+                                 **{f"local_round_{a}": dense_launches["train_launches"][a]["flash_attention_bwd"]
+                                    for a in DENSE_ARCHS}},
+            "glm4_shape": pick(dense["attention_glm4"], ("shape",), **bwd_renamed),
+            "danube_shape": pick(dense["attention_danube"], ("shape",), **bwd_renamed),
             "max_abs_err": attn["bwd_max_abs_err"], "ms": attn["bwd_ms"], "plain_ms": attn["plain_bwd_ms"],
             "bound_ms": attn["bwd_bound_ms"], "bound_by": attn["bwd_bound_by"], "library_ms": attn["library_bwd_ms"],
             "dq_kernel_ms": attn["bwd_dq_ms"], "dkv_kernel_ms": attn["bwd_dkv_ms"],
@@ -1875,7 +2137,10 @@ def main() -> int:
             "replaces": "src/repro/kernels/lora_matmul.py:31",
             "launches": train_launches["lora_matmul"],
             "launches_by_path": {"local_round": train_launches["lora_matmul"],
-                                 "federated_rounds": fed_launches["lora_matmul"]},
+                                 "federated_rounds": fed_launches["lora_matmul"],
+                                 **{f"local_round_{a}": dense_launches["train_launches"][a]["lora_matmul"]
+                                    for a in DENSE_ARCHS}},
+            "dense_arch_shapes": dense_shapes["lora"],
             "max_abs_err": max(lq["max_abs_err"], lv["max_abs_err"]),
             **{key: lq[key] + lv[key] for key in ("ms", "plain_ms", "bound_ms")},
             "bound_by": lq["bound_by"], "library_ms": None,

@@ -14,20 +14,30 @@ needs the trained state afterwards::
     result = runner.run(rounds=3)
     peft = runner.state.global_peft  # the global LoRA tree, on the card
 
-They take the reference's keywords plus ``device``.  A keyword that names
-a feature the port lacks raises ``NotImplementedError`` with its ROADMAP
-item: ``checkpoint_dir``/``resume`` (4), ``stld_mode="gather"`` (5),
+They take the reference's keywords plus ``device``.  ``checkpoint_dir``
+saves the round state every ``checkpoint_every`` rounds, and ``resume=True``
+continues from the newest snapshot there, bit-identically::
+
+    api.build("droppeft", smoke=False, checkpoint_dir="ckpts").run(rounds=2)
+    runner = api.build("droppeft", smoke=False, checkpoint_dir="ckpts", resume=True)
+    result = runner.run(rounds=3)  # rounds 3 only; as one run of 3 rounds
+
+A keyword that names a feature the port lacks raises
+``NotImplementedError`` with its ROADMAP item: ``stld_mode="gather"`` (5),
 ``compression``, ``fault_plan`` and a schedule other than ``"sync"`` (6),
 ``peft`` other than ``"lora"`` (7).  ``cohort_mode="auto"`` runs
 ``"batched"`` (one grouped launch a layer for the whole cohort) for every
 method but one that ``requires_sequential``, as the reference does.
 
-``serve`` builds a ready multi-tenant LoRA server::
+``serve`` builds a ready multi-tenant LoRA server, its adapters given as
+trees or read from a federated run's checkpoint (every client as
+``client<id>``, the global adapter as ``client_global``)::
 
     from repro_torch import api
     from repro_torch.serving.batcher import Request
 
     batcher = api.serve(adapters={"client0": tree0, "client1": tree1}, batch=8)
+    batcher = api.serve(smoke=False, checkpoint_dir="ckpts", batch=8)
     batcher.submit(Request(prompt=[5, 7, 11], adapter="client0", max_new_tokens=32))
     for c in batcher.run():  # Completion(uid, adapter, tokens, finish_reason)
         print(c.adapter, c.finish_reason, c.tokens)
@@ -192,6 +202,7 @@ def serve(
     smoke: bool = True,
     cfg=None,
     params=None,
+    checkpoint_dir: Optional[str] = None,
     adapters: Optional[dict] = None,
     lora_alpha: float = 16.0,
     batch: int = 4,
@@ -204,9 +215,12 @@ def serve(
     """Multi-tenant adapter serving: a ready
     :class:`~repro_torch.serving.batcher.ContinuousBatcher`.
 
-    ``adapters`` is a ``{name: stacked LoRA tree}`` dict.  ``params=None``
-    draws random weights from ``seed`` on the device.  The base weights are
-    cast to ``cfg.dtype`` once here; the float32 masters are not kept.
+    Adapters come from a federated ``save_state`` checkpoint
+    (``checkpoint_dir``: every client's adapter registers as
+    ``client<id>``, the global one as ``client_global``) and/or a
+    ``{name: LoRA tree}`` dict.  ``params=None`` draws random weights from
+    ``seed`` on the device, each part cast to ``cfg.dtype`` as it is drawn;
+    given weights are cast once here.  The float32 masters are not kept.
     """
     from repro_torch.launch.steps import make_serve_step
     from repro_torch.models.registry import init_params, place_params
@@ -217,15 +231,17 @@ def serve(
     if cfg is None:
         cfg = get_config(model, smoke=smoke)
     registry = AdapterRegistry()
+    if checkpoint_dir is not None:
+        registry.load_checkpoint(checkpoint_dir, alpha=lora_alpha)
     for name, tree in (adapters or {}).items():
         registry.register(name, tree, alpha=lora_alpha)
     if len(registry) == 0:
-        raise ValueError("no adapters: pass adapters={name: lora_tree}")
+        raise ValueError("no adapters: pass checkpoint_dir and/or adapters")
     compute_dtype = getattr(torch, cfg.dtype)
     if params is None:
         generator = torch.Generator(device=device)
         generator.manual_seed(seed)
-        params = init_params(cfg, generator)
+        params = init_params(cfg, generator, place=True)
     params = place_params(params, cfg, device)
     pool = AdapterPoolCache(
         registry,

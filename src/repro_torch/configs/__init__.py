@@ -3,12 +3,12 @@
 ``get_config(arch_id)`` returns the FULL configuration;
 ``get_config(arch_id, smoke=True)`` the reduced variant the CPU tests use.
 """
-from repro_torch.configs import jamba_v0_1_52b, qwen3_1_7b, rwkv6_3b
+from repro_torch.configs import glm4_9b, h2o_danube_1_8b, jamba_v0_1_52b, qwen3_1_7b, rwkv6_3b, yi_6b
 from repro_torch.configs.base import (
     FederatedConfig, MambaConfig, ModelConfig, PEFTConfig, RWKVConfig, STLDConfig, TrainConfig,
 )
 
-_BY_ID = {m.ARCH_ID: m for m in (qwen3_1_7b, rwkv6_3b, jamba_v0_1_52b)}
+_BY_ID = {m.ARCH_ID: m for m in (qwen3_1_7b, rwkv6_3b, jamba_v0_1_52b, glm4_9b, h2o_danube_1_8b, yi_6b)}
 
 
 def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:

@@ -74,6 +74,7 @@ class ModelConfig:
 
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    max_seq_len: int = 8192
     dtype: str = "bfloat16"  # activation/compute dtype
     param_dtype: str = "float32"
 

@@ -25,6 +25,7 @@ FULL = ModelConfig(
     attn_offset=4,
     mamba=MambaConfig(d_state=16, d_conv=4, expand=2),
     rope_theta=0.0,
+    max_seq_len=524_288,
 )
 
 SMOKE = ModelConfig(
@@ -44,4 +45,5 @@ SMOKE = ModelConfig(
     attn_offset=1,
     mamba=MambaConfig(d_state=8, d_conv=4, expand=2),
     rope_theta=0.0,
+    max_seq_len=512,
 )

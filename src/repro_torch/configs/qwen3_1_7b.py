@@ -18,6 +18,7 @@ FULL = ModelConfig(
     qk_norm=True,
     rope_theta=1_000_000.0,
     tie_embeddings=True,
+    max_seq_len=32_768,
 )
 
 SMOKE = ModelConfig(
@@ -32,4 +33,5 @@ SMOKE = ModelConfig(
     qk_norm=True,
     rope_theta=1_000_000.0,
     tie_embeddings=True,
+    max_seq_len=512,
 )

@@ -16,6 +16,7 @@ FULL = ModelConfig(
     d_ff=8960,
     vocab_size=65536,
     rwkv=RWKVConfig(head_dim=64, decay_lora_dim=64, gate_lora_dim=160),
+    max_seq_len=524_288,
 )
 
 SMOKE = ModelConfig(
@@ -28,4 +29,5 @@ SMOKE = ModelConfig(
     d_ff=256,
     vocab_size=512,
     rwkv=RWKVConfig(head_dim=32, decay_lora_dim=16, gate_lora_dim=32),
+    max_seq_len=512,
 )

@@ -11,8 +11,13 @@ task, the Dirichlet shards, each device's batches, the device profiles
 (``default_rng(seed)``), then each round's cohort and bandwidths, and the
 bandit.  The torch streams (base weights, the initial LoRA, the STLD gates)
 come from ``state.split_key(seed, 3)``, as the reference splits its seed
-key in three, and never from the numpy generator.  Checkpoints are not
-ported (ROADMAP queue 1, item 4).
+key in three, and never from the numpy generator.
+
+Any round boundary can be checkpointed (``checkpoint_dir``) in the
+reference's format and resumed bit-exactly (``resume=True``): the round's
+torch seed ``key``, the numpy streams of the round loop and of every
+device's batches, the bandit, the PEFT trees, the share masks and the
+metric history.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ from typing import Any, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import ckpt as ckpt_lib
 from repro_torch.core.peft import init_peft
 from repro_torch.data.partition import dirichlet_partition
 from repro_torch.data.pipeline import DeviceDataset
@@ -33,6 +39,7 @@ from repro_torch.federated.scheduler import ScheduleConfig, VirtualClockSchedule
 from repro_torch.federated.state import RoundState, split_key
 from repro_torch.federated.system_model import SystemModel, sample_device
 from repro_torch.models.registry import init_params, place_params
+from repro_torch.models import stacking
 from repro_torch.models.stacking import tree_map
 
 
@@ -145,8 +152,10 @@ class ExperimentRunner:
     ``"batched"`` for every algorithm but one whose ``requires_sequential``
     is set (its per-device trees cannot share a device axis), which runs
     ``"sequential"``; ``"batched"`` for such an algorithm raises
-    ``ValueError``.  ``checkpoint_dir``/``resume``, ``fault_plan`` and
-    ``compression`` are not ported and raise."""
+    ``ValueError``.  With ``checkpoint_dir`` the scheduler saves the round
+    state (:meth:`save_checkpoint`); ``resume=True`` restores the newest
+    complete snapshot there (a fresh start when there is none).
+    ``fault_plan`` and ``compression`` are not ported and raise."""
 
     def __init__(self, cfg, peft_cfg, stld_cfg, fed_cfg, train_cfg, *,
                  algorithm: "FederatedAlgorithm | str" = "droppeft", task=None, cost_cfg=None, seed: int = 0,
@@ -155,10 +164,11 @@ class ExperimentRunner:
                  fault_plan=None, compression=None, params=None, device=None):
         if cohort_mode not in ("auto", "batched", "sequential"):
             raise ValueError(f"unknown cohort_mode {cohort_mode!r}")
-        for option, value, item in (("checkpoint_dir", checkpoint_dir, 4), ("resume", resume, 4),
-                                    ("fault_plan", fault_plan, 6), ("compression", compression, 6)):
+        for option, value, item in (("fault_plan", fault_plan, 6), ("compression", compression, 6)):
             if value:
                 raise unported(f"{option}={value!r}", item)
+        if resume and not checkpoint_dir:
+            raise ValueError("resume=True requires checkpoint_dir")
         if stld_cfg.mode != "cond":
             raise unported(f"stld_mode={stld_cfg.mode!r}", 5)
         if isinstance(algorithm, str):
@@ -172,6 +182,8 @@ class ExperimentRunner:
         if cohort_mode == "auto":
             cohort_mode = "sequential" if algorithm.requires_sequential else "batched"
         self.algorithm = algorithm
+        self.checkpoint_dir = checkpoint_dir
+        self.checkpoint_every = max(1, checkpoint_every)
         self.schedule = resolve_schedule(schedule)
         self.scheduler = VirtualClockScheduler(self, self.schedule)  # raises for an unported policy
         self.device = torch.device("cuda" if device is None else device)
@@ -187,6 +199,8 @@ class ExperimentRunner:
                                   cohort_mode=cohort_mode, device=self.device)
         self.state = RoundState(key=key, global_peft=global_peft, rng=rng,
                                 configurator=algorithm.build_configurator(ctx))
+        if resume:
+            self._restore_latest()
 
     def run(self, rounds: Optional[int] = None, target_accuracy: Optional[float] = None) -> SimResult:
         """Drive the round loop through the scheduler (``target_accuracy``
@@ -211,6 +225,92 @@ class ExperimentRunner:
             self.state.global_peft, self.state.device_peft, self.ctx.num_classes
         )
         return res
+
+    # --------------------------------------------------------- checkpointing
+    # The reference's meta version 3: the scheduler section, the fault plan
+    # and the error-feedback residuals (empty: no compression in the port).
+    CKPT_META_VERSION = 3
+
+    def save_checkpoint(self) -> str:
+        """Persist the full round state as the reference's runner does; a
+        run resumed from it is bit-identical.  ``key`` is the port's own
+        (an int, saved as int64), not the reference's JAX key."""
+        state = self.state
+        sched_jobs, sched_meta = self.scheduler.state_dict()
+        arrays = {
+            "key": np.int64(state.key),
+            "global_peft": state.global_peft,
+            "device_peft": {str(d): t for d, t in sorted(state.device_peft.items())},
+            "last_mask": {str(d): np.asarray(m) for d, m in sorted(state.last_mask.items())},
+            "ef_residual": {},
+            "scheduler_jobs": sched_jobs,
+        }
+        meta = {
+            "meta_version": self.CKPT_META_VERSION,
+            "scheduler": sched_meta,
+            "fault_plan": None,
+            "round_index": state.round_index,
+            "global_step": state.global_step,
+            "cum_time": state.cum_time,
+            "virtual_time": state.virtual_time,
+            "server_version": state.server_version,
+            "prev_acc": {str(d): v for d, v in state.prev_acc.items()},
+            "rng_state": state.rng.bit_generator.state,
+            "device_rng": [d._rng.bit_generator.state for d in self.ctx.devices],
+            "configurator": state.configurator.state_dict() if state.configurator else None,
+            "history": list(state.history),
+        }
+        return ckpt_lib.save_state(self.checkpoint_dir, state.round_index, arrays, meta)
+
+    def _peft_native_layout(self, tree):
+        """A checkpointed PEFT tree in this runner's layout (stacked, or a
+        per-layer list for a heterogeneous stack), on its device."""
+        native_stacked = stacking.is_stacked(self.ctx.init_global_peft)
+        if native_stacked and isinstance(tree, (list, tuple)):
+            tree = stacking.from_layer_list(list(tree), stacked=True)
+        elif not native_stacked and stacking.is_stacked(tree):
+            tree = stacking.layer_list(tree, self.ctx.cfg.num_layers)
+        return tree_map(lambda t: t.to(self.device), tree)
+
+    def _restore_latest(self):
+        latest = ckpt_lib.latest_state_dir(self.checkpoint_dir)
+        if latest is None:
+            return  # nothing saved yet: a fresh start
+        arrays, meta = ckpt_lib.load_state(latest)
+        state = self.state
+        if len(meta["device_rng"]) != len(self.ctx.devices):
+            raise ValueError(
+                f"checkpoint at {latest} was saved with {len(meta['device_rng'])} devices but this runner has "
+                f"{len(self.ctx.devices)}; resume requires an identical config")
+        if (meta["configurator"] is None) != (state.configurator is None):
+            raise ValueError(f"checkpoint at {latest} disagrees with this runner about the rate configurator; "
+                             "resume requires the same method/config")
+        if arrays.get("ef_residual"):
+            raise ValueError(f"checkpoint at {latest} holds error-feedback residuals of a compressed run, "
+                             "which the port does not run")
+        state.rng.bit_generator.state = meta["rng_state"]
+        for dev, rng_state in zip(self.ctx.devices, meta["device_rng"]):
+            dev._rng.bit_generator.state = rng_state
+        configurator = state.configurator
+        if configurator is not None:
+            configurator.load_state_dict(meta["configurator"])
+        self.state = RoundState(
+            key=int(arrays["key"]),
+            global_peft=self._peft_native_layout(arrays["global_peft"]),
+            device_peft={int(d): self._peft_native_layout(t) for d, t in arrays["device_peft"].items()},
+            last_mask={int(d): m.numpy() for d, m in arrays["last_mask"].items()},
+            round_index=meta["round_index"],
+            global_step=meta["global_step"],
+            cum_time=meta["cum_time"],
+            virtual_time=meta.get("virtual_time", meta["cum_time"]),
+            server_version=meta.get("server_version", meta["round_index"]),
+            prev_acc={int(d): v for d, v in meta["prev_acc"].items()},
+            rng=state.rng,
+            configurator=configurator,
+            history=tuple(meta["history"]),
+        )
+        if meta.get("scheduler") is not None:
+            self.scheduler.load_state_dict(arrays.get("scheduler_jobs", []), meta["scheduler"])
 
 
 def run_replicates(seeds: Sequence[int], cfg, peft_cfg, stld_cfg, fed_cfg, train_cfg, *, algorithm="droppeft",

@@ -6,7 +6,11 @@ lifecycle hooks run in the reference's order and draw the same streams, so
 the port's ``SimResult`` follows the reference's round by round.  The
 ``deadline`` and ``async-buffer`` policies (stragglers dropped or carried,
 FedBuff-style buffered aggregation) are configured as in the reference but
-not ported (ROADMAP queue 1, item 6): running them raises.
+not ported (ROADMAP queue 1, item 6): running them raises.  A runner with
+a ``checkpoint_dir`` saves every ``checkpoint_every`` rounds, after the
+last round and after the round that reaches the target, as the
+reference's; ``state_dict`` holds what ``sync`` keeps between rounds (no
+job in flight, the event log) in the reference's layout.
 """
 from __future__ import annotations
 
@@ -95,7 +99,11 @@ class VirtualClockScheduler:
         total = rounds or runner.ctx.fed_cfg.rounds
         while runner.state.round_index < total:
             row = self._sync_round(total, target_accuracy)
-            if target_accuracy is not None and row["acc"] >= target_accuracy:
+            hit_target = target_accuracy is not None and row["acc"] >= target_accuracy
+            if runner.checkpoint_dir and (runner.state.round_index % runner.checkpoint_every == 0
+                                          or runner.state.round_index == total or hit_target):
+                runner.save_checkpoint()
+            if hit_target:
                 break
         return runner.result()
 
@@ -121,3 +129,23 @@ class VirtualClockScheduler:
         for t, dev in sorted(zip(times, plan.cohort), key=lambda p: (p[0], p[1])):
             self.event_log.append((plan.round_index, dev, t0 + t))
         return row
+
+    # --------------------------------------------------------- durable state
+    def state_dict(self) -> Tuple[list, dict]:
+        """``(jobs_arrays, meta)`` as the reference's: ``sync`` keeps no job
+        in flight between rounds, so the arrays are empty and the meta holds
+        the event log (and the reference's empty fault and retry records)."""
+        meta = {
+            "jobs": [],
+            "event_log": [[int(r), int(d), float(t)] for r, d, t in self.event_log],
+            "fault_log": [],
+            "backoff": {},
+            "fail_count": {},
+        }
+        return [], meta
+
+    def load_state_dict(self, jobs_arrays: list, meta: dict) -> None:
+        """Rebuild the state saved by :meth:`state_dict`."""
+        if jobs_arrays or meta.get("jobs"):
+            raise ValueError("the checkpoint holds jobs in flight, which only the unported policies keep")
+        self.event_log = [(int(r), int(d), float(t)) for r, d, t in meta.get("event_log", [])]

@@ -12,7 +12,7 @@
 // the finite -1e30 of the TPU kernel, and the output is acc / max(l, 1e-30).
 //
 // What bounds it: each cache element is used once per query of its GQA
-// group (rep = 2 for qwen3-1.7b), a few FLOP per byte, so it is bound by
+// group (rep = 2 for qwen3-1.7b, 16 for glm4-9b), a few FLOP per byte, so it is bound by
 // reading the live slots of the K and V cache once (~2.5 us at the decode
 // step's B 8, S 512).  Hiding the memory's latency needs several MB in
 // flight, so the cache is split across blocks:
@@ -29,6 +29,13 @@
 //    the warps merged once at the end of the slab;
 //  * each block writes a float32 partial (m, l, acc[D]) per query, and a
 //    second kernel merges a row's splits in order: no atomics.
+// Registers: a lane holds DPL = 2, 4 or 8 dims of each query's accumulator
+// (the head dim rounded up to 64, 128 or 256, a lane's dims past D masked,
+// so any D that is a multiple of 16 runs, h2o-danube's 80 too), and a
+// block holds REP queries with REP * DPL <= 64 accumulators a lane.  So a
+// group of 16 queries (glm4-9b) runs in one block up to D 128, reading the
+// slab once; past D 128 its queries split over two blocks of 8, each
+// reading the slab (the second from L2).
 // A dead slot of a row that has a live slot adds exactly 0 to l and acc
 // (exp(-1e30 - m) is 0 in float32), so skipping it changes no bit.  A row
 // whose slots are all dead gets the mean of V over all S slots, what the
@@ -41,8 +48,9 @@ namespace {
 
 constexpr int THREADS = 128;  // 4 warps
 constexpr int WARPS = THREADS / 32;
-constexpr int MAX_REP = 8;    // query heads per kv head
+constexpr int MAX_REP = 16;   // query heads per kv head
 constexpr int MAX_D = 256;    // head dim
+constexpr int MAX_ACC = 64;   // REP * DPL: accumulators a lane
 constexpr int SLAB = 64;      // slots a block aims for
 constexpr int ROW_PAD = 32;   // bytes after each staged cache row
 constexpr float NEG_INF = -1e30f;
@@ -79,13 +87,15 @@ struct Chunk {
 // part: (B, H, splits, D + 2) float32, per query and split (m, l, acc[D]);
 // l = 0 marks a split without a live slot (nothing else written).
 //
-// Inside a block each warp owns CH / 4 slots of every chunk and keeps its
-// own online softmax (m, l and acc in registers, lane l holding head dims
-// l, l + 32, ...): scores by SEG lanes a slot and a fixed shuffle, the
-// warp's max and sum by shuffles, P V with each slot's probability
-// broadcast by a shuffle.  The four warps' states merge once, in warp
-// order, at the end of the slab, through the K buffer.
-template <typename TQ, typename TC, int REP>
+// The grid's x is (kv head, query group): a block runs up to REP of the
+// kv head's rep queries.  Inside a block each warp owns CH / 4 slots of
+// every chunk and keeps its own online softmax (m, l and acc in registers,
+// lane l holding head dims l, l + 32, ... below D): scores by SEG lanes a
+// slot and a fixed shuffle, the warp's max and sum by shuffles, P V with
+// each slot's probability broadcast by a shuffle.  The four warps' states
+// merge once, in warp order, at the end of the slab, through the staging
+// buffers.
+template <typename TQ, typename TC, int REP, int DPL>
 __global__ void __launch_bounds__(THREADS)
 flash_decode_split_kernel(const TQ* __restrict__ q,      // (B, H, D)
                           const TC* __restrict__ k,      // (B, S, KV, D)
@@ -97,35 +107,38 @@ flash_decode_split_kernel(const TQ* __restrict__ q,      // (B, H, D)
   using C = Chunk<TC>;
   constexpr int CH = C::CH, VEC = C::VEC, SEG = C::SEG, SPW = CH / WARPS;  // slots a warp
   static_assert(SPW * SEG == 32, "a warp's slots fill its lanes");
+  static_assert(REP * DPL <= MAX_ACC, "a lane's accumulators");
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float q_s[MAX_REP][MAX_D];
+  __shared__ float q_s[REP][32 * DPL];
   __shared__ int live_s[CH];
-  __shared__ float wm_s[WARPS][MAX_REP];
-  __shared__ float wl_s[WARPS][MAX_REP];
+  __shared__ float wm_s[WARPS][REP];
+  __shared__ float wl_s[WARPS][REP];
 
   pdl_launch_dependents();  // the merge kernel may start; it waits for this grid before reading
-  const int kvh = blockIdx.x, row = blockIdx.y, split = blockIdx.z, splits = gridDim.z;
-  const int rep = H / KV;  // <= REP
+  const int rep = H / KV, groups = (rep + REP - 1) / REP;
+  const int kvh = blockIdx.x / groups, h0 = kvh * rep + (blockIdx.x % groups) * REP;  // the block's first query
+  const int nq = min(REP, kvh * rep + rep - h0);                                     // and its queries
+  const int row = blockIdx.y, split = blockIdx.z, splits = gridDim.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int rowb = C::row_bytes(D), dvecs = D / VEC, dpl = D / 32;  // head dims a lane
+  const int rowb = C::row_bytes(D), dvecs = D / VEC;
   unsigned char* k_s = smem;
   unsigned char* v_s = smem + CH * rowb;
 
-  const TQ* qg = q + ((size_t)row * H + (size_t)kvh * rep) * D;
-  for (int i = tid; i < rep * D; i += THREADS) q_s[i / D][i % D] = to_float(qg[i]);
+  const TQ* qg = q + ((size_t)row * H + h0) * D;
+  for (int i = tid; i < nq * D; i += THREADS) q_s[i / D][i % D] = to_float(qg[i]);
   const int qp = qpos[row];
   const int* kp = kpos + (size_t)row * S;
   const size_t slot_stride = (size_t)KV * D;
   const TC* kb = k + ((size_t)row * S * KV + kvh) * D;
   const TC* vb = v + ((size_t)row * S * KV + kvh) * D;
 
-  float m[REP], l[REP], acc[REP][MAX_D / 32];
+  float m[REP], l[REP], acc[REP][DPL];
 #pragma unroll
   for (int r = 0; r < REP; ++r) {
     m[r] = NEG_INF;
     l[r] = 0.f;
 #pragma unroll
-    for (int u = 0; u < MAX_D / 32; ++u) acc[r][u] = 0.f;
+    for (int u = 0; u < DPL; ++u) acc[r][u] = 0.f;
   }
 
   // score roles: slot js of the chunk (this warp's), part seg of the head
@@ -173,7 +186,7 @@ flash_decode_split_kernel(const TQ* __restrict__ q,      // (B, H, D)
         load_vec(krow + u * VEC, kv);
 #pragma unroll
         for (int r = 0; r < REP; ++r)
-          if (r < rep) {
+          if (r < nq) {
 #pragma unroll
             for (int e = 0; e < VEC; ++e) sc[r] += q_s[r][u * VEC + e] * kv[e];
           }
@@ -198,7 +211,7 @@ flash_decode_split_kernel(const TQ* __restrict__ q,      // (B, H, D)
       l[r] = alpha * l[r] + sum;
       m[r] = m_new;
 #pragma unroll
-      for (int u = 0; u < MAX_D / 32; ++u) acc[r][u] *= alpha;
+      for (int u = 0; u < DPL; ++u) acc[r][u] *= alpha;
     }
     cp_async_wait<0>();  // this thread's V rows
     __syncthreads();
@@ -212,8 +225,8 @@ flash_decode_split_kernel(const TQ* __restrict__ q,      // (B, H, D)
       if (j >= nb) continue;
       const TC* vrow = reinterpret_cast<const TC*>(v_s + j * rowb);
 #pragma unroll
-      for (int u = 0; u < MAX_D / 32; ++u) {
-        if (u < dpl) {
+      for (int u = 0; u < DPL; ++u) {
+        if (lane + 32 * u < D) {
           const float vd = to_float(vrow[lane + 32 * u]);
 #pragma unroll
           for (int r = 0; r < REP; ++r) acc[r][u] += pj[r] * vd;
@@ -223,8 +236,8 @@ flash_decode_split_kernel(const TQ* __restrict__ q,      // (B, H, D)
   }
 
   // (4) the warps' states, merged in warp order, into this split's partial
-  __syncthreads();  // the K buffer is free
-  float* wacc_s = reinterpret_cast<float*>(k_s);  // [WARPS][REP][D]
+  __syncthreads();  // the staging buffers are free
+  float* wacc_s = reinterpret_cast<float*>(smem);  // [WARPS][REP][D]
   if (lane == 0) {
 #pragma unroll
     for (int r = 0; r < REP; ++r) {
@@ -235,10 +248,10 @@ flash_decode_split_kernel(const TQ* __restrict__ q,      // (B, H, D)
 #pragma unroll
   for (int r = 0; r < REP; ++r)
 #pragma unroll
-    for (int u = 0; u < MAX_D / 32; ++u)
-      if (u < dpl) wacc_s[(warp * REP + r) * D + lane + 32 * u] = acc[r][u];
+    for (int u = 0; u < DPL; ++u)
+      if (lane + 32 * u < D) wacc_s[(warp * REP + r) * D + lane + 32 * u] = acc[r][u];
   __syncthreads();
-  for (int e = tid; e < rep * D; e += THREADS) {
+  for (int e = tid; e < nq * D; e += THREADS) {
     const int r = e / D, d = e % D;
     float mb = NEG_INF;
 #pragma unroll
@@ -250,7 +263,7 @@ flash_decode_split_kernel(const TQ* __restrict__ q,      // (B, H, D)
       lb += wt * wl_s[w][r];
       ab += wt * wacc_s[(w * REP + r) * D + d];
     }
-    float* pb = part + (((size_t)row * H + (size_t)kvh * rep + r) * splits + split) * (D + 2);
+    float* pb = part + (((size_t)row * H + h0 + r) * splits + split) * (D + 2);
     if (d == 0) {
       pb[0] = mb;
       pb[1] = lb;
@@ -323,15 +336,17 @@ int sm_count() {
 
 int splits_for(int S) { return max(1, min((S + SLAB - 1) / SLAB, sm_count())); }
 
-template <typename TQ, typename TC, int REP>
+template <typename TQ, typename TC, int REP, int DPL>
 int launch_rep(const void* q, const void* k, const void* v, const int* qpos, const int* kpos, void* out, float* part,
                int B, int H, int KV, int D, int S, int window, float scale, int splits, cudaStream_t stream) {
   const int slab = (S + splits - 1) / splits;
-  const int bytes = Chunk<TC>::smem_bytes(D);
-  auto split_kernel = flash_decode_split_kernel<TQ, TC, REP>;
+  const int groups = (H / KV + REP - 1) / REP;
+  // the chunk's K and V rows, which the warps' states reuse at the end
+  const int bytes = max(Chunk<TC>::smem_bytes(D), WARPS * REP * D * static_cast<int>(sizeof(float)));
+  auto split_kernel = flash_decode_split_kernel<TQ, TC, REP, DPL>;
   cudaError_t err = cudaFuncSetAttribute(split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  split_kernel<<<dim3(KV, B, splits), THREADS, bytes, stream>>>(static_cast<const TQ*>(q), static_cast<const TC*>(k),
+  split_kernel<<<dim3(KV * groups, B, splits), THREADS, bytes, stream>>>(static_cast<const TQ*>(q), static_cast<const TC*>(k),
                                                                 static_cast<const TC*>(v), qpos, kpos, part, H, KV,
                                                                 D, S, window, slab, scale);
   err = cudaGetLastError();
@@ -343,16 +358,27 @@ int launch_rep(const void* q, const void* k, const void* v, const int* qpos, con
                                            static_cast<TQ*>(out), H, KV, D, S, splits));
 }
 
-// The group's loops unrolled for 1, 2, 4 or 8 queries (a group of 3 runs
-// the 4-query code with the fourth masked off).
+// A lane's dims of the head, DPL, rounded up from D / 32 to 2, 4 or 8.
+// The group's loops unrolled for 1, 2, 4, 8 or 16 queries a block (a group
+// of 3 runs the 4-query code with the fourth masked off), at most
+// MAX_ACC / DPL: past it the group's queries split over blocks.
+template <typename TQ, typename TC, int DPL>
+int launch_dpl(const void* q, const void* k, const void* v, const int* qpos, const int* kpos, void* out, float* part,
+               int B, int H, int KV, int D, int S, int window, float scale, int splits, cudaStream_t stream) {
+  constexpr int CAP = MAX_ACC / DPL < MAX_REP ? MAX_ACC / DPL : MAX_REP;
+  const int rep = H / KV;
+  auto go = rep == 1   ? launch_rep<TQ, TC, 1, DPL>
+            : rep == 2 ? launch_rep<TQ, TC, 2, DPL>
+            : rep <= 4 ? launch_rep<TQ, TC, 4, DPL>
+            : rep <= 8 ? launch_rep<TQ, TC, 8, DPL>
+                       : launch_rep<TQ, TC, CAP, DPL>;
+  return go(q, k, v, qpos, kpos, out, part, B, H, KV, D, S, window, scale, splits, stream);
+}
+
 template <typename TQ, typename TC>
 int launch(const void* q, const void* k, const void* v, const int* qpos, const int* kpos, void* out, float* part,
            int B, int H, int KV, int D, int S, int window, float scale, int splits, cudaStream_t stream) {
-  const int rep = H / KV;
-  auto go = rep == 1   ? launch_rep<TQ, TC, 1>
-            : rep == 2 ? launch_rep<TQ, TC, 2>
-            : rep <= 4 ? launch_rep<TQ, TC, 4>
-                       : launch_rep<TQ, TC, MAX_REP>;
+  auto go = D <= 64 ? launch_dpl<TQ, TC, 2> : D <= 128 ? launch_dpl<TQ, TC, 4> : launch_dpl<TQ, TC, 8>;
   return go(q, k, v, qpos, kpos, out, part, B, H, KV, D, S, window, scale, splits, stream);
 }
 
@@ -370,7 +396,7 @@ extern "C" int flash_decode_launch(int q_dtype, int cache_dtype, const void* q, 
                                    const void* v, const int* qpos, const int* kpos, void* out, void* part,
                                    int B, int H, int KV, int D, int S, int window, float scale, int splits,
                                    void* stream) {
-  if (B <= 0 || KV <= 0 || S <= 0 || H % KV != 0 || H / KV > MAX_REP || D > MAX_D || D % 32)
+  if (B <= 0 || KV <= 0 || S <= 0 || H % KV != 0 || H / KV > MAX_REP || D <= 0 || D > MAX_D || D % 16)
     return -1;
   if (B > 65535 || H > 65535 || splits != splits_for(S)) return -1;
   // the cache is read by 16-byte loads

@@ -26,7 +26,7 @@ from repro_torch.kernels import _build, ref
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}  # csrc/common.cuh DTypeCode
 MAX_LORA_RANK = 64  # csrc/segmented_lora.cu and csrc/lora_matmul.cu MAX_R
 LORA_TILE_ROWS = 128  # csrc/lora_matmul.cu GM: the rows of a wgmma-route tile
-MAX_GQA_REP = 8  # csrc/flash_decode.cu MAX_REP
+MAX_GQA_REP = 16  # csrc/flash_decode.cu MAX_REP
 MAX_HEAD_DIM = 256  # csrc/flash_decode.cu MAX_D
 MAX_ATTN_HEAD_DIM = 128  # csrc/tiles.cuh MAX_D, flash_attention forward and backward
 WKV_HEAD_DIMS = (16, 32, 64)  # csrc/wkv6_common.cuh wkv_supported_head_dim
@@ -240,7 +240,7 @@ def flash_decode(q, k_cache, v_cache, q_positions, k_positions, *, window: Optio
         f"caches must be ({bsz}, S, KV, {d}), got {tuple(k_cache.shape)}, {tuple(v_cache.shape)}",
     )
     _require(h % kv == 0 and h // kv <= MAX_GQA_REP, f"{h} heads over {kv} kv heads not supported")
-    _require(d % 32 == 0 and d <= MAX_HEAD_DIM, f"head dim {d} must be a multiple of 32, <= {MAX_HEAD_DIM}")
+    _require(d % 16 == 0 and 0 < d <= MAX_HEAD_DIM, f"head dim {d} must be a multiple of 16, <= {MAX_HEAD_DIM}")
     _require(
         tuple(q_positions.shape) == (bsz,) and tuple(k_positions.shape) == (bsz, s),
         f"positions must be ({bsz},) and ({bsz}, {s}), got "

@@ -27,8 +27,9 @@ def init_params(cfg, generator: torch.Generator, place: bool = False):
 
     With ``place``, each part is placed as soon as it is drawn, giving
     ``place_params(init_params(cfg, generator), cfg, generator.device)``
-    while holding at most one layer's float32 draws (a hybrid stack) or one
-    top-level entry's (a stacked one)."""
+    while holding at most one layer's float32 draws (a hybrid stack), one
+    stacked projection's (a dense stack) or one top-level entry's (an RWKV6
+    stack)."""
     _check_family(cfg)
     if not place:
         return transformer.init_lm(cfg, generator)

@@ -40,19 +40,20 @@ def _init_rwkv_layers(cfg, generator: torch.Generator):
     }
 
 
-def _proj(generator, lead, d_in, d_out):
-    return {"w": truncated_lecun(generator, (*lead, d_in, d_out), fan_in_axis=len(lead))}
+def _proj(generator, lead, d_in, d_out, place=None):
+    proj = {"w": truncated_lecun(generator, (*lead, d_in, d_out), fan_in_axis=len(lead))}
+    return place(proj) if place is not None else proj
 
 
 def _norm(generator, lead, dim):
     return {"scale": torch.ones((*lead, dim), device=generator.device)}
 
 
-def _init_attention(cfg, generator, lead):
+def _init_attention(cfg, generator, lead, place=None):
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, kv = cfg.num_heads, cfg.num_kv_heads
-    attn = {"wq": _proj(generator, lead, d, h * hd), "wk": _proj(generator, lead, d, kv * hd),
-            "wv": _proj(generator, lead, d, kv * hd), "wo": _proj(generator, lead, h * hd, d)}
+    attn = {"wq": _proj(generator, lead, d, h * hd, place), "wk": _proj(generator, lead, d, kv * hd, place),
+            "wv": _proj(generator, lead, d, kv * hd, place), "wo": _proj(generator, lead, h * hd, d, place)}
     if cfg.attention_bias:
         for name, width in (("wq", h * hd), ("wk", kv * hd), ("wv", kv * hd)):
             attn[name]["b"] = torch.zeros((*lead, width), device=generator.device)
@@ -62,20 +63,21 @@ def _init_attention(cfg, generator, lead):
     return attn
 
 
-def _init_mlp(cfg, generator, lead):
+def _init_mlp(cfg, generator, lead, place=None):
     d, ff = cfg.d_model, cfg.d_ff
-    return {"gate": _proj(generator, lead, d, ff), "up": _proj(generator, lead, d, ff),
-            "down": _proj(generator, lead, ff, d)}
+    return {"gate": _proj(generator, lead, d, ff, place), "up": _proj(generator, lead, d, ff, place),
+            "down": _proj(generator, lead, ff, d, place)}
 
 
-def _init_attn_layers(cfg, generator: torch.Generator):
-    """The stacked ``(L, ...)`` layers of a dense decoder."""
+def _init_attn_layers(cfg, generator: torch.Generator, place=None):
+    """The stacked ``(L, ...)`` layers of a dense decoder; ``place(proj)``,
+    when given, takes each projection as soon as it is drawn."""
     lead = (cfg.num_layers,)
     return {
         "norm1": _norm(generator, lead, cfg.d_model),
         "norm2": _norm(generator, lead, cfg.d_model),
-        "attn": _init_attention(cfg, generator, lead),
-        "mlp": _init_mlp(cfg, generator, lead),
+        "attn": _init_attention(cfg, generator, lead, place),
+        "mlp": _init_mlp(cfg, generator, lead, place),
     }
 
 
@@ -107,9 +109,10 @@ def init_lm(cfg, generator: torch.Generator, place=None):
     if cfg.family == "hybrid":
         layers = [place("layers", init_layer(cfg, l, generator)) for l in range(cfg.num_layers)]
         params["layers"] = stacking.maybe_stack(layers)
-    else:
-        init_layers = _init_rwkv_layers if layer_kind(cfg, 0) == "rwkv" else _init_attn_layers
-        params["layers"] = place("layers", init_layers(cfg, generator))
+    elif layer_kind(cfg, 0) == "rwkv":
+        params["layers"] = place("layers", _init_rwkv_layers(cfg, generator))
+    else:  # each stacked projection placed as drawn, then the rest of the stack
+        params["layers"] = place("layers", _init_attn_layers(cfg, generator, lambda tree: place("layers", tree)))
     params["final_norm"] = place("final_norm", {"scale": torch.ones((cfg.d_model,), device=generator.device)})
     if not cfg.tie_embeddings:
         params["lm_head"] = place("lm_head", normal_init(generator, (cfg.d_model, cfg.vocab_size)))

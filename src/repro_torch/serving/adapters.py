@@ -1,8 +1,9 @@
 """Adapter registry + pooled LRU cache for multi-tenant LoRA serving.
 
 :class:`AdapterRegistry` is the host-side catalogue of named LoRA trees
-(stacked layout), each with its true rank and alpha; loading them from
-checkpoints waits for the port of the checkpoint format.
+(stacked layout), each with its true rank and alpha, registered in-process
+or loaded from a checkpoint of either package (``load_checkpoint``: a
+federated runner's ``save_state`` or a ``save_pytree`` of one adapter).
 
 :class:`AdapterPoolCache` owns the device pools the segmented kernel reads:
 for every LoRA projection a stacked ``(L, n_slots, ...)`` pool, zero-padded
@@ -17,12 +18,16 @@ mid-generation row still reads.
 """
 from __future__ import annotations
 
+import json
+import os
 from collections import OrderedDict
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.checkpoint import ckpt as ckpt_lib
 from repro_torch.nn.linear import AdapterPool
 
 DEFAULT_LORA_ALPHA = 16.0  # PEFTConfig default
@@ -64,6 +69,57 @@ class AdapterRegistry:
         rank = infer_rank(peft_tree)
         self._entries[name] = {"peft": peft_tree, "rank": rank, "alpha": float(alpha)}
         return self
+
+    def load_checkpoint(self, checkpoint_dir: str, *, prefix: str = "client", alpha: float = DEFAULT_LORA_ALPHA):
+        """Register every client adapter of a federated ``save_state``
+        checkpoint (the reference's or the port's).  ``checkpoint_dir`` may
+        be a ``step_*`` dir, a run dir whose latest step is used, or a root
+        holding one run dir.  Clients land as ``f"{prefix}{device_id}"``;
+        the server-side global adapter as ``f"{prefix}_global"``."""
+        arrays = self._load_arrays(self._resolve_state_dir(checkpoint_dir))
+        for dev, tree in arrays.get("device_peft", {}).items():
+            self.register(f"{prefix}{dev}", tree, alpha=alpha)
+        if arrays.get("global_peft") is not None:
+            self.register(f"{prefix}_global", arrays["global_peft"], alpha=alpha)
+        return self
+
+    @staticmethod
+    def _resolve_state_dir(checkpoint_dir: str) -> str:
+        latest = ckpt_lib.latest_state_dir(checkpoint_dir)
+        if latest is not None:
+            return latest
+        if os.path.isfile(os.path.join(checkpoint_dir, "manifest.json")):
+            return checkpoint_dir  # already a step_* dir
+        runs = []
+        if os.path.isdir(checkpoint_dir):
+            for name in sorted(os.listdir(checkpoint_dir)):
+                sub = ckpt_lib.latest_state_dir(os.path.join(checkpoint_dir, name))
+                if sub is not None:
+                    runs.append(sub)
+        if len(runs) == 1:
+            return runs[0]
+        found = f"; {len(runs)} run dirs found — pass one of them" if runs else ""
+        raise FileNotFoundError(f"no checkpoint under {checkpoint_dir!r}{found}")
+
+    @staticmethod
+    def _load_arrays(state_dir: str) -> dict:
+        """Either checkpoint schema as a ``{"global_peft", "device_peft"}``
+        dict of CPU tensors: a runner's ``save_state`` (JSON skeleton)
+        directly, or a ``save_pytree`` manifest (one global adapter) by
+        rebuilding the nested dict from the leaf paths."""
+        with open(os.path.join(state_dir, "manifest.json")) as f:
+            manifest = json.load(f)
+        if "skeleton" in manifest:
+            return ckpt_lib.load_state(state_dir)[0]
+        tree: dict = {}
+        with np.load(os.path.join(state_dir, "arrays.npz")) as data:
+            for entry in manifest["leaves"]:
+                *parents, leaf = entry["path"].split("/")
+                node = tree
+                for p in parents:
+                    node = node.setdefault(p, {})
+                node[leaf] = ckpt_lib._to_tensor(data[entry["key"]], entry["dtype"])
+        return {"global_peft": tree, "device_peft": {}}
 
     def get(self, name: str) -> dict:
         return self._entries[name]

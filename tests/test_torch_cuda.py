@@ -92,6 +92,8 @@ def test_cuda_segmented_lora_batch_invariant(cuda):
 
 SEGMENTED_SHAPES = [  # (K, N): the decode step's v; K off the 128-row slab steps, N off the 64- and 32-column tiles
     (2048, 1024), (1000, 1000), (2100, 333),
+    # the q and v projections of glm4-9b, h2o-danube-1.8b and yi-6b
+    (4096, 4096), (4096, 256), (2560, 2560), (2560, 640), (4096, 512),
 ]
 
 
@@ -170,6 +172,10 @@ DECODE_CASES = [  # (B, H, KV, D, S, window)
     (4, 16, 8, 128, 512, None),  # rep 2, the decode step's heads
     (2, 8, 1, 256, 70, 33),  # rep 8, D 256, a window
     (2, 16, 2, 128, 300, 100),  # rep 8, a window over a wrapped ring
+    (4, 32, 2, 128, 512, None),  # rep 16: glm4-9b's heads, one block a KV head
+    (4, 32, 8, 80, 300, 100),  # D 80: h2o-danube-1.8b's heads, a window over a wrapped ring
+    (2, 32, 2, 256, 130, None),  # rep 16 at D 256: two blocks of 8 queries a KV head
+    (2, 6, 2, 48, 70, 20),  # rep 3 at D 48: a lane's dims masked past D
 ]
 DECODE_DTYPES = [("bfloat16", "bfloat16"), ("float32", "bfloat16"), ("float32", "float32")]
 
@@ -187,8 +193,8 @@ def _decode_case(rng, b, h, kv, d, s, q_dtype, cache_dtype, device):
 @pytest.mark.parametrize("q_dtype,cache_dtype", DECODE_DTYPES)
 @pytest.mark.parametrize("b,h,kv,d,s,window", DECODE_CASES)
 def test_cuda_flash_decode_shapes_match_twin(cuda, q_dtype, cache_dtype, b, h, kv, d, s, window):
-    """rep 1, 2 and 8; D 64, 128 and 256; S off the split; windows; rows
-    whose later slabs are dead."""
+    """rep 1, 2, 3, 8 and 16; D 48, 64, 80, 128 and 256; S off the split;
+    windows; rows whose later slabs are dead."""
     q, kc, vc, pos, kpos = _decode_case(np.random.default_rng(30), b, h, kv, d, s, q_dtype, cache_dtype, cuda)
     ops.reset_launch_counts()
     got = ops.flash_decode(q, kc, vc, pos, kpos, window=window)
@@ -276,6 +282,9 @@ ATTN_CASES = [  # (B, S, H, KV, D, causal, window)
     (2, 300, 4, 2, 32, True, None),  # ragged S at a head dim under one 64-column box
     (1, 17, 2, 1, 64, False, None),  # one partial tile, bidirectional, D 64
     (16, 32, 16, 8, 128, True, None),  # the federated runner's shape: batch 16 x 32 tokens, one partial tile
+    (2, 300, 32, 8, 80, True, None),  # h2o-danube-1.8b's heads: D 80, 16 live columns of the second 64-column box
+    (2, 300, 32, 8, 80, True, 100),  # D 80 with a window
+    (1, 256, 32, 2, 128, True, None),  # glm4-9b's heads: 16 query heads a KV head
 ]
 
 
@@ -366,6 +375,9 @@ LORA_CASES = [  # (M, K, N, r)
     (100, 64, 72, 8), (300, 2048, 1024, 8), (64, 96, 40, 16), (7, 33, 5, 4), (130, 256, 2048, 64),
     (257, 520, 264, 1), (129, 136, 520, 33), (1, 8, 8, 5),  # ragged M, K and N off the tiles, multiples of 8
     (50, 44, 24, 8), (33, 64, 100, 2),  # K or N not a multiple of 8: the WMMA route
+    # the q and v projections of glm4-9b (K 4096, N 4096 and 256), h2o-danube-1.8b (K 2560, N 2560 and 640)
+    # and yi-6b (K 4096, N 512)
+    (300, 4096, 4096, 8), (300, 4096, 256, 8), (300, 2560, 2560, 8), (300, 2560, 640, 8), (300, 4096, 512, 8),
 ]
 
 

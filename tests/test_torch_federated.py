@@ -24,6 +24,8 @@ after-AdamW bound of ``tests/test_torch_training.py`` (every element within
 2 * (the sum of the step sizes of every local step so far) + 1e-6, 99%
 within 1e-6).  ``final_accuracy`` equal.
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -447,7 +449,7 @@ _TINY = dict(cfg=get_config("qwen3-1.7b", smoke=True).replace(**_CFG_KW),
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"checkpoint_dir": "ckpts"}, {"resume": True}, {"stld_mode": "gather"},
+    {"stld_mode": "gather"},
     {"compression": "int8"}, {"fault_plan": {"drop_rate": 0.1}}, {"schedule": "deadline"},
     {"schedule": "async-buffer"}, {"deadline_s": 30.0}, {"buffer_size": 2}, {"peft": "adapter"},
     {"method": "fedhetlora"},
@@ -457,6 +459,21 @@ def test_unported_options_raise(kwargs):
     method = kwargs.pop("method", "droppeft")
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item"):
         api.build(method, **_TINY, **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [{"checkpoint_dir": "ckpts"}, {"resume": True}],
+                         ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
+def test_checkpoint_options_follow_the_reference(kwargs, tmp_path):
+    """``resume=True`` without a ``checkpoint_dir`` raises ``ValueError``,
+    as the reference's runner does; a ``checkpoint_dir`` with no snapshot
+    yet resumes as a fresh start and is written only once a round ends."""
+    if "resume" in kwargs:
+        with pytest.raises(ValueError, match="requires checkpoint_dir"):
+            api.build("droppeft", **_TINY, **kwargs)
+        return
+    d = str(tmp_path / kwargs["checkpoint_dir"])
+    runner = api.build("droppeft", **_TINY, checkpoint_dir=d, resume=True)
+    assert runner.state.round_index == 0 and runner.checkpoint_dir == d and not os.path.exists(d)
 
 
 class _NeedsSequential(DropPEFT):
