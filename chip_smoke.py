@@ -97,12 +97,27 @@ Phases, one line each before the last:
    for one local round as phase 5, at full depth where the round fits the
    card (else at three quarters of the layers, again, until it fits; the
    cut printed), with the smoke round on the card against the CPU twins;
+5f. the straggler-tolerant federation on full-width qwen3-1.7b: one
+   client's local round in gather mode at rate 0.5 (16 of 28 layers a
+   step) beside cond at the same rate (launches from the indices, every
+   lora_matmul on wgmma, two rounds bit-identical, seconds a step, peak
+   memory); gather-mode federated rounds through ``api.build``: sync and
+   ``deadline_s=inf`` bit-identical, then 3 rounds under
+   ``schedule="deadline"``, ``straggler="carry"``,
+   ``compression="int8+topk"`` at a deadline of the first sync round's
+   median modelled device time (finite rows, stragglers, uplink ratios
+   below 1 and less traffic, launches from the indices, two runs and a run
+   resumed from its save after round 2 with jobs in flight bit-identical,
+   compression's seconds), 3 aggregations of ``async-buffer``; and
+   smoke-size deadline, carry with compression and faults, and async runs
+   on the card against the CPU twins;
 6. the ``kernels`` JSON line: launches of each kernel in its own path's
    run (serving: phase 4's run; training: phase 5's round at rate 0.5,
    phase 5b's for wkv6 and wkv6_bwd, phase 5c's for mamba_scan and
-   mamba_scan_bwd), and for the training kernels also phase 5d's rounds
-   and for every kernel of the dense path phase 5e's runs
-   (``launches_by_path``), the other dense decoders' shapes beside.
+   mamba_scan_bwd), and for the training kernels also phase 5d's rounds,
+   phase 5f's deadline rounds and gather round, and for every kernel of
+   the dense path phase 5e's runs (``launches_by_path``), the other dense
+   decoders' shapes beside.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits non-zero before it; without a CUDA card, or outside the checkout, the
@@ -113,6 +128,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -1795,6 +1811,363 @@ def federated_smoke_cuda_vs_cpu(seed: int, arch: str):
     return out
 
 
+GATHER_RATE = 0.5
+
+
+def gather_round_full(ops, card, seed: int):
+    """Phase 5f's local round: full-width qwen3-1.7b in gather mode at rate
+    0.5 (k = ``static_active_count(0.5, 28, 4)`` = 16 layers a step, their
+    indices drawn each step) beside cond at the same rate, 4 steps of batch
+    16 x 512: finite metrics and tree, k active layers a step, each kernel
+    launched as phase 5's formula gives with a = steps x k, every
+    lora_matmul on wgmma, two gather rounds from one state bit-identical;
+    seconds a step and peak memory of both modes."""
+    from repro_torch.configs import FederatedConfig, PEFTConfig, STLDConfig, TrainConfig, get_config
+    from repro_torch.core import stld
+    from repro_torch.core.peft import init_peft
+    from repro_torch.data.synthetic import make_task
+    from repro_torch.federated.client import make_client_fns
+    from repro_torch.models.registry import init_params
+    from repro_torch.models.stacking import tree_leaves
+    from repro_torch.optim import adamw_init
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, fed, peft_cfg = get_config("qwen3-1.7b"), FederatedConfig(), PEFTConfig()
+    steps, batch, seq, layers = fed.local_steps, fed.batch_size, 512, cfg.num_layers
+    k = stld.static_active_count(GATHER_RATE, layers, STLDConfig().gather_bucket)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    params = init_params(cfg, gen, place=True)
+    peft = init_peft(cfg, peft_cfg, gen)
+    task = make_task(vocab_size=cfg.vocab_size, seq_len=seq, num_examples=(steps + 1) * batch, seed=seed)
+    batches = train_batches(task, steps, batch)
+    fns = {mode: make_client_fns(cfg, peft_cfg, STLDConfig(mode=mode), TrainConfig()) for mode in ("gather", "cond")}
+
+    def run(mode, b=batches):
+        out = fns[mode].local_round(params, peft, adamw_init(peft), b, GATHER_RATE,
+                                    torch.Generator().manual_seed(seed + 7), 0, k if mode == "gather" else None)
+        torch.cuda.synchronize()
+        return out
+
+    for mode in fns:  # warm: library loads, cuBLAS heuristics
+        run(mode, {key: val[:1] for key, val in batches.items()})
+    indices, sample = [], stld.sample_active_indices
+
+    def recorded(*args, **kw):
+        indices.append(sample(*args, **kw).tolist())
+        return torch.tensor(indices[-1])
+
+    stats = {"model": cfg.name, "layers": layers, "batch": batch, "seq": seq, "local_steps": steps,
+             "mean_rate": GATHER_RATE, "k": k, "card": card}
+    outs = []
+    for mode in ("gather", "cond", "gather"):
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        stld.sample_active_indices = recorded
+        t0 = time.perf_counter()
+        try:
+            outs.append(run(mode))
+        finally:
+            stld.sample_active_indices = sample
+        seconds = time.perf_counter() - t0
+        if f"{mode}_s_per_local_step" not in stats:
+            stats.update({f"{mode}_s_per_local_step": seconds / steps,
+                          f"{mode}_peak_gib": torch.cuda.max_memory_allocated() / 2.0**30,
+                          f"{mode}_active_layers": float(outs[-1][2]["active_layers"]),
+                          f"{mode}_launches": dict(ops.launch_counts),
+                          f"{mode}_routes": dict(ops.lora_matmul_routes)})
+    (p1, _, m1, i1), _, (p2, _, m2, i2) = outs
+    metrics = {key: float(val) for key, val in m1.items()}
+    check(all(np.isfinite(list(metrics.values()))) and bool(torch.isfinite(i1).all())
+          and all(bool(torch.isfinite(t).all()) for t in tree_leaves(p1)), f"non-finite gather round {metrics}")
+    gates = [[l not in idx for l in range(layers)] for idx in indices[:steps]]
+    check(len(indices) == 2 * steps and all(idx == sorted(set(idx)) and len(idx) == k for idx in indices),
+          f"gather indices {indices}")
+    check(metrics["active_layers"] == k, f"gather round ran {metrics['active_layers']} layers a step, expected {k}")
+    check_launches(stats["gather_launches"], dense_round_launches(gates), f"gather round of indices {indices[:steps]}")
+    check(stats["gather_routes"] == {"fma": 0, "wmma": 0, "wgmma": stats["gather_launches"]["lora_matmul"]},
+          f"gather round: lora_matmul routes {stats['gather_routes']}")
+    check(indices[:steps] == indices[steps:] and tree_equal(p1, p2) and torch.equal(i1, i2)
+          and all(torch.equal(m1[key], m2[key]) for key in m1), "two gather rounds from one state differ")
+    stats.update(indices=indices[:steps], metrics=metrics, bit_identical_rounds=True,
+                 step_ratio_gather_over_cond=stats["gather_s_per_local_step"] / stats["cond_s_per_local_step"])
+    del params, peft, fns, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats, stats["gather_launches"]
+
+
+def run_bits(runner, result):
+    """What two runs must share bit for bit."""
+    from repro_torch.models.stacking import tree_leaves
+
+    return {"history": list(runner.state.history), "events": list(runner.scheduler.event_log),
+            "faults": list(runner.scheduler.fault_log), "final": result.final_accuracy,
+            "peft": [t.clone() for t in tree_leaves(runner.state.global_peft)]}
+
+
+def same_bits(a, b) -> bool:
+    return (all(a[key] == b[key] for key in ("history", "events", "faults", "final"))
+            and all(torch.equal(x, y) for x, y in zip(a["peft"], b["peft"])))
+
+
+def instrument_dispatches(runner, record: dict):
+    """Record each dispatch of ``runner``: its size, its devices' gather
+    indices (device by device, step by step), its uplink ratios and the
+    host seconds of ``compress_uplink`` (synchronized), keeping its last
+    arguments for ``compress_profile``; and each round's host seconds.
+    Returns the undo."""
+    from repro_torch.core import stld
+
+    engine, algo, sched = runner.ctx.engine, runner.algorithm, runner.scheduler
+    run_cohort, compress, sample = engine.run_cohort, algo.compress_uplink, stld.sample_active_indices
+    step = sched._deadline_round
+
+    def dispatch(key, global_step, cohort, *args):
+        record["dispatches"].append({"n": len(cohort), "indices": []})
+        return run_cohort(key, global_step, cohort, *args)
+
+    def indices(*args, **kw):
+        idx = sample(*args, **kw)
+        record["dispatches"][-1]["indices"].append(idx.tolist())
+        return idx
+
+    def compressed(state, results):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = compress(state, results)
+        torch.cuda.synchronize()
+        record["compress_s"].append(time.perf_counter() - t0)
+        record["uplink_ratio"].append(None if out[1].uplink_ratio is None else out[1].uplink_ratio.tolist())
+        record["last_compress_args"] = (state, results)
+        return out
+
+    def timed_round(*args, **kw):
+        t0 = time.perf_counter()
+        row = step(*args, **kw)
+        torch.cuda.synchronize()
+        record["round_s"].append(time.perf_counter() - t0)
+        return row
+
+    engine.run_cohort, algo.compress_uplink, sched._deadline_round = dispatch, compressed, timed_round
+    stld.sample_active_indices = indices
+
+    def undo():
+        stld.sample_active_indices = sample
+
+    return undo
+
+
+def compress_profile(compress, state, results):
+    """Device busy time and launches of one ``compress_uplink`` call under
+    ``torch.profiler`` (None when the profiler sees no device time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        compress(state, results)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy == 0.0:
+        return None
+    return {"device_busy_ms": busy, "wall_ms_profiled": wall_ms, "kernel_launches": sum(e.count for e in kernels)}
+
+
+def gather_dispatch_launches(dispatches, layers: int, steps: int, evaluations: int) -> dict:
+    """Each dispatch of a batched gather cohort runs, per step, each layer
+    in the union of its devices' indices once, the step's first without dX,
+    then one fused evaluate; ``final_accuracy`` one evaluate per chunk."""
+    run = 0
+    for d in dispatches:
+        idx = d["indices"]
+        run += sum(len({l for i in range(d["n"]) for l in idx[i * steps + s]}) for s in range(steps))
+    n = len(dispatches)
+    return {"flash_attention": run + (n + evaluations) * layers, "flash_attention_bwd": run,
+            "lora_matmul": 4 * run - 2 * steps * n + 2 * (n + evaluations) * layers}
+
+
+def straggler_full(api, ops, card, seed: int):
+    """Phase 5f's federated rounds on full-width qwen3-1.7b at ``api.build``'s
+    defaults in gather mode: sync for 2 rounds (its first round's median
+    modelled device time sets the deadline) and ``deadline_s=inf`` against
+    it, bit for bit; then the main path, 3 rounds of ``schedule="deadline"``
+    with ``straggler="carry"`` and ``compression="int8+topk"`` (error
+    feedback): finite rows, fewer arrivals than dispatches in some row,
+    uplink ratios below 1, the first row's traffic below sync's, launches
+    exactly from the gather indices, every lora_matmul on wgmma, a second
+    run bit-identical, and a run saved after round 2 (jobs in flight, EF
+    residuals) and resumed by a fresh runner bit-identical to it; then 3
+    aggregations of ``async-buffer`` (staleness alpha 0.5)."""
+    import shutil
+
+    phase_t0 = time.perf_counter()
+    base = dict(smoke=False, seed=seed, stld_mode="gather")
+    out = {"card": card}
+
+    def build_run(rounds, **kw):
+        gc.collect()
+        torch.cuda.empty_cache()
+        runner = api.build("droppeft", "qwen3-1.7b", **base, **kw)
+        t0 = time.perf_counter()
+        result = runner.run(rounds=rounds)
+        torch.cuda.synchronize()
+        return runner, result, time.perf_counter() - t0
+
+    runner = api.build("droppeft", "qwen3-1.7b", **base)
+    first, report = [], runner.algorithm.report
+
+    def report_recorded(state, results):
+        out_ = report(state, results)
+        if not first:
+            first.extend(np.asarray(results.cost.total_time_s).tolist())
+        return out_
+
+    runner.algorithm.report = report_recorded
+    t0 = time.perf_counter()
+    sync_bits = run_bits(runner, runner.run(rounds=2))
+    out["sync_run_s"] = time.perf_counter() - t0
+    del runner
+    deadline = float(np.median(first))
+    out["deadline_s"], out["first_sync_round_times_s"] = deadline, first
+    runner, result, _ = build_run(2, schedule="deadline", deadline_s=math.inf)
+    check(same_bits(run_bits(runner, result), sync_bits), "deadline_s=inf differs from sync")
+    out["deadline_inf_equals_sync"] = True
+    del runner
+
+    carry = dict(schedule="deadline", deadline_s=deadline, straggler="carry", compression="int8+topk")
+    gc.collect()
+    torch.cuda.empty_cache()
+    runner = api.build("droppeft", "qwen3-1.7b", **base, **carry)
+    fed, layers = runner.ctx.fed_cfg, runner.ctx.cfg.num_layers
+    record = {"dispatches": [], "compress_s": [], "uplink_ratio": [], "round_s": []}
+    compress = runner.algorithm.compress_uplink
+    undo = instrument_dispatches(runner, record)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        result = runner.run(rounds=FED_ROUNDS)
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    run_s = time.perf_counter() - t0
+    launches, routes = dict(ops.launch_counts), dict(ops.lora_matmul_routes)
+    hist = list(runner.state.history)
+    main_bits = run_bits(runner, result)
+    check(len(hist) == FED_ROUNDS and all(np.isfinite(v) for row in hist for v in row.values()),
+          f"deadline rows {hist}")
+    sizes = [d["n"] for d in record["dispatches"]]
+    check(any(row["arrivals"] < n for row, n in zip(hist, sizes)), f"arrivals {hist} of dispatches {sizes}")
+    check(all(r is not None and max(r) < 1.0 for r in record["uplink_ratio"]), f"uplink ratios {record['uplink_ratio']}")
+    check(hist[0]["traffic"] < sync_bits["history"][0]["traffic"],
+          f"compressed traffic {hist[0]['traffic']} vs sync {sync_bits['history'][0]['traffic']}")
+    evaluations = -(-fed.num_devices // fed.devices_per_round)
+    check_launches(launches, gather_dispatch_launches(record["dispatches"], layers, fed.local_steps, evaluations),
+                   "deadline-carry gather rounds")
+    check(routes == {"fma": 0, "wmma": 0, "wgmma": launches["lora_matmul"]}, f"routes {routes}")
+    out.update(main_path_run_s=run_s, s_per_round=record["round_s"], compress_s=record["compress_s"],
+               compress_profile=compress_profile(compress, *record["last_compress_args"]),
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30, history=hist, dispatch_sizes=sizes,
+               uplink_ratio=[r[0] for r in record["uplink_ratio"]], rates=[r["rate"] for r in hist],
+               launches=launches, in_flight_at_end=sorted(runner.scheduler.in_flight),
+               fault_log=list(runner.scheduler.fault_log), sync_history=sync_bits["history"])
+    del runner
+
+    runner, result, _ = build_run(FED_ROUNDS, **carry)
+    check(same_bits(run_bits(runner, result), main_bits), "two deadline-carry runs from one seed differ")
+    del runner
+    ckpt_dir = ROOT / "build" / "chip_smoke_checkpoints_5f"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    runner, _, _ = build_run(2, checkpoint_dir=str(ckpt_dir), **carry)
+    jobs, residuals = len(runner.scheduler.in_flight), len(runner.state.ef_residual)
+    check(jobs > 0 and residuals > 0, f"the save after round 2 holds {jobs} jobs in flight, {residuals} residuals")
+    del runner
+    runner, result, _ = build_run(FED_ROUNDS, checkpoint_dir=str(ckpt_dir), resume=True, **carry)
+    check(same_bits(run_bits(runner, result), main_bits), "the deadline-carry run resumed at round 2 differs")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    out.update(bit_identical_runs=True, resumed_bit_identical=True, saved_jobs_in_flight=jobs,
+               saved_ef_residuals=residuals)
+    del runner
+
+    runner, result, async_s = build_run(FED_ROUNDS, schedule="async-buffer", staleness_alpha=0.5)
+    ahist = list(runner.state.history)
+    buffer = max(1, fed.devices_per_round // 2)
+    check(len(ahist) == FED_ROUNDS and all(np.isfinite(v) for row in ahist for v in row.values())
+          and all(row["arrivals"] == buffer for row in ahist), f"async-buffer rows {ahist}")
+    out.update(async_history=ahist, async_run_s=async_s)
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - phase_t0
+    return out, launches
+
+
+def schedules_smoke_cuda_vs_cpu(seed: int):
+    """Three rounds of droppeft at qwen3-1.7b's smoke size in float32 under
+    ``deadline`` + drop and a fault plan, ``deadline`` + carry (alpha 0.5)
+    at ``int8+topk`` and the fault plan, and ``async-buffer`` (alpha 0.5),
+    batched on the card and on the CPU twins from the same weights and
+    seed: dispatches, history rows but the loss, event and fault logs
+    equal; the loss within 1e-5; the global LoRA within phase 5's tree
+    tolerance, the step sizes summed over every local step.  The deadline
+    is the median modelled device time of the first sync round."""
+    from repro_torch import api
+    from repro_torch.configs import FederatedConfig, TrainConfig, get_config
+    from repro_torch.models.registry import init_params
+    from repro_torch.models.stacking import tree_leaves
+    from repro_torch.optim import make_lr_schedule
+
+    cfg, train_cfg = get_config("qwen3-1.7b", smoke=True).replace(dtype="float32"), TrainConfig()
+    fed = FederatedConfig(num_devices=6, devices_per_round=4, local_steps=2, batch_size=8)
+    params = init_params(cfg, torch.Generator().manual_seed(seed))
+    common = dict(cfg=cfg, fed_cfg=fed, train_cfg=train_cfg, seed=seed, params=params)
+    sync = api.build("droppeft", device="cpu", **common)
+    sync.run(rounds=1)
+    deadline = float(np.median([t for _, _, t in sync.scheduler.event_log]))
+    plan = {"seed": seed, "dropout_prob": 0.25, "bandwidth_collapse_prob": 0.25, "nan_update_prob": 0.3,
+            "nan_updates": [[1, 0], [1, 1]]}
+    cases = {"deadline-drop-faults": dict(schedule="deadline", deadline_s=deadline, fault_plan=plan),
+             "deadline-carry-int8+topk-faults": dict(schedule="deadline", deadline_s=deadline, straggler="carry",
+                                                     staleness_alpha=0.5, compression="int8+topk", fault_plan=plan),
+             "async-buffer": dict(schedule="async-buffer", staleness_alpha=0.5)}
+    sched = make_lr_schedule(train_cfg.schedule, train_cfg.learning_rate, train_cfg.warmup_steps, train_cfg.total_steps)
+    out = {"deadline_s": deadline}
+    for name, kw in cases.items():
+        runs = {}
+        for device in ("cuda", "cpu"):
+            runner = api.build("droppeft", device=device, **common, **kw)
+            cohorts, cohort_step = [], runner.algorithm.cohort_step
+
+            def recorded(state, plan_, cohorts=cohorts, cohort_step=cohort_step):
+                cohorts.append((list(plan_.cohort), [float(r) for r in plan_.rates]))
+                return cohort_step(state, plan_)
+
+            runner.algorithm.cohort_step = recorded
+            runner.run(rounds=3)
+            runs[device] = (cohorts, [dict(row) for row in runner.state.history], list(runner.scheduler.event_log),
+                            list(runner.scheduler.fault_log), [t.cpu() for t in tree_leaves(runner.state.global_peft)],
+                            runner.state.global_step)
+        (cc, hc, ec, fc, pc, steps), (cp, hp, ep, fp, pp, _) = runs["cuda"], runs["cpu"]
+        what = f"{name}: the card vs the CPU twins"
+        check(cc == cp and ec == ep and fc == fp, f"{what}: dispatches, events or faults differ")
+        check([{k: v for k, v in r.items() if k != "loss"} for r in hc] == [{k: v for k, v in r.items() if k != "loss"}
+                                                                               for r in hp],
+              f"{what}: history {hc} vs {hp}")
+        check(np.allclose([r["loss"] for r in hc], [r["loss"] for r in hp], rtol=1e-5, atol=0), f"{what}: loss")
+        limit = 2 * sum(sched(step) for step in range(steps)) + 1e-6
+        diffs = torch.cat([(a - b).abs().flatten() for a, b in zip(pc, pp)])
+        within = float((diffs <= 1e-6).float().mean())
+        check(float(diffs.max()) <= limit and within >= 0.99, f"{what}: LoRA max diff {float(diffs.max())}, {within}")
+        out[name] = {"arrivals": [r["arrivals"] for r in hc], "faults": [f["reason"] for f in fc],
+                     "peft_max_abs_diff": float(diffs.max()), "peft_share_within_1e-6": within, "peft_limit": limit}
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2025,6 +2398,17 @@ def main() -> int:
         for name in ("flash_attention", "flash_attention_bwd", "lora_matmul"):
             check(train_launches_a[name] > 0, f"{name} never launched in the {arch} local round: {train_launches_a}")
 
+    # 5f. the straggler-tolerant federation on full-width qwen3-1.7b: a
+    #     gather local round beside cond, then gather-mode federated rounds
+    #     under the deadline (carry, int8+topk) and async-buffer schedules
+    t5f = time.perf_counter()
+    gather_stats, gather_launches = gather_round_full(ops, card, args.seed)
+    print(f"gather round {json.dumps(gather_stats)} [{card}]", flush=True)
+    strag_stats, strag_launches = straggler_full(api, ops, card, args.seed)
+    print(f"straggler federation {json.dumps(strag_stats)} [{card}]", flush=True)
+    print(f"schedules smoke runs, card vs CPU twins: {json.dumps(schedules_smoke_cuda_vs_cpu(args.seed))}", flush=True)
+    print(f"phase 5f: {time.perf_counter() - t5f:.1f} s [{card}]", flush=True)
+
     # 6. kernels line: each path's shapes (bf16) and launches; q and v
     #    projections summed for segmented_lora and lora_matmul (forward)
     for name in ("segmented_lora", "flash_decode"):
@@ -2032,6 +2416,8 @@ def main() -> int:
     for name in ("flash_attention", "flash_attention_bwd", "lora_matmul"):
         check(train_launches[name] > 0, f"{name} never launched in the local round: {train_launches}")
         check(fed_launches[name] > 0, f"{name} never launched in the federated rounds: {fed_launches}")
+        check(strag_launches[name] > 0, f"{name} never launched in phase 5f's deadline rounds: {strag_launches}")
+        check(gather_launches[name] > 0, f"{name} never launched in the gather local round: {gather_launches}")
     for name in ("wkv6", "wkv6_bwd"):
         check(rwkv_launches[name] > 0, f"{name} never launched in the rwkv6-3b local round: {rwkv_launches}")
     for name in ("mamba_scan", "mamba_scan_bwd"):
@@ -2097,6 +2483,7 @@ def main() -> int:
             "launches": train_launches["flash_attention"],
             "launches_by_path": {"local_round": train_launches["flash_attention"],
                                  "federated_rounds": fed_launches["flash_attention"],
+                                 "5f": strag_launches["flash_attention"], "5f_gather_local_round": gather_launches["flash_attention"],
                                  **{f"local_round_{a}": dense_launches["train_launches"][a]["flash_attention"]
                                     for a in DENSE_ARCHS}},
             "glm4_shape": pick(dense["attention_glm4"], fwd_keys),
@@ -2115,6 +2502,7 @@ def main() -> int:
             "launches": train_launches["flash_attention_bwd"],
             "launches_by_path": {"local_round": train_launches["flash_attention_bwd"],
                                  "federated_rounds": fed_launches["flash_attention_bwd"],
+                                 "5f": strag_launches["flash_attention_bwd"], "5f_gather_local_round": gather_launches["flash_attention_bwd"],
                                  **{f"local_round_{a}": dense_launches["train_launches"][a]["flash_attention_bwd"]
                                     for a in DENSE_ARCHS}},
             "glm4_shape": pick(dense["attention_glm4"], ("shape",), **bwd_renamed),
@@ -2138,6 +2526,7 @@ def main() -> int:
             "launches": train_launches["lora_matmul"],
             "launches_by_path": {"local_round": train_launches["lora_matmul"],
                                  "federated_rounds": fed_launches["lora_matmul"],
+                                 "5f": strag_launches["lora_matmul"], "5f_gather_local_round": gather_launches["lora_matmul"],
                                  **{f"local_round_{a}": dense_launches["train_launches"][a]["lora_matmul"]
                                     for a in DENSE_ARCHS}},
             "dense_arch_shapes": dense_shapes["lora"],

@@ -22,10 +22,21 @@ continues from the newest snapshot there, bit-identically::
     runner = api.build("droppeft", smoke=False, checkpoint_dir="ckpts", resume=True)
     result = runner.run(rounds=3)  # rounds 3 only; as one run of 3 rounds
 
+``stld_mode="gather"`` draws a static count of active layers a round;
+``schedule="deadline"`` (``deadline_s``, ``straggler="drop"`` or
+``"carry"``) and ``schedule="async-buffer"`` (``buffer_size``,
+``staleness_alpha``) run the virtual clock's straggler-tolerant policies;
+``compression="int8"``, ``"topk"`` or ``"int8+topk"`` (``topk_fraction``)
+compresses the uplink with error feedback; ``fault_plan`` injects client
+dropouts, bandwidth collapses, NaN updates, churn and server kills::
+
+    runner = api.build("droppeft", smoke=False, stld_mode="gather", schedule="deadline", deadline_s=60.0,
+                       straggler="carry", compression="int8+topk", fault_plan={"dropout_prob": 0.1})
+
 A keyword that names a feature the port lacks raises
-``NotImplementedError`` with its ROADMAP item: ``stld_mode="gather"`` (5),
-``compression``, ``fault_plan`` and a schedule other than ``"sync"`` (6),
-``peft`` other than ``"lora"`` (7).  ``cohort_mode="auto"`` runs
+``NotImplementedError`` with its ROADMAP item: ``compression="auto"``
+(the joint bandit) and ``fedhetlora`` (6), ``peft`` other than ``"lora"``
+(7).  ``cohort_mode="auto"`` runs
 ``"batched"`` (one grouped launch a layer for the whole cohort) for every
 method but one that ``requires_sequential``, as the reference does.
 
@@ -53,10 +64,11 @@ import torch
 
 from repro_torch.configs import FederatedConfig, PEFTConfig, STLDConfig, TrainConfig, get_config
 from repro_torch.federated.algorithms import FederatedAlgorithm, get_algorithm, registered_methods
+from repro_torch.federated.compression import CompressionConfig, resolve_compression
 from repro_torch.federated.runner import ExperimentRunner, SimResult, fresh_algorithm, unported
 from repro_torch.federated.scheduler import ScheduleConfig, resolve_schedule
 
-__all__ = ["build", "experiment", "replicate", "serve", "list_methods", "ScheduleConfig"]
+__all__ = ["build", "experiment", "replicate", "serve", "list_methods", "ScheduleConfig", "CompressionConfig"]
 
 
 def list_methods() -> List[str]:
@@ -131,8 +143,6 @@ def build(
     weights drawn from ``seed``."""
     if peft != "lora" and peft_cfg is None:
         raise unported(f"peft={peft!r}", 7)
-    if compression is not None or topk_fraction is not None:
-        raise unported(f"compression={compression!r}", 6)
     if cfg is None:
         cfg = get_config(model, smoke=smoke)
     if model_overrides:
@@ -163,6 +173,7 @@ def build(
         checkpoint_every=checkpoint_every,
         resume=resume,
         fault_plan=fault_plan,
+        compression=resolve_compression(compression, topk_fraction=topk_fraction),
         params=params,
         device=device,
     )

@@ -162,15 +162,19 @@ class PEFTConfig:
 
 @dataclass(frozen=True)
 class STLDConfig:
-    """Stochastic transformer layer dropout (paper §3.2-3.3).  The port runs
-    ``cond`` mode: a dropped layer is skipped by a host-side branch."""
+    """Stochastic transformer layer dropout (paper §3.2-3.3).  ``cond``
+    draws a Bernoulli gate per layer; ``gather`` a fixed count of active
+    layers a round (Gumbel top-k).  Either way a dropped layer is skipped by
+    a host-side branch."""
 
     enabled: bool = True
-    mode: str = "cond"
+    mode: str = "cond"            # cond (paper-faithful) | gather (static active count)
     distribution: str = "incremental"  # uniform | decay | incremental | normal
     mean_rate: float = 0.5
     normal_std: float = 0.1
     min_active_layers: int = 1
+    # gather mode: static active count = round(L * (1 - mean_rate)), bucketed
+    gather_bucket: int = 4
 
 
 @dataclass(frozen=True)

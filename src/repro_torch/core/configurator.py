@@ -15,7 +15,8 @@ rates, round by round, and the same ``state_dict``.
   evaluations, then EXPLOITATION reuses the best-known arm for
   ``explore_interval`` rounds.
 
-The joint (rate x compression level) bandit is not ported.
+The joint (rate x compression level) bandit is not ported (ROADMAP queue 1,
+item 6).
 """
 from __future__ import annotations
 

@@ -17,9 +17,11 @@ sampling, no layer dropout, FedAvg) through small overridable policies
 (``round_rates``, ``active_depth``, ``compute_masks``, ``merge``,
 ``feedback``).  Every draw of ``state.rng`` is the reference's, in its
 order: the cohort in ``configure_round``, then one bandwidth per member in
-``round_cost``.  Uplink compression and the staleness-weighted merges of
-the non-sync schedules are not ported: ``compress_uplink`` is the no-op of
-a run without compression, and ``merge`` the unweighted one.
+``round_cost``.  ``compress_uplink`` compresses each device's PEFT delta
+when the run has a ``compression`` level (error feedback threads through
+``state.ef_residual``), and ``merge`` takes the uplinks' reconstructions
+and the staleness weights of the deadline and async-buffer schedules when
+they are set.  The joint (rate × compression level) bandit is not ported.
 """
 from __future__ import annotations
 
@@ -28,11 +30,27 @@ from typing import Dict, List, Type
 
 import numpy as np
 
+from repro_torch.federated import compression as compression_lib
 from repro_torch.federated import server as server_lib
 from repro_torch.federated.state import CohortResults, RoundPlan, RoundState
 from repro_torch.federated.system_model import sample_bandwidth
+from repro_torch.models.stacking import tree_map
 
 _REGISTRY: Dict[str, Type["FederatedAlgorithm"]] = {}
+
+
+def _signature(tree):
+    if isinstance(tree, dict):
+        return tuple((k, _signature(tree[k])) for k in sorted(tree))
+    if isinstance(tree, (list, tuple)):
+        return tuple(_signature(t) for t in tree)
+    return tuple(tree.shape)
+
+
+def _trees_congruent(a, b) -> bool:
+    """Same structure and leaf shapes: an EF residual saved for one PEFT
+    geometry must not be reused for another."""
+    return _signature(a) == _signature(b)
 
 
 def register(name: str):
@@ -82,21 +100,28 @@ class FederatedAlgorithm:
         return None
 
     # ------------------------------------------------------- lifecycle hooks
-    def configure_round(self, state: RoundState) -> RoundPlan:
-        """Sample the cohort and pick per-device dropout rates."""
+    def configure_round(self, state: RoundState, *, size=None, exclude=()) -> RoundPlan:
+        """Sample the cohort and pick per-device dropout rates.  The
+        scheduler passes ``size`` (an async-buffer refill dispatches as many
+        devices as just arrived) and ``exclude`` (devices in flight, backing
+        off or churned out); the call without them draws ``state.rng`` as
+        the sync round always has."""
         fed = self.ctx.fed_cfg
-        cohort = [
-            int(d)
-            for d in state.rng.choice(
-                fed.num_devices, size=min(fed.devices_per_round, fed.num_devices), replace=False
-            )
-        ]
-        rates, _ = self.round_arms(state, len(cohort))
+        want = fed.devices_per_round if size is None else size
+        if exclude:
+            free = [d for d in range(fed.num_devices) if d not in exclude]
+            n = min(want, len(free))
+            cohort = [int(d) for d in np.asarray(free)[state.rng.choice(len(free), size=n, replace=False)]]
+        else:
+            cohort = [int(d) for d in state.rng.choice(fed.num_devices, size=min(want, fed.num_devices),
+                                                       replace=False)]
+        rates, levels = self.round_arms(state, len(cohort))
         return RoundPlan(
             round_index=state.round_index,
             cohort=cohort,
             rates=rates,
             adaopt_depth=self.active_depth(state),
+            compression=levels,
         )
 
     def client_init(self, state: RoundState, dev: int):
@@ -119,13 +144,56 @@ class FederatedAlgorithm:
         return replace(state, key=key, global_step=gstep), results
 
     def compress_uplink(self, state: RoundState, results: CohortResults):
-        """Compress each device's PEFT delta for the uplink: the strict
-        no-op of a run without compression (``api.build(compression=...)``
-        raises: ROADMAP queue 1, item 6)."""
-        return state, results
+        """Compress each device's PEFT *delta* for the uplink, between
+        ``cohort_step`` and ``aggregate``.
+
+        Without ``ctx.compression`` (or with every level ``"none"``) a
+        strict no-op: ``uplink_pefts`` stays None and the merge and billing
+        are the uncompressed path's, bit for bit.  Otherwise it fills
+        ``results.uplink_pefts`` with the server-side reconstructions (start
+        tree + lossy delta) and ``results.uplink_ratio`` with each device's
+        compressed/fp32 factor, and threads the error-feedback residuals
+        through ``state.ef_residual`` (a residual of another geometry is
+        reset)."""
+        comp = getattr(self.ctx, "compression", None)
+        if comp is None:
+            return state, results
+        plan = results.plan
+        levels = plan.compression or [comp.kind] * len(plan.cohort)
+        plan.compression = levels
+        if all(lv == "none" for lv in levels):
+            return state, results
+        starts = plan.start_pefts
+        if starts is None:
+            starts = [self.client_init(state, dev) for dev in plan.cohort]
+        ef_residual = dict(state.ef_residual)
+        uplinks, ratios = [], []
+        for i, dev in enumerate(plan.cohort):
+            kind = levels[i]
+            if kind == "none":
+                uplinks.append(results.pefts[i])
+                ratios.append(1.0)
+                continue
+            start = starts[i]
+            delta = tree_map(lambda a, b: a.float() - b.float(), results.pefts[i], start)
+            if comp.error_feedback:
+                residual = ef_residual.get(dev)
+                if residual is None or not _trees_congruent(residual, delta):
+                    residual = compression_lib.ErrorFeedback.init(delta)
+                sent, ef_residual[dev] = compression_lib.ef_step(delta, residual, kind=kind,
+                                                                 fraction=comp.topk_fraction, decay=comp.ef_decay)
+            else:
+                sent = compression_lib.compress_decompress(delta, kind=kind, fraction=comp.topk_fraction)
+            uplinks.append(tree_map(lambda s_, b: (b.float() + s_).to(b.dtype), sent, start))
+            ratios.append(compression_lib.uplink_ratio(
+                delta, compression_lib.CompressionConfig(kind=kind, topk_fraction=comp.topk_fraction)))
+        results.uplink_pefts = uplinks
+        results.uplink_ratio = np.asarray(ratios, dtype=np.float64)
+        return replace(state, ef_residual=ef_residual), results
 
     def aggregate(self, state: RoundState, results: CohortResults) -> RoundState:
-        """Compute share masks, persist device models, merge the global."""
+        """Compute share masks (unless the scheduler did at dispatch),
+        persist device models, merge the global."""
         masks = results.masks if results.masks is not None else self.compute_masks(state, results)
         results.masks = masks
         device_peft = dict(state.device_peft)
@@ -158,6 +226,7 @@ class FederatedAlgorithm:
             peft=True,
             active_fraction=np.asarray(active_fracs) if self.stld else np.ones(n),
             share_fraction=results.masks.mean(axis=1),
+            uplink_ratio=1.0 if results.uplink_ratio is None else np.asarray(results.uplink_ratio, dtype=np.float64),
         )
         results.cost = cost
         return cost, active_fracs
@@ -197,7 +266,9 @@ class FederatedAlgorithm:
 
     def round_arms(self, state: RoundState, n: int):
         """Per-device (dropout rates, compression levels): the rates from
-        :meth:`round_rates`, no levels (the joint bandit is not ported)."""
+        :meth:`round_rates` and no levels (``compress_uplink`` takes the
+        run's fixed level); the joint bandit that draws both is not
+        ported (ROADMAP queue 1, item 6)."""
         return self.round_rates(state, n), None
 
     def active_depth(self, state: RoundState) -> int:
@@ -207,8 +278,16 @@ class FederatedAlgorithm:
         n = len(results.plan.cohort)
         return np.ones((n, self.ctx.cfg.num_layers), dtype=bool)
 
+    def _merge_trees(self, results: CohortResults) -> list:
+        """What the server aggregates: the uplinks' reconstructions when
+        compression ran, else the devices' trees."""
+        return results.pefts if results.uplink_pefts is None else results.uplink_pefts
+
     def merge(self, state: RoundState, results: CohortResults):
-        return server_lib.fedavg(results.pefts)
+        trees = self._merge_trees(results)
+        if results.weights is not None:
+            return server_lib.weighted_fedavg(trees, results.weights)
+        return server_lib.fedavg(trees)
 
     def feedback(self, state: RoundState, results: CohortResults, round_times):
         """Hook for online controllers (bandit reward updates)."""

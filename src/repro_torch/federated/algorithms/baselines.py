@@ -3,7 +3,7 @@
 
     FedLoRA / FedAdapter -- vanilla federated PEFT (FedAvg, full depth)
     FedHetLoRA           -- rank-heterogeneous LoRA (not ported: it raises
-                            at ``bind``)
+                            at ``bind``, ROADMAP queue 1, item 6)
     FedAdaOPT            -- progressive-depth adapter training
 """
 from __future__ import annotations
@@ -29,7 +29,8 @@ class FedAdapter(FederatedAlgorithm):
 class FedHetLoRA(FederatedAlgorithm):
     """Rank-heterogeneous LoRA matched to device tiers.  Its sequential
     cohort, ``hetlora_aggregate`` and ``truncate_lora_rank`` are not ported
-    (ROADMAP queue 1, item 6): binding it raises."""
+    (ROADMAP queue 1, item 6, of which hetlora and the joint bandit are
+    left): binding it raises."""
 
     requires_sequential = True
     hetlora_ranks = (4, 8, 16)
@@ -40,8 +41,9 @@ class FedHetLoRA(FederatedAlgorithm):
             self.hetlora_ranks = tuple(ranks)
 
     def bind(self, ctx):
-        raise NotImplementedError("fedhetlora is not ported (ROADMAP queue 1, item 6: hetlora's sequential "
-                                  "cohort, hetlora_aggregate and truncate_lora_rank)")
+        raise NotImplementedError("fedhetlora is not ported (ROADMAP queue 1, item 6; left of it: hetlora's "
+                                  "sequential cohort, hetlora_aggregate and truncate_lora_rank, and the joint "
+                                  "bandit)")
 
 
 @register("fedadaopt")

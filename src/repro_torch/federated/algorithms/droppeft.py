@@ -11,6 +11,7 @@ dropout-rate configurator (Algorithm 1) + PTLS personalized layer sharing
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -19,6 +20,7 @@ import torch
 from repro_torch.core.configurator import OnlineConfigurator
 from repro_torch.federated import server as server_lib
 from repro_torch.federated.algorithms.base import FederatedAlgorithm, register
+from repro_torch.federated.scheduler import feasible_rate_floor
 from repro_torch.federated.state import CohortResults, RoundState
 
 
@@ -47,7 +49,7 @@ class DropPEFT(FederatedAlgorithm):
         if not (self.use_configurator and self.stld):
             return None
         fed = ctx.fed_cfg
-        return OnlineConfigurator(
+        cfgor = OnlineConfigurator(
             rate_grid=fed.rate_grid,
             num_candidates=fed.num_candidates,
             explore_rate=fed.explore_rate,
@@ -55,6 +57,15 @@ class DropPEFT(FederatedAlgorithm):
             window_size=fed.window_size,
             seed=ctx.seed,
         )
+        # under a finite deadline, rates the slowest profile can never
+        # finish in time are infeasible arms: floor the candidates there
+        sched = getattr(ctx, "schedule", None)
+        if sched is not None and sched.policy == "deadline" and math.isfinite(sched.deadline_s):
+            cfgor.set_rate_floor(feasible_rate_floor(
+                ctx.system, ctx.device_profile, sched.deadline_s, rate_grid=fed.rate_grid, batch=fed.batch_size,
+                seq=ctx.task.seq_len, local_steps=fed.local_steps,
+            ))
+        return cfgor
 
     def client_init(self, state: RoundState, dev: int):
         """Shared layers from the global model; personalized layers local."""
@@ -80,7 +91,11 @@ class DropPEFT(FederatedAlgorithm):
     def merge(self, state: RoundState, results: CohortResults):
         if not self.use_ptls:
             return super().merge(state, results)
-        return server_lib.ptls_aggregate(results.pefts, results.masks, state.global_peft)
+        # the deadline and async schedules may set staleness weights; None
+        # keeps the unweighted PTLS masked mean
+        weights = None if results.weights is None else np.asarray(results.weights)
+        return server_lib.ptls_aggregate(self._merge_trees(results), results.masks, state.global_peft,
+                                         weights=weights)
 
     def feedback(self, state: RoundState, results: CohortResults, round_times):
         if state.configurator is None:

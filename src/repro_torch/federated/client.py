@@ -4,7 +4,8 @@
 ``make_client_fns`` returns:
 
 * ``local_round`` — a Python loop over the local mini-batch steps; each
-  step draws fresh STLD gates (Bernoulli per layer, on the host), computes
+  step draws fresh STLD gates on the host (Bernoulli per layer, or in
+  gather mode the indices of a fixed count of active layers), computes
   PEFT-only gradients, accumulates the Eq.-6 PTLS importance statistics,
   clips, and AdamW-updates the PEFT tree.
 * ``evaluate`` — full-model (no dropout) classification accuracy.
@@ -21,8 +22,6 @@
   to one size, with a ``valid`` row mask.
 * ``cohort_round_eval`` — ``cohort_round`` then ``cohort_evaluate`` of the
   trained adapters, in one call.
-
-Gather-mode STLD is not ported yet.
 """
 from __future__ import annotations
 
@@ -62,10 +61,13 @@ def make_client_fns(cfg, peft_cfg, stld_cfg, train_cfg, *, device=None, shape=No
     package's ``unit_shape("normal", L)`` to get its rates.
 
     ``local_round(base_params, peft_params, opt_state, batches, mean_rate,
-    rng, global_step) -> (peft_params, opt_state, metrics, importance)``:
+    rng, global_step, num_active=None) -> (peft_params, opt_state, metrics,
+    importance)``:
     ``batches`` holds ``tokens``, ``targets`` and ``mask`` with a leading
     ``(steps,)`` axis; ``rng`` is a CPU ``torch.Generator``, drawn from
-    once per step for the gates; ``opt_state`` is the round's AdamW state
+    once per step for the gates (in gather mode with ``num_active`` k, for
+    the k active layers' indices: the step's drops are their complement,
+    and its ``active_layers`` is k); ``opt_state`` is the round's AdamW state
     (a fresh ``adamw_init(peft_params)`` each round, as the reference's
     cohort round makes it); ``global_step`` offsets the LR schedule.
     ``metrics`` are the step means of loss, accuracy, grad_norm and
@@ -75,14 +77,17 @@ def make_client_fns(cfg, peft_cfg, stld_cfg, train_cfg, *, device=None, shape=No
     -> accuracy``: argmax over the label-token logits at the final position.
 
     ``cohort_round(base_params, peft_stack, batch_stack, rates, rngs,
-    global_steps) -> (peft_stack, metrics, importances)``: ``peft_stack``
+    global_steps, num_active=None) -> (peft_stack, metrics, importances)``: ``peft_stack``
     is N devices' trees stacked on a leading device axis (stacked layout:
     ``(N, L, ...)`` leaves; list layout: a per-layer list of ``(N, ...)``
     leaves), ``batch_stack`` has ``(N, steps, ...)`` arrays, ``rates``,
-    ``rngs`` and ``global_steps`` one entry per device.  Before the first
-    step every device draws all of its round's gates, device by device and
-    within a device step by step, so that the calls into
-    ``stld.sample_drops`` come in the order of N ``local_round`` calls.
+    ``rngs`` and ``global_steps`` one entry per device, ``num_active``
+    None, one k for all or one per device (gather mode; the reference
+    groups a cohort by k, and each device's outputs are the same either
+    way).  Before the first step every device draws all of its round's
+    gates (or indices), device by device and within a device step by step,
+    so that the calls into ``stld`` come in the order of N ``local_round``
+    calls.
     ``metrics`` are (N,) step means, ``importances`` (N, L); device i's
     outputs are what ``local_round`` gives it alone.
 
@@ -92,8 +97,8 @@ def make_client_fns(cfg, peft_cfg, stld_cfg, train_cfg, *, device=None, shape=No
     arguments of both and returns ``(peft_stack, metrics, importances,
     accuracies)``.
     """
-    if stld_cfg.mode != "cond":
-        raise NotImplementedError(f"STLD mode {stld_cfg.mode!r} is not ported; the port runs 'cond'")
+    if stld_cfg.mode not in ("cond", "gather"):
+        raise ValueError(f"STLD mode must be 'cond' or 'gather', got {stld_cfg.mode!r}")
     device = torch.device("cuda" if device is None else device)
     num_layers = cfg.num_layers
     lora_sc = peft_lib.lora_scale(peft_cfg)
@@ -103,9 +108,12 @@ def make_client_fns(cfg, peft_cfg, stld_cfg, train_cfg, *, device=None, shape=No
         shape = unit_shape(stld_cfg.distribution, num_layers, generator=torch.Generator().manual_seed(0))
     shape = torch.as_tensor(shape, dtype=torch.float32)
 
-    def loss_fn(peft_params, base_params, tokens, targets, mask, drops):
+    gather_mode = stld_cfg.mode == "gather"
+
+    def loss_fn(peft_params, base_params, tokens, targets, mask, drops, active_idx=None):
         logits, aux, _ = model_apply(base_params, cfg, {"tokens": tokens}, drops=drops, peft=peft_params,
-                                     lora_scale=lora_sc)
+                                     lora_scale=lora_sc, stack_mode="unroll" if active_idx is None else "gather",
+                                     active_idx=active_idx)
         loss, metrics = softmax_xent(logits, targets, mask)
         return loss + cfg.router_aux_coef * aux, metrics  # the metrics' loss stays the cross-entropy
 
@@ -116,14 +124,22 @@ def make_client_fns(cfg, peft_cfg, stld_cfg, train_cfg, *, device=None, shape=No
             return torch.zeros((num_layers,))
         return torch.clamp(shape * mean_rate, 0.0, 0.95)
 
-    def local_round(base_params, peft_params, opt_state, batches, mean_rate, rng, global_step):
+    def draw(rng, rates, num_active):
+        """One step's (drops, active indices or None): gather mode with a
+        static count draws the indices, else the Bernoulli gates."""
+        if gather_mode and num_active is not None:
+            idx = stld.sample_active_indices(rng, rates, num_active)
+            return stld.drops_from_indices(idx, num_layers), idx
+        return stld.sample_drops(rng, rates, stld_cfg.min_active_layers), None
+
+    def local_round(base_params, peft_params, opt_state, batches, mean_rate, rng, global_step, num_active=None):
         rates = round_rates(mean_rate)
         imp = ptls.ImportanceAccumulator.init(num_layers, device)
         tokens, targets, mask = (as_device_tensor(batches[k], device) for k in ("tokens", "targets", "mask"))
         steps = []
         for i in range(tokens.shape[0]):
-            drops = stld.sample_drops(rng, rates, stld_cfg.min_active_layers)
-            (_, metrics), grads = grad_fn(peft_params, base_params, tokens[i], targets[i], mask[i], drops)
+            drops, idx = draw(rng, rates, num_active)
+            (_, metrics), grads = grad_fn(peft_params, base_params, tokens[i], targets[i], mask[i], drops, idx)
             imp = ptls.ImportanceAccumulator.update(imp, ptls.layer_grad_norms(grads), drops)
             grads, gnorm = clip_by_global_norm(grads, train_cfg.grad_clip)
             peft_params, opt_state = adamw_update(
@@ -147,30 +163,36 @@ def make_client_fns(cfg, peft_cfg, stld_cfg, train_cfg, *, device=None, shape=No
         return torch.mean((pred == labels.long()).float())
 
     # ------------------------------------------------------------ the cohort
-    def cohort_loss_fn(layers, base_params, tokens, targets, mask, drops):
+    def cohort_loss_fn(layers, base_params, tokens, targets, mask, drops, active_idx=None):
         n = tokens.shape[0]
         logits, aux, _ = model_apply(base_params, cfg, {"tokens": tokens}, drops=drops, peft=layers,
-                                     lora_scale=lora_sc, devices=n)
+                                     lora_scale=lora_sc, devices=n,
+                                     stack_mode="unroll" if active_idx is None else "gather", active_idx=active_idx)
         loss, metrics = cohort_softmax_xent(logits.view(n, -1, *logits.shape[1:]), targets, mask)
         return torch.sum(loss + cfg.router_aux_coef * aux), metrics
 
     cohort_grad_fn = value_and_grad(cohort_loss_fn)
 
-    def cohort_train(base_params, layers, batch_stack, rates, rngs, global_steps):
+    def cohort_train(base_params, layers, batch_stack, rates, rngs, global_steps, num_active=None):
         """The cohort's local rounds on a per-layer list of (N, ...) leaves
         (each layer's adapters a leaf of their own, so a step's gradient
         is written layer by layer, never as a whole stack)."""
         n = len(rngs)
+        if num_active is None or isinstance(num_active, int):
+            num_active = [num_active] * n
         tokens, targets, mask = (as_device_tensor(batch_stack[k], device) for k in ("tokens", "targets", "mask"))
         steps = tokens.shape[1]
-        gates = [[stld.sample_drops(rng, round_rates(float(rate)), stld_cfg.min_active_layers) for _ in range(steps)]
-                 for rate, rng in zip(rates, rngs)]
+        gates = [[draw(rng, round_rates(float(rate)), k) for _ in range(steps)]
+                 for rate, rng, k in zip(rates, rngs, num_active)]
         opt_state = adamw_init(layers)
         imp = ptls.ImportanceAccumulator.init(num_layers, device, devices=n)
         rows = []
         for i in range(steps):
-            drops = torch.stack([g[i] for g in gates])  # (N, L)
-            (_, metrics), grads = cohort_grad_fn(layers, base_params, tokens[:, i], targets[:, i], mask[:, i], drops)
+            drops = torch.stack([g[i][0] for g in gates])  # (N, L)
+            idx = [g[i][1] for g in gates]
+            idx = None if any(x is None for x in idx) else idx
+            (_, metrics), grads = cohort_grad_fn(layers, base_params, tokens[:, i], targets[:, i], mask[:, i], drops,
+                                                 idx)
             imp = ptls.ImportanceAccumulator.update(imp, ptls.layer_grad_norms(grads, devices=n), drops)
             grads, gnorm = clip_by_global_norm(grads, train_cfg.grad_clip, devices=n)
             lr = torch.tensor([sched(g + i) for g in global_steps], dtype=torch.float32, device=device)
@@ -193,9 +215,10 @@ def make_client_fns(cfg, peft_cfg, stld_cfg, train_cfg, *, device=None, shape=No
         correct = (pred == labels.long()).float() * valid.float()
         return torch.sum(correct, dim=1) / torch.clamp(torch.sum(valid.float(), dim=1), min=1.0)
 
-    def cohort_round(base_params, peft_stack, batch_stack, rates, rngs, global_steps):
+    def cohort_round(base_params, peft_stack, batch_stack, rates, rngs, global_steps, num_active=None):
         layers, metrics, importances = cohort_train(
-            base_params, layer_list(peft_stack, num_layers, axis=1), batch_stack, rates, rngs, global_steps)
+            base_params, layer_list(peft_stack, num_layers, axis=1), batch_stack, rates, rngs, global_steps,
+            num_active)
         return from_layer_list(layers, is_stacked(peft_stack), axis=1), metrics, importances
 
     def cohort_evaluate(base_params, peft_stack, tokens, labels, valid, num_classes_arr):
@@ -203,9 +226,10 @@ def make_client_fns(cfg, peft_cfg, stld_cfg, train_cfg, *, device=None, shape=No
                                num_classes_arr)
 
     def cohort_round_eval(base_params, peft_stack, batch_stack, rates, rngs, global_steps, val_tokens, val_labels,
-                          val_valid, num_classes_arr):
+                          val_valid, num_classes_arr, num_active=None):
         layers, metrics, importances = cohort_train(
-            base_params, layer_list(peft_stack, num_layers, axis=1), batch_stack, rates, rngs, global_steps)
+            base_params, layer_list(peft_stack, num_layers, axis=1), batch_stack, rates, rngs, global_steps,
+            num_active)
         accs = cohort_accuracy(base_params, layers, val_tokens, val_labels, val_valid, num_classes_arr)
         return from_layer_list(layers, is_stacked(peft_stack), axis=1), metrics, importances, accs
 

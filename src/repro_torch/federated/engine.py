@@ -9,7 +9,10 @@ the dispatch:
 * ``"batched"`` — the cohort's PEFT trees are stacked on a leading device
   axis and one ``cohort_round_eval`` trains and evaluates them all
   (FedAdaOPT: ``cohort_round``, the progressive-depth truncation, then
-  ``cohort_evaluate``), on validation rows padded to one size.
+  ``cohort_evaluate``), on validation rows padded to one size.  In gather
+  mode each device keeps its own static active-layer count: the reference
+  runs one call per group of equal count, the port the whole cohort in one
+  call, and each device's outputs are the same.
 * ``"sequential"`` — one ``local_round`` and one ``evaluate`` per device, in
   cohort order.
 
@@ -27,11 +30,12 @@ sequential mode).
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.core import stld as stld_lib
 from repro_torch.federated.client import METRICS, make_client_fns
 from repro_torch.federated.state import split_key
 from repro_torch.models import stacking
@@ -43,7 +47,7 @@ class CohortEngine:
     device data."""
 
     def __init__(self, cfg, peft_cfg, stld_cfg, fed_cfg, train_cfg, task, devices, base_params, *,
-                 cohort_mode: str, device=None):
+                 cohort_mode: str, stld_enabled: bool = True, device=None):
         if cohort_mode not in ("batched", "sequential"):
             raise ValueError(f"cohort_mode must be 'batched' or 'sequential', got {cohort_mode!r}")
         self.cfg = cfg
@@ -55,6 +59,7 @@ class CohortEngine:
         self.task = task
         self.devices = devices
         self.cohort_mode = cohort_mode
+        self.stld_enabled = stld_enabled
         self.device = torch.device("cuda" if device is None else device)
         self.client = make_client_fns(cfg, peft_cfg, stld_cfg, train_cfg, device=self.device)
         self.local_round, self.evaluate = self.client.local_round, self.client.evaluate
@@ -111,6 +116,17 @@ class CohortEngine:
             }
         return cached
 
+    def _static_active_counts(self, rates) -> List[Optional[int]]:
+        """Gather mode's static active-layer count per device (None in cond
+        mode, or when the algorithm runs no STLD)."""
+        if self.stld_cfg.mode == "gather" and self.stld_enabled:
+            return [
+                stld_lib.static_active_count(rate, self.cfg.num_layers, self.stld_cfg.gather_bucket,
+                                             self.stld_cfg.min_active_layers)
+                for rate in rates
+            ]
+        return [None] * len(rates)
+
     def _val_stack(self, devs):
         vals = [self._padded_val_batch(dev) for dev in devs]
         return tuple(np.stack([v[k] for v in vals]) for k in ("tokens", "labels", "valid"))
@@ -125,16 +141,18 @@ class CohortEngine:
         peft_stack = stack_trees(start_pefts)
         rngs = [torch.Generator().manual_seed(k) for k in keys]
         rates = [float(r) for r in rates]
+        num_active = self._static_active_counts(rates)
         if adaopt_depth < self.cfg.num_layers:
             # the deep layers' updates are discarded before the evaluation,
             # so train, truncate, then evaluate the retained adapters
             peft_out, metrics, importances = self.client.cohort_round(
-                self.base_params, peft_stack, batch_stack, rates, rngs, gsteps)
+                self.base_params, peft_stack, batch_stack, rates, rngs, gsteps, num_active)
             peft_out = self._adaopt_truncate(peft_out, peft_stack, adaopt_depth, axis=1)
             accs = self.client.cohort_evaluate(self.base_params, peft_out, *val_args, num_classes)
         else:
             peft_out, metrics, importances, accs = self.client.cohort_round_eval(
-                self.base_params, peft_stack, batch_stack, rates, rngs, gsteps, *val_args, num_classes)
+                self.base_params, peft_stack, batch_stack, rates, rngs, gsteps, *val_args, num_classes,
+                num_active)
         # one host pull for the cohort's metrics, importances and accuracies
         host = torch.cat([torch.stack([metrics[k] for k in METRICS], dim=1), importances, accs[:, None]],
                          dim=1).cpu().numpy()
@@ -148,7 +166,7 @@ class CohortEngine:
     def _run_device(self, dev: int, rate: float, start_peft, key: int, gstep: int, num_classes, adaopt_depth):
         peft_i, _, metrics, importance = self.local_round(
             self.base_params, start_peft, adamw_init(start_peft), self._stacked_train_batches(dev), float(rate),
-            torch.Generator().manual_seed(key), gstep,
+            torch.Generator().manual_seed(key), gstep, self._static_active_counts([rate])[0],
         )
         if adaopt_depth < self.cfg.num_layers:
             peft_i = self._adaopt_truncate(peft_i, start_peft, adaopt_depth)

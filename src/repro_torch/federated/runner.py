@@ -16,8 +16,9 @@ key in three, and never from the numpy generator.
 Any round boundary can be checkpointed (``checkpoint_dir``) in the
 reference's format and resumed bit-exactly (``resume=True``): the round's
 torch seed ``key``, the numpy streams of the round loop and of every
-device's batches, the bandit, the PEFT trees, the share masks and the
-metric history.
+device's batches, the bandit, the PEFT trees, the share masks, the
+error-feedback residuals, the scheduler's jobs in flight and the metric
+history.
 """
 from __future__ import annotations
 
@@ -34,7 +35,9 @@ from repro_torch.data.partition import dirichlet_partition
 from repro_torch.data.pipeline import DeviceDataset
 from repro_torch.data.synthetic import make_task
 from repro_torch.federated.algorithms import FederatedAlgorithm, get_algorithm
+from repro_torch.federated.compression import CompressionConfig, resolve_compression
 from repro_torch.federated.engine import CohortEngine
+from repro_torch.federated.faults import FaultInjector, resolve_fault_plan
 from repro_torch.federated.scheduler import ScheduleConfig, VirtualClockScheduler, resolve_schedule
 from repro_torch.federated.state import RoundState, split_key
 from repro_torch.federated.system_model import SystemModel, sample_device
@@ -85,6 +88,8 @@ class ExperimentContext:
     init_global_peft: Any
     num_classes: Any               # np.arange(task.num_classes)
     engine: Optional[CohortEngine] = None
+    schedule: Optional[ScheduleConfig] = None        # virtual-clock scheduling policy
+    compression: Optional[CompressionConfig] = None  # uplink compression | None
 
 
 def _build_context(cfg, peft_cfg, stld_cfg, fed_cfg, train_cfg, *, task=None, cost_cfg=None, seed=0,
@@ -139,9 +144,14 @@ def fresh_algorithm(algorithm):
     return algo
 
 
+# what ROADMAP queue 1 still holds of an item the port has begun
+_LEFT = {6: "hetlora and the joint (rate x compression level) bandit are left of it"}
+
+
 def unported(option: str, item: int):
     """The error for an option that names a feature the port lacks."""
-    return NotImplementedError(f"{option} is not ported (ROADMAP queue 1, item {item})")
+    left = f"; {_LEFT[item]}" if item in _LEFT else ""
+    return NotImplementedError(f"{option} is not ported (ROADMAP queue 1, item {item}{left})")
 
 
 class ExperimentRunner:
@@ -155,7 +165,11 @@ class ExperimentRunner:
     ``ValueError``.  With ``checkpoint_dir`` the scheduler saves the round
     state (:meth:`save_checkpoint`); ``resume=True`` restores the newest
     complete snapshot there (a fresh start when there is none).
-    ``fault_plan`` and ``compression`` are not ported and raise."""
+    ``schedule`` is a policy name or a :class:`ScheduleConfig`,
+    ``fault_plan`` a :class:`~repro_torch.federated.faults.FaultPlan`, a
+    dict of its fields or a JSON path, ``compression`` a level name, a
+    dict or a :class:`CompressionConfig`; ``compression="auto"`` (the joint
+    bandit) raises ``NotImplementedError``."""
 
     def __init__(self, cfg, peft_cfg, stld_cfg, fed_cfg, train_cfg, *,
                  algorithm: "FederatedAlgorithm | str" = "droppeft", task=None, cost_cfg=None, seed: int = 0,
@@ -164,13 +178,14 @@ class ExperimentRunner:
                  fault_plan=None, compression=None, params=None, device=None):
         if cohort_mode not in ("auto", "batched", "sequential"):
             raise ValueError(f"unknown cohort_mode {cohort_mode!r}")
-        for option, value, item in (("fault_plan", fault_plan, 6), ("compression", compression, 6)):
-            if value:
-                raise unported(f"{option}={value!r}", item)
         if resume and not checkpoint_dir:
             raise ValueError("resume=True requires checkpoint_dir")
-        if stld_cfg.mode != "cond":
-            raise unported(f"stld_mode={stld_cfg.mode!r}", 5)
+        if stld_cfg.mode not in ("cond", "gather"):
+            raise ValueError(f"STLD mode must be 'cond' or 'gather', got {stld_cfg.mode!r}")
+        self.compression = resolve_compression(compression)
+        if self.compression is not None and self.compression.tune:
+            raise unported("compression='auto' (tune=True, the joint bandit)", 6)
+        self.fault_plan = resolve_fault_plan(fault_plan)
         if isinstance(algorithm, str):
             algorithm = get_algorithm(algorithm)()
         else:
@@ -185,20 +200,23 @@ class ExperimentRunner:
         self.checkpoint_dir = checkpoint_dir
         self.checkpoint_every = max(1, checkpoint_every)
         self.schedule = resolve_schedule(schedule)
-        self.scheduler = VirtualClockScheduler(self, self.schedule)  # raises for an unported policy
         self.device = torch.device("cuda" if device is None else device)
 
         ctx, rng, key, base_params = _build_context(
             cfg, peft_cfg, stld_cfg, fed_cfg, train_cfg, task=task, cost_cfg=cost_cfg, seed=seed,
             device_profile=device_profile, params=params, device=self.device,
         )
+        ctx.schedule = self.schedule  # visible to bind() and build_configurator
+        ctx.compression = self.compression
         self.ctx = ctx
         global_peft = algorithm.bind(ctx)
         self.cohort_mode = cohort_mode
         ctx.engine = CohortEngine(cfg, peft_cfg, stld_cfg, fed_cfg, train_cfg, ctx.task, ctx.devices, base_params,
-                                  cohort_mode=cohort_mode, device=self.device)
+                                  cohort_mode=cohort_mode, stld_enabled=algorithm.stld, device=self.device)
         self.state = RoundState(key=key, global_peft=global_peft, rng=rng,
                                 configurator=algorithm.build_configurator(ctx))
+        self.scheduler = VirtualClockScheduler(
+            self, self.schedule, faults=FaultInjector(self.fault_plan) if self.fault_plan is not None else None)
         if resume:
             self._restore_latest()
 
@@ -227,8 +245,9 @@ class ExperimentRunner:
         return res
 
     # --------------------------------------------------------- checkpointing
-    # The reference's meta version 3: the scheduler section, the fault plan
-    # and the error-feedback residuals (empty: no compression in the port).
+    # The reference's meta version 3: the scheduler section (jobs in flight,
+    # the event and fault logs, the retry bookkeeping), the fault plan and
+    # the error-feedback residuals.
     CKPT_META_VERSION = 3
 
     def save_checkpoint(self) -> str:
@@ -242,13 +261,13 @@ class ExperimentRunner:
             "global_peft": state.global_peft,
             "device_peft": {str(d): t for d, t in sorted(state.device_peft.items())},
             "last_mask": {str(d): np.asarray(m) for d, m in sorted(state.last_mask.items())},
-            "ef_residual": {},
+            "ef_residual": {str(d): t for d, t in sorted(state.ef_residual.items())},
             "scheduler_jobs": sched_jobs,
         }
         meta = {
             "meta_version": self.CKPT_META_VERSION,
             "scheduler": sched_meta,
-            "fault_plan": None,
+            "fault_plan": None if self.fault_plan is None else self.fault_plan.to_json(),
             "round_index": state.round_index,
             "global_step": state.global_step,
             "cum_time": state.cum_time,
@@ -278,6 +297,11 @@ class ExperimentRunner:
             return  # nothing saved yet: a fresh start
         arrays, meta = ckpt_lib.load_state(latest)
         state = self.state
+        if meta.get("scheduler") is None and self.schedule.keeps_in_flight_state:
+            raise ValueError(
+                f"checkpoint at {latest} has no in-flight scheduler state (meta version "
+                f"{meta.get('meta_version', 1)}) and cannot resume under policy={self.schedule.policy!r}/"
+                f"straggler={self.schedule.straggler!r}; resume it under schedule='sync' or deadline+drop")
         if len(meta["device_rng"]) != len(self.ctx.devices):
             raise ValueError(
                 f"checkpoint at {latest} was saved with {len(meta['device_rng'])} devices but this runner has "
@@ -285,9 +309,6 @@ class ExperimentRunner:
         if (meta["configurator"] is None) != (state.configurator is None):
             raise ValueError(f"checkpoint at {latest} disagrees with this runner about the rate configurator; "
                              "resume requires the same method/config")
-        if arrays.get("ef_residual"):
-            raise ValueError(f"checkpoint at {latest} holds error-feedback residuals of a compressed run, "
-                             "which the port does not run")
         state.rng.bit_generator.state = meta["rng_state"]
         for dev, rng_state in zip(self.ctx.devices, meta["device_rng"]):
             dev._rng.bit_generator.state = rng_state
@@ -299,6 +320,8 @@ class ExperimentRunner:
             global_peft=self._peft_native_layout(arrays["global_peft"]),
             device_peft={int(d): self._peft_native_layout(t) for d, t in arrays["device_peft"].items()},
             last_mask={int(d): m.numpy() for d, m in arrays["last_mask"].items()},
+            ef_residual={int(d): tree_map(lambda t: t.to(self.device), r)
+                         for d, r in arrays.get("ef_residual", {}).items()},
             round_index=meta["round_index"],
             global_step=meta["global_step"],
             cum_time=meta["cum_time"],

@@ -3,9 +3,10 @@
 :class:`RoundState` is the immutable value threaded through every lifecycle
 hook of a :class:`~repro_torch.federated.algorithms.FederatedAlgorithm`:
 hooks return a new one (``dataclasses.replace``) and never mutate a state.
-The PEFT trees are tensors on the device; the rest is host bookkeeping (the
-round counters, the numpy generator of cohorts and bandwidths, the bandit,
-the metric history).
+The PEFT trees and the error-feedback residuals of a compressed uplink are
+tensors on the device; the rest is host bookkeeping (the round counters,
+the numpy generator of cohorts and bandwidths, the bandit, the metric
+history).
 
 ``key`` is the seed of the round's torch generators (STLD gates): an int,
 split by :func:`split_key` as the reference splits its PRNG key (one
@@ -41,11 +42,12 @@ class RoundState:
     global_peft: Any                          # server-side PEFT tree
     device_peft: Dict[int, Any] = field(default_factory=dict)
     last_mask: Dict[int, Any] = field(default_factory=dict)   # PTLS share masks
+    ef_residual: Dict[int, Any] = field(default_factory=dict)  # EF residual trees (float32)
     round_index: int = 0
     global_step: int = 0                      # LR-schedule offset
     cum_time: float = 0.0                     # simulated wall-clock (s)
     virtual_time: float = 0.0                 # scheduler clock (== cum_time in sync)
-    server_version: int = 0                   # aggregations applied
+    server_version: int = 0                   # aggregations applied (staleness base)
     prev_acc: Dict[int, float] = field(default_factory=dict)
     rng: Any = None                           # numpy Generator (cohorts, bandwidth)
     configurator: Any = None                  # OnlineConfigurator | None
@@ -61,6 +63,7 @@ class RoundPlan:
     rates: List[float]                 # per-device mean dropout rates
     adaopt_depth: int                  # progressive depth (== num_layers when off)
     start_pefts: Optional[list] = None # filled by the scheduler via client_init
+    compression: Optional[List[str]] = None  # per-device uplink levels | None
 
 
 @dataclass
@@ -74,3 +77,7 @@ class CohortResults:
     accuracies: List[float]            # local-val accuracy after the round
     masks: Any = None                  # (N, L) bool share masks (aggregate)
     cost: Any = None                   # SystemModel CohortCost (report)
+    staleness: Any = None              # (N,) int server-version lag (async/carry)
+    weights: Any = None                # (N,) staleness aggregation weights | None
+    uplink_pefts: Optional[list] = None  # server-side reconstructions (merge)
+    uplink_ratio: Any = None           # (N,) compressed/fp32 uplink factor | None

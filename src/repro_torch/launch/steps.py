@@ -3,8 +3,10 @@
 ``stld_mode`` of the train step selects the paper semantics:
   * ``off``  — plain PEFT fine-tuning, every layer runs;
   * ``cond`` — paper-faithful STLD: Bernoulli gates drawn on the host each
-    step, a dropped layer skipped by a Python branch.
-(The JAX package's ``gather`` mode is not ported.)
+    step, a dropped layer skipped by a Python branch;
+  * ``gather`` — a static count of active layers
+    (``stld.static_active_count``), their indices drawn each step (Gumbel
+    top-k); the other layers are skipped as in ``cond``.
 """
 from __future__ import annotations
 
@@ -48,13 +50,13 @@ def as_device_tensor(x, device):
 
 
 def make_train_step(cfg, peft_cfg, train_cfg, *, stld_mode: str = "off", mean_rate: float = 0.5,
-                    distribution: str = "incremental", shape=None):
+                    distribution: str = "incremental", shape=None, gather_bucket: int = 4):
     """Next-token LM fine-tuning step over the PEFT params.
 
     ``(base_params, peft_params, opt_state, batch, rng) -> (peft_params,
     opt_state, metrics)`` with ``batch = {"tokens": (B, S+1)}`` (numpy or a
     tensor; it goes to the device of the base params) and ``rng`` a CPU
-    ``torch.Generator`` that the STLD gates draw from (``cond`` only).
+    ``torch.Generator`` that the STLD gates (or gather indices) draw from.
 
     ``shape`` is the (L,) per-layer rate shape (mean 1.0, unclipped) scaled
     by ``mean_rate``.  None takes ``unit_shape(distribution, L)`` with a
@@ -63,18 +65,20 @@ def make_train_step(cfg, peft_cfg, train_cfg, *, stld_mode: str = "off", mean_ra
     ``PRNGKey(0)`` draw: pass the JAX package's ``unit_shape("normal", L)``
     to get its rates.
     """
-    if stld_mode not in ("off", "cond"):
-        raise ValueError(f"stld_mode must be 'off' or 'cond', got {stld_mode!r}")
+    if stld_mode not in ("off", "cond", "gather"):
+        raise ValueError(f"stld_mode must be 'off', 'cond' or 'gather', got {stld_mode!r}")
     lora_sc = peft_lib.lora_scale(peft_cfg)
     rates = None
-    if stld_mode == "cond":
+    if stld_mode != "off":
         if shape is None:
             shape = unit_shape(distribution, cfg.num_layers, generator=torch.Generator().manual_seed(0))
         rates = torch.clamp(torch.as_tensor(shape, dtype=torch.float32) * mean_rate, 0.0, 0.95)
+    num_active = stld.static_active_count(mean_rate, cfg.num_layers, gather_bucket) if stld_mode == "gather" else None
 
-    def loss_fn(peft_params, base_params, inputs, targets, drops):
+    def loss_fn(peft_params, base_params, inputs, targets, drops, active_idx=None):
         logits, aux, _ = model_apply(base_params, cfg, {"tokens": inputs}, drops=drops, peft=peft_params,
-                                     lora_scale=lora_sc)
+                                     lora_scale=lora_sc, stack_mode="unroll" if active_idx is None else "gather",
+                                     active_idx=active_idx)
         loss, metrics = softmax_xent(logits, targets)
         return loss + cfg.router_aux_coef * aux, metrics
 
@@ -82,8 +86,12 @@ def make_train_step(cfg, peft_cfg, train_cfg, *, stld_mode: str = "off", mean_ra
 
     def train_step(base_params, peft_params, opt_state, batch, rng):
         tokens = as_device_tensor(batch["tokens"], base_params["embed"].device)
-        drops = stld.sample_drops(rng, rates, 1) if rates is not None else None
-        (_, metrics), grads = grad_fn(peft_params, base_params, tokens[:, :-1], tokens[:, 1:], drops)
+        drops = active_idx = None
+        if stld_mode == "cond":
+            drops = stld.sample_drops(rng, rates, 1)
+        elif stld_mode == "gather":
+            active_idx = stld.sample_active_indices(rng, rates, num_active)
+        (_, metrics), grads = grad_fn(peft_params, base_params, tokens[:, :-1], tokens[:, 1:], drops, active_idx)
         grads, gnorm = clip_by_global_norm(grads, train_cfg.grad_clip)
         peft_params, opt_state = adamw_update(
             grads, opt_state, peft_params, lr=train_cfg.learning_rate, beta1=train_cfg.beta1,

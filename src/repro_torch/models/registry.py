@@ -74,11 +74,15 @@ def place_params(params, cfg, device=None):
 
 
 def model_apply(params, cfg, batch, *, drops=None, caches=None, positions=None, peft=None,
-                lora_scale: float = 1.0, devices: Optional[int] = None):
+                lora_scale: float = 1.0, devices: Optional[int] = None, stack_mode: str = "unroll",
+                active_idx=None):
     """``devices`` N: a cohort, ``batch["tokens"]`` (N, B, S), drops (N, L),
-    the PEFT tree a per-layer list of (N, ...) leaves (``lm_apply``)."""
+    the PEFT tree a per-layer list of (N, ...) leaves (``lm_apply``).
+    ``stack_mode`` is one of the reference's ``unroll``, ``scan``,
+    ``group`` and ``gather`` (with ``active_idx``), all on the Python layer
+    loop (``transformer.stack_apply``)."""
     _check_family(cfg)
     return transformer.lm_apply(
         params, cfg, batch["tokens"], positions=positions, drops=drops, caches=caches, peft=peft,
-        lora_scale=lora_scale, devices=devices,
+        lora_scale=lora_scale, devices=devices, stack_mode=stack_mode, active_idx=active_idx,
     )

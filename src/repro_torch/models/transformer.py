@@ -3,11 +3,14 @@
 
 Homogeneous stacks keep the stacked ``(L, ...)`` layout of the JAX
 package; jamba's heterogeneous stack is a per-layer list, as there.
-``stack_apply`` loops over the layers in Python: it computes what the JAX
-``unroll`` mode computes, and what its ``group`` mode (a ``lax.scan`` over
-periods of the layer pattern) computes too.  STLD gates (``drops``) are
-host-side booleans: a dropped layer is skipped by a Python branch, so it
-launches no kernel and saves no activation.
+``stack_apply`` loops over the layers in Python for every ``stack_mode``
+of the JAX package: ``unroll``, ``scan`` (a ``lax.scan`` over the stacked
+layers), ``group`` (a ``lax.scan`` over periods of the layer pattern) and
+``gather`` (gather-mode STLD: the active layers' indices) compute the same
+thing there, and each raises here where it raises there.  STLD gates
+(``drops``) are host-side booleans: a dropped layer is skipped by a Python
+branch, so it launches no kernel and saves no activation; a gathered step
+is the step whose gates drop every layer outside its indices.
 
 A cohort of N devices (``devices``) folds its devices into the batch: the
 gates are (N, L), and each layer runs once, on the rows of the devices
@@ -20,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import stld
 from repro_torch.models import stacking
 from repro_torch.models.layers import init_layer_cache, layer_apply, layer_kind
 from repro_torch.nn.initializers import normal_init, truncated_lecun
@@ -128,6 +132,32 @@ def init_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device=None
     }
 
 
+STACK_MODES = ("unroll", "scan", "group", "gather")
+
+
+def _mode_gates(layers, cfg, stack_mode: str, drops, active_idx, devices):
+    """The gates a ``stack_mode`` runs: ``drops`` as given, or for
+    ``gather`` the complement of ``active_idx`` (one index tensor, or one
+    per device of a cohort; their counts may differ).  Raises
+    ``ValueError`` where the reference's ``stack_apply`` does: ``scan`` and
+    ``gather`` on a heterogeneous stack, ``group`` when the layer pattern's
+    period does not divide the depth."""
+    if stack_mode not in STACK_MODES:
+        raise ValueError(f"unknown stack_mode {stack_mode!r}")
+    num_layers = stacking.stack_size(layers)
+    if stack_mode in ("scan", "gather") and not (stacking.is_stacked(layers) or stacking.is_stackable(list(layers))):
+        raise ValueError(f"stack_mode={stack_mode!r} requires a homogeneous stack")
+    if stack_mode == "group" and num_layers % cfg.layer_period:
+        raise ValueError("group mode requires num_layers % layer_period == 0")
+    if stack_mode != "gather":
+        return drops
+    if active_idx is None:
+        raise ValueError("gather mode needs active_idx")
+    if devices is None:
+        return stld.drops_from_indices(active_idx, num_layers)
+    return torch.stack([stld.drops_from_indices(idx, num_layers) for idx in active_idx])
+
+
 def _cohort_stack_apply(layers, cfg, h, *, positions, causal, drops, peft, lora_scale, devices: int):
     """``stack_apply`` for a cohort: ``h`` (N * B, S, d) device-major, drops
     None or (N, L) host-side gates, ``peft`` None or a per-layer list of
@@ -164,15 +194,19 @@ def _cohort_stack_apply(layers, cfg, h, *, positions, causal, drops, peft, lora_
 
 
 def stack_apply(layers, cfg, h, *, positions, causal: bool = True, drops=None, caches=None,
-                peft=None, lora_scale: float = 1.0, devices=None):
+                peft=None, lora_scale: float = 1.0, devices=None, stack_mode: str = "unroll", active_idx=None):
     """Run the layer stack (either layout).  Returns (h, the MoE aux loss
     summed over the active layers, new_caches).
 
     ``drops``: None or L host-side gates (a CPU bool tensor or a sequence),
     True = the layer is dropped and passes ``h`` (and its cache) through.
-    ``devices`` N: a cohort (``_cohort_stack_apply``), with (N, L) gates,
-    no caches and a per-layer list PEFT tree; the aux loss is then (N,).
+    ``stack_mode`` ``"gather"`` takes ``active_idx`` (the active layers'
+    indices) instead of ``drops`` (``_mode_gates``).
+    ``devices`` N: a cohort (``_cohort_stack_apply``), with (N, L) gates
+    (or N index tensors), no caches and a per-layer list PEFT tree; the aux
+    loss is then (N,).
     """
+    drops = _mode_gates(layers, cfg, stack_mode, drops, active_idx, devices)
     if devices is not None:
         if caches is not None:
             raise ValueError("a cohort runs without decode caches")
@@ -203,7 +237,7 @@ def stack_apply(layers, cfg, h, *, positions, causal: bool = True, drops=None, c
 
 
 def lm_apply(params, cfg, tokens, *, positions=None, drops=None, caches=None, peft=None,
-             lora_scale: float = 1.0, devices=None):
+             lora_scale: float = 1.0, devices=None, stack_mode: str = "unroll", active_idx=None):
     """Decoder-only LM forward.  tokens: (B, S) int.  Returns (logits, the
     MoE aux loss, new_caches); the caches' K/V tensors are updated in place.
 
@@ -217,7 +251,7 @@ def lm_apply(params, cfg, tokens, *, positions=None, drops=None, caches=None, pe
         positions = torch.arange(h.shape[1], device=h.device)
     h, aux, new_caches = stack_apply(
         params["layers"], cfg, h, positions=positions, causal=True, drops=drops, caches=caches,
-        peft=peft, lora_scale=lora_scale, devices=devices,
+        peft=peft, lora_scale=lora_scale, devices=devices, stack_mode=stack_mode, active_idx=active_idx,
     )
     h = apply_rmsnorm(params["final_norm"], h, cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]

@@ -44,6 +44,7 @@ from repro_torch.configs import FederatedConfig, PEFTConfig, STLDConfig, TrainCo
 from repro_torch.models.stacking import tree_leaves
 from repro_torch.serving.adapters import AdapterRegistry
 from repro_torch.serving.batcher import Request
+from _torch_fed_parity import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 _CFG_KW = dict(num_layers=4, d_model=32, d_ff=64, num_heads=2, num_kv_heads=2, vocab_size=128, dtype="float32")
 _FED_KW = dict(num_devices=4, devices_per_round=2, local_steps=1, batch_size=4)

@@ -30,6 +30,7 @@ from repro_torch.models.registry import init_params
 from repro_torch.models.stacking import tree_leaves, tree_map
 from repro_torch.nn import moe
 from repro_torch.optim import adamw_init, adamw_update, clip_by_global_norm
+from _torch_fed_parity import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 ATOL = {"float32": 2e-5, "bfloat16": 3e-2}
 

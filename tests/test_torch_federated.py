@@ -56,6 +56,7 @@ from repro_torch.federated import runner as runner_lib
 from repro_torch.federated.algorithms.droppeft import DropPEFT
 from repro_torch.federated import server, system_model
 from repro_torch.models import stacking
+from _torch_fed_parity import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 ATOL = 1e-6
 
@@ -449,9 +450,7 @@ _TINY = dict(cfg=get_config("qwen3-1.7b", smoke=True).replace(**_CFG_KW),
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"stld_mode": "gather"},
-    {"compression": "int8"}, {"fault_plan": {"drop_rate": 0.1}}, {"schedule": "deadline"},
-    {"schedule": "async-buffer"}, {"deadline_s": 30.0}, {"buffer_size": 2}, {"peft": "adapter"},
+    {"compression": "auto"}, {"compression": {"kind": "int8", "tune": True}}, {"peft": "adapter"},
     {"method": "fedhetlora"},
 ], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
 def test_unported_options_raise(kwargs):
@@ -459,6 +458,20 @@ def test_unported_options_raise(kwargs):
     method = kwargs.pop("method", "droppeft")
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item"):
         api.build(method, **_TINY, **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"stld_mode": "gather"},
+    {"compression": "int8"}, {"fault_plan": {"dropout_prob": 0.1}}, {"schedule": "deadline"},
+    {"schedule": "async-buffer"}, {"deadline_s": 30.0}, {"buffer_size": 2},
+], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
+def test_options_of_queue_items_5_and_6_run(kwargs):
+    """Options that raised until gather mode, compression, the deadline and
+    async-buffer schedules and fault injection were ported now build and
+    run a round (``tests/test_torch_gather.py``, ``test_torch_compression.py``
+    and ``test_torch_schedules.py`` hold them to the JAX package)."""
+    result = api.build("droppeft", **_TINY, **kwargs).run(rounds=1)
+    assert result.rounds == 1 and np.isfinite(result.cum_time_s).all()
 
 
 @pytest.mark.parametrize("kwargs", [{"checkpoint_dir": "ckpts"}, {"resume": True}],
