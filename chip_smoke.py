@@ -51,7 +51,10 @@ Phases, one line each before the last:
    ring), flash_attention forward and backward at their training shapes
    (batch 16 x 512), both dtypes, and the q and v projections'
    lora_matmul (batch 16 x 512) and segmented_lora (8 rows) at glm4-9b's,
-   h2o-danube-1.8b's and yi-6b's widths;
+   h2o-danube-1.8b's and yi-6b's widths; and FedHetLoRA's shapes:
+   lora_matmul at ranks 4 and 16 (scales 4 and 1) at the federated rounds'
+   16 x 32 tokens on the wgmma route, forward, dX, dA and dB, and
+   segmented_lora over tenants of rank 4, 8, 16 and 16 (r_max 16);
 4. full-width qwen3-1.7b (28 layers, random weights from ``--seed``)
    served through ``repro_torch.api.serve``: 12 requests over 4 LoRA
    tenants of rank 4/8 at batch 8, rows recycling mid-run; every completion
@@ -111,13 +114,29 @@ Phases, one line each before the last:
    compression's seconds), 3 aggregations of ``async-buffer``; and
    smoke-size deadline, carry with compression and faults, and async runs
    on the card against the CPU twins;
+5g. the rest of the paper's method grid on full-width qwen3-1.7b at
+   ``api.build``'s defaults (3 rounds, then ``final_accuracy``): FedHetLoRA
+   (sequential; device ranks by tier, each device's tree at its rank,
+   launches from the gates, all on wgmma) checkpointed, then 12 requests
+   served from its checkpoint over tenants of rank 4, 8 and 16 and the
+   global adapter with the tokens of serving the same trees (2 x layers
+   segmented_lora calls a step); droppeft with adapter and with BitFit
+   (batched, no lora_matmul, two runs bit-identical); fedadapter (every
+   layer every step); droppeft with ``compression="auto"`` (the joint
+   bandit's start-up arms round-robin, each device's uplink ratio 1 at
+   ``none`` and below 1 otherwise, saved after round 2 and resumed
+   bit-identical with the bandit's state); ``merge_lora_into_base`` on
+   its global LoRA and on that LoRA amplified past the tolerance
+   (``merge_check``); seconds a round, idle share and peak
+   memory of each method; and smoke-size runs of each (rwkv6-3b and jamba
+   with adapter and BitFit) on the card against the CPU twins;
 6. the ``kernels`` JSON line: launches of each kernel in its own path's
    run (serving: phase 4's run; training: phase 5's round at rate 0.5,
    phase 5b's for wkv6 and wkv6_bwd, phase 5c's for mamba_scan and
    mamba_scan_bwd), and for the training kernels also phase 5d's rounds,
-   phase 5f's deadline rounds and gather round, and for every kernel of
-   the dense path phase 5e's runs (``launches_by_path``), the other dense
-   decoders' shapes beside.
+   phase 5f's deadline rounds and gather round, phase 5g's runs, and for
+   every kernel of the dense path phase 5e's runs (``launches_by_path``),
+   the other dense decoders' shapes and FedHetLoRA's beside.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits non-zero before it; without a CUDA card, or outside the checkout, the
@@ -2168,6 +2187,434 @@ def schedules_smoke_cuda_vs_cpu(seed: int):
     return out
 
 
+TIER_RANKS = {"tx2": 4, "nx": 8, "agx": 16}  # FedHetLoRA's rank of each hardware tier
+JOINT_STARTUP = [(0.2, "none"), (0.5, "int8"), (0.7, "topk")]  # the joint bandit's start-up arms
+
+
+def grid_round_launches(gates, layers: int, n: int, steps: int, mode: str, kind: str) -> dict:
+    """A round's launches from its gates.  LoRA: phase 5d's formulas (both
+    modes).  Adapter and BitFit (batched): per cohort step each layer once
+    if any gate opens it, and the attention backward in all but the step's
+    first run layer, whose attention output feeds no trainable input (the
+    adapter or bias sits after it); no lora_matmul; one fused evaluate."""
+    if mode == "batched":
+        run = sum(len(ls) for ls in cohort_step_layers(gates, n, steps))
+        if kind == "lora":
+            return {"flash_attention": run + layers, "flash_attention_bwd": run,
+                    "lora_matmul": 4 * run - 2 * steps + 2 * layers}
+        return {"flash_attention": run + layers, "flash_attention_bwd": run - steps}
+    active = active_count(gates)
+    return {"flash_attention": active + n * layers, "flash_attention_bwd": active,
+            "lora_matmul": 4 * active - 2 * len(gates) + n * 2 * layers}
+
+
+def device_busy_round(runner, round_s: float):
+    """Device time of ``runner``'s next round under ``torch.profiler`` with
+    the CUDA activity alone (the host's op events would take minutes over a
+    sequential round's ~270 000 launches), and the idle share against
+    ``round_s``, an unprofiled round's seconds, beside the one against the
+    profiled round's own wall time.  None when the profiler sees no device
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        runner.scheduler._sync_round(runner.state.round_index + 1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy == 0.0:
+        return None
+    return {"round": runner.state.round_index, "device_busy_ms": busy, "wall_ms_profiled": wall_ms,
+            "kernel_launches": sum(e.count for e in kernels), "device_idle_share": 1.0 - busy / (round_s * 1e3),
+            "device_idle_share_profiled": 1.0 - busy / wall_ms}
+
+
+def grid_run(api, ops, seed: int, method: str, kind: str, *, prepare=None, after_run=None, **kw):
+    """One run of phase 5g: ``api.build(method, "qwen3-1.7b", smoke=False)``
+    for 3 rounds (``prepare(runner)`` before them and ``after_run(runner)``
+    after them, when given), instrumented as
+    phase 5d's: finite history, launches per round from the gates
+    (``grid_round_launches``), every lora_matmul on wgmma,
+    ``final_accuracy``'s launches; seconds a round, peak memory, and the
+    device time of one more round (``device_busy_round``: the idle share).
+    Returns (runner, stats, the per-round records, the run's bits with the
+    bandit's state, the summed launches)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    runner = api.build(method, "qwen3-1.7b", smoke=False, seed=seed, peft=kind, **kw)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    cfg, fed = runner.ctx.cfg, runner.ctx.fed_cfg
+    layers, n, steps, mode = cfg.num_layers, fed.devices_per_round, fed.local_steps, runner.cohort_mode
+    clock, rounds = {}, []
+    instrument_runner(runner, ops, clock, rounds)
+    if prepare is not None:
+        prepare(runner)
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = runner.run(rounds=FED_ROUNDS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    final_launches = dict(ops.launch_counts)
+    bits = run_bits(runner, result)
+    bits["configurator"] = json.dumps(runner.state.configurator.state_dict() if runner.state.configurator else None)
+    hist = bits["history"]
+    what = f"5g {method} peft={kind} {mode}"
+    check(len(hist) == FED_ROUNDS and all(np.isfinite(v) for row in hist for v in row.values()),
+          f"{what}: history {hist}")
+    check(np.isfinite(result.final_accuracy), f"{what}: final accuracy {result.final_accuracy}")
+    for j, r in enumerate(rounds):
+        check(len(r["gates"]) == n * steps, f"{what}: {len(r['gates'])} gate draws in round {j + 1}")
+        check_launches(r["launches"], grid_round_launches(r["gates"], layers, n, steps, mode, kind),
+                       f"{what} round {j + 1}")
+        check(r["routes"] == {"fma": 0, "wmma": 0, "wgmma": r["launches"]["lora_matmul"]},
+              f"{what}: routes {r['routes']}")
+    evaluations = fed.num_devices if mode == "sequential" else -(-fed.num_devices // n)
+    lora_eval = 2 * layers if kind == "lora" else 0
+    check_launches(final_launches, {"flash_attention": evaluations * layers, "lora_matmul": evaluations * lora_eval},
+                   f"{what} final_accuracy")
+    per_round = [r["seconds"] for r in rounds]
+    stats = {"method": method, "peft": kind, "cohort_mode": mode, "setup_s": setup_s, "run_s": run_s,
+             "s_per_round": per_round, "s_per_round_mean": sum(per_round) / FED_ROUNDS,
+             "final_accuracy_s": run_s - sum(per_round),
+             "resident_gib": resident / 2**30, "peak_gib": peak / 2**30,
+             "peft_mib": sum(t.numel() * t.element_size() for t in bits["peft"]) / 2**20,
+             "launches_per_round": [r["launches"] for r in rounds], "launches_final_accuracy": final_launches,
+             "rates": [r["rates"] for r in rounds], "history": hist, "final_accuracy": result.final_accuracy}
+    if after_run is not None:
+        after_run(runner)
+    stats["profile"] = prof = device_busy_round(runner, stats["s_per_round_mean"])
+    stats["device_idle_share"] = None if prof is None else prof["device_idle_share"]
+    launches = {name: sum(r["launches"][name] for r in rounds) + final_launches[name] for name in final_launches}
+    return runner, stats, rounds, bits, launches
+
+
+def serve_hetlora_checkpoint(api, ops, seed: int, ckpt_dir, trees: dict, layers: int, vocab: int):
+    """Serving a FedHetLoRA run's checkpoint: 12 requests over tenants of
+    rank 4, 8 and 16 and ``client_global`` (16) through
+    ``api.serve(checkpoint_dir=...)``, whose tokens must equal serving the
+    same trees; every decode step calls segmented_lora twice a layer (q
+    and v, a pool of r_max 16) and flash_decode once."""
+    from repro_torch.serving.batcher import Request
+
+    rng = np.random.default_rng(seed + 7)
+    names = list(trees)
+    requests = [(rng.integers(0, vocab, int(rng.integers(16, 65))).tolist(), names[j % len(names)])
+                for j in range(12)]
+    tokens, out = {}, {}
+    for source in ("checkpoint", "trees"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        kw = {"checkpoint_dir": str(ckpt_dir)} if source == "checkpoint" else {"adapters": trees}
+        batcher = api.serve("qwen3-1.7b", smoke=False, batch=8, max_len=512, seed=seed, **kw)
+        for j, (prompt, name) in enumerate(requests):
+            batcher.submit(Request(prompt=prompt, adapter=name, max_new_tokens=16, uid=j))
+        calls, serve_step = [0], batcher.serve_step
+
+        def counted(*args, calls=calls, serve_step=serve_step, **kw_):
+            calls[0] += 1
+            return serve_step(*args, **kw_)
+
+        batcher.serve_step = counted
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        tokens[source] = {c.uid: c.tokens for c in batcher.run()}
+        torch.cuda.synchronize()
+        check_launches(dict(ops.launch_counts), {"segmented_lora": 2 * layers * calls[0],
+                                                 "flash_decode": layers * calls[0]}, f"serving from the {source}")
+        ranks = {name: batcher.pool.registry.get(name)["rank"] for name in names}
+        out[source] = {"steps": calls[0], "s": time.perf_counter() - t0, "launches": dict(ops.launch_counts),
+                       "registered": len(batcher.pool.registry), "ranks": ranks, "r_max": batcher.pool.r_max}
+        del batcher
+    check(tokens["checkpoint"] == tokens["trees"] and len(tokens["trees"]) == 12,
+          f"served from the hetlora checkpoint {tokens['checkpoint']} vs from the same trees {tokens['trees']}")
+    check(sorted(set(out["checkpoint"]["ranks"].values())) == [4, 8, 16] and out["checkpoint"]["r_max"] == 16,
+          f"tenant ranks {out['checkpoint']['ranks']}, r_max {out['checkpoint']['r_max']}")
+    return {"requests": len(requests), "tenants": names, "tokens_equal": True, **out}
+
+
+def merge_check(ops, runner, seed: int):
+    """``merge_lora_into_base`` on a run's trained global LoRA, and on the
+    same LoRA with N(0, 0.02) added to every ``b`` (``amplified``, so that
+    the LoRA moves the logits well past the tolerance and a merge that
+    does nothing, scales wrongly or transposes the delta cannot pass);
+    full-width logits of 4 x 32 tokens.  In float32 (the base's bf16
+    weights cast up, so the same weights) the merged base without LoRA
+    must give the unmerged model's logits through lora_matmul within
+    3e-2 + 1e-2 |ref|, and lie at most 1 % as far from them as the base
+    does.  In bf16 (the card's weights) the two differ by the rounding of
+    two products over 28 layers (cuBLAS's ``x @ W'`` against the fused
+    kernel), which the base without LoRA already shows: the merged bf16
+    logits must lie at most twice as far from the float32 unmerged ones as
+    the unmerged bf16 logits do (two bf16 models, each rounded its own
+    way), and, for the amplified LoRA, at most half as far from the
+    unmerged bf16 logits as the base does.  Every merge changes weights; every merged
+    forward launches no lora_matmul."""
+    from repro_torch.core.peft import lora_scale, merge_lora_into_base
+    from repro_torch.models.registry import model_apply
+    from repro_torch.models.stacking import tree_map
+
+    base, cfg, trained = runner.ctx.engine.base_params, runner.ctx.cfg, runner.state.global_peft
+    scale = lora_scale(runner.ctx.peft_cfg)
+    tokens = torch.from_numpy(runner.ctx.task.tokens[:4]).long().to(base["embed"].device)
+    out, logits, layers = {"tokens": list(tokens.shape)}, {}, cfg.num_layers
+    gen = torch.Generator(device=base["embed"].device).manual_seed(seed)
+
+    def amplify(tree):
+        if not isinstance(tree, dict):
+            return tree
+        return {k: v + 0.02 * torch.randn(v.shape, generator=gen, device=v.device, dtype=v.dtype) if k == "b"
+                else amplify(v) for k, v in tree.items()}
+
+    def forward(name, params, cfg_, peft=None):
+        ops.reset_launch_counts()
+        logits[name] = model_apply(params, cfg_, {"tokens": tokens}, peft=peft, lora_scale=scale)[0].float()
+        torch.cuda.synchronize()
+        want = {"flash_attention": layers, "lora_matmul": 0 if peft is None else 2 * layers}
+        check_launches(dict(ops.launch_counts), want, f"the {name} forward")
+
+    def err(a, b):
+        return float((logits[a] - logits[b]).abs().max())
+
+    loras = {"trained": trained, "amplified": amplify(trained)}
+    with torch.no_grad():
+        for dtype_name, params, cfg_ in (("bf16", base, cfg),
+                                         ("f32", tree_map(lambda t: t.float(), base), cfg.replace(dtype="float32"))):
+            forward(f"{dtype_name} base", params, cfg_)
+            for lora_name, tree in loras.items():
+                forward(f"{dtype_name} unmerged {lora_name}", params, cfg_, tree)
+                t0 = time.perf_counter()
+                merged = merge_lora_into_base(params["layers"], tree, scale)
+                torch.cuda.synchronize()
+                out[f"{lora_name}_{dtype_name}_merge_s"] = time.perf_counter() - t0
+                changed = sum(int((merged["attn"][w]["w"] != params["layers"]["attn"][w]["w"]).sum())
+                              for w in ("wq", "wv"))
+                out[f"{lora_name}_{dtype_name}_weights_changed"] = changed
+                check(changed > 0, f"merging the {lora_name} LoRA changed no {dtype_name} weight")
+                forward(f"{dtype_name} merged {lora_name}", {**params, "layers": merged}, cfg_)
+                del merged
+            del params
+    check(all(bool(torch.isfinite(t).all()) for t in logits.values()), "non-finite logits in the merge check")
+    for lora_name in loras:
+        ref = logits[f"f32 unmerged {lora_name}"]
+        limit = 3e-2 + 1e-2 * ref.abs()
+        e = {f"max_abs_err_{a}_vs_{b}".replace(" ", "_"): err(f"{a} {lora_name}", f"{b} {lora_name}")
+             for a, b in (("f32 merged", "f32 unmerged"), ("bf16 merged", "bf16 unmerged"),
+                          ("bf16 merged", "f32 unmerged"), ("bf16 unmerged", "f32 unmerged"))}
+        e.update({f"max_abs_err_{d}_base_vs_{d}_unmerged": err(f"{d} base", f"{d} unmerged {lora_name}")
+                  for d in ("bf16", "f32")})
+        e["logit_abs_max"] = float(ref.abs().max())
+        e["f32_base_off_limit"] = int(((logits["f32 base"] - ref).abs() > limit).sum())
+        out[lora_name] = e
+        check(bool(((logits[f"f32 merged {lora_name}"] - ref).abs() <= limit).all()),
+              f"float32 merged logits off the unmerged ones by {e['max_abs_err_f32_merged_vs_f32_unmerged']} "
+              f"({lora_name} LoRA)")
+        check(e["max_abs_err_f32_merged_vs_f32_unmerged"] <= 1e-2 * e["max_abs_err_f32_base_vs_f32_unmerged"],
+              f"float32 merged logits {e['max_abs_err_f32_merged_vs_f32_unmerged']} from the unmerged ones, over 1 % "
+              f"of the base's {e['max_abs_err_f32_base_vs_f32_unmerged']} ({lora_name} LoRA)")
+        check(e["max_abs_err_bf16_merged_vs_f32_unmerged"] <= 2 * e["max_abs_err_bf16_unmerged_vs_f32_unmerged"],
+              f"bf16 merged logits {e['max_abs_err_bf16_merged_vs_f32_unmerged']} from float32's, over twice the "
+              f"unmerged bf16 model's {e['max_abs_err_bf16_unmerged_vs_f32_unmerged']} ({lora_name} LoRA)")
+    amp = out["amplified"]
+    check(amp["f32_base_off_limit"] > 0,
+          f"the amplified LoRA moves no float32 logit past the tolerance (base {amp['max_abs_err_f32_base_vs_f32_unmerged']})"
+          ": the check could not fail")
+    check(amp["max_abs_err_bf16_merged_vs_bf16_unmerged"] <= 0.5 * amp["max_abs_err_bf16_base_vs_bf16_unmerged"],
+          f"bf16 merged logits {amp['max_abs_err_bf16_merged_vs_bf16_unmerged']} from the unmerged ones, over half the "
+          f"base's {amp['max_abs_err_bf16_base_vs_bf16_unmerged']} (amplified LoRA)")
+    return out
+
+
+def method_grid_full(api, ops, card, seed: int):
+    """Phase 5g: the rest of the paper's method grid on full-width
+    qwen3-1.7b at ``api.build``'s defaults (100 devices, 10 a round, 4
+    local steps of 16 x 32 tokens, 3 rounds, then ``final_accuracy`` over
+    the 100 devices): ``fedhetlora`` (sequential; device ranks by tier,
+    each device's tree at its rank) checkpointed and served from its
+    checkpoint over tenants of rank 4, 8 and 16; ``droppeft`` with adapter
+    and with BitFit (batched, zero lora_matmul, two runs bit-identical);
+    ``fedadapter`` with adapter (full depth: every layer every step);
+    ``droppeft`` with ``compression="auto"`` (the joint bandit's start-up
+    arms round-robin, each device's uplink ratio from its level, saved
+    after round 2 and resumed bit-identical with the bandit's state); and
+    ``merge_lora_into_base`` on that run's global LoRA, and amplified
+    (``merge_check``)."""
+    import shutil
+
+    phase_t0 = time.perf_counter()
+    out = {"card": card}
+    launches = {}
+
+    def add(counts):
+        for name, v in counts.items():
+            launches[name] = launches.get(name, 0) + v
+
+    # 1. fedhetlora, checkpointed, then served from its checkpoint
+    ckpt_dir = ROOT / "build" / "chip_smoke_checkpoints_5g"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    tenants, kept = {}, {}
+
+    def hetlora_checks(runner):
+        """The ranks and the tenants to serve, from the state the checkpoint holds."""
+        ranks, profile = runner.algorithm.device_rank, runner.ctx.device_profile
+        check(ranks == [TIER_RANKS[p] for p in profile], "hetlora's device ranks do not follow the tiers")
+        for dev, tree in runner.state.device_peft.items():
+            got = {(t["a"].shape[-1], t["b"].shape[-2]) for t in tree["attn"].values()}
+            check(got == {(ranks[dev], ranks[dev])}, f"device {dev} of rank {ranks[dev]} holds a tree of ranks {got}")
+        check(runner.state.global_peft["attn"]["q"]["a"].shape[-1] == 16, "the global tree is not at rank 16")
+        kept["ranks_trained"] = sorted({ranks[d] for d in runner.state.device_peft})
+        kept["layers"], kept["vocab"] = runner.ctx.cfg.num_layers, runner.ctx.cfg.vocab_size
+        for r in (4, 8, 16):
+            dev = min((d for d in runner.state.device_peft if ranks[d] == r), default=None)
+            check(dev is not None, f"no device of rank {r} trained")
+            tenants[f"client{dev}"] = runner.state.device_peft[dev]
+        tenants["client_global"] = runner.state.global_peft
+
+    runner, stats, rounds, _, counts = grid_run(api, ops, seed, "fedhetlora", "lora", after_run=hetlora_checks,
+                                                checkpoint_dir=str(ckpt_dir))
+    add(counts)
+    del runner
+    gc.collect()
+    stats["ranks_trained"] = kept["ranks_trained"]
+    stats["serve"] = serve_hetlora_checkpoint(api, ops, seed, ckpt_dir, tenants, kept["layers"], kept["vocab"])
+    add(stats["serve"]["checkpoint"]["launches"])
+    del tenants
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    out["fedhetlora"] = stats
+
+    # 2-4. adapter and BitFit: no lora_matmul; two runs from one seed give the same bits
+    for name, method, kind in (("droppeft_adapter", "droppeft", "adapter"), ("droppeft_bitfit", "droppeft", "bitfit"),
+                               ("fedadapter_adapter", "fedadapter", "adapter")):
+        runner, stats, rounds, bits, counts = grid_run(api, ops, seed, method, kind)
+        add(counts)
+        check(counts["lora_matmul"] == 0, f"{name}: {counts['lora_matmul']} lora_matmul launches")
+        if method == "fedadapter":
+            check(all(not any(g) for r in rounds for g in r["gates"]), f"{name}: a layer was dropped")
+        else:
+            del runner
+            gc.collect()
+            again = api.build(method, "qwen3-1.7b", smoke=False, seed=seed, peft=kind)
+            check(same_bits(run_bits(again, again.run(rounds=FED_ROUNDS)), bits), f"{name}: two runs from one seed differ")
+            stats["bit_identical_runs"] = True
+            runner = again
+        del runner
+        out[name] = stats
+
+    # 5. the joint (rate x compression level) bandit, saved after round 2 and resumed
+    uplinks = []
+
+    def record_uplinks(runner):
+        compress = runner.algorithm.compress_uplink
+
+        def compressed(state, results):
+            state, results = compress(state, results)
+            ratios = results.uplink_ratio  # None: every level of the round is "none"
+            uplinks.append((list(results.plan.compression),
+                            [1.0] * len(results.plan.cohort) if ratios is None else ratios.tolist()))
+            return state, results
+
+        runner.algorithm.compress_uplink = compressed
+
+    runner, stats, rounds, bits, counts = grid_run(api, ops, seed, "droppeft", "lora", prepare=record_uplinks,
+                                                   compression="auto")
+    add(counts)
+    del runner
+    uplinks = uplinks[:FED_ROUNDS]  # the profiled round's follow
+    n = len(uplinks[0][0])
+    first = list(zip(rounds[0]["rates"], uplinks[0][0]))
+    check(first == [JOINT_STARTUP[i % 3] for i in range(n)], f"the joint bandit's first arms {first}")
+    for levels, ratios in uplinks:
+        check(all((r == 1.0) == (lv == "none") and r <= 1.0 for lv, r in zip(levels, ratios)),
+              f"uplink ratios {ratios} for levels {levels}")
+    stats["arms"] = [list(zip(r["rates"], levels)) for r, (levels, _) in zip(rounds, uplinks)]
+    stats["uplink_ratios"] = [ratios for _, ratios in uplinks]
+    gc.collect()
+    jdir = ROOT / "build" / "chip_smoke_checkpoints_5g_joint"
+    shutil.rmtree(jdir, ignore_errors=True)
+    api.build("droppeft", "qwen3-1.7b", smoke=False, seed=seed, compression="auto", checkpoint_dir=str(jdir)).run(
+        rounds=2)
+    gc.collect()
+    runner = api.build("droppeft", "qwen3-1.7b", smoke=False, seed=seed, compression="auto", checkpoint_dir=str(jdir),
+                       resume=True)
+    check(runner.state.round_index == 2, f"the joint run resumed at round {runner.state.round_index}")
+    resumed = run_bits(runner, runner.run(rounds=FED_ROUNDS))
+    check(same_bits(resumed, bits) and json.dumps(runner.state.configurator.state_dict()) == bits["configurator"],
+          "the joint-bandit run resumed at round 2 differs from the uninterrupted run")
+    stats["resumed_bit_identical"] = True
+    stats["configurator"] = json.loads(bits["configurator"])
+    shutil.rmtree(jdir, ignore_errors=True)
+    out["droppeft_joint"] = stats
+
+    # 6. merge_lora_into_base on the joint run's trained global LoRA
+    out["merge"] = merge_check(ops, runner, seed)
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - phase_t0
+    return out, launches
+
+
+def method_grid_smoke_cuda_vs_cpu(seed: int):
+    """Phase 5g at smoke size in float32, 2 rounds on the card and on the
+    CPU twins from the same weights and seed: FedHetLoRA (sequential), the
+    joint bandit, and droppeft with adapter and with BitFit on qwen3-1.7b,
+    rwkv6-3b and jamba (batched): dispatches (cohorts, rates, levels),
+    masks, event logs and history rows but the loss equal, the loss within
+    1e-5, the global tree within phase 5's tree tolerance."""
+    from repro_torch import api
+    from repro_torch.configs import FederatedConfig, TrainConfig, get_config
+    from repro_torch.models.registry import init_params
+    from repro_torch.models.stacking import tree_leaves
+    from repro_torch.optim import make_lr_schedule
+
+    train_cfg = TrainConfig()
+    fed = FederatedConfig(num_devices=6, devices_per_round=4, local_steps=2, batch_size=8)
+    sched = make_lr_schedule(train_cfg.schedule, train_cfg.learning_rate, train_cfg.warmup_steps, train_cfg.total_steps)
+    cases = [("qwen3-1.7b", "fedhetlora", {}), ("qwen3-1.7b", "droppeft", {"compression": "auto"})]
+    cases += [(arch, "droppeft", {"peft": kind}) for arch in ("qwen3-1.7b", "rwkv6-3b", "jamba-v0.1-52b")
+              for kind in ("adapter", "bitfit")]
+    out = {}
+    for arch, method, kw in cases:
+        cfg = get_config(arch, smoke=True).replace(dtype="float32")
+        params = init_params(cfg, torch.Generator().manual_seed(seed))
+        runs = {}
+        for device in ("cuda", "cpu"):
+            runner = api.build(method, cfg=cfg, fed_cfg=fed, train_cfg=train_cfg, seed=seed, params=params,
+                               device=device, **kw)
+            plans, report = [], runner.algorithm.report
+
+            def recorded(state, results, plans=plans, report=report):
+                plans.append((list(results.plan.cohort), [float(r) for r in results.plan.rates],
+                              results.plan.compression, results.masks.tolist()))
+                return report(state, results)
+
+            runner.algorithm.report = recorded
+            runner.run(rounds=2)
+            runs[device] = (plans, [dict(row) for row in runner.state.history], list(runner.scheduler.event_log),
+                            [t.cpu() for t in tree_leaves(runner.state.global_peft)], runner.state.global_step)
+        (pc, hc, ec, tc, steps), (pp, hp, ep, tp, _) = runs["cuda"], runs["cpu"]
+        name = f"{arch} {method} {json.dumps(kw)}"
+        what = f"{name}: the card vs the CPU twins"
+        check(pc == pp and ec == ep, f"{what}: dispatches, masks or events differ: {pc} vs {pp}")
+        check([{k: v for k, v in r.items() if k != "loss"} for r in hc] == [{k: v for k, v in r.items() if k != "loss"}
+                                                                               for r in hp],
+              f"{what}: history {hc} vs {hp}")
+        check(np.allclose([r["loss"] for r in hc], [r["loss"] for r in hp], rtol=1e-5, atol=0), f"{what}: loss")
+        limit = 2 * sum(sched(step) for step in range(steps)) + 1e-6
+        diffs = torch.cat([(a - b).abs().flatten() for a, b in zip(tc, tp)])
+        within = float((diffs <= 1e-6).float().mean())
+        check(float(diffs.max()) <= limit and within >= 0.99, f"{what}: tree max diff {float(diffs.max())}, {within}")
+        out[name] = {"peft_max_abs_diff": float(diffs.max()), "peft_share_within_1e-6": within, "peft_limit": limit}
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2285,6 +2732,24 @@ def main() -> int:
                                                                      "n": 8}, {"dtype": torch.bfloat16, "b": 1, "s": 33,
                                                                                "d": 200, "n": 8}):
         print(f"mamba_scan check {json.dumps(mamba_case(ops, ref, timer, gen, time_it=False, **kw))}", flush=True)
+
+    # FedHetLoRA's lowest and highest device ranks at the federated rounds'
+    # shape (16 x 32 tokens, q and v; scales alpha / r = 4 and 1) on the
+    # wgmma route, and a served pool of its tenants (ranks 4, 8, 16, 16 at
+    # r_max 16); drawn from a generator of their own
+    gen_het = torch.Generator(device="cuda")
+    gen_het.manual_seed(args.seed + 5)
+    hetlora = {}
+    for r, alpha in ((4, 4.0), (16, 1.0)):
+        for n in (2048, 1024):
+            case = lora_case(ops, ref, timer, gen_het, dtype=torch.bfloat16, n=n, m=16 * 32, r=r, alpha=alpha)
+            check(case["route"] == "wgmma" and case["dx_route"] == "wgmma", f"lora_matmul r={r}: {case['route']}")
+            hetlora[f"lora r{r} n{n}"] = case
+    for n in (2048, 1024):
+        hetlora[f"segmented n{n}"] = segmented_case(ops, ref, timer, gen_het, dtype=torch.bfloat16, n=n,
+                                                    ranks=(4, 8, 16, 16), r_max=16)
+    for name, case in hetlora.items():
+        print(f"hetlora {name} {json.dumps(case)} [{card}]", flush=True)
 
     # the other dense decoders' shapes, drawn from a generator of their own:
     # glm4-9b (32 heads over 2 KV heads, 16 a KV head), h2o-danube-1.8b
@@ -2409,6 +2874,17 @@ def main() -> int:
     print(f"schedules smoke runs, card vs CPU twins: {json.dumps(schedules_smoke_cuda_vs_cpu(args.seed))}", flush=True)
     print(f"phase 5f: {time.perf_counter() - t5f:.1f} s [{card}]", flush=True)
 
+    # 5g. the rest of the method grid on full-width qwen3-1.7b: FedHetLoRA
+    #     (served from its checkpoint), adapter and BitFit PEFT, the joint
+    #     rate x compression bandit and LoRA merging; then smoke-size runs
+    #     on the card against the CPU twins
+    t5g = time.perf_counter()
+    grid_stats, grid_launches = method_grid_full(api, ops, card, args.seed)
+    print(f"method grid {json.dumps(grid_stats)} [{card}]", flush=True)
+    print(f"method grid smoke runs, card vs CPU twins: {json.dumps(method_grid_smoke_cuda_vs_cpu(args.seed))}",
+          flush=True)
+    print(f"phase 5g: {time.perf_counter() - t5g:.1f} s [{card}]", flush=True)
+
     # 6. kernels line: each path's shapes (bf16) and launches; q and v
     #    projections summed for segmented_lora and lora_matmul (forward)
     for name in ("segmented_lora", "flash_decode"):
@@ -2418,6 +2894,9 @@ def main() -> int:
         check(fed_launches[name] > 0, f"{name} never launched in the federated rounds: {fed_launches}")
         check(strag_launches[name] > 0, f"{name} never launched in phase 5f's deadline rounds: {strag_launches}")
         check(gather_launches[name] > 0, f"{name} never launched in the gather local round: {gather_launches}")
+        check(grid_launches[name] > 0, f"{name} never launched in phase 5g's runs: {grid_launches}")
+    for name in ("segmented_lora", "flash_decode"):
+        check(grid_launches[name] > 0, f"{name} never launched serving phase 5g's checkpoint: {grid_launches}")
     for name in ("wkv6", "wkv6_bwd"):
         check(rwkv_launches[name] > 0, f"{name} never launched in the rwkv6-3b local round: {rwkv_launches}")
     for name in ("mamba_scan", "mamba_scan_bwd"):
@@ -2458,7 +2937,10 @@ def main() -> int:
             "dense_arch_shapes": dense_shapes["segmented"],
             "launches_by_path": {"serve_qwen3": launches["segmented_lora"],
                                  **{f"serve_{a}": dense_launches["serve_launches"][a]["segmented_lora"]
-                                    for a in DENSE_ARCHS}},
+                                    for a in DENSE_ARCHS},
+                                 "5g_serve_hetlora_checkpoint": grid_launches["segmented_lora"]},
+            "hetlora_shapes": {name: pick(hetlora[f"segmented n{n}"], proj_keys) for name, n in (("q", 2048),
+                                                                                               ("v", 1024))},
         },
         {
             "name": "flash_decode", "route": "cuda",
@@ -2474,7 +2956,8 @@ def main() -> int:
             "danube_shape": pick(dense["decode_danube"], fwd_keys),
             "launches_by_path": {"serve_qwen3": launches["flash_decode"],
                                  **{f"serve_{a}": dense_launches["serve_launches"][a]["flash_decode"]
-                                    for a in DENSE_ARCHS}},
+                                    for a in DENSE_ARCHS},
+                                 "5g_serve_hetlora_checkpoint": grid_launches["flash_decode"]},
         },
         {
             "name": "flash_attention", "route": "cuda",
@@ -2484,6 +2967,7 @@ def main() -> int:
             "launches_by_path": {"local_round": train_launches["flash_attention"],
                                  "federated_rounds": fed_launches["flash_attention"],
                                  "5f": strag_launches["flash_attention"], "5f_gather_local_round": gather_launches["flash_attention"],
+                                 "5g": grid_launches["flash_attention"],
                                  **{f"local_round_{a}": dense_launches["train_launches"][a]["flash_attention"]
                                     for a in DENSE_ARCHS}},
             "glm4_shape": pick(dense["attention_glm4"], fwd_keys),
@@ -2503,6 +2987,7 @@ def main() -> int:
             "launches_by_path": {"local_round": train_launches["flash_attention_bwd"],
                                  "federated_rounds": fed_launches["flash_attention_bwd"],
                                  "5f": strag_launches["flash_attention_bwd"], "5f_gather_local_round": gather_launches["flash_attention_bwd"],
+                                 "5g": grid_launches["flash_attention_bwd"],
                                  **{f"local_round_{a}": dense_launches["train_launches"][a]["flash_attention_bwd"]
                                     for a in DENSE_ARCHS}},
             "glm4_shape": pick(dense["attention_glm4"], ("shape",), **bwd_renamed),
@@ -2527,9 +3012,12 @@ def main() -> int:
             "launches_by_path": {"local_round": train_launches["lora_matmul"],
                                  "federated_rounds": fed_launches["lora_matmul"],
                                  "5f": strag_launches["lora_matmul"], "5f_gather_local_round": gather_launches["lora_matmul"],
+                                 "5g": grid_launches["lora_matmul"],
                                  **{f"local_round_{a}": dense_launches["train_launches"][a]["lora_matmul"]
                                     for a in DENSE_ARCHS}},
             "dense_arch_shapes": dense_shapes["lora"],
+            "hetlora_shapes": {name: pick(case, proj_keys + ("bwd_max_abs_err", "dx_ms", "dx_bound_ms", "route"))
+                               for name, case in hetlora.items() if name.startswith("lora")},
             "max_abs_err": max(lq["max_abs_err"], lv["max_abs_err"]),
             **{key: lq[key] + lv[key] for key in ("ms", "plain_ms", "bound_ms")},
             "bound_by": lq["bound_by"], "library_ms": None,

@@ -27,18 +27,21 @@ continues from the newest snapshot there, bit-identically::
 ``"carry"``) and ``schedule="async-buffer"`` (``buffer_size``,
 ``staleness_alpha``) run the virtual clock's straggler-tolerant policies;
 ``compression="int8"``, ``"topk"`` or ``"int8+topk"`` (``topk_fraction``)
-compresses the uplink with error feedback; ``fault_plan`` injects client
-dropouts, bandwidth collapses, NaN updates, churn and server kills::
+compresses the uplink with error feedback, and ``compression="auto"`` (or
+``{"tune": True}``) lets a joint bandit pick each device's (dropout rate,
+compression level) arm; ``fault_plan`` injects client dropouts, bandwidth
+collapses, NaN updates, churn and server kills::
 
     runner = api.build("droppeft", smoke=False, stld_mode="gather", schedule="deadline", deadline_s=60.0,
                        straggler="carry", compression="int8+topk", fault_plan={"dropout_prob": 0.1})
 
-A keyword that names a feature the port lacks raises
-``NotImplementedError`` with its ROADMAP item: ``compression="auto"``
-(the joint bandit) and ``fedhetlora`` (6), ``peft`` other than ``"lora"``
-(7).  ``cohort_mode="auto"`` runs
-``"batched"`` (one grouped launch a layer for the whole cohort) for every
-method but one that ``requires_sequential``, as the reference does.
+``peft`` picks the PEFT kind: ``"lora"`` (``lora_rank``), ``"adapter"``
+(Houlsby bottlenecks of ``adapter_dim``), ``"bitfit"`` (biases) or
+``"none"``.  Every method of ``list_methods()`` runs; ``fedhetlora`` gives
+each device the LoRA rank of its hardware tier (4, 8 or 16).
+``cohort_mode="auto"`` runs ``"batched"`` (one grouped launch a layer for
+the whole cohort) for every method but one that ``requires_sequential``
+(``fedhetlora``), which runs ``"sequential"``, as the reference does.
 
 ``serve`` builds a ready multi-tenant LoRA server, its adapters given as
 trees or read from a federated run's checkpoint (every client as
@@ -65,7 +68,7 @@ import torch
 from repro_torch.configs import FederatedConfig, PEFTConfig, STLDConfig, TrainConfig, get_config
 from repro_torch.federated.algorithms import FederatedAlgorithm, get_algorithm, registered_methods
 from repro_torch.federated.compression import CompressionConfig, resolve_compression
-from repro_torch.federated.runner import ExperimentRunner, SimResult, fresh_algorithm, unported
+from repro_torch.federated.runner import ExperimentRunner, SimResult, fresh_algorithm
 from repro_torch.federated.scheduler import ScheduleConfig, resolve_schedule
 
 __all__ = ["build", "experiment", "replicate", "serve", "list_methods", "ScheduleConfig", "CompressionConfig"]
@@ -141,14 +144,17 @@ def build(
     """A fully wired :class:`ExperimentRunner` (not run yet) on ``device``
     (None = the card).  ``params`` (float32 base weights) replaces the
     weights drawn from ``seed``."""
-    if peft != "lora" and peft_cfg is None:
-        raise unported(f"peft={peft!r}", 7)
     if cfg is None:
         cfg = get_config(model, smoke=smoke)
     if model_overrides:
         cfg = cfg.replace(**model_overrides)
     if peft_cfg is None:
-        peft_cfg = PEFTConfig() if lora_rank is None else PEFTConfig(lora_rank=lora_rank)
+        kw = {"method": peft}
+        if lora_rank is not None:
+            kw["lora_rank"] = lora_rank
+        if adapter_dim is not None:
+            kw["adapter_dim"] = adapter_dim
+        peft_cfg = PEFTConfig(**kw)
     if stld_cfg is None:
         if mean_rate is None:
             mean_rate = 0.5 if fixed_rate is None else fixed_rate

@@ -75,6 +75,7 @@ class ModelConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     max_seq_len: int = 8192
+    activation: str = "silu"  # silu (SwiGLU) | gelu (a biased up/down MLP)
     dtype: str = "bfloat16"  # activation/compute dtype
     param_dtype: str = "float32"
 
@@ -108,11 +109,11 @@ class ModelConfig:
     def param_counts(self) -> dict:
         """Analytic parameter counts (total, active under MoE top-k,
         embedding) for the system model, as the reference counts them for
-        these three families (SwiGLU MLPs, no encoder)."""
+        these three families (no encoder)."""
         d, hd = self.d_model, self.resolved_head_dim
         h, kv, ff = self.num_heads, self.num_kv_heads, self.d_ff
         attn = d * (h * hd) + 2 * d * (kv * hd) + (h * hd) * d
-        mlp = 3 * d * ff
+        mlp = 3 * d * ff if self.activation == "silu" else 2 * d * ff
         norms = 2 * d
         mamba_p = 0
         if self.mamba is not None:
@@ -153,11 +154,13 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class PEFTConfig:
-    """LoRA configuration (paper §2.2); the port has the LoRA method only."""
+    """Parameter-efficient fine-tuning configuration (paper §2.2)."""
 
+    method: str = "lora"        # lora | adapter | bitfit | none
     lora_rank: int = 8
     lora_alpha: float = 16.0
-    lora_targets: tuple = ("q", "v")
+    lora_targets: tuple = ("q", "v")  # which projections get LoRA
+    adapter_dim: int = 64
 
 
 @dataclass(frozen=True)

@@ -1,11 +1,11 @@
-"""JAX parameter and LoRA trees, given as numpy arrays, into the port's tensors.
+"""JAX parameter and PEFT trees, given as numpy arrays, into the port's tensors.
 
 The trees keep their structure and their stacked ``(L, ...)`` leaves, so
 the conversion is leaf by leaf.  A bfloat16 leaf arrives either as an
 ``ml_dtypes.bfloat16`` array (what ``np.asarray`` of a JAX array gives) or
 as its ``uint16`` bit pattern (what the JAX checkpoint format stores); both
 become ``torch.bfloat16`` with the same bits.  No leaf of a parameter or
-LoRA tree is an unsigned 16-bit integer, so a ``uint16`` leaf is read as
+PEFT tree is an unsigned 16-bit integer, so a ``uint16`` leaf is read as
 bfloat16 bits.
 """
 from __future__ import annotations
@@ -42,6 +42,7 @@ def params_from_jax(np_tree, device, dtype: Optional[torch.dtype] = None):
 
 
 def peft_from_jax(np_tree, device, dtype: Optional[torch.dtype] = None):
-    """A stacked LoRA tree (``{"attn": {"q": {"a", "b"}, ...}}``) as tensors
-    on ``device``; floating leaves cast to ``dtype`` when given."""
+    """A PEFT tree of any method (LoRA, adapter, BitFit or the empty tree
+    of ``none``), in either layout (stacked leaves or a per-layer list), as
+    tensors on ``device``; floating leaves cast to ``dtype`` when given."""
     return _tree_to_torch(np_tree, torch.device(device), dtype)

@@ -1,8 +1,9 @@
 """Online exploration-exploitation configurator for dropout rates.
 
 A copy of ``repro.core.configurator``'s rate bandit (the paper's Algorithm
-1), pure Python and numpy: the same seed and the same rewards give the same
-rates, round by round, and the same ``state_dict``.
+1) and its joint (rate x compression level) variant, pure Python and
+numpy: the same seed and the same rewards give the same arms, round by
+round, and the same ``state_dict``.
 
 * the action space is narrowed per §3.3: a preset per-layer distribution
   shape (default ``incremental``) plus a discrete grid of average rates,
@@ -15,8 +16,8 @@ rates, round by round, and the same ``state_dict``.
   evaluations, then EXPLOITATION reuses the best-known arm for
   ``explore_interval`` rounds.
 
-The joint (rate x compression level) bandit is not ported (ROADMAP queue 1,
-item 6).
+:class:`JointConfigurator` keys its arms by ``(rate, level)`` pairs over
+the product of the rate grid and the uplink compression levels.
 """
 from __future__ import annotations
 
@@ -249,3 +250,98 @@ class OnlineConfigurator:
         eligible = [a for a in self.arms.values() if self._meets_floor(a.rate)]
         ranked = sorted(eligible, key=lambda a: a.reward, reverse=True)
         return [a.rate for a in ranked[:k]]
+
+
+class JointConfigurator(OnlineConfigurator):
+    """Algorithm 1 over the joint (dropout rate x compression level) space.
+
+    The arm is a ``(rate, level)`` tuple, so the bandit trades layer dropout
+    against uplink compression on one reward: accuracy gain per modelled
+    second of the round, which already bills the compressed uplink.  The
+    explore/exploit machinery is inherited; the arm key, the candidate
+    grid (the product of rates and levels) and the report and snap plumbing
+    change.  ``rate_floor`` constrains the rate axis alone.
+    """
+
+    joint = True
+
+    def __init__(
+        self,
+        rate_grid: Sequence[float] = (0.0, 0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9),
+        startup: Sequence[float] = (0.2, 0.5, 0.7),
+        levels: Sequence[str] = ("none", "int8", "topk", "int8+topk"),
+        **kwargs,
+    ):
+        self.levels = tuple(levels)
+        if not self.levels:
+            raise ValueError("JointConfigurator needs at least one level")
+        super().__init__(rate_grid=rate_grid, startup=startup, **kwargs)
+        # each startup rate paired with a cycling level: the first sweep is
+        # as long as the rate-only bandit's, and _refill_candidates explores
+        # the rest of the product grid in later sweeps
+        self.list_c = [
+            (float(r), self.levels[i % len(self.levels)])
+            for i, r in enumerate(startup)
+            if float(r) >= self.rate_floor
+        ]
+
+    # ------------------------------------------------------------------ api
+    def next_round(self, n_devices: int, *, as_array: bool = False):
+        raise TypeError("JointConfigurator draws (rate, level) arms; use next_round_joint()")
+
+    def next_round_joint(self, n_devices: int):
+        """-> (rates, levels): one (dropout rate, compression level) arm per
+        cohort member, round-robin over the candidates while exploring."""
+        if self.is_explore:
+            if not self.list_c:
+                self._refill_candidates()
+            arms = [self.list_c[i % len(self.list_c)] for i in range(n_devices)]
+        else:
+            arms = [self.best_rate()] * n_devices
+        self._pending = sorted(set(arms))
+        return [float(rate) for rate, _ in arms], [level for _, level in arms]
+
+    # ------------------------------------------------------- serialization
+    def state_dict(self) -> dict:
+        state = super().state_dict()
+        state["joint"] = True
+        state["levels"] = list(self.levels)
+        return state
+
+    # ------------------------------------------------------------- internals
+    def _meets_floor(self, key) -> bool:
+        return key[0] >= self.rate_floor
+
+    def _fallback_key(self, grid):
+        if not grid:
+            return (0.5, self.levels[0])
+        # the rate closest to 0.5 at the mildest level
+        return min(grid, key=lambda ar: (abs(ar[0] - 0.5), self.levels.index(ar[1])))
+
+    def _report_keys(self, arms) -> list:
+        return [self._snap_arm((float(r), str(lv))) for r, lv in arms]
+
+    def _key_from_json(self, key):
+        # JSON gives tuples back as lists
+        if isinstance(key, (list, tuple)):
+            return (float(key[0]), str(key[1]))
+        return key
+
+    def _snap_arm(self, arm):
+        rate, level = arm
+        candidates = [
+            k
+            for k in (set(self._feasible_grid()) | set(self.arms) | set(self.list_c)
+                      | set(getattr(self, "_pending", ())))
+            if k[1] == level
+        ]
+        if not candidates:
+            return arm
+        best = min(candidates, key=lambda k: abs(k[0] - rate))
+        return best if abs(best[0] - rate) < 1e-5 else arm
+
+    def _feasible_grid(self) -> list:
+        rates = [r for r in self.rate_grid if r >= self.rate_floor]
+        if not rates:
+            rates = [max(self.rate_grid)] if self.rate_grid else []
+        return [(float(r), lv) for r in rates for lv in self.levels]

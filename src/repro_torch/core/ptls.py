@@ -19,7 +19,7 @@ import torch
 from repro_torch.models import stacking
 
 
-def layer_grad_norms(peft_grads, devices: Optional[int] = None) -> torch.Tensor:
+def layer_grad_norms(peft_grads, devices: Optional[int] = None, num_layers: int = 0) -> torch.Tensor:
     """L2 norm of each layer's PEFT gradient, shape ``(L,)`` float32.
 
     Stacked layout: per-leaf trailing-axis sums of squares, added over the
@@ -29,6 +29,8 @@ def layer_grad_norms(peft_grads, devices: Optional[int] = None) -> torch.Tensor:
 
     ``devices`` N: a cohort's per-layer list with (N, ...) leaves gives
     ``(N, L)``, each device's norms summed as the stacked layout sums them.
+    ``num_layers`` is read only for a leafless stacked tree (PEFT method
+    ``none``), whose norms are zeros, as the reference's.
     """
     if devices is not None:
         device = next((x.device for x in stacking.tree_leaves(peft_grads)), None)
@@ -48,7 +50,9 @@ def layer_grad_norms(peft_grads, devices: Optional[int] = None) -> torch.Tensor:
         return torch.stack(norms)
     leaves = stacking.tree_leaves(peft_grads)
     if not leaves:
-        raise ValueError("layer_grad_norms needs a tree with leaves (the port's PEFT method is LoRA)")
+        if num_layers <= 0:
+            raise ValueError("layer_grad_norms needs num_layers for a leafless stacked tree (PEFT method 'none')")
+        return torch.zeros((num_layers,), dtype=torch.float32)
     sq = sum(torch.sum(torch.square(x.float()), dim=tuple(range(1, x.ndim))) for x in leaves)
     return torch.sqrt(sq)
 
@@ -69,6 +73,7 @@ class ImportanceAccumulator:
 
     @staticmethod
     def update(state, grad_norms, drops):
+        grad_norms = grad_norms.to(state["g_sum"].device)  # a leafless tree's zeros come from the host
         active = 1.0 - drops.to(device=grad_norms.device, dtype=torch.float32)
         return {"g_sum": state["g_sum"] + grad_norms * active, "count": state["count"] + active}
 

@@ -21,7 +21,8 @@ order: the cohort in ``configure_round``, then one bandwidth per member in
 when the run has a ``compression`` level (error feedback threads through
 ``state.ef_residual``), and ``merge`` takes the uplinks' reconstructions
 and the staleness weights of the deadline and async-buffer schedules when
-they are set.  The joint (rate × compression level) bandit is not ported.
+they are set.  With a joint configurator ``round_arms`` draws each
+device's (dropout rate, compression level) arm from one bandit.
 """
 from __future__ import annotations
 
@@ -265,10 +266,13 @@ class FederatedAlgorithm:
         return [0.0] * n
 
     def round_arms(self, state: RoundState, n: int):
-        """Per-device (dropout rates, compression levels): the rates from
-        :meth:`round_rates` and no levels (``compress_uplink`` takes the
-        run's fixed level); the joint bandit that draws both is not
-        ported (ROADMAP queue 1, item 6)."""
+        """Per-device (dropout rates, compression levels): both from one
+        draw of a joint configurator; otherwise the rates from
+        :meth:`round_rates` (the rate-only stream) and no levels
+        (``compress_uplink`` takes the run's fixed level)."""
+        cfgor = state.configurator
+        if cfgor is not None and getattr(cfgor, "joint", False):
+            return cfgor.next_round_joint(n)
         return self.round_rates(state, n), None
 
     def active_depth(self, state: RoundState) -> int:

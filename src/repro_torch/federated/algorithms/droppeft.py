@@ -17,7 +17,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core.configurator import OnlineConfigurator
+from repro_torch.core.configurator import JointConfigurator, OnlineConfigurator
+from repro_torch.federated import compression as compression_lib
 from repro_torch.federated import server as server_lib
 from repro_torch.federated.algorithms.base import FederatedAlgorithm, register
 from repro_torch.federated.scheduler import feasible_rate_floor
@@ -49,14 +50,16 @@ class DropPEFT(FederatedAlgorithm):
         if not (self.use_configurator and self.stld):
             return None
         fed = ctx.fed_cfg
-        cfgor = OnlineConfigurator(
-            rate_grid=fed.rate_grid,
-            num_candidates=fed.num_candidates,
-            explore_rate=fed.explore_rate,
-            explore_interval=fed.explore_interval,
-            window_size=fed.window_size,
-            seed=ctx.seed,
-        )
+        kwargs = dict(rate_grid=fed.rate_grid, num_candidates=fed.num_candidates, explore_rate=fed.explore_rate,
+                      explore_interval=fed.explore_interval, window_size=fed.window_size, seed=ctx.seed)
+        comp = getattr(ctx, "compression", None)
+        if comp is not None and comp.tune:
+            # the joint (dropout rate x compression level) arms; the rewards
+            # come from the modelled round times, which bill the compressed
+            # uplink
+            cfgor = JointConfigurator(levels=compression_lib.LEVELS, **kwargs)
+        else:
+            cfgor = OnlineConfigurator(**kwargs)
         # under a finite deadline, rates the slowest profile can never
         # finish in time are infeasible arms: floor the candidates there
         sched = getattr(ctx, "schedule", None)
@@ -104,7 +107,12 @@ class DropPEFT(FederatedAlgorithm):
         for i, dev in enumerate(results.plan.cohort):
             prev = state.prev_acc.get(dev, 1.0 / self.ctx.task.num_classes)
             gains.append(max(results.accuracies[i] - prev, 0.0))
-        state.configurator.report(results.plan.rates, gains, round_times)
+        cfgor = state.configurator
+        if getattr(cfgor, "joint", False) and results.plan.compression is not None:
+            cfgor.report(list(zip([float(r) for r in results.plan.rates], results.plan.compression)), gains,
+                         round_times)
+        else:
+            cfgor.report(results.plan.rates, gains, round_times)
 
 
 @register("droppeft_b1")

@@ -101,7 +101,7 @@ def make_client_fns(cfg, peft_cfg, stld_cfg, train_cfg, *, device=None, shape=No
         raise ValueError(f"STLD mode must be 'cond' or 'gather', got {stld_cfg.mode!r}")
     device = torch.device("cuda" if device is None else device)
     num_layers = cfg.num_layers
-    lora_sc = peft_lib.lora_scale(peft_cfg)
+    lora_sc = peft_lib.lora_scale(peft_cfg) if peft_cfg.method == "lora" else 1.0
     sched = make_lr_schedule(train_cfg.schedule, train_cfg.learning_rate, train_cfg.warmup_steps,
                              train_cfg.total_steps)
     if shape is None:
@@ -140,8 +140,9 @@ def make_client_fns(cfg, peft_cfg, stld_cfg, train_cfg, *, device=None, shape=No
         for i in range(tokens.shape[0]):
             drops, idx = draw(rng, rates, num_active)
             (_, metrics), grads = grad_fn(peft_params, base_params, tokens[i], targets[i], mask[i], drops, idx)
-            imp = ptls.ImportanceAccumulator.update(imp, ptls.layer_grad_norms(grads), drops)
+            imp = ptls.ImportanceAccumulator.update(imp, ptls.layer_grad_norms(grads, num_layers=num_layers), drops)
             grads, gnorm = clip_by_global_norm(grads, train_cfg.grad_clip)
+            gnorm = gnorm.to(device)  # on the host for a leafless tree
             peft_params, opt_state = adamw_update(
                 grads, opt_state, peft_params, lr=sched(global_step + i), beta1=train_cfg.beta1,
                 beta2=train_cfg.beta2, eps=train_cfg.eps, weight_decay=train_cfg.weight_decay,
@@ -195,6 +196,7 @@ def make_client_fns(cfg, peft_cfg, stld_cfg, train_cfg, *, device=None, shape=No
                                                  idx)
             imp = ptls.ImportanceAccumulator.update(imp, ptls.layer_grad_norms(grads, devices=n), drops)
             grads, gnorm = clip_by_global_norm(grads, train_cfg.grad_clip, devices=n)
+            gnorm = gnorm.to(device)  # on the host for a leafless tree
             lr = torch.tensor([sched(g + i) for g in global_steps], dtype=torch.float32, device=device)
             layers, opt_state = adamw_update(
                 grads, opt_state, layers, lr=lr, beta1=train_cfg.beta1, beta2=train_cfg.beta2, eps=train_cfg.eps,

@@ -14,7 +14,9 @@ the dispatch:
   runs one call per group of equal count, the port the whole cohort in one
   call, and each device's outputs are the same.
 * ``"sequential"`` — one ``local_round`` and one ``evaluate`` per device, in
-  cohort order.
+  cohort order.  FedHetLoRA runs here only (``enable_hetlora``): each
+  device trains and evaluates with the client programs of its own LoRA
+  rank, at that rank's ``lora_alpha / r``.
 
 Both modes consume the same streams: one key fan-out a round, device i's
 STLD gates from a CPU generator seeded with its key (``state.split_key``)
@@ -30,12 +32,14 @@ sequential mode).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core import stld as stld_lib
+from repro_torch.federated import server as server_lib
 from repro_torch.federated.client import METRICS, make_client_fns
 from repro_torch.federated.state import split_key
 from repro_torch.models import stacking
@@ -66,6 +70,25 @@ class CohortEngine:
         # one validation pad size for every device, as the reference's
         self._val_pad = max(len(d.val_batch()["labels"]) for d in devices)
         self._val_cache: Dict[int, dict] = {}
+        # FedHetLoRA: each device's LoRA rank and the client programs of each rank
+        self.device_rank: Optional[List[int]] = None
+        self._het_fns: Dict[int, object] = {}
+
+    def enable_hetlora(self, device_rank: List[int]):
+        """Build one set of client programs per LoRA rank of a
+        rank-heterogeneous cohort (each at its rank's ``alpha / r``)."""
+        self.device_rank = list(device_rank)
+        for r in sorted(set(self.device_rank)):
+            peft_cfg = dataclasses.replace(self.peft_cfg, lora_rank=r)
+            self._het_fns[r] = make_client_fns(self.cfg, peft_cfg, self.stld_cfg, self.train_cfg, device=self.device)
+
+    def _device_fns(self, dev: int):
+        """(local_round, evaluate) of device ``dev``: its rank's under
+        FedHetLoRA, else the engine's."""
+        if self.device_rank is None:
+            return self.local_round, self.evaluate
+        fns = self._het_fns[self.device_rank[dev]]
+        return fns.local_round, fns.evaluate
 
     # ------------------------------------------------------------- execution
     def run_cohort(self, key, global_step, cohort, rates, start_pefts, num_classes, adaopt_depth):
@@ -164,7 +187,8 @@ class CohortEngine:
         return outs
 
     def _run_device(self, dev: int, rate: float, start_peft, key: int, gstep: int, num_classes, adaopt_depth):
-        peft_i, _, metrics, importance = self.local_round(
+        local_round, evaluate = self._device_fns(dev)
+        peft_i, _, metrics, importance = local_round(
             self.base_params, start_peft, adamw_init(start_peft), self._stacked_train_batches(dev), float(rate),
             torch.Generator().manual_seed(key), gstep, self._static_active_counts([rate])[0],
         )
@@ -175,19 +199,21 @@ class CohortEngine:
         metrics = {k: host[j] for j, k in enumerate(METRICS)}
         importance = host[len(METRICS):]
         val = self.devices[dev].val_batch()
-        acc = float(self.evaluate(self.base_params, peft_i, val["tokens"], val["labels"], num_classes))
+        acc = float(evaluate(self.base_params, peft_i, val["tokens"], val["labels"], num_classes))
         return peft_i, metrics, importance, acc
 
     # ------------------------------------------------------------ evaluation
     def final_accuracy(self, global_peft, device_peft, num_classes) -> float:
         """Paper protocol: mean accuracy across ALL devices' local test sets,
         each device using its personalized model (global for
-        non-participants).  Batched: ``cohort_evaluate`` over chunks of
-        ``devices_per_round`` devices (the reference takes all devices in
-        one call, whose logits at a full-size vocabulary would not fit one
-        card); the mean is taken over Python floats in both modes."""
+        non-participants, cut to its rank under FedHetLoRA).  Batched:
+        ``cohort_evaluate`` over chunks of ``devices_per_round`` devices
+        (the reference takes all devices in one call, whose logits at a
+        full-size vocabulary would not fit one card); the mean is taken
+        over Python floats in both modes."""
         devs = range(self.fed_cfg.num_devices)
-        if self.cohort_mode == "batched":
+        hetlora = self.device_rank is not None
+        if self.cohort_mode == "batched" and not hetlora:
             accs: List[float] = []
             chunk = max(1, self.fed_cfg.devices_per_round)
             for start in range(0, len(devs), chunk):
@@ -200,7 +226,10 @@ class CohortEngine:
         for dev in devs:
             val = self.devices[dev].val_batch()
             peft_d = device_peft.get(dev, global_peft)
-            accs.append(float(self.evaluate(self.base_params, peft_d, val["tokens"], val["labels"], num_classes)))
+            if hetlora and dev not in device_peft:
+                peft_d = server_lib.truncate_lora_rank(global_peft, self.device_rank[dev])
+            evaluate = self._device_fns(dev)[1]
+            accs.append(float(evaluate(self.base_params, peft_d, val["tokens"], val["labels"], num_classes)))
         return float(np.mean(accs))
 
 

@@ -85,8 +85,10 @@ class ExperimentContext:
     device_profile: List[str]
     system: SystemModel
     seed: int
+    peft_key: int                  # the seed init_peft drew from (hetlora draws anew from it)
     init_global_peft: Any
     num_classes: Any               # np.arange(task.num_classes)
+    device: Any = None             # where the base weights and the PEFT trees live
     engine: Optional[CohortEngine] = None
     schedule: Optional[ScheduleConfig] = None        # virtual-clock scheduling policy
     compression: Optional[CompressionConfig] = None  # uplink compression | None
@@ -128,8 +130,10 @@ def _build_context(cfg, peft_cfg, stld_cfg, fed_cfg, train_cfg, *, task=None, co
         device_profile=device_profile,
         system=SystemModel(cost_cfg or cfg, peft_cfg),
         seed=seed,
+        peft_key=k_peft,
         init_global_peft=global_peft,
         num_classes=np.arange(task.num_classes),
+        device=device,
     )
     return ctx, rng, key, base_params
 
@@ -142,16 +146,6 @@ def fresh_algorithm(algorithm):
     algo = copy.copy(algorithm)
     algo.ctx = None
     return algo
-
-
-# what ROADMAP queue 1 still holds of an item the port has begun
-_LEFT = {6: "hetlora and the joint (rate x compression level) bandit are left of it"}
-
-
-def unported(option: str, item: int):
-    """The error for an option that names a feature the port lacks."""
-    left = f"; {_LEFT[item]}" if item in _LEFT else ""
-    return NotImplementedError(f"{option} is not ported (ROADMAP queue 1, item {item}{left})")
 
 
 class ExperimentRunner:
@@ -167,9 +161,10 @@ class ExperimentRunner:
     complete snapshot there (a fresh start when there is none).
     ``schedule`` is a policy name or a :class:`ScheduleConfig`,
     ``fault_plan`` a :class:`~repro_torch.federated.faults.FaultPlan`, a
-    dict of its fields or a JSON path, ``compression`` a level name, a
-    dict or a :class:`CompressionConfig`; ``compression="auto"`` (the joint
-    bandit) raises ``NotImplementedError``."""
+    dict of its fields or a JSON path, ``compression`` a level name,
+    ``"auto"`` (the joint rate x level bandit), a dict or a
+    :class:`CompressionConfig`.  A method with ``device_rank`` (FedHetLoRA)
+    gets one set of client programs per rank (``engine.enable_hetlora``)."""
 
     def __init__(self, cfg, peft_cfg, stld_cfg, fed_cfg, train_cfg, *,
                  algorithm: "FederatedAlgorithm | str" = "droppeft", task=None, cost_cfg=None, seed: int = 0,
@@ -183,8 +178,6 @@ class ExperimentRunner:
         if stld_cfg.mode not in ("cond", "gather"):
             raise ValueError(f"STLD mode must be 'cond' or 'gather', got {stld_cfg.mode!r}")
         self.compression = resolve_compression(compression)
-        if self.compression is not None and self.compression.tune:
-            raise unported("compression='auto' (tune=True, the joint bandit)", 6)
         self.fault_plan = resolve_fault_plan(fault_plan)
         if isinstance(algorithm, str):
             algorithm = get_algorithm(algorithm)()
@@ -213,6 +206,8 @@ class ExperimentRunner:
         self.cohort_mode = cohort_mode
         ctx.engine = CohortEngine(cfg, peft_cfg, stld_cfg, fed_cfg, train_cfg, ctx.task, ctx.devices, base_params,
                                   cohort_mode=cohort_mode, stld_enabled=algorithm.stld, device=self.device)
+        if getattr(algorithm, "device_rank", None) is not None:
+            ctx.engine.enable_hetlora(algorithm.device_rank)
         self.state = RoundState(key=key, global_peft=global_peft, rng=rng,
                                 configurator=algorithm.build_configurator(ctx))
         self.scheduler = VirtualClockScheduler(

@@ -90,24 +90,32 @@ class SystemModel:
         self.peft_params = peft_params or self._default_peft_params()
 
     def _default_peft_params(self) -> int:
-        """LoRA parameters over ``lora_targets`` (the port's PEFT is LoRA)."""
+        """Trainable parameters of ``peft_cfg.method``: LoRA over
+        ``lora_targets``, the two bottleneck adapters a layer, BitFit's two
+        biases a layer, or none."""
         if self.peft_cfg is None:
             return 0
         cfg, p = self.cfg, self.peft_cfg
         d, hd = cfg.d_model, cfg.resolved_head_dim
-        per_layer = 0
-        for t in p.lora_targets:
-            if t == "q":
-                per_layer += p.lora_rank * (d + cfg.num_heads * hd)
-            elif t in ("k", "v"):
-                per_layer += p.lora_rank * (d + cfg.num_kv_heads * hd)
-            elif t == "o":
-                per_layer += p.lora_rank * (cfg.num_heads * hd + d)
-            elif t in ("up", "gate"):
-                per_layer += p.lora_rank * (d + cfg.d_ff)
-            elif t == "down":
-                per_layer += p.lora_rank * (cfg.d_ff + d)
-        return per_layer * cfg.num_layers
+        if p.method == "lora":
+            per_layer = 0
+            for t in p.lora_targets:
+                if t == "q":
+                    per_layer += p.lora_rank * (d + cfg.num_heads * hd)
+                elif t in ("k", "v"):
+                    per_layer += p.lora_rank * (d + cfg.num_kv_heads * hd)
+                elif t == "o":
+                    per_layer += p.lora_rank * (cfg.num_heads * hd + d)
+                elif t in ("up", "gate"):
+                    per_layer += p.lora_rank * (d + cfg.d_ff)
+                elif t == "down":
+                    per_layer += p.lora_rank * (cfg.d_ff + d)
+            return per_layer * cfg.num_layers
+        if p.method == "adapter":
+            return 2 * (2 * cfg.d_model * p.adapter_dim) * cfg.num_layers
+        if p.method == "bitfit":
+            return 2 * cfg.d_model * cfg.num_layers
+        return 0
 
     # ------------------------------------------------------------- pieces
     def flops_per_token(self, *, training: bool, peft: bool, active_fraction=1.0):

@@ -34,9 +34,11 @@ def value_and_grad(fn):
         params = tree_map(lambda p: p.detach().requires_grad_(True), peft_params)
         loss, aux = fn(params, *args)
         leaves = tree_leaves(params)
+        aux = {k: v.detach() if isinstance(v, torch.Tensor) else v for k, v in aux.items()}
+        if not leaves:  # PEFT method none: nothing trains
+            return (loss.detach(), aux), params
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = iter(torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads))
-        aux = {k: v.detach() if isinstance(v, torch.Tensor) else v for k, v in aux.items()}
         return (loss.detach(), aux), tree_map(lambda _: next(grads), params)
 
     return wrapped
@@ -67,7 +69,7 @@ def make_train_step(cfg, peft_cfg, train_cfg, *, stld_mode: str = "off", mean_ra
     """
     if stld_mode not in ("off", "cond", "gather"):
         raise ValueError(f"stld_mode must be 'off', 'cond' or 'gather', got {stld_mode!r}")
-    lora_sc = peft_lib.lora_scale(peft_cfg)
+    lora_sc = peft_lib.lora_scale(peft_cfg) if peft_cfg.method == "lora" else 1.0
     rates = None
     if stld_mode != "off":
         if shape is None:

@@ -13,9 +13,9 @@ import torch
 
 from repro_torch.nn.attention import attention_apply
 from repro_torch.nn.mamba import mamba_apply
-from repro_torch.nn.mlp import mlp_apply
+from repro_torch.nn.mlp import adapter_apply, mlp_apply
 from repro_torch.nn.moe import moe_apply
-from repro_torch.nn.norms import apply_rmsnorm
+from repro_torch.nn.norms import apply_norm
 from repro_torch.nn.rwkv import channel_mix_apply, time_mix_apply
 
 
@@ -51,6 +51,26 @@ def init_layer_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device
     }
 
 
+def _add_bias(out, bias, devices: Optional[int]):
+    """``out + bias`` (BitFit); for a cohort (``devices`` N, ``bias`` (N,
+    d)) each device's row block of ``out`` takes its own bias."""
+    bias = bias.to(out.dtype)
+    if devices is None or bias.ndim == 1:
+        return out + bias
+    return (out.reshape(devices, -1, out.shape[-1]) + bias[:, None]).reshape(out.shape)
+
+
+def _peft_out(out, peft, devices: Optional[int], *, bias: str, adapter: Optional[str] = None):
+    """A mixer's or feed-forward's output through its PEFT branches: the
+    adapter ``peft[adapter]``, then the bias ``peft[bias]``, each where the
+    tree has it."""
+    if adapter in peft:
+        out = adapter_apply(peft[adapter], out, devices)
+    if bias in peft:
+        out = _add_bias(out, peft[bias], devices)
+    return out
+
+
 def layer_apply(params, cfg, h, *, positions, causal=True, cache: Optional[dict] = None,
                 peft: Optional[dict] = None, lora_scale: float = 1.0, devices: Optional[int] = None):
     """One residual block: RWKV6 time-mix + channel-mix (LoRA on the
@@ -58,34 +78,43 @@ def layer_apply(params, cfg, h, *, positions, causal=True, cache: Optional[dict]
     Mamba with LoRA on ``in`` and ``out``) followed by a pre-norm MoE or
     SwiGLU MLP.  Returns (h, the MoE aux loss (0.0 without MoE), new_cache).
 
+    The adapter and BitFit branches sit where the reference puts them:
+    ``bias_attn`` on the RWKV time-mix and on the Mamba output,
+    ``adapter_attn`` then ``bias_attn`` on the attention output, and
+    ``adapter_mlp`` then ``bias_mlp`` on the MLP's or MoE's output and on
+    the RWKV channel-mix.
+
     ``devices`` N: ``h`` folds N devices' equal row blocks into its batch
-    and every LoRA node holds one adapter per device (``(N, in, r)``); the
-    MoE routes each device's tokens apart and its aux loss is (N,)."""
+    and every PEFT node holds one adapter or bias per device (``(N, in,
+    r)``, ``(N, d)``); the MoE routes each device's tokens apart and its
+    aux loss is (N,)."""
     peft = peft or {}
     kind = params_kind(params)
     if kind == "rwkv":
         tm_out, tm_state = time_mix_apply(
-            params["time_mix"], cfg, apply_rmsnorm(params["norm1"], h, cfg.norm_eps), state=cache
+            params["time_mix"], cfg, apply_norm(params["norm1"], h, cfg.norm_eps), state=cache
         )
-        h = h + tm_out
+        h = h + _peft_out(tm_out, peft, devices, bias="bias_attn")
         cm_out, cm_state = channel_mix_apply(
-            params["channel_mix"], cfg, apply_rmsnorm(params["norm2"], h, cfg.norm_eps), state=cache,
+            params["channel_mix"], cfg, apply_norm(params["norm2"], h, cfg.norm_eps), state=cache,
             peft=peft.get("cm"), lora_scale=lora_scale,
         )
-        h = h + cm_out
+        h = h + _peft_out(cm_out, peft, devices, adapter="adapter_mlp", bias="bias_mlp")
         return h, 0.0, ({**tm_state, **cm_state} if cache is not None else None)
-    x = apply_rmsnorm(params["norm1"], h, cfg.norm_eps)
+    x = apply_norm(params["norm1"], h, cfg.norm_eps)
     if kind == "mamba":
         out, _ = mamba_apply(params["mamba"], cfg, x, state=cache, peft=peft.get("mamba"), lora_scale=lora_scale)
         new_cache = None  # a state raises in mamba_apply: the decode state is not ported
+        out = _peft_out(out, peft, devices, bias="bias_attn")
     else:
         out, new_cache = attention_apply(params["attn"], cfg, x, positions, causal=causal, cache=cache,
                                          peft=peft.get("attn"), lora_scale=lora_scale)
+        out = _peft_out(out, peft, devices, adapter="adapter_attn", bias="bias_attn")
     h = h + out
-    x = apply_rmsnorm(params["norm2"], h, cfg.norm_eps)
+    x = apply_norm(params["norm2"], h, cfg.norm_eps)
     aux = 0.0
     if "moe" in params:
         out, aux = moe_apply(params["moe"], cfg, x, devices=devices)
     else:
         out = mlp_apply(params["mlp"], cfg, x, peft.get("mlp"), lora_scale)
-    return h + out, aux, new_cache
+    return h + _peft_out(out, peft, devices, adapter="adapter_mlp", bias="bias_mlp"), aux, new_cache

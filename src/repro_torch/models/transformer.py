@@ -28,17 +28,18 @@ from repro_torch.models import stacking
 from repro_torch.models.layers import init_layer_cache, layer_apply, layer_kind
 from repro_torch.nn.initializers import normal_init, truncated_lecun
 from repro_torch.nn.mamba import init_mamba
+from repro_torch.nn.mlp import init_mlp
 from repro_torch.nn.moe import init_moe
-from repro_torch.nn.norms import apply_rmsnorm
+from repro_torch.nn.norms import apply_norm
 from repro_torch.nn.rwkv import init_rwkv_channel_mix, init_rwkv_time_mix
 
 
 def _init_rwkv_layers(cfg, generator: torch.Generator):
     """The stacked ``(L, ...)`` layers of an ``ssm`` (RWKV6) stack."""
-    device, lead = generator.device, (cfg.num_layers,)
+    lead = (cfg.num_layers,)
     return {
-        "norm1": {"scale": torch.ones((*lead, cfg.d_model), device=device)},
-        "norm2": {"scale": torch.ones((*lead, cfg.d_model), device=device)},
+        "norm1": _model_norm(cfg, generator, lead),
+        "norm2": _model_norm(cfg, generator, lead),
         "time_mix": init_rwkv_time_mix(cfg, generator, lead),
         "channel_mix": init_rwkv_channel_mix(cfg, generator, lead),
     }
@@ -51,6 +52,15 @@ def _proj(generator, lead, d_in, d_out, place=None):
 
 def _norm(generator, lead, dim):
     return {"scale": torch.ones((*lead, dim), device=generator.device)}
+
+
+def _model_norm(cfg, generator, lead):
+    """A layer's or the final norm: RMSNorm, or LayerNorm (with a zero
+    ``bias``) for a GELU config, as the reference's ``_norm_init``."""
+    p = _norm(generator, lead, cfg.d_model)
+    if cfg.activation == "gelu":
+        p["bias"] = torch.zeros((*lead, cfg.d_model), device=generator.device)
+    return p
 
 
 def _init_attention(cfg, generator, lead, place=None):
@@ -67,28 +77,22 @@ def _init_attention(cfg, generator, lead, place=None):
     return attn
 
 
-def _init_mlp(cfg, generator, lead, place=None):
-    d, ff = cfg.d_model, cfg.d_ff
-    return {"gate": _proj(generator, lead, d, ff, place), "up": _proj(generator, lead, d, ff, place),
-            "down": _proj(generator, lead, ff, d, place)}
-
-
 def _init_attn_layers(cfg, generator: torch.Generator, place=None):
     """The stacked ``(L, ...)`` layers of a dense decoder; ``place(proj)``,
     when given, takes each projection as soon as it is drawn."""
     lead = (cfg.num_layers,)
     return {
-        "norm1": _norm(generator, lead, cfg.d_model),
-        "norm2": _norm(generator, lead, cfg.d_model),
+        "norm1": _model_norm(cfg, generator, lead),
+        "norm2": _model_norm(cfg, generator, lead),
         "attn": _init_attention(cfg, generator, lead, place),
-        "mlp": _init_mlp(cfg, generator, lead, place),
+        "mlp": init_mlp(cfg, generator, lead=lead, place=place),
     }
 
 
 def init_layer(cfg, l: int, generator: torch.Generator):
     """Layer ``l`` of a hybrid stack (float32), as ``repro.models.layers
-    .init_layer``: a Mamba or attention mixer, then MoE or a SwiGLU MLP."""
-    p = {"norm1": _norm(generator, (), cfg.d_model), "norm2": _norm(generator, (), cfg.d_model)}
+    .init_layer``: a Mamba or attention mixer, then MoE or an MLP."""
+    p = {"norm1": _model_norm(cfg, generator, ()), "norm2": _model_norm(cfg, generator, ())}
     if layer_kind(cfg, l) == "mamba":
         p["mamba"] = init_mamba(cfg, generator)
     else:
@@ -96,7 +100,7 @@ def init_layer(cfg, l: int, generator: torch.Generator):
     if cfg.is_moe_layer(l):
         p["moe"] = init_moe(cfg, generator)
     else:
-        p["mlp"] = _init_mlp(cfg, generator, ())
+        p["mlp"] = init_mlp(cfg, generator)
     return p
 
 
@@ -117,7 +121,7 @@ def init_lm(cfg, generator: torch.Generator, place=None):
         params["layers"] = place("layers", _init_rwkv_layers(cfg, generator))
     else:  # each stacked projection placed as drawn, then the rest of the stack
         params["layers"] = place("layers", _init_attn_layers(cfg, generator, lambda tree: place("layers", tree)))
-    params["final_norm"] = place("final_norm", {"scale": torch.ones((cfg.d_model,), device=generator.device)})
+    params["final_norm"] = place("final_norm", _model_norm(cfg, generator, ()))
     if not cfg.tie_embeddings:
         params["lm_head"] = place("lm_head", normal_init(generator, (cfg.d_model, cfg.vocab_size)))
     return params
@@ -253,6 +257,6 @@ def lm_apply(params, cfg, tokens, *, positions=None, drops=None, caches=None, pe
         params["layers"], cfg, h, positions=positions, causal=True, drops=drops, caches=caches,
         peft=peft, lora_scale=lora_scale, devices=devices, stack_mode=stack_mode, active_idx=active_idx,
     )
-    h = apply_rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    h = apply_norm(params["final_norm"], h, cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return h @ head.to(compute_dtype), aux, new_caches

@@ -5,7 +5,7 @@ Tokens (B, S, d) are cut into groups of at most 4 096; per group a top-k
 router (softmax in float32, iterative argmax, gates renormalised over the
 chosen experts) gives each token a position in each chosen expert's queue
 of ``capacity`` slots (overflow is dropped), and one-hot dispatch and
-combine tensors move the tokens through the experts.  The expert SwiGLU
+combine tensors move the tokens through the experts.  The experts' MLP
 products are ``(E, groups * capacity, d)`` batched matmuls, which the JAX
 package also leaves to XLA outside any Pallas kernel.  The aux loss is the
 Switch load-balance loss over the first choice.  A cohort (``devices``)
@@ -24,32 +24,34 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.nn.initializers import truncated_lecun
+from repro_torch.nn.mlp import gelu, init_mlp
 
 _DEFAULT_GROUP = 4096
 _WEIGHT_GATHER_MAX_TOKENS = 8  # repro/nn/moe.py: at or below, decode gathers expert weights
 
 
 def init_moe(cfg, generator: torch.Generator):
-    """One layer's router and stacked SwiGLU experts (float32), with the
-    shapes of ``repro.nn.moe.init_moe``, drawn on the generator's device."""
+    """One layer's router and stacked experts (float32, SwiGLU or GELU as
+    ``cfg.activation`` says), with the shapes of
+    ``repro.nn.moe.init_moe``, drawn on the generator's device."""
     if cfg.shared_expert:
         raise NotImplementedError("the shared expert is not ported")
-    d, ff, e = cfg.d_model, cfg.d_ff, cfg.num_experts
-
-    def proj(d_in, d_out):
-        return {"w": truncated_lecun(generator, (e, d_in, d_out), fan_in_axis=1)}
-
-    return {
-        "router": {"w": truncated_lecun(generator, (d, e))},
-        "experts": {"gate": proj(d, ff), "up": proj(d, ff), "down": proj(ff, d)},
-    }
+    router = {"w": truncated_lecun(generator, (cfg.d_model, cfg.num_experts))}
+    return {"router": router, "experts": init_mlp(cfg, generator, lead=(cfg.num_experts,))}
 
 
 def _expert_ffn(experts, x):
-    """SwiGLU of each expert on its own tokens.  x: (E, C, d) -> (E, C, d)."""
-    g = torch.matmul(x, experts["gate"]["w"].to(x.dtype))
-    u = torch.matmul(x, experts["up"]["w"].to(x.dtype))
-    return torch.matmul(F.silu(g) * u, experts["down"]["w"].to(x.dtype))
+    """Each expert's MLP on its own tokens.  x: (E, C, d) -> (E, C, d).
+    The GELU branch adds ``up``'s bias after the activation, as the
+    reference's ``_expert_ffn`` does."""
+    if "gate" in experts:
+        g = torch.matmul(x, experts["gate"]["w"].to(x.dtype))
+        u = torch.matmul(x, experts["up"]["w"].to(x.dtype))
+        h = F.silu(g) * u
+    else:
+        h = gelu(torch.matmul(x, experts["up"]["w"].to(x.dtype))) + experts["up"]["b"].to(x.dtype)[:, None, :]
+    y = torch.matmul(h, experts["down"]["w"].to(x.dtype))
+    return y + experts["down"]["b"].to(x.dtype)[:, None, :] if "b" in experts["down"] else y
 
 
 def _one_hot(values, n: int, dtype):

@@ -1,4 +1,5 @@
-"""RMSNorm (computed in float32, cast back to the input dtype)."""
+"""RMSNorm, and the LayerNorm of a GELU config (``activation="gelu"``),
+both computed in float32 and cast back to the input dtype."""
 from __future__ import annotations
 
 import torch
@@ -10,3 +11,17 @@ def apply_rmsnorm(params, x, eps: float = 1e-5):
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * params["scale"].float()).to(orig)
+
+
+def apply_layernorm(params, x, eps: float = 1e-5):
+    orig = x.dtype
+    x = x.float()
+    mean = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, unbiased=False)
+    x = (x - mean) * torch.rsqrt(var + eps)
+    return (x * params["scale"].float() + params["bias"].float()).to(orig)
+
+
+def apply_norm(params, x, eps: float = 1e-5):
+    """A layer's or the final norm: LayerNorm where it has a ``bias``."""
+    return apply_layernorm(params, x, eps) if "bias" in params else apply_rmsnorm(params, x, eps)

@@ -1,4 +1,5 @@
-"""Functional AdamW over trees of tensors, as ``repro.optim.adamw``.
+"""Functional AdamW (and SGD with momentum) over trees of tensors, as
+``repro.optim.adamw``.
 
 The frozen base holds no optimizer state: only the PEFT tree (float32) has
 moments, which is the memory argument of paper Fig. 3.  The update is the
@@ -26,8 +27,8 @@ def _global_sq_sum(grads, devices=None):
     and summed.  A cohort (``devices`` N): each leaf's (N,) sums, arranged
     (N, layers x leaves) layer-major and summed per device."""
     leaves = [g.float() for g in tree_leaves(grads)]
-    if not leaves:
-        return torch.zeros((), dtype=torch.float32)
+    if not leaves:  # PEFT method none: on the host, as no leaf names a device
+        return torch.zeros(() if devices is None else (devices,), dtype=torch.float32)
     if devices is not None:
         parts = [torch.sum(torch.square(g), dim=tuple(range(1, g.ndim))) for g in leaves]
         return torch.sum(torch.stack(parts, dim=-1), dim=-1)
@@ -85,6 +86,22 @@ def adamw_update(grads, state, params, *, lr, beta1: float = 0.9, beta2: float =
 
     flat = tree_map(upd, grads, state["m"], state["v"], params)
     return _pick(flat, 2), {"m": _pick(flat, 0), "v": _pick(flat, 1), "count": count}
+
+
+def sgdm_init(params):
+    return {"mom": tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)}
+
+
+def sgdm_update(grads, state, params, *, lr, momentum: float = 0.9):
+    """One step of SGD with momentum, as the reference's:
+    ``m = momentum * m + g``, ``p = p - lr * m`` (float32, cast back)."""
+
+    def upd(g, m, p):
+        m2 = momentum * m + g.float()
+        return m2, (p.float() - lr * m2).to(p.dtype)
+
+    flat = tree_map(upd, grads, state["mom"], params)
+    return _pick(flat, 1), {"mom": _pick(flat, 0)}
 
 
 def _pick(tree, i):

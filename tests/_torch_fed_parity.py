@@ -130,30 +130,37 @@ def record(runner):
     return rec
 
 
-def jax_kwargs(stld_kw, fed_kw, arch, cfg_kw):
+def jax_kwargs(stld_kw, fed_kw, arch, cfg_kw, peft_kw=None):
     return dict(cfg=jax_get_config(arch, smoke=True).replace(**cfg_kw),
-                peft_cfg=JaxPEFTConfig(method="lora", lora_rank=2), stld_cfg=JaxSTLDConfig(**stld_kw),
-                fed_cfg=JaxFederatedConfig(**fed_kw), train_cfg=JaxTrainConfig(**TRAIN_KW), seed=SEED)
+                peft_cfg=JaxPEFTConfig(**{"method": "lora", "lora_rank": 2, **(peft_kw or {})}),
+                stld_cfg=JaxSTLDConfig(**stld_kw), fed_cfg=JaxFederatedConfig(**fed_kw),
+                train_cfg=JaxTrainConfig(**TRAIN_KW), seed=SEED)
 
 
-def jax_run(method, rounds, *, stld_kw=None, fed_kw=FED_KW, arch="qwen3-1.7b", cfg_kw=CFG_KW, **kwargs):
-    """The reference's run, sequential: (base, initial LoRA, records,
-    result, event log, fault log)."""
+def jax_run(method, rounds, *, stld_kw=None, fed_kw=FED_KW, arch="qwen3-1.7b", cfg_kw=CFG_KW, peft_kw=None,
+            **kwargs):
+    """The reference's run, sequential: (base, initial PEFT tree of the
+    context, the global tree ``bind`` gave (hetlora draws its own), records,
+    result, event log, fault log, the bandit's final ``state_dict``)."""
     stld_kw = stld_kw or dict(mode="cond", mean_rate=0.5)
-    runner = jax_api.build(method, **jax_kwargs(stld_kw, fed_kw, arch, cfg_kw), cohort_mode="sequential",
+    runner = jax_api.build(method, **jax_kwargs(stld_kw, fed_kw, arch, cfg_kw, peft_kw), cohort_mode="sequential",
                            **kwargs)
     base = jax.tree.map(np.asarray, runner.ctx.engine.base_params)
     peft0 = jax.tree.map(np.asarray, runner.ctx.init_global_peft)
+    global0 = jax.tree.map(np.asarray, runner.state.global_peft)
     rec = record(runner)
     result = runner.run(rounds=rounds)
-    return dict(base=base, peft0=peft0, rec=rec, result=result, history=runner.state.history,
-                events=list(runner.scheduler.event_log), faults=list(runner.scheduler.fault_log))
+    cfgor = runner.state.configurator
+    return dict(base=base, peft0=peft0, global0=global0, rec=rec, result=result, history=runner.state.history,
+                events=list(runner.scheduler.event_log), faults=list(runner.scheduler.fault_log),
+                configurator=None if cfgor is None else cfgor.state_dict())
 
 
 def port_runner(monkeypatch, method, base, peft0, *, stld_kw=None, fed_kw=FED_KW, arch="qwen3-1.7b", cfg_kw=CFG_KW,
-                cohort_mode="batched", **kwargs):
-    """The port's runner on the CPU with JAX's weights, initial LoRA and
-    key stream (not run yet)."""
+                cohort_mode="batched", peft_kw=None, **kwargs):
+    """The port's runner on the CPU with JAX's weights, initial PEFT tree
+    (``peft_kw`` the ``PEFTConfig`` fields past rank 2 LoRA) and key stream
+    (not run yet)."""
     stld_kw = stld_kw or dict(mode="cond", mean_rate=0.5)
     fed = FederatedConfig(**fed_kw)
     draws = JaxDraws(SEED, fed.local_steps, gather=stld_kw.get("mode") == "gather")
@@ -161,7 +168,8 @@ def port_runner(monkeypatch, method, base, peft0, *, stld_kw=None, fed_kw=FED_KW
     monkeypatch.setattr(stld, "sample_drops", draws.drops)
     monkeypatch.setattr(stld, "sample_active_indices", draws.indices)
     runner = api.build(
-        method, cfg=get_config(arch, smoke=True).replace(**cfg_kw), peft_cfg=PEFTConfig(lora_rank=2),
+        method, cfg=get_config(arch, smoke=True).replace(**cfg_kw),
+        peft_cfg=PEFTConfig(**{"lora_rank": 2, **(peft_kw or {})}),
         stld_cfg=STLDConfig(**stld_kw), fed_cfg=fed, train_cfg=TrainConfig(**TRAIN_KW), seed=SEED,
         params=convert.params_from_jax(base, "cpu"), device="cpu", cohort_mode=cohort_mode, **kwargs,
     )

@@ -12,8 +12,9 @@
   reference's unfused functions) rounds each operation; ``compressed_bytes`` and
   ``uplink_ratio`` equal to the reference's and ``compressed_bytes`` to the
   port's ``serialize_compressed``, whose buffers equal the reference's.
-* ``compression="auto"`` (the joint bandit) raises
-  ``NotImplementedError``.  The runner at ``int8+topk`` with error feedback
+* ``compression="auto"`` and ``{"tune": True}`` (the joint bandit) run a
+  round with the bandit's startup arms (``tests/test_torch_joint_bandit.py``
+  holds it to the reference).  The runner at ``int8+topk`` with error feedback
   is held to JAX's under the deadline schedule in
   ``tests/test_torch_schedules.py``, and ``compression="none"`` to no
   compression there.
@@ -143,7 +144,24 @@ def test_resolve_compression_follows_jax():
 # ------------------------------------------------------------- the runner
 @pytest.mark.parametrize("spec", ["auto", {"kind": "int8", "tune": True}])
 def test_joint_bandit_raises(spec):
+    """The joint bandit, which raised until it was ported, runs a round:
+    its first arms are the startup pairs, round-robin over the cohort, and
+    each device's uplink ratio follows its level (1 for ``none``).  The
+    name is the one the test had while the bandit raised: each case now
+    asserts that it runs."""
     cfg = get_config("qwen3-1.7b", smoke=True).replace(**CFG_KW)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 6"):
-        api.build("droppeft", cfg=cfg, fed_cfg=FederatedConfig(num_devices=4, devices_per_round=2), device="cpu",
-                  compression=spec)
+    runner = api.build("droppeft", cfg=cfg, fed_cfg=FederatedConfig(num_devices=4, devices_per_round=3, local_steps=1,
+                                                                     batch_size=2), device="cpu", compression=spec)
+    assert runner.state.configurator.joint
+    plans, compress = [], runner.algorithm.compress_uplink
+
+    def recorded(state, results):
+        state, results = compress(state, results)
+        plans.append((list(results.plan.rates), list(results.plan.compression), results.uplink_ratio.tolist()))
+        return state, results
+
+    runner.algorithm.compress_uplink = recorded
+    assert runner.run(rounds=1).rounds == 1
+    rates, levels, ratios = plans[0]
+    assert list(zip(rates, levels)) == [(0.2, "none"), (0.5, "int8"), (0.7, "topk")]
+    assert ratios[0] == 1.0 and max(ratios[1:]) < 1.0

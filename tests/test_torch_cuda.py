@@ -78,6 +78,24 @@ def test_cuda_segmented_lora_matches_twin(cuda, dtype, m, k, n, stale):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k,n", [(2048, 2048), (2048, 1024)])
+@pytest.mark.parametrize("m", [8, 12])
+def test_cuda_segmented_lora_hetlora_ranks_match_twin(cuda, dtype, m, k, n):
+    """A FedHetLoRA checkpoint's tenants: ranks 4, 8, 16 and 16 in a pool of
+    r_max 16 over stale tails, at qwen3-1.7b's q and v projections."""
+    arrays = _pool(np.random.default_rng(60 + m), m=m, k=k, n=n, ranks=(4, 8, 16, 16), stale=True, r_max=16)
+    args = _to_torch(arrays, dtype, cuda)
+    ops.reset_launch_counts()
+    got = ops.segmented_lora(*args)
+    assert ops.launch_counts["segmented_lora"] == 1
+    want = ref.segmented_lora_plain(*args)
+    torch.cuda.synchronize()
+    atol, rtol = (3e-2, 1e-2) if dtype == "bfloat16" else (1e-4, 1e-5)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
 def test_cuda_segmented_lora_batch_invariant(cuda):
     """A mixed-adapter batch gives bitwise the rows of uniform batches."""
     x, w, a, b, idx, ranks = _to_torch(
@@ -94,6 +112,7 @@ SEGMENTED_SHAPES = [  # (K, N): the decode step's v; K off the 128-row slab step
     (2048, 1024), (1000, 1000), (2100, 333),
     # the q and v projections of glm4-9b, h2o-danube-1.8b and yi-6b
     (4096, 4096), (4096, 256), (2560, 2560), (2560, 640), (4096, 512),
+    (2048, 2048),  # qwen3-1.7b's q
 ]
 
 
@@ -378,6 +397,9 @@ LORA_CASES = [  # (M, K, N, r)
     # the q and v projections of glm4-9b (K 4096, N 4096 and 256), h2o-danube-1.8b (K 2560, N 2560 and 640)
     # and yi-6b (K 4096, N 512)
     (300, 4096, 4096, 8), (300, 4096, 256, 8), (300, 2560, 2560, 8), (300, 2560, 640, 8), (300, 4096, 512, 8),
+    # FedHetLoRA's lowest and highest ranks at the federated rounds' shape (16 x 32 tokens, qwen3-1.7b's q and v):
+    # below 8 the bottleneck is staged through the RT path, above 8 the epilogue sums each group of 8 ranks in turn
+    (512, 2048, 2048, 4), (512, 2048, 1024, 4), (512, 2048, 2048, 16), (512, 2048, 1024, 16),
 ]
 
 

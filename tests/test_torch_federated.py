@@ -444,20 +444,31 @@ def test_batched_runner_follows_jax_for_ssm_and_hybrid_stacks(jax_runs, monkeypa
     _assert_follows_jax(rows, want_rows, got, want, FederatedConfig(**fed_kw), 2)
 
 
-# ------------------------------------------------------------- unported options
+# ------------------------------------------------------------- options of queue 1
 _TINY = dict(cfg=get_config("qwen3-1.7b", smoke=True).replace(**_CFG_KW),
              fed_cfg=FederatedConfig(num_devices=4, devices_per_round=2, local_steps=1, batch_size=2), device="cpu")
 
 
 @pytest.mark.parametrize("kwargs", [
     {"compression": "auto"}, {"compression": {"kind": "int8", "tune": True}}, {"peft": "adapter"},
-    {"method": "fedhetlora"},
+    {"method": "fedhetlora"}, {"peft": "bitfit"}, {"peft": "none"},
 ], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
 def test_unported_options_raise(kwargs):
+    """The options of queue 1, items 6 and 7 that raised until the joint
+    bandit, FedHetLoRA and the adapter, BitFit and empty PEFT kinds were
+    ported now build and run a round, with the PEFT tree of the kind asked
+    for (``tests/test_torch_peft_methods.py``, ``test_torch_hetlora.py``
+    and ``test_torch_joint_bandit.py`` hold them to the JAX package).  The
+    name is the one the test had while these options raised: each case
+    now asserts that its option runs."""
     kwargs = dict(kwargs)
     method = kwargs.pop("method", "droppeft")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item"):
-        api.build(method, **_TINY, **kwargs)
+    runner = api.build(method, **_TINY, **kwargs)
+    result = runner.run(rounds=1)
+    assert result.rounds == 1 and np.isfinite(result.cum_time_s).all() and np.isfinite(result.final_accuracy)
+    keys = set(runner.state.global_peft)
+    want = {"adapter": {"adapter_attn", "adapter_mlp"}, "bitfit": {"bias_attn", "bias_mlp"}, "none": set()}
+    assert keys == want.get(kwargs.get("peft"), {"attn"})
 
 
 @pytest.mark.parametrize("kwargs", [
