@@ -54,7 +54,14 @@ Phases, one line each before the last:
    h2o-danube-1.8b's and yi-6b's widths; and FedHetLoRA's shapes:
    lora_matmul at ranks 4 and 16 (scales 4 and 1) at the federated rounds'
    16 x 32 tokens on the wgmma route, forward, dX, dA and dB, and
-   segmented_lora over tenants of rank 4, 8, 16 and 16 (r_max 16);
+   segmented_lora over tenants of rank 4, 8, 16 and 16 (r_max 16); and
+   serving's scans from a state: mamba_scan from an entering state h0 at
+   jamba's decode step (B 8, S 1, D 8192, N 16) and prefill (S 128), and
+   wkv6 at S 1 from s0 (B 8, 40 heads of 64), bf16 and float32, each
+   timed beside its twin and its bound (the state's bytes read and
+   written, where S is 1), and flash_decode over phase 5h's ring of 160
+   slots and flash_attention over its 128-token prompts at batch 8, at
+   qwen3-1.7b's heads and jamba-v0.1-52b's;
 4. full-width qwen3-1.7b (28 layers, random weights from ``--seed``)
    served through ``repro_torch.api.serve``: 12 requests over 4 LoRA
    tenants of rank 4/8 at batch 8, rows recycling mid-run; every completion
@@ -130,13 +137,33 @@ Phases, one line each before the last:
    (``merge_check``); seconds a round, idle share and peak
    memory of each method; and smoke-size runs of each (rwkv6-3b and jamba
    with adapter and BitFit) on the card against the CPU twins;
+5h. recurrent-state serving through ``repro_torch.launch.serve``'s
+   functions (``make_prefill_step``, then ``generate``) of full-width
+   rwkv6-3b, jamba-v0.1-52b cut to 8 layers as in phase 5c (the cut
+   printed) and qwen3-1.7b, random weights from ``--seed``, batch 8,
+   128-token prompts, 32 new tokens, bf16: each kernel's launches in the
+   prefill and in every decode step (a wkv6 per RWKV6 layer, a mamba_scan
+   from its state per Mamba layer, a flash_decode per attention layer;
+   flash_attention in the prefill), generate's tokens equal to a second
+   run's and to a hand-rolled serve_step loop's, ``eos_id`` and per-row
+   ``max_new_tokens`` freezing the rows they should; float32 decode (16
+   prompt tokens, then 8 one at a time, 2 rows) against the cache-free
+   forward within 1e-3 max|logit|, which the same decode with its carried
+   state zeroed must fail (rwkv6-3b at 8 layers, where float32 reproduces
+   itself, its 32 layers reported beside: ``F32_CHECK_LAYERS``); the smoke
+   models through the same functions on
+   the card against the CPU twins (tokens equal, logits within 1e-4); and
+   prefill ms, ms a decode step, a profiled step's device time and idle
+   share, launches a step and peak memory;
 6. the ``kernels`` JSON line: launches of each kernel in its own path's
    run (serving: phase 4's run; training: phase 5's round at rate 0.5,
    phase 5b's for wkv6 and wkv6_bwd, phase 5c's for mamba_scan and
    mamba_scan_bwd), and for the training kernels also phase 5d's rounds,
    phase 5f's deadline rounds and gather round, phase 5g's runs, and for
-   every kernel of the dense path phase 5e's runs (``launches_by_path``),
-   the other dense decoders' shapes and FedHetLoRA's beside.
+   every kernel of the dense path phase 5e's runs, and phase 5h's serving
+   runs for flash_decode, flash_attention, wkv6 and mamba_scan
+   (``launches_by_path``), the other dense decoders' shapes, FedHetLoRA's
+   and the scans' from a state beside.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits non-zero before it; without a CUDA card, or outside the checkout, the
@@ -207,6 +234,29 @@ class Timer:
         return statistics.median(times)
 
 
+def device_kernels(prof) -> list:
+    """The device events of a finished ``torch.profiler`` run summed by
+    name, as ``prof.key_averages()`` gives those of ``DeviceType.CUDA``:
+    each with ``key``, ``count`` and ``self_device_time_total`` (us).  Read
+    from the profiler's raw events, since key_averages builds an object for
+    every host event as well: minutes for a round of ~2e5 launches.
+    ``device_ms`` holds the two against each other on every profile it
+    takes."""
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        k = by_name.setdefault(e.name(), SimpleNamespace(key=e.name(), count=0, self_device_time_total=0.0))
+        k.count += 1
+        if not e.is_async() and e.start_thread_id() == e.end_thread_id():  # key_averages counts async time as 0
+            k.self_device_time_total += e.duration_ns() / 1e3
+    return list(by_name.values())
+
+
 def device_ms(fn, flush, keys=None, repeats: int = 10):
     """Mean device time per call of ``fn`` from ``torch.profiler`` over
     ``repeats`` calls, each after an L2 flush (left out of the sums): of
@@ -223,7 +273,14 @@ def device_ms(fn, flush, keys=None, repeats: int = 10):
             flush.zero_()
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and "fill" not in e.key.lower()]
+    averaged = {e.key: (e.count, e.self_device_time_total) for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA}
+    events = device_kernels(prof)
+    check({e.key: e.count for e in events} == {k: c for k, (c, _) in averaged.items()}
+          and all(abs(e.self_device_time_total - averaged[e.key][1]) <= 1e-3 * averaged[e.key][1] + 1e-3
+                  for e in events),
+          "device_kernels disagrees with the profiler's key_averages")
+    events = [e for e in events if "fill" not in e.key.lower()]
     mean = lambda us: us / 1e3 / repeats if us > 0 else None  # noqa: E731
     if keys is None:
         return mean(sum(e.self_device_time_total for e in events))
@@ -279,13 +336,14 @@ def kernel_name(mangled: str) -> str:
 def ptxas_resources(log_text: str) -> list:
     """Registers, spill bytes and static shared memory of each entry
     function in a ``ptxas -v`` log, by the kernel's short name and its
-    first template argument."""
+    integer and bool template arguments."""
     out, cur = [], None
     for ln in log_text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
             cur = {"kernel": kernel_name(m.group(1)), "bf16": "__nv_bfloat16" in m.group(1),
-                   "template_ints": [int(v) for v in re.findall(r"Li(\d+)E", m.group(1))]}
+                   "template_ints": [int(v) for v in re.findall(r"Li(\d+)E", m.group(1))],
+                   "template_bools": [v == "1" for v in re.findall(r"Lb([01])E", m.group(1))]}
             out.append(cur)
             continue
         if cur is None:
@@ -388,14 +446,18 @@ def mamba_fwd_occupancy(_build, dtype: int, n: int) -> dict:
     return out
 
 
-def mamba_fwd_resources(dtype, n: int) -> dict:
-    """The mamba_scan forward kernel's registers and spills at (dtype, n)
-    from its ptxas log, and the blocks an SM holds: what sets its waves."""
+def mamba_fwd_resources(dtype, n: int, from_h0: bool = False) -> dict:
+    """The mamba_scan forward kernel's registers and spills at (dtype, n),
+    from zero or (``from_h0``) from an entering state, from its ptxas log,
+    and the blocks an SM holds (of the zero-state instantiation): what sets
+    its waves.  A tree whose kernel has no such template argument (before
+    the entering state) counts as from zero."""
     from repro_torch.kernels import _build
 
     bf16 = dtype == torch.bfloat16
     rows = [r for r in ptxas_resources(build_log(_build, "mamba_scan"))
-            if r["bf16"] == bf16 and r["template_ints"][:1] == [n]]
+            if r["bf16"] == bf16 and r["template_ints"][:1] == [n]
+            and (r["template_bools"][:1] or [False]) == [from_h0]]
     check(len(rows) == 1, f"mamba_scan forward: {len(rows)} kernels at {dtype} N={n} in the ptxas log")
     row = rows[0]
     return {"kernel": row["kernel"], "registers": row["registers"], "spill_stores": row["spill_stores"],
@@ -965,6 +1027,81 @@ def mamba_case(ops, ref, timer, gen, *, dtype, b=16, s=512, d=8192, n=16, time_i
     return case
 
 
+def mamba_h0_case(ops, ref, timer, gen, *, dtype, b=8, s=1, d=8192, n=16):
+    """mamba_scan from an entering state h0 (the serving path: jamba's
+    decode step at S 1, its prefill at S 128) against its twin from the
+    same h0: y within 1e-4 + 1e-3 |ref| in float32 and 3e-2 + 1e-2 |ref|
+    in bf16, the final state within 1e-4 + 1e-3 |ref|; the times of the
+    kernel and the twin (3 repeats), the kernel's device time and the
+    bound: the bytes of dt, x, y, B, C and the state read and written, the
+    exp and float32 operations of mamba_case's forward."""
+    dt = torch.nn.functional.softplus(torch.randn((b, s, d), generator=gen, device="cuda") - 1.0).to(dtype)
+    x = torch.randn((b, s, d), generator=gen, device="cuda").to(dtype)
+    bm, cm = (torch.randn((b, s, n), generator=gen, device="cuda") for _ in range(2))
+    a = -torch.exp(torch.randn((d, n), generator=gen, device="cuda"))
+    dv = torch.randn((d,), generator=gen, device="cuda")
+    h0 = torch.randn((b, d, n), generator=gen, device="cuda")
+    inputs = (dt, x, bm, cm, a, dv, h0)
+    with torch.no_grad():
+        y, st = ops.mamba_scan(*inputs)
+    want_y, want_st = ref.mamba_scan_plain(*inputs)
+    torch.cuda.synchronize()
+    name = str(dtype).split(".")[-1]
+    shape = f"B={b} S={s} D={d} N={n} dt/x {name}, from h0"
+    atol, rtol = (3e-2, 1e-2) if dtype == torch.bfloat16 else (1e-4, 1e-3)
+    err = max((y.float() - want_y.float()).abs().max().item(), (st - want_st).abs().max().item())
+    check(torch.allclose(y.float(), want_y.float(), atol=atol, rtol=rtol)
+          and torch.allclose(st, want_st, atol=1e-4, rtol=1e-3),
+          f"mamba_scan {shape}: max abs err {err} vs twin")
+    case = {"shape": shape, "max_abs_err": err, "atol": atol, "rtol": rtol}
+    with torch.no_grad():
+        case["ms"] = timer(lambda: ops.mamba_scan(*inputs))
+        case["plain_ms"] = timer(lambda: ref.mamba_scan_plain(*inputs), repeats=3)
+        case["kernel_ms"] = device_ms(lambda: ops.mamba_scan(*inputs), timer.flush)
+    case["fwd_resources"] = mamba_fwd_resources(dtype, n, from_h0=True)
+    cells = b * s * d * n
+    terms = {"bytes": (3 * x.element_size() * b * s * d + 4 * 2 * b * s * n + 4 * (d * n + d)
+                       + 2 * 4 * b * d * n) / HBM_BYTES_PER_S * 1e3,
+             "float32": 6 * cells / PEAK_OPS_PER_S["float32"] * 1e3, "exp": cells / SFU_EXP_PER_S * 1e3}
+    top = max(terms, key=terms.get)
+    case.update(bound_ms=terms[top], bound_by="bytes" if top == "bytes" else "operations", bound_terms_ms=terms,
+                state_bytes_read_and_written=2 * 4 * b * d * n, library_ms=None)
+    return case
+
+
+def wkv6_step_case(ops, ref, timer, gen, *, dtype, b=8, h=40, k=64):
+    """wkv6 at S 1 from a state s0 (rwkv6-3b's decode step) against its
+    twin: out and the final state within 1e-4 + 1e-3 |ref|; the times of
+    the kernel and the twin, the kernel's device time and the bound: the
+    bytes of r, k, v, logw, u, out and the state read and written, 5
+    float32 operations a state element."""
+    shape = (b, 1, h, k)
+    r, kk, v = ((0.5 * torch.randn(shape, generator=gen, device="cuda")).to(dtype) for _ in range(3))
+    logw = torch.clamp(-torch.exp(torch.randn(shape, generator=gen, device="cuda")), -4.0, -1e-4)
+    u = 0.3 * torch.randn((h, k), generator=gen, device="cuda")
+    s0 = torch.randn((b, h, k, k), generator=gen, device="cuda")
+    inputs = (r, kk, v, logw, u, s0)
+    with torch.no_grad():
+        out, st = ops.wkv6(*inputs)
+    want_out, want_st = ref.wkv6_plain(*inputs)
+    torch.cuda.synchronize()
+    name = str(dtype).split(".")[-1]
+    err = max((out - want_out).abs().max().item(), (st - want_st).abs().max().item())
+    check(torch.allclose(out, want_out, atol=1e-4, rtol=1e-3) and torch.allclose(st, want_st, atol=1e-4, rtol=1e-3),
+          f"wkv6 one token {name} {shape}: max abs err {err} vs twin")
+    case = {"shape": f"B={b} S=1 H={h} K={k} r/k/v {name}, from s0", "max_abs_err": err, "atol": 1e-4,
+            "rtol": 1e-3}
+    with torch.no_grad():
+        case["ms"] = timer(lambda: ops.wkv6(*inputs))
+        case["plain_ms"] = timer(lambda: ref.wkv6_plain(*inputs), repeats=3)
+        case["kernel_ms"] = device_ms(lambda: ops.wkv6(*inputs), timer.flush)
+    n, state_bytes = b * h * k, 4 * b * h * k * k
+    case["bound_ms"], case["bound_by"] = bound(3 * r.element_size() * n + 4 * n + 4 * h * k + 4 * n + 2 * state_bytes,
+                                               5 * n * k, "float32")
+    case.update(state_bytes_read_and_written=2 * state_bytes, library_ms=None)
+    return case
+
+
 def scans_of(src: str, card: str, seed: int, scans=("wkv6", "mamba_scan")) -> int:
     """The scan kernels (and flash_decode) of the repro_torch already
     imported from ``src``: built into that tree's build/, their registers
@@ -1112,7 +1249,6 @@ def kernel_calls(batcher, keys) -> dict:
     ``SPIN_KERNELS`` short spin kernels launched first in the window (what
     the profiler drops at a window's start falls on them) and of all the
     window's kernels."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1122,7 +1258,7 @@ def kernel_calls(batcher, keys) -> dict:
         torch.cuda.synchronize()
         batcher.step()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    events = device_kernels(prof)
     calls = {key: sum(e.count for e in events if key in e.key) for key in (*keys, "spin_kernel")}
     calls["all_kernels"] = sum(e.count for e in events)
     return calls
@@ -1133,7 +1269,6 @@ def profile_steps(batcher, requests, n_steps: int = 8):
     ``n_steps`` steady steps of a full batch, kernel time by name beside the
     host clock (which the profiler itself slows).  Returns None when the
     profiler sees no device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for r in requests:
@@ -1147,7 +1282,7 @@ def profile_steps(batcher, requests, n_steps: int = 8):
             batcher.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels = device_kernels(prof)
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy == 0.0:
         return None
@@ -1215,7 +1350,6 @@ def profile_round(fns, params, peft, batches, rate: float, seed: int):
     """Device busy and idle share of one local step under ``torch.profiler``
     (a one-step round), beside its host clock.  None when the profiler sees
     no device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.optim import adamw_init
@@ -1227,7 +1361,7 @@ def profile_round(fns, params, peft, batches, rate: float, seed: int):
         fns.local_round(params, peft, adamw_init(peft), one, rate, torch.Generator().manual_seed(seed), 0)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels = device_kernels(prof)
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy == 0.0:
         return None
@@ -1569,7 +1703,6 @@ def profile_fed_round(runner):
     """Device busy and idle share of one federated round (the next round of
     ``runner``) under ``torch.profiler``, beside its host clock.  None when
     the profiler sees no device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1578,7 +1711,7 @@ def profile_fed_round(runner):
         runner.scheduler._sync_round(runner.state.round_index + 1)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels = device_kernels(prof)
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy == 0.0:
         return None
@@ -1981,7 +2114,6 @@ def instrument_dispatches(runner, record: dict):
 def compress_profile(compress, state, results):
     """Device busy time and launches of one ``compress_uplink`` call under
     ``torch.profiler`` (None when the profiler sees no device time)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1990,7 +2122,7 @@ def compress_profile(compress, state, results):
         compress(state, results)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels = device_kernels(prof)
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy == 0.0:
         return None
@@ -2215,7 +2347,6 @@ def device_busy_round(runner, round_s: float):
     ``round_s``, an unprofiled round's seconds, beside the one against the
     profiled round's own wall time.  None when the profiler sees no device
     time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2224,7 +2355,7 @@ def device_busy_round(runner, round_s: float):
         runner.scheduler._sync_round(runner.state.round_index + 1)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels = device_kernels(prof)
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy == 0.0:
         return None
@@ -2615,6 +2746,298 @@ def method_grid_smoke_cuda_vs_cpu(seed: int):
     return out
 
 
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 128, 32  # phase 5h: batch 8, 128-token prompts, 32 new tokens
+RECURRENT_ARCHS = ("rwkv6-3b", "jamba-v0.1-52b", "qwen3-1.7b")
+
+
+def serving_cfg(arch: str, dtype: str = "bfloat16", smoke: bool = False):
+    """Phase 5h's full-width config of ``arch``: jamba-v0.1-52b cut to one
+    period of 8 layers (7 Mamba, 1 attention), as in phase 5c, since its 32
+    layers (~104 GB in bf16) exceed the card's 80 GB; in float32 jamba at
+    ``capacity_factor`` 8.0, as ``tests/test_decode_consistency.py`` runs
+    it, so that the cache-free forward drops no token that decode keeps.
+    ``smoke`` takes the smoke config instead (a rehearsal on the CPU)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch, smoke=smoke).replace(dtype=dtype)
+    if arch == "jamba-v0.1-52b":
+        cfg = cfg.replace(num_layers=8, **({"capacity_factor": 8.0} if dtype == "float32" else {}))
+    return cfg
+
+
+def step_launches(cfg) -> dict:
+    """Each kernel's launches in one decode step: a WKV at S 1 per RWKV6
+    layer, a scan from its state per Mamba layer, a flash_decode per
+    attention layer; nothing else (no adapter, no backward)."""
+    from repro_torch.models.layers import layer_kind
+
+    kinds = [layer_kind(cfg, l) for l in range(cfg.num_layers)]
+    return {"wkv6": kinds.count("rwkv"), "mamba_scan": kinds.count("mamba"), "flash_decode": kinds.count("attn")}
+
+
+def prefill_launches(cfg) -> dict:
+    """The prefill's launches: the decode step's, with flash_attention (an
+    empty ring, positions 0 .. S-1) in place of flash_decode."""
+    want = step_launches(cfg)
+    want["flash_attention"] = want.pop("flash_decode")
+    return want
+
+
+def profile_decode(step, params, token, pos: int, caches, n_steps: int = 4):
+    """Device busy time, idle share and launches of ``n_steps`` decode steps
+    under ``torch.profiler`` (CPU and CUDA activity), beside their host
+    clock, from ``caches`` at ``pos``.  None when the profiler sees no
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(n_steps):
+            _, token, caches = step(params, token, pos + i, caches)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = device_kernels(prof)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy == 0.0:
+        return None
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    return {"steps": n_steps, "wall_ms_per_step_profiled": wall_ms / n_steps,
+            "device_busy_ms_per_step": busy / n_steps, "device_idle_share_profiled": 1.0 - busy / wall_ms,
+            "kernel_launches_per_step": sum(e.count for e in kernels) / n_steps,
+            "top_kernels": [{"kernel": e.key[:80], "ms_per_step": e.self_device_time_total / 1e3 / n_steps,
+                             "calls_per_step": e.count / n_steps} for e in kernels[:6]]}
+
+
+def freeze_steps(tokens, eos_id: int, budgets) -> list:
+    """The step after which ``generate`` with ``eos_id`` and per-row
+    ``budgets`` freezes each row of a run without stops, ``tokens`` (B, T)
+    on the host: the row's first ``eos_id`` at or before step budget - 1,
+    else step budget - 1.  The row emits ``pad_id`` from the next step on,
+    and no ``pad_id`` before."""
+    out = []
+    for row in range(tokens.shape[0]):
+        last = min(int(budgets[row]), tokens.shape[1]) - 1
+        eos = (tokens[row, : last + 1] == eos_id).nonzero()
+        out.append(int(eos[0]) if len(eos) else last)
+    return out
+
+
+def zeroed_states(caches):
+    """A copy of list-layout caches whose carried state (the KV rings, the
+    RWKV6 and Mamba states) is zero and whose positions are kept."""
+    return [{name: t.clone() if name == "pos" else torch.zeros_like(t) for name, t in c.items()} for c in caches]
+
+
+# The depth of the float32 decode check where the model's own float32
+# arithmetic does not reproduce itself at full depth.  A random 32-layer
+# rwkv6-3b amplifies rounding about 1.4x a layer: two cache-free forwards
+# over 16 and 24 tokens disagree on their shared positions by 1.50 of a
+# largest logit of 5.6 with the kernels and by 1.58 with the twins on the
+# card, against 1.5e-3 at 8 layers (NVIDIA H100 80GB HBM3, 700 W).  The full
+# depth's numbers are reported beside the check.
+F32_CHECK_LAYERS = {"rwkv6-3b": 8}
+
+
+def decode_vs_forward(serve, cfg, params, seed: int, zero_state: bool = False):
+    """Float32 decode against the cache-free forward at full width: 2 rows,
+    16 prompt tokens through ``make_prefill_step``, then 8 tokens one at a
+    time through ``make_serve_step``; the logits of positions 15 .. 23
+    against ``lm_apply``'s over all 24 tokens.  Returns their max abs err,
+    the max |logit| and, as the model's own float32 reproducibility, the
+    max abs difference of ``lm_apply`` over the first 16 tokens from the
+    one over 24 on those positions.  ``zero_state`` zeroes the caches'
+    carried state between the prefill and the decode (the check must then
+    fail)."""
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.transformer import init_caches, lm_apply
+
+    device = params["embed"].device
+    toks = torch.from_numpy(serve.random_prompts(cfg, 2, 24, seed + 3)).to(device)
+    with torch.no_grad():
+        full, _, _ = lm_apply(params, cfg, toks)
+        prefix, _, _ = lm_apply(params, cfg, toks[:, :16])
+        caches = init_caches(cfg, 2, 24, dtype=torch.float32, device=device)
+        last, caches = make_prefill_step(cfg)(params, {"tokens": toks[:, :16]}, caches)
+        if zero_state:
+            caches = zeroed_states(caches)
+        step, got = make_serve_step(cfg), [last]
+        for t in range(16, 24):
+            logits, _, caches = step(params, toks[:, t:t + 1].to(torch.int32), t, caches)
+            got.append(logits)
+    out = {"layers": cfg.num_layers, "max_abs_err": (torch.stack(got, dim=1) - full[:, 15:]).abs().max().item(),
+           "max_abs_logit": full.abs().max().item(),
+           "prefix_forward_max_abs_err": (prefix - full[:, :16]).abs().max().item()}
+    return out
+
+
+def serve_smoke_cuda_vs_cpu(serve, seed: int, arch: str):
+    """The smoke model of ``arch`` in float32 through ``prefill_and_generate``
+    on the card (the kernels) and on the CPU (the twins), from the same
+    weights and prompts: the tokens equal, the logits of the prompt and of
+    every decode step within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models.registry import init_params, place_params
+
+    cfg = get_config(arch, smoke=True).replace(dtype="float32")
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    params = init_params(cfg, gen)
+    prompt = serve.random_prompts(cfg, 3, 7, seed)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        seen = []
+        out = serve.prefill_and_generate(cfg, place_params(params, cfg, device), prompt, 5, device,
+                                         serve_step=recording(make_serve_step(cfg), seen))
+        runs[device] = (out["tokens"].cpu(), torch.stack([out["last_logits"].cpu(), *seen]))
+    err = (runs["cuda"][1] - runs["cpu"][1]).abs().max().item()
+    check(torch.equal(runs["cuda"][0], runs["cpu"][0]), f"{arch} smoke serving: tokens differ on the card and the CPU")
+    check(err <= 1e-4, f"{arch} smoke serving on the card vs the CPU twins: max abs logit err {err}")
+    return {"arch": arch, "tokens_equal": True, "max_abs_err": err, "atol": 1e-4}
+
+
+def free_memory(device: str):
+    gc.collect()  # the earlier phases' weights may sit in reference cycles
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+
+def recurrent_serving_full(ops, card, seed: int, arch: str, device: str = "cuda", smoke: bool = False):
+    """Phase 5h for one arch: full-width ``arch`` (``serving_cfg``) served
+    through ``repro_torch.launch.serve``'s functions, random weights from
+    ``seed``, batch 8, 128-token prompts, 32 new tokens, bf16: each
+    kernel's launches in the prefill and in every decode step; ``generate``
+    again, then a hand-rolled ``serve_step`` loop, both with the first
+    run's tokens; ``eos_id`` and per-row ``max_new_tokens`` freezing the
+    rows they should; prefill ms, ms a decode step, a profiled step's
+    device time and idle share, peak memory; then the float32 decode
+    against the cache-free forward (and the same with the carried state
+    zeroed, which must fail), and the smoke model on the card against the
+    CPU twins.  ``device="cpu"`` with ``smoke`` rehearses it on the CPU at
+    the smoke size, every check but the card's own (launches, profile,
+    peak memory, the twins) kept (``tests/test_torch_decode.py``)."""
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.transformer import init_caches
+
+    free_memory(device)
+    on_card = device == "cuda"
+    t_arch = time.perf_counter()
+    cfg = serving_cfg(arch, smoke=smoke)
+    t0 = time.perf_counter()
+    params = serve.init_model(cfg, seed, device)
+    if on_card:
+        torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    prompt = serve.random_prompts(cfg, SERVE_BATCH, SERVE_PROMPT, seed)
+    step = make_serve_step(cfg)
+    seen = {"prefill": None, "steps": []}
+
+    def counted(*args, **kw):  # each decode step's launches; those before the first are the prefill's
+        if seen["prefill"] is None:
+            seen["prefill"] = dict(ops.launch_counts)
+        ops.reset_launch_counts()
+        out = step(*args, **kw)
+        seen["steps"].append(dict(ops.launch_counts))
+        return out
+
+    ops.reset_launch_counts()
+    first = serve.prefill_and_generate(cfg, params, prompt, SERVE_GEN, device, serve_step=counted)
+    check(len(seen["steps"]) == SERVE_GEN, f"{arch}: {len(seen['steps'])} decode steps")
+    if on_card:  # the CPU twins launch nothing
+        check_launches(seen["prefill"], prefill_launches(cfg), f"{arch} prefill")
+        for i, launches in enumerate(seen["steps"]):
+            check_launches(launches, step_launches(cfg), f"{arch} decode step {i}")
+    tokens = first["tokens"].cpu()
+    check(tuple(tokens.shape) == (SERVE_BATCH, SERVE_GEN) and bool(torch.isfinite(first["last_logits"]).all()),
+          f"{arch}: tokens {tuple(tokens.shape)}, prompt logits finite {bool(torch.isfinite(first['last_logits']).all())}")
+    del first
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    timed = serve.prefill_and_generate(cfg, params, prompt, SERVE_GEN, device, serve_step=step)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
+    check(torch.equal(timed["tokens"].cpu(), tokens), f"{arch}: two generate runs give different tokens")
+    profile = None
+    if on_card:
+        profile = profile_decode(step, params, timed["tokens"][:, -1:], SERVE_PROMPT + SERVE_GEN, timed["caches"])
+    prefill_s, decode_s = timed["prefill_s"], timed["decode_s"]
+    del timed
+
+    caches = init_caches(cfg, SERVE_BATCH, SERVE_PROMPT + SERVE_GEN, dtype=torch.bfloat16, device=device)
+    last, caches = make_prefill_step(cfg)(params, {"tokens": prompt}, caches)
+    token, manual = torch.argmax(last, dim=-1)[:, None].to(torch.int32), []
+    for i in range(SERVE_GEN):
+        _, token, caches = step(params, token, SERVE_PROMPT + i, caches)
+        manual.append(token[:, 0])
+    check(torch.equal(torch.stack(manual, dim=1).cpu(), tokens),
+          f"{arch}: generate's tokens differ from a hand-rolled serve_step loop")
+    del caches
+
+    eos_id, budgets, pad_id = int(tokens[0, 12]), [SERVE_GEN, 14, 9, 17, SERVE_GEN, 11, 25, SERVE_GEN], -1
+    stopped = serve.prefill_and_generate(cfg, params, prompt, SERVE_GEN, device, eos_id=eos_id,
+                                         max_new_tokens=torch.tensor(budgets), pad_id=pad_id)["tokens"].cpu()
+    # the freeze points from the unconditional run's tokens (the hybrid
+    # family's live tokens may part from them after the batch's first
+    # freeze, so there a live token of this run takes the place of the
+    # unconditional one): each row holds no pad_id up to its freeze point
+    # and only pad_id after it
+    base = torch.where(stopped == pad_id, tokens, stopped) if cfg.family == "hybrid" else tokens
+    freeze = freeze_steps(base, eos_id, budgets)
+    live = torch.arange(SERVE_GEN)[None, :] <= torch.tensor(freeze)[:, None]
+    check(torch.equal(stopped == pad_id, ~live),
+          f"{arch}: rows not frozen as eos_id {eos_id} and budgets {budgets} say (after steps {freeze})")
+    # up to the step after the batch's first freeze every row's input is the
+    # unconditional run's, so its tokens are too
+    first_stop = min(freeze) + 1
+    check(torch.equal(stopped[:, :first_stop], tokens[:, :first_stop]),
+          f"{arch}: tokens before the first freeze (step {first_stop}) differ from the unconditional run's")
+    live_equal = int((stopped[live] == tokens[live]).sum())
+    if cfg.family != "hybrid":
+        # no row's arithmetic reads another row's values: every live token
+        # is the unconditional run's (jamba's weight gather groups the
+        # step's tokens by expert, so its products' shapes follow the others)
+        check(live_equal == int(live.sum()), f"{arch}: {live_equal} of {int(live.sum())} live tokens as unconditional")
+    del params
+    free_memory(device)
+
+    cfg32 = full_depth = serving_cfg(arch, "float32", smoke)
+    if not smoke and arch in F32_CHECK_LAYERS:
+        cfg32 = cfg32.replace(num_layers=F32_CHECK_LAYERS[arch])
+    params32 = serve.init_model(cfg32, seed, device)
+    f32 = decode_vs_forward(serve, cfg32, params32, seed)
+    limit = 1e-3 * f32["max_abs_logit"]
+    check(f32["max_abs_err"] <= limit, f"{arch} float32 decode vs the cache-free forward at {f32['layers']} layers: "
+                                       f"{f32}, limit {limit}")
+    f32["zeroed_state_max_abs_err"] = decode_vs_forward(serve, cfg32, params32, seed, zero_state=True)["max_abs_err"]
+    check(f32["zeroed_state_max_abs_err"] > limit, f"{arch}: decode with the carried state zeroed passed the "
+                                                   f"check ({f32}): the check cannot fail")
+    f32["limit"] = limit
+    del params32
+    free_memory(device)
+    if cfg32 is not full_depth:  # the full depth, reported only
+        f32["full_depth"] = decode_vs_forward(serve, full_depth, serve.init_model(full_depth, seed, device), seed)
+        free_memory(device)
+    twins = serve_smoke_cuda_vs_cpu(serve, seed, arch) if on_card else None
+    launches = {"prefill": seen["prefill"], "decode_step": seen["steps"][0],
+                "run": {name: seen["prefill"][name] + sum(st[name] for st in seen["steps"])
+                        for name in seen["prefill"]}}
+    return {
+        "model": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "cut": ("one period of 8 of 32 layers (52 B bf16 exceeds the card's 80 GB)"
+                if arch.startswith("jamba") and not smoke else None),
+        "batch": SERVE_BATCH, "prompt_tokens": SERVE_PROMPT, "new_tokens": SERVE_GEN, "setup_s": setup_s,
+        "prefill_ms": prefill_s * 1e3, "decode_ms": decode_s * 1e3, "ms_per_decode_step": decode_s / SERVE_GEN * 1e3,
+        "generated_tokens_per_s": SERVE_BATCH * SERVE_GEN / decode_s, "peak_gib": peak_gib,
+        "decode_step_profile": profile, "launches": launches, "generate_equals_hand_rolled_loop": True,
+        "stops": {"eos_id": eos_id, "budgets": budgets, "first_freeze_step": first_stop,
+                  "live_tokens_equal_unconditional": f"{live_equal}/{int(live.sum())}"},
+        "decode_vs_forward_float32": f32,
+        "smoke_cuda_vs_cpu": twins, "arch_s": time.perf_counter() - t_arch, "card": card,
+    }, launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2661,6 +3084,7 @@ def main() -> int:
     print(f"kernel resources: {json.dumps(kernel_resources(_build))}", flush=True)
 
     # 3. kernels against their twins, timed
+    t_phase = time.perf_counter()
     timer = Timer()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
@@ -2732,6 +3156,34 @@ def main() -> int:
                                                                      "n": 8}, {"dtype": torch.bfloat16, "b": 1, "s": 33,
                                                                                "d": 200, "n": 8}):
         print(f"mamba_scan check {json.dumps(mamba_case(ops, ref, timer, gen, time_it=False, **kw))}", flush=True)
+    # serving's scans from a state (phase 5h), drawn from a generator of
+    # their own: mamba_scan from h0 at jamba's decode step (B 8, S 1) and
+    # prefill (S 128), wkv6 at S 1 from s0 (rwkv6-3b's 40 heads of 64)
+    gen_serve = torch.Generator(device="cuda")
+    gen_serve.manual_seed(args.seed + 6)
+    scans_h0 = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        for s_len in (1, SERVE_PROMPT):
+            scans_h0[f"mamba_scan S{s_len} {name}"] = mamba_h0_case(ops, ref, timer, gen_serve, dtype=dtype, s=s_len)
+        scans_h0[f"wkv6 S1 {name}"] = wkv6_step_case(ops, ref, timer, gen_serve, dtype=dtype)
+    for name, case in scans_h0.items():
+        print(f"{name} from a state {json.dumps(case)} [{card}]", flush=True)
+    # and its attention shapes: flash_decode over phase 5h's ring of 160
+    # slots, flash_attention over its 128-token prompts at batch 8, at
+    # qwen3-1.7b's heads and jamba-v0.1-52b's
+    ring = SERVE_PROMPT + SERVE_GEN
+    serve_attn = {
+        "decode_qwen3": decode_case(ops, ref, ring_positions, timer, gen_serve, q_dtype=torch.bfloat16, s=ring),
+        "decode_jamba": decode_case(ops, ref, ring_positions, timer, gen_serve, q_dtype=torch.bfloat16, h=32,
+                                    s=ring),
+        "prefill_qwen3": attention_case(ops, ref, timer, gen_serve, dtype=torch.bfloat16, b=SERVE_BATCH,
+                                        s=SERVE_PROMPT),
+        "prefill_jamba": attention_case(ops, ref, timer, gen_serve, dtype=torch.bfloat16, b=SERVE_BATCH,
+                                        s=SERVE_PROMPT, h=32),
+    }
+    for name, case in serve_attn.items():
+        print(f"serving {name} {json.dumps(case)} [{card}]", flush=True)
 
     # FedHetLoRA's lowest and highest device ranks at the federated rounds'
     # shape (16 x 32 tokens, q and v; scales alpha / r = 4 and 1) on the
@@ -2788,11 +3240,17 @@ def main() -> int:
         print(f"lora_matmul {name} {json.dumps(dense[f'lora {name}'])} [{card}]", flush=True)
         print(f"segmented_lora {name} {json.dumps(dense[f'segmented {name}'])} [{card}]", flush=True)
 
+    print(f"phase 3: {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+
     # 4. serve full-width qwen3-1.7b
+    t_phase = time.perf_counter()
     serve_stats, breakdown, launches = serve_full(api, ops, card, args.seed)
     print(f"serve {json.dumps(serve_stats)}", flush=True)
     print(f"decode step profile: {json.dumps(breakdown) if breakdown else 'not measured'} [{card}]", flush=True)
     print(f"smoke model, card vs CPU twins: {json.dumps(smoke_cuda_vs_cpu(args.seed))}", flush=True)
+
+    print(f"phase 4: {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    t_phase = time.perf_counter()
 
     # 5. one client's local round of full-width qwen3-1.7b: per step, the q
     #    and v forward of every active layer and their dX in all but the
@@ -2841,17 +3299,23 @@ def main() -> int:
     print(f"jamba smoke round, card vs CPU twins: "
           f"{json.dumps(smoke_train_cuda_vs_cpu(args.seed, 'jamba-v0.1-52b'))}", flush=True)
 
+    print(f"phases 5-5c: {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+
     # 5d. three federated rounds of droppeft on full-width qwen3-1.7b through
     #     api.build: 100 devices, 10 a round, batch 16 x 32 tokens; batched
     #     (the default), then sequential for the comparison
+    t_phase = time.perf_counter()
     fed_stats, fed_launches = federated_full(api, ops, card, args.seed)
     print(f"federated {json.dumps(fed_stats)}", flush=True)
     for arch in ("qwen3-1.7b", "rwkv6-3b", "jamba-v0.1-52b"):
         print(f"federated smoke run, batched on the card vs sequential and the CPU twins: "
               f"{json.dumps(federated_smoke_cuda_vs_cpu(args.seed, arch))}", flush=True)
 
+    print(f"phase 5d: {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+
     # 5e. the other dense decoders at full width: serving as phase 4, a local
     #     round as phase 5 (at full depth where it fits the card)
+    t_phase = time.perf_counter()
     dense_runs = {}
     for arch in DENSE_ARCHS:
         serve_a, serve_launches_a, train_a, train_launches_a = dense_arch_full(api, ops, card, args.seed, arch)
@@ -2862,6 +3326,8 @@ def main() -> int:
             check(serve_launches_a[name] > 0, f"{name} never launched while serving {arch}: {serve_launches_a}")
         for name in ("flash_attention", "flash_attention_bwd", "lora_matmul"):
             check(train_launches_a[name] > 0, f"{name} never launched in the {arch} local round: {train_launches_a}")
+
+    print(f"phase 5e: {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
 
     # 5f. the straggler-tolerant federation on full-width qwen3-1.7b: a
     #     gather local round beside cond, then gather-mode federated rounds
@@ -2884,6 +3350,21 @@ def main() -> int:
     print(f"method grid smoke runs, card vs CPU twins: {json.dumps(method_grid_smoke_cuda_vs_cpu(args.seed))}",
           flush=True)
     print(f"phase 5g: {time.perf_counter() - t5g:.1f} s [{card}]", flush=True)
+
+    # 5h. recurrent-state serving: full-width rwkv6-3b, jamba-v0.1-52b cut
+    #     to 8 layers and qwen3-1.7b through launch.serve's prefill and
+    #     generate (batch 8, 128-token prompts, 32 new tokens)
+    t5h = time.perf_counter()
+    recurrent = {}
+    for arch in RECURRENT_ARCHS:
+        stats, recurrent[arch] = recurrent_serving_full(ops, card, args.seed, arch)
+        print(f"serve from a state {arch} {json.dumps(stats)} [{card}]", flush=True)
+    print(f"phase 5h: {time.perf_counter() - t5h:.1f} s [{card}]", flush=True)
+    served = {arch: recurrent[arch]["run"] for arch in RECURRENT_ARCHS}
+    for arch, name in (("rwkv6-3b", "wkv6"), ("jamba-v0.1-52b", "mamba_scan"), ("jamba-v0.1-52b", "flash_decode"),
+                       ("jamba-v0.1-52b", "flash_attention"), ("qwen3-1.7b", "flash_decode"),
+                       ("qwen3-1.7b", "flash_attention")):
+        check(served[arch][name] > 0, f"{name} never launched serving {arch} in phase 5h: {served[arch]}")
 
     # 6. kernels line: each path's shapes (bf16) and launches; q and v
     #    projections summed for segmented_lora and lora_matmul (forward)
@@ -2954,10 +3435,13 @@ def main() -> int:
             "shape": d_case["shape"],
             "glm4_shape": pick(dense["decode_glm4"], fwd_keys),
             "danube_shape": pick(dense["decode_danube"], fwd_keys),
+            "generate_shapes": {arch: pick(serve_attn[f"decode_{arch}"], fwd_keys) for arch in ("qwen3", "jamba")},
             "launches_by_path": {"serve_qwen3": launches["flash_decode"],
                                  **{f"serve_{a}": dense_launches["serve_launches"][a]["flash_decode"]
                                     for a in DENSE_ARCHS},
-                                 "5g_serve_hetlora_checkpoint": grid_launches["flash_decode"]},
+                                 "5g_serve_hetlora_checkpoint": grid_launches["flash_decode"],
+                                 "5h_generate_qwen3": served["qwen3-1.7b"]["flash_decode"],
+                                 "5h_generate_jamba": served["jamba-v0.1-52b"]["flash_decode"]},
         },
         {
             "name": "flash_attention", "route": "cuda",
@@ -2969,9 +3453,12 @@ def main() -> int:
                                  "5f": strag_launches["flash_attention"], "5f_gather_local_round": gather_launches["flash_attention"],
                                  "5g": grid_launches["flash_attention"],
                                  **{f"local_round_{a}": dense_launches["train_launches"][a]["flash_attention"]
-                                    for a in DENSE_ARCHS}},
+                                    for a in DENSE_ARCHS},
+                                 "5h_prefill_qwen3": served["qwen3-1.7b"]["flash_attention"],
+                                 "5h_prefill_jamba": served["jamba-v0.1-52b"]["flash_attention"]},
             "glm4_shape": pick(dense["attention_glm4"], fwd_keys),
             "danube_shape": pick(dense["attention_danube"], fwd_keys),
+            "prefill_shapes": {arch: pick(serve_attn[f"prefill_{arch}"], fwd_keys) for arch in ("qwen3", "jamba")},
             **{key: attn[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "jamba_ms": attn_jamba["ms"], "jamba_library_ms": attn_jamba["library_ms"],
             "device_only_ms": attn["kernel_ms"], "library_device_only_ms": attn["library_kernel_ms"],
@@ -3050,6 +3537,9 @@ def main() -> int:
             "launches": rwkv_launches["wkv6"],
             **{key: wkv[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "device_only_ms": wkv["kernel_ms"], "shape": "forward, " + wkv["shape"],
+            "launches_by_path": {"local_round_rwkv6": rwkv_launches["wkv6"], "5h_serve_rwkv6": served["rwkv6-3b"]["wkv6"]},
+            "decode_step_shape": {name.split()[-1]: pick(case, fwd_keys) for name, case in scans_h0.items()
+                                  if name.startswith("wkv6")},
         },
         {
             "name": "wkv6_bwd", "route": "cuda",
@@ -3069,6 +3559,10 @@ def main() -> int:
             **{key: msc[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "device_only_ms": msc["kernel_ms"], "kernels_ms": {"forward": msc["kernel_ms"]},
             "bound_terms_ms": msc["bound_terms_ms"], "shape": "forward, " + msc["shape"],
+            "launches_by_path": {"local_round_jamba": jamba_launches["mamba_scan"],
+                                 "5h_serve_jamba": served["jamba-v0.1-52b"]["mamba_scan"]},
+            "h0_shapes": {name.replace("mamba_scan ", ""): pick(case, fwd_keys) for name, case in scans_h0.items()
+                          if name.startswith("mamba_scan")},
         },
         {
             "name": "mamba_scan_bwd", "route": "cuda",

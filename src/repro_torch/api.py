@@ -230,7 +230,8 @@ def serve(
     device=None,
 ):
     """Multi-tenant adapter serving: a ready
-    :class:`~repro_torch.serving.batcher.ContinuousBatcher`.
+    :class:`~repro_torch.serving.batcher.ContinuousBatcher`, for the
+    ``dense`` family (other families raise ``NotImplementedError``).
 
     Adapters come from a federated ``save_state`` checkpoint
     (``checkpoint_dir``: every client's adapter registers as
@@ -247,6 +248,13 @@ def serve(
     device = torch.device("cuda" if device is None else device)
     if cfg is None:
         cfg = get_config(model, smoke=smoke)
+    if cfg.family != "dense":
+        # the reference's batcher resets only a recycled row's position, so
+        # the row would carry the previous request's recurrent state
+        raise NotImplementedError(
+            f"multi-tenant serving of the {cfg.family!r} family is not ported: the continuous batcher resets "
+            "only a recycled row's position, and a recurrent state (RWKV6 wkv and shifts, Mamba conv and ssm) "
+            "would carry the previous request into the next; serve it with launch.serve's prefill and generate")
     registry = AdapterRegistry()
     if checkpoint_dir is not None:
         registry.load_checkpoint(checkpoint_dir, alpha=lora_alpha)

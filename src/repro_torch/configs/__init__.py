@@ -9,6 +9,7 @@ from repro_torch.configs.base import (
 )
 
 _BY_ID = {m.ARCH_ID: m for m in (qwen3_1_7b, rwkv6_3b, jamba_v0_1_52b, glm4_9b, h2o_danube_1_8b, yi_6b)}
+ARCH_IDS = tuple(_BY_ID)  # the archs the port runs
 
 
 def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
@@ -19,5 +20,5 @@ def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
 
 
 __all__ = [
-    "FederatedConfig", "MambaConfig", "ModelConfig", "PEFTConfig", "RWKVConfig", "STLDConfig", "TrainConfig", "get_config",
+    "ARCH_IDS", "FederatedConfig", "MambaConfig", "ModelConfig", "PEFTConfig", "RWKVConfig", "STLDConfig", "TrainConfig", "get_config",
 ]

@@ -3,8 +3,9 @@
 //   h_t[d, n] = exp(dt_t[d] A[d, n]) h_{t-1}[d, n] + (dt_t[d] x_t[d]) B_t[n]
 //   y_t[d]    = sum_n C_t[n] h_t[d, n] + D[d] x_t[d]
 //
-// per batch row from a zero state, returning y in x's dtype and the final
-// state h_S (B, D, N) in float32.
+// per batch row from the entering state h0 (B, D, N) float32, or from zero
+// where h0 is null, returning y in x's dtype and the final state h_S (B, D,
+// N) in float32.
 //
 // Replaces src/repro/kernels/mamba_scan.py: mamba_scan_pallas (kernel body
 // _scan_kernel).  Kept from it: the discretisation happens inside the
@@ -15,8 +16,15 @@
 // exist.  Changed: no (d_block, N) tiles walked by a sequential grid; each
 // thread holds all N states of MAMBA_FWD_CHANNELS (2) neighbouring channels
 // of one batch row in registers and walks the whole sequence, and all
-// channels of all rows run in parallel.  New: the final state, which the
-// decode path of repro/nn/mamba.py carries.
+// channels of all rows run in parallel.  New: the entering and the final
+// state, which the decode path of repro/nn/mamba.py carries (prefill from
+// the cache's state, then one token a step, S = 1).  A thread loads its
+// channels' N entering states once, before the walk, as 16-byte words
+// (each read by that thread alone), so h0 adds no register to the walk.
+// Whether it starts from h0 is a template argument, so the zero-state
+// instantiation, which training runs, compiles to the code without h0: a
+// run-time branch there spilled more and slowed the training forward
+// (PERF.md).
 //
 // What bounds it on the card: at the training shape (B 16, S 512, D 8192,
 // N 16, bf16 dt/x/y) it takes 1.07e9 exp, ~0.26 ms on the special function
@@ -84,12 +92,13 @@ __device__ __forceinline__ void st2(__nv_bfloat16* p, float a, float b) {
 }
 
 // y (B, S, D) in T and, when hT is not null, the final state (B, D, N)
-// float32.  Thread tid holds channels d0 + 2 tid and d0 + 2 tid + 1.
-template <typename T, int N>
+// float32, from the entering state h0 (B, D, N) float32 where FROM_H0, else
+// from zero.  Thread tid holds channels d0 + 2 tid and d0 + 2 tid + 1.
+template <typename T, int N, bool FROM_H0>
 __global__ void __launch_bounds__(NT, MAMBA_FWD_BLOCKS) mamba_scan_fwd_kernel(
     const T* __restrict__ dt, const T* __restrict__ x, const float* __restrict__ Bm, const float* __restrict__ Cm,
-    const float* __restrict__ A, const float* __restrict__ Dv, T* __restrict__ y, float* __restrict__ hT, int S,
-    int D, bool vec) {
+    const float* __restrict__ A, const float* __restrict__ Dv, const float* __restrict__ h0, T* __restrict__ y,
+    float* __restrict__ hT, int S, int D, bool vec) {
   static_assert(CL == 2 && N % 4 == 0, "a thread's channels travel as pairs, its states as float4s");
   extern __shared__ __align__(16) unsigned char smem[];
   FwdSmem<T, N>& sm = *reinterpret_cast<FwdSmem<T, N>*>(smem);
@@ -105,6 +114,21 @@ __global__ void __launch_bounds__(NT, MAMBA_FWD_BLOCKS) mamba_scan_fwd_kernel(
       h[k][n] = 0.f;
     }
     dd[k] = live[k] ? Dv[dp + k] : 0.f;
+  }
+  if constexpr (FROM_H0) {  // the entering state, four states a float4 (a row of N is whole 16-byte words)
+#pragma unroll
+    for (int k = 0; k < CL; ++k) {
+      if (!live[k]) continue;
+      const float4* src = reinterpret_cast<const float4*>(h0 + ((size_t)b * D + dp + k) * N);
+#pragma unroll
+      for (int q = 0; q < N / 4; ++q) {
+        const float4 v = src[q];
+        h[k][4 * q] = v.x;
+        h[k][4 * q + 1] = v.y;
+        h[k][4 * q + 2] = v.z;
+        h[k][4 * q + 3] = v.w;
+      }
+    }
   }
   const int nc = (S + TC - 1) / TC;
   auto stage = [&](int c) {
@@ -190,40 +214,47 @@ constexpr int smem_bytes() {
   return sizeof(FwdSmem<T, N>);
 }
 
-template <typename T, int N>
-int launch(const void* dt, const void* x, const float* Bm, const float* Cm, const float* A, const float* Dv, void* y,
-           float* hT, int B, int S, int D, cudaStream_t stream) {
+template <typename T, int N, bool FROM_H0>
+int launch(const void* dt, const void* x, const float* Bm, const float* Cm, const float* A, const float* Dv,
+           const float* h0, void* y, float* hT, int B, int S, int D, cudaStream_t stream) {
   bool vec = D % (16 / sizeof(T)) == 0;
   for (const void* p : {dt, x, (const void*)Bm, (const void*)Cm, (const void*)y})
     vec = vec && reinterpret_cast<uintptr_t>(p) % 16 == 0;
   constexpr int smem = smem_bytes<T, N>();
   cudaError_t err =
-      cudaFuncSetAttribute(mamba_scan_fwd_kernel<T, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      cudaFuncSetAttribute(mamba_scan_fwd_kernel<T, N, FROM_H0>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((D + CH - 1) / CH, B);
-  mamba_scan_fwd_kernel<T, N><<<grid, NT, smem, stream>>>(static_cast<const T*>(dt), static_cast<const T*>(x), Bm,
-                                                           Cm, A, Dv, static_cast<T*>(y), hT, S, D, vec);
+  mamba_scan_fwd_kernel<T, N, FROM_H0><<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(dt), static_cast<const T*>(x), Bm, Cm, A, Dv, h0, static_cast<T*>(y), hT, S, D, vec);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool FROM_H0>
+int dispatch(int N, const void* dt, const void* x, const float* Bm, const float* Cm, const float* A, const float* Dv,
+             const float* h0, void* y, float* hT, int B, int S, int D, cudaStream_t stream) {
+  if (N == 8) return launch<T, 8, FROM_H0>(dt, x, Bm, Cm, A, Dv, h0, y, hT, B, S, D, stream);
+  if (N == 16) return launch<T, 16, FROM_H0>(dt, x, Bm, Cm, A, Dv, h0, y, hT, B, S, D, stream);
+  return -1;
 }
 
 template <typename T>
 int dispatch(int N, const void* dt, const void* x, const float* Bm, const float* Cm, const float* A, const float* Dv,
-             void* y, float* hT, int B, int S, int D, cudaStream_t stream) {
-  if (N == 8) return launch<T, 8>(dt, x, Bm, Cm, A, Dv, y, hT, B, S, D, stream);
-  if (N == 16) return launch<T, 16>(dt, x, Bm, Cm, A, Dv, y, hT, B, S, D, stream);
-  return -1;
+             const float* h0, void* y, float* hT, int B, int S, int D, cudaStream_t stream) {
+  return h0 ? dispatch<T, true>(N, dt, x, Bm, Cm, A, Dv, h0, y, hT, B, S, D, stream)
+            : dispatch<T, false>(N, dt, x, Bm, Cm, A, Dv, h0, y, hT, B, S, D, stream);
 }
 
-// Blocks of the forward kernel resident on one SM, as the runtime counts
-// them from its registers and shared memory.
+// Blocks of the forward kernel (the zero-state instantiation) resident on
+// one SM, as the runtime counts them from its registers and shared memory.
 template <typename T, int N>
 int blocks_per_sm() {
   constexpr int smem = smem_bytes<T, N>();
   cudaError_t err =
-      cudaFuncSetAttribute(mamba_scan_fwd_kernel<T, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      cudaFuncSetAttribute(mamba_scan_fwd_kernel<T, N, false>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   int blocks = 0;
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, mamba_scan_fwd_kernel<T, N>, NT, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, mamba_scan_fwd_kernel<T, N, false>, NT, smem);
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
@@ -245,19 +276,21 @@ extern "C" int mamba_scan_fwd_blocks_per_sm(int dtype, int N) {
 }
 
 // dt, x (B, S, D) of dtype; Bm, Cm (B, S, N), A (D, N), Dv (D,) float32;
-// y (B, S, D) of dtype and hT (B, D, N) float32.  Returns 0 or a CUDA
-// error code (-1: arguments not supported).
+// h0 (B, D, N) float32 or null (a zero state); y (B, S, D) of dtype and hT
+// (B, D, N) float32.  Returns 0 or a CUDA error code (-1: arguments not
+// supported).
 extern "C" int mamba_scan_fwd_launch(int dtype, const void* dt, const void* x, const void* Bm, const void* Cm,
-                                     const void* A, const void* Dv, void* y, void* hT, int B, int S, int D, int N,
-                                     void* stream) {
+                                     const void* A, const void* Dv, const void* h0, void* y, void* hT, int B, int S,
+                                     int D, int N, void* stream) {
   if (B <= 0 || S <= 0 || D <= 0 || B > 65535 || !mamba_supported_state_dim(N)) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto bm = static_cast<const float*>(Bm);
   auto cm = static_cast<const float*>(Cm);
   auto a = static_cast<const float*>(A);
   auto dv = static_cast<const float*>(Dv);
+  auto hin = static_cast<const float*>(h0);
   auto h = static_cast<float*>(hT);
-  if (dtype == kFloat32) return dispatch<float>(N, dt, x, bm, cm, a, dv, y, h, B, S, D, s);
-  if (dtype == kBFloat16) return dispatch<__nv_bfloat16>(N, dt, x, bm, cm, a, dv, y, h, B, S, D, s);
+  if (dtype == kFloat32) return dispatch<float>(N, dt, x, bm, cm, a, dv, hin, y, h, B, S, D, s);
+  if (dtype == kBFloat16) return dispatch<__nv_bfloat16>(N, dt, x, bm, cm, a, dv, hin, y, h, B, S, D, s);
   return -1;
 }

@@ -73,7 +73,7 @@ _SIGNATURES = {
         "wkv6_bwd_launch",
         [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     ),
-    "mamba_scan": ("mamba_scan_fwd_launch", [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "mamba_scan": ("mamba_scan_fwd_launch", [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "mamba_scan_bwd": (
         "mamba_scan_bwd_launch",
         [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -565,14 +565,15 @@ def wkv6(r, k, v, logw, u, s0=None):
     return _WKV6.apply(r, k, v, logw, u, s0)
 
 
-def _mamba_fwd(dt, x, bmat, cmat, a, dvec):
+def _mamba_fwd(dt, x, bmat, cmat, a, dvec, h0=None):
     bsz, s, d = x.shape
     n = a.shape[1]
     y = torch.empty_like(x)
     state = torch.empty((bsz, d, n), dtype=torch.float32, device=x.device)
     err = _entry("mamba_scan")(
         _DTYPE_CODE[x.dtype], dt.data_ptr(), x.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), a.data_ptr(),
-        dvec.data_ptr(), y.data_ptr(), state.data_ptr(), bsz, s, d, n, _stream(x),
+        dvec.data_ptr(), None if h0 is None else h0.data_ptr(), y.data_ptr(), state.data_ptr(), bsz, s, d, n,
+        _stream(x),
     )
     _check_launch("mamba_scan", err)
     return y, state
@@ -617,40 +618,49 @@ class _MambaScan(torch.autograd.Function):
     """The forward saves its inputs only; the backward recomputes the
     states (the ``mamba_scan_bwd`` kernel on the card,
     ``ref.mamba_scan_bwd_plain`` on the CPU).  The final state is returned
-    but takes no gradient."""
+    but takes no gradient.  The backward runs from a zero state only: with
+    an entering state ``h0`` (the serving path, which takes no gradient) it
+    raises ``NotImplementedError``."""
 
     @staticmethod
-    def forward(ctx, dt, x, bmat, cmat, a, dvec):
+    def forward(ctx, dt, x, bmat, cmat, a, dvec, h0):
         ctx.save_for_backward(dt, x, bmat, cmat, a, dvec)
+        ctx.has_h0 = h0 is not None
         if x.device.type == "cpu":
-            y, state = ref.mamba_scan_plain(dt, x, bmat, cmat, a, dvec)
+            y, state = ref.mamba_scan_plain(dt, x, bmat, cmat, a, dvec, h0)
         else:
-            y, state = _mamba_fwd(dt, x, bmat, cmat, a, dvec)
+            y, state = _mamba_fwd(dt, x, bmat, cmat, a, dvec, h0)
         ctx.mark_non_differentiable(state)
         return y, state
 
     @staticmethod
     def backward(ctx, dy, _dstate):
+        if ctx.has_h0:
+            raise NotImplementedError("mamba_scan takes no gradient through an entering state h0")
         dt, x, bmat, cmat, a, dvec = ctx.saved_tensors
         dy = dy.to(x.dtype).contiguous()
         if x.device.type == "cpu":
             grads = ref.mamba_scan_bwd_plain(dt, x, bmat, cmat, a, dvec, dy)
         else:
             grads = _mamba_bwd(dt, x, bmat, cmat, a, dvec, dy)
-        return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad))
+        return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad)) + (None,)
 
 
-def mamba_scan(dt, x, bmat, cmat, a, dvec):
-    """The Mamba selective scan (``ref.mamba_scan_plain``) from a zero
-    state, differentiable in every input.  dt, x: (B, S, D) of one dtype
-    (float32 or bfloat16); bmat, cmat: (B, S, N) float32; a: (D, N) float32
-    (negative); dvec: (D,) float32; N in ``MAMBA_STATE_DIMS``.  Returns (y
-    (B, S, D) in ``x.dtype``, final state (B, D, N) float32, which takes no
-    gradient).  On the card: the ``mamba_scan`` kernel forward and the
-    ``mamba_scan_bwd`` kernel backward; on the CPU: the plain twins,
-    forward and backward.
+def mamba_scan(dt, x, bmat, cmat, a, dvec, h0=None):
+    """The Mamba selective scan (``ref.mamba_scan_plain``) from the entering
+    state ``h0`` (B, D, N) float32, or from zero when it is None.  dt, x:
+    (B, S, D) of one dtype (float32 or bfloat16); bmat, cmat: (B, S, N)
+    float32; a: (D, N) float32 (negative); dvec: (D,) float32; N in
+    ``MAMBA_STATE_DIMS``.  Returns (y (B, S, D) in ``x.dtype``, final state
+    (B, D, N) float32, which takes no gradient).  On the card: the
+    ``mamba_scan`` kernel forward and the ``mamba_scan_bwd`` kernel
+    backward; on the CPU: the plain twins, forward and backward.  From a
+    zero state it is differentiable in every input; with an ``h0`` (the
+    serving path) it takes no gradient, and a backward raises
+    ``NotImplementedError``.
     """
-    if not _on_cpu(dt, x, bmat, cmat, a, dvec):
+    tensors = (dt, x, bmat, cmat, a, dvec) + (() if h0 is None else (h0,))
+    if not _on_cpu(*tensors):
         bsz, s, d = x.shape
         _require(x.dtype in _DTYPE_CODE, f"mamba_scan takes float32 or bfloat16 dt and x, got {x.dtype}")
         _require(dt.dtype == x.dtype, f"dt and x must share one dtype, got {dt.dtype}, {x.dtype}")
@@ -664,6 +674,10 @@ def mamba_scan(dt, x, bmat, cmat, a, dvec):
                  f"C {tuple(cmat.shape)}, A {tuple(a.shape)}, D {tuple(dvec.shape)}")
         _require(n in MAMBA_STATE_DIMS, f"mamba_scan state dim {n} not in {MAMBA_STATE_DIMS}")
         _require(s > 0 and d > 0, "mamba_scan needs at least one token and one channel")
-        for t in (dt, x, bmat, cmat, a, dvec):
+        if h0 is not None:
+            _require(h0.dtype == torch.float32 and tuple(h0.shape) == (bsz, d, n),
+                     f"h0 must be ({bsz}, {d}, {n}) float32, got {tuple(h0.shape)} {h0.dtype}")
+            _require(h0.data_ptr() % 16 == 0, "h0 must start on a 16-byte boundary (the kernel reads float4s)")
+        for t in tensors:
             _require(t.is_contiguous(), "mamba_scan takes contiguous tensors")
-    return _MambaScan.apply(dt, x, bmat, cmat, a, dvec)
+    return _MambaScan.apply(dt, x, bmat, cmat, a, dvec, h0)

@@ -166,10 +166,11 @@ def wkv6_bwd_plain(r, k, v, logw, u, s0, dout, dstate=None):
     return dr.to(r.dtype), dk.to(r.dtype), dv.to(r.dtype), dlogw, du, (g if s0 is not None else None)
 
 
-def mamba_scan_plain(dt, x, bmat, cmat, a, dvec):
+def mamba_scan_plain(dt, x, bmat, cmat, a, dvec, h0=None):
     """The selective scan token by token, as ``mamba_scan_ref``
-    (``repro/kernels/ref.py:45``), returning the final state too.  Per
-    batch row, channel d and state n, in float32::
+    (``repro/kernels/ref.py:45``), from the entering state ``h0`` (B, D, N)
+    (zero when None), returning the final state too.  Per batch row,
+    channel d and state n, in float32::
 
         h_t[d, n] = exp(dt_t[d] A[d, n]) h_{t-1}[d, n] + (dt_t[d] x_t[d]) B_t[n]
         y_t[d]    = sum_n h_t[d, n] C_t[n] + D[d] x_t[d]
@@ -180,7 +181,10 @@ def mamba_scan_plain(dt, x, bmat, cmat, a, dvec):
     """
     dtf, xf, bf, cf, af, df = (t.float() for t in (dt, x, bmat, cmat, a, dvec))
     b, s, d = x.shape
-    h = torch.zeros((b, d, af.shape[-1]), dtype=torch.float32, device=x.device)
+    if h0 is None:
+        h = torch.zeros((b, d, af.shape[-1]), dtype=torch.float32, device=x.device)
+    else:
+        h = h0.float()
     ys = []
     for t in range(s):
         a_t = torch.exp(dtf[:, t, :, None] * af[None])  # (B, D, N)

@@ -1,4 +1,5 @@
-"""Step functions: the PEFT train step and the serving step.
+"""Step functions: the PEFT train step, the prefill step and the serving
+step.
 
 ``stld_mode`` of the train step selects the paper semantics:
   * ``off``  — plain PEFT fine-tuning, every layer runs;
@@ -104,19 +105,40 @@ def make_train_step(cfg, peft_cfg, train_cfg, *, stld_mode: str = "off", mean_ra
     return train_step
 
 
-def make_serve_step(cfg):
-    """Single-token decode against the batched serving cache.
+def make_prefill_step(cfg):
+    """The prompt into the decode caches, as the reference's
+    ``make_prefill_step``: ``(params, batch, caches) -> (last_logits (B, V),
+    caches)`` with ``batch = {"tokens": (B, S)}`` (numpy or a tensor; it
+    goes to the device of the params) at positions 0 .. S-1.  The caches
+    (``init_caches``) are updated as ``stack_apply`` says."""
 
-    ``(params, token (B, 1), pos (B,), caches, peft=None) ->
-    (logits (B, V), next_token (B, 1) int32, caches)``: every row decodes at
-    its own position; ``peft`` is a tree of per-projection
-    :class:`~repro_torch.nn.linear.AdapterPool` nodes (or plain LoRA).
-    The caches' K/V tensors are updated in place.
+    @torch.no_grad()
+    def prefill_step(params, batch, caches):
+        tokens = as_device_tensor(batch["tokens"], params["embed"].device)
+        logits, _, caches = model_apply(params, cfg, {"tokens": tokens}, caches=caches)
+        return logits[:, -1], caches
+
+    return prefill_step
+
+
+def make_serve_step(cfg):
+    """Single-token decode against a cache.
+
+    ``(params, token (B, 1), pos, caches, peft=None) -> (logits (B, V),
+    next_token (B, 1) int32, caches)``.  ``pos`` is a scalar (an int or a
+    0-d tensor: every row at one depth, the caches of ``init_caches``, as
+    ``generate`` drives them) or ``(B,)`` (the batched serving cache, where
+    every row decodes at its own position); ``peft`` is a tree of
+    per-projection :class:`~repro_torch.nn.linear.AdapterPool` nodes (or
+    plain LoRA).  The caches are updated as ``stack_apply`` says.
     """
 
     @torch.no_grad()
     def serve_step(params, token, pos, caches, peft=None):
-        positions = pos[:, None]  # (B, 1)
+        if isinstance(pos, torch.Tensor) and pos.ndim == 1:
+            positions = pos[:, None]  # (B, 1)
+        else:
+            positions = torch.full((1,), int(pos), dtype=torch.int64, device=token.device)
         logits, _, caches = lm_apply(params, cfg, token, positions=positions, caches=caches, peft=peft)
         logits = logits[:, -1]
         next_token = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)

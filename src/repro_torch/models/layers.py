@@ -1,4 +1,4 @@
-"""The residual blocks of the port's decoders, and the dense decode cache.
+"""The residual blocks of the port's decoders, and each layer's decode cache.
 
 Layer kinds (``layer_kind(cfg, l)``), as in ``repro.models.layers``:
   * ``attn``  — pre-norm GQA attention + (MoE | SwiGLU MLP)
@@ -12,11 +12,11 @@ from typing import Optional
 import torch
 
 from repro_torch.nn.attention import attention_apply
-from repro_torch.nn.mamba import mamba_apply
+from repro_torch.nn.mamba import init_mamba_state, mamba_apply
 from repro_torch.nn.mlp import adapter_apply, mlp_apply
 from repro_torch.nn.moe import moe_apply
 from repro_torch.nn.norms import apply_norm
-from repro_torch.nn.rwkv import channel_mix_apply, time_mix_apply
+from repro_torch.nn.rwkv import channel_mix_apply, init_rwkv_state, time_mix_apply
 
 
 def layer_kind(cfg, l: int) -> str:
@@ -36,9 +36,17 @@ def params_kind(params) -> str:
     return "attn"
 
 
-def init_layer_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device=None):
-    """Decode-time KV ring of one attention layer (``pos`` is a scalar here;
-    the serving batcher widens it to one position per row)."""
+def init_layer_cache(cfg, l: int, batch: int, max_len: int, dtype=torch.bfloat16, device=None):
+    """Decode-time cache of layer ``l``, as ``repro.models.layers
+    .init_layer_cache``: an RWKV6 or Mamba layer's float32 state on
+    ``device``, or an attention layer's KV ring of ``min(max_len, window)``
+    slots in ``dtype`` with a scalar ``pos``, which stays on the host (the
+    serving batcher widens it to one position per row, on the device)."""
+    kind = layer_kind(cfg, l)
+    if kind == "rwkv":
+        return init_rwkv_state(cfg, batch, device)
+    if kind == "mamba":
+        return init_mamba_state(cfg, batch, device)
     hd = cfg.resolved_head_dim
     cache_len = max_len
     if cfg.sliding_window is not None:
@@ -47,7 +55,7 @@ def init_layer_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
-        "pos": torch.zeros((), dtype=torch.int32, device=device),
+        "pos": torch.zeros((), dtype=torch.int32),
     }
 
 
@@ -103,8 +111,8 @@ def layer_apply(params, cfg, h, *, positions, causal=True, cache: Optional[dict]
         return h, 0.0, ({**tm_state, **cm_state} if cache is not None else None)
     x = apply_norm(params["norm1"], h, cfg.norm_eps)
     if kind == "mamba":
-        out, _ = mamba_apply(params["mamba"], cfg, x, state=cache, peft=peft.get("mamba"), lora_scale=lora_scale)
-        new_cache = None  # a state raises in mamba_apply: the decode state is not ported
+        out, state = mamba_apply(params["mamba"], cfg, x, state=cache, peft=peft.get("mamba"), lora_scale=lora_scale)
+        new_cache = state if cache is not None else None
         out = _peft_out(out, peft, devices, bias="bias_attn")
     else:
         out, new_cache = attention_apply(params["attn"], cfg, x, positions, causal=causal, cache=cache,

@@ -1,5 +1,5 @@
 """The decoders of the port (dense, the ``ssm`` family of RWKV6 and the
-``hybrid`` family of jamba): init, dense decode caches and the forward pass.
+``hybrid`` family of jamba): init, decode caches and the forward pass.
 
 Homogeneous stacks keep the stacked ``(L, ...)`` layout of the JAX
 package; jamba's heterogeneous stack is a per-layer list, as there.
@@ -18,6 +18,13 @@ whose gate is open (gathered by ``index_select`` and written back out of
 place by ``index_copy``); a layer no device opens runs nothing, and one
 every device opens runs on ``h`` itself.  Each device's rows see exactly
 the layers its own gates open, as its own forward would.
+
+Decode caches (``init_caches``) come in the reference's two layouts: a
+per-layer list (any stack; jamba's is heterogeneous) or one stacked tree
+(homogeneous stacks).  ``stack_apply`` runs them for every family: an
+attention layer's KV ring is written in place, an RWKV6 or Mamba layer
+returns its new state, and a dropped layer passes its cache through, as
+``stld.gate`` does.
 """
 from __future__ import annotations
 
@@ -127,13 +134,30 @@ def init_lm(cfg, generator: torch.Generator, place=None):
     return params
 
 
-def init_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device=None):
-    """Stacked decode caches: ``{"k", "v": (L, B, S, KV, hd), "pos": (L,)}``."""
-    one = init_layer_cache(cfg, batch, max_len, dtype, device)
-    return {
-        name: t.unsqueeze(0).repeat((cfg.num_layers,) + (1,) * t.ndim)
-        for name, t in one.items()
-    }
+def init_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device=None, layout: str = "list"):
+    """Per-layer decode caches (``init_layer_cache``), as
+    ``repro.models.transformer.init_caches``: a list, or with
+    ``layout="stacked"`` (homogeneous stacks only) one tree whose leaves
+    carry a leading ``(L, ...)`` axis, e.g. ``{"k", "v": (L, B, S, KV, hd),
+    "pos": (L,)}``."""
+    caches = [init_layer_cache(cfg, l, batch, max_len, dtype, device) for l in range(cfg.num_layers)]
+    if layout == "stacked":
+        if not stacking.is_stackable(caches):
+            raise ValueError("stacked caches need a homogeneous stack")
+        return stacking.from_layer_list(caches, stacked=True)
+    if layout != "list":
+        raise ValueError(f"unknown cache layout {layout!r}")
+    return caches
+
+
+def _write_layer_cache(caches, l: int, new):
+    """Layer ``l``'s new cache into a stacked cache tree, in place; a leaf
+    already written in place (a KV ring, a dropped layer's cache) is left
+    as it is."""
+    for name, t in new.items():
+        dst = caches[name][l]
+        if t.data_ptr() != dst.data_ptr():
+            dst.copy_(t)
 
 
 STACK_MODES = ("unroll", "scan", "group", "gather")
@@ -200,7 +224,10 @@ def _cohort_stack_apply(layers, cfg, h, *, positions, causal, drops, peft, lora_
 def stack_apply(layers, cfg, h, *, positions, causal: bool = True, drops=None, caches=None,
                 peft=None, lora_scale: float = 1.0, devices=None, stack_mode: str = "unroll", active_idx=None):
     """Run the layer stack (either layout).  Returns (h, the MoE aux loss
-    summed over the active layers, new_caches).
+    summed over the active layers, new_caches).  ``caches`` in the stacked
+    layout are updated in place and returned; in the list layout a new
+    list comes back (the KV rings written in place, the recurrent states
+    new tensors).
 
     ``drops``: None or L host-side gates (a CPU bool tensor or a sequence),
     True = the layer is dropped and passes ``h`` (and its cache) through.
@@ -217,12 +244,11 @@ def stack_apply(layers, cfg, h, *, positions, causal: bool = True, drops=None, c
         return _cohort_stack_apply(layers, cfg, h, positions=positions, causal=causal, drops=drops, peft=peft,
                                    lora_scale=lora_scale, devices=devices)
     num_layers = stacking.stack_size(layers)
-    if caches is not None and cfg.family != "dense":
-        raise NotImplementedError("RWKV and Mamba decode states are not ported: the port trains them without caches")
     gates = [False] * num_layers if drops is None else [bool(d) for d in torch.as_tensor(drops).tolist()]
     if len(gates) != num_layers:
         raise ValueError(f"{len(gates)} gates for {num_layers} layers")
-    aux_sum, new_pos = 0.0, []
+    stacked_caches = caches is not None and stacking.is_stacked(caches)
+    aux_sum, new_caches = 0.0, []
     for l in range(num_layers):
         cache_l = stacking.layer_view(caches, l) if caches is not None else None
         if not gates[l]:
@@ -232,12 +258,12 @@ def stack_apply(layers, cfg, h, *, positions, causal: bool = True, drops=None, c
                 lora_scale=lora_scale,
             )
             aux_sum = aux_sum + aux
-        if caches is not None:
-            new_pos.append(cache_l["pos"])
-    new_caches = None
-    if caches is not None:
-        new_caches = {"k": caches["k"], "v": caches["v"], "pos": torch.stack(new_pos)}
-    return h, aux_sum, new_caches
+        if stacked_caches:
+            _write_layer_cache(caches, l, cache_l)
+        new_caches.append(cache_l)
+    if caches is None:
+        return h, aux_sum, None
+    return h, aux_sum, caches if stacked_caches else new_caches
 
 
 def lm_apply(params, cfg, tokens, *, positions=None, drops=None, caches=None, peft=None,

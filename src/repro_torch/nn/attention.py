@@ -1,13 +1,24 @@
-"""GQA attention: the cache-free path and the batched serving-cache path.
+"""GQA attention: the cache-free path and the two serving-cache paths.
 
 * cache-free (training, evaluation) — the ``flash_attention`` kernel over
   the positions 0..S-1 of each sequence, causal or bidirectional, with the
   config's window, in the model's own (B, S, heads, hd) layout; GQA is
   indexed inside the kernel.  Its backward is a kernel too.
-* batched serving cache — one new token per row, each row at its own
-  depth: the token's K/V are written into a ring at ``pos % cache_len``
-  (in place), and decode attention runs through the ``flash_decode``
-  kernel with per-row query and slot positions.
+* batched serving cache (``pos`` (B,)) — one new token per row, each row at
+  its own depth: the token's K/V are written into a ring at ``pos %
+  cache_len`` (in place), and decode attention runs through the
+  ``flash_decode`` kernel with per-row query and slot positions.
+* scalar-position cache (``pos`` (), every row at one depth; the prefill
+  and ``generate``) — S new tokens written at ``pos`` (in place), as
+  ``repro.nn.attention.attention_apply``: at ``pos == 0`` the
+  ``flash_attention`` kernel over the new K/V; one token at ``pos > 0``
+  takes the batched path with ``pos`` broadcast to (B,); more than one at
+  ``pos > 0``, one ``flash_decode`` launch a new token against the ring,
+  whose query and slot positions give the reference's mask; a prefill of at least
+  ``cache_len`` tokens attends over its own K/V (``flash_attention`` with
+  the window) and keeps the last ``cache_len`` in the ring, rolled so that
+  position p sits in slot ``p % cache_len``.  The scalar ``pos`` lives on
+  the host (a CPU tensor), so reading it syncs nothing.
 """
 from __future__ import annotations
 
@@ -31,12 +42,54 @@ def ring_positions(pos, cache_len: int):
     return torch.where(k_positions < 0, INT32_MAX, k_positions).to(torch.int32)
 
 
+def _scalar_cache_attention(cfg, q, k, v, positions, cache):
+    """Attention of S new tokens written at the scalar position
+    ``cache["pos"]`` (``_mask_bias``'s mask over the ring, as the
+    reference's scalar-pos branch).  q: (B, S, H, hd); k, v: (B, S, KV,
+    hd); positions: (S,) or (B, S), the new tokens' positions.  Writes the
+    ring in place; returns (out (B, S, H, hd), new_cache)."""
+    b, s = q.shape[:2]
+    ck, cv, pos = cache["k"], cache["v"], cache["pos"]
+    cache_len, p0 = ck.shape[1], int(pos)
+    window = cfg.sliding_window
+    if s >= cache_len:
+        # a prompt past the ring: early queries need keys the ring drops,
+        # so attend over the sequence's own K/V; the ring keeps the last
+        # cache_len tokens, position p in slot p % cache_len
+        shift = s % cache_len if s > cache_len else 0
+        ck.copy_(torch.roll(k[:, -cache_len:].to(ck.dtype), shift, dims=1))
+        cv.copy_(torch.roll(v[:, -cache_len:].to(cv.dtype), shift, dims=1))
+        out = ops.flash_attention(q, k, v.contiguous(), causal=True, window=window)
+        return out, {"k": ck, "v": cv, "pos": pos + s}
+    write = p0 % cache_len
+    if write + s > cache_len:
+        raise ValueError(f"a write of {s} tokens at slot {write} would wrap the ring of {cache_len}; "
+                         "the scalar-position cache writes a prompt without a wrap")
+    ck[:, write : write + s] = k.to(ck.dtype)
+    cv[:, write : write + s] = v.to(cv.dtype)
+    if p0 == 0:
+        # an empty ring: the new tokens attend over themselves, positions
+        # 0 .. S-1, their K/V as the ring holds them
+        kk, vv = (t.to(ck.dtype).to(q.dtype).contiguous() for t in (k, v))
+        out = ops.flash_attention(q, kk, vv, causal=True, window=window)
+    else:
+        k_positions = ring_positions(torch.full((b,), p0 + s - 1, dtype=torch.int64, device=q.device), cache_len)
+        q_positions = positions.to(device=q.device, dtype=torch.int32).expand(b, s)
+        out = torch.stack([
+            ops.flash_decode(q[:, t].contiguous(), ck, cv, q_positions[:, t].contiguous(), k_positions, window=window)
+            for t in range(s)
+        ], dim=1)
+    return out, {"k": ck, "v": cv, "pos": pos + s}
+
+
 def attention_apply(params, cfg, x, positions, *, causal=True, cache=None, peft=None, lora_scale=1.0):
     """Self-attention over ``x`` (B, S, d).  Returns (out, new_cache).
 
-    ``cache``: the batched serving cache ``{"k": (B, S_max, KV, hd), "v":
-    ..., "pos": (B,)}``; S must then be 1.  Its K/V tensors are updated in
-    place and returned in ``new_cache`` with ``pos + 1``.
+    ``cache``: ``{"k": (B, S_max, KV, hd), "v": ..., "pos": ...}``, the
+    batched serving cache (``pos`` (B,); S must then be 1) or the
+    scalar-position cache (``pos`` (), a CPU tensor; S tokens written at
+    ``pos``).  Its K/V tensors are updated in place and returned in
+    ``new_cache`` with ``pos + S``.
     """
     peft = peft or {}
     b, s, _ = x.shape
@@ -61,23 +114,29 @@ def attention_apply(params, cfg, x, positions, *, causal=True, cache=None, peft=
         return out, None
 
     pos = cache["pos"]
-    if pos.ndim != 1:
-        raise ValueError("the port's cache path is the batched serving cache: pos must be (B,)")
+    if pos.ndim == 0 and (s > 1 or int(pos) == 0):
+        out, new_cache = _scalar_cache_attention(cfg, q, k, v, positions, cache)
+        return apply_linear(params["wo"], out.reshape(b, s, h * hd), peft.get("o"), lora_scale), new_cache
+    if pos.ndim > 1:
+        raise ValueError(f"the cache's pos must be () or (B,), got {tuple(pos.shape)}")
     if s != 1:
         raise ValueError(
             f"batched KV cache (per-row positions) decodes one token per row per step, got S={s}"
         )
     ck, cv = cache["k"], cache["v"]
     cache_len = ck.shape[1]
+    # a scalar pos (on the host): every row at one depth, filled on the
+    # device so that no copy waits for the stream
+    row_pos = pos if pos.ndim else torch.full((b,), int(pos), dtype=torch.int64, device=x.device)
     rows = torch.arange(b, device=x.device)
-    write_pos = torch.remainder(pos, cache_len).long()
+    write_pos = torch.remainder(row_pos, cache_len).long()
     ck[rows, write_pos] = k[:, 0].to(ck.dtype)
     cv[rows, write_pos] = v[:, 0].to(cv.dtype)
     # a recycled row still holds the previous tenant's K/V in the ring; the
     # slot positions keep it inert without a cache clear
-    k_positions = ring_positions(pos, cache_len)
+    k_positions = ring_positions(row_pos, cache_len)
     out = ops.flash_decode(
-        q[:, 0].contiguous(), ck, cv, positions[:, 0].to(torch.int32).contiguous(),
+        q[:, 0].contiguous(), ck, cv, positions.expand(b, 1)[:, 0].to(torch.int32).contiguous(),
         k_positions, window=cfg.sliding_window,
     )
     out = apply_linear(params["wo"], out.reshape(b, s, h * hd), peft.get("o"), lora_scale)

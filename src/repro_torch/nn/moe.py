@@ -12,9 +12,11 @@ Switch load-balance loss over the first choice.  A cohort (``devices``)
 folds its devices' equal token blocks into the batch: the groups are cut
 from one device's tokens, so no group spans two devices and each device
 keeps its own capacity and drops, and the aux loss comes back per device.
-Not ported yet, and
-raising: the ``gather`` dispatch, the shared expert and the decode-time
-weight gather for at most 8 tokens.
+
+At most ``_WEIGHT_GATHER_MAX_TOKENS`` tokens (a decode step) take the
+reference's weight gather instead (``_moe_weight_gather``), unless the
+dispatch is ``einsum_forced``.  Not ported yet, and raising: the
+``gather`` dispatch and the shared expert.
 """
 from __future__ import annotations
 
@@ -67,8 +69,6 @@ def moe_apply(params, cfg, x, group_size: Optional[int] = None, dispatch_mode: O
     tokens are routed as ``moe_apply`` routes them alone; the aux loss is
     then (N,), one per device."""
     dispatch_mode = dispatch_mode or cfg.moe_dispatch
-    if dispatch_mode != "einsum":
-        raise NotImplementedError(f"MoE dispatch {dispatch_mode!r} is not ported; the port runs 'einsum'")
     if "shared" in params:
         raise NotImplementedError("the shared expert is not ported")
     b, s, d = x.shape
@@ -76,8 +76,12 @@ def moe_apply(params, cfg, x, group_size: Optional[int] = None, dispatch_mode: O
     tokens = x.reshape(-1, d)
     n_dev = devices or 1
     t = tokens.shape[0] // n_dev  # one device's tokens
-    if t <= _WEIGHT_GATHER_MAX_TOKENS:
-        raise NotImplementedError(f"the MoE weight gather for <= {_WEIGHT_GATHER_MAX_TOKENS} tokens is not ported")
+    if t <= _WEIGHT_GATHER_MAX_TOKENS and dispatch_mode != "einsum_forced":
+        out = _moe_weight_gather(params, cfg, x)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return out, aux if devices is None else aux.expand(devices)
+    if dispatch_mode not in ("einsum", "einsum_forced"):
+        raise NotImplementedError(f"MoE dispatch {dispatch_mode!r} is not ported; the port runs 'einsum'")
     g = group_size or min(t, _DEFAULT_GROUP)
     if t % g:
         g = t  # one group for odd token counts, as the JAX package does
@@ -125,3 +129,33 @@ def moe_apply(params, cfg, x, group_size: Optional[int] = None, dispatch_mode: O
     eout = eout.reshape(e, n_groups, cap, d).permute(1, 0, 2, 3)
     out = torch.einsum("gtec,gecd->gtd", combine, eout).reshape(b, s, d)
     return out, aux
+
+
+def _moe_weight_gather(params, cfg, x):
+    """The decode-time MoE of ``repro.nn.moe._moe_weight_gather``: each
+    token through exactly its top-k experts.  x: (B, S, d) with B * S at
+    most ``_WEIGHT_GATHER_MAX_TOKENS``; returns (B, S, d) in ``x.dtype``.
+
+    The routing is the reference's: a float32 softmax, top-k, the gates
+    renormalised and cast to ``x.dtype``, ``out += gate_i * y_i`` for
+    choices i = 0 .. k-1.  The reference gathers a (t, d, ff) copy of the
+    chosen weights per choice (~2.8 GB at jamba's width); here each choice
+    groups its tokens by expert (one host read of the routing a layer) and
+    runs ``_expert_ffn`` on them with that expert's weight views, so only
+    the routed experts' weights are read and none is copied."""
+    b, s, d = x.shape
+    xt = x.reshape(-1, d)
+    logits = (xt @ params["router"]["w"].to(x.dtype)).float()
+    probs = torch.softmax(logits, dim=-1)  # (t, E)
+    top_p, top_idx = torch.topk(probs, cfg.top_k, dim=-1)  # (t, k), descending
+    gates = (top_p / (torch.sum(top_p, dim=-1, keepdim=True) + 1e-9)).to(x.dtype)
+    routed = top_idx.cpu()
+    out = torch.zeros_like(xt)
+    for i in range(cfg.top_k):
+        y = torch.empty_like(xt)
+        for e in torch.unique(routed[:, i]).tolist():
+            rows = torch.nonzero(routed[:, i] == e)[:, 0].to(x.device)
+            expert = {name: {k: v[e : e + 1] for k, v in node.items()} for name, node in params["experts"].items()}
+            y.index_copy_(0, rows, _expert_ffn(expert, xt.index_select(0, rows)[None])[0])
+        out = out + gates[:, i, None] * y
+    return out.reshape(b, s, d)

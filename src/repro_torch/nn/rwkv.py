@@ -1,5 +1,5 @@
 """RWKV6 ("Finch") block: time-mix with data-dependent decay + channel-mix,
-as ``repro.nn.rwkv``, for training and prefill.
+as ``repro.nn.rwkv``, for training, prefill and decode.
 
 The WKV recurrence runs through ``ops.wkv6``: the hand-written kernel on
 the card (forward and backward), its plain twin on the CPU.  The JAX
@@ -7,8 +7,11 @@ package's training path computes the same function in its chunked form
 (``_wkv_chunked``); the kernel is sequential and needs no decay clamp for
 its numbers, but the clamp stays, since it is part of the model.
 
-Decode (``_wkv_step``, one token on a carried state) and the decode state
-(``init_rwkv_state``) are not ported: RWKV serving is a later slice.
+Serving carries ``init_rwkv_state``'s ``{"wkv", "shift_tm", "shift_cm"}``:
+a prompt runs the kernel from ``state["wkv"]`` (``_wkv_chunked`` with
+``s0`` there), and each decode step runs it at S = 1 from that state,
+where the reference runs its one-token ``_wkv_step``; both return the
+output in float32.
 """
 from __future__ import annotations
 
@@ -103,15 +106,13 @@ def time_mix_apply(params, cfg, x, state: Optional[dict] = None):
     """RWKV6 time-mix.  x: (B, S, d).  Returns (out, new_state_parts) with
     ``{"wkv": (B, H, K, K) float32, "shift_tm": (B, d) float32}``.
 
-    ``state=None`` is the training path; a state with S > 1 tokens is the
-    prefill-with-state branch (the same kernel from ``state["wkv"]``).
+    ``state=None`` is the training path; with a state, S > 1 tokens are
+    the prefill-with-state branch and S = 1 the decode step (``_wkv_step``
+    in the reference), both through the same kernel from ``state["wkv"]``.
     """
     b, s, d = x.shape
     hd = cfg.rwkv.head_dim
     n_heads = d // hd
-    if state is not None and s == 1:
-        raise NotImplementedError("the one-token RWKV decode step (_wkv_step) is not ported")
-
     prev = state["shift_tm"] if state is not None else torch.zeros((b, d), dtype=x.dtype, device=x.device)
     xs = _token_shift(x, prev.to(x.dtype))
     mixed = _ddlerp(params, x, xs)  # (B, S, 5, d)
@@ -152,3 +153,15 @@ def channel_mix_apply(params, cfg, x, state: Optional[dict] = None, peft: Option
     kv = apply_linear(params["wv"], k, peft.get("down"), lora_scale)
     out = torch.sigmoid(apply_linear(params["wr"], xr)) * kv
     return out, {"shift_cm": x[:, -1].float()}
+
+
+def init_rwkv_state(cfg, batch: int, device=None):
+    """The decode state of one RWKV6 layer, zero, float32, as
+    ``repro.nn.rwkv.init_rwkv_state``: ``{"wkv": (B, H, K, K), "shift_tm":
+    (B, d), "shift_cm": (B, d)}``."""
+    d, hd = cfg.d_model, cfg.rwkv.head_dim
+    return {
+        "wkv": torch.zeros((batch, d // hd, hd, hd), device=device),
+        "shift_tm": torch.zeros((batch, d), device=device),
+        "shift_cm": torch.zeros((batch, d), device=device),
+    }

@@ -63,7 +63,7 @@ def _reset_rows(caches, pos_mask):
 
 def batched_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device=None):
     """Stacked caches with per-row positions: ``pos`` is ``(L, B)``."""
-    caches = init_caches(cfg, batch, max_len, dtype, device)
+    caches = init_caches(cfg, batch, max_len, dtype, device, layout="stacked")
     caches["pos"] = torch.zeros((cfg.num_layers, batch), dtype=torch.int32, device=device)
     return caches
 

@@ -970,6 +970,56 @@ def test_cuda_mamba_scan_bwd_row_is_batch_invariant(cuda, s, d, n, b3_row):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,d,n", [(8, 1, 8192, 16), (2, 9, 200, 16), (3, 9, 129, 8), (2, 70, 256, 8)])
+def test_cuda_mamba_scan_from_h0_matches_twin(cuda, dtype, b, s, d, n):
+    """The forward from an entering state h0 (the serving path: one token,
+    S 9 across the 8-token chunk's edge, D odd and off the block) against
+    ``mamba_scan_plain`` from the same h0, the limits of
+    ``test_cuda_mamba_scan_fwd_matches_twin``; one launch, and with h0
+    zero the bits of the forward from no state.  A backward raises."""
+    inputs, _ = _mamba(np.random.default_rng(31), b, s, d, n, dtype, cuda)
+    h0 = torch.from_numpy(np.random.default_rng(32).standard_normal((b, d, n), dtype=np.float32)).to(cuda)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        y, st = ops.mamba_scan(*inputs, h0)
+    assert ops.launch_counts["mamba_scan"] == 1
+    want_y, want_st = ref.mamba_scan_plain(*inputs, h0)
+    torch.cuda.synchronize()
+    atol, rtol = (3e-2, 1e-2) if dtype == "bfloat16" else (1e-4, 1e-3)
+    torch.testing.assert_close(y.float(), want_y.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(st, want_st, atol=1e-4, rtol=1e-3)
+    y0, st0 = ops._mamba_fwd(*inputs, torch.zeros_like(h0))
+    y1, st1 = ops._mamba_fwd(*inputs)
+    assert torch.equal(y0, y1) and torch.equal(st0, st1)
+    leaves = [t.clone().requires_grad_(True) for t in inputs]
+    y2, _ = ops.mamba_scan(*leaves, h0)
+    with pytest.raises(NotImplementedError):
+        y2.float().sum().backward()
+    with pytest.raises(ValueError, match="h0"):
+        ops.mamba_scan(*inputs, h0[:, :, :4].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,k", [(8, 40, 64), (3, 4, 32)])
+def test_cuda_wkv6_one_token_from_s0_matches_twin(cuda, dtype, b, h, k):
+    """The decode step's WKV: S = 1 from a state s0 (rwkv6-3b's 40 heads of
+    64 at batch 8), out and the final state against ``wkv6_plain``
+    within 1e-4 + 1e-3 |ref|, one launch and no backward kernel."""
+    inputs, _, _ = _wkv(np.random.default_rng(18), b, 1, h, k, dtype, cuda, True)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        out, st = ops.wkv6(*inputs)
+    assert ops.launch_counts["wkv6"] == 1 and ops.launch_counts["wkv6_bwd"] == 0
+    want_out, want_st = ref.wkv6_plain(*inputs)
+    torch.cuda.synchronize()
+    assert out.dtype == st.dtype == torch.float32 and out.shape == (b, 1, h, k)
+    torch.testing.assert_close(out, want_out, atol=1e-4, rtol=1e-3)
+    torch.testing.assert_close(st, want_st, atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.cuda
 def test_cuda_mamba_scan_rejects_what_the_kernel_does_not_take(cuda):
     inputs, _ = _mamba(np.random.default_rng(22), 1, 8, 64, 4, "float32", cuda)
     with pytest.raises(ValueError, match="state dim"):

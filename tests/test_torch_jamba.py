@@ -266,15 +266,6 @@ def test_mamba_apply_matches_jax_associative_scan(setup):
     np.testing.assert_allclose(_np(got_state["ssm"]), np.asarray(want_state["ssm"]), atol=BLOCK_ATOL, rtol=1e-4)
 
 
-def test_mamba_apply_has_no_decode_state(setup):
-    """The Mamba decode state is left for a later slice."""
-    _, _, _, cfg, params, _, _ = setup
-    d_in = cfg.mamba.expand * cfg.d_model
-    state = {"conv": torch.zeros(1, cfg.mamba.d_conv - 1, d_in), "ssm": torch.zeros(1, d_in, cfg.mamba.d_state)}
-    with pytest.raises(NotImplementedError):
-        mamba.mamba_apply(params["layers"][0]["mamba"], cfg, torch.zeros(1, 1, cfg.d_model), state)
-
-
 @pytest.mark.parametrize("group_size,router_scale", [(None, 1.0), (16, 8.0)])
 def test_moe_apply_matches_jax(setup, group_size, router_scale):
     """The MoE block (einsum dispatch) and its aux loss against
@@ -299,8 +290,6 @@ def test_moe_unported_dispatches_raise(setup):
     with pytest.raises(NotImplementedError):
         moe.moe_apply(p, cfg, torch.zeros(2, 16, cfg.d_model), dispatch_mode="gather")
     with pytest.raises(NotImplementedError):
-        moe.moe_apply(p, cfg, torch.zeros(1, 4, cfg.d_model))  # decode: the weight gather
-    with pytest.raises(NotImplementedError):
         moe.moe_apply(dict(p, shared={}), cfg, torch.zeros(2, 16, cfg.d_model))
 
 
@@ -323,12 +312,6 @@ def test_lm_apply_matches_jax(setup, stack_mode, drops):
     np.testing.assert_allclose(_np(got), np.asarray(want), atol=LOGIT_ATOL, rtol=0)
     np.testing.assert_allclose(_np(aux), np.asarray(want_aux), rtol=1e-5)
     assert (float(aux) == 0.0) == bool(drops and drops[1])
-
-
-def test_hybrid_caches_raise(setup):
-    _, _, _, cfg, params, _, _ = setup
-    with pytest.raises(NotImplementedError):
-        lm_apply(params, cfg, torch.zeros(1, 1, dtype=torch.long), caches={"k": None, "v": None})
 
 
 def _jloss(jcfg, jparams, batch, drops):

@@ -275,15 +275,6 @@ def test_time_mix_and_channel_mix_match_jax(setup, with_state):
     np.testing.assert_allclose(_np(got_state["shift_cm"]), np.asarray(want_state["shift_cm"]), rtol=1e-6)
 
 
-def test_time_mix_has_no_decode_step(setup):
-    """The one-token decode step (``_wkv_step``) is left for a later slice."""
-    _, _, _, cfg, params, _, _ = setup
-    hd = cfg.rwkv.head_dim
-    state = {"wkv": torch.zeros(1, cfg.d_model // hd, hd, hd), "shift_tm": torch.zeros(1, cfg.d_model)}
-    with pytest.raises(NotImplementedError):
-        rwkv.time_mix_apply(layer_view(params["layers"], 0)["time_mix"], cfg, torch.zeros(1, 1, cfg.d_model), state)
-
-
 @pytest.mark.parametrize("drops", [None, [False, True], [True, False]])
 def test_lm_apply_with_drops_matches_jax(setup, drops):
     """(e) Logits of the whole model, with and without dropped layers."""
