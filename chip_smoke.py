@@ -61,7 +61,13 @@ Phases, one line each before the last:
    timed beside its twin and its bound (the state's bytes read and
    written, where S is 1), and flash_decode over phase 5h's ring of 160
    slots and flash_attention over its 128-token prompts at batch 8, at
-   qwen3-1.7b's heads and jamba-v0.1-52b's;
+   qwen3-1.7b's heads and jamba-v0.1-52b's; and the moe family's shapes:
+   flash_attention forward and backward at the training shape (batch 16 x
+   512) with granite-moe-3b-a800m's 24 heads of 64 over 8 KV heads and
+   llama4-scout-17b-a16e's 40 heads of 128 over 8, flash_decode at their
+   serving step, both also in float32, and the q and v projections'
+   lora_matmul (batch 16 x 512) and segmented_lora (8 rows) at their
+   widths (d 1 536 and 5 120);
 4. full-width qwen3-1.7b (28 layers, random weights from ``--seed``)
    served through ``repro_torch.api.serve``: 12 requests over 4 LoRA
    tenants of rank 4/8 at batch 8, rows recycling mid-run; every completion
@@ -155,15 +161,33 @@ Phases, one line each before the last:
    the card against the CPU twins (tokens equal, logits within 1e-4); and
    prefill ms, ms a decode step, a profiled step's device time and idle
    share, launches a step and peak memory;
+5i. the moe family: one client's local round as phase 5 of full-width
+   granite-moe-3b-a800m (32 layers, 40 experts top-8; its rate-0.0 round
+   at half the batch if batch 16 does not fit, the error printed) and of
+   llama4-scout-17b-a16e (16 experts top-1 and a shared expert) at the
+   deepest depth cut at which both rates' rounds fit at batch 16 (from
+   ``LLAMA4_TRAIN_LAYERS`` down, the cut printed), each with the MoE's
+   share of a layer's device time and the peak while drawing the weights;
+   granite's rate-0.5 round again with the gather dispatch (launches, two
+   rounds bit-identical, the loss within 3e-2 of the einsum dispatch's,
+   seconds a step and peak beside einsum's); both served as phase 4
+   (llama4 at ``LLAMA4_SERVE_LAYERS``; every MoE call takes the decode
+   step's weight gather, flash_decode once and segmented_lora twice a
+   layer a step) and through ``launch.serve``'s prefill and generate as
+   phase 5h (llama4's float32 check at ``LLAMA4_F32_LAYERS``, an MoE's at a
+   capacity that drops no token); and ``api.build("droppeft",
+   "granite-moe-3b-a800m", smoke=False)`` batched for 2 rounds with phase
+   5d's checks, then its smoke-size run on the card against sequential
+   and the CPU twins;
 6. the ``kernels`` JSON line: launches of each kernel in its own path's
    run (serving: phase 4's run; training: phase 5's round at rate 0.5,
    phase 5b's for wkv6 and wkv6_bwd, phase 5c's for mamba_scan and
    mamba_scan_bwd), and for the training kernels also phase 5d's rounds,
    phase 5f's deadline rounds and gather round, phase 5g's runs, and for
    every kernel of the dense path phase 5e's runs, and phase 5h's serving
-   runs for flash_decode, flash_attention, wkv6 and mamba_scan
-   (``launches_by_path``), the other dense decoders' shapes, FedHetLoRA's
-   and the scans' from a state beside.
+   runs for flash_decode, flash_attention, wkv6 and mamba_scan, and phase
+   5i's runs (``launches_by_path``), the other dense decoders' shapes,
+   FedHetLoRA's, the scans' from a state and the moe family's beside.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits non-zero before it; without a CUDA card, or outside the checkout, the
@@ -1144,19 +1168,19 @@ def make_tenants(cfg, gen, n=4):
     return trees
 
 
-def serve_full(api, ops, card, seed: int, arch: str = "qwen3-1.7b"):
-    """Phase 4 (and 5e for the other dense archs): full-width ``arch``
-    through api.serve."""
+def serve_full(api, ops, card, seed: int, arch: str = "qwen3-1.7b", cfg=None):
+    """Phase 4 (and 5e, 5i for the other archs): full-width ``arch`` (or
+    ``cfg``, a depth cut of it) through api.serve."""
     from repro_torch.configs import get_config
     from repro_torch.serving.batcher import ContinuousBatcher, Request
 
     gc.collect()  # an earlier phase's weights may sit in reference cycles
     torch.cuda.empty_cache()
-    cfg = get_config(arch)
+    cfg = cfg or get_config(arch)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed + 1)
     t0 = time.perf_counter()
-    batcher = api.serve(arch, smoke=False, adapters=make_tenants(cfg, gen),
+    batcher = api.serve(arch, smoke=False, cfg=cfg, adapters=make_tenants(cfg, gen),
                         batch=8, max_len=512, seed=seed)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
@@ -1311,16 +1335,30 @@ def recording(step, seen: list):
     return wrapped
 
 
+def card_smoke_cfg(arch: str):
+    """The smoke config of ``arch`` in float32, as the comparisons of the
+    card against the CPU twins run it.  The attention kernels take head
+    dims that are multiples of 16, so granite-moe-3b-a800m's smoke model (4
+    heads of 24 over 2 KV heads, d_model 96) runs there with 6 heads of 16
+    over 2 (3 a KV head, as its full config has); the CPU tests hold the
+    reference's smoke config itself."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch, smoke=True).replace(dtype="float32")
+    if arch == "granite-moe-3b-a800m":
+        cfg = cfg.replace(num_heads=6, num_kv_heads=2)
+    return cfg
+
+
 def smoke_cuda_vs_cpu(seed: int, arch: str = "qwen3-1.7b"):
     """Phase 4b: the smoke model of ``arch``, float32, one batched run on
     the card (the kernels) and one on the CPU (the twins): the logits of
     every step agree."""
     from repro_torch import api
-    from repro_torch.configs import get_config
     from repro_torch.models.registry import init_params
     from repro_torch.serving.batcher import Request
 
-    cfg = get_config(arch, smoke=True).replace(dtype="float32")
+    cfg = card_smoke_cfg(arch)
     gen = torch.Generator()
     gen.manual_seed(seed)
     params = init_params(cfg, gen)
@@ -1415,15 +1453,20 @@ def check_launches(launches: dict, want: dict, what: str):
     check(launches == full, f"{what}: launches {launches}, expected {full}")
 
 
-def train_full(ops, card, seed: int, cfg, round_launches, eval_launches):
+def train_full(ops, card, seed: int, cfg, round_launches, eval_launches, *, rate0_batch_cut: bool = True,
+               after=None):
     """One client's DropPEFT local round of ``cfg`` (full width) through
     ``make_client_fns``: 4 steps at batch 16 x 512, STLD mean rate 0.5, then
     ``evaluate``, then a round at rate 0.0 for the comparison of step time
-    and peak memory (at half the batch if batch 16 does not fit, a cut
-    written beside the numbers).  The weights are drawn and placed part by
-    part.  ``round_launches(gates)``, from the gates the round drew (one
-    list of booleans per step, True = dropped), and
-    ``eval_launches(cfg)`` give each kernel's expected launches."""
+    and peak memory (with ``rate0_batch_cut``, at half the batch if batch 16
+    does not fit, a cut written beside the numbers with the error that
+    forced it; without, the error propagates).
+    The weights are drawn and placed part by part; the peak while drawing
+    is reported.  ``round_launches(gates)``, from the gates the round drew
+    (one list of booleans per step, True = dropped), and
+    ``eval_launches(cfg)`` give each kernel's expected launches.
+    ``after(cfg, params, peft)``, when given, runs while the weights are
+    held and its dict is returned under ``after``."""
     from repro_torch.configs import FederatedConfig, PEFTConfig, STLDConfig, TrainConfig
     from repro_torch.core import stld
     from repro_torch.core.peft import init_peft
@@ -1439,8 +1482,10 @@ def train_full(ops, card, seed: int, cfg, round_launches, eval_launches):
     steps, batch, seq, rate = fed.local_steps, fed.batch_size, 512, 0.5
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_params(cfg, gen, place=True)
+    draw_peak = torch.cuda.max_memory_allocated()
     peft = init_peft(cfg, peft_cfg, gen)
     task = make_task(vocab_size=cfg.vocab_size, seq_len=seq, num_examples=(steps + 1) * batch, seed=seed)
     batches = train_batches(task, steps, batch)
@@ -1496,7 +1541,17 @@ def train_full(ops, card, seed: int, cfg, round_launches, eval_launches):
     check(np.isfinite(acc) and 0.0 <= acc <= 1.0, f"accuracy {acc}")
     check_launches(eval_launches_seen, eval_launches(cfg), f"{arch} evaluate")
 
-    batch0 = batch
+    gib = 2.0**30
+    stats = {
+        "model": cfg.name, "layers": cfg.num_layers, "batch": batch, "seq": seq, "local_steps": steps,
+        "mean_rate": rate, "setup_s": setup_s, "round_s": round_s, "s_per_local_step": round_s / steps,
+        "active_layers_per_step": metrics["active_layers"], "metrics": metrics, "accuracy_after_round": acc,
+        "gates_rate_0.5": gates, "launches": launches, "lora_matmul_routes": routes,
+        "peak_gib_drawing_weights": draw_peak / gib, "resident_gib": resident / gib,
+        "peak_gib_rate_0.5": peak_05 / gib, "round_gib_above_resident_rate_0.5": (peak_05 - resident) / gib,
+        "bit_identical_rounds": True, "evaluate_launches": eval_launches_seen, "card": card,
+    }
+    batch0, did_not_fit = batch, []
     while True:
         rate0_batches = {key: val[:, :batch0] for key, val in batches.items()}
         torch.cuda.reset_peak_memory_stats()
@@ -1504,27 +1559,23 @@ def train_full(ops, card, seed: int, cfg, round_launches, eval_launches):
         try:
             _, _, m0, _ = run(0.0, rate0_batches)
             break
-        except torch.cuda.OutOfMemoryError:
+        except torch.cuda.OutOfMemoryError as err:
+            if not rate0_batch_cut:
+                raise
             check(batch0 > 1, "rate 0.0 does not fit at batch 1")
+            did_not_fit.append({"batch": batch0, "error": str(err).splitlines()[0][:200]})
         batch0 //= 2  # the cut is written beside the numbers
         gc.collect()  # after the handler, whose traceback held the failed round's tensors
         torch.cuda.empty_cache()
     round0_s = time.perf_counter() - t0
     peak_00 = torch.cuda.max_memory_allocated()
     check(float(m0["active_layers"]) == cfg.num_layers, f"rate 0.0 ran {float(m0['active_layers'])} layers")
-    profile = profile_round(fns, params, peft, batches, rate, seed)
-    gib = 2.0**30
-    return {
-        "model": cfg.name, "layers": cfg.num_layers, "batch": batch, "seq": seq, "local_steps": steps,
-        "mean_rate": rate, "setup_s": setup_s, "round_s": round_s, "s_per_local_step": round_s / steps,
-        "active_layers_per_step": metrics["active_layers"], "metrics": metrics, "accuracy_after_round": acc,
-        "round_s_rate_0": round0_s, "s_per_local_step_rate_0": round0_s / steps, "batch_rate_0": batch0,
-        "gates_rate_0.5": gates, "launches": launches, "lora_matmul_routes": routes,
-        "resident_gib": resident / gib, "peak_gib_rate_0.5": peak_05 / gib, "peak_gib_rate_0.0": peak_00 / gib,
-        "round_gib_above_resident_rate_0.5": (peak_05 - resident) / gib,
-        "round_gib_above_resident_rate_0.0": (peak_00 - resident) / gib,
-        "bit_identical_rounds": True, "evaluate_launches": eval_launches_seen, "card": card,
-    }, profile, launches
+    stats.update({"round_s_rate_0": round0_s, "s_per_local_step_rate_0": round0_s / steps, "batch_rate_0": batch0,
+                  "rate_0_did_not_fit": did_not_fit or None, "peak_gib_rate_0.0": peak_00 / gib,
+                  "round_gib_above_resident_rate_0.0": (peak_00 - resident) / gib})
+    if after is not None:
+        stats["after"] = after(cfg, params, peft)
+    return stats, profile_round(fns, params, peft, batches, rate, seed), launches
 
 
 def smoke_train_cuda_vs_cpu(seed: int, arch: str):
@@ -1534,7 +1585,7 @@ def smoke_train_cuda_vs_cpu(seed: int, arch: str):
     element by about lr * sign(g), so an element whose gradient lies within
     float error of 0 may move the other way: every element within
     2 * (sum of the step sizes) + 1e-6, and 99% within 1e-6."""
-    from repro_torch.configs import PEFTConfig, STLDConfig, TrainConfig, get_config
+    from repro_torch.configs import PEFTConfig, STLDConfig, TrainConfig
     from repro_torch.core.peft import init_peft
     from repro_torch.data.synthetic import make_task
     from repro_torch.federated.client import make_client_fns
@@ -1542,7 +1593,7 @@ def smoke_train_cuda_vs_cpu(seed: int, arch: str):
     from repro_torch.models.stacking import tree_leaves, tree_map
     from repro_torch.optim import adamw_init, make_lr_schedule
 
-    cfg, train_cfg = get_config(arch, smoke=True).replace(dtype="float32"), TrainConfig()
+    cfg, train_cfg = card_smoke_cfg(arch), TrainConfig()
     gen = torch.Generator()
     gen.manual_seed(seed)
     params = init_params(cfg, gen)
@@ -1730,9 +1781,9 @@ def cohort_step_layers(gates, devices: int, steps: int) -> list:
             for s in range(steps)]
 
 
-def federated_run(api, ops, seed: int, cohort_mode: str):
-    """``api.build("droppeft", "qwen3-1.7b", smoke=False)`` in ``cohort_mode``
-    for 3 rounds, instrumented, with every per-round check: finite history,
+def federated_run(api, ops, seed: int, cohort_mode: str, arch: str = "qwen3-1.7b", rounds: int = FED_ROUNDS):
+    """``api.build("droppeft", arch, smoke=False)`` in ``cohort_mode`` for
+    ``rounds`` rounds, instrumented, with every per-round check: finite history,
     the start-up rates, PTLS's k, unshared layers kept, launches exactly
     from the gates (sequential: a local round and an ``evaluate`` per
     member; batched: per cohort step each layer once if any gate opens it,
@@ -1748,7 +1799,7 @@ def federated_run(api, ops, seed: int, cohort_mode: str):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     # batched is what api.build runs when the caller names no mode
-    runner = api.build("droppeft", "qwen3-1.7b", smoke=False, seed=seed,
+    runner = api.build("droppeft", arch, smoke=False, seed=seed,
                        **({} if cohort_mode == "batched" else {"cohort_mode": cohort_mode}))
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
@@ -1756,24 +1807,24 @@ def federated_run(api, ops, seed: int, cohort_mode: str):
     cfg, fed, seq = runner.ctx.cfg, runner.ctx.fed_cfg, runner.ctx.task.seq_len
     layers, n, steps = cfg.num_layers, fed.devices_per_round, fed.local_steps
     resident = torch.cuda.memory_allocated()
-    clock, rounds = {}, []
-    instrument_runner(runner, ops, clock, rounds)
+    clock, recorded = {}, []
+    instrument_runner(runner, ops, clock, recorded)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    result = runner.run(rounds=FED_ROUNDS)
+    result = runner.run(rounds=rounds)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     final_launches = dict(ops.launch_counts)
 
     hist = list(runner.state.history)
-    check(len(hist) == FED_ROUNDS == result.rounds, f"{len(hist)} history rows")
+    check(len(hist) == rounds == result.rounds, f"{len(hist)} history rows")
     check(all(np.isfinite(v) for row in hist for v in row.values()), f"non-finite history {hist}")
     check(np.isfinite(result.final_accuracy), f"final accuracy {result.final_accuracy}")
-    check(rounds[0]["rates"] == [STARTUP_RATES[i % 3] for i in range(n)], f"first round's rates {rounds[0]['rates']}")
+    check(recorded[0]["rates"] == [STARTUP_RATES[i % 3] for i in range(n)], f"first round's rates {recorded[0]['rates']}")
     k = int(fed.ptls_share_fraction * layers)
     step_layers = []
-    for j, r in enumerate(rounds):
+    for j, r in enumerate(recorded):
         check(r["shared_per_device"] == [k] * n, f"shared layers per device {r['shared_per_device']}")
         check(r["unshared_kept_bit_for_bit"], f"layers {r['unshared_layers']} shared by nobody changed")
         check(len(r["gates"]) == n * steps, f"{len(r['gates'])} gate draws in a round")
@@ -1786,7 +1837,7 @@ def federated_run(api, ops, seed: int, cohort_mode: str):
                     "lora_matmul": 4 * sum(run) - 2 * steps + 2 * layers}
         else:
             # phase 5's counts per local round, summed over the cohort, and
-            # one evaluate (28 attention, 56 lora_matmul) per member
+            # one evaluate (an attention and two lora_matmul a layer) per member
             want = {"flash_attention": active + n * layers, "flash_attention_bwd": active,
                     "lora_matmul": 4 * active - 2 * len(r["gates"]) + n * 2 * layers}
         check_launches(r["launches"], want, f"{cohort_mode} federated round {j + 1}")
@@ -1794,20 +1845,20 @@ def federated_run(api, ops, seed: int, cohort_mode: str):
     evaluations = -(-fed.num_devices // n) if cohort_mode == "batched" else fed.num_devices
     check_launches(final_launches, {"flash_attention": evaluations * layers, "lora_matmul": evaluations * 2 * layers},
                    f"{cohort_mode} final_accuracy")
-    per_round = [r["seconds"] for r in rounds]
+    per_round = [r["seconds"] for r in recorded]
     split = {f"{name}_s": clock[name] for name in ("local_round", "evaluate", "cohort_round_eval", "aggregate")
              if name in clock}
     split["rest_s"] = sum(per_round) - sum(split.values())
     gib = 2.0**30
-    launches = {name: sum(r["launches"][name] for r in rounds) + final_launches[name] for name in final_launches}
+    launches = {name: sum(r["launches"][name] for r in recorded) + final_launches[name] for name in final_launches}
     stats = {
         "cohort_mode": cohort_mode, "setup_s": setup_s, "run_s": run_s, "s_per_round": per_round,
-        "s_per_round_mean": sum(per_round) / FED_ROUNDS, "split_over_rounds_s": split,
+        "s_per_round_mean": sum(per_round) / rounds, "split_over_rounds_s": split,
         "final_accuracy_s": sum(v for key, v in clock.items() if key.startswith("final_accuracy_")),
         "final_accuracy_calls": evaluations, "resident_gib": resident / gib, "peak_gib": peak / gib,
-        "launches_per_round": [r["launches"] for r in rounds], "launches_final_accuracy": final_launches,
-        "cohorts": [r["cohort"] for r in rounds], "rates": [r["rates"] for r in rounds],
-        "unshared_layers": [r["unshared_layers"] for r in rounds], "history": hist,
+        "launches_per_round": [r["launches"] for r in recorded], "launches_final_accuracy": final_launches,
+        "cohorts": [r["cohort"] for r in recorded], "rates": [r["rates"] for r in recorded],
+        "unshared_layers": [r["unshared_layers"] for r in recorded], "history": hist,
         "final_accuracy": result.final_accuracy,
     }
     if step_layers:
@@ -1926,12 +1977,12 @@ def federated_smoke_cuda_vs_cpu(seed: int, arch: str):
     the others, the step sizes summed over every local step of both
     rounds."""
     from repro_torch import api
-    from repro_torch.configs import FederatedConfig, TrainConfig, get_config
+    from repro_torch.configs import FederatedConfig, TrainConfig
     from repro_torch.models.registry import init_params
     from repro_torch.models.stacking import tree_leaves
     from repro_torch.optim import make_lr_schedule
 
-    cfg, train_cfg = get_config(arch, smoke=True).replace(dtype="float32"), TrainConfig()
+    cfg, train_cfg = card_smoke_cfg(arch), TrainConfig()
     fed = FederatedConfig(num_devices=6, devices_per_round=4, local_steps=2, batch_size=8)
     params = init_params(cfg, torch.Generator().manual_seed(seed))
     runs = {}
@@ -2700,7 +2751,7 @@ def method_grid_smoke_cuda_vs_cpu(seed: int):
     masks, event logs and history rows but the loss equal, the loss within
     1e-5, the global tree within phase 5's tree tolerance."""
     from repro_torch import api
-    from repro_torch.configs import FederatedConfig, TrainConfig, get_config
+    from repro_torch.configs import FederatedConfig, TrainConfig
     from repro_torch.models.registry import init_params
     from repro_torch.models.stacking import tree_leaves
     from repro_torch.optim import make_lr_schedule
@@ -2713,7 +2764,7 @@ def method_grid_smoke_cuda_vs_cpu(seed: int):
               for kind in ("adapter", "bitfit")]
     out = {}
     for arch, method, kw in cases:
-        cfg = get_config(arch, smoke=True).replace(dtype="float32")
+        cfg = card_smoke_cfg(arch)
         params = init_params(cfg, torch.Generator().manual_seed(seed))
         runs = {}
         for device in ("cuda", "cpu"):
@@ -2748,20 +2799,43 @@ def method_grid_smoke_cuda_vs_cpu(seed: int):
 
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 128, 32  # phase 5h: batch 8, 128-token prompts, 32 new tokens
 RECURRENT_ARCHS = ("rwkv6-3b", "jamba-v0.1-52b", "qwen3-1.7b")
+# llama4-scout-17b-a16e on one card: 48 layers of ~4.4 GB in bf16 (~216
+# GB) and a 4.1 GB embedding and head.  Serving holds 8 layers (~39 GB);
+# the float32 decode check 4 (35 GB of float32 layers, 8.3 GB of head);
+# training takes the deepest cut at which both rates' rounds fit at batch
+# 16, from LLAMA4_TRAIN_LAYERS down: 8 layers did not fit on an 80 GB
+# H100 (the float32 logits of 16 x 512 tokens over 202 048 are 6.2 GiB a
+# copy), nor 7, and 6 did (68.8 GiB at rate 0.0), so the search starts
+# at 7 and shows the cut above the one it takes.
+LLAMA4_SERVE_LAYERS, LLAMA4_F32_LAYERS, LLAMA4_TRAIN_LAYERS = 8, 4, 7
+SERVING_CUTS = {
+    "jamba-v0.1-52b": "one period of 8 of 32 layers (52 B bf16 exceeds the card's 80 GB)",
+    "llama4-scout-17b-a16e": f"{LLAMA4_SERVE_LAYERS} of 48 layers, float32 {LLAMA4_F32_LAYERS} (108 B bf16 exceeds "
+                             "the card's 80 GB)",
+}
 
 
 def serving_cfg(arch: str, dtype: str = "bfloat16", smoke: bool = False):
-    """Phase 5h's full-width config of ``arch``: jamba-v0.1-52b cut to one
-    period of 8 layers (7 Mamba, 1 attention), as in phase 5c, since its 32
-    layers (~104 GB in bf16) exceed the card's 80 GB; in float32 jamba at
-    ``capacity_factor`` 8.0, as ``tests/test_decode_consistency.py`` runs
-    it, so that the cache-free forward drops no token that decode keeps.
-    ``smoke`` takes the smoke config instead (a rehearsal on the CPU)."""
+    """Phase 5h's (and 5i's) full-width config of ``arch``: jamba-v0.1-52b
+    cut to one period of 8 layers (7 Mamba, 1 attention), as in phase 5c,
+    since its 32 layers (~104 GB in bf16) exceed the card's 80 GB, and in
+    float32 at ``capacity_factor`` 8.0, as ``tests/test_decode_consistency.py``
+    runs it, so that the cache-free forward drops no token that decode
+    keeps; llama4-scout-17b-a16e cut to ``LLAMA4_SERVE_LAYERS`` (its 48
+    layers are ~216 GB), and in float32 to ``LLAMA4_F32_LAYERS`` (8 float32
+    layers, 70 GB, and the float32 head do not fit); an MoE family's
+    float32 config at a capacity of every token of a group
+    (``capacity_factor`` = experts), so that no token drops.  ``smoke``
+    takes the smoke config instead (a rehearsal on the CPU)."""
     from repro_torch.configs import get_config
 
     cfg = get_config(arch, smoke=smoke).replace(dtype=dtype)
     if arch == "jamba-v0.1-52b":
         cfg = cfg.replace(num_layers=8, **({"capacity_factor": 8.0} if dtype == "float32" else {}))
+    if arch == "llama4-scout-17b-a16e" and not smoke:
+        cfg = cfg.replace(num_layers=LLAMA4_F32_LAYERS if dtype == "float32" else LLAMA4_SERVE_LAYERS)
+    if cfg.family == "moe" and dtype == "float32":
+        cfg = cfg.replace(capacity_factor=float(cfg.num_experts))
     return cfg
 
 
@@ -2876,11 +2950,10 @@ def serve_smoke_cuda_vs_cpu(serve, seed: int, arch: str):
     on the card (the kernels) and on the CPU (the twins), from the same
     weights and prompts: the tokens equal, the logits of the prompt and of
     every decode step within 1e-4."""
-    from repro_torch.configs import get_config
     from repro_torch.launch.steps import make_serve_step
     from repro_torch.models.registry import init_params, place_params
 
-    cfg = get_config(arch, smoke=True).replace(dtype="float32")
+    cfg = card_smoke_cfg(arch)
     gen = torch.Generator()
     gen.manual_seed(seed)
     params = init_params(cfg, gen)
@@ -2978,13 +3051,9 @@ def recurrent_serving_full(ops, card, seed: int, arch: str, device: str = "cuda"
     eos_id, budgets, pad_id = int(tokens[0, 12]), [SERVE_GEN, 14, 9, 17, SERVE_GEN, 11, 25, SERVE_GEN], -1
     stopped = serve.prefill_and_generate(cfg, params, prompt, SERVE_GEN, device, eos_id=eos_id,
                                          max_new_tokens=torch.tensor(budgets), pad_id=pad_id)["tokens"].cpu()
-    # the freeze points from the unconditional run's tokens (the hybrid
-    # family's live tokens may part from them after the batch's first
-    # freeze, so there a live token of this run takes the place of the
-    # unconditional one): each row holds no pad_id up to its freeze point
-    # and only pad_id after it
-    base = torch.where(stopped == pad_id, tokens, stopped) if cfg.family == "hybrid" else tokens
-    freeze = freeze_steps(base, eos_id, budgets)
+    # the freeze points from the unconditional run's tokens: each row holds
+    # no pad_id up to its freeze point and only pad_id after it
+    freeze = freeze_steps(tokens, eos_id, budgets)
     live = torch.arange(SERVE_GEN)[None, :] <= torch.tensor(freeze)[:, None]
     check(torch.equal(stopped == pad_id, ~live),
           f"{arch}: rows not frozen as eos_id {eos_id} and budgets {budgets} say (after steps {freeze})")
@@ -2993,12 +3062,11 @@ def recurrent_serving_full(ops, card, seed: int, arch: str, device: str = "cuda"
     first_stop = min(freeze) + 1
     check(torch.equal(stopped[:, :first_stop], tokens[:, :first_stop]),
           f"{arch}: tokens before the first freeze (step {first_stop}) differ from the unconditional run's")
+    # no row's arithmetic reads another row's values (the MoE weight gather
+    # runs each chosen expert on every token of the step): every live token
+    # is the unconditional run's
     live_equal = int((stopped[live] == tokens[live]).sum())
-    if cfg.family != "hybrid":
-        # no row's arithmetic reads another row's values: every live token
-        # is the unconditional run's (jamba's weight gather groups the
-        # step's tokens by expert, so its products' shapes follow the others)
-        check(live_equal == int(live.sum()), f"{arch}: {live_equal} of {int(live.sum())} live tokens as unconditional")
+    check(live_equal == int(live.sum()), f"{arch}: {live_equal} of {int(live.sum())} live tokens as unconditional")
     del params
     free_memory(device)
 
@@ -3025,8 +3093,7 @@ def recurrent_serving_full(ops, card, seed: int, arch: str, device: str = "cuda"
                         for name in seen["prefill"]}}
     return {
         "model": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
-        "cut": ("one period of 8 of 32 layers (52 B bf16 exceeds the card's 80 GB)"
-                if arch.startswith("jamba") and not smoke else None),
+        "cut": SERVING_CUTS.get(arch) if not smoke else None,
         "batch": SERVE_BATCH, "prompt_tokens": SERVE_PROMPT, "new_tokens": SERVE_GEN, "setup_s": setup_s,
         "prefill_ms": prefill_s * 1e3, "decode_ms": decode_s * 1e3, "ms_per_decode_step": decode_s / SERVE_GEN * 1e3,
         "generated_tokens_per_s": SERVE_BATCH * SERVE_GEN / decode_s, "peak_gib": peak_gib,
@@ -3036,6 +3103,186 @@ def recurrent_serving_full(ops, card, seed: int, arch: str, device: str = "cuda"
         "decode_vs_forward_float32": f32,
         "smoke_cuda_vs_cpu": twins, "arch_s": time.perf_counter() - t_arch, "card": card,
     }, launches
+
+
+MOE_ARCHS = ("granite-moe-3b-a800m", "llama4-scout-17b-a16e")
+
+
+def moe_costs(cfg, params, peft, batch: int, seq: int, flush) -> dict:
+    """Device time (``torch.profiler``, kernels summed) of one MoE layer's
+    forward and backward at a round's shape (batch x seq tokens, bf16; its
+    input takes a gradient, as in every active layer but a step's first)
+    beside that of the whole layer (attention with its q and v LoRA, then
+    the MoE, the LoRA's gradients too), and the MoE's share of the layer;
+    with the dispatch tensors' shape and their einsums' operations."""
+    from repro_torch.configs import PEFTConfig
+    from repro_torch.core.peft import lora_scale
+    from repro_torch.models.layers import layer_apply
+    from repro_torch.models.stacking import layer_view, tree_leaves, tree_map
+    from repro_torch.nn.moe import moe_apply
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    x = torch.randn((batch, seq, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16).requires_grad_(True)
+    g = torch.randn((batch, seq, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+    layer = layer_view(params["layers"], 0)
+    peft_l = tree_map(lambda t: t.detach().clone().requires_grad_(True), layer_view(peft, 0))
+    positions = torch.arange(seq, device="cuda")
+    scale = lora_scale(PEFTConfig())
+
+    def moe_step():
+        out, aux = moe_apply(layer["moe"], cfg, x)
+        torch.autograd.grad([out, aux], [x], [g, torch.ones_like(aux)])
+
+    def layer_step():
+        out, aux, _ = layer_apply(layer, cfg, x, positions=positions, peft=peft_l, lora_scale=scale)
+        torch.autograd.grad([out, aux], [x, *tree_leaves(peft_l)], [g, torch.ones_like(aux)])
+
+    moe_ms, layer_ms = device_ms(moe_step, flush, repeats=3), device_ms(layer_step, flush, repeats=3)
+    tokens = batch * seq
+    group = min(tokens, 4096)
+    cap = min(int(max(cfg.top_k, group / cfg.num_experts * cfg.capacity_factor * cfg.top_k)), group)
+    return {"tokens": tokens, "dispatch_shape": [tokens // group, group, cfg.num_experts, cap],
+            "dispatch_einsum_flop": 2.0 * tokens * cfg.num_experts * cap * cfg.d_model,
+            "moe_fwd_bwd_device_ms": moe_ms, "layer_fwd_bwd_device_ms": layer_ms,
+            "moe_share_of_layer": moe_ms / layer_ms if moe_ms and layer_ms else None}
+
+
+def moe_train_full(ops, card, seed: int, arch: str, flush):
+    """Phase 5i's local rounds of ``arch`` as phase 5's (``train_full``),
+    with the MoE's share of a layer's device time (``moe_costs``):
+    granite-moe-3b-a800m uncut (its rate-0.0 round at half the batch if
+    batch 16 does not fit, the error printed); llama4-scout-17b-a16e at the
+    deepest cut from ``LLAMA4_TRAIN_LAYERS`` down at which both rates'
+    rounds fit at batch 16 (the cuts that did not fit printed).  Then a
+    smoke round on the card against the CPU twins."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    layers, cuts = (LLAMA4_TRAIN_LAYERS if arch == "llama4-scout-17b-a16e" else cfg.num_layers), []
+    while True:
+        try:
+            stats, profile, launches = train_full(
+                ops, card, seed, cfg.replace(num_layers=layers), dense_round_launches, dense_eval_launches,
+                rate0_batch_cut=layers == cfg.num_layers,
+                after=lambda c, p, pf: moe_costs(c, p, pf, 16, 512, flush))
+            break
+        except torch.cuda.OutOfMemoryError as err:
+            check(layers < cfg.num_layers and layers > 1, f"{arch}: a local round does not fit at {layers} layers: "
+                                                          f"{str(err).splitlines()[0][:200]}")
+            cuts.append({"layers": layers, "error": str(err).splitlines()[0][:200]})
+        layers -= 1
+        free_memory("cuda")  # after the handler, whose traceback held the failed round's tensors
+    stats["depth_cut"] = (None if layers == cfg.num_layers else
+                          {"layers": layers, "of": cfg.num_layers, "did_not_fit": cuts or None})
+    stats["local_step_profile"] = profile
+    stats["smoke_card_vs_cpu"] = smoke_train_cuda_vs_cpu(seed, arch)
+    return stats, launches
+
+
+def moe_gather_round(ops, card, seed: int, einsum_stats):
+    """Phase 5i's granite-moe-3b-a800m rounds again with the ``gather``
+    dispatch (the same weights, batches and gates): launches as the gates
+    say, two rounds bit-identical (the dispatch's backward gathers, where
+    ``index_select``'s would add by atomics), the rate-0.5 loss within bf16
+    tolerance (3e-2) of the einsum dispatch's; seconds a step, peak memory
+    and a profiled step's idle share beside einsum's."""
+    from repro_torch.configs import get_config
+
+    free_memory("cuda")
+    cfg = get_config("granite-moe-3b-a800m").replace(moe_dispatch="gather")
+    stats, profile, launches = train_full(ops, card, seed, cfg, dense_round_launches, dense_eval_launches)
+    check(stats["gates_rate_0.5"] == einsum_stats["gates_rate_0.5"], "the gather round drew other gates")
+    diff = abs(stats["metrics"]["loss"] - einsum_stats["metrics"]["loss"])
+    check(diff <= 3e-2, f"gather dispatch loss {stats['metrics']['loss']} vs einsum's "
+                        f"{einsum_stats['metrics']['loss']}")
+    side_by_side = {key: {"gather": stats[key], "einsum": einsum_stats[key]} for key in
+                    ("s_per_local_step", "s_per_local_step_rate_0", "batch_rate_0", "peak_gib_rate_0.5",
+                     "peak_gib_rate_0.0")}
+    idle = [p["device_idle_share_profiled"] if p else None for p in (profile, einsum_stats["local_step_profile"])]
+    return {"dispatch": "gather", "loss": stats["metrics"]["loss"], "einsum_loss": einsum_stats["metrics"]["loss"],
+            "loss_abs_diff": diff, "atol": 3e-2, **side_by_side,
+            "device_idle_share_profiled": {"gather": idle[0], "einsum": idle[1]}, "launches": launches,
+            "bit_identical_rounds": True, "card": card}, launches
+
+
+def moe_serve_full(api, ops, card, seed: int, arch: str):
+    """Phase 5i's multi-tenant serving of ``arch`` as phase 4's
+    (``serve_full``; llama4-scout-17b-a16e at ``LLAMA4_SERVE_LAYERS``):
+    every MoE call of the run takes the weight gather (a decode step's 8
+    tokens), flash_decode runs once and segmented_lora twice a layer a step,
+    and the smoke model on the card agrees with the CPU twins."""
+    from repro_torch.models import layers as layers_mod
+    from repro_torch.nn import moe
+
+    cfg = serving_cfg(arch)
+    calls = {"moe_apply": 0, "weight_gather": 0}
+    moe_apply, weight_gather = layers_mod.moe_apply, moe._moe_weight_gather
+
+    def counted(name, fn):
+        def wrapped(*args, **kw):
+            calls[name] += 1
+            return fn(*args, **kw)
+        return wrapped
+
+    layers_mod.moe_apply = counted("moe_apply", moe_apply)
+    moe._moe_weight_gather = counted("weight_gather", weight_gather)
+    try:
+        stats, breakdown, launches = serve_full(api, ops, card, seed, arch, cfg=cfg)
+    finally:
+        layers_mod.moe_apply, moe._moe_weight_gather = moe_apply, weight_gather
+    steps, n = stats["steps"], cfg.num_layers
+    check(launches["flash_decode"] == n * steps and launches["segmented_lora"] == 2 * n * steps,
+          f"serving {arch}: launches {launches} over {steps} steps of {n} layers")
+    check(calls["weight_gather"] == calls["moe_apply"] > 0 and calls["moe_apply"] % n == 0,
+          f"serving {arch}: MoE calls {calls}, each expected to take the weight gather")
+    stats.update({"cut": SERVING_CUTS.get(arch), "moe_calls": calls, "decode_step_profile": breakdown,
+                  "smoke_card_vs_cpu": smoke_cuda_vs_cpu(seed, arch)})
+    return stats, launches
+
+
+def moe_federated_full(api, ops, card, seed: int):
+    """Phase 5i's federated run: ``api.build("droppeft",
+    "granite-moe-3b-a800m", smoke=False)``, batched, 2 rounds, with phase
+    5d's per-round checks (``federated_run``), then a smoke-size run
+    batched on the card against sequential on the card and batched on the
+    CPU twins."""
+    runner, stats, _, _, launches = federated_run(api, ops, seed, "batched", arch="granite-moe-3b-a800m", rounds=2)
+    del runner
+    free_memory("cuda")
+    stats["smoke_card_vs_cpu"] = federated_smoke_cuda_vs_cpu(seed, "granite-moe-3b-a800m")
+    stats["card"] = card
+    return stats, launches
+
+
+def moe_family_full(api, ops, card, seed: int, flush):
+    """Phase 5i: the ``moe`` family on the card (the module docstring).
+    Returns its stats and each path's launches."""
+    t0 = time.perf_counter()
+    out, runs = {}, {}
+    for arch in MOE_ARCHS:
+        out[f"train {arch}"], runs[f"train {arch}"] = moe_train_full(ops, card, seed, arch, flush)
+        print(f"5i train {arch} {json.dumps(out[f'train {arch}'])} [{card}]", flush=True)
+        if arch == "granite-moe-3b-a800m":
+            out["gather"], runs["gather"] = moe_gather_round(ops, card, seed, out[f"train {arch}"])
+            print(f"5i gather dispatch {json.dumps(out['gather'])} [{card}]", flush=True)
+    for arch in MOE_ARCHS:
+        out[f"serve {arch}"], runs[f"serve {arch}"] = moe_serve_full(api, ops, card, seed, arch)
+        print(f"5i serve {arch} {json.dumps(out[f'serve {arch}'])} [{card}]", flush=True)
+    for arch in MOE_ARCHS:
+        out[f"generate {arch}"], served = recurrent_serving_full(ops, card, seed, arch)
+        runs[f"generate {arch}"] = served["run"]
+        print(f"5i prefill and generate {arch} {json.dumps(out[f'generate {arch}'])} [{card}]", flush=True)
+    out["federated"], runs["federated"] = moe_federated_full(api, ops, card, seed)
+    print(f"5i federated {json.dumps(out['federated'])} [{card}]", flush=True)
+    for path, names in (("train", ("flash_attention", "flash_attention_bwd", "lora_matmul")),
+                        ("serve", ("segmented_lora", "flash_decode")), ("generate", ("flash_attention", "flash_decode"))):
+        for arch in MOE_ARCHS:
+            for name in names:
+                check(runs[f"{path} {arch}"][name] > 0, f"{name} never launched in phase 5i's {path} {arch}")
+    for name in ("flash_attention", "flash_attention_bwd", "lora_matmul"):
+        check(runs["gather"][name] > 0 and runs["federated"][name] > 0, f"{name} never launched in phase 5i")
+    return out, runs, time.perf_counter() - t0
 
 
 def main() -> int:
@@ -3240,6 +3487,38 @@ def main() -> int:
         print(f"lora_matmul {name} {json.dumps(dense[f'lora {name}'])} [{card}]", flush=True)
         print(f"segmented_lora {name} {json.dumps(dense[f'segmented {name}'])} [{card}]", flush=True)
 
+    # the moe family's shapes (phase 5i), drawn from a generator of their
+    # own: granite-moe-3b-a800m (24 heads of 64 over 8 KV heads, d 1 536)
+    # and llama4-scout-17b-a16e (40 heads of 128 over 8, d 5 120);
+    # flash_attention at the training shape (batch 16 x 512), flash_decode
+    # at the serving step (batch 8, 512 slots), and the q and v projections'
+    # lora_matmul (batch 16 x 512) and segmented_lora (8 rows)
+    gen_moe = torch.Generator(device="cuda")
+    gen_moe.manual_seed(args.seed + 7)
+    moe_shapes = {
+        "attention_granite": attention_case(ops, ref, timer, gen_moe, dtype=torch.bfloat16, h=24, kv=8, d=64),
+        "attention_llama4": attention_case(ops, ref, timer, gen_moe, dtype=torch.bfloat16, h=40, kv=8),
+        "decode_granite": decode_case(ops, ref, ring_positions, timer, gen_moe, q_dtype=torch.bfloat16, h=24, kv=8,
+                                      d=64),
+        "decode_llama4": decode_case(ops, ref, ring_positions, timer, gen_moe, q_dtype=torch.bfloat16, h=40, kv=8),
+    }
+    for name in list(moe_shapes):
+        print(f"{name} {json.dumps(moe_shapes[name])} [{card}]", flush=True)
+    for kw in ({"dtype": torch.float32, "b": 2, "h": 24, "kv": 8, "d": 64},
+               {"dtype": torch.float32, "b": 2, "h": 40, "kv": 8}):
+        print(f"flash_attention check {json.dumps(attention_case(ops, ref, timer, gen_moe, time_it=False, **kw))}",
+              flush=True)
+    for kw in ({"q_dtype": torch.float32, "h": 24, "kv": 8, "d": 64}, {"q_dtype": torch.float32, "h": 40, "kv": 8}):
+        case = decode_case(ops, ref, ring_positions, timer, gen_moe, **kw)
+        print(f"flash_decode check {json.dumps({k: case[k] for k in ('shape', 'max_abs_err', 'atol')})}", flush=True)
+    moe_widths = {"granite q": (1536, 1536), "granite v": (1536, 512), "llama4 q": (5120, 5120),
+                  "llama4 v": (5120, 1024)}  # (K, N)
+    for name, (k, n) in moe_widths.items():
+        moe_shapes[f"lora {name}"] = lora_case(ops, ref, timer, gen_moe, dtype=torch.bfloat16, n=n, k=k)
+        moe_shapes[f"segmented {name}"] = segmented_case(ops, ref, timer, gen_moe, dtype=torch.bfloat16, n=n, k=k)
+        print(f"lora_matmul {name} {json.dumps(moe_shapes[f'lora {name}'])} [{card}]", flush=True)
+        print(f"segmented_lora {name} {json.dumps(moe_shapes[f'segmented {name}'])} [{card}]", flush=True)
+
     print(f"phase 3: {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
 
     # 4. serve full-width qwen3-1.7b
@@ -3366,6 +3645,18 @@ def main() -> int:
                        ("qwen3-1.7b", "flash_attention")):
         check(served[arch][name] > 0, f"{name} never launched serving {arch} in phase 5h: {served[arch]}")
 
+    # 5i. the moe family: granite-moe-3b-a800m uncut and llama4-scout-17b-a16e
+    #     depth-cut, local rounds (granite's again with the gather
+    #     dispatch), multi-tenant serving, prefill and generate, and
+    #     granite's federated rounds
+    moe_stats, moe_runs, moe_s = moe_family_full(api, ops, card, args.seed, timer.flush)
+    print(f"phase 5i: {moe_s:.1f} s [{card}]", flush=True)
+    moe_paths = {"granite": "granite-moe-3b-a800m", "llama4": "llama4-scout-17b-a16e"}
+
+    def moe_launches(name, paths):
+        return {f"5i_{path}_{short}": moe_runs[f"{path} {arch}"][name] for path in paths
+                for short, arch in moe_paths.items()}
+
     # 6. kernels line: each path's shapes (bf16) and launches; q and v
     #    projections summed for segmented_lora and lora_matmul (forward)
     for name in ("segmented_lora", "flash_decode"):
@@ -3419,9 +3710,11 @@ def main() -> int:
             "launches_by_path": {"serve_qwen3": launches["segmented_lora"],
                                  **{f"serve_{a}": dense_launches["serve_launches"][a]["segmented_lora"]
                                     for a in DENSE_ARCHS},
-                                 "5g_serve_hetlora_checkpoint": grid_launches["segmented_lora"]},
+                                 "5g_serve_hetlora_checkpoint": grid_launches["segmented_lora"],
+                                 **moe_launches("segmented_lora", ("serve",))},
             "hetlora_shapes": {name: pick(hetlora[f"segmented n{n}"], proj_keys) for name, n in (("q", 2048),
                                                                                                ("v", 1024))},
+            "moe_arch_shapes": {name: pick(moe_shapes[f"segmented {name}"], proj_keys) for name in moe_widths},
         },
         {
             "name": "flash_decode", "route": "cuda",
@@ -3441,7 +3734,9 @@ def main() -> int:
                                     for a in DENSE_ARCHS},
                                  "5g_serve_hetlora_checkpoint": grid_launches["flash_decode"],
                                  "5h_generate_qwen3": served["qwen3-1.7b"]["flash_decode"],
-                                 "5h_generate_jamba": served["jamba-v0.1-52b"]["flash_decode"]},
+                                 "5h_generate_jamba": served["jamba-v0.1-52b"]["flash_decode"],
+                                 **moe_launches("flash_decode", ("serve", "generate"))},
+            "moe_shapes": {short: pick(moe_shapes[f"decode_{short}"], fwd_keys) for short in moe_paths},
         },
         {
             "name": "flash_attention", "route": "cuda",
@@ -3455,7 +3750,11 @@ def main() -> int:
                                  **{f"local_round_{a}": dense_launches["train_launches"][a]["flash_attention"]
                                     for a in DENSE_ARCHS},
                                  "5h_prefill_qwen3": served["qwen3-1.7b"]["flash_attention"],
-                                 "5h_prefill_jamba": served["jamba-v0.1-52b"]["flash_attention"]},
+                                 "5h_prefill_jamba": served["jamba-v0.1-52b"]["flash_attention"],
+                                 **moe_launches("flash_attention", ("train", "generate")),
+                                 "5i_gather_round_granite": moe_runs["gather"]["flash_attention"],
+                                 "5i_federated_granite": moe_runs["federated"]["flash_attention"]},
+            "moe_shapes": {short: pick(moe_shapes[f"attention_{short}"], fwd_keys) for short in moe_paths},
             "glm4_shape": pick(dense["attention_glm4"], fwd_keys),
             "danube_shape": pick(dense["attention_danube"], fwd_keys),
             "prefill_shapes": {arch: pick(serve_attn[f"prefill_{arch}"], fwd_keys) for arch in ("qwen3", "jamba")},
@@ -3476,7 +3775,12 @@ def main() -> int:
                                  "5f": strag_launches["flash_attention_bwd"], "5f_gather_local_round": gather_launches["flash_attention_bwd"],
                                  "5g": grid_launches["flash_attention_bwd"],
                                  **{f"local_round_{a}": dense_launches["train_launches"][a]["flash_attention_bwd"]
-                                    for a in DENSE_ARCHS}},
+                                    for a in DENSE_ARCHS},
+                                 **moe_launches("flash_attention_bwd", ("train",)),
+                                 "5i_gather_round_granite": moe_runs["gather"]["flash_attention_bwd"],
+                                 "5i_federated_granite": moe_runs["federated"]["flash_attention_bwd"]},
+            "moe_shapes": {short: pick(moe_shapes[f"attention_{short}"], ("shape",), **bwd_renamed)
+                           for short in moe_paths},
             "glm4_shape": pick(dense["attention_glm4"], ("shape",), **bwd_renamed),
             "danube_shape": pick(dense["attention_danube"], ("shape",), **bwd_renamed),
             "max_abs_err": attn["bwd_max_abs_err"], "ms": attn["bwd_ms"], "plain_ms": attn["plain_bwd_ms"],
@@ -3501,8 +3805,13 @@ def main() -> int:
                                  "5f": strag_launches["lora_matmul"], "5f_gather_local_round": gather_launches["lora_matmul"],
                                  "5g": grid_launches["lora_matmul"],
                                  **{f"local_round_{a}": dense_launches["train_launches"][a]["lora_matmul"]
-                                    for a in DENSE_ARCHS}},
+                                    for a in DENSE_ARCHS},
+                                 **moe_launches("lora_matmul", ("train",)),
+                                 "5i_gather_round_granite": moe_runs["gather"]["lora_matmul"],
+                                 "5i_federated_granite": moe_runs["federated"]["lora_matmul"]},
             "dense_arch_shapes": dense_shapes["lora"],
+            "moe_arch_shapes": {name: pick(moe_shapes[f"lora {name}"], proj_keys + ("dx_ms", "dx_bound_ms", "route"))
+                                for name in moe_widths},
             "hetlora_shapes": {name: pick(case, proj_keys + ("bwd_max_abs_err", "dx_ms", "dx_bound_ms", "route"))
                                for name, case in hetlora.items() if name.startswith("lora")},
             "max_abs_err": max(lq["max_abs_err"], lv["max_abs_err"]),

@@ -231,7 +231,8 @@ def serve(
 ):
     """Multi-tenant adapter serving: a ready
     :class:`~repro_torch.serving.batcher.ContinuousBatcher`, for the
-    ``dense`` family (other families raise ``NotImplementedError``).
+    ``dense`` and ``moe`` families, whose layers carry no recurrent state
+    (``ssm`` and ``hybrid`` raise ``NotImplementedError``).
 
     Adapters come from a federated ``save_state`` checkpoint
     (``checkpoint_dir``: every client's adapter registers as
@@ -248,7 +249,7 @@ def serve(
     device = torch.device("cuda" if device is None else device)
     if cfg is None:
         cfg = get_config(model, smoke=smoke)
-    if cfg.family != "dense":
+    if cfg.family in ("ssm", "hybrid"):
         # the reference's batcher resets only a recycled row's position, so
         # the row would carry the previous request's recurrent state
         raise NotImplementedError(

@@ -2,8 +2,10 @@
 
 A copy of the fields of ``repro.configs.base`` that the serving, the
 local-training and the federated slices read (the dense family, the
-``ssm`` family of RWKV6 and the ``hybrid`` family of jamba).  The port keeps its own copy so that it never imports the JAX
-package; the field names, defaults and meanings are the same.
+``ssm`` family of RWKV6, the ``hybrid`` family of jamba and the ``moe``
+family of granite-moe and llama4-scout).  The port keeps its own copy so
+that it never imports the JAX package; the field names, defaults and
+meanings are the same.
 """
 from __future__ import annotations
 
@@ -39,8 +41,9 @@ class RWKVConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     """Decoder description: ``family`` is ``dense`` (attention layers),
-    ``ssm`` (RWKV6 layers) or ``hybrid`` (Mamba and attention layers,
-    MoE every ``moe_every`` layers), as in the JAX package."""
+    ``ssm`` (RWKV6 layers), ``hybrid`` (Mamba and attention layers, MoE
+    every ``moe_every`` layers) or ``moe`` (attention and MoE in every
+    layer), as in the JAX package."""
 
     name: str
     family: str
@@ -64,7 +67,7 @@ class ModelConfig:
     capacity_factor: float = 1.25
     router_aux_coef: float = 0.01
     shared_expert: bool = False
-    moe_dispatch: str = "einsum"  # einsum (GShard one-hot) | gather (not ported)
+    moe_dispatch: str = "einsum"  # einsum (GShard one-hot) | gather (permutation)
 
     attn_every: int = 0  # 0 = every layer is attention
     attn_offset: int = 0  # jamba: attention at l % attn_every == attn_offset
@@ -109,7 +112,7 @@ class ModelConfig:
     def param_counts(self) -> dict:
         """Analytic parameter counts (total, active under MoE top-k,
         embedding) for the system model, as the reference counts them for
-        these three families (no encoder)."""
+        these four families (no encoder)."""
         d, hd = self.d_model, self.resolved_head_dim
         h, kv, ff = self.num_heads, self.num_kv_heads, self.d_ff
         attn = d * (h * hd) + 2 * d * (kv * hd) + (h * hd) * d

@@ -9,7 +9,9 @@ per-layer list, as ``maybe_stack(..., "auto")`` decides.  A layer's tree:
   ``ssm``) ``{"cm": {"up", "down"}}`` on the channel-mix whatever the
   targets; on jamba (``hybrid``) ``{"mamba": {"in", "out"}}`` on a Mamba
   layer, the targets' ``attn`` on an attention layer and ``mlp`` on a
-  layer without MoE (a list: the layers differ).  ``b`` starts at zero.
+  layer without MoE (a list: the layers differ); on the ``moe`` family
+  the targets' ``attn`` alone, stacked (no layer has an MLP to adapt).
+  ``b`` starts at zero.
 * ``adapter``: ``adapter_attn`` on an attention layer and ``adapter_mlp``
   on every layer, Houlsby bottlenecks of ``adapter_dim`` whose ``up``
   starts at zero (jamba's tree is a list: its Mamba layers have no
@@ -80,7 +82,7 @@ def _init_lora(cfg, peft_cfg, generator):
                        "down": _lora(generator, (L,), cfg.d_ff, cfg.d_model, r)}}
     if cfg.family == "hybrid":
         return [_hybrid_lora_layer(cfg, peft_cfg, generator, l) for l in range(L)]
-    return _targets(cfg, peft_cfg, generator, (L,), with_mlp=True)
+    return _targets(cfg, peft_cfg, generator, (L,), with_mlp=not cfg.is_moe_layer(0))
 
 
 def init_layer_peft(cfg, peft_cfg, generator, l: int) -> dict:

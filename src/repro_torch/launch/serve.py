@@ -6,7 +6,8 @@ decode caches, as ``repro.launch.serve``::
 
 Runs ``make_prefill_step`` over the prompt into ``init_caches``'s caches
 (the per-layer list), then ``serving.decode.generate``, for any arch of the
-port: the dense decoders' KV rings, RWKV6's and Mamba's recurrent states.
+port: the dense and MoE decoders' KV rings, RWKV6's and Mamba's recurrent
+states.
 With ``--merge-lora`` a LoRA tree is folded into the base weights first
 (the deployment path).  The weights are random, from ``--seed``, drawn on
 the device and cast to the config's dtype as they are drawn.
@@ -14,8 +15,8 @@ the device and cast to the config's dtype as they are drawn.
 Multi-tenant mode -- ``--adapters N`` serves N tenants' LoRA adapters
 (ranks 4 and 8 in turn) through ``repro_torch.api.serve``'s continuous
 batcher and the segmented kernel; ``--checkpoint-dir`` serves a federated
-run's client adapters instead.  It takes the ``dense`` family only
-(``api.serve``)::
+run's client adapters instead.  It takes the ``dense`` and ``moe``
+families, whose layers carry no recurrent state (``api.serve``)::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --adapters 3 \\
         --batch 4 --gen-len 16

@@ -1,5 +1,5 @@
-"""Model registry of the port: the ``dense``, ``ssm`` (RWKV6) and
-``hybrid`` (jamba) families.
+"""Model registry of the port: the ``dense``, ``ssm`` (RWKV6), ``hybrid``
+(jamba) and ``moe`` (granite-moe, llama4-scout) families.
 
 ``init_params(cfg, generator)`` -> parameter tree;
 ``model_apply(params, cfg, batch, **kw)`` -> (logits, aux, caches), with
@@ -14,7 +14,7 @@ import torch
 
 from repro_torch.models import transformer
 
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "ssm", "hybrid", "moe")
 
 
 def _check_family(cfg):
@@ -27,9 +27,9 @@ def init_params(cfg, generator: torch.Generator, place: bool = False):
 
     With ``place``, each part is placed as soon as it is drawn, giving
     ``place_params(init_params(cfg, generator), cfg, generator.device)``
-    while holding at most one layer's float32 draws (a hybrid stack), one
-    stacked projection's (a dense stack) or one top-level entry's (an RWKV6
-    stack)."""
+    while holding at most one layer's float32 draws (a hybrid or ``moe``
+    stack), one stacked projection's (a dense stack) or one top-level
+    entry's (an RWKV6 stack)."""
     _check_family(cfg)
     if not place:
         return transformer.init_lm(cfg, generator)
@@ -67,7 +67,8 @@ def place_params(params, cfg, device=None):
     them.  In a hybrid layer the projections' ``w`` and ``b`` (Mamba
     ``in_proj``, ``x_proj``, ``dt_proj``, ``out_proj``; the router and the
     experts) are cast; ``A_log`` and ``D`` stay float32 and the conv
-    weights are cast at the point of use.  The float32 masters are not
+    weights are cast at the point of use.  A ``moe`` layer's attention,
+    router, experts and shared expert are cast.  The float32 masters are not
     kept, and the tree takes no gradient (the base is frozen)."""
     device = torch.device("cuda" if device is None else device)
     return _cast_matmul_weights(params, getattr(torch, cfg.dtype), device)

@@ -1,8 +1,10 @@
-"""The decoders of the port (dense, the ``ssm`` family of RWKV6 and the
-``hybrid`` family of jamba): init, decode caches and the forward pass.
+"""The decoders of the port (dense, the ``ssm`` family of RWKV6, the
+``hybrid`` family of jamba and the ``moe`` family of granite-moe and
+llama4-scout): init, decode caches and the forward pass.
 
-Homogeneous stacks keep the stacked ``(L, ...)`` layout of the JAX
-package; jamba's heterogeneous stack is a per-layer list, as there.
+Homogeneous stacks (dense, ``ssm``, ``moe``) keep the stacked ``(L, ...)``
+layout of the JAX package; jamba's heterogeneous stack is a per-layer
+list, as there.
 ``stack_apply`` loops over the layers in Python for every ``stack_mode``
 of the JAX package: ``unroll``, ``scan`` (a ``lax.scan`` over the stacked
 layers), ``group`` (a ``lax.scan`` over periods of the layer pattern) and
@@ -97,8 +99,9 @@ def _init_attn_layers(cfg, generator: torch.Generator, place=None):
 
 
 def init_layer(cfg, l: int, generator: torch.Generator):
-    """Layer ``l`` of a hybrid stack (float32), as ``repro.models.layers
-    .init_layer``: a Mamba or attention mixer, then MoE or an MLP."""
+    """Layer ``l`` of a hybrid or ``moe`` stack (float32), as
+    ``repro.models.layers.init_layer``: a Mamba or attention mixer, then
+    MoE or an MLP."""
     p = {"norm1": _model_norm(cfg, generator, ()), "norm2": _model_norm(cfg, generator, ())}
     if layer_kind(cfg, l) == "mamba":
         p["mamba"] = init_mamba(cfg, generator)
@@ -111,19 +114,36 @@ def init_layer(cfg, l: int, generator: torch.Generator):
     return p
 
 
+def _stack_layers(layers, num_layers: int):
+    """Per-layer trees, taken one at a time, copied into one stacked
+    ``(L, ...)`` tree allocated when the first arrives: at most one layer
+    is held beside the stack."""
+    stack = None
+    for l, layer in enumerate(layers):
+        if stack is None:
+            stack = stacking.tree_map(lambda t: t.new_empty((num_layers, *t.shape)), layer)
+        stacking.tree_map(lambda dst, src: dst[l].copy_(src), stack, layer)
+    return stack
+
+
 def init_lm(cfg, generator: torch.Generator, place=None):
     """Parameters with the shapes and dtypes of ``transformer.init_lm``
     (float32; stacked layout, or a per-layer list for a heterogeneous
     hybrid stack), drawn on the generator's device.  ``place(name, tree)``,
     when given, takes each top-level entry (``embed``, ``lm_head``,
-    ``final_norm``, and ``layers`` whole or, for a hybrid stack, layer by
-    layer) as soon as it is drawn and returns what to keep, so that the
-    float32 draws of a large hybrid model are never held whole."""
+    ``final_norm``, and ``layers`` whole or, for a hybrid or ``moe``
+    stack, layer by layer) as soon as it is drawn and returns what to keep,
+    so that the float32 draws of a large hybrid or MoE model are never held
+    whole: a ``moe`` stack's placed layers go one by one into a stack
+    allocated at the first."""
     place = place or (lambda name, tree: tree)
     params = {"embed": place("embed", normal_init(generator, (cfg.vocab_size, cfg.d_model)))}
     if cfg.family == "hybrid":
         layers = [place("layers", init_layer(cfg, l, generator)) for l in range(cfg.num_layers)]
         params["layers"] = stacking.maybe_stack(layers)
+    elif cfg.family == "moe":
+        layers = (place("layers", init_layer(cfg, l, generator)) for l in range(cfg.num_layers))
+        params["layers"] = _stack_layers(layers, cfg.num_layers)
     elif layer_kind(cfg, 0) == "rwkv":
         params["layers"] = place("layers", _init_rwkv_layers(cfg, generator))
     else:  # each stacked projection placed as drawn, then the rest of the stack

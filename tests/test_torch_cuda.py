@@ -195,6 +195,8 @@ DECODE_CASES = [  # (B, H, KV, D, S, window)
     (4, 32, 8, 80, 300, 100),  # D 80: h2o-danube-1.8b's heads, a window over a wrapped ring
     (2, 32, 2, 256, 130, None),  # rep 16 at D 256: two blocks of 8 queries a KV head
     (2, 6, 2, 48, 70, 20),  # rep 3 at D 48: a lane's dims masked past D
+    (4, 24, 8, 64, 512, None),  # rep 3 at D 64: granite-moe-3b-a800m's serving step
+    (4, 40, 8, 128, 512, None),  # rep 5 at D 128: llama4-scout-17b-a16e's serving step
 ]
 DECODE_DTYPES = [("bfloat16", "bfloat16"), ("float32", "bfloat16"), ("float32", "float32")]
 
@@ -212,8 +214,8 @@ def _decode_case(rng, b, h, kv, d, s, q_dtype, cache_dtype, device):
 @pytest.mark.parametrize("q_dtype,cache_dtype", DECODE_DTYPES)
 @pytest.mark.parametrize("b,h,kv,d,s,window", DECODE_CASES)
 def test_cuda_flash_decode_shapes_match_twin(cuda, q_dtype, cache_dtype, b, h, kv, d, s, window):
-    """rep 1, 2, 3, 8 and 16; D 48, 64, 80, 128 and 256; S off the split;
-    windows; rows whose later slabs are dead."""
+    """rep 1, 2, 3, 5, 8 and 16; D 48, 64, 80, 128 and 256; S off the
+    split; windows; rows whose later slabs are dead."""
     q, kc, vc, pos, kpos = _decode_case(np.random.default_rng(30), b, h, kv, d, s, q_dtype, cache_dtype, cuda)
     ops.reset_launch_counts()
     got = ops.flash_decode(q, kc, vc, pos, kpos, window=window)
@@ -304,6 +306,8 @@ ATTN_CASES = [  # (B, S, H, KV, D, causal, window)
     (2, 300, 32, 8, 80, True, None),  # h2o-danube-1.8b's heads: D 80, 16 live columns of the second 64-column box
     (2, 300, 32, 8, 80, True, 100),  # D 80 with a window
     (1, 256, 32, 2, 128, True, None),  # glm4-9b's heads: 16 query heads a KV head
+    (2, 300, 24, 8, 64, True, None),  # granite-moe-3b-a800m's heads: 3 a KV head at D 64
+    (1, 256, 40, 8, 128, True, None),  # llama4-scout-17b-a16e's heads: 5 a KV head
 ]
 
 

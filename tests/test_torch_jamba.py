@@ -285,12 +285,15 @@ def test_moe_apply_matches_jax(setup, group_size, router_scale):
 
 
 def test_moe_unported_dispatches_raise(setup):
+    """Every dispatch of the reference is ported (``gather`` and the shared
+    expert are held in ``tests/test_torch_moe.py``); a dispatch the
+    reference does not know raises ``ValueError``, as its ``moe_apply``
+    does."""
     _, _, _, cfg, params, _, _ = setup
     p = params["layers"][1]["moe"]
-    with pytest.raises(NotImplementedError):
-        moe.moe_apply(p, cfg, torch.zeros(2, 16, cfg.d_model), dispatch_mode="gather")
-    with pytest.raises(NotImplementedError):
-        moe.moe_apply(dict(p, shared={}), cfg, torch.zeros(2, 16, cfg.d_model))
+    with pytest.raises(ValueError, match="sparse"):
+        moe.moe_apply(p, cfg, torch.zeros(2, 16, cfg.d_model), dispatch_mode="sparse")
+    assert moe.DISPATCH_MODES == ("einsum", "einsum_forced", "gather")
 
 
 @pytest.mark.parametrize("stack_mode", ["unroll", "group"])

@@ -137,4 +137,4 @@ def test_full_config_is_qwen3_1_7b_width():
     assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim) == (28, 2048, 16, 8, 128)
     assert (cfg.d_ff, cfg.vocab_size, cfg.qk_norm, cfg.rope_theta, cfg.tie_embeddings) == (6144, 151_936, True, 1e6, True)
     with pytest.raises(KeyError):
-        get_config("granite-moe-3b-a800m")  # an arch the port does not run yet
+        get_config("whisper-tiny")  # an arch the port does not run yet
