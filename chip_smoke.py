@@ -67,7 +67,15 @@ Phases, one line each before the last:
    llama4-scout-17b-a16e's 40 heads of 128 over 8, flash_decode at their
    serving step, both also in float32, and the q and v projections'
    lora_matmul (batch 16 x 512) and segmented_lora (8 rows) at their
-   widths (d 1 536 and 5 120);
+   widths (d 1 536 and 5 120); and the stub-frontend families' shapes
+   (``stub_frontend_shapes``): flash_attention with a key length of its
+   own at whisper-tiny's encoder (batch 16, 1 500 frames, bidirectional)
+   and cross-attention (512 queries over 1 500 frames, its backward dQ
+   alone, bit-equal to the full backward's dQ), both also in float32,
+   flash_decode over whisper's ring, over its 1 500 encoder slots (every
+   slot live) and at internvl2-76b's serving step, lora_matmul at
+   whisper's 384-wide projections and internvl's q and v (batch 16 x
+   (256 + 512)), segmented_lora at internvl's q and v;
 4. full-width qwen3-1.7b (28 layers, random weights from ``--seed``)
    served through ``repro_torch.api.serve``: 12 requests over 4 LoRA
    tenants of rank 4/8 at batch 8, rows recycling mid-run; every completion
@@ -179,15 +187,32 @@ Phases, one line each before the last:
    "granite-moe-3b-a800m", smoke=False)`` batched for 2 rounds with phase
    5d's checks, then its smoke-size run on the card against sequential
    and the CPU twins;
+5j. the stub-frontend families (``stub_frontends_full``): whisper-tiny
+   uncut (4 + 4 layers, d 384, 6 heads of 64, vocab 51 865, 1 500 frames):
+   one client's local round as phase 5 (launches from the gates with the
+   encoder's attention and the cross-attention's dQ-only backward, whose
+   kernels one profiled step counts), prefill and generate as phase 5h
+   (frames from the seed; the float32 check's mutation zeroes the cross
+   K/V), ``api.serve`` raising for the ``audio`` family, and
+   ``api.build("droppeft", "whisper-tiny", smoke=False)`` batched for 2
+   rounds with phase 5d's checks and its smoke run; internvl2-76b, widths
+   whole, depth-cut: local rounds at the deepest cut from
+   ``INTERNVL_TRAIN_LAYERS`` down whose rounds fit at batch 16 with 256
+   patches, serving through ``api.serve`` (text prompts) and through
+   ``launch.serve``'s prefill and generate (patches from the seed) at the
+   deepest cut from ``INTERNVL_SERVE_LAYERS`` down that fits, the float32
+   check at ``INTERNVL_F32_LAYERS``, every cut printed; the smoke models
+   on the card against the CPU twins;
 6. the ``kernels`` JSON line: launches of each kernel in its own path's
    run (serving: phase 4's run; training: phase 5's round at rate 0.5,
    phase 5b's for wkv6 and wkv6_bwd, phase 5c's for mamba_scan and
    mamba_scan_bwd), and for the training kernels also phase 5d's rounds,
    phase 5f's deadline rounds and gather round, phase 5g's runs, and for
    every kernel of the dense path phase 5e's runs, and phase 5h's serving
-   runs for flash_decode, flash_attention, wkv6 and mamba_scan, and phase
-   5i's runs (``launches_by_path``), the other dense decoders' shapes,
-   FedHetLoRA's, the scans' from a state and the moe family's beside.
+   runs for flash_decode, flash_attention, wkv6 and mamba_scan, and phases
+   5i's and 5j's runs (``launches_by_path``), the other dense decoders'
+   shapes, FedHetLoRA's, the scans' from a state, the moe family's and the
+   stub-frontend families' beside.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits non-zero before it; without a CUDA card, or outside the checkout, the
@@ -545,8 +570,11 @@ def segmented_case(ops, ref, timer, gen, *, dtype, n, m=8, k=2048, ranks=(4, 8, 
     return case
 
 
-def decode_case(ops, ref, ring_positions, timer, gen, *, q_dtype, b=8, h=16, kv=8, d=128, s=512, window=None):
-    """One flash_decode shape: kernel vs twin, with times, bound and SDPA."""
+def decode_case(ops, ref, ring_positions, timer, gen, *, q_dtype, b=8, h=16, kv=8, d=128, s=512, window=None,
+                all_live=False):
+    """One flash_decode shape: kernel vs twin, with times, bound and SDPA.
+    ``all_live``: every slot live, slot j at position j and the query at
+    s - 1, as whisper's cross-attention decodes over its encoder's K/V."""
     import torch.nn.functional as F
 
     q = torch.randn((b, h, d), generator=gen, device="cuda").to(q_dtype)
@@ -557,6 +585,9 @@ def decode_case(ops, ref, ring_positions, timer, gen, *, q_dtype, b=8, h=16, kv=
     # K/V from the previous tenant)
     pos = torch.tensor([0, 17, 130, s - 1, s + 100, 3 * s + 7, 5, 300], dtype=torch.int32, device="cuda")[:b]
     kpos = ring_positions(pos, s)
+    if all_live:
+        pos = torch.full((b,), s - 1, dtype=torch.int32, device="cuda")
+        kpos = torch.arange(s, dtype=torch.int32, device="cuda").expand(b, s).contiguous()
     fn = lambda: ops.flash_decode(q, kc, vc, pos, kpos, window=window)  # noqa: E731
     got = fn()
     want = ref.decode_attention_plain(q, kc, vc, pos, kpos, window=window)
@@ -588,7 +619,7 @@ def decode_case(ops, ref, ring_positions, timer, gen, *, q_dtype, b=8, h=16, kv=
     bound_ms, bound_by = bound(nbytes, ops_count, str(q_dtype).split(".")[-1])
     return {
         "shape": f"B={b} H={h} KV={kv} D={d} S={s} window={window} q {str(q_dtype).split('.')[-1]} cache bfloat16, "
-                 f"{live} live slots",
+                 f"{live} live slots" + (" (every slot: cross-attention)" if all_live else ""),
         "max_abs_err": err, "atol": atol, "rtol": rtol, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
         "splits": ops._decode_splits(s, q.device), "kernel_ms": span,
@@ -624,62 +655,85 @@ def grads_close(got, want, dtype):
     return True, errs
 
 
-def attention_case(ops, ref, timer, gen, *, dtype, b=16, s=512, h=16, kv=8, d=128, window=None, time_it=True):
+def attention_case(ops, ref, timer, gen, *, dtype, b=16, s=512, h=16, kv=8, d=128, window=None, time_it=True,
+                   causal=True, skv=None, dq_only=False):
     """flash_attention forward and backward against the twin (and autograd
     through it) on the card; with ``time_it`` the times of both passes, the
-    twin's, SDPA's and the bounds."""
+    twin's, SDPA's and the bounds.  ``skv``: keys of a length of their own
+    (bidirectional only); ``dq_only``: the backward times and bounds are
+    those of dQ alone (K and V take no gradient, as a frozen encoder's
+    cross K/V: the dK/dV kernel is not launched)."""
     import torch.nn.functional as F
 
+    skv = skv or s
     q, k, v, g = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
-                  for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d), (b, s, h, d)))
+                  for shape in ((b, s, h, d), (b, skv, kv, d), (b, skv, kv, d), (b, s, h, d)))
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     twins = [t.clone().requires_grad_(True) for t in (q, k, v)]
-    out = ops.flash_attention(*leaves, window=window)
+    out = ops.flash_attention(*leaves, causal=causal, window=window)
     grads = torch.autograd.grad(out, leaves, g, retain_graph=True)
-    want = ref.attention_plain(*twins, window=window)
+    want = ref.attention_plain(*twins, causal=causal, window=window)
     want_grads = torch.autograd.grad(want, twins, g, retain_graph=True)
     torch.cuda.synchronize()
     name = str(dtype).split(".")[-1]
+    what = f"S={s} S_kv={skv} causal={causal} window={window}"
     err = (out.float() - want.float()).abs().max().item()
     atol, rtol = (3e-2, 1e-2) if dtype == torch.bfloat16 else (2e-5, 1e-5)
     check(torch.allclose(out.float(), want.float(), atol=atol, rtol=rtol),
-          f"flash_attention {name} S={s} window={window}: max abs err {err} vs twin")
+          f"flash_attention {name} {what}: max abs err {err} vs twin")
     ok, grad_errs = grads_close(grads, want_grads, dtype)
-    check(ok, f"flash_attention backward {name} S={s} window={window}: dq/dk/dv max abs errs {grad_errs}")
-    case = {"shape": f"B={b} S={s} H={h} KV={kv} D={d} causal window={window} {name}",
+    check(ok, f"flash_attention backward {name} {what}: dq/dk/dv max abs errs {grad_errs}")
+    mask = "causal" if causal else "bidirectional"
+    case = {"shape": f"B={b} S={s}{f' S_kv={skv}' if skv != s else ''} H={h} KV={kv} D={d} {mask} window={window} "
+                     f"{name}{', backward dQ alone' if dq_only else ''}",
             "max_abs_err": err, "atol": atol, "rtol": rtol, "bwd_max_abs_err": max(grad_errs)}
+    if dq_only:  # K and V without a gradient: dQ alone, bit-equal to the full backward's
+        q_leaf = q.clone().requires_grad_(True)
+        out = ops.flash_attention(q_leaf, k, v, causal=causal, window=window)
+        check(torch.equal(torch.autograd.grad(out, [q_leaf], g, retain_graph=True)[0], grads[0]),
+              f"flash_attention {name} {what}: the dQ-only backward's dQ differs from the full backward's")
+        leaves, twins = [q_leaf], [twins[0]]
+        want = ref.attention_plain(twins[0], k, v, causal=causal, window=window)
     if not time_it:
         return case
     with torch.no_grad():
-        case["ms"] = timer(lambda: ops.flash_attention(q, k, v, window=window))
-        case["plain_ms"] = timer(lambda: ref.attention_plain(q, k, v, window=window))
+        case["ms"] = timer(lambda: ops.flash_attention(q, k, v, causal=causal, window=window))
+        case["plain_ms"] = timer(lambda: ref.attention_plain(q, k, v, causal=causal, window=window))
     case["bwd_ms"] = timer(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True))
     if dtype == torch.bfloat16:  # device time alone (no host gaps), the backward's two kernels apart
         with torch.no_grad():
-            case["kernel_ms"] = device_ms(lambda: ops.flash_attention(q, k, v, window=window), timer.flush)
+            case["kernel_ms"] = device_ms(lambda: ops.flash_attention(q, k, v, causal=causal, window=window),
+                                          timer.flush)
         split = device_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), timer.flush,
                           ("flash_bwd_dq_bf16_kernel", "flash_bwd_dkv_bf16_kernel"))
         case["bwd_dq_ms"], case["bwd_dkv_ms"] = split["flash_bwd_dq_bf16_kernel"], split["flash_bwd_dkv_bf16_kernel"]
+        if dq_only:
+            check(case["bwd_dkv_ms"] is None, f"flash_attention {what}: the dQ-only backward ran the dK/dV kernel")
     case["plain_bwd_ms"] = timer(lambda: torch.autograd.grad(want, twins, g, retain_graph=True))
     case["library_ms"] = case["library_bwd_ms"] = None
     if window is None or window >= s:  # the yardstick: SDPA on the same inputs (never used by the port)
-        lib = [t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v)]
+        lib = [t.transpose(1, 2).detach() for t in (q, k, v)]
+        lib = [t.requires_grad_(True) if i == 0 or not dq_only else t for i, t in enumerate(lib)]
+        sdpa = lambda: F.scaled_dot_product_attention(*lib, is_causal=causal, enable_gqa=True)  # noqa: E731
         with torch.no_grad():
-            case["library_ms"] = timer(lambda: F.scaled_dot_product_attention(*lib, is_causal=True, enable_gqa=True))
-        lib_out = F.scaled_dot_product_attention(*lib, is_causal=True, enable_gqa=True)
+            case["library_ms"] = timer(sdpa)
+        lib_out = sdpa()
         g_t = g.transpose(1, 2)
-        case["library_bwd_ms"] = timer(lambda: torch.autograd.grad(lib_out, lib, g_t, retain_graph=True))
+        lib_leaves = lib[:1] if dq_only else lib
+        case["library_bwd_ms"] = timer(lambda: torch.autograd.grad(lib_out, lib_leaves, g_t, retain_graph=True))
         with torch.no_grad():
-            case["library_kernel_ms"] = device_ms(
-                lambda: F.scaled_dot_product_attention(*lib, is_causal=True, enable_gqa=True), timer.flush)
+            case["library_kernel_ms"] = device_ms(sdpa, timer.flush)
         case["library_bwd_kernel_ms"] = device_ms(
-            lambda: torch.autograd.grad(lib_out, lib, g_t, retain_graph=True), timer.flush)
+            lambda: torch.autograd.grad(lib_out, lib_leaves, g_t, retain_graph=True), timer.flush)
     elt = q.element_size()
-    pairs = b * h * visible_pairs(s, True, window)
+    pairs = b * h * (visible_pairs(s, True, window) if causal else s * skv)
     qo_bytes, kv_bytes, lse_bytes = 2 * q.numel() * elt, 2 * k.numel() * elt, 4 * b * h * s
     case["bound_ms"], case["bound_by"] = bound(qo_bytes + kv_bytes + lse_bytes, 4 * d * pairs, name)
-    # backward: read q, k, v, out, dout, lse; write dq, dk, dv; five products
-    case["bwd_bound_ms"], case["bwd_bound_by"] = bound(2 * qo_bytes + 2 * kv_bytes + lse_bytes, 10 * d * pairs, name)
+    if dq_only:  # read q, k, v, out, dout, lse; write dq; three products (S, dP, dQ)
+        case["bwd_bound_ms"], case["bwd_bound_by"] = bound(2 * qo_bytes + kv_bytes + lse_bytes, 6 * d * pairs, name)
+    else:  # read q, k, v, out, dout, lse; write dq, dk, dv; five products
+        case["bwd_bound_ms"], case["bwd_bound_by"] = bound(2 * qo_bytes + 2 * kv_bytes + lse_bytes, 10 * d * pairs,
+                                                           name)
     return case
 
 
@@ -1625,15 +1679,10 @@ def smoke_train_cuda_vs_cpu(seed: int, arch: str):
 
 
 def dense_round_launches(gates) -> dict:
-    """A dense decoder's launches in a local round: per step, the q and v
-    forward of every active layer and their dX in all but the step's first
-    active layer (whose input needs no gradient)."""
-    return {"flash_attention": active_count(gates), "flash_attention_bwd": active_count(gates),
-            "lora_matmul": 4 * active_count(gates) - 2 * len(gates)}
-
-
-def dense_eval_launches(cfg) -> dict:
-    return {"flash_attention": cfg.num_layers, "lora_matmul": 2 * cfg.num_layers}
+    """A dense decoder's launches in a local round of ``gates`` (one list a
+    step, True = dropped): ``training_launches`` of each step's active
+    layers."""
+    return training_launches([g.count(False) for g in gates])
 
 
 DENSE_ARCHS = ("glm4-9b", "h2o-danube-1.8b", "yi-6b")
@@ -1657,7 +1706,7 @@ def dense_arch_full(api, ops, card, seed: int, arch: str):
     while True:
         try:
             train_stats, profile, train_launches = train_full(
-                ops, card, seed, cfg.replace(num_layers=layers), dense_round_launches, dense_eval_launches)
+                ops, card, seed, cfg.replace(num_layers=layers), dense_round_launches, evaluate_launches)
             break
         except torch.cuda.OutOfMemoryError as err:
             cuts.append({"layers": layers, "error": str(err).splitlines()[0][:200]})
@@ -1773,6 +1822,39 @@ def profile_fed_round(runner):
             "kernel_launches": sum(e.count for e in kernels), "top_kernels": top}
 
 
+def training_launches(runs, encoder_layers: int = 0) -> dict:
+    """Each kernel's launches in training steps that run ``runs[i]``
+    layers: per run layer the attention forward and backward and the q
+    and v LoRA forward, and their dX in all but the step's first run layer
+    (whose input needs no gradient).  An encoder-decoder's step (its
+    ``encoder_layers`` > 0) also runs the encoder's attention (no backward,
+    no LoRA) and in each run layer the cross-attention (its backward dQ
+    alone) and its q LoRA, forward and dX (its input takes a gradient from
+    the self-attention's LoRA)."""
+    n, steps = sum(runs), len(runs)
+    if encoder_layers:
+        return {"flash_attention": steps * encoder_layers + 2 * n, "flash_attention_bwd": 2 * n,
+                "lora_matmul": 6 * n - 2 * steps}
+    return {"flash_attention": n, "flash_attention_bwd": n, "lora_matmul": 4 * n - 2 * steps}
+
+
+def evaluate_launches(cfg) -> dict:
+    """One forward's launches (``evaluate``, a cohort's fused evaluate):
+    an attention and the q and v LoRA a layer; an encoder-decoder's
+    encoder attention, and its decoder's cross-attention and cross q."""
+    if cfg.is_encoder_decoder:
+        return {"flash_attention": cfg.num_encoder_layers + 2 * cfg.num_layers, "lora_matmul": 3 * cfg.num_layers}
+    return {"flash_attention": cfg.num_layers, "lora_matmul": 2 * cfg.num_layers}
+
+
+def add_launches(*counts) -> dict:
+    out = {}
+    for c in counts:
+        for name, n in c.items():
+            out[name] = out.get(name, 0) + n
+    return out
+
+
 def cohort_step_layers(gates, devices: int, steps: int) -> list:
     """The layers each cohort step runs: a layer runs once in a step if any
     device's gate opens it.  ``gates`` are the round's draws in their order,
@@ -1833,17 +1915,16 @@ def federated_run(api, ops, seed: int, cohort_mode: str, arch: str = "qwen3-1.7b
         if cohort_mode == "batched":
             run = [len(ls) for ls in cohort_step_layers(r["gates"], n, steps)]
             step_layers.append(run)
-            want = {"flash_attention": sum(run) + layers, "flash_attention_bwd": sum(run),
-                    "lora_matmul": 4 * sum(run) - 2 * steps + 2 * layers}
+            want = add_launches(training_launches(run, cfg.num_encoder_layers), evaluate_launches(cfg))
         else:
             # phase 5's counts per local round, summed over the cohort, and
-            # one evaluate (an attention and two lora_matmul a layer) per member
-            want = {"flash_attention": active + n * layers, "flash_attention_bwd": active,
-                    "lora_matmul": 4 * active - 2 * len(r["gates"]) + n * 2 * layers}
+            # one evaluate per member
+            want = add_launches(training_launches([g.count(False) for g in r["gates"]], cfg.num_encoder_layers),
+                                *[evaluate_launches(cfg)] * n)
         check_launches(r["launches"], want, f"{cohort_mode} federated round {j + 1}")
         check(r["routes"] == {"fma": 0, "wmma": 0, "wgmma": r["launches"]["lora_matmul"]}, f"routes {r['routes']}")
     evaluations = -(-fed.num_devices // n) if cohort_mode == "batched" else fed.num_devices
-    check_launches(final_launches, {"flash_attention": evaluations * layers, "lora_matmul": evaluations * 2 * layers},
+    check_launches(final_launches, add_launches(*[evaluate_launches(cfg)] * evaluations),
                    f"{cohort_mode} final_accuracy")
     per_round = [r["seconds"] for r in recorded]
     split = {f"{name}_s": clock[name] for name in ("local_round", "evaluate", "cohort_round_eval", "aggregate")
@@ -2808,10 +2889,19 @@ RECURRENT_ARCHS = ("rwkv6-3b", "jamba-v0.1-52b", "qwen3-1.7b")
 # copy), nor 7, and 6 did (68.8 GiB at rate 0.0), so the search starts
 # at 7 and shows the cut above the one it takes.
 LLAMA4_SERVE_LAYERS, LLAMA4_F32_LAYERS, LLAMA4_TRAIN_LAYERS = 8, 4, 7
+# internvl2-76b on one card: 80 layers of ~1.7 GB in bf16 (~141 GB) and a
+# 2.1 GB embedding and head each.  Serving takes the deepest cut from
+# INTERNVL_SERVE_LAYERS down (by 4) that fits; the float32 decode check 4
+# layers (~14 GB, and 8.4 GB of float32 embedding and head); training the
+# deepest cut from INTERNVL_TRAIN_LAYERS down (by 1) whose rounds at both
+# rates fit at batch 16 with its 256 patches.
+INTERNVL_SERVE_LAYERS, INTERNVL_F32_LAYERS, INTERNVL_TRAIN_LAYERS = 32, 4, 12
 SERVING_CUTS = {
     "jamba-v0.1-52b": "one period of 8 of 32 layers (52 B bf16 exceeds the card's 80 GB)",
     "llama4-scout-17b-a16e": f"{LLAMA4_SERVE_LAYERS} of 48 layers, float32 {LLAMA4_F32_LAYERS} (108 B bf16 exceeds "
                              "the card's 80 GB)",
+    "internvl2-76b": f"at most {INTERNVL_SERVE_LAYERS} of 80 layers, float32 {INTERNVL_F32_LAYERS} (76 B bf16 "
+                     "exceeds the card's 80 GB)",
 }
 
 
@@ -2834,6 +2924,8 @@ def serving_cfg(arch: str, dtype: str = "bfloat16", smoke: bool = False):
         cfg = cfg.replace(num_layers=8, **({"capacity_factor": 8.0} if dtype == "float32" else {}))
     if arch == "llama4-scout-17b-a16e" and not smoke:
         cfg = cfg.replace(num_layers=LLAMA4_F32_LAYERS if dtype == "float32" else LLAMA4_SERVE_LAYERS)
+    if arch == "internvl2-76b" and not smoke:
+        cfg = cfg.replace(num_layers=INTERNVL_F32_LAYERS if dtype == "float32" else INTERNVL_SERVE_LAYERS)
     if cfg.family == "moe" and dtype == "float32":
         cfg = cfg.replace(capacity_factor=float(cfg.num_experts))
     return cfg
@@ -2842,33 +2934,51 @@ def serving_cfg(arch: str, dtype: str = "bfloat16", smoke: bool = False):
 def step_launches(cfg) -> dict:
     """Each kernel's launches in one decode step: a WKV at S 1 per RWKV6
     layer, a scan from its state per Mamba layer, a flash_decode per
-    attention layer; nothing else (no adapter, no backward)."""
+    attention layer and two per ``encdec`` layer (its ring, then every
+    encoder slot); nothing else (no adapter, no backward)."""
     from repro_torch.models.layers import layer_kind
 
     kinds = [layer_kind(cfg, l) for l in range(cfg.num_layers)]
-    return {"wkv6": kinds.count("rwkv"), "mamba_scan": kinds.count("mamba"), "flash_decode": kinds.count("attn")}
+    return {"wkv6": kinds.count("rwkv"), "mamba_scan": kinds.count("mamba"),
+            "flash_decode": kinds.count("attn") + 2 * kinds.count("encdec")}
 
 
 def prefill_launches(cfg) -> dict:
     """The prefill's launches: the decode step's, with flash_attention (an
-    empty ring, positions 0 .. S-1) in place of flash_decode."""
+    empty ring, positions 0 .. S-1; a decoder's cross-attention over the
+    encoder's frames) in place of flash_decode, and an encoder's layers'."""
     want = step_launches(cfg)
-    want["flash_attention"] = want.pop("flash_decode")
+    want["flash_attention"] = want.pop("flash_decode") + cfg.num_encoder_layers
     return want
 
 
-def profile_decode(step, params, token, pos: int, caches, n_steps: int = 4):
+def frontend_input(cfg, batch: int, seed: int, device, dtype):
+    """Stub-frontend input from ``seed``: an audio model's frames or a
+    vision model's patches, (batch, frontend_seq, d_model) of 0.1 N(0, 1)
+    in ``dtype`` on ``device`` (drawn on the CPU); None for a text model."""
+    if cfg.modality not in ("audio", "vision"):
+        return None
+    gen = torch.Generator().manual_seed(seed)
+    return (0.1 * torch.randn((batch, cfg.frontend_seq, cfg.d_model), generator=gen)).to(device=device, dtype=dtype)
+
+
+def prefix_len(cfg) -> int:
+    """Cache slots and positions a vision model's patch prefix takes."""
+    return cfg.frontend_seq if cfg.modality == "vision" else 0
+
+
+def profile_decode(step, params, token, pos: int, caches, n_steps: int = 4, enc_kvs=None):
     """Device busy time, idle share and launches of ``n_steps`` decode steps
     under ``torch.profiler`` (CPU and CUDA activity), beside their host
-    clock, from ``caches`` at ``pos``.  None when the profiler sees no
-    device time."""
+    clock, from ``caches`` at ``pos`` (with an encoder-decoder's
+    ``enc_kvs``).  None when the profiler sees no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(n_steps):
-            _, token, caches = step(params, token, pos + i, caches)
+            _, token, caches = step(params, token, pos + i, caches, enc_kvs)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = device_kernels(prof)
@@ -2917,27 +3027,35 @@ def decode_vs_forward(serve, cfg, params, seed: int, zero_state: bool = False):
     """Float32 decode against the cache-free forward at full width: 2 rows,
     16 prompt tokens through ``make_prefill_step``, then 8 tokens one at a
     time through ``make_serve_step``; the logits of positions 15 .. 23
-    against ``lm_apply``'s over all 24 tokens.  Returns their max abs err,
-    the max |logit| and, as the model's own float32 reproducibility, the
-    max abs difference of ``lm_apply`` over the first 16 tokens from the
-    one over 24 on those positions.  ``zero_state`` zeroes the caches'
-    carried state between the prefill and the decode (the check must then
-    fail)."""
-    from repro_torch.launch.steps import make_prefill_step, make_serve_step
-    from repro_torch.models.transformer import init_caches, lm_apply
+    against ``model_apply``'s over all 24 tokens (an audio model's frames
+    and a vision model's patches from ``seed`` with both; a patch prefix's
+    logits left out).  Returns their max abs err, the max |logit| and, as
+    the model's own float32 reproducibility, the max abs difference of
+    ``model_apply`` over the first 16 tokens from the one over 24 on those
+    positions.  ``zero_state`` zeroes the carried state between the prefill
+    and the decode (the caches, or an encoder-decoder's cross K/V; the
+    check must then fail)."""
+    from repro_torch.launch.steps import frontend_batch, make_prefill_step, make_serve_step
+    from repro_torch.models.registry import model_apply, params_device
+    from repro_torch.models.transformer import init_caches
 
-    device = params["embed"].device
+    device = params_device(params)
     toks = torch.from_numpy(serve.random_prompts(cfg, 2, 24, seed + 3)).to(device)
+    frontend, p = frontend_input(cfg, 2, seed + 4, device, torch.float32), prefix_len(cfg)
     with torch.no_grad():
-        full, _, _ = lm_apply(params, cfg, toks)
-        prefix, _, _ = lm_apply(params, cfg, toks[:, :16])
-        caches = init_caches(cfg, 2, 24, dtype=torch.float32, device=device)
-        last, caches = make_prefill_step(cfg)(params, {"tokens": toks[:, :16]}, caches)
-        if zero_state:
+        full = model_apply(params, cfg, frontend_batch(cfg, toks, frontend))[0][:, p:]
+        prefix = model_apply(params, cfg, frontend_batch(cfg, toks[:, :16], frontend))[0][:, p:]
+        caches = init_caches(cfg, 2, p + 24, dtype=torch.float32, device=device)
+        last, caches, *enc_kvs = make_prefill_step(cfg)(params, frontend_batch(cfg, toks[:, :16], frontend),
+                                                        caches)
+        enc_kvs = enc_kvs[0] if enc_kvs else None
+        if zero_state and enc_kvs is not None:
+            enc_kvs = [{name: torch.zeros_like(t) for name, t in kv.items()} for kv in enc_kvs]
+        elif zero_state:
             caches = zeroed_states(caches)
         step, got = make_serve_step(cfg), [last]
         for t in range(16, 24):
-            logits, _, caches = step(params, toks[:, t:t + 1].to(torch.int32), t, caches)
+            logits, _, caches = step(params, toks[:, t:t + 1].to(torch.int32), p + t, caches, enc_kvs)
             got.append(logits)
     out = {"layers": cfg.num_layers, "max_abs_err": (torch.stack(got, dim=1) - full[:, 15:]).abs().max().item(),
            "max_abs_logit": full.abs().max().item(),
@@ -2962,7 +3080,8 @@ def serve_smoke_cuda_vs_cpu(serve, seed: int, arch: str):
     for device in ("cuda", "cpu"):
         seen = []
         out = serve.prefill_and_generate(cfg, place_params(params, cfg, device), prompt, 5, device,
-                                         serve_step=recording(make_serve_step(cfg), seen))
+                                         serve_step=recording(make_serve_step(cfg), seen),
+                                         frontend=frontend_input(cfg, 3, seed + 2, device, torch.float32))
         runs[device] = (out["tokens"].cpu(), torch.stack([out["last_logits"].cpu(), *seen]))
     err = (runs["cuda"][1] - runs["cpu"][1]).abs().max().item()
     check(torch.equal(runs["cuda"][0], runs["cpu"][0]), f"{arch} smoke serving: tokens differ on the card and the CPU")
@@ -2976,7 +3095,7 @@ def free_memory(device: str):
         torch.cuda.empty_cache()
 
 
-def recurrent_serving_full(ops, card, seed: int, arch: str, device: str = "cuda", smoke: bool = False):
+def recurrent_serving_full(ops, card, seed: int, arch: str, device: str = "cuda", smoke: bool = False, layers=None):
     """Phase 5h for one arch: full-width ``arch`` (``serving_cfg``) served
     through ``repro_torch.launch.serve``'s functions, random weights from
     ``seed``, batch 8, 128-token prompts, 32 new tokens, bf16: each
@@ -2989,21 +3108,26 @@ def recurrent_serving_full(ops, card, seed: int, arch: str, device: str = "cuda"
     zeroed, which must fail), and the smoke model on the card against the
     CPU twins.  ``device="cpu"`` with ``smoke`` rehearses it on the CPU at
     the smoke size, every check but the card's own (launches, profile,
-    peak memory, the twins) kept (``tests/test_torch_decode.py``)."""
+    peak memory, the twins) kept (``tests/test_torch_decode.py``).  An
+    audio or vision model takes its frames or patches from ``seed``
+    (``frontend_input``); ``layers`` cuts the bf16 model's depth."""
     from repro_torch.launch import serve
-    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.launch.steps import frontend_batch, make_prefill_step, make_serve_step
     from repro_torch.models.transformer import init_caches
 
     free_memory(device)
     on_card = device == "cuda"
     t_arch = time.perf_counter()
     cfg = serving_cfg(arch, smoke=smoke)
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
     t0 = time.perf_counter()
     params = serve.init_model(cfg, seed, device)
     if on_card:
         torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     prompt = serve.random_prompts(cfg, SERVE_BATCH, SERVE_PROMPT, seed)
+    frontend, p = frontend_input(cfg, SERVE_BATCH, seed + 1, device, getattr(torch, cfg.dtype)), prefix_len(cfg)
     step = make_serve_step(cfg)
     seen = {"prefill": None, "steps": []}
 
@@ -3016,7 +3140,7 @@ def recurrent_serving_full(ops, card, seed: int, arch: str, device: str = "cuda"
         return out
 
     ops.reset_launch_counts()
-    first = serve.prefill_and_generate(cfg, params, prompt, SERVE_GEN, device, serve_step=counted)
+    first = serve.prefill_and_generate(cfg, params, prompt, SERVE_GEN, device, serve_step=counted, frontend=frontend)
     check(len(seen["steps"]) == SERVE_GEN, f"{arch}: {len(seen['steps'])} decode steps")
     if on_card:  # the CPU twins launch nothing
         check_launches(seen["prefill"], prefill_launches(cfg), f"{arch} prefill")
@@ -3029,27 +3153,29 @@ def recurrent_serving_full(ops, card, seed: int, arch: str, device: str = "cuda"
 
     if on_card:
         torch.cuda.reset_peak_memory_stats()
-    timed = serve.prefill_and_generate(cfg, params, prompt, SERVE_GEN, device, serve_step=step)
+    timed = serve.prefill_and_generate(cfg, params, prompt, SERVE_GEN, device, serve_step=step, frontend=frontend)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
     check(torch.equal(timed["tokens"].cpu(), tokens), f"{arch}: two generate runs give different tokens")
     profile = None
     if on_card:
-        profile = profile_decode(step, params, timed["tokens"][:, -1:], SERVE_PROMPT + SERVE_GEN, timed["caches"])
+        profile = profile_decode(step, params, timed["tokens"][:, -1:], p + SERVE_PROMPT + SERVE_GEN, timed["caches"],
+                                 enc_kvs=timed["enc_kvs"])
     prefill_s, decode_s = timed["prefill_s"], timed["decode_s"]
     del timed
 
-    caches = init_caches(cfg, SERVE_BATCH, SERVE_PROMPT + SERVE_GEN, dtype=torch.bfloat16, device=device)
-    last, caches = make_prefill_step(cfg)(params, {"tokens": prompt}, caches)
+    caches = init_caches(cfg, SERVE_BATCH, p + SERVE_PROMPT + SERVE_GEN, dtype=torch.bfloat16, device=device)
+    last, caches, *enc_kvs = make_prefill_step(cfg)(params, frontend_batch(cfg, prompt, frontend), caches)
+    enc_kvs = enc_kvs[0] if enc_kvs else None
     token, manual = torch.argmax(last, dim=-1)[:, None].to(torch.int32), []
     for i in range(SERVE_GEN):
-        _, token, caches = step(params, token, SERVE_PROMPT + i, caches)
+        _, token, caches = step(params, token, p + SERVE_PROMPT + i, caches, enc_kvs)
         manual.append(token[:, 0])
     check(torch.equal(torch.stack(manual, dim=1).cpu(), tokens),
           f"{arch}: generate's tokens differ from a hand-rolled serve_step loop")
-    del caches
+    del caches, enc_kvs
 
     eos_id, budgets, pad_id = int(tokens[0, 12]), [SERVE_GEN, 14, 9, 17, SERVE_GEN, 11, 25, SERVE_GEN], -1
-    stopped = serve.prefill_and_generate(cfg, params, prompt, SERVE_GEN, device, eos_id=eos_id,
+    stopped = serve.prefill_and_generate(cfg, params, prompt, SERVE_GEN, device, eos_id=eos_id, frontend=frontend,
                                          max_new_tokens=torch.tensor(budgets), pad_id=pad_id)["tokens"].cpu()
     # the freeze points from the unconditional run's tokens: each row holds
     # no pad_id up to its freeze point and only pad_id after it
@@ -3093,7 +3219,7 @@ def recurrent_serving_full(ops, card, seed: int, arch: str, device: str = "cuda"
                         for name in seen["prefill"]}}
     return {
         "model": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
-        "cut": SERVING_CUTS.get(arch) if not smoke else None,
+        "cut": SERVING_CUTS.get(arch) if not smoke else None, "frontend_seq": cfg.frontend_seq or None,
         "batch": SERVE_BATCH, "prompt_tokens": SERVE_PROMPT, "new_tokens": SERVE_GEN, "setup_s": setup_s,
         "prefill_ms": prefill_s * 1e3, "decode_ms": decode_s * 1e3, "ms_per_decode_step": decode_s / SERVE_GEN * 1e3,
         "generated_tokens_per_s": SERVE_BATCH * SERVE_GEN / decode_s, "peak_gib": peak_gib,
@@ -3163,7 +3289,7 @@ def moe_train_full(ops, card, seed: int, arch: str, flush):
     while True:
         try:
             stats, profile, launches = train_full(
-                ops, card, seed, cfg.replace(num_layers=layers), dense_round_launches, dense_eval_launches,
+                ops, card, seed, cfg.replace(num_layers=layers), dense_round_launches, evaluate_launches,
                 rate0_batch_cut=layers == cfg.num_layers,
                 after=lambda c, p, pf: moe_costs(c, p, pf, 16, 512, flush))
             break
@@ -3191,7 +3317,7 @@ def moe_gather_round(ops, card, seed: int, einsum_stats):
 
     free_memory("cuda")
     cfg = get_config("granite-moe-3b-a800m").replace(moe_dispatch="gather")
-    stats, profile, launches = train_full(ops, card, seed, cfg, dense_round_launches, dense_eval_launches)
+    stats, profile, launches = train_full(ops, card, seed, cfg, dense_round_launches, evaluate_launches)
     check(stats["gates_rate_0.5"] == einsum_stats["gates_rate_0.5"], "the gather round drew other gates")
     diff = abs(stats["metrics"]["loss"] - einsum_stats["metrics"]["loss"])
     check(diff <= 3e-2, f"gather dispatch loss {stats['metrics']['loss']} vs einsum's "
@@ -3282,6 +3408,227 @@ def moe_family_full(api, ops, card, seed: int, flush):
                 check(runs[f"{path} {arch}"][name] > 0, f"{name} never launched in phase 5i's {path} {arch}")
     for name in ("flash_attention", "flash_attention_bwd", "lora_matmul"):
         check(runs["gather"][name] > 0 and runs["federated"][name] > 0, f"{name} never launched in phase 5i")
+    return out, runs, time.perf_counter() - t0
+
+
+STUB_WIDTHS = {"whisper q v cross_q": (384, 384, 16 * 512), "internvl q": (8192, 8192, 16 * 768),
+               "internvl v": (8192, 1024, 16 * 768)}  # (K, N, M) of phase 5j's LoRA projections
+
+
+def stub_frontend_shapes(ops, ref, ring_positions, timer, seed: int, card: str) -> dict:
+    """Phase 3's cases at the stub-frontend families' shapes (phase 5j),
+    drawn from a generator of their own: whisper-tiny's encoder
+    self-attention (batch 16, 1 500 frames, bidirectional) and its
+    decoder's cross-attention (512 queries over 1 500 frames, the backward
+    dQ alone), both also in float32 at batch 2; flash_decode over whisper's
+    ring (batch 8, 160 slots), over its 1 500 encoder slots (every slot
+    live) and at internvl2-76b's serving step (64 heads over 8, 512
+    slots); lora_matmul at whisper's q, v and cross q (K = N = 384, batch
+    16 x 512) and internvl's q and v (batch 16 x (256 + 512)), and
+    segmented_lora at internvl's (8 rows)."""
+    gen_stub = torch.Generator(device="cuda")
+    gen_stub.manual_seed(seed + 8)
+    bf16 = torch.bfloat16
+    stub_shapes = {
+        "attention_whisper_encoder": attention_case(ops, ref, timer, gen_stub, dtype=bf16, s=1500, h=6, kv=6, d=64,
+                                                    causal=False),
+        "attention_whisper_cross": attention_case(ops, ref, timer, gen_stub, dtype=bf16, s=512, skv=1500, h=6, kv=6,
+                                                  d=64, causal=False, dq_only=True),
+        "decode_whisper_self": decode_case(ops, ref, ring_positions, timer, gen_stub, q_dtype=bf16, h=6, kv=6, d=64,
+                                           s=SERVE_PROMPT + SERVE_GEN),
+        "decode_whisper_cross": decode_case(ops, ref, ring_positions, timer, gen_stub, q_dtype=bf16, h=6, kv=6, d=64,
+                                            s=1500, all_live=True),
+        "decode_internvl": decode_case(ops, ref, ring_positions, timer, gen_stub, q_dtype=bf16, h=64, kv=8),
+    }
+    for name in list(stub_shapes):
+        print(f"{name} {json.dumps(stub_shapes[name])} [{card}]", flush=True)
+    for kw in ({"s": 1500}, {"s": 512, "skv": 1500, "dq_only": True}, {"s": 100, "skv": 1500}):
+        case = attention_case(ops, ref, timer, gen_stub, dtype=torch.float32, b=2, h=6, kv=6, d=64, causal=False,
+                              time_it=False, **kw)
+        print(f"flash_attention check {json.dumps(case)}", flush=True)
+    case = decode_case(ops, ref, ring_positions, timer, gen_stub, q_dtype=torch.float32, h=6, kv=6, d=64, s=1500,
+                       all_live=True)
+    print(f"flash_decode check {json.dumps({k: case[k] for k in ('shape', 'max_abs_err', 'atol')})}", flush=True)
+    for name, (k, n, m) in STUB_WIDTHS.items():
+        stub_shapes[f"lora {name}"] = lora_case(ops, ref, timer, gen_stub, dtype=bf16, n=n, k=k, m=m)
+        print(f"lora_matmul {name} {json.dumps(stub_shapes[f'lora {name}'])} [{card}]", flush=True)
+        if name.startswith("internvl"):
+            stub_shapes[f"segmented {name}"] = segmented_case(ops, ref, timer, gen_stub, dtype=bf16, n=n, k=k)
+            print(f"segmented_lora {name} {json.dumps(stub_shapes[f'segmented {name}'])} [{card}]", flush=True)
+    return stub_shapes
+
+
+WHISPER, INTERNVL = "whisper-tiny", "internvl2-76b"
+
+
+def bwd_kernel_split(fns, params, peft, batches, seed: int) -> dict:
+    """The attention backward's kernels in one local step (a one-step round
+    under ``torch.profiler``, 64 spin kernels first: a window's first
+    kernels may be lost), beside the step's gates: an encoder-decoder's
+    cross-attention runs the dQ kernel alone, so the dQ kernel runs twice
+    and the dK/dV kernel once in every active layer."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import stld
+    from repro_torch.optim import adamw_init
+
+    gates, sample_drops = [], stld.sample_drops
+
+    def recorded(*args, **kw):
+        drops = sample_drops(*args, **kw)
+        gates.append(drops.tolist())
+        return drops
+
+    one = {key: val[:1] for key, val in batches.items()}
+    stld.sample_drops = recorded
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(SPIN_KERNELS):
+                torch.cuda._sleep(1000)
+            fns.local_round(params, peft, adamw_init(peft), one, 0.5, torch.Generator().manual_seed(seed), 0)
+            torch.cuda.synchronize()
+    finally:
+        stld.sample_drops = sample_drops
+    events = device_kernels(prof)
+    calls = {key: sum(e.count for e in events if key in e.key)
+             for key in ("flash_bwd_dq_bf16_kernel", "flash_bwd_dkv_bf16_kernel")}
+    active = active_count(gates)
+    check(calls == {"flash_bwd_dq_bf16_kernel": 2 * active, "flash_bwd_dkv_bf16_kernel": active},
+          f"whisper's backward kernels {calls} in a step of {active} active layers: expected the cross-attention's "
+          "dQ kernel alone")
+    return {"active_layers": active, **calls}
+
+
+def whisper_full(ops, card, seed: int):
+    """Phase 5j's whisper-tiny at full width (4 + 4 layers, d 384, 6 heads of
+    64, vocab 51 865, 1 500 frames): one client's local round as phase 5's
+    (rates 0.5 and 0.0, batch 16 x 512, launches from the gates with the
+    encoder's attention and the cross-attention's dQ-only backward, the
+    backward's kernels of one step counted by the profiler) and its smoke
+    round on the card against the CPU twins; prefill and generate as phase
+    5h's (frames from the seed; the float32 check's mutation zeroes the
+    cross K/V); ``api.serve`` raising for the ``audio`` family."""
+    from repro_torch import api
+    from repro_torch.configs import PEFTConfig, STLDConfig, TrainConfig, get_config
+    from repro_torch.federated.client import make_client_fns
+
+    cfg = get_config(WHISPER)
+
+    def backward_kernels(c, params, peft):  # while train_full holds the weights
+        fns = make_client_fns(c, PEFTConfig(), STLDConfig(), TrainConfig())
+        return bwd_kernel_split(fns, params, peft, whisper_batches(c, seed), seed)
+
+    stats, profile, launches = train_full(
+        ops, card, seed, cfg, lambda gates: training_launches([g.count(False) for g in gates], cfg.num_encoder_layers),
+        evaluate_launches, after=backward_kernels)
+    stats["local_step_profile"] = profile
+    stats["smoke_card_vs_cpu"] = smoke_train_cuda_vs_cpu(seed, WHISPER)
+    try:
+        api.serve(WHISPER, smoke=False, adapters={"a": {}})
+        raise AssertionError("api.serve took the audio family")
+    except NotImplementedError as err:
+        check("'audio'" in str(err), f"api.serve's error names no family: {err}")
+    return stats, launches
+
+
+def whisper_batches(cfg, seed: int):
+    """One local step's batch of phase 5j's round (16 x 512 tokens)."""
+    from repro_torch.data.synthetic import make_task
+
+    task = make_task(vocab_size=cfg.vocab_size, seq_len=512, num_examples=16, seed=seed)
+    return train_batches(task, 1, 16)
+
+
+def internvl_train_full(ops, card, seed: int):
+    """Phase 5j's internvl2-76b local rounds as phase 5's (widths whole, 256
+    zero patches before the 512 tokens) at the deepest cut from
+    ``INTERNVL_TRAIN_LAYERS`` down at which the rounds at both rates fit at
+    batch 16 (the cuts that did not fit printed), then its smoke round on
+    the card against the CPU twins."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(INTERNVL)
+    layers, cuts = INTERNVL_TRAIN_LAYERS, []
+    while True:
+        try:
+            stats, profile, launches = train_full(ops, card, seed, cfg.replace(num_layers=layers),
+                                                  dense_round_launches, evaluate_launches, rate0_batch_cut=False)
+            break
+        except torch.cuda.OutOfMemoryError as err:
+            check(layers > 1, f"{INTERNVL}: a local round does not fit at 1 layer: {str(err).splitlines()[0][:200]}")
+            cuts.append({"layers": layers, "error": str(err).splitlines()[0][:200]})
+        layers -= 1
+        free_memory("cuda")  # after the handler, whose traceback held the failed round's tensors
+    stats["depth_cut"] = {"layers": layers, "of": cfg.num_layers, "did_not_fit": cuts or None}
+    stats["local_step_profile"] = profile
+    stats["smoke_card_vs_cpu"] = smoke_train_cuda_vs_cpu(seed, INTERNVL)
+    return stats, launches
+
+
+def internvl_serve_full(api, ops, card, seed: int):
+    """Phase 5j's internvl2-76b serving at the deepest cut from
+    ``INTERNVL_SERVE_LAYERS`` down (by 4) that fits: through ``api.serve``
+    as phase 4 (text prompts, no patches, as the reference serves it;
+    flash_decode once and segmented_lora twice a layer a step) with its
+    smoke model on the card against the CPU twins, then through
+    ``launch.serve``'s prefill and generate as phase 5h (patches from the
+    seed; the float32 check at ``INTERNVL_F32_LAYERS``)."""
+    from repro_torch.configs import get_config
+
+    layers, cuts = INTERNVL_SERVE_LAYERS, []
+    while True:
+        cfg = get_config(INTERNVL).replace(num_layers=layers)
+        try:
+            stats, breakdown, launches = serve_full(api, ops, card, seed, INTERNVL, cfg=cfg)
+            generate, served = recurrent_serving_full(ops, card, seed, INTERNVL, layers=layers)
+            break
+        except torch.cuda.OutOfMemoryError as err:
+            check(layers > 4, f"{INTERNVL}: serving does not fit at {layers} layers: {str(err).splitlines()[0][:200]}")
+            cuts.append({"layers": layers, "error": str(err).splitlines()[0][:200]})
+        layers -= 4
+        free_memory("cuda")
+    steps = stats["steps"]
+    check(launches["flash_decode"] == layers * steps and launches["segmented_lora"] == 2 * layers * steps,
+          f"serving {INTERNVL}: launches {launches} over {steps} steps of {layers} layers")
+    stats.update({"depth_cut": {"layers": layers, "of": 80, "did_not_fit": cuts or None},
+                  "decode_step_profile": breakdown, "smoke_card_vs_cpu": smoke_cuda_vs_cpu(seed, INTERNVL)})
+    return stats, launches, generate, served
+
+
+def stub_frontends_full(api, ops, card, seed: int):
+    """Phase 5j: whisper-tiny's encoder-decoder and internvl2-76b's patch
+    prefix on the card (the module docstring).  Returns its stats and each
+    path's launches."""
+    t0 = time.perf_counter()
+    out, runs = {}, {}
+    out["train whisper"], runs["train whisper"] = whisper_full(ops, card, seed)
+    print(f"5j train whisper {json.dumps(out['train whisper'])} [{card}]", flush=True)
+    out["generate whisper"], served = recurrent_serving_full(ops, card, seed, WHISPER)
+    runs["generate whisper"] = served["run"]
+    print(f"5j prefill and generate whisper {json.dumps(out['generate whisper'])} [{card}]", flush=True)
+    runner, fed, _, _, runs["federated whisper"] = federated_run(api, ops, seed, "batched", arch=WHISPER, rounds=2)
+    del runner
+    free_memory("cuda")
+    fed["smoke_card_vs_cpu"] = federated_smoke_cuda_vs_cpu(seed, WHISPER)
+    out["federated whisper"] = fed
+    print(f"5j federated whisper {json.dumps(fed)} [{card}]", flush=True)
+    out["train internvl"], runs["train internvl"] = internvl_train_full(ops, card, seed)
+    print(f"5j train internvl {json.dumps(out['train internvl'])} [{card}]", flush=True)
+    out["serve internvl"], runs["serve internvl"], out["generate internvl"], served = internvl_serve_full(
+        api, ops, card, seed)
+    runs["generate internvl"] = served["run"]
+    print(f"5j serve internvl {json.dumps(out['serve internvl'])} [{card}]", flush=True)
+    print(f"5j prefill and generate internvl {json.dumps(out['generate internvl'])} [{card}]", flush=True)
+    for path, names in (("train", ("flash_attention", "flash_attention_bwd", "lora_matmul")),
+                        ("generate", ("flash_attention", "flash_decode"))):
+        for arch in ("whisper", "internvl"):
+            for name in names:
+                check(runs[f"{path} {arch}"][name] > 0, f"{name} never launched in phase 5j's {path} {arch}")
+    for name in ("flash_attention", "flash_attention_bwd", "lora_matmul"):
+        check(runs["federated whisper"][name] > 0, f"{name} never launched in phase 5j's federated whisper")
+    for name in ("segmented_lora", "flash_decode"):
+        check(runs["serve internvl"][name] > 0, f"{name} never launched serving internvl in phase 5j")
     return out, runs, time.perf_counter() - t0
 
 
@@ -3519,6 +3866,9 @@ def main() -> int:
         print(f"lora_matmul {name} {json.dumps(moe_shapes[f'lora {name}'])} [{card}]", flush=True)
         print(f"segmented_lora {name} {json.dumps(moe_shapes[f'segmented {name}'])} [{card}]", flush=True)
 
+    # the stub-frontend families' shapes (phase 5j)
+    stub_shapes = stub_frontend_shapes(ops, ref, ring_positions, timer, args.seed, card)
+
     print(f"phase 3: {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
 
     # 4. serve full-width qwen3-1.7b
@@ -3657,6 +4007,18 @@ def main() -> int:
         return {f"5i_{path}_{short}": moe_runs[f"{path} {arch}"][name] for path in paths
                 for short, arch in moe_paths.items()}
 
+    # 5j. the stub-frontend families: whisper-tiny uncut (a local round,
+    #     prefill and generate, 2 federated rounds) and internvl2-76b
+    #     depth-cut (local rounds, api.serve, prefill and generate)
+    stub_stats, stub_runs, stub_s = stub_frontends_full(api, ops, card, args.seed)
+    print(f"phase 5j: {stub_s:.1f} s [{card}]", flush=True)
+
+    def stub_launches(name, paths):
+        return {f"5j_{path.replace(' ', '_')}": stub_runs[path][name] for path in paths}
+
+    stub_shape_keys = {"flash_attention": ("attention_whisper_encoder", "attention_whisper_cross"),
+                       "flash_decode": ("decode_whisper_self", "decode_whisper_cross", "decode_internvl")}
+
     # 6. kernels line: each path's shapes (bf16) and launches; q and v
     #    projections summed for segmented_lora and lora_matmul (forward)
     for name in ("segmented_lora", "flash_decode"):
@@ -3711,7 +4073,10 @@ def main() -> int:
                                  **{f"serve_{a}": dense_launches["serve_launches"][a]["segmented_lora"]
                                     for a in DENSE_ARCHS},
                                  "5g_serve_hetlora_checkpoint": grid_launches["segmented_lora"],
-                                 **moe_launches("segmented_lora", ("serve",))},
+                                 **moe_launches("segmented_lora", ("serve",)),
+                                 **stub_launches("segmented_lora", ("serve internvl",))},
+            "internvl_shapes": {name: pick(stub_shapes[f"segmented {name}"], proj_keys)
+                                for name in ("internvl q", "internvl v")},
             "hetlora_shapes": {name: pick(hetlora[f"segmented n{n}"], proj_keys) for name, n in (("q", 2048),
                                                                                                ("v", 1024))},
             "moe_arch_shapes": {name: pick(moe_shapes[f"segmented {name}"], proj_keys) for name in moe_widths},
@@ -3735,8 +4100,11 @@ def main() -> int:
                                  "5g_serve_hetlora_checkpoint": grid_launches["flash_decode"],
                                  "5h_generate_qwen3": served["qwen3-1.7b"]["flash_decode"],
                                  "5h_generate_jamba": served["jamba-v0.1-52b"]["flash_decode"],
-                                 **moe_launches("flash_decode", ("serve", "generate"))},
+                                 **moe_launches("flash_decode", ("serve", "generate")),
+                                 **stub_launches("flash_decode", ("generate whisper", "serve internvl",
+                                                                  "generate internvl"))},
             "moe_shapes": {short: pick(moe_shapes[f"decode_{short}"], fwd_keys) for short in moe_paths},
+            "stub_frontend_shapes": {key: pick(stub_shapes[key], fwd_keys) for key in stub_shape_keys["flash_decode"]},
         },
         {
             "name": "flash_attention", "route": "cuda",
@@ -3753,8 +4121,12 @@ def main() -> int:
                                  "5h_prefill_jamba": served["jamba-v0.1-52b"]["flash_attention"],
                                  **moe_launches("flash_attention", ("train", "generate")),
                                  "5i_gather_round_granite": moe_runs["gather"]["flash_attention"],
-                                 "5i_federated_granite": moe_runs["federated"]["flash_attention"]},
+                                 "5i_federated_granite": moe_runs["federated"]["flash_attention"],
+                                 **stub_launches("flash_attention", ("train whisper", "generate whisper",
+                                                                     "federated whisper", "train internvl",
+                                                                     "generate internvl"))},
             "moe_shapes": {short: pick(moe_shapes[f"attention_{short}"], fwd_keys) for short in moe_paths},
+            "whisper_shapes": {key: pick(stub_shapes[key], fwd_keys) for key in stub_shape_keys["flash_attention"]},
             "glm4_shape": pick(dense["attention_glm4"], fwd_keys),
             "danube_shape": pick(dense["attention_danube"], fwd_keys),
             "prefill_shapes": {arch: pick(serve_attn[f"prefill_{arch}"], fwd_keys) for arch in ("qwen3", "jamba")},
@@ -3778,7 +4150,11 @@ def main() -> int:
                                     for a in DENSE_ARCHS},
                                  **moe_launches("flash_attention_bwd", ("train",)),
                                  "5i_gather_round_granite": moe_runs["gather"]["flash_attention_bwd"],
-                                 "5i_federated_granite": moe_runs["federated"]["flash_attention_bwd"]},
+                                 "5i_federated_granite": moe_runs["federated"]["flash_attention_bwd"],
+                                 **stub_launches("flash_attention_bwd", ("train whisper", "federated whisper",
+                                                                         "train internvl"))},
+            "whisper_shapes": {key: pick(stub_shapes[key], ("shape",), **bwd_renamed)
+                               for key in stub_shape_keys["flash_attention"]},
             "moe_shapes": {short: pick(moe_shapes[f"attention_{short}"], ("shape",), **bwd_renamed)
                            for short in moe_paths},
             "glm4_shape": pick(dense["attention_glm4"], ("shape",), **bwd_renamed),
@@ -3808,7 +4184,12 @@ def main() -> int:
                                     for a in DENSE_ARCHS},
                                  **moe_launches("lora_matmul", ("train",)),
                                  "5i_gather_round_granite": moe_runs["gather"]["lora_matmul"],
-                                 "5i_federated_granite": moe_runs["federated"]["lora_matmul"]},
+                                 "5i_federated_granite": moe_runs["federated"]["lora_matmul"],
+                                 **stub_launches("lora_matmul", ("train whisper", "federated whisper",
+                                                                 "train internvl"))},
+            "stub_frontend_shapes": {name: pick(stub_shapes[f"lora {name}"],
+                                                proj_keys + ("dx_ms", "dx_bound_ms", "route"))
+                                     for name in STUB_WIDTHS},
             "dense_arch_shapes": dense_shapes["lora"],
             "moe_arch_shapes": {name: pick(moe_shapes[f"lora {name}"], proj_keys + ("dx_ms", "dx_bound_ms", "route"))
                                 for name in moe_widths},

@@ -231,8 +231,11 @@ def serve(
 ):
     """Multi-tenant adapter serving: a ready
     :class:`~repro_torch.serving.batcher.ContinuousBatcher`, for the
-    ``dense`` and ``moe`` families, whose layers carry no recurrent state
-    (``ssm`` and ``hybrid`` raise ``NotImplementedError``).
+    ``dense``, ``moe`` and ``vlm`` families, whose layers carry no recurrent
+    state (``ssm`` and ``hybrid`` raise ``NotImplementedError``, and so does
+    ``audio``: the reference's batcher decodes without the encoder's cross
+    K/V).  A ``vlm`` model serves text prompts, with no patches, as the
+    reference serves it.
 
     Adapters come from a federated ``save_state`` checkpoint
     (``checkpoint_dir``: every client's adapter registers as
@@ -256,6 +259,12 @@ def serve(
             f"multi-tenant serving of the {cfg.family!r} family is not ported: the continuous batcher resets "
             "only a recycled row's position, and a recurrent state (RWKV6 wkv and shifts, Mamba conv and ssm) "
             "would carry the previous request into the next; serve it with launch.serve's prefill and generate")
+    if cfg.family == "audio":
+        # the reference's batcher calls serve_step without enc_kvs, so its
+        # decoder would skip cross-attention and ignore the audio
+        raise NotImplementedError(
+            "multi-tenant serving of the 'audio' family is not ported: the continuous batcher decodes without the "
+            "encoder's cross K/V; serve it with launch.serve's prefill and generate")
     registry = AdapterRegistry()
     if checkpoint_dir is not None:
         registry.load_checkpoint(checkpoint_dir, alpha=lora_alpha)

@@ -4,15 +4,17 @@
 ``get_config(arch_id, smoke=True)`` the reduced variant the CPU tests use.
 """
 from repro_torch.configs import (
-    glm4_9b, granite_moe_3b_a800m, h2o_danube_1_8b, jamba_v0_1_52b, llama4_scout_17b_a16e, qwen3_1_7b, rwkv6_3b, yi_6b,
+    glm4_9b, granite_moe_3b_a800m, h2o_danube_1_8b, internvl2_76b, jamba_v0_1_52b, llama4_scout_17b_a16e, qwen3_1_7b,
+    rwkv6_3b, whisper_tiny, yi_6b,
 )
 from repro_torch.configs.base import (
     FederatedConfig, MambaConfig, ModelConfig, PEFTConfig, RWKVConfig, STLDConfig, TrainConfig,
 )
 
-_BY_ID = {m.ARCH_ID: m for m in (qwen3_1_7b, rwkv6_3b, jamba_v0_1_52b, glm4_9b, h2o_danube_1_8b, yi_6b,
-                                 granite_moe_3b_a800m, llama4_scout_17b_a16e)}
-ARCH_IDS = tuple(_BY_ID)  # the archs the port runs
+# in the order of the reference's registry
+_BY_ID = {m.ARCH_ID: m for m in (jamba_v0_1_52b, llama4_scout_17b_a16e, internvl2_76b, yi_6b, granite_moe_3b_a800m,
+                                 rwkv6_3b, glm4_9b, qwen3_1_7b, h2o_danube_1_8b, whisper_tiny)}
+ARCH_IDS = tuple(_BY_ID)  # the archs the port runs: all ten of the reference's
 
 
 def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:

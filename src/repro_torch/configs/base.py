@@ -2,8 +2,9 @@
 
 A copy of the fields of ``repro.configs.base`` that the serving, the
 local-training and the federated slices read (the dense family, the
-``ssm`` family of RWKV6, the ``hybrid`` family of jamba and the ``moe``
-family of granite-moe and llama4-scout).  The port keeps its own copy so
+``ssm`` family of RWKV6, the ``hybrid`` family of jamba, the ``moe``
+family of granite-moe and llama4-scout, the ``audio`` encoder-decoder of
+whisper and the ``vlm`` patch prefix of internvl2).  The port keeps its own copy so
 that it never imports the JAX package; the field names, defaults and
 meanings are the same.
 """
@@ -40,10 +41,13 @@ class RWKVConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """Decoder description: ``family`` is ``dense`` (attention layers),
+    """Model description: ``family`` is ``dense`` (attention layers),
     ``ssm`` (RWKV6 layers), ``hybrid`` (Mamba and attention layers, MoE
-    every ``moe_every`` layers) or ``moe`` (attention and MoE in every
-    layer), as in the JAX package."""
+    every ``moe_every`` layers), ``moe`` (attention and MoE in every
+    layer), ``audio`` (an encoder-decoder whose decoder layers
+    cross-attend to the encoder's output; ``num_layers`` counts the
+    decoder's) or ``vlm`` (a dense decoder behind a prefix of
+    ``frontend_seq`` patch embeddings), as in the JAX package."""
 
     name: str
     family: str
@@ -74,6 +78,11 @@ class ModelConfig:
     mamba: Optional[MambaConfig] = None
 
     rwkv: Optional[RWKVConfig] = None
+
+    is_encoder_decoder: bool = False
+    num_encoder_layers: int = 0
+    modality: str = "text"  # text | audio | vision
+    frontend_seq: int = 0  # frames (audio) or patches (vision) given by the stub frontend
 
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
@@ -111,8 +120,9 @@ class ModelConfig:
 
     def param_counts(self) -> dict:
         """Analytic parameter counts (total, active under MoE top-k,
-        embedding) for the system model, as the reference counts them for
-        these four families (no encoder)."""
+        embedding) for the system model, as the reference counts them: an
+        encoder-decoder adds its encoder layers and the decoder's
+        cross-attention."""
         d, hd = self.d_model, self.resolved_head_dim
         h, kv, ff = self.num_heads, self.num_kv_heads, self.d_ff
         attn = d * (h * hd) + 2 * d * (kv * hd) + (h * hd) * d
@@ -152,7 +162,11 @@ class ModelConfig:
             active += layer_act
         emb = self.vocab_size * d
         head = emb + d + (0 if self.tie_embeddings else emb)
-        return {"total": total + head, "active": active + head, "embedding": emb}
+        total, active = total + head, active + head
+        if self.is_encoder_decoder:
+            extra = self.num_encoder_layers * (attn + mlp + norms) + self.num_layers * attn
+            total, active = total + extra, active + extra
+        return {"total": total, "active": active, "embedding": emb}
 
 
 @dataclass(frozen=True)

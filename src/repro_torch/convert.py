@@ -1,7 +1,9 @@
 """JAX parameter and PEFT trees, given as numpy arrays, into the port's tensors.
 
-The trees keep their structure and their stacked ``(L, ...)`` leaves, so
-the conversion is leaf by leaf.  A bfloat16 leaf arrives either as an
+The trees keep their structure and their stacked ``(L, ...)`` leaves (or
+per-layer lists), so the conversion is leaf by leaf, whatever the tree: a
+decoder's ``{"embed", "layers", ...}``, an encoder-decoder's ``{"encoder",
+"decoder"}``, a PEFT tree with whisper's ``cross`` group.  A bfloat16 leaf arrives either as an
 ``ml_dtypes.bfloat16`` array (what ``np.asarray`` of a JAX array gives) or
 as its ``uint16`` bit pattern (what the JAX checkpoint format stores); both
 become ``torch.bfloat16`` with the same bits.  No leaf of a parameter or
@@ -36,8 +38,9 @@ def _tree_to_torch(tree, device, dtype):
 
 
 def params_from_jax(np_tree, device, dtype: Optional[torch.dtype] = None):
-    """Base-model params (``{"embed", "layers", "final_norm", ...}``) as
-    tensors on ``device``; floating leaves cast to ``dtype`` when given."""
+    """Base-model params (``{"embed", "layers", "final_norm", ...}``, or an
+    encoder-decoder's ``{"encoder", "decoder"}``) as tensors on ``device``;
+    floating leaves cast to ``dtype`` when given."""
     return _tree_to_torch(np_tree, torch.device(device), dtype)
 
 

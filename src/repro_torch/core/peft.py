@@ -10,10 +10,12 @@ per-layer list, as ``maybe_stack(..., "auto")`` decides.  A layer's tree:
   targets; on jamba (``hybrid``) ``{"mamba": {"in", "out"}}`` on a Mamba
   layer, the targets' ``attn`` on an attention layer and ``mlp`` on a
   layer without MoE (a list: the layers differ); on the ``moe`` family
-  the targets' ``attn`` alone, stacked (no layer has an MLP to adapt).
-  ``b`` starts at zero.
-* ``adapter``: ``adapter_attn`` on an attention layer and ``adapter_mlp``
-  on every layer, Houlsby bottlenecks of ``adapter_dim`` whose ``up``
+  the targets' ``attn`` alone, stacked (no layer has an MLP to adapt); on
+  whisper's decoder (``audio``) the targets' ``attn`` and ``mlp`` and the
+  attention targets again as ``cross`` on the cross-attention, stacked
+  (the encoder takes no PEFT).  ``b`` starts at zero.
+* ``adapter``: ``adapter_attn`` on an attention (or ``encdec``) layer and
+  ``adapter_mlp`` on every layer, Houlsby bottlenecks of ``adapter_dim`` whose ``up``
   starts at zero (jamba's tree is a list: its Mamba layers have no
   ``adapter_attn``).
 * ``bitfit``: float32 zero biases ``bias_attn`` and ``bias_mlp`` of
@@ -56,10 +58,10 @@ def _lora(generator, lead, d_in, d_out, r):
     }
 
 
-def _targets(cfg, peft_cfg, generator, lead, with_mlp: bool):
+def _targets(cfg, peft_cfg, generator, lead, with_mlp: bool, with_cross: bool = False):
     tree = {}
-    for group, dims in (("attn", _ATTN_DIMS), ("mlp", _MLP_DIMS)):
-        if group == "mlp" and not with_mlp:
+    for group, dims in (("attn", _ATTN_DIMS), ("mlp", _MLP_DIMS), ("cross", _ATTN_DIMS)):
+        if (group == "mlp" and not with_mlp) or (group == "cross" and not with_cross):
             continue
         for t in peft_cfg.lora_targets:
             if t in dims:
@@ -82,7 +84,8 @@ def _init_lora(cfg, peft_cfg, generator):
                        "down": _lora(generator, (L,), cfg.d_ff, cfg.d_model, r)}}
     if cfg.family == "hybrid":
         return [_hybrid_lora_layer(cfg, peft_cfg, generator, l) for l in range(L)]
-    return _targets(cfg, peft_cfg, generator, (L,), with_mlp=not cfg.is_moe_layer(0))
+    return _targets(cfg, peft_cfg, generator, (L,), with_mlp=not cfg.is_moe_layer(0),
+                    with_cross=layer_kind(cfg, 0) == "encdec")
 
 
 def init_layer_peft(cfg, peft_cfg, generator, l: int) -> dict:
@@ -90,7 +93,7 @@ def init_layer_peft(cfg, peft_cfg, generator, l: int) -> dict:
     method = peft_cfg.method
     if method == "adapter":
         p = {}
-        if layer_kind(cfg, l) == "attn":
+        if layer_kind(cfg, l) in ("attn", "encdec"):
             p["adapter_attn"] = init_adapter(generator, cfg.d_model, peft_cfg.adapter_dim)
         p["adapter_mlp"] = init_adapter(generator, cfg.d_model, peft_cfg.adapter_dim)
         return p
@@ -150,7 +153,8 @@ def merge_lora_into_base(base_layers, peft, scale: float):
     """Fold LoRA deltas into the frozen weights (the deployment path):
     ``W' = W + scale * A @ B`` on the attention and MLP targets.  Either
     layer layout (both trees in the same one); returns the merged stack in
-    that layout, the inputs untouched."""
+    that layout, the inputs untouched.  A decoder layer's ``cross`` LoRA is
+    not merged, as the reference's merge skips it."""
     if stacking.is_stacked(base_layers):
         return _merge_one(base_layers, peft, scale)
     return [_merge_one(layer, p, scale) for layer, p in zip(base_layers, peft)]

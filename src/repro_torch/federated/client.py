@@ -22,6 +22,11 @@
   to one size, with a ``valid`` row mask.
 * ``cohort_round_eval`` — ``cohort_round`` then ``cohort_evaluate`` of the
   trained adapters, in one call.
+
+An audio or vision model takes its stub frontend's zero frames or patches
+with every batch (``steps.frontend_batch``), and a vision model's patch-prefix
+logits are stripped before the loss and the accuracy, as the reference's
+client does.  The encoder of an encoder-decoder runs again at every step.
 """
 from __future__ import annotations
 
@@ -32,7 +37,7 @@ import torch
 from repro_torch.core import peft as peft_lib
 from repro_torch.core import ptls, stld
 from repro_torch.core.schedules import unit_shape
-from repro_torch.launch.steps import as_device_tensor, value_and_grad
+from repro_torch.launch.steps import as_device_tensor, frontend_batch, token_logits, value_and_grad
 from repro_torch.models.losses import cohort_softmax_xent, softmax_xent
 from repro_torch.models.registry import model_apply
 from repro_torch.models.stacking import from_layer_list, is_stacked, layer_list
@@ -111,10 +116,10 @@ def make_client_fns(cfg, peft_cfg, stld_cfg, train_cfg, *, device=None, shape=No
     gather_mode = stld_cfg.mode == "gather"
 
     def loss_fn(peft_params, base_params, tokens, targets, mask, drops, active_idx=None):
-        logits, aux, _ = model_apply(base_params, cfg, {"tokens": tokens}, drops=drops, peft=peft_params,
+        logits, aux, _ = model_apply(base_params, cfg, frontend_batch(cfg, tokens), drops=drops, peft=peft_params,
                                      lora_scale=lora_sc, stack_mode="unroll" if active_idx is None else "gather",
                                      active_idx=active_idx)
-        loss, metrics = softmax_xent(logits, targets, mask)
+        loss, metrics = softmax_xent(token_logits(cfg, logits, tokens.shape[-1]), targets, mask)
         return loss + cfg.router_aux_coef * aux, metrics  # the metrics' loss stays the cross-entropy
 
     grad_fn = value_and_grad(loss_fn)
@@ -158,7 +163,7 @@ def make_client_fns(cfg, peft_cfg, stld_cfg, train_cfg, *, device=None, shape=No
     @torch.no_grad()
     def evaluate(base_params, peft_params, tokens, labels, num_classes_arr):
         tokens, labels = as_device_tensor(tokens, device), as_device_tensor(labels, device)
-        logits, _, _ = model_apply(base_params, cfg, {"tokens": tokens}, peft=peft_params, lora_scale=lora_sc)
+        logits, _, _ = model_apply(base_params, cfg, frontend_batch(cfg, tokens), peft=peft_params, lora_scale=lora_sc)
         class_logits = logits[:, -1].float()[:, 1 : 1 + len(num_classes_arr)]
         pred = torch.argmax(class_logits, dim=-1)
         return torch.mean((pred == labels.long()).float())
@@ -166,9 +171,10 @@ def make_client_fns(cfg, peft_cfg, stld_cfg, train_cfg, *, device=None, shape=No
     # ------------------------------------------------------------ the cohort
     def cohort_loss_fn(layers, base_params, tokens, targets, mask, drops, active_idx=None):
         n = tokens.shape[0]
-        logits, aux, _ = model_apply(base_params, cfg, {"tokens": tokens}, drops=drops, peft=layers,
+        logits, aux, _ = model_apply(base_params, cfg, frontend_batch(cfg, tokens), drops=drops, peft=layers,
                                      lora_scale=lora_sc, devices=n,
                                      stack_mode="unroll" if active_idx is None else "gather", active_idx=active_idx)
+        logits = token_logits(cfg, logits, tokens.shape[-1])
         loss, metrics = cohort_softmax_xent(logits.view(n, -1, *logits.shape[1:]), targets, mask)
         return torch.sum(loss + cfg.router_aux_coef * aux), metrics
 
@@ -211,7 +217,8 @@ def make_client_fns(cfg, peft_cfg, stld_cfg, train_cfg, *, device=None, shape=No
     def cohort_accuracy(base_params, layers, tokens, labels, valid, num_classes_arr):
         tokens, labels, valid = (as_device_tensor(t, device) for t in (tokens, labels, valid))
         n, rows = labels.shape
-        logits, _, _ = model_apply(base_params, cfg, {"tokens": tokens}, peft=layers, lora_scale=lora_sc, devices=n)
+        logits, _, _ = model_apply(base_params, cfg, frontend_batch(cfg, tokens), peft=layers, lora_scale=lora_sc,
+                                   devices=n)
         class_logits = logits[:, -1].float()[:, 1 : 1 + len(num_classes_arr)].view(n, rows, -1)
         pred = torch.argmax(class_logits, dim=-1)
         correct = (pred == labels.long()).float() * valid.float()

@@ -3,8 +3,11 @@
 //   out[b, i, h] = sum_j softmax_j(scale * q[b, i, h] . k[b, j, g]) v[b, j, g]
 //   lse[b, h, i] = log sum_j exp(scale * q[b, i, h] . k[b, j, g])
 //
-// with g = h / (H / KV) (GQA, indexed here instead of repeated), key j
-// visible to query i iff j < S, j <= i (causal) and j > i - window (window).
+// with g = h / (H / KV) (GQA, indexed here instead of repeated), i < S the
+// queries and j < Skv the keys, key j visible to query i iff j <= i
+// (causal) and j > i - window (window).  Skv differs from S only without
+// the causal mask and the window (cross-attention: a decoder's queries
+// over an encoder's keys; the wrapper checks it).
 //
 // Replaces src/repro/kernels/flash_attention.py: flash_attention_pallas
 // (kernel body _attn_kernel).  Kept from it: the masked scores are the
@@ -14,7 +17,7 @@
 // max(l, 1e-30).  New: the row log-sum-exp m + log(l), which the backward
 // kernel (flash_attention_bwd.cu) uses to recompute the probabilities.
 //
-// Layout: q (B, S, H, D) and k, v (B, S, KV, D), the model's own layout, so
+// Layout: q (B, S, H, D) and k, v (B, Skv, KV, D), the model's own layout, so
 // no transpose or repeat runs before the kernel; lse (B, H, S) float32.
 //
 // Design, bf16.  The TPU grid (b*h, q blocks, kv blocks) runs its kv axis in
@@ -26,7 +29,7 @@
 // by wgmma from shared memory beside the previous tile's O += P V (P as the
 // register A operand, V read MN-major), runs the online softmax of S in
 // registers while that product computes (the mask only on tiles that cross
-// the diagonal, the window's edge or S; exp2 with log2 e folded into the
+// the diagonal, the window's edge or Skv; exp2 with log2 e folded into the
 // scale; a row's max across its quad by shuffles; the O rescale owed to it
 // applied before the next product), then packs P to bf16 in registers.  The
 // epilogue writes O / l as bf16 over the warpgroup's own Q rows in shared
@@ -74,7 +77,8 @@ template <int DP>
 __global__ void __launch_bounds__(2 * WG_THREADS, 1)
 flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tout,
-                      float* __restrict__ lse, int S, int H, int KV, int causal, int window, float scale_log2) {
+                      float* __restrict__ lse, int S, int Skv, int H, int KV, int causal, int window,
+                      float scale_log2) {
   using L = FwdLayout<DP>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
@@ -90,7 +94,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
   const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;  // heaviest causal tile first
   const int g = h / (H / KV);
   int first, last;
-  relevant_kv_tiles(q0, BQ, BK, (S + BK - 1) / BK, causal, window, first, last);
+  relevant_kv_tiles(q0, BQ, BK, (Skv + BK - 1) / BK, causal, window, first, last);
   const int cw = warpgroup_index();  // warpgroup cw owns query rows [q0 + 64 cw, q0 + 64 cw + 64)
   const int t = threadIdx.x % WG_THREADS, lane = t & 31;
   const bool feeder = threadIdx.x == 0;
@@ -172,14 +176,14 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
     }
     fence_regs(s);
 
-    const bool full = k0 + BK <= S && (!causal || k0 + BK - 1 <= qlo) && (window <= 0 || k0 > qhi - window);
+    const bool full = k0 + BK <= Skv && (!causal || k0 + BK - 1 <= qlo) && (window <= 0 || k0 > qhi - window);
     float mx0 = MASKED, mx1 = MASKED;
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float x = s[4 * j + e] * scale_log2;
-        if (!full && !key_visible(e < 2 ? qa : qb, k0 + 8 * j + 2 * (lane & 3) + (e & 1), S, causal, window))
+        if (!full && !key_visible(e < 2 ? qa : qb, k0 + 8 * j + 2 * (lane & 3) + (e & 1), Skv, causal, window))
           x = MASKED;
         s[4 * j + e] = x;
       }
@@ -246,20 +250,20 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
 }
 
 template <int DP>
-int launch_bf16(const void* q, const void* k, const void* v, void* out, float* lse, int B, int S, int H, int KV, int D,
-                int causal, int window, float scale, cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* out, float* lse, int B, int S, int Skv, int H,
+                int KV, int D, int causal, int window, float scale, cudaStream_t stream) {
   CUtensorMap tq, tk, tv, tout;
   int err = make_map_4d(&tq, q, D, H, S, B);
-  if (!err) err = make_map_4d(&tk, k, D, KV, S, B);
-  if (!err) err = make_map_4d(&tv, v, D, KV, S, B);
+  if (!err) err = make_map_4d(&tk, k, D, KV, Skv, B);
+  if (!err) err = make_map_4d(&tv, v, D, KV, Skv, B);
   if (!err) err = make_map_4d(&tout, out, D, H, S, B);
   if (err) return err;
   constexpr int bytes = FwdLayout<DP>::bytes;
   cudaError_t e = cudaFuncSetAttribute(flash_fwd_bf16_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(H, B, (S + BQ - 1) / BQ);
-  flash_fwd_bf16_kernel<DP><<<grid, 2 * WG_THREADS, bytes, stream>>>(tq, tk, tv, tout, lse, S, H, KV, causal, window,
-                                                                      scale * LOG2E);
+  flash_fwd_bf16_kernel<DP><<<grid, 2 * WG_THREADS, bytes, stream>>>(tq, tk, tv, tout, lse, S, Skv, H, KV, causal,
+                                                                      window, scale * LOG2E);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -288,8 +292,8 @@ struct FwdSmemF32 {
 
 __global__ void __launch_bounds__(TILE_THREADS)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                     float* __restrict__ out, float* __restrict__ lse, int S, int H, int KV, int D, int causal,
-                     int window, float scale) {
+                     float* __restrict__ out, float* __restrict__ lse, int S, int Skv, int H, int KV, int D,
+                     int causal, int window, float scale) {
   constexpr int BQ = FwdSmemF32::BQ, BK = FwdSmemF32::BK;
   static_assert(BK % 32 == 0, "a warp covers a score row in BK / 32 columns per lane");
   extern __shared__ __align__(128) unsigned char smem[];
@@ -317,13 +321,13 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, c
   for (int e = tid; e < BQ * D; e += blockDim.x) o_s[(e / D) * L.ldo + e % D] = 0.f;
   __syncthreads();
 
-  const int nk = (S + BK - 1) / BK;
+  const int nk = (Skv + BK - 1) / BK;
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * BK;
     if (!tile_relevant(q0, k0, BQ, BK, causal, window)) continue;
-    const long long krow = ((long long)b * S + k0) * ktok + (long long)g * D;
-    load_rows(k_s, L.ldt, k + krow, ktok, BK, min(BK, S - k0), D);
-    load_rows(v_s, L.ldt, v + krow, ktok, BK, min(BK, S - k0), D);
+    const long long krow = ((long long)b * Skv + k0) * ktok + (long long)g * D;
+    load_rows(k_s, L.ldt, k + krow, ktok, BK, min(BK, Skv - k0), D);
+    load_rows(v_s, L.ldt, v + krow, ktok, BK, min(BK, Skv - k0), D);
     __syncthreads();
     tile_mma<true>(s_s, L.lds, q_s, L.ldt, k_s, L.ldt, BQ, BK, D, false);  // S = Q K^T
     __syncthreads();
@@ -335,7 +339,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, c
       for (int c = 0; c < BK / 32; ++c) {
         const int col = lane + 32 * c;
         const float x = s_s[r * L.lds + col] * scale;
-        sv[c] = key_visible(qi, k0 + col, S, causal, window) ? x : MASKED;
+        sv[c] = key_visible(qi, k0 + col, Skv, causal, window) ? x : MASKED;
         mx = fmaxf(mx, sv[c]);
       }
       mx = warp_max(mx);
@@ -374,8 +378,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, c
   }
 }
 
-int launch_f32(const void* q, const void* k, const void* v, void* out, float* lse, int B, int S, int H, int KV, int D,
-               int causal, int window, float scale, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* out, float* lse, int B, int S, int Skv, int H, int KV,
+               int D, int causal, int window, float scale, cudaStream_t stream) {
   const FwdSmemF32 L(D);
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(L.bytes));
@@ -383,7 +387,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, float* ls
   const dim3 grid((S + FwdSmemF32::BQ - 1) / FwdSmemF32::BQ, H, B);
   flash_fwd_f32_kernel<<<grid, TILE_THREADS, L.bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), lse, S, H, KV, D, causal, window, scale);
+      static_cast<float*>(out), lse, S, Skv, H, KV, D, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -475,20 +479,22 @@ int probe_forms(int rs, int b_mn, const void* a, const void* b, void* c, cudaStr
 }  // namespace
 
 // Returns 0 on a good launch, the cudaError_t of a refused launch, -1 for
-// arguments the kernel does not take, or -2 if CUDA refuses a tensor
-// map.  Shapes, dtypes, devices and contiguity are checked by the Python
-// wrapper (repro_torch/kernels/ops.py).
+// arguments the kernel does not take (among them Skv != S under a causal
+// mask or a window), or -2 if CUDA refuses a tensor map.  Shapes, dtypes,
+// devices and contiguity are checked by the Python wrapper
+// (repro_torch/kernels/ops.py).
 extern "C" int flash_attention_fwd_launch(int dtype, const void* q, const void* k, const void* v, void* out,
-                                          void* lse, int B, int S, int H, int KV, int D, int causal, int window,
-                                          float scale, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || D <= 0 || D % 16 != 0 || D > MAX_D) return -1;
+                                          void* lse, int B, int S, int Skv, int H, int KV, int D, int causal,
+                                          int window, float scale, void* stream) {
+  if (B <= 0 || S <= 0 || Skv <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || D <= 0 || D % 16 != 0 || D > MAX_D) return -1;
+  if (Skv != S && (causal || window > 0)) return -1;
   if (H > 65535 || B > 65535) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (dtype == kFloat32) return launch_f32(q, k, v, out, l, B, S, H, KV, D, causal, window, scale, s);
+  if (dtype == kFloat32) return launch_f32(q, k, v, out, l, B, S, Skv, H, KV, D, causal, window, scale, s);
   if (dtype == kBFloat16) {
-    if (D <= 64) return launch_bf16<64>(q, k, v, out, l, B, S, H, KV, D, causal, window, scale, s);
-    return launch_bf16<128>(q, k, v, out, l, B, S, H, KV, D, causal, window, scale, s);
+    if (D <= 64) return launch_bf16<64>(q, k, v, out, l, B, S, Skv, H, KV, D, causal, window, scale, s);
+    return launch_bf16<128>(q, k, v, out, l, B, S, Skv, H, KV, D, causal, window, scale, s);
   }
   return -1;
 }

@@ -21,7 +21,10 @@
 // dQ of its rows.  (2) One block per (b, kv head, kv tile) walks the query
 // heads of its group and their visible q tiles in a fixed order and owns dK
 // and dV of its keys, so the GQA sum over heads happens inside the block in
-// a fixed order.  Both use the forward's tile-skip predicate.
+// a fixed order.  Both use the forward's tile-skip predicate.  The keys
+// may number Skv != S, as in the forward (no causal mask, no window).
+// Without dK and dV (``dkv`` 0: keys and values that take no gradient, as
+// a frozen encoder's cross-attention K/V) kernel (2) is not launched.
 //
 // bf16 (hopper.cuh): each kernel feeds a TMA ring of shared-memory slots
 // with mbarriers and runs two consumer warpgroups of 64 rows each, every
@@ -77,7 +80,8 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_co
                          const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                          const __grid_constant__ CUtensorMap tdq, const bf16* __restrict__ out,
                          const bf16* __restrict__ dout, const float* __restrict__ lse, float* __restrict__ delta,
-                         int S, int H, int KV, int D, int causal, int window, float scale, float scale_log2) {
+                         int S, int Skv, int H, int KV, int D, int causal, int window, float scale,
+                         float scale_log2) {
   using L = DqLayout<DP>;
   constexpr int BQ = DQ_BQ, BK = DQ_BK;
   extern __shared__ unsigned char smem_raw[];
@@ -95,7 +99,7 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_co
   const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;  // heaviest causal tile first
   const int g = h / (H / KV);
   int first, last;
-  relevant_kv_tiles(q0, BQ, BK, (S + BK - 1) / BK, causal, window, first, last);
+  relevant_kv_tiles(q0, BQ, BK, (Skv + BK - 1) / BK, causal, window, first, last);
   if (threadIdx.x == 0) {
     mbar_init(qd_full, 1);
     for (int s = 0; s < STAGES; ++s) {
@@ -187,14 +191,14 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_co
       fence_regs(s);
       fence_regs(dp);
 
-      const bool full = k0 + BK <= S && (!causal || k0 + BK - 1 <= qlo) && (window <= 0 || k0 > qhi - window);
+      const bool full = k0 + BK <= Skv && (!causal || k0 + BK - 1 <= qlo) && (window <= 0 || k0 > qhi - window);
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const bool lo = e < 2;
           float p = exp2f(s[4 * j + e] * scale_log2 - (lo ? ls0 : ls1));
-          if (!full && !key_visible(lo ? qa : qb, k0 + 8 * j + 2 * (lane & 3) + (e & 1), S, causal, window)) p = 0.f;
+          if (!full && !key_visible(lo ? qa : qb, k0 + 8 * j + 2 * (lane & 3) + (e & 1), Skv, causal, window)) p = 0.f;
           s[4 * j + e] = p * (dp[4 * j + e] - (lo ? dl0 : dl1));  // dS
         }
       }
@@ -250,8 +254,8 @@ __global__ void __launch_bounds__(2 * WG_THREADS, 1)
 flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                           const __grid_constant__ CUtensorMap tdk, const __grid_constant__ CUtensorMap tdv,
-                          const float* __restrict__ lse, const float* __restrict__ delta, int S, int H, int KV,
-                          int causal, int window, float scale, float scale_log2) {
+                          const float* __restrict__ lse, const float* __restrict__ delta, int S, int Skv, int H,
+                          int KV, int causal, int window, float scale, float scale_log2) {
   using L = DkvLayout<DP>;
   constexpr int BQ = KV_BQ, BK = KV_BK;
   extern __shared__ unsigned char smem_raw[];
@@ -328,7 +332,7 @@ flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_c
     const uint32_t dos = smem_u32(do_s) + ring.slot * BQ * DP * 2;
     const uint32_t ls = smem_u32(lse_s) + ring.slot * BQ * 4;
     const uint32_t dl = smem_u32(delta_s) + ring.slot * BQ * 4;
-    const bool all = q0 + BQ <= S && khi < S && (!causal || khi <= q0) && (window <= 0 || klo > q0 + BQ - 1 - window);
+    const bool all = q0 + BQ <= S && khi < Skv && (!causal || khi <= q0) && (window <= 0 || klo > q0 + BQ - 1 - window);
     uint32_t pa[BQ / 16][4], dsa[BQ / 16][4];  // P^T and dS^T as A fragments, packed as they are made
     mbar_wait(&full[ring.slot], ring.parity);
 #pragma unroll
@@ -356,7 +360,7 @@ flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_c
         for (int e = 0; e < 4; ++e) {
           const int qi = q0 + c + (e & 1);
           p[e] = exp2f(s[4 * j + e] * scale_log2 - ((e & 1) ? l2.y : l2.x));
-          if (!all && !(qi < S && key_visible(qi, e < 2 ? ka : kb, S, causal, window))) p[e] = 0.f;
+          if (!all && !(qi < S && key_visible(qi, e < 2 ? ka : kb, Skv, causal, window))) p[e] = 0.f;
           ds[e] = p[e] * (dp[4 * j + e] - ((e & 1) ? d2.y : d2.x));
         }
         const int n8 = 4 * half + j;  // the 8-column block of the query tile: A fragment layout (acc_to_a)
@@ -389,7 +393,7 @@ flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_c
   acc_to_tile<DP>(dv, 1.f, 1.f, v_s, BK, 64 * cw);
   fence_proxy_async();
   named_sync(1 + cw, WG_THREADS);
-  if (t == 0 && klo < S) {
+  if (t == 0 && klo < Skv) {
     tma_store_rows<DP>(&tdk, k_s, BK, cw, g, klo, b);
     tma_store_rows<DP>(&tdv, v_s, BK, cw, g, klo, b);
     tma_store_flush();
@@ -398,19 +402,21 @@ flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_c
 
 template <int DP>
 int launch_bf16(const void* q, const void* k, const void* v, const void* out, const void* dout, const float* lse,
-                float* delta, void* dq, void* dk, void* dv, int B, int S, int H, int KV, int D, int causal, int window,
-                float scale, cudaStream_t stream) {
+                float* delta, void* dq, void* dk, void* dv, int B, int S, int Skv, int H, int KV, int D, int causal,
+                int window, float scale, int dkv, cudaStream_t stream) {
   CUtensorMap tq, tk, tv, tdo, tdq, tdk, tdv;
   int err = make_map_4d(&tq, q, D, H, S, B);
-  if (!err) err = make_map_4d(&tk, k, D, KV, S, B);
-  if (!err) err = make_map_4d(&tv, v, D, KV, S, B);
+  if (!err) err = make_map_4d(&tk, k, D, KV, Skv, B);
+  if (!err) err = make_map_4d(&tv, v, D, KV, Skv, B);
   if (!err) err = make_map_4d(&tdo, dout, D, H, S, B);
   if (!err) err = make_map_4d(&tdq, dq, D, H, S, B);
-  if (!err) err = make_map_4d(&tdk, dk, D, KV, S, B);
-  if (!err) err = make_map_4d(&tdv, dv, D, KV, S, B);
   CUtensorMap tq_kv, tdo_kv;  // kernel (2)'s query tiles, KV_BQ rows
-  if (!err) err = make_map_4d(&tq_kv, q, D, H, S, B, KV_BQ);
-  if (!err) err = make_map_4d(&tdo_kv, dout, D, H, S, B, KV_BQ);
+  if (dkv) {
+    if (!err) err = make_map_4d(&tdk, dk, D, KV, Skv, B);
+    if (!err) err = make_map_4d(&tdv, dv, D, KV, Skv, B);
+    if (!err) err = make_map_4d(&tq_kv, q, D, H, S, B, KV_BQ);
+    if (!err) err = make_map_4d(&tdo_kv, dout, D, H, S, B, KV_BQ);
+  }
   if (err) return err;
   constexpr int dq_bytes = DqLayout<DP>::bytes, dkv_bytes = DkvLayout<DP>::bytes;
   cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_bf16_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -421,13 +427,13 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* out, co
   const float scale_log2 = scale * LOG2E;
   const dim3 grid_q(H, B, (S + DQ_BQ - 1) / DQ_BQ);
   flash_bwd_dq_bf16_kernel<DP><<<grid_q, 3 * WG_THREADS, dq_bytes, stream>>>(
-      tq, tk, tv, tdo, tdq, static_cast<const bf16*>(out), static_cast<const bf16*>(dout), lse, delta, S, H, KV,
-      D, causal, window, scale, scale_log2);
+      tq, tk, tv, tdo, tdq, static_cast<const bf16*>(out), static_cast<const bf16*>(dout), lse, delta, S, Skv, H,
+      KV, D, causal, window, scale, scale_log2);
   e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid_kv(KV, B, (S + KV_BK - 1) / KV_BK);
+  if (e != cudaSuccess || !dkv) return static_cast<int>(e);
+  const dim3 grid_kv(KV, B, (Skv + KV_BK - 1) / KV_BK);
   flash_bwd_dkv_bf16_kernel<DP><<<grid_kv, 2 * WG_THREADS, dkv_bytes, stream>>>(
-      tq_kv, tk, tv, tdo_kv, tdk, tdv, lse, delta, S, H, KV, causal, window, scale, scale_log2);
+      tq_kv, tk, tv, tdo_kv, tdk, tdv, lse, delta, S, Skv, H, KV, causal, window, scale, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -484,8 +490,8 @@ struct DkvSmemF32 {
 __global__ void __launch_bounds__(TILE_THREADS)
 flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                         const float* __restrict__ out, const float* __restrict__ dout, const float* __restrict__ lse,
-                        float* __restrict__ delta, float* __restrict__ dq, int S, int H, int KV, int D, int causal,
-                        int window, float scale) {
+                        float* __restrict__ delta, float* __restrict__ dq, int S, int Skv, int H, int KV, int D,
+                        int causal, int window, float scale) {
   constexpr int BQ = DqSmemF32::BQ, BK = DqSmemF32::BK;
   static_assert(BQ == BK, "O is staged in the K buffer");
   extern __shared__ __align__(128) unsigned char smem[];
@@ -526,20 +532,20 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
   }
   __syncthreads();
 
-  const int nk = (S + BK - 1) / BK;
+  const int nk = (Skv + BK - 1) / BK;
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * BK;
     if (!tile_relevant(q0, k0, BQ, BK, causal, window)) continue;
-    const long long krow = ((long long)b * S + k0) * ktok + (long long)g * D;
-    load_rows(k_s, L.ldt, k + krow, ktok, BK, min(BK, S - k0), D);
-    load_rows(v_s, L.ldt, v + krow, ktok, BK, min(BK, S - k0), D);
+    const long long krow = ((long long)b * Skv + k0) * ktok + (long long)g * D;
+    load_rows(k_s, L.ldt, k + krow, ktok, BK, min(BK, Skv - k0), D);
+    load_rows(v_s, L.ldt, v + krow, ktok, BK, min(BK, Skv - k0), D);
     __syncthreads();
     tile_mma<true>(s_s, L.lds, q_s, L.ldt, k_s, L.ldt, BQ, BK, D, false);    // S = Q K^T
     tile_mma<true>(dp_s, L.lds, do_s, L.ldt, v_s, L.ldt, BQ, BK, D, false);  // dP = dO V^T
     __syncthreads();
     for (int e = tid; e < BQ * BK; e += blockDim.x) {
       const int i = e / BK, j = e % BK;
-      const float p = key_visible(q0 + i, k0 + j, S, causal, window)
+      const float p = key_visible(q0 + i, k0 + j, Skv, causal, window)
                           ? expf(s_s[i * L.lds + j] * scale - lse_s[i]) : 0.f;
       ds_s[i * L.ldp + j] = p * (dp_s[i * L.lds + j] - delta_s[i]);
     }
@@ -558,7 +564,7 @@ __global__ void __launch_bounds__(TILE_THREADS)
 flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                          const float* __restrict__ dout, const float* __restrict__ lse,
                          const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, int S,
-                         int H, int KV, int D, int causal, int window, float scale) {
+                         int Skv, int H, int KV, int D, int causal, int window, float scale) {
   constexpr int BQ = DkvSmemF32::BQ, BK = DkvSmemF32::BK;
   extern __shared__ __align__(128) unsigned char smem[];
   const DkvSmemF32 L(D);
@@ -578,9 +584,9 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
   const int tid = threadIdx.x;
   const int b = blockIdx.z, g = blockIdx.y, k0 = blockIdx.x * BK;
   const int rep = H / KV;
-  const int kvalid = min(BK, S - k0);
+  const int kvalid = min(BK, Skv - k0);
   const long long qtok = (long long)H * D, ktok = (long long)KV * D;
-  const long long krow = ((long long)b * S + k0) * ktok + (long long)g * D;
+  const long long krow = ((long long)b * Skv + k0) * ktok + (long long)g * D;
 
   load_rows(k_s, L.ldt, k + krow, ktok, BK, kvalid, D);
   load_rows(v_s, L.ldt, v + krow, ktok, BK, kvalid, D);
@@ -611,7 +617,7 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
       __syncthreads();
       for (int e = tid; e < BK * BQ; e += blockDim.x) {
         const int j = e / BQ, i = e % BQ;  // key j, query i
-        const float p = (i < qvalid && key_visible(q0 + i, k0 + j, S, causal, window))
+        const float p = (i < qvalid && key_visible(q0 + i, k0 + j, Skv, causal, window))
                             ? expf(st_s[j * L.lds + i] * scale - lse_s[i]) : 0.f;
         pt_s[j * L.ldp + i] = p;
         dst_s[j * L.ldp + i] = p * (dpt_s[j * L.lds + i] - delta_s[i]);
@@ -632,8 +638,8 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
 }
 
 int launch_f32(const void* q, const void* k, const void* v, const void* out, const void* dout, const float* lse,
-               float* delta, void* dq, void* dk, void* dv, int B, int S, int H, int KV, int D, int causal, int window,
-               float scale, cudaStream_t stream) {
+               float* delta, void* dq, void* dk, void* dv, int B, int S, int Skv, int H, int KV, int D, int causal,
+               int window, float scale, int dkv, cudaStream_t stream) {
   const DqSmemF32 Lq(D);
   const DkvSmemF32 Lkv(D);
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -648,37 +654,41 @@ int launch_f32(const void* q, const void* k, const void* v, const void* out, con
   const float* dot = static_cast<const float*>(dout);
   const dim3 grid_q((S + DqSmemF32::BQ - 1) / DqSmemF32::BQ, H, B);
   flash_bwd_dq_f32_kernel<<<grid_q, TILE_THREADS, Lq.bytes, stream>>>(
-      qt, kt, vt, static_cast<const float*>(out), dot, lse, delta, static_cast<float*>(dq), S, H, KV, D, causal,
-      window, scale);
+      qt, kt, vt, static_cast<const float*>(out), dot, lse, delta, static_cast<float*>(dq), S, Skv, H, KV, D,
+      causal, window, scale);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid_kv((S + DkvSmemF32::BK - 1) / DkvSmemF32::BK, KV, B);
+  if (err != cudaSuccess || !dkv) return static_cast<int>(err);
+  const dim3 grid_kv((Skv + DkvSmemF32::BK - 1) / DkvSmemF32::BK, KV, B);
   flash_bwd_dkv_f32_kernel<<<grid_kv, TILE_THREADS, Lkv.bytes, stream>>>(
-      qt, kt, vt, dot, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), S, H, KV, D, causal, window,
-      scale);
+      qt, kt, vt, dot, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), S, Skv, H, KV, D, causal,
+      window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Returns 0 on a good launch, the cudaError_t of a refused launch, -1 for
-// arguments the kernels do not take, or -2 if CUDA refuses a tensor
-// map.  `delta` is (B, H, S) float32 scratch; shapes, dtypes, devices and
-// contiguity are checked by the Python wrapper (repro_torch/kernels/ops.py).
+// arguments the kernels do not take (among them Skv != S under a causal
+// mask or a window), or -2 if CUDA refuses a tensor map.  `delta` is (B,
+// H, S) float32 scratch; with `dkv` 0 only kernel (1) runs and dk, dv are
+// not written (they may be null).  Shapes, dtypes, devices and contiguity
+// are checked by the Python wrapper (repro_torch/kernels/ops.py).
 extern "C" int flash_attention_bwd_launch(int dtype, const void* q, const void* k, const void* v, const void* out,
                                           const void* dout, const void* lse, void* delta, void* dq, void* dk,
-                                          void* dv, int B, int S, int H, int KV, int D, int causal, int window,
-                                          float scale, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || D <= 0 || D % 16 != 0 || D > MAX_D) return -1;
+                                          void* dv, int B, int S, int Skv, int H, int KV, int D, int causal,
+                                          int window, float scale, int dkv, void* stream) {
+  if (B <= 0 || S <= 0 || Skv <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || D <= 0 || D % 16 != 0 || D > MAX_D) return -1;
+  if (Skv != S && (causal || window > 0)) return -1;
   if (H > 65535 || B > 65535) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   if (dtype == kFloat32)
-    return launch_f32(q, k, v, out, dout, l, dl, dq, dk, dv, B, S, H, KV, D, causal, window, scale, s);
+    return launch_f32(q, k, v, out, dout, l, dl, dq, dk, dv, B, S, Skv, H, KV, D, causal, window, scale, dkv, s);
   if (dtype == kBFloat16) {
-    if (D <= 64) return launch_bf16<64>(q, k, v, out, dout, l, dl, dq, dk, dv, B, S, H, KV, D, causal, window, scale, s);
-    return launch_bf16<128>(q, k, v, out, dout, l, dl, dq, dk, dv, B, S, H, KV, D, causal, window, scale, s);
+    if (D <= 64)
+      return launch_bf16<64>(q, k, v, out, dout, l, dl, dq, dk, dv, B, S, Skv, H, KV, D, causal, window, scale, dkv, s);
+    return launch_bf16<128>(q, k, v, out, dout, l, dl, dq, dk, dv, B, S, Skv, H, KV, D, causal, window, scale, dkv, s);
   }
   return -1;
 }

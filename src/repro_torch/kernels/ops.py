@@ -58,11 +58,11 @@ _SIGNATURES = {
     ),
     "flash_attention": (
         "flash_attention_fwd_launch",
-        [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+        [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     ),
     "flash_attention_bwd": (
         "flash_attention_bwd_launch",
-        [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+        [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     ),
     "lora_matmul": (
         "lora_matmul_launch",
@@ -269,14 +269,23 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _check_key_length(q, k, causal: bool, window: Optional[int]):
+    """K/V of a length of their own only without the causal mask and the
+    window (cross-attention); raises ``ValueError`` otherwise."""
+    _require(k.ndim == 4 and q.ndim == 4, f"q, k must be 4-d, got {tuple(q.shape)}, {tuple(k.shape)}")
+    _require(k.shape[1] == q.shape[1] or not (causal or window),
+             f"keys of length {k.shape[1]} for {q.shape[1]} queries: a key length of its own is bidirectional only "
+             f"(causal={causal}, window={window})")
+
+
 def _check_attention(q, k, v, window):
     bsz, s, h, d = q.shape
-    kv = k.shape[2]
+    skv, kv = k.shape[1], k.shape[2]
     _require(q.dtype in _DTYPE_CODE, f"flash_attention takes float32 or bfloat16, got {q.dtype}")
     _require(k.dtype == v.dtype == q.dtype, f"q, k, v must share one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     _require(
-        k.ndim == 4 and tuple(k.shape) == (bsz, s, kv, d) and tuple(v.shape) == (bsz, s, kv, d),
-        f"k, v must be ({bsz}, {s}, KV, {d}), got {tuple(k.shape)}, {tuple(v.shape)}",
+        k.ndim == 4 and skv > 0 and tuple(k.shape) == (bsz, skv, kv, d) and tuple(v.shape) == (bsz, skv, kv, d),
+        f"k, v must be ({bsz}, S_kv, KV, {d}), got {tuple(k.shape)}, {tuple(v.shape)}",
     )
     _require(h % kv == 0, f"{h} heads over {kv} kv heads")
     _require(d % 16 == 0 and d <= MAX_ATTN_HEAD_DIM, f"head dim {d} must be a multiple of 16, <= {MAX_ATTN_HEAD_DIM}")
@@ -291,22 +300,23 @@ def _flash_attention_fwd(q, k, v, causal: bool, window: Optional[int]):
     lse = torch.empty((bsz, h, s), dtype=torch.float32, device=q.device)
     err = _entry("flash_attention")(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        bsz, s, h, k.shape[2], d, int(causal), window or 0, d**-0.5, _stream(q),
+        bsz, s, k.shape[1], h, k.shape[2], d, int(causal), window or 0, d**-0.5, _stream(q),
     )
     _check_launch("flash_attention", err)
     return out, lse
 
 
-def _flash_attention_bwd(q, k, v, out, lse, dout, causal: bool, window: Optional[int]):
+def _flash_attention_bwd(q, k, v, out, lse, dout, causal: bool, window: Optional[int], dkv: bool = True):
+    """dQ, and with ``dkv`` dK and dV (else None, None: the dK/dV kernel is
+    not launched)."""
     bsz, s, h, d = q.shape
     dq = torch.empty_like(q)
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
+    dk, dv = (torch.empty_like(k), torch.empty_like(v)) if dkv else (None, None)
     delta = torch.empty((bsz, h, s), dtype=torch.float32, device=q.device)  # rowsum(dO * O)
     err = _entry("flash_attention_bwd")(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        bsz, s, h, k.shape[2], d, int(causal), window or 0, d**-0.5, _stream(q),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), _ptr(dk), _ptr(dv),
+        bsz, s, k.shape[1], h, k.shape[2], d, int(causal), window or 0, d**-0.5, int(dkv), _stream(q),
     )
     _check_launch("flash_attention_bwd", err)
     return dq, dk, dv
@@ -314,7 +324,9 @@ def _flash_attention_bwd(q, k, v, out, lse, dout, causal: bool, window: Optional
 
 class _FlashAttention(torch.autograd.Function):
     """The forward kernel saves the row log-sum-exp; the backward kernel
-    recomputes the probabilities tile by tile from it."""
+    recomputes the probabilities tile by tile from it.  Where K and V take
+    no gradient (a frozen encoder's cross-attention K/V), the backward runs
+    the dQ kernel alone."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
@@ -326,7 +338,8 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = _flash_attention_bwd(q, k, v, out, lse, dout.contiguous(), ctx.causal, ctx.window)
+        dkv = ctx.needs_input_grad[1] or ctx.needs_input_grad[2]
+        dq, dk, dv = _flash_attention_bwd(q, k, v, out, lse, dout.contiguous(), ctx.causal, ctx.window, dkv)
         return dq, dk, dv, None, None
 
 
@@ -334,11 +347,15 @@ def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = Non
     """Causal (or bidirectional), optionally windowed GQA attention over the
     positions ``0 .. S-1`` of each sequence, differentiable.
 
-    q: (B, S, H, D); k, v: (B, S, KV, D), the model's own layout; the KV
-    head of query head h is ``h // (H // KV)``.  Returns (B, S, H, D) in
-    ``q.dtype``.  On the card: the ``flash_attention`` kernel forward and
-    the ``flash_attention_bwd`` kernel backward.
+    q: (B, S, H, D); k, v: (B, S_kv, KV, D), the model's own layout; the KV
+    head of query head h is ``h // (H // KV)``.  S_kv may differ from S
+    (cross-attention: queries 0 .. S-1 over keys 0 .. S_kv-1) only with
+    ``causal=False`` and no window, else ``ValueError``.  Returns (B, S, H,
+    D) in ``q.dtype``.  On the card: the ``flash_attention`` kernel forward
+    and the ``flash_attention_bwd`` kernel backward (its dQ kernel alone
+    where K and V take no gradient).
     """
+    _check_key_length(q, k, causal, window)
     if _on_cpu(q, k, v):
         return ref.attention_plain(q, k, v, causal=causal, window=window)
     _check_attention(q, k, v, window)

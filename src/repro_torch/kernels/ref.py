@@ -66,20 +66,21 @@ def attention_plain(q, k, v, *, causal: bool = True, window: Optional[int] = Non
     (``repro/kernels/ref.py:8``) in the model's layout, with GQA indexed
     by head group instead of repeated.
 
-    q: (B, S, H, D); k, v: (B, S, KV, D); query i sees key j iff ``j <= i``
-    (causal) and ``j > i - window`` (window); masked scores are -1e30.
+    q: (B, S, H, D); k, v: (B, S_kv, KV, D) (S_kv != S: cross-attention,
+    queries 0 .. S-1 over keys 0 .. S_kv-1); query i sees key j iff ``j <=
+    i`` (causal) and ``j > i - window`` (window); masked scores are -1e30.
     Returns (B, S, H, D) in ``q.dtype``.  Differentiable by autograd.
     """
     b, s, h, d = q.shape
-    kv = k.shape[2]
+    skv, kv = k.shape[1], k.shape[2]
     qg = q.float().reshape(b, s, kv, h // kv, d)
     scores = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.float()) * (d**-0.5)
-    pos = torch.arange(s, device=q.device)
-    ok = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    qpos, kpos = torch.arange(s, device=q.device), torch.arange(skv, device=q.device)
+    ok = torch.ones((s, skv), dtype=torch.bool, device=q.device)
     if causal:
-        ok = ok & (pos[None, :] <= pos[:, None])
+        ok = ok & (kpos[None, :] <= qpos[:, None])
     if window is not None and window > 0:
-        ok = ok & (pos[None, :] > pos[:, None] - window)
+        ok = ok & (kpos[None, :] > qpos[:, None] - window)
     scores = torch.where(ok, scores, torch.full((), NEG_INF, device=q.device))
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bgrqk,bkgd->bqgrd", probs, v.float())

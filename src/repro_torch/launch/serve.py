@@ -7,10 +7,18 @@ decode caches, as ``repro.launch.serve``::
 Runs ``make_prefill_step`` over the prompt into ``init_caches``'s caches
 (the per-layer list), then ``serving.decode.generate``, for any arch of the
 port: the dense and MoE decoders' KV rings, RWKV6's and Mamba's recurrent
-states.
+states, internvl2's rings behind its patch prefix (``frontend_seq`` slots
+longer, the decode starting that much later) and whisper's decoder rings
+with its encoder's cross K/V, computed once in the prefill.  The stub
+frontends' inputs are zeros, as the reference's CLI gives them::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny --smoke --device cpu
+
 With ``--merge-lora`` a LoRA tree is folded into the base weights first
-(the deployment path).  The weights are random, from ``--seed``, drawn on
-the device and cast to the config's dtype as they are drawn.
+(the deployment path; an encoder-decoder raises ``ValueError``: the
+reference's merge reads a decoder-only tree).  The weights are random,
+from ``--seed``, drawn on the device and cast to the config's dtype as they
+are drawn.
 
 Multi-tenant mode -- ``--adapters N`` serves N tenants' LoRA adapters
 (ranks 4 and 8 in turn) through ``repro_torch.api.serve``'s continuous
@@ -34,7 +42,7 @@ import torch
 
 from repro_torch.configs import ARCH_IDS, PEFTConfig, get_config
 from repro_torch.core import peft as peft_lib
-from repro_torch.launch.steps import make_prefill_step, make_serve_step
+from repro_torch.launch.steps import frontend_batch, make_prefill_step, make_serve_step
 from repro_torch.models.registry import init_params
 from repro_torch.models.transformer import init_caches
 from repro_torch.serving.decode import generate
@@ -48,7 +56,11 @@ def _sync(device):
 def init_model(cfg, seed: int, device, merge_lora: bool = False):
     """Random weights for ``cfg`` from ``seed``, drawn on ``device`` and
     cast to ``cfg.dtype`` part by part (``init_params(place=True)``);
-    ``merge_lora`` folds a fresh LoRA tree (``PEFTConfig()``) into them."""
+    ``merge_lora`` folds a fresh LoRA tree (``PEFTConfig()``) into them
+    (a decoder-only model; an encoder-decoder raises ``ValueError``)."""
+    if merge_lora and cfg.is_encoder_decoder:
+        raise ValueError(f"--merge-lora folds LoRA into a decoder-only model's layers; {cfg.name} is an "
+                         "encoder-decoder")
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)
     params = init_params(cfg, generator, place=True)
@@ -65,28 +77,40 @@ def random_prompts(cfg, batch: int, prompt_len: int, seed: int) -> np.ndarray:
     return np.random.default_rng(seed).integers(0, cfg.vocab_size, (batch, prompt_len))
 
 
-def prefill_and_generate(cfg, params, prompt, gen_len: int, device, *, serve_step=None, **generate_kw):
+def prefill_and_generate(cfg, params, prompt, gen_len: int, device, *, serve_step=None, frontend=None,
+                         **generate_kw):
     """Prefill ``prompt`` (B, S) into fresh caches of S + ``gen_len``
     slots (KV rings in ``cfg.dtype``), then ``generate`` ``gen_len`` tokens
-    from the prompt's argmax.
+    from the prompt's argmax.  A vision model's patch prefix (``frontend``,
+    or zeros) goes before the prompt: the caches hold ``frontend_seq`` more
+    slots and the decode starts that much later.  An encoder-decoder's
+    frames (``frontend``, or zeros) run its encoder in the prefill, whose
+    cross K/V go to every decode step.
     ``serve_step`` replaces ``make_serve_step(cfg)`` (to wrap it);
     ``generate_kw`` goes to ``generate``.  Returns a dict: ``tokens`` (B,
     gen_len), ``first`` (B, 1), ``last_logits`` (B, V) of the prompt,
-    ``caches``, and the host seconds of the two parts, ``prefill_s`` and
-    ``decode_s`` (each ending in a synchronize on the card)."""
+    ``caches``, ``enc_kvs`` (None but for an encoder-decoder), and the host
+    seconds of the two parts, ``prefill_s`` and ``decode_s`` (each ending
+    in a synchronize on the card)."""
     batch, prompt_len = prompt.shape
-    caches = init_caches(cfg, batch, prompt_len + gen_len, dtype=getattr(torch, cfg.dtype), device=device)
+    start_pos = prompt_len + (cfg.frontend_seq if cfg.modality == "vision" else 0)
+    caches = init_caches(cfg, batch, start_pos + gen_len, dtype=getattr(torch, cfg.dtype), device=device)
     serve_step = serve_step or make_serve_step(cfg)
     _sync(device)
     t0 = time.perf_counter()
-    last_logits, caches = make_prefill_step(cfg)(params, {"tokens": prompt}, caches)
+    enc_kvs = None
+    out = make_prefill_step(cfg)(params, frontend_batch(cfg, prompt, frontend), caches)
+    if cfg.is_encoder_decoder:
+        last_logits, caches, enc_kvs = out
+    else:
+        last_logits, caches = out
     _sync(device)
     prefill_s = time.perf_counter() - t0
     first = torch.argmax(last_logits, dim=-1)[:, None].to(torch.int32)
     t0 = time.perf_counter()
-    tokens, caches = generate(serve_step, params, caches, first, prompt_len, gen_len, **generate_kw)
+    tokens, caches = generate(serve_step, params, caches, first, start_pos, gen_len, enc_kvs, **generate_kw)
     _sync(device)
-    return {"tokens": tokens, "first": first, "last_logits": last_logits, "caches": caches,
+    return {"tokens": tokens, "first": first, "last_logits": last_logits, "caches": caches, "enc_kvs": enc_kvs,
             "prefill_s": prefill_s, "decode_s": time.perf_counter() - t0}
 
 

@@ -18,9 +18,9 @@ from repro_torch.core import peft as peft_lib
 from repro_torch.core import stld
 from repro_torch.core.schedules import unit_shape
 from repro_torch.models.losses import softmax_xent
-from repro_torch.models.registry import model_apply
+from repro_torch.models import encdec
+from repro_torch.models.registry import model_apply, params_device
 from repro_torch.models.stacking import tree_leaves, tree_map
-from repro_torch.models.transformer import lm_apply
 from repro_torch.optim import adamw_update, clip_by_global_norm
 
 
@@ -52,14 +52,53 @@ def as_device_tensor(x, device):
     return x.to(device)
 
 
+FRONTEND_INPUT = {"audio": "frames", "vision": "patches"}  # the stub frontends' batch keys, by modality
+
+
+def frontend_batch(cfg, tokens, frontend=None):
+    """``{"tokens": tokens}`` and, for an audio or vision model, its stub
+    frontend's input: ``frontend`` (frames or patches, (*tokens.shape[:-1],
+    frontend_seq, d_model)) or, where it is None, zeros in ``cfg.dtype`` on
+    the tokens' device, as the reference's client and serving CLI give
+    them."""
+    batch = {"tokens": tokens}
+    name = FRONTEND_INPUT.get(cfg.modality)
+    if name is not None:
+        if frontend is None:
+            device = tokens.device if isinstance(tokens, torch.Tensor) else None
+            frontend = torch.zeros((*tokens.shape[:-1], cfg.frontend_seq, cfg.d_model), dtype=getattr(torch, cfg.dtype),
+                                   device=device)
+        batch[name] = frontend
+    return batch
+
+
+def model_batch(batch, tokens, device):
+    """``{"tokens": tokens}`` plus the batch's stub-frontend input, if it
+    has one, on ``device``."""
+    out = {"tokens": tokens}
+    for name in FRONTEND_INPUT.values():
+        if name in batch:
+            out[name] = as_device_tensor(batch[name], device)
+    return out
+
+
+def token_logits(cfg, logits, num_tokens: int):
+    """The logits of the token positions: a vision model's patch prefix
+    positions stripped, as the reference strips them."""
+    return logits[:, -num_tokens:] if cfg.modality == "vision" else logits
+
+
 def make_train_step(cfg, peft_cfg, train_cfg, *, stld_mode: str = "off", mean_rate: float = 0.5,
                     distribution: str = "incremental", shape=None, gather_bucket: int = 4):
     """Next-token LM fine-tuning step over the PEFT params.
 
     ``(base_params, peft_params, opt_state, batch, rng) -> (peft_params,
-    opt_state, metrics)`` with ``batch = {"tokens": (B, S+1)}`` (numpy or a
-    tensor; it goes to the device of the base params) and ``rng`` a CPU
-    ``torch.Generator`` that the STLD gates (or gather indices) draw from.
+    opt_state, metrics)`` with ``batch = {"tokens": (B, S+1)}`` (plus
+    ``frames`` (B, S_enc, d) for an encoder-decoder or ``patches`` (B, P,
+    d) for a vision model; numpy or tensors; they go to the device of the
+    base params) and ``rng`` a CPU ``torch.Generator`` that the STLD gates
+    (or gather indices) draw from.  A vision model's prefix logits are
+    stripped before the loss.
 
     ``shape`` is the (L,) per-layer rate shape (mean 1.0, unclipped) scaled
     by ``mean_rate``.  None takes ``unit_shape(distribution, L)`` with a
@@ -79,22 +118,24 @@ def make_train_step(cfg, peft_cfg, train_cfg, *, stld_mode: str = "off", mean_ra
     num_active = stld.static_active_count(mean_rate, cfg.num_layers, gather_bucket) if stld_mode == "gather" else None
 
     def loss_fn(peft_params, base_params, inputs, targets, drops, active_idx=None):
-        logits, aux, _ = model_apply(base_params, cfg, {"tokens": inputs}, drops=drops, peft=peft_params,
+        logits, aux, _ = model_apply(base_params, cfg, inputs, drops=drops, peft=peft_params,
                                      lora_scale=lora_sc, stack_mode="unroll" if active_idx is None else "gather",
                                      active_idx=active_idx)
-        loss, metrics = softmax_xent(logits, targets)
+        loss, metrics = softmax_xent(token_logits(cfg, logits, targets.shape[1]), targets)
         return loss + cfg.router_aux_coef * aux, metrics
 
     grad_fn = value_and_grad(loss_fn)
 
     def train_step(base_params, peft_params, opt_state, batch, rng):
-        tokens = as_device_tensor(batch["tokens"], base_params["embed"].device)
+        device = params_device(base_params)
+        tokens = as_device_tensor(batch["tokens"], device)
         drops = active_idx = None
         if stld_mode == "cond":
             drops = stld.sample_drops(rng, rates, 1)
         elif stld_mode == "gather":
             active_idx = stld.sample_active_indices(rng, rates, num_active)
-        (_, metrics), grads = grad_fn(peft_params, base_params, tokens[:, :-1], tokens[:, 1:], drops, active_idx)
+        (_, metrics), grads = grad_fn(peft_params, base_params, model_batch(batch, tokens[:, :-1], device),
+                                      tokens[:, 1:], drops, active_idx)
         grads, gnorm = clip_by_global_norm(grads, train_cfg.grad_clip)
         peft_params, opt_state = adamw_update(
             grads, opt_state, peft_params, lr=train_cfg.learning_rate, beta1=train_cfg.beta1,
@@ -108,14 +149,24 @@ def make_train_step(cfg, peft_cfg, train_cfg, *, stld_mode: str = "off", mean_ra
 def make_prefill_step(cfg):
     """The prompt into the decode caches, as the reference's
     ``make_prefill_step``: ``(params, batch, caches) -> (last_logits (B, V),
-    caches)`` with ``batch = {"tokens": (B, S)}`` (numpy or a tensor; it
-    goes to the device of the params) at positions 0 .. S-1.  The caches
+    caches)`` with ``batch = {"tokens": (B, S)}`` (numpy or tensors; they
+    go to the device of the params) at positions 0 .. S-1.  A vision
+    model's ``patches`` (B, P, d) go first, at positions 0 .. P-1, and the
+    tokens follow at P .. P+S-1 (the caches hold P + S).  An
+    encoder-decoder's ``frames`` (B, S_enc, d) run the encoder once, and
+    the step returns ``(last_logits, caches, enc_kvs)``, each decoder
+    layer's cross K/V for ``make_serve_step``.  The caches
     (``init_caches``) are updated as ``stack_apply`` says."""
 
     @torch.no_grad()
     def prefill_step(params, batch, caches):
-        tokens = as_device_tensor(batch["tokens"], params["embed"].device)
-        logits, _, caches = model_apply(params, cfg, {"tokens": tokens}, caches=caches)
+        device = params_device(params)
+        inputs = model_batch(batch, as_device_tensor(batch["tokens"], device), device)
+        if cfg.is_encoder_decoder:
+            enc_kvs = encdec.encoder_cross_kvs(params, cfg, encdec.encode(params, cfg, inputs["frames"]))
+            logits, _, caches = encdec.decode(params, cfg, inputs["tokens"], enc_kvs, caches=caches)
+            return logits[:, -1], caches, enc_kvs
+        logits, _, caches = model_apply(params, cfg, inputs, caches=caches)
         return logits[:, -1], caches
 
     return prefill_step
@@ -124,8 +175,11 @@ def make_prefill_step(cfg):
 def make_serve_step(cfg):
     """Single-token decode against a cache.
 
-    ``(params, token (B, 1), pos, caches, peft=None) -> (logits (B, V),
-    next_token (B, 1) int32, caches)``.  ``pos`` is a scalar (an int or a
+    ``(params, token (B, 1), pos, caches, enc_kvs=None, peft=None) ->
+    (logits (B, V), next_token (B, 1) int32, caches)``; an
+    encoder-decoder's ``enc_kvs`` are its prefill's (each decoder layer's
+    cross K/V; without them the decoder skips cross-attention, as the
+    reference's does).  ``pos`` is a scalar (an int or a
     0-d tensor: every row at one depth, the caches of ``init_caches``, as
     ``generate`` drives them) or ``(B,)`` (the batched serving cache, where
     every row decodes at its own position); ``peft`` is a tree of
@@ -134,12 +188,17 @@ def make_serve_step(cfg):
     """
 
     @torch.no_grad()
-    def serve_step(params, token, pos, caches, peft=None):
+    def serve_step(params, token, pos, caches, enc_kvs=None, peft=None):
         if isinstance(pos, torch.Tensor) and pos.ndim == 1:
             positions = pos[:, None]  # (B, 1)
         else:
             positions = torch.full((1,), int(pos), dtype=torch.int64, device=token.device)
-        logits, _, caches = lm_apply(params, cfg, token, positions=positions, caches=caches, peft=peft)
+        if cfg.is_encoder_decoder:
+            logits, _, caches = encdec.decode(params, cfg, token, enc_kvs, positions=positions, caches=caches,
+                                              peft=peft)
+        else:
+            logits, _, caches = model_apply(params, cfg, {"tokens": token}, positions=positions, caches=caches,
+                                            peft=peft)
         logits = logits[:, -1]
         next_token = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
         return logits, next_token, caches

@@ -1,9 +1,13 @@
 """The residual blocks of the port's decoders, and each layer's decode cache.
 
 Layer kinds (``layer_kind(cfg, l)``), as in ``repro.models.layers``:
-  * ``attn``  — pre-norm GQA attention + (MoE | SwiGLU MLP)
-  * ``mamba`` — pre-norm Mamba block + (MoE | SwiGLU MLP)   (hybrid archs)
-  * ``rwkv``  — RWKV6 time-mix + channel-mix                (ssm archs)
+  * ``attn``   — pre-norm GQA attention + (MoE | SwiGLU or GELU MLP)
+  * ``mamba``  — pre-norm Mamba block + (MoE | SwiGLU MLP)   (hybrid archs)
+  * ``rwkv``   — RWKV6 time-mix + channel-mix                (ssm archs)
+  * ``encdec`` — self-attention + cross-attention + MLP      (whisper's decoder)
+
+The whisper encoder's layers are ``attn`` layers with a GELU MLP; every
+norm of a GELU config is a LayerNorm (``apply_norm`` reads its ``bias``).
 """
 from __future__ import annotations
 
@@ -11,7 +15,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.nn.attention import attention_apply
+from repro_torch.nn.attention import attention_apply, cross_attention_apply
 from repro_torch.nn.mamba import init_mamba_state, mamba_apply
 from repro_torch.nn.mlp import adapter_apply, mlp_apply
 from repro_torch.nn.moe import moe_apply
@@ -22,6 +26,8 @@ from repro_torch.nn.rwkv import channel_mix_apply, init_rwkv_state, time_mix_app
 def layer_kind(cfg, l: int) -> str:
     if cfg.family == "ssm":
         return "rwkv"
+    if cfg.family == "audio":
+        return "encdec"
     if cfg.family == "hybrid" and not cfg.is_attention_layer(l):
         return "mamba"
     return "attn"
@@ -33,13 +39,15 @@ def params_kind(params) -> str:
         return "rwkv"
     if "mamba" in params:
         return "mamba"
+    if "cross" in params:
+        return "encdec"
     return "attn"
 
 
 def init_layer_cache(cfg, l: int, batch: int, max_len: int, dtype=torch.bfloat16, device=None):
     """Decode-time cache of layer ``l``, as ``repro.models.layers
     .init_layer_cache``: an RWKV6 or Mamba layer's float32 state on
-    ``device``, or an attention layer's KV ring of ``min(max_len, window)``
+    ``device``, or an attention (or ``encdec``) layer's KV ring of ``min(max_len, window)``
     slots in ``dtype`` with a scalar ``pos``, which stays on the host (the
     serving batcher widens it to one position per row, on the device)."""
     kind = layer_kind(cfg, l)
@@ -80,11 +88,15 @@ def _peft_out(out, peft, devices: Optional[int], *, bias: str, adapter: Optional
 
 
 def layer_apply(params, cfg, h, *, positions, causal=True, cache: Optional[dict] = None,
-                peft: Optional[dict] = None, lora_scale: float = 1.0, devices: Optional[int] = None):
+                enc_kv: Optional[dict] = None, peft: Optional[dict] = None, lora_scale: float = 1.0,
+                devices: Optional[int] = None):
     """One residual block: RWKV6 time-mix + channel-mix (LoRA on the
     channel-mix ``up`` and ``down``), or a pre-norm mixer (attention, or
     Mamba with LoRA on ``in`` and ``out``) followed by a pre-norm MoE or
-    SwiGLU MLP.  Returns (h, the MoE aux loss (0.0 without MoE), new_cache).
+    MLP.  An ``encdec`` layer given ``enc_kv`` (its encoder K/V) runs a
+    pre-norm cross-attention (``peft["cross"]``'s LoRA on ``q`` and ``o``)
+    between the two, as the reference's; without ``enc_kv`` it skips it.
+    Returns (h, the MoE aux loss (0.0 without MoE), new_cache).
 
     The adapter and BitFit branches sit where the reference puts them:
     ``bias_attn`` on the RWKV time-mix and on the Mamba output,
@@ -119,6 +131,9 @@ def layer_apply(params, cfg, h, *, positions, causal=True, cache: Optional[dict]
                                          peft=peft.get("attn"), lora_scale=lora_scale)
         out = _peft_out(out, peft, devices, adapter="adapter_attn", bias="bias_attn")
     h = h + out
+    if kind == "encdec" and enc_kv is not None:
+        h = h + cross_attention_apply(params["cross"], cfg, apply_norm(params["norm_cross"], h, cfg.norm_eps), enc_kv,
+                                      peft=peft.get("cross"), lora_scale=lora_scale)
     x = apply_norm(params["norm2"], h, cfg.norm_eps)
     aux = 0.0
     if "moe" in params:

@@ -1,10 +1,18 @@
-"""Model registry of the port: the ``dense``, ``ssm`` (RWKV6), ``hybrid``
-(jamba) and ``moe`` (granite-moe, llama4-scout) families.
+"""Model registry of the port: the reference's ten archs, in the
+``dense``, ``ssm`` (RWKV6), ``hybrid`` (jamba), ``moe`` (granite-moe,
+llama4-scout), ``vlm`` (internvl2's decoder behind a patch prefix) and
+``audio`` (whisper's encoder-decoder) families.
 
 ``init_params(cfg, generator)`` -> parameter tree;
 ``model_apply(params, cfg, batch, **kw)`` -> (logits, aux, caches), with
-``batch = {"tokens": (B, S)}`` and ``aux`` the router loss summed over the
-active MoE layers (0.0 without MoE), as in ``repro.models.registry``.
+``aux`` the router loss summed over the active MoE layers (0.0 without
+MoE), as in ``repro.models.registry``.  ``batch`` by modality:
+
+* text: ``{"tokens": (B, S)}``;
+* vision: ``{"tokens": (B, S), "patches": (B, P, d)}`` (stub frontend;
+  the logits cover the P prefix positions too);
+* audio: ``{"tokens": (B, S_dec), "frames": (B, S_enc, d)}`` (stub
+  frontend).
 """
 from __future__ import annotations
 
@@ -12,9 +20,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models import transformer
+from repro_torch.models import encdec, stacking, transformer
 
-FAMILIES = ("dense", "ssm", "hybrid", "moe")
+FAMILIES = ("dense", "ssm", "hybrid", "moe", "vlm", "audio")
 
 
 def _check_family(cfg):
@@ -31,15 +39,17 @@ def init_params(cfg, generator: torch.Generator, place: bool = False):
     stack), one stacked projection's (a dense stack) or one top-level
     entry's (an RWKV6 stack)."""
     _check_family(cfg)
+    init = encdec.init_encdec if cfg.is_encoder_decoder else transformer.init_lm
     if not place:
-        return transformer.init_lm(cfg, generator)
+        return init(cfg, generator)
     dtype = getattr(torch, cfg.dtype)
-    return transformer.init_lm(
-        cfg, generator, place=lambda name, tree: _cast_matmul_weights({name: tree}, dtype, generator.device)[name]
-    )
+    return init(cfg, generator,
+                place=lambda name, tree: _cast_matmul_weights({name: tree}, dtype, generator.device)[name])
 
 
-_MATMUL_WEIGHTS = ("w", "b", "embed", "lm_head")
+# the leaves cast to the compute dtype; whisper's learned positions too
+# (the reference casts the table before it indexes it: the same bits)
+_MATMUL_WEIGHTS = ("w", "b", "embed", "lm_head", "pos_embed")
 
 
 def _cast_matmul_weights(tree, dtype, device):
@@ -69,21 +79,52 @@ def place_params(params, cfg, device=None):
     experts) are cast; ``A_log`` and ``D`` stay float32 and the conv
     weights are cast at the point of use.  A ``moe`` layer's attention,
     router, experts and shared expert are cast.  The float32 masters are not
-    kept, and the tree takes no gradient (the base is frozen)."""
+    kept, and the tree takes no gradient (the base is frozen).  An
+    encoder-decoder's encoder and decoder are cast alike, its LayerNorms'
+    ``scale`` and ``bias`` kept float32."""
     device = torch.device("cuda" if device is None else device)
     return _cast_matmul_weights(params, getattr(torch, cfg.dtype), device)
 
 
-def model_apply(params, cfg, batch, *, drops=None, caches=None, positions=None, peft=None,
+def params_device(params) -> torch.device:
+    """The device that a parameter tree's leaves lie on."""
+    return stacking.tree_leaves(params)[0].device
+
+
+def _frontend(batch, name: str, devices: Optional[int]):
+    """``batch[name]`` (frames or patches), a cohort's (N, B, ...) folded
+    to (N * B, ...)."""
+    x = batch[name]
+    return x.reshape(-1, *x.shape[-2:]) if devices is not None else x
+
+
+def model_apply(params, cfg, batch, *, drops=None, caches=None, enc_kvs=None, positions=None, peft=None,
                 lora_scale: float = 1.0, devices: Optional[int] = None, stack_mode: str = "unroll",
                 active_idx=None):
-    """``devices`` N: a cohort, ``batch["tokens"]`` (N, B, S), drops (N, L),
-    the PEFT tree a per-layer list of (N, ...) leaves (``lm_apply``).
-    ``stack_mode`` is one of the reference's ``unroll``, ``scan``,
-    ``group`` and ``gather`` (with ``active_idx``), all on the Python layer
-    loop (``transformer.stack_apply``)."""
+    """``devices`` N: a cohort, ``batch["tokens"]`` (N, B, S) (frames or
+    patches (N, B, ...)), drops (N, L), the PEFT tree a per-layer list of
+    (N, ...) leaves (``lm_apply``).  ``stack_mode`` is one of the
+    reference's ``unroll``, ``scan``, ``group`` and ``gather`` (with
+    ``active_idx``), all on the Python layer loop
+    (``transformer.stack_apply``).
+
+    An encoder-decoder runs the encoder on ``batch["frames"]`` and the
+    decoder over its cross K/V (or over ``enc_kvs`` when given, skipping
+    the encoder).  As the reference's registry maps every ``stack_mode``
+    but ``unroll`` and ``scan`` to ``unroll`` there and drops
+    ``active_idx``, a ``gather`` call (whose caller passes no gates) runs
+    every decoder layer."""
     _check_family(cfg)
+    if cfg.is_encoder_decoder:
+        if stack_mode == "gather":
+            drops = None
+        if enc_kvs is None:
+            enc_out = encdec.encode(params, cfg, _frontend(batch, "frames", devices))
+            enc_kvs = encdec.encoder_cross_kvs(params, cfg, enc_out)
+        return encdec.decode(params, cfg, batch["tokens"], enc_kvs, positions=positions, drops=drops, caches=caches,
+                             peft=peft, lora_scale=lora_scale, devices=devices)
+    prefix = _frontend(batch, "patches", devices) if cfg.modality == "vision" and "patches" in batch else None
     return transformer.lm_apply(
-        params, cfg, batch["tokens"], positions=positions, drops=drops, caches=caches, peft=peft,
-        lora_scale=lora_scale, devices=devices, stack_mode=stack_mode, active_idx=active_idx,
+        params, cfg, batch["tokens"], positions=positions, prefix_embeds=prefix, drops=drops, caches=caches,
+        peft=peft, lora_scale=lora_scale, devices=devices, stack_mode=stack_mode, active_idx=active_idx,
     )

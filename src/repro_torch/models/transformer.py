@@ -1,6 +1,9 @@
 """The decoders of the port (dense, the ``ssm`` family of RWKV6, the
-``hybrid`` family of jamba and the ``moe`` family of granite-moe and
-llama4-scout): init, decode caches and the forward pass.
+``hybrid`` family of jamba, the ``moe`` family of granite-moe and
+llama4-scout, and the ``vlm`` family's dense decoder behind its patch
+prefix): init, decode caches and the forward pass.  ``stack_apply`` also
+runs whisper's encoder and decoder stacks (``models.encdec``), the
+decoder's layers with their encoder K/V (``enc_kvs``).
 
 Homogeneous stacks (dense, ``ssm``, ``moe``) keep the stacked ``(L, ...)``
 layout of the JAX package; jamba's heterogeneous stack is a per-layer
@@ -99,7 +102,7 @@ def _init_attn_layers(cfg, generator: torch.Generator, place=None):
 
 
 def init_layer(cfg, l: int, generator: torch.Generator):
-    """Layer ``l`` of a hybrid or ``moe`` stack (float32), as
+    """Layer ``l`` of a hybrid, ``moe`` or ``vlm`` stack (float32), as
     ``repro.models.layers.init_layer``: a Mamba or attention mixer, then
     MoE or an MLP."""
     p = {"norm1": _model_norm(cfg, generator, ()), "norm2": _model_norm(cfg, generator, ())}
@@ -133,15 +136,16 @@ def init_lm(cfg, generator: torch.Generator, place=None):
     when given, takes each top-level entry (``embed``, ``lm_head``,
     ``final_norm``, and ``layers`` whole or, for a hybrid or ``moe``
     stack, layer by layer) as soon as it is drawn and returns what to keep,
-    so that the float32 draws of a large hybrid or MoE model are never held
-    whole: a ``moe`` stack's placed layers go one by one into a stack
-    allocated at the first."""
+    so that the float32 draws of a large hybrid, MoE or VLM model are never
+    held whole: a ``moe`` or ``vlm`` stack's placed layers go one by one
+    into a stack allocated at the first (a stacked float32 draw of one of
+    internvl2-76b's MLP projections is ~0.9 GB a layer)."""
     place = place or (lambda name, tree: tree)
     params = {"embed": place("embed", normal_init(generator, (cfg.vocab_size, cfg.d_model)))}
     if cfg.family == "hybrid":
         layers = [place("layers", init_layer(cfg, l, generator)) for l in range(cfg.num_layers)]
         params["layers"] = stacking.maybe_stack(layers)
-    elif cfg.family == "moe":
+    elif cfg.family in ("moe", "vlm"):
         layers = (place("layers", init_layer(cfg, l, generator)) for l in range(cfg.num_layers))
         params["layers"] = _stack_layers(layers, cfg.num_layers)
     elif layer_kind(cfg, 0) == "rwkv":
@@ -206,11 +210,12 @@ def _mode_gates(layers, cfg, stack_mode: str, drops, active_idx, devices):
     return torch.stack([stld.drops_from_indices(idx, num_layers) for idx in active_idx])
 
 
-def _cohort_stack_apply(layers, cfg, h, *, positions, causal, drops, peft, lora_scale, devices: int):
+def _cohort_stack_apply(layers, cfg, h, *, positions, causal, drops, peft, lora_scale, devices: int, enc_kvs=None):
     """``stack_apply`` for a cohort: ``h`` (N * B, S, d) device-major, drops
     None or (N, L) host-side gates, ``peft`` None or a per-layer list of
-    trees with (N, ...) leaves.  The aux loss is (N,), each device's summed
-    over its own active layers (0.0 without MoE)."""
+    trees with (N, ...) leaves, ``enc_kvs`` None or each layer's encoder
+    K/V of (N * B, ...) rows, device-major.  The aux loss is (N,), each
+    device's summed over its own active layers (0.0 without MoE)."""
     num_layers = stacking.stack_size(layers)
     gates = torch.zeros((devices, num_layers), dtype=torch.bool) if drops is None else torch.as_tensor(drops)
     if tuple(gates.shape) != (devices, num_layers):
@@ -223,9 +228,10 @@ def _cohort_stack_apply(layers, cfg, h, *, positions, causal, drops, peft, lora_
             continue
         params_l = stacking.layer_view(layers, l)
         peft_l = stacking.layer_view(peft, l) if peft is not None else None
+        enc_kv_l = stacking.layer_view(enc_kvs, l) if enc_kvs is not None else None
         if len(take) == devices:
-            h, aux, _ = layer_apply(params_l, cfg, h, positions=positions, causal=causal, peft=peft_l,
-                                    lora_scale=lora_scale, devices=devices)
+            h, aux, _ = layer_apply(params_l, cfg, h, positions=positions, causal=causal, enc_kv=enc_kv_l,
+                                    peft=peft_l, lora_scale=lora_scale, devices=devices)
             aux_sum = aux_sum + aux
             continue
         idx = torch.tensor(take, device=h.device)
@@ -233,21 +239,25 @@ def _cohort_stack_apply(layers, cfg, h, *, positions, causal, drops, peft, lora_
         sub = hd.index_select(0, idx).view(-1, *h.shape[1:])
         if peft_l is not None:
             peft_l = stacking.tree_map(lambda t: t.index_select(0, idx), peft_l)
-        out, aux, _ = layer_apply(params_l, cfg, sub, positions=positions, causal=causal, peft=peft_l,
-                                  lora_scale=lora_scale, devices=len(take))
+        if enc_kv_l is not None:  # the open devices' rows of the encoder K/V
+            enc_kv_l = stacking.tree_map(
+                lambda t: t.reshape(devices, -1, *t.shape[1:]).index_select(0, idx).reshape(-1, *t.shape[1:]), enc_kv_l)
+        out, aux, _ = layer_apply(params_l, cfg, sub, positions=positions, causal=causal, enc_kv=enc_kv_l,
+                                  peft=peft_l, lora_scale=lora_scale, devices=len(take))
         h = hd.index_copy(0, idx, out.view(len(take), *hd.shape[1:])).view(h.shape)
         if isinstance(aux, torch.Tensor):  # 0.0 for a layer without MoE
             aux_sum = aux_sum + torch.zeros((devices,), dtype=aux.dtype, device=aux.device).index_copy(0, idx, aux)
     return h, aux_sum, None
 
 
-def stack_apply(layers, cfg, h, *, positions, causal: bool = True, drops=None, caches=None,
+def stack_apply(layers, cfg, h, *, positions, causal: bool = True, drops=None, caches=None, enc_kvs=None,
                 peft=None, lora_scale: float = 1.0, devices=None, stack_mode: str = "unroll", active_idx=None):
     """Run the layer stack (either layout).  Returns (h, the MoE aux loss
     summed over the active layers, new_caches).  ``caches`` in the stacked
     layout are updated in place and returned; in the list layout a new
     list comes back (the KV rings written in place, the recurrent states
-    new tensors).
+    new tensors).  ``enc_kvs`` (either layout) gives each ``encdec``
+    layer its encoder K/V.
 
     ``drops``: None or L host-side gates (a CPU bool tensor or a sequence),
     True = the layer is dropped and passes ``h`` (and its cache) through.
@@ -262,7 +272,7 @@ def stack_apply(layers, cfg, h, *, positions, causal: bool = True, drops=None, c
         if caches is not None:
             raise ValueError("a cohort runs without decode caches")
         return _cohort_stack_apply(layers, cfg, h, positions=positions, causal=causal, drops=drops, peft=peft,
-                                   lora_scale=lora_scale, devices=devices)
+                                   lora_scale=lora_scale, devices=devices, enc_kvs=enc_kvs)
     num_layers = stacking.stack_size(layers)
     gates = [False] * num_layers if drops is None else [bool(d) for d in torch.as_tensor(drops).tolist()]
     if len(gates) != num_layers:
@@ -274,8 +284,8 @@ def stack_apply(layers, cfg, h, *, positions, causal: bool = True, drops=None, c
         if not gates[l]:
             h, aux, cache_l = layer_apply(
                 stacking.layer_view(layers, l), cfg, h, positions=positions, causal=causal,
-                cache=cache_l, peft=stacking.layer_view(peft, l) if peft is not None else None,
-                lora_scale=lora_scale,
+                cache=cache_l, enc_kv=stacking.layer_view(enc_kvs, l) if enc_kvs is not None else None,
+                peft=stacking.layer_view(peft, l) if peft is not None else None, lora_scale=lora_scale,
             )
             aux_sum = aux_sum + aux
         if stacked_caches:
@@ -286,17 +296,23 @@ def stack_apply(layers, cfg, h, *, positions, causal: bool = True, drops=None, c
     return h, aux_sum, caches if stacked_caches else new_caches
 
 
-def lm_apply(params, cfg, tokens, *, positions=None, drops=None, caches=None, peft=None,
+def lm_apply(params, cfg, tokens, *, positions=None, prefix_embeds=None, drops=None, caches=None, peft=None,
              lora_scale: float = 1.0, devices=None, stack_mode: str = "unroll", active_idx=None):
     """Decoder-only LM forward.  tokens: (B, S) int.  Returns (logits, the
     MoE aux loss, new_caches); the caches' K/V tensors are updated in place.
+    ``prefix_embeds`` (B, P, d) (the VLM's patch embeddings) go before the
+    token embeddings, so positions run 0 .. P+S-1 and the logits cover the
+    prefix too.
 
-    ``devices`` N: a cohort, tokens (N, B, S); the logits come back
-    (N * B, S, V), device-major, and the aux loss (N,) (``stack_apply``)."""
+    ``devices`` N: a cohort, tokens (N, B, S) (and a prefix of N * B rows,
+    device-major); the logits come back (N * B, S, V), device-major, and
+    the aux loss (N,) (``stack_apply``)."""
     compute_dtype = getattr(torch, cfg.dtype)
     if devices is not None:
         tokens = tokens.reshape(-1, tokens.shape[-1])
     h = params["embed"][tokens].to(compute_dtype)
+    if prefix_embeds is not None:
+        h = torch.cat([prefix_embeds.to(device=h.device, dtype=compute_dtype), h], dim=1)
     if positions is None:
         positions = torch.arange(h.shape[1], device=h.device)
     h, aux, new_caches = stack_apply(

@@ -19,6 +19,13 @@
   the window) and keeps the last ``cache_len`` in the ring, rolled so that
   position p sits in slot ``p % cache_len``.  The scalar ``pos`` lives on
   the host (a CPU tensor), so reading it syncs nothing.
+
+Cross-attention (whisper's decoder over its encoder's output,
+``cross_attention_apply``) takes K/V that ``encode_cross_kv`` computed once
+a sequence: no rotary and no mask, queries at positions 0..S-1 over every
+encoder frame.  Over S > 1 queries it runs the ``flash_attention`` kernel
+with a key length of its own; a decode step's one query runs
+``flash_decode`` with every encoder slot live.
 """
 from __future__ import annotations
 
@@ -141,3 +148,35 @@ def attention_apply(params, cfg, x, positions, *, causal=True, cache=None, peft=
     )
     out = apply_linear(params["wo"], out.reshape(b, s, h * hd), peft.get("o"), lora_scale)
     return out, {"k": ck, "v": cv, "pos": pos + s}
+
+
+def cross_attention_apply(params, cfg, x, enc_kv, *, peft=None, lora_scale=1.0):
+    """Cross-attention of ``x`` (B, S, d) over ``enc_kv`` (``{"k", "v"}``
+    of (B, S_enc, KV, hd), from ``encode_cross_kv``), as the reference's:
+    the ``q`` and ``o`` projections (with their LoRA), no rotary, no mask.
+    The encoder's K/V take no gradient here (they come from the frozen
+    encoder), so the backward runs the attention's dQ kernel alone."""
+    peft = peft or {}
+    b, s, _ = x.shape
+    hd, h = cfg.resolved_head_dim, cfg.num_heads
+    q = apply_linear(params["wq"], x, peft.get("q"), lora_scale).reshape(b, s, h, hd)
+    k, v = (enc_kv[name].to(x.dtype).contiguous() for name in ("k", "v"))
+    if s == 1:
+        # one query over every encoder slot: the query at the last slot's
+        # position, so that each slot is live
+        s_enc = k.shape[1]
+        k_positions = torch.arange(s_enc, dtype=torch.int32, device=x.device).expand(b, s_enc).contiguous()
+        q_positions = torch.full((b,), s_enc - 1, dtype=torch.int32, device=x.device)
+        out = ops.flash_decode(q[:, 0].contiguous(), k, v, q_positions, k_positions)[:, None]
+    else:
+        out = ops.flash_attention(q, k, v, causal=False)
+    return apply_linear(params["wo"], out.reshape(b, s, h * hd), peft.get("o"), lora_scale)
+
+
+def encode_cross_kv(params, cfg, enc_out):
+    """The encoder's K/V for one decoder layer's cross-attention, computed
+    once a sequence: ``{"k", "v"}`` of (B, S_enc, KV, hd), no PEFT."""
+    b, s, _ = enc_out.shape
+    hd, kvh = cfg.resolved_head_dim, cfg.num_kv_heads
+    return {"k": apply_linear(params["wk"], enc_out).reshape(b, s, kvh, hd),
+            "v": apply_linear(params["wv"], enc_out).reshape(b, s, kvh, hd)}

@@ -8,11 +8,12 @@ from __future__ import annotations
 import torch
 
 
-def generate(serve_step, params, prompt_caches, first_token, start_pos: int, num_tokens: int, *,
+def generate(serve_step, params, prompt_caches, first_token, start_pos: int, num_tokens: int, enc_kvs=None, *,
              eos_id=None, max_new_tokens=None, pad_id: int = 0):
     """Greedy generation.  Returns (tokens (B, num_tokens) int32, caches).
 
-    Step i feeds the previous token at position ``start_pos + i``.  With
+    Step i feeds the previous token at position ``start_pos + i``; an
+    encoder-decoder's ``enc_kvs`` (its prefill's) go to every step.  With
     ``eos_id`` or ``max_new_tokens`` (a scalar or one budget per row) a row
     that emits ``eos_id`` or spends its budget is frozen: its later outputs
     are ``pad_id`` and it re-feeds its last live token, so the batch keeps
@@ -28,7 +29,10 @@ def generate(serve_step, params, prompt_caches, first_token, start_pos: int, num
         budget = torch.as_tensor(max_new_tokens, dtype=torch.int32, device=device).expand(batch)
     pad = torch.tensor(pad_id, dtype=torch.int32, device=device)
     for i in range(num_tokens):
-        _, nxt, caches = serve_step(params, token, start_pos + i, caches)
+        if enc_kvs is None:
+            _, nxt, caches = serve_step(params, token, start_pos + i, caches)
+        else:
+            _, nxt, caches = serve_step(params, token, start_pos + i, caches, enc_kvs)
         out.append(torch.where(done, pad, nxt[:, 0]))
         new_done = done
         if eos_id is not None:

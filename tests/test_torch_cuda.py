@@ -347,6 +347,96 @@ def test_cuda_flash_attention_backward_is_deterministic(cuda, b, s, h, kv, windo
         assert torch.equal(first, second)
 
 
+CROSS_CASES = [  # (B, S_q, S_kv, H, KV, D): keys of a length of their own, bidirectional
+    (2, 64, 1500, 6, 6, 64),  # whisper-tiny's cross-attention: 1 500 encoder frames, D 64
+    (1, 130, 200, 4, 2, 128),  # S_kv off the 64- and 128-key tiles, S_q off the 128-query tile, GQA
+    (2, 300, 77, 4, 4, 32),  # fewer keys than queries, both ragged
+    (2, 1500, 1500, 6, 6, 64),  # whisper-tiny's encoder self-attention: S 1 500 on both sides
+]
+
+
+def _cross(rng, b, sq, skv, h, kv, d, dtype, device):
+    shapes = ((b, sq, h, d), (b, skv, kv, d), (b, skv, kv, d), (b, sq, h, d))
+    return [torch.from_numpy(rng.standard_normal(sh, dtype=np.float32)).to(device, getattr(torch, dtype)) for sh in shapes]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,sq,skv,h,kv,d", CROSS_CASES)
+def test_cuda_flash_attention_key_length_of_its_own_matches_twin(cuda, dtype, b, sq, skv, h, kv, d):
+    """Bidirectional attention over K/V of S_kv rows: the forward against
+    the twin; dQ, dK, dV against autograd through it."""
+    q, k, v, g = _cross(np.random.default_rng(14), b, sq, skv, h, kv, d, dtype, cuda)
+    qk = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    qt = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    got = ops.flash_attention(*qk, causal=False)
+    got_grads = torch.autograd.grad(got, qk, g)
+    want = ref.attention_plain(*qt, causal=False)
+    want_grads = torch.autograd.grad(want, qt, g)
+    torch.cuda.synchronize()
+    atol, rtol = (3e-2, 1e-2) if dtype == "bfloat16" else (2e-5, 1e-5)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    for gg, wg in zip(got_grads, want_grads):
+        assert gg.shape == wg.shape
+        _grad_close(gg, wg, dtype)
+
+
+def _bwd_kernel_calls(fn) -> dict:
+    """The attention backward's kernels that ``fn`` launches, by name
+    (``flash_bwd_dq_bf16_kernel``, ...), from ``torch.profiler``'s device
+    events.  64 spin kernels go first: the profiler has been seen to lose
+    a window's first kernels."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(64):
+            torch.cuda._sleep(1000)
+        fn()
+        torch.cuda.synchronize()
+    calls = {}
+    for e in prof.profiler.kineto_results.events():
+        found = re.search(r"flash_bwd_(dq|dkv)_(bf16|f32)_kernel", e.name())
+        if e.device_type() == DeviceType.CUDA and found:
+            calls[found.group(0)] = calls.get(found.group(0), 0) + 1
+    return calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_attention_dq_only_backward(cuda, dtype):
+    """K and V that take no gradient (a frozen encoder's cross K/V): the
+    backward launches the dQ kernel alone, no dK/dV kernel, and its dQ is
+    the full backward's, bit for bit."""
+    q, k, v, g = _cross(np.random.default_rng(15), 2, 64, 1500, 6, 6, 64, dtype, cuda)
+    full = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    dq_full = torch.autograd.grad(ops.flash_attention(*full, causal=False), full, g)[0]
+    q_only = q.clone().requires_grad_(True)
+    out = ops.flash_attention(q_only, k, v, causal=False)
+    ops.reset_launch_counts()
+    calls = _bwd_kernel_calls(lambda: torch.autograd.grad(out, [q_only], g, retain_graph=True))
+    assert ops.launch_counts["flash_attention_bwd"] == 1
+    tag = "f32" if dtype == "float32" else "bf16"
+    assert calls == {f"flash_bwd_dq_{tag}_kernel": 1}, calls
+    dq = torch.autograd.grad(out, [q_only], g)[0]
+    assert torch.equal(dq, dq_full)
+    both = _bwd_kernel_calls(lambda: torch.autograd.grad(ops.flash_attention(*full, causal=False), full, g))
+    assert both == {f"flash_bwd_dq_{tag}_kernel": 1, f"flash_bwd_dkv_{tag}_kernel": 1}, both
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{"causal": True}, {"causal": False, "window": 64}])
+def test_cuda_flash_attention_key_length_of_its_own_raises_unless_bidirectional(cuda, kw):
+    q, k, v, _ = _cross(np.random.default_rng(16), 1, 64, 100, 2, 2, 64, "bfloat16", cuda)
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="bidirectional only"):
+        ops.flash_attention(q, k, v, **kw)
+    assert ops.launch_counts["flash_attention"] == 0
+
+
 WGMMA_FORMS = [  # (rs, b_mn, n, k): the attention kernels' forms, then lora_matmul's m64n256k16
     (rs, b_mn, n, k) for rs in (False, True) for b_mn in (False, True)
     for n, k in ((64, 64), (64, 128), (128, 64), (128, 128))

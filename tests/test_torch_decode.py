@@ -370,8 +370,10 @@ def test_serve_cli_multi_tenant_and_merge(capsys):
     assert capsys.readouterr().out.splitlines()[0] == "merged LoRA into base weights"
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-v0.1-52b"])
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-v0.1-52b", "whisper-tiny"])
 def test_api_serve_raises_for_recurrent_families(arch):
+    """The recurrent families, and whisper's ``audio`` family, whose
+    decoder the batcher would run without the encoder's cross K/V."""
     cfg = get_config(arch, smoke=True)
     with pytest.raises(NotImplementedError, match=cfg.family):
         api.serve(arch, adapters={"a": {}}, device="cpu")

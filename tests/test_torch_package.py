@@ -1,6 +1,7 @@
 """The port's package boundary: it loads neither JAX, the JAX package nor
 ``ml_dtypes`` (the card's machine has none), its sources never import them, its entry points run on the card unless
 the caller asks for the CPU, and its configs are the JAX package's."""
+import dataclasses
 import os
 import re
 import subprocess
@@ -15,10 +16,11 @@ from repro.configs import FederatedConfig as JaxFederatedConfig
 from repro.configs import PEFTConfig as JaxPEFTConfig
 from repro.configs import STLDConfig as JaxSTLDConfig
 from repro.configs import TrainConfig as JaxTrainConfig
+from repro.configs import ARCH_IDS as JAX_ARCH_IDS
 from repro.configs import get_config as jax_get_config
 from repro.federated.algorithms import registered_methods as jax_registered_methods
 from repro_torch import api
-from repro_torch.configs import FederatedConfig, PEFTConfig, STLDConfig, TrainConfig, get_config
+from repro_torch.configs import ARCH_IDS, FederatedConfig, PEFTConfig, STLDConfig, TrainConfig, get_config
 from repro_torch.core import ptls
 from repro_torch.core.peft import init_peft
 from repro_torch.data.synthetic import make_task
@@ -136,5 +138,13 @@ def test_full_config_is_qwen3_1_7b_width():
     cfg = get_config("qwen3-1.7b")
     assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim) == (28, 2048, 16, 8, 128)
     assert (cfg.d_ff, cfg.vocab_size, cfg.qk_norm, cfg.rope_theta, cfg.tie_embeddings) == (6144, 151_936, True, 1e6, True)
+    # the port runs the reference's ten archs, each config field for field
+    # (its parameter counts too) as the reference's
+    assert ARCH_IDS == JAX_ARCH_IDS
+    for arch in ARCH_IDS:
+        for smoke in (False, True):
+            ours, theirs = get_config(arch, smoke=smoke), jax_get_config(arch, smoke=smoke)
+            assert dataclasses.asdict(ours) == dataclasses.asdict(theirs), (arch, smoke)  # nested configs too
+            assert ours.param_counts() == theirs.param_counts(), (arch, smoke)
     with pytest.raises(KeyError):
-        get_config("whisper-tiny")  # an arch the port does not run yet
+        get_config("whisper-large")  # an arch neither package knows
