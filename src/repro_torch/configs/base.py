@@ -115,6 +115,18 @@ class ModelConfig:
             p = math.lcm(p, self.moe_every)
         return p
 
+    @property
+    def frontend_key(self) -> Optional[str]:
+        """The stub frontend's batch key: ``frames`` (audio), ``patches``
+        (vision), None (text)."""
+        return {"audio": "frames", "vision": "patches"}.get(self.modality)
+
+    @property
+    def prefix_len(self) -> int:
+        """Positions (and cache slots) that a vision model's patch prefix
+        takes before the tokens; 0 for every other modality."""
+        return self.frontend_seq if self.modality == "vision" else 0
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 

@@ -93,7 +93,7 @@ def prefill_and_generate(cfg, params, prompt, gen_len: int, device, *, serve_ste
     seconds of the two parts, ``prefill_s`` and ``decode_s`` (each ending
     in a synchronize on the card)."""
     batch, prompt_len = prompt.shape
-    start_pos = prompt_len + (cfg.frontend_seq if cfg.modality == "vision" else 0)
+    start_pos = prompt_len + cfg.prefix_len
     caches = init_caches(cfg, batch, start_pos + gen_len, dtype=getattr(torch, cfg.dtype), device=device)
     serve_step = serve_step or make_serve_step(cfg)
     _sync(device)

@@ -52,9 +52,6 @@ def as_device_tensor(x, device):
     return x.to(device)
 
 
-FRONTEND_INPUT = {"audio": "frames", "vision": "patches"}  # the stub frontends' batch keys, by modality
-
-
 def frontend_batch(cfg, tokens, frontend=None):
     """``{"tokens": tokens}`` and, for an audio or vision model, its stub
     frontend's input: ``frontend`` (frames or patches, (*tokens.shape[:-1],
@@ -62,7 +59,7 @@ def frontend_batch(cfg, tokens, frontend=None):
     the tokens' device, as the reference's client and serving CLI give
     them."""
     batch = {"tokens": tokens}
-    name = FRONTEND_INPUT.get(cfg.modality)
+    name = cfg.frontend_key
     if name is not None:
         if frontend is None:
             device = tokens.device if isinstance(tokens, torch.Tensor) else None
@@ -72,20 +69,19 @@ def frontend_batch(cfg, tokens, frontend=None):
     return batch
 
 
-def model_batch(batch, tokens, device):
+def model_batch(cfg, batch, tokens, device):
     """``{"tokens": tokens}`` plus the batch's stub-frontend input, if it
     has one, on ``device``."""
     out = {"tokens": tokens}
-    for name in FRONTEND_INPUT.values():
-        if name in batch:
-            out[name] = as_device_tensor(batch[name], device)
+    if cfg.frontend_key in batch:
+        out[cfg.frontend_key] = as_device_tensor(batch[cfg.frontend_key], device)
     return out
 
 
 def token_logits(cfg, logits, num_tokens: int):
     """The logits of the token positions: a vision model's patch prefix
     positions stripped, as the reference strips them."""
-    return logits[:, -num_tokens:] if cfg.modality == "vision" else logits
+    return logits[:, -num_tokens:] if cfg.prefix_len else logits
 
 
 def make_train_step(cfg, peft_cfg, train_cfg, *, stld_mode: str = "off", mean_rate: float = 0.5,
@@ -134,7 +130,7 @@ def make_train_step(cfg, peft_cfg, train_cfg, *, stld_mode: str = "off", mean_ra
             drops = stld.sample_drops(rng, rates, 1)
         elif stld_mode == "gather":
             active_idx = stld.sample_active_indices(rng, rates, num_active)
-        (_, metrics), grads = grad_fn(peft_params, base_params, model_batch(batch, tokens[:, :-1], device),
+        (_, metrics), grads = grad_fn(peft_params, base_params, model_batch(cfg, batch, tokens[:, :-1], device),
                                       tokens[:, 1:], drops, active_idx)
         grads, gnorm = clip_by_global_norm(grads, train_cfg.grad_clip)
         peft_params, opt_state = adamw_update(
@@ -161,7 +157,7 @@ def make_prefill_step(cfg):
     @torch.no_grad()
     def prefill_step(params, batch, caches):
         device = params_device(params)
-        inputs = model_batch(batch, as_device_tensor(batch["tokens"], device), device)
+        inputs = model_batch(cfg, batch, as_device_tensor(batch["tokens"], device), device)
         if cfg.is_encoder_decoder:
             enc_kvs = encdec.encoder_cross_kvs(params, cfg, encdec.encode(params, cfg, inputs["frames"]))
             logits, _, caches = encdec.decode(params, cfg, inputs["tokens"], enc_kvs, caches=caches)

@@ -21,7 +21,7 @@ import torch
 from repro_torch.models import stacking
 from repro_torch.models.layers import init_layer_cache
 from repro_torch.models.transformer import _init_attention, _init_attn_layers, _model_norm, stack_apply
-from repro_torch.nn.attention import encode_cross_kv
+from repro_torch.nn.attention import cross_slot_positions, encode_cross_kv
 from repro_torch.nn.initializers import normal_init
 from repro_torch.nn.norms import apply_norm
 
@@ -72,9 +72,11 @@ def encode(params, cfg, frames):
 def encoder_cross_kvs(params, cfg, enc_out):
     """Each decoder layer's cross-attention K/V over ``enc_out``, computed
     once a sequence: a per-layer list of ``{"k", "v"}`` of (B, S_enc, KV,
-    hd)."""
+    hd), each with the decode's ``cross_slot_positions`` (one pair of
+    tensors shared by every layer)."""
     layers = params["decoder"]["layers"]
-    return [encode_cross_kv(stacking.layer_view(layers, l)["cross"], cfg, enc_out)
+    slots = cross_slot_positions(enc_out.shape[0], enc_out.shape[1], enc_out.device)
+    return [{**encode_cross_kv(stacking.layer_view(layers, l)["cross"], cfg, enc_out), **slots}
             for l in range(stacking.stack_size(layers))]
 
 

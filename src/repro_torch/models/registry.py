@@ -91,10 +91,10 @@ def params_device(params) -> torch.device:
     return stacking.tree_leaves(params)[0].device
 
 
-def _frontend(batch, name: str, devices: Optional[int]):
-    """``batch[name]`` (frames or patches), a cohort's (N, B, ...) folded
-    to (N * B, ...)."""
-    x = batch[name]
+def _frontend(cfg, batch, devices: Optional[int]):
+    """``batch[cfg.frontend_key]`` (frames or patches), a cohort's (N, B,
+    ...) folded to (N * B, ...)."""
+    x = batch[cfg.frontend_key]
     return x.reshape(-1, *x.shape[-2:]) if devices is not None else x
 
 
@@ -119,11 +119,11 @@ def model_apply(params, cfg, batch, *, drops=None, caches=None, enc_kvs=None, po
         if stack_mode == "gather":
             drops = None
         if enc_kvs is None:
-            enc_out = encdec.encode(params, cfg, _frontend(batch, "frames", devices))
+            enc_out = encdec.encode(params, cfg, _frontend(cfg, batch, devices))
             enc_kvs = encdec.encoder_cross_kvs(params, cfg, enc_out)
         return encdec.decode(params, cfg, batch["tokens"], enc_kvs, positions=positions, drops=drops, caches=caches,
                              peft=peft, lora_scale=lora_scale, devices=devices)
-    prefix = _frontend(batch, "patches", devices) if cfg.modality == "vision" and "patches" in batch else None
+    prefix = _frontend(cfg, batch, devices) if cfg.prefix_len and cfg.frontend_key in batch else None
     return transformer.lm_apply(
         params, cfg, batch["tokens"], positions=positions, prefix_embeds=prefix, drops=drops, caches=caches,
         peft=peft, lora_scale=lora_scale, devices=devices, stack_mode=stack_mode, active_idx=active_idx,

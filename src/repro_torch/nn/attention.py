@@ -150,9 +150,19 @@ def attention_apply(params, cfg, x, positions, *, causal=True, cache=None, peft=
     return out, {"k": ck, "v": cv, "pos": pos + s}
 
 
+def cross_slot_positions(b: int, s_enc: int, device) -> dict:
+    """The decode's positions over an encoder's ``s_enc`` K/V slots, built
+    once a sequence: slot j at position j (``k_positions`` (b, s_enc)) and
+    every row's query at the last slot's (``q_positions`` (b,)), so that
+    each slot is live."""
+    return {"k_positions": torch.arange(s_enc, dtype=torch.int32, device=device).expand(b, s_enc).contiguous(),
+            "q_positions": torch.full((b,), s_enc - 1, dtype=torch.int32, device=device)}
+
+
 def cross_attention_apply(params, cfg, x, enc_kv, *, peft=None, lora_scale=1.0):
     """Cross-attention of ``x`` (B, S, d) over ``enc_kv`` (``{"k", "v"}``
-    of (B, S_enc, KV, hd), from ``encode_cross_kv``), as the reference's:
+    of (B, S_enc, KV, hd), from ``encode_cross_kv``, and at decode (S = 1)
+    the ``cross_slot_positions``), as the reference's:
     the ``q`` and ``o`` projections (with their LoRA), no rotary, no mask.
     The encoder's K/V take no gradient here (they come from the frozen
     encoder), so the backward runs the attention's dQ kernel alone."""
@@ -161,13 +171,8 @@ def cross_attention_apply(params, cfg, x, enc_kv, *, peft=None, lora_scale=1.0):
     hd, h = cfg.resolved_head_dim, cfg.num_heads
     q = apply_linear(params["wq"], x, peft.get("q"), lora_scale).reshape(b, s, h, hd)
     k, v = (enc_kv[name].to(x.dtype).contiguous() for name in ("k", "v"))
-    if s == 1:
-        # one query over every encoder slot: the query at the last slot's
-        # position, so that each slot is live
-        s_enc = k.shape[1]
-        k_positions = torch.arange(s_enc, dtype=torch.int32, device=x.device).expand(b, s_enc).contiguous()
-        q_positions = torch.full((b,), s_enc - 1, dtype=torch.int32, device=x.device)
-        out = ops.flash_decode(q[:, 0].contiguous(), k, v, q_positions, k_positions)[:, None]
+    if s == 1:  # one query over every encoder slot (``cross_slot_positions``)
+        out = ops.flash_decode(q[:, 0].contiguous(), k, v, enc_kv["q_positions"], enc_kv["k_positions"])[:, None]
     else:
         out = ops.flash_attention(q, k, v, causal=False)
     return apply_linear(params["wo"], out.reshape(b, s, h * hd), peft.get("o"), lora_scale)

@@ -13,7 +13,10 @@ mamba_scan: K- or N-long float32 sums in another order) or 2e-5
 about two bf16 roundings of an O(1) value.  Gradients: float32 within 1e-4 + 1e-4 |ref|;
 bfloat16 within 2% of the largest element of the gradient, since the
 kernels round P and dS (or the rank bottleneck) to bf16 for the tensor
-cores where the twin's autograd keeps float32.
+cores where the twin's autograd keeps float32.  Bidirectional bf16
+attention over keys of their own length, and flash_decode over every slot,
+are also held to the output's own scale: ||got - want|| / ||want|| within
+6e-3 (``_rel_l2_close``).
 """
 import numpy as np
 import pytest
@@ -174,6 +177,26 @@ def test_cuda_flash_decode_matches_twin(cuda, q_dtype, cache_dtype, window):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("s", [1500, 77])
+def test_cuda_flash_decode_every_slot_live_matches_twin(cuda, q_dtype, s):
+    """One query over S slots all live (slot j at position j, the query at
+    S - 1), as whisper-tiny's cross-attention decodes over its 1 500
+    encoder frames; S off the 64-slot chunk."""
+    q, k, v = _decode_inputs(np.random.default_rng(17), 8, 6, 6, 64, s)
+    q = torch.from_numpy(q).to(cuda, getattr(torch, q_dtype))
+    kc, vc = (torch.from_numpy(t).to(cuda, torch.bfloat16) for t in (k, v))
+    pos = torch.full((8,), s - 1, dtype=torch.int32, device=cuda)
+    kpos = torch.arange(s, dtype=torch.int32, device=cuda).expand(8, s).contiguous()
+    got = ops.flash_decode(q, kc, vc, pos, kpos)
+    want = ref.decode_attention_plain(q, kc, vc, pos, kpos)
+    torch.cuda.synchronize()
+    atol, rtol = (3e-2, 1e-2) if q_dtype == "bfloat16" else (2e-5, 1e-5)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    _rel_l2_close(got, want)
+
+
+@pytest.mark.cuda
 def test_cuda_flash_decode_all_masked_row_is_guarded(cuda):
     """A row whose slots are all dead (INT32_MAX) stays finite: the TPU
     kernel's finite -1e30 mask gives the mean of V, as the twin does."""
@@ -290,6 +313,18 @@ def _grad_close(got, want, dtype):
         torch.testing.assert_close(got.float(), want.float(), atol=2e-2 * scale, rtol=0)
 
 
+# Over 1 500 keys a typical |out| is ~0.04, so the 3e-2 limits above pass
+# a key past S_kv left visible (~1.4e-2 of every output and gradient); the
+# sound kernels measured 2.3e-3 - 2.8e-3 on N(0, 1) inputs at these shapes
+# (``tests/cuda_tail_mask_check.py``, which also shows that fault failing here).
+BF16_REL_L2 = 6e-3
+
+
+def _rel_l2_close(got, want):
+    rel = ((got.float() - want.float()).norm() / want.float().norm()).item()
+    assert rel <= BF16_REL_L2, f"relative L2 error {rel} over {BF16_REL_L2}"
+
+
 ATTN_CASES = [  # (B, S, H, KV, D, causal, window)
     (2, 100, 4, 2, 64, True, None),  # ragged S, GQA
     (1, 512, 16, 8, 128, True, None),  # the training shape's heads, batch 1
@@ -379,6 +414,9 @@ def test_cuda_flash_attention_key_length_of_its_own_matches_twin(cuda, dtype, b,
     for gg, wg in zip(got_grads, want_grads):
         assert gg.shape == wg.shape
         _grad_close(gg, wg, dtype)
+    if dtype == "bfloat16":
+        for gg, wg in zip((got, *got_grads), (want, *want_grads)):
+            _rel_l2_close(gg, wg)
 
 
 def _bwd_kernel_calls(fn) -> dict:

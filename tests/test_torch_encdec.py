@@ -65,6 +65,9 @@ GRAD_ATOL, GRAD_RTOL = 2e-5, 1e-3
 SEQ = 16
 _MODELS = {}
 _jax_decode = jax.jit(jax_encdec.decode, static_argnums=1)
+# JAX's PEFT tree moved off its init (``b`` off zero), jitted: eager, each leaf's
+# shape compiles its own ops
+_moved_off_init = jax.jit(lambda key, tree: jax.tree.map(lambda x: x + 0.02 * jax.random.normal(key, x.shape), tree))
 
 
 def _np(t):
@@ -97,7 +100,7 @@ def _model(method="lora"):
         jparams = jax.jit(jax_init_params, static_argnums=1)(key, jcfg)
         jpeft = jax.jit(jax_peft.init_peft, static_argnums=(1, 2))(jax.random.fold_in(key, 1), jcfg,
                                                                     JaxPEFTConfig(method=method))
-        jpeft = jax.tree.map(lambda x: x + 0.02 * jax.random.normal(jax.random.fold_in(key, 2), x.shape), jpeft)
+        jpeft = _moved_off_init(jax.random.fold_in(key, 2), jpeft)
         params = convert.params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
         peft = convert.peft_from_jax(jax.tree.map(np.asarray, jpeft), "cpu")
         _MODELS[method] = (jcfg, jparams, jpeft, cfg, params, peft)

@@ -53,6 +53,9 @@ ARCH = "internvl2-76b"
 ATOL = 1e-4
 SEQ = 12
 _MODEL = {}
+# JAX's PEFT tree moved off its init (``b`` off zero), jitted: eager, each leaf's
+# shape compiles its own ops
+_moved_off_init = jax.jit(lambda key, tree: jax.tree.map(lambda x: x + 0.02 * jax.random.normal(key, x.shape), tree))
 
 
 def _np(t):
@@ -73,7 +76,7 @@ def _model():
         cfg = get_config(ARCH, smoke=True).replace(dtype="float32")
         jparams = jax.jit(jax_init_params, static_argnums=1)(key, jcfg)
         jpeft = jax.jit(jax_peft.init_peft, static_argnums=(1, 2))(jax.random.fold_in(key, 1), jcfg, JaxPEFTConfig())
-        jpeft = jax.tree.map(lambda x: x + 0.02 * jax.random.normal(jax.random.fold_in(key, 2), x.shape), jpeft)
+        jpeft = _moved_off_init(jax.random.fold_in(key, 2), jpeft)
         _MODEL.update(jcfg=jcfg, jparams=jparams, jpeft=jpeft, cfg=cfg,
                       params=convert.params_from_jax(jax.tree.map(np.asarray, jparams), "cpu"),
                       peft=convert.peft_from_jax(jax.tree.map(np.asarray, jpeft), "cpu"))
