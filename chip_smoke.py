@@ -203,6 +203,32 @@ Phases, one line each before the last:
    deepest cut from ``INTERNVL_SERVE_LAYERS`` down that fits, the float32
    check at ``INTERNVL_F32_LAYERS``, every cut printed; the smoke models
    on the card against the CPU twins;
+5k. the training CLI and the sharding layer (``train_cli_full``):
+   ``python -m repro_torch.launch.train --arch qwen3-1.7b`` at the parser's
+   defaults (16 devices, 4 a round, 4 local steps of batch 16 x 32,
+   droppeft, batched, full width) as a process of its own for 2 rounds
+   with ``--state-dir`` (2 finite rows, the reference's history keys, the
+   saved global tree loading with ``load_pytree``), resumed in this
+   process to 3 rounds bit for bit against an uninterrupted 3-round run
+   (history JSON and saved LoRA), whose launches (the ``ops`` counters)
+   equal ``api.build``'s with the same arguments, every lora_matmul on
+   wgmma; its set-up seconds, seconds a round, wall time and peak memory;
+   deadline + carry + ``int8+topk`` with ``--fault-dropout`` and
+   ``--fault-nan`` (finite rows, a fault summary) against ``--fault-plan``
+   with the same fields (the same JSON and LoRA); the CLI at ``--smoke``
+   on the card against ``--device cpu`` for qwen3-1.7b, rwkv6-3b and jamba
+   (the wkv6 and mamba_scan kernels and their backwards), in bf16 as users
+   run it and in float32, from the same base weights (cohorts, rates,
+   modelled time, traffic and energy equal; LoRA within phase 5d's bound;
+   accuracy within ``CLI_SMOKE_ACC_LIMIT``); ``FederatedSimulator`` at
+   smoke size on the card against ``api.experiment``, bit for bit; and
+   ``serving.decode.sharded_decode_attention`` over 2 gloo ranks on the
+   card, each with half of a qwen3-1.7b-shaped bf16 cache of 4 096 slots,
+   against flash_decode and its twin over the whole cache (no window, a
+   window of 1 024 and a query in the first half: one rank wholly masked
+   in each of the last two), its ms a call beside flash_decode's; phase 3
+   times flash_attention (batch 64 x 32) and the grouped lora_matmul (G 4
+   x 512 rows) at the CLI's shapes (``cli_shapes``);
 6. the ``kernels`` JSON line: launches of each kernel in its own path's
    run (serving: phase 4's run; training: phase 5's round at rate 0.5,
    phase 5b's for wkv6 and wkv6_bwd, phase 5c's for mamba_scan and
@@ -210,9 +236,9 @@ Phases, one line each before the last:
    phase 5f's deadline rounds and gather round, phase 5g's runs, and for
    every kernel of the dense path phase 5e's runs, and phase 5h's serving
    runs for flash_decode, flash_attention, wkv6 and mamba_scan, and phases
-   5i's and 5j's runs (``launches_by_path``), the other dense decoders'
-   shapes, FedHetLoRA's, the scans' from a state, the moe family's and the
-   stub-frontend families' beside.
+   5i's, 5j's and 5k's runs (``launches_by_path``), the other dense
+   decoders' shapes, FedHetLoRA's, the scans' from a state, the moe
+   family's, the stub-frontend families' and the training CLI's beside.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits non-zero before it; without a CUDA card, or outside the checkout, the
@@ -224,6 +250,7 @@ import argparse
 import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -3653,6 +3680,449 @@ def stub_frontends_full(api, ops, card, seed: int):
     return out, runs, time.perf_counter() - t0
 
 
+# ------------------------------------------------------------------ phase 5k
+# the history JSON's keys in the reference's CLI (src/repro/launch/train.py:179-195)
+CLI_HISTORY_KEYS = ["accuracy", "arch", "compression", "cum_time_s", "energy_j", "fault_log", "final_accuracy",
+                    "method", "schedule", "traffic_mb"]
+CLI_SMOKE_ARCHS = ("qwen3-1.7b", "rwkv6-3b", "jamba-v0.1-52b")
+# A smoke run of the CLI computes in bf16 (the smoke configs' dtype, which
+# the CLI does not set), and its random models sit near chance (accuracy
+# 0.22-0.38): their top logits lie close together, within the bf16
+# roundings by which the card's kernels and the CPU twins differ, so some
+# validation predictions take the other label.  A round's accuracy (the
+# mean over the cohort of ~50 predictions a device) may move by a
+# twentieth; the float32 runs of the same CLI, where the roundings are
+# ~1e-7, are held to equal accuracy.
+CLI_SMOKE_ACC_LIMIT = {"bfloat16": 0.05, "float32": 0.0}
+# the sharded decode: qwen3-1.7b's heads over a cache of 4 096 slots, half
+# a rank; (query position, window) cases: both halves live, the window past
+# rank 0's half, the query in rank 0's half (rank 1's half all in its future)
+SHARDED_SHAPE = {"b": 8, "h": 16, "kv": 8, "d": 128, "s": 4096}
+SHARDED_CASES = ((4095, None), (4095, 1024), (1000, None))
+SHARDED_RANKS = 2
+SHARDED_ATOL = 3e-2  # the bf16 tolerance of tests/test_kernels.py
+
+
+def cli_main(argv):
+    """``repro_torch.launch.train.main(argv)`` in this process, its report
+    captured: (runner, result, the report's text)."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        runner, result = train.main(argv)
+    return runner, result, buf.getvalue()
+
+
+class CliTrace:
+    """While active, ``repro_torch.api.build`` is wrapped: the seconds of
+    the build (from the CLI's start, with ``start``), of each sync round
+    (ended by a device sync), and each round's cohort and rates (the
+    algorithm's ``report``).  ``params``, when given, are the base weights
+    the build takes (``api.build(params=...)``) instead of drawing them on
+    the run's device."""
+
+    def __init__(self, api, params=None):
+        self.api, self.build, self.params = api, api.build, params
+        self.start, self.setup_s, self.round_s, self.plans = time.perf_counter(), None, [], []
+
+    def __enter__(self):
+        def traced(*args, **kw):
+            runner = self.build(*args, **kw) if self.params is None else self.build(*args, params=self.params, **kw)
+            cuda = runner.device.type == "cuda"
+            if cuda:
+                torch.cuda.synchronize()
+            self.setup_s = time.perf_counter() - self.start
+            sync_round, report = runner.scheduler._sync_round, runner.algorithm.report
+
+            def timed_round(*a, **k):
+                t0 = time.perf_counter()
+                row = sync_round(*a, **k)
+                if cuda:
+                    torch.cuda.synchronize()
+                self.round_s.append(time.perf_counter() - t0)
+                return row
+
+            def recorded(state, results):
+                self.plans.append({"cohort": [int(d) for d in results.plan.cohort],
+                                   "rates": [float(r) for r in results.plan.rates],
+                                   "masks": np.asarray(results.masks).tolist()})
+                return report(state, results)
+
+            runner.scheduler._sync_round, runner.algorithm.report = timed_round, recorded
+            return runner
+
+        self.api.build = traced
+        return self
+
+    def __exit__(self, *exc):
+        self.api.build = self.build
+
+
+def saved_tree(ckpt_dir: Path, cfg, step: int):
+    """The global LoRA that the CLI saved under ``ckpt_dir`` (``save_pytree``
+    at ``<ckpt-dir>/<cfg.name>``), loaded on the CPU with ``load_pytree``."""
+    from repro_torch.checkpoint import load_pytree
+    from repro_torch.configs import PEFTConfig
+    from repro_torch.core.peft import init_peft
+
+    return load_pytree(init_peft(cfg, PEFTConfig(), torch.Generator()), str(ckpt_dir / cfg.name / f"step_{step:08d}"))
+
+
+def cli_history(path: Path, rounds: int) -> dict:
+    """The history JSON at ``path``: the reference's keys, ``rounds`` rows,
+    every number finite."""
+    hist = json.loads(path.read_text())
+    check(sorted(hist) == CLI_HISTORY_KEYS, f"{path.name}: keys {sorted(hist)}, the reference's {CLI_HISTORY_KEYS}")
+    rows = [hist[key] for key in ("accuracy", "cum_time_s", "traffic_mb", "energy_j")]
+    check(all(len(r) == rounds for r in rows), f"{path.name}: rows {[len(r) for r in rows]}, expected {rounds}")
+    check(all(math.isfinite(v) for r in rows for v in r) and math.isfinite(hist["final_accuracy"]),
+          f"{path.name}: a row is not finite: {hist}")
+    return hist
+
+
+def cli_full_width(api, ops, seed: int, work: Path):
+    """Phase 5k's full-width runs of ``python -m repro_torch.launch.train
+    --arch qwen3-1.7b`` at the parser's defaults (16 devices, 4 a round, 4
+    local steps of batch 16, droppeft, batched): as a process of its own
+    for 2 rounds with ``--state-dir``; resumed from it to 3 rounds; an
+    uninterrupted 3-round run, counted by the launch counters, against the
+    resumed one and against ``api.build`` with the same arguments; the
+    deadline-carry-``int8+topk`` run with the shorthand fault flags against
+    ``--fault-plan``.  Returns (stats, the counted run's launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models.stacking import tree_leaves
+
+    cfg, base = get_config("qwen3-1.7b"), ["--arch", "qwen3-1.7b", "--seed", str(seed)]
+    out = {}
+    # as users run it: a process of its own
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *base, "--rounds", "2", "--state-dir",
+           str(work / "state"), "--ckpt-dir", str(work / "ckpt2"), "--out", str(work / "h2.json")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    out["process_s"] = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the training CLI exited {proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-4000:]}")
+    h2 = cli_history(work / "h2.json", 2)
+    tree2 = saved_tree(work / "ckpt2", cfg, 2)
+    check(all(torch.isfinite(t).all() for t in tree_leaves(tree2)), "the CLI's saved global LoRA is not finite")
+    wall = re.search(r"wall time: ([0-9.]+)s", proc.stdout)
+    out["process_wall_line_s"] = float(wall.group(1)) if wall else None
+    out["process_report"] = [ln for ln in proc.stdout.splitlines() if ln.startswith(("round", "final"))]
+    free_memory("cuda")
+
+    # resumed from the process's state to 3 rounds, then an uninterrupted
+    # 3-round run counted by the launch counters
+    runner, result, _ = cli_main([*base, "--rounds", "3", "--resume", "--state-dir", str(work / "state"),
+                                  "--ckpt-dir", str(work / "ckpt3r"), "--out", str(work / "h3r.json")])
+    check(runner.state.round_index == 3 and result.rounds == 3, f"resumed to round {runner.state.round_index}")
+    del runner
+    free_memory("cuda")
+    argv3 = [*base, "--rounds", "3", "--ckpt-dir", str(work / "ckpt3"), "--out", str(work / "h3.json")]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with CliTrace(api) as trace:
+        runner, result, report = cli_main(argv3)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - trace.start
+    launches, routes = dict(ops.launch_counts), dict(ops.lora_matmul_routes)
+    peak = torch.cuda.max_memory_allocated() / 2.0**30
+    h3, h3r = cli_history(work / "h3.json", 3), cli_history(work / "h3r.json", 3)
+    tree3, tree3r = saved_tree(work / "ckpt3", cfg, 3), saved_tree(work / "ckpt3r", cfg, 3)
+    check(h3r == h3 and tree_equal(tree3r, tree3), "the CLI resumed from round 2 differs from the uninterrupted run")
+    check(tree_equal(tree3, cpu_tree(runner.state.global_peft)),
+          "the saved global LoRA differs from the run's")
+    for key in ("accuracy", "cum_time_s", "traffic_mb", "energy_j"):  # the warm-up's rates: the same first rounds
+        check(h3[key][:2] == h2[key], f"the process's 2 rounds differ from the 3-round run's first two: {key}")
+    for name in ("flash_attention", "flash_attention_bwd", "lora_matmul"):
+        check(launches[name] > 0, f"{name} never launched in the training CLI's run: {launches}")
+    check(routes == {"fma": 0, "wmma": 0, "wgmma": launches["lora_matmul"]}, f"the CLI's lora_matmul routes {routes}")
+    del runner
+    free_memory("cuda")
+    # api.build with the same arguments launches the same kernels and gives the same run
+    args = train.build_parser().parse_args(argv3)
+    ops.reset_launch_counts()
+    same = api.build(args.method, **train.build_kwargs(args, None))
+    same_result = same.run(rounds=args.rounds)
+    same_launches = dict(ops.launch_counts)
+    check(same_launches == launches, f"the CLI launched {launches}, api.build with its arguments {same_launches}")
+    check(json.loads(json.dumps(train.history(args, same.ctx.cfg, same, same_result))) == h3,
+          "api.build with the CLI's arguments gives another history")
+    del same
+    free_memory("cuda")
+    out.update(rounds=3, setup_s=trace.setup_s, s_per_round=trace.round_s, wall_s=wall_s, peak_gib=peak,
+               launches=launches, routes=routes, resume_bit_identical=True, launches_equal_api_build=True,
+               history_keys=CLI_HISTORY_KEYS, history=h3, report=[ln for ln in report.splitlines()
+                                                                 if ln.startswith(("round", "final", "wall"))])
+
+    # schedules and faults: the shorthand flags against a plan file of the same fields
+    sched = ["--rounds", "2", "--schedule", "deadline", "--straggler", "carry", "--compression", "int8+topk"]
+    runner, _, report = cli_main([*base, *sched, "--fault-dropout", "0.1", "--fault-nan", "0.05",
+                                  "--ckpt-dir", str(work / "ckpt_flags"), "--out", str(work / "h_flags.json")])
+    del runner
+    free_memory("cuda")
+    summary = [ln for ln in report.splitlines() if ln.startswith("faults: ")]
+    check(len(summary) == 1, f"no fault summary in the CLI's report: {report[-2000:]}")
+    plan = work / "plan.json"
+    plan.write_text(json.dumps({"dropout_prob": 0.1, "nan_update_prob": 0.05, "seed": seed}))
+    runner, _, _ = cli_main([*base, *sched, "--fault-plan", str(plan), "--ckpt-dir", str(work / "ckpt_plan"),
+                             "--out", str(work / "h_plan.json")])
+    del runner
+    free_memory("cuda")
+    flags, from_plan = cli_history(work / "h_flags.json", 2), cli_history(work / "h_plan.json", 2)
+    check(from_plan == flags and tree_equal(saved_tree(work / "ckpt_plan", cfg, 2), saved_tree(work / "ckpt_flags", cfg, 2)),
+          "--fault-plan with the flags' fields gives another run")
+    out["faults"] = {"summary": summary[0], "fault_log": flags["fault_log"], "schedule": flags["schedule"],
+                     "compression": flags["compression"], "accuracy": flags["accuracy"],
+                     "plan_file_bit_identical": True}
+    return out, launches
+
+
+def cpu_tree(tree):
+    """A tree's leaves on the CPU, in its structure."""
+    from repro_torch.models.stacking import tree_map
+
+    return tree_map(lambda t: t.detach().cpu(), tree)
+
+
+def cli_smoke_cuda_vs_cpu(api, ops, seed: int, arch: str, work: Path, dtype: str = "bfloat16"):
+    """The CLI at ``--smoke`` (the parser's defaults, 2 rounds) on the card
+    against ``--device cpu``, in bf16 as users run it, or in float32 (the
+    CLI's ``get_config`` patched to the float32 smoke config), both from the
+    same base weights (drawn on the CPU from ``seed`` and handed to the
+    build: each run otherwise draws them on its own device, and the card's
+    generator is not the CPU's, while the LoRA, gates and every numpy
+    stream are drawn on the host alike): cohorts,
+    rates, the modelled time, traffic and energy equal; the saved LoRA
+    within phase 5d's bound (every element within 2 x the summed step sizes
+    + 1e-6, and in float32 99% within 1e-6); accuracy within
+    ``CLI_SMOKE_ACC_LIMIT``.  Returns (stats, the card run's launches)."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.launch import train
+    from repro_torch.models.registry import init_params
+    from repro_torch.models.stacking import tree_leaves
+    from repro_torch.optim import make_lr_schedule
+
+    cfg, runs = get_config(arch, smoke=True), {}
+    params = init_params(cfg, torch.Generator().manual_seed(seed))
+    for device in ("cuda", "cpu"):
+        tag = f"{arch}-{dtype}-{device}"
+        ops.reset_launch_counts()
+        real_get_config = train.get_config
+        if dtype == "float32":
+            train.get_config = lambda arch_id, smoke=False: real_get_config(arch_id, smoke=smoke).replace(
+                dtype="float32")
+        try:
+            with CliTrace(api, params) as trace:
+                runner, _, _ = cli_main(["--arch", arch, "--smoke", "--rounds", "2", "--seed", str(seed),
+                                              "--device", device, "--ckpt-dir", str(work / f"ckpt-{tag}"), "--out",
+                                              str(work / f"{tag}.json")])
+        finally:
+            train.get_config = real_get_config
+        check(runner.ctx.cfg.dtype == dtype, f"the smoke run computed in {runner.ctx.cfg.dtype}")
+        fed = runner.ctx.fed_cfg
+        del runner
+        runs[device] = {"plans": trace.plans, "hist": cli_history(work / f"{tag}.json", 2),
+                        "peft": tree_leaves(saved_tree(work / f"ckpt-{tag}", cfg, 2)), "launches": dict(ops.launch_counts),
+                        "s_per_round": trace.round_s}
+    card, cpu = runs["cuda"], runs["cpu"]
+    what = f"{arch} smoke CLI ({dtype}) on the card vs --device cpu"
+    for key in ("cohort", "rates"):
+        check([p[key] for p in card["plans"]] == [p[key] for p in cpu["plans"]], f"{what}: {key} differ")
+    for key in ("cum_time_s", "traffic_mb", "energy_j"):
+        check(card["hist"][key] == cpu["hist"][key], f"{what}: {key} {card['hist'][key]} vs {cpu['hist'][key]}")
+    train_cfg = TrainConfig(learning_rate=5e-3, total_steps=2 * fed.local_steps)  # the CLI's
+    sched = make_lr_schedule(train_cfg.schedule, train_cfg.learning_rate, train_cfg.warmup_steps, train_cfg.total_steps)
+    limit = 2 * sum(sched(step) for step in range(2 * fed.devices_per_round * fed.local_steps)) + 1e-6
+    diffs = torch.cat([(a - b).abs().flatten() for a, b in zip(card["peft"], cpu["peft"])])
+    within = float((diffs <= 1e-6).float().mean())
+    check(float(diffs.max()) <= limit and (dtype == "bfloat16" or within >= 0.99),
+          f"{what}: LoRA max diff {float(diffs.max())} (limit {limit}), {within} within 1e-6")
+    acc_err = max(abs(a - b) for a, b in zip(card["hist"]["accuracy"] + [card["hist"]["final_accuracy"]],
+                                              cpu["hist"]["accuracy"] + [cpu["hist"]["final_accuracy"]]))
+    check(acc_err <= CLI_SMOKE_ACC_LIMIT[dtype],
+          f"{what}: accuracy differs by {acc_err} > {CLI_SMOKE_ACC_LIMIT[dtype]}")
+    return {"arch": arch, "dtype": dtype, "rounds": 2, "cohorts_rates_time_traffic_energy_equal": True,
+            "masks_equal": [p["masks"] for p in card["plans"]] == [p["masks"] for p in cpu["plans"]],
+            "peft_max_abs_diff": float(diffs.max()), "peft_limit": limit,
+            "peft_share_within_1e-6": within,
+            "accuracy_max_abs_diff": acc_err, "accuracy_limit": CLI_SMOKE_ACC_LIMIT[dtype],
+            "accuracy_card": card["hist"]["accuracy"], "accuracy_cpu": cpu["hist"]["accuracy"],
+            "s_per_round_card": card["s_per_round"], "s_per_round_cpu": cpu["s_per_round"]}, card["launches"]
+
+
+def simulator_vs_experiment(api, seed: int):
+    """``FederatedSimulator`` at smoke size on the card (its device default)
+    warns and gives ``api.experiment``'s result with the same arguments,
+    bit for bit."""
+    import warnings
+
+    from repro_torch.configs import FederatedConfig, PEFTConfig, STLDConfig, TrainConfig, get_config
+    from repro_torch.federated.simulator import FederatedSimulator
+
+    kw = dict(cfg=get_config("qwen3-1.7b", smoke=True), peft_cfg=PEFTConfig(), stld_cfg=STLDConfig(),
+              fed_cfg=FederatedConfig(num_devices=6, devices_per_round=4, local_steps=2, batch_size=8),
+              train_cfg=TrainConfig())
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        sim = FederatedSimulator(*kw.values(), strategy="droppeft", seed=seed)
+    check(any(issubclass(w.category, DeprecationWarning) for w in caught), "FederatedSimulator did not warn")
+    check(sim.runner.device.type == "cuda", f"FederatedSimulator ran on {sim.runner.device}")
+    got = sim.run(rounds=2)
+    want = api.experiment("droppeft", rounds=2, seed=seed, **kw)
+    same = all(np.array_equal(getattr(got, f), getattr(want, f)) if isinstance(getattr(want, f), np.ndarray)
+               else getattr(got, f) == getattr(want, f) for f in want.__dataclass_fields__)
+    check(same, f"FederatedSimulator {got} vs api.experiment {want}")
+    return {"rounds": 2, "bit_identical": True, "accuracy": got.accuracy.tolist(), "cohort_mode": sim.cohort_mode}
+
+
+def sharded_decode_rank(rank: int, world: int, port: int, seed: int, out_path: str, repeats: int):
+    """One rank of the sharded decode (``torch.multiprocessing.spawn``): a
+    gloo group of ``world`` ranks on the one card, each holding its slice of
+    the cache along the sequence; rank 0 saves every case's output and the
+    median ms a call (CUDA events, each call after a barrier)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.serving.decode import sharded_decode_attention
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank, world_size=world)
+    try:
+        mesh = init_device_mesh("cuda", (world,), mesh_dim_names=("data",))
+        q, k, v = sharded_decode_inputs(seed)
+        shard = k.shape[1] // world
+        part = slice(rank * shard, (rank + 1) * shard)
+        kl, vl = k[:, part].contiguous(), v[:, part].contiguous()
+        kpos = torch.arange(k.shape[1], device="cuda")[part]
+        results = []
+        for q_position, window in SHARDED_CASES:
+            fn = lambda: sharded_decode_attention(mesh, q, kl, vl, kpos, q_position, window=window)  # noqa: E731
+            out = fn()
+            times = []
+            for _ in range(repeats):
+                dist.barrier()
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn()
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+            results.append({"out": out.cpu(), "ms": statistics.median(times)})
+        torch.save(results, f"{out_path}.rank{rank}")
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_decode_inputs(seed: int):
+    """q (B, H, D), k and v (B, S, KV, D) in bf16 on the card, drawn on the
+    CPU from ``seed`` (the same on every rank)."""
+    gen = torch.Generator().manual_seed(seed)
+    b, h, kv, d, s = (SHARDED_SHAPE[key] for key in ("b", "h", "kv", "d", "s"))
+    return [torch.randn(shape, generator=gen).to(device="cuda", dtype=torch.bfloat16)
+            for shape in ((b, h, d), (b, s, kv, d), (b, s, kv, d))]
+
+
+def sharded_decode_check(ops, ref, timer, seed: int, work: Path):
+    """``serving.decode.sharded_decode_attention`` over ``SHARDED_RANKS``
+    gloo ranks on the one card (NCCL takes one rank a GPU), each with its
+    part of a qwen3-1.7b-shaped bf16 cache, against ``ops.flash_decode``
+    and its twin ``ref.decode_attention_plain`` over the whole cache: the
+    relative L2 error within ``BF16_REL_L2`` and the largest within
+    ``SHARDED_ATOL``, for each of ``SHARDED_CASES``; ms a call beside
+    flash_decode's."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    path = str(work / "sharded")
+    t0 = time.perf_counter()
+    mp.spawn(sharded_decode_rank, args=(SHARDED_RANKS, port, seed, path, 20), nprocs=SHARDED_RANKS, join=True)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(f"{path}.rank{r}") for r in range(SHARDED_RANKS)]
+    q, k, v = sharded_decode_inputs(seed)
+    b, s = q.shape[0], k.shape[1]
+    kpos = torch.arange(s, dtype=torch.int32, device="cuda").expand(b, s).contiguous()
+    cases = []
+    for i, (q_position, window) in enumerate(SHARDED_CASES):
+        qpos = torch.full((b,), q_position, dtype=torch.int32, device="cuda")
+        got = ranks[0][i]["out"].cuda()
+        check(all(torch.equal(r[i]["out"], ranks[0][i]["out"]) for r in ranks), "the ranks' merged outputs differ")
+        kernel = ops.flash_decode(q, k, v, qpos, kpos, window=window)
+        twin = ref.decode_attention_plain(q, k, v, qpos, kpos, window=window)
+        errs = {name: {"rel_l2": rel_l2(got, want), "max_abs": (got.float() - want.float()).abs().max().item()}
+                for name, want in (("flash_decode", kernel), ("twin", twin))}
+        what = f"sharded decode, query at {q_position}, window {window}"
+        for name, e in errs.items():
+            check(e["rel_l2"] <= BF16_REL_L2 and e["max_abs"] <= SHARDED_ATOL,
+                  f"{what} vs {name}: {e} over rel L2 {BF16_REL_L2} or {SHARDED_ATOL}")
+        shard = s // SHARDED_RANKS
+        masked = [r for r in range(SHARDED_RANKS)
+                  if r * shard > q_position or (window and (r + 1) * shard - 1 <= q_position - window)]
+        flash_ms = timer(lambda: ops.flash_decode(q, k, v, qpos, kpos, window=window))
+        cases.append({"query_position": q_position, "window": window, "wholly_masked_ranks": masked, "errors": errs,
+                      "ms": ranks[0][i]["ms"], "flash_decode_ms": flash_ms})
+    check(cases[1]["wholly_masked_ranks"] == [0] and cases[2]["wholly_masked_ranks"] == [1],
+          f"the masked cases mask {[c['wholly_masked_ranks'] for c in cases]}")
+    return {"shape": f"B={b} H={q.shape[1]} KV={k.shape[2]} D={q.shape[2]} S={s} bfloat16, {SHARDED_RANKS} gloo "
+                     f"ranks on one card, S/{SHARDED_RANKS} each", "rel_l2_limit": BF16_REL_L2, "atol": SHARDED_ATOL,
+            "cases": cases, "spawn_s": spawn_s}
+
+
+def cli_shapes(ops, ref, timer, seed: int, card: str) -> dict:
+    """Phase 3's cases at the shapes the training CLI's defaults give its
+    full-width rounds (qwen3-1.7b, a cohort of 4 devices x 16 x 32 tokens,
+    batched): flash_attention over the 4 devices' rows (batch 64 x 32) and
+    the grouped lora_matmul at G 4 x 512 rows, q and v; drawn from a
+    generator of their own."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 9)
+    shapes = {"attention": attention_case(ops, ref, timer, gen, dtype=torch.bfloat16, b=64, s=32)}
+    for name, n in (("grouped q", 2048), ("grouped v", 1024)):
+        shapes[name] = grouped_lora_case(ops, ref, timer, gen, dtype=torch.bfloat16, g=4, n=n)
+    for name, case in shapes.items():
+        print(f"train CLI shape {name} {json.dumps(case)} [{card}]", flush=True)
+    return shapes
+
+
+def train_cli_full(api, ops, ref, timer, card, seed: int):
+    """Phase 5k: the training CLI (``launch/train.py``), ``FederatedSimulator``
+    and the sharded decode on the card (the module docstring).  Returns
+    (stats, the launches of each path, its seconds)."""
+    import shutil
+
+    t0 = time.perf_counter()
+    work = ROOT / "build" / "chip_smoke_cli"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    out, runs = {}, {}
+    out["full width"], runs["train_cli"] = cli_full_width(api, ops, seed, work)
+    print(f"5k train CLI {json.dumps(out['full width'])} [{card}]", flush=True)
+    for arch in CLI_SMOKE_ARCHS:
+        for dtype in ("bfloat16", "float32"):
+            out[f"smoke {arch} {dtype}"], launched = cli_smoke_cuda_vs_cpu(api, ops, seed, arch, work, dtype)
+            if dtype == "bfloat16":  # the smoke run as users run it
+                runs[f"train_cli_smoke_{arch}"] = launched
+            print(f"5k train CLI smoke, card vs --device cpu: {json.dumps(out[f'smoke {arch} {dtype}'])}", flush=True)
+    for arch, names in (("rwkv6-3b", ("wkv6", "wkv6_bwd")), ("jamba-v0.1-52b", ("mamba_scan", "mamba_scan_bwd"))):
+        for name in names:
+            check(runs[f"train_cli_smoke_{arch}"][name] > 0, f"{name} never launched in the {arch} smoke CLI run")
+    out["simulator"] = simulator_vs_experiment(api, seed)
+    print(f"5k FederatedSimulator vs api.experiment {json.dumps(out['simulator'])}", flush=True)
+    free_memory("cuda")
+    out["sharded decode"] = sharded_decode_check(ops, ref, timer, seed, work)
+    print(f"5k sharded decode {json.dumps(out['sharded decode'])} [{card}]", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    return out, runs, time.perf_counter() - t0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3889,6 +4359,8 @@ def main() -> int:
 
     # the stub-frontend families' shapes (phase 5j)
     stub_shapes = stub_frontend_shapes(ops, ref, ring_positions, timer, args.seed, card)
+    # the training CLI's full-width shapes (phase 5k)
+    cli_shape = cli_shapes(ops, ref, timer, args.seed, card)
 
     print(f"phase 3: {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
 
@@ -4037,6 +4509,14 @@ def main() -> int:
     def stub_launches(name, paths):
         return {f"5j_{path.replace(' ', '_')}": stub_runs[path][name] for path in paths}
 
+    # 5k. the training CLI (launch/train.py) as users run it, FederatedSimulator
+    #     and the sharded decode over 2 gloo ranks
+    cli_stats, cli_runs, cli_s = train_cli_full(api, ops, ref, timer, card, args.seed)
+    print(f"phase 5k: {cli_s:.1f} s [{card}]", flush=True)
+
+    def cli_launches(name):
+        return {f"5k_{path}": counts[name] for path, counts in cli_runs.items() if counts.get(name)}
+
     stub_shape_keys = {"flash_attention": ("attention_whisper_encoder", "attention_whisper_cross"),
                        "flash_decode": ("decode_whisper_self", "decode_whisper_cross", "decode_internvl")}
 
@@ -4126,6 +4606,11 @@ def main() -> int:
                                                                   "generate internvl"))},
             "moe_shapes": {short: pick(moe_shapes[f"decode_{short}"], fwd_keys) for short in moe_paths},
             "stub_frontend_shapes": {key: pick(stub_shapes[key], fwd_keys) for key in stub_shape_keys["flash_decode"]},
+            "sharded_decode_yardstick": {  # phase 5k: the whole cache beside its 2-rank sequence-sharded decode
+                "shape": cli_stats["sharded decode"]["shape"],
+                "cases": [{key: c[key] for key in ("query_position", "window", "ms", "flash_decode_ms")}
+                          | {"flash_decode_max_abs_err": c["errors"]["flash_decode"]["max_abs"]}
+                          for c in cli_stats["sharded decode"]["cases"]]},
         },
         {
             "name": "flash_attention", "route": "cuda",
@@ -4145,7 +4630,9 @@ def main() -> int:
                                  "5i_federated_granite": moe_runs["federated"]["flash_attention"],
                                  **stub_launches("flash_attention", ("train whisper", "generate whisper",
                                                                      "federated whisper", "train internvl",
-                                                                     "generate internvl"))},
+                                                                     "generate internvl")),
+                                 **cli_launches("flash_attention")},
+            "train_cli_shape": pick(cli_shape["attention"], fwd_keys),
             "moe_shapes": {short: pick(moe_shapes[f"attention_{short}"], fwd_keys) for short in moe_paths},
             "whisper_shapes": {key: pick(stub_shapes[key], fwd_keys) for key in stub_shape_keys["flash_attention"]},
             "glm4_shape": pick(dense["attention_glm4"], fwd_keys),
@@ -4173,7 +4660,9 @@ def main() -> int:
                                  "5i_gather_round_granite": moe_runs["gather"]["flash_attention_bwd"],
                                  "5i_federated_granite": moe_runs["federated"]["flash_attention_bwd"],
                                  **stub_launches("flash_attention_bwd", ("train whisper", "federated whisper",
-                                                                         "train internvl"))},
+                                                                         "train internvl")),
+                                 **cli_launches("flash_attention_bwd")},
+            "train_cli_shape": pick(cli_shape["attention"], ("shape",), **bwd_renamed),
             "whisper_shapes": {key: pick(stub_shapes[key], ("shape",), **bwd_renamed)
                                for key in stub_shape_keys["flash_attention"]},
             "moe_shapes": {short: pick(moe_shapes[f"attention_{short}"], ("shape",), **bwd_renamed)
@@ -4207,7 +4696,10 @@ def main() -> int:
                                  "5i_gather_round_granite": moe_runs["gather"]["lora_matmul"],
                                  "5i_federated_granite": moe_runs["federated"]["lora_matmul"],
                                  **stub_launches("lora_matmul", ("train whisper", "federated whisper",
-                                                                 "train internvl"))},
+                                                                 "train internvl")),
+                                 **cli_launches("lora_matmul")},
+            "train_cli_grouped_shapes": {name: pick(cli_shape[name], proj_keys + ("route", "ungrouped_launches_ms"))
+                                         for name in ("grouped q", "grouped v")},
             "stub_frontend_shapes": {name: pick(stub_shapes[f"lora {name}"],
                                                 proj_keys + ("dx_ms", "dx_bound_ms", "route"))
                                      for name in STUB_WIDTHS},
@@ -4248,7 +4740,8 @@ def main() -> int:
             "launches": rwkv_launches["wkv6"],
             **{key: wkv[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "device_only_ms": wkv["kernel_ms"], "shape": "forward, " + wkv["shape"],
-            "launches_by_path": {"local_round_rwkv6": rwkv_launches["wkv6"], "5h_serve_rwkv6": served["rwkv6-3b"]["wkv6"]},
+            "launches_by_path": {"local_round_rwkv6": rwkv_launches["wkv6"], "5h_serve_rwkv6": served["rwkv6-3b"]["wkv6"],
+                                 **cli_launches("wkv6")},
             "decode_step_shape": {name.split()[-1]: pick(case, fwd_keys) for name, case in scans_h0.items()
                                   if name.startswith("wkv6")},
         },
@@ -4260,6 +4753,7 @@ def main() -> int:
             "max_abs_err": wkv["bwd_max_abs_err"], "ms": wkv["bwd_ms"], "plain_ms": wkv["plain_bwd_ms"],
             "bound_ms": wkv["bwd_bound_ms"], "bound_by": wkv["bwd_bound_by"], "library_ms": wkv["library_bwd_ms"],
             "device_only_ms": wkv["bwd_kernel_ms"], "kernels_ms": wkv["bwd_kernels_ms"],
+            "launches_by_path": {"local_round_rwkv6": rwkv_launches["wkv6_bwd"], **cli_launches("wkv6_bwd")},
             "shape": "backward (dr, dk, dv, dlogw, du), " + wkv["shape"],
         },
         {
@@ -4271,7 +4765,8 @@ def main() -> int:
             "device_only_ms": msc["kernel_ms"], "kernels_ms": {"forward": msc["kernel_ms"]},
             "bound_terms_ms": msc["bound_terms_ms"], "shape": "forward, " + msc["shape"],
             "launches_by_path": {"local_round_jamba": jamba_launches["mamba_scan"],
-                                 "5h_serve_jamba": served["jamba-v0.1-52b"]["mamba_scan"]},
+                                 "5h_serve_jamba": served["jamba-v0.1-52b"]["mamba_scan"],
+                                 **cli_launches("mamba_scan")},
             "h0_shapes": {name.replace("mamba_scan ", ""): pick(case, fwd_keys) for name, case in scans_h0.items()
                           if name.startswith("mamba_scan")},
         },
@@ -4284,6 +4779,8 @@ def main() -> int:
             "bound_ms": msc["bwd_bound_ms"], "bound_by": msc["bwd_bound_by"], "library_ms": msc["library_bwd_ms"],
             "device_only_ms": msc["bwd_kernel_ms"], "kernels_ms": msc["bwd_kernels_ms"],
             "scratch_bytes": msc["bwd_scratch_bytes"], "bound_terms_ms": msc["bwd_bound_terms_ms"],
+            "launches_by_path": {"local_round_jamba": jamba_launches["mamba_scan_bwd"],
+                                 **cli_launches("mamba_scan_bwd")},
             "shape": "backward (d_dt, dx, dB, dC, dA, dD), " + msc["shape"],
         },
     ]

@@ -86,6 +86,31 @@ def place_params(params, cfg, device=None):
     return _cast_matmul_weights(params, getattr(torch, cfg.dtype), device)
 
 
+class _MetaGenerator(torch.Generator):
+    """A CPU generator whose draws land on the ``meta`` device: the init
+    functions place every tensor on ``generator.device``, so they build the
+    tree's shapes and dtypes without allocating or drawing anything."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
+def param_shapes(cfg):
+    """The tree of ``init_params(cfg, ...)`` on the ``meta`` device: every
+    leaf's shape and dtype at no memory, at any width (the sharding specs
+    read them)."""
+    return init_params(cfg, _MetaGenerator())
+
+
+def peft_shapes(cfg, peft_cfg):
+    """The tree of ``core.peft.init_peft(cfg, peft_cfg, ...)`` on the
+    ``meta`` device."""
+    from repro_torch.core.peft import init_peft
+
+    return init_peft(cfg, peft_cfg, _MetaGenerator())
+
+
 def params_device(params) -> torch.device:
     """The device that a parameter tree's leaves lie on."""
     return stacking.tree_leaves(params)[0].device

@@ -80,15 +80,32 @@ def test_scan_covers_the_training_modules():
                  "nn.moe", "configs.jamba_v0_1_52b", "core.configurator", "data.partition", "data.pipeline",
                  "federated.system_model", "federated.server", "federated.state", "federated.engine",
                  "federated.scheduler", "federated.runner", "federated.algorithms", "federated.algorithms.base",
-                 "federated.algorithms.droppeft", "federated.algorithms.baselines", "api"):
+                 "federated.algorithms.droppeft", "federated.algorithms.baselines", "api", "launch.train",
+                 "launch.mesh", "federated.simulator", "sharding.specs", "serving.decode"):
         assert f"repro_torch.{name}" in modules, name
 
 
-@pytest.mark.parametrize("entry", ["build", "experiment"])
-def test_federated_entry_points_without_device_run_on_the_card_or_raise(monkeypatch, entry):
-    """``api.build``/``experiment`` with ``device=None`` mean the card: on a
-    machine without one they raise before any work (no task is drawn), and
-    nothing falls back to the CPU."""
+def _train_cli(tmp_path):
+    from repro_torch.launch import train
+
+    train.main(["--smoke", "--rounds", "1", "--ckpt-dir", str(tmp_path / "ckpt"), "--out", str(tmp_path / "h.json")])
+
+
+def _simulator():
+    from repro_torch.federated.simulator import FederatedSimulator
+
+    with pytest.warns(DeprecationWarning):
+        FederatedSimulator(get_config("qwen3-1.7b", smoke=True), PEFTConfig(), STLDConfig(), FederatedConfig(),
+                           TrainConfig())
+
+
+@pytest.mark.parametrize("entry", ["build", "experiment", "train_cli", "simulator"])
+def test_federated_entry_points_without_device_run_on_the_card_or_raise(monkeypatch, tmp_path, entry):
+    """``api.build``/``experiment``, the training CLI (``launch.train``,
+    whose ``--device`` defaults to ``cuda``) and ``FederatedSimulator`` with
+    ``device=None`` mean the card: on a machine without one they raise
+    before any work (no task is drawn, nothing is written), and nothing
+    falls back to the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the experiment would run on it")
     from repro_torch.federated import runner
@@ -96,8 +113,13 @@ def test_federated_entry_points_without_device_run_on_the_card_or_raise(monkeypa
     tasks = []
     monkeypatch.setattr(runner, "make_task", lambda **kw: tasks.append(kw))
     with pytest.raises((RuntimeError, AssertionError)):
-        getattr(api, entry)("droppeft", "qwen3-1.7b", smoke=True)
-    assert tasks == []
+        if entry == "train_cli":
+            _train_cli(tmp_path)
+        elif entry == "simulator":
+            _simulator()
+        else:
+            getattr(api, entry)("droppeft", "qwen3-1.7b", smoke=True)
+    assert tasks == [] and not any(tmp_path.iterdir())
 
 
 def test_list_methods_is_the_jax_registry():
