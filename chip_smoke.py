@@ -179,7 +179,8 @@ Phases, one line each before the last:
    granite's rate-0.5 round again with the gather dispatch (launches, two
    rounds bit-identical, the loss within 3e-2 of the einsum dispatch's,
    seconds a step and peak beside einsum's); both served as phase 4
-   (llama4 at ``LLAMA4_SERVE_LAYERS``; every MoE call takes the decode
+   (granite at ``GRANITE_SERVE_LAYERS``, llama4 at
+   ``LLAMA4_SERVE_LAYERS``; every MoE call takes the decode
    step's weight gather, flash_decode once and segmented_lora twice a
    layer a step) and through ``launch.serve``'s prefill and generate as
    phase 5h (llama4's float32 check at ``LLAMA4_F32_LAYERS``, an MoE's at a
@@ -229,6 +230,23 @@ Phases, one line each before the last:
    in each of the last two), its ms a call beside flash_decode's; phase 3
    times flash_attention (batch 64 x 32) and the grouped lora_matmul (G 4
    x 512 rows) at the CLI's shapes (``cli_shapes``);
+5l. the dry run and the analysis passes (``dryrun_and_analysis_full``):
+   (a) ``python -m repro_torch.launch.dryrun --arch all --shape <shape>``
+   for each input shape on the 16 x 16 and the 2 x 16 x 16 mesh, each a
+   process of its own (eight, on the host's cores side by side): every
+   cell ``ok`` or the reference's skip record, a line per cell (FLOPs,
+   bytes, peak GiB a device, trace seconds); (b) qwen3-1.7b's train step
+   at 16 x 512 at rates 0.0 and 0.5, jamba-v0.1-52b cut to 8 layers and
+   rwkv6-3b trained likewise, a qwen3-1.7b decode step over 512 slots and
+   one ``api.serve`` multi-tenant step, each on the card and on ``meta``
+   with the card's gates: launches equal kernel for kernel (the steps
+   together launch every kernel), the dry run's argument bytes at a 1 x 1
+   mesh equal to the card's trees, the train steps' meta peak within 10 %
+   of ``max_memory_allocated`` (``meta_vs_card_steps``); (c) the
+   steady-state guard on the card under sync, deadline and async-buffer
+   (set-ups within ``DEFAULT_BUDGETS``, the allocator's new segments
+   reported); (d) ``python -m repro_torch.analysis`` and ``--self-test``,
+   each a process, exit 0;
 6. the ``kernels`` JSON line: launches of each kernel in its own path's
    run (serving: phase 4's run; training: phase 5's round at rate 0.5,
    phase 5b's for wkv6 and wkv6_bwd, phase 5c's for mamba_scan and
@@ -236,7 +254,7 @@ Phases, one line each before the last:
    phase 5f's deadline rounds and gather round, phase 5g's runs, and for
    every kernel of the dense path phase 5e's runs, and phase 5h's serving
    runs for flash_decode, flash_attention, wkv6 and mamba_scan, and phases
-   5i's, 5j's and 5k's runs (``launches_by_path``), the other dense
+   5i's, 5j's, 5k's and 5l's (b) runs (``launches_by_path``), the other dense
    decoders' shapes, FedHetLoRA's, the scans' from a state, the moe
    family's, the stub-frontend families' and the training CLI's beside.
 
@@ -2946,9 +2964,17 @@ LLAMA4_SERVE_LAYERS, LLAMA4_F32_LAYERS, LLAMA4_TRAIN_LAYERS = 8, 4, 7
 # INTERNVL_SERVE_LAYERS down (by 4) that fits; the float32 decode check 4
 # layers (~14 GB, and 8.4 GB of float32 embedding and head); training the
 # deepest cut from INTERNVL_TRAIN_LAYERS down (by 1) whose rounds at both
-# rates fit at batch 16 with its 256 patches.
-INTERNVL_SERVE_LAYERS, INTERNVL_F32_LAYERS, INTERNVL_TRAIN_LAYERS = 32, 4, 12
+# rates fit at batch 16 with its 256 patches: 9 fit, 10 did not (nor 11,
+# 12), so the search starts at 10 and shows the cut above the one it takes.
+INTERNVL_SERVE_LAYERS, INTERNVL_F32_LAYERS, INTERNVL_TRAIN_LAYERS = 32, 4, 10
+# granite-moe-3b-a800m fits the card whole, but its decode step is bound by
+# the host (~9 400 launches, 280-390 ms a step at 32 layers), so its serving
+# runs half its depth to keep the script well inside its time limit; its
+# training and federated runs stay uncut.
+GRANITE_SERVE_LAYERS = 16
 SERVING_CUTS = {
+    "granite-moe-3b-a800m": f"{GRANITE_SERVE_LAYERS} of 32 layers (its host-bound decode steps, for the script's "
+                            "time limit)",
     "jamba-v0.1-52b": "one period of 8 of 32 layers (52 B bf16 exceeds the card's 80 GB)",
     "llama4-scout-17b-a16e": f"{LLAMA4_SERVE_LAYERS} of 48 layers, float32 {LLAMA4_F32_LAYERS} (108 B bf16 exceeds "
                              "the card's 80 GB)",
@@ -2965,7 +2991,8 @@ def serving_cfg(arch: str, dtype: str = "bfloat16", smoke: bool = False):
     runs it, so that the cache-free forward drops no token that decode
     keeps; llama4-scout-17b-a16e cut to ``LLAMA4_SERVE_LAYERS`` (its 48
     layers are ~216 GB), and in float32 to ``LLAMA4_F32_LAYERS`` (8 float32
-    layers, 70 GB, and the float32 head do not fit); an MoE family's
+    layers, 70 GB, and the float32 head do not fit); granite-moe-3b-a800m
+    cut to ``GRANITE_SERVE_LAYERS`` (for the time limit); an MoE family's
     float32 config at a capacity of every token of a group
     (``capacity_factor`` = experts), so that no token drops.  ``smoke``
     takes the smoke config instead (a rehearsal on the CPU)."""
@@ -2978,6 +3005,8 @@ def serving_cfg(arch: str, dtype: str = "bfloat16", smoke: bool = False):
         cfg = cfg.replace(num_layers=LLAMA4_F32_LAYERS if dtype == "float32" else LLAMA4_SERVE_LAYERS)
     if arch == "internvl2-76b" and not smoke:
         cfg = cfg.replace(num_layers=INTERNVL_F32_LAYERS if dtype == "float32" else INTERNVL_SERVE_LAYERS)
+    if arch == "granite-moe-3b-a800m" and not smoke:
+        cfg = cfg.replace(num_layers=GRANITE_SERVE_LAYERS)
     if cfg.family == "moe" and dtype == "float32":
         cfg = cfg.replace(capacity_factor=float(cfg.num_experts))
     return cfg
@@ -4123,6 +4152,329 @@ def train_cli_full(api, ops, ref, timer, card, seed: int):
     return out, runs, time.perf_counter() - t0
 
 
+# ------------------------------------------------------------------ phase 5l
+META_PEAK_TOLERANCE = 0.10  # meta's peak of a train step against the card's max_memory_allocated
+META_TRAIN = {"batch": 16, "seq": 512}
+META_DECODE = {"batch": 8, "slots": 512}
+GUARD_POLICIES = ("sync", "deadline", "async-buffer")
+
+
+def subprocess_env() -> dict:
+    """The environment of the phase's subprocesses: the checkout's ``src`` on
+    the path, one intra-op thread each (the dry run computes nothing)."""
+    return dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+
+
+DRYRUN_MESHES = ("16x16", "2x16x16")
+
+
+def start_dryrun_sweeps(out_dir: Path) -> dict:
+    """Phase 5l (a), started: ``python -m repro_torch.launch.dryrun --arch
+    all --shape <shape>`` for each input shape on each mesh, one process
+    each (a mesh's 40 cells in one process took 88 s on a slow host),
+    writing under ``out_dir``; keyed by (mesh, shape)."""
+    import shutil
+
+    from repro_torch.configs import INPUT_SHAPES
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    procs = {}  # (mesh, shape): (process, its start on the host's clock)
+    for mesh in DRYRUN_MESHES:
+        for shape in INPUT_SHAPES:
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "all", "--shape", shape,
+                   "--out-dir", str(out_dir / mesh)] + (["--multi-pod"] if mesh == "2x16x16" else [])
+            procs[mesh, shape] = (subprocess.Popen(cmd, cwd=ROOT, env=subprocess_env(), stdout=subprocess.PIPE,
+                                                   stderr=subprocess.STDOUT, text=True), time.perf_counter())
+    return procs
+
+
+def start_analysis() -> dict:
+    """Phase 5l (d), started: ``python -m repro_torch.analysis`` (its guard on
+    the card) and ``--self-test``, each a process of its own."""
+    procs = {}
+    for name, extra in (("analysis", []), ("self-test", ["--self-test"])):
+        procs[name] = (subprocess.Popen([sys.executable, "-m", "repro_torch.analysis", *extra], cwd=ROOT,
+                                        env=subprocess_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), time.perf_counter())
+    return procs
+
+
+def finish(procs: dict, timeout: float) -> dict:
+    """(exit code, output, seconds from its start to its exit, as far as
+    this wait sees it) of each started process, waited for; a process still
+    running after ``timeout`` seconds of waiting is killed."""
+    out = {}
+    t0 = time.perf_counter()
+    for name, (proc, start) in procs.items():
+        try:
+            text, _ = proc.communicate(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            text, _ = proc.communicate()
+            text += f"\n(killed after {timeout} s)"
+        out[name] = (proc.returncode, text, time.perf_counter() - start)
+    return out
+
+
+def sweep_records(out_dir: Path, mesh: str) -> list:
+    """The dry run's cell records of one mesh, each held to be ``ok`` or the
+    reference's skip record for an inapplicable cell."""
+    from repro_torch.configs import ARCH_IDS, INPUT_SHAPES, shape_applicable
+
+    recs = []
+    for arch in ARCH_IDS:
+        for shape in INPUT_SHAPES:
+            path = out_dir / mesh / f"{arch}__{shape}__{mesh}.json"
+            check(path.exists(), f"dry run wrote no record for {arch} {shape} {mesh}")
+            rec = json.loads(path.read_text())
+            if shape_applicable(arch, shape):
+                check(rec.get("ok") is True, f"dry run cell {arch} {shape} {mesh} failed: {rec.get('error')}")
+            else:
+                check(rec == {"arch": arch, "shape": shape, "mesh": mesh, "ok": False, "skipped": True,
+                              "reason": "long-context decode inapplicable (DESIGN.md skip matrix)"},
+                      f"dry run cell {arch} {shape} {mesh}: not the reference's skip record: {rec}")
+            recs.append(rec)
+    return recs
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch.analysis.trace import tree_tensors
+
+    return sum(t.numel() * t.element_size() for t in tree_tensors(tree))
+
+
+class GateReplay:
+    """Records the STLD gates ``stld.sample_drops`` draws in a card run and
+    hands the same gates, in order, to the meta run."""
+
+    def __init__(self):
+        from repro_torch.core import stld
+
+        self.stld, self.draw, self.gates = stld, stld.sample_drops, []
+
+    def record(self):
+        def recorded(*args, **kw):
+            self.gates.append(self.draw(*args, **kw))
+            return self.gates[-1]
+
+        self.stld.sample_drops = recorded
+        return self
+
+    def replay(self):
+        gates = iter(self.gates)
+        self.stld.sample_drops = lambda *args, **kw: next(gates)
+        return self
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.stld.sample_drops = self.draw
+        return False
+
+
+def meta_vs_card(ops, name: str, step, make_card_args, meta_args, meta_arg_bytes: int, *, peak: bool,
+                 device: str = "cuda", fresh_args: bool = True) -> tuple:
+    """One step of phase 5l (b): run ``step`` on the card (``make_card_args()``
+    builds its arguments there) and on ``meta_args``; the launch counts must
+    be equal, kernel for kernel, and ``meta_arg_bytes`` (the dry run's
+    argument bytes at a 1 x 1 mesh) must equal the bytes of the card's
+    trees; with ``peak``, the meta run's peak lies within
+    ``META_PEAK_TOLERANCE`` of the card's ``max_memory_allocated`` above
+    what was allocated before the arguments (not ``fresh_args``: they
+    existed before, and the card's peak is not reported).  With ``device="cpu"`` (a
+    rehearsal) the twins run and nothing launches: the launches and the
+    peak are not compared.  Returns (stats, the card's launches)."""
+    from repro_torch.analysis.trace import run_on_meta
+
+    free_memory(device)
+    on_card = device == "cuda"
+    m0 = torch.cuda.memory_allocated() if on_card else 0
+    replay = GateReplay().record()
+    with replay:
+        card_args = make_card_args()
+        card_bytes = tree_bytes(card_args)
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = step(*card_args)
+        if on_card:
+            torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        card_peak = torch.cuda.max_memory_allocated() - m0 if on_card and fresh_args else None
+        launches = {k: v for k, v in ops.launch_counts.items() if v}
+        del out, card_args
+        free_memory(device)
+        replay.replay()
+        run = run_on_meta(step, *meta_args)
+    check(meta_arg_bytes == card_bytes, f"5l {name}: the dry run's argument bytes {meta_arg_bytes} at 1 x 1, the "
+                                        f"card's trees {card_bytes}")
+    check(not run.host_reads, f"5l {name}: host reads on meta {run.host_reads}")
+    stats = {"step": name, "card_s": card_s, "meta_s": run.seconds, "launches": launches,
+             "meta_launches": run.kernel_launches, "argument_bytes": meta_arg_bytes, "meta_peak_bytes": run.peak_bytes,
+             "card_peak_bytes": card_peak, "meta_flops": run.flops, "meta_bytes_accessed": run.bytes_accessed}
+    if on_card:
+        check(launches == run.kernel_launches, f"5l {name}: launches on the card {launches}, on meta "
+                                               f"{run.kernel_launches}")
+    if on_card and peak:
+        gap = run.peak_bytes / card_peak - 1.0
+        stats["peak_gap"] = gap
+        check(abs(gap) <= META_PEAK_TOLERANCE, f"5l {name}: meta peak {run.peak_bytes} B against the card's "
+                                               f"{card_peak} B ({gap:+.3f})")
+    return stats, launches
+
+
+def meta_vs_card_steps(ops, api, seed: int, card: str = "", device: str = "cuda", smoke: bool = False) -> tuple:
+    """Phase 5l (b): each step on the card and on ``meta`` (``meta_vs_card``):
+    qwen3-1.7b's train step at 16 x 512 at rates 0.0 and 0.5, jamba-v0.1-52b
+    cut to 8 layers (phase 5c's cut) and rwkv6-3b trained likewise, a
+    qwen3-1.7b decode step over 512 slots, and one ``api.serve``
+    multi-tenant step.  The meta arguments come from
+    ``launch.input_specs`` at a 1 x 1 mesh (``weights_dtype="placed"``,
+    the card's placement), the serve step's from its captured call.
+    ``smoke`` takes the smoke configs (the CPU rehearsal).  Returns (stats
+    by step, the card's launches by step)."""
+    from repro_torch.analysis.trace import meta_like
+    from repro_torch.configs import InputShape, PEFTConfig, TrainConfig, get_config
+    from repro_torch.core.peft import init_peft
+    from repro_torch.launch import input_specs as ispec
+    from repro_torch.launch.dryrun import argument_bytes
+    from repro_torch.launch.steps import make_serve_step, make_train_step
+    from repro_torch.models.registry import init_params
+    from repro_torch.models.transformer import init_caches
+    from repro_torch.optim import adamw_init
+
+    mesh = ispec.MeshShape({"data": 1, "model": 1})
+    pcfg, tcfg = PEFTConfig(), TrainConfig()
+    b, s = (2, 32) if smoke else (META_TRAIN["batch"], META_TRAIN["seq"])
+    stats, runs = {}, {}
+
+    def gen():
+        g = torch.Generator(device=device)
+        g.manual_seed(seed)
+        return g
+
+    def train(name, cfg, rate):
+        step = make_train_step(cfg, pcfg, tcfg, stld_mode="cond", mean_rate=rate)
+
+        def card_args():
+            g = gen()
+            params = init_params(cfg, g, place=True)
+            peft = init_peft(cfg, pcfg, g)
+            tokens = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=g, device=device, dtype=torch.int32)
+            return params, peft, adamw_init(peft), {"tokens": tokens}, torch.Generator().manual_seed(seed)
+
+        args, specs = ispec.train_inputs(cfg, pcfg, InputShape(name, s, b, "train"), mesh, weights_dtype="placed")
+        stats[name], runs[name] = meta_vs_card(ops, name, step, card_args, args, argument_bytes(args, specs, mesh),
+                                               peak=True, device=device)
+
+    qwen3 = get_config("qwen3-1.7b", smoke=smoke)
+    for rate in (0.0, 0.5):
+        train(f"train_qwen3_rate{rate}", qwen3, rate)
+    jamba = get_config("jamba-v0.1-52b", smoke=smoke)
+    train("train_jamba", jamba if smoke else jamba.replace(num_layers=8), 0.5)
+    train("train_rwkv6", get_config("rwkv6-3b", smoke=smoke), 0.5)
+
+    bd, slots = (2, 16) if smoke else (META_DECODE["batch"], META_DECODE["slots"])
+    step = make_serve_step(qwen3)
+
+    def decode_args():
+        g = gen()
+        params = init_params(qwen3, g, place=True)
+        token = torch.randint(0, qwen3.vocab_size, (bd, 1), generator=g, device=device, dtype=torch.int32)
+        return params, token, slots - 1, ispec.set_cache_position(init_caches(qwen3, bd, slots, device=device),
+                                                                   slots - 1)
+
+    args, specs = ispec.serve_inputs(qwen3, InputShape("decode", slots, bd, "decode"), mesh, weights_dtype="placed")
+    check(args[2] == slots - 1, f"the dry run decodes at {args[2]}, the card at {slots - 1}")
+    stats["decode_qwen3"], runs["decode_qwen3"] = meta_vs_card(
+        ops, "decode_qwen3", step, decode_args, args, argument_bytes(args, specs, mesh), peak=False, device=device)
+
+    # one api.serve step: its call captured on the card, then run on meta
+    free_memory(device)
+    g = gen()
+    batcher = api.serve(cfg=qwen3, adapters=make_tenants(qwen3, g), batch=bd, max_len=slots, seed=seed,
+                        device=device)
+    from repro_torch.serving.batcher import Request
+
+    batcher.submit(Request(prompt=[1, 2, 3], adapter="tenant0", max_new_tokens=4, uid=0))
+    batcher.submit(Request(prompt=[4, 5], adapter="tenant1", max_new_tokens=4, uid=1))
+    serve_step, captured = batcher.serve_step, {}
+
+    def capture(*a, **kw):
+        captured.update(args=a, kw=kw)
+        return serve_step(*a, **kw)
+
+    batcher.serve_step = capture
+    batcher.step()  # admits both, loads their adapters
+    captured_args = captured["args"] + (captured["kw"]["peft"],)
+    meta_args = meta_like(captured_args)
+    del batcher
+
+    def pooled_step(params, token, pos, caches, peft):
+        return serve_step(params, token, pos, caches, peft=peft)
+
+    stats["serve_api"], runs["serve_api"] = meta_vs_card(
+        ops, "serve_api", pooled_step, lambda: captured_args, meta_args, tree_bytes(meta_args), peak=False,
+        device=device, fresh_args=False)
+    if device == "cuda":
+        seen = set().union(*(set(r) for r in runs.values()))
+        check(seen == set(ops.launch_counts), f"5l (b) launched {sorted(seen)}, not every kernel")
+    for name, row in stats.items():
+        print(f"5l meta vs card {json.dumps(row)} [{card}]", flush=True)
+    return stats, runs
+
+
+def dryrun_and_analysis_full(ops, api, card: str, seed: int) -> tuple:
+    """Phase 5l: (a) the dry-run sweep of every arch x shape x mesh on
+    ``meta``, (b) ``meta_vs_card_steps``, (c) the steady-state guard on the
+    card for every schedule policy, (d) ``python -m repro_torch.analysis``
+    and ``--self-test``.  (a) and (d) run as processes of their own, started
+    first, and are waited for after (b) and (c).  Returns (stats, the card's
+    launches of (b) by step, the phase's seconds)."""
+    from repro_torch.analysis.recompile_guard import DEFAULT_BUDGETS, check_experiment_recompiles
+
+    t0 = time.perf_counter()
+    out_dir = ROOT / "build" / "dryrun_torch"
+    sweeps, analysis = start_dryrun_sweeps(out_dir), start_analysis()
+    stats = {}
+    stats["meta_vs_card"], runs = meta_vs_card_steps(ops, api, seed, card)
+
+    report = {}
+    violations = check_experiment_recompiles(policies=GUARD_POLICIES, device="cuda", report=report)
+    check(not violations, f"5l steady-state guard: {[v.render() for v in violations]}")
+    for policy, row in report.items():
+        check(row["budget"] == DEFAULT_BUDGETS[policy] and row["setups"] <= row["budget"], f"5l guard {policy}: {row}")
+    stats["guard"] = report
+    print(f"5l steady-state guard {json.dumps(report)} [{card}]", flush=True)
+
+    done = finish({**sweeps, **analysis}, timeout=600.0)
+    for name in analysis:
+        rc, text, secs = done[name]
+        tail = text.strip().splitlines()[-1] if text.strip() else ""
+        print(f"5l python -m repro_torch.analysis {name}: exit {rc}, {secs:.1f} s: {tail} [{card}]", flush=True)
+        check(rc == 0, f"5l analysis {name} exited {rc}:\n{text[-3000:]}")
+        stats[name] = {"exit": rc, "s": secs, "last_line": tail}
+    for mesh in DRYRUN_MESHES:
+        runs_of_mesh = {shape: done[m, shape] for m, shape in sweeps if m == mesh}
+        for shape, (rc, text, _) in runs_of_mesh.items():
+            check(rc == 0, f"5l dry run {mesh} {shape} exited {rc}:\n{text[-3000:]}")
+        recs = sweep_records(out_dir, mesh)
+        for rec in recs:
+            if rec["ok"]:
+                print(f"5l dry run {rec['arch']} {rec['shape']} {mesh}: flops {rec['flops']:.4e} bytes "
+                      f"{rec['bytes_accessed']:.4e} peak {rec['memory']['peak_bytes'] / 2**30:.2f} GiB/device "
+                      f"trace {rec['trace_s']:.2f} s [{card}]", flush=True)
+        stats[f"sweep {mesh}"] = {
+            "cells": len(recs), "ok": sum(r["ok"] for r in recs), "skipped": sum(bool(r.get("skipped")) for r in recs),
+            "s": max(secs for _, _, secs in runs_of_mesh.values()),
+            "last_lines": {shape: text.strip().splitlines()[-1] for shape, (_, text, _) in runs_of_mesh.items()}}
+        print(f"5l dry run {mesh} {json.dumps(stats[f'sweep {mesh}'])} [{card}]", flush=True)
+    return stats, runs, time.perf_counter() - t0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4488,8 +4840,8 @@ def main() -> int:
                        ("qwen3-1.7b", "flash_attention")):
         check(served[arch][name] > 0, f"{name} never launched serving {arch} in phase 5h: {served[arch]}")
 
-    # 5i. the moe family: granite-moe-3b-a800m uncut and llama4-scout-17b-a16e
-    #     depth-cut, local rounds (granite's again with the gather
+    # 5i. the moe family: granite-moe-3b-a800m (uncut but for serving) and
+    #     llama4-scout-17b-a16e depth-cut, local rounds (granite's again with the gather
     #     dispatch), multi-tenant serving, prefill and generate, and
     #     granite's federated rounds
     moe_stats, moe_runs, moe_s = moe_family_full(api, ops, card, args.seed, timer.flush)
@@ -4516,6 +4868,15 @@ def main() -> int:
 
     def cli_launches(name):
         return {f"5k_{path}": counts[name] for path, counts in cli_runs.items() if counts.get(name)}
+
+    # 5l. the dry run of every arch x shape x mesh on meta, each meta step
+    #     against the same step on the card, the steady-state guard and the
+    #     analysis passes
+    meta_stats, meta_runs, meta_s = dryrun_and_analysis_full(ops, api, card, args.seed)
+    print(f"phase 5l: {meta_s:.1f} s [{card}]", flush=True)
+
+    def meta_launches(name):
+        return {f"5l_{step}": counts[name] for step, counts in meta_runs.items() if counts.get(name)}
 
     stub_shape_keys = {"flash_attention": ("attention_whisper_encoder", "attention_whisper_cross"),
                        "flash_decode": ("decode_whisper_self", "decode_whisper_cross", "decode_internvl")}
@@ -4575,7 +4936,8 @@ def main() -> int:
                                     for a in DENSE_ARCHS},
                                  "5g_serve_hetlora_checkpoint": grid_launches["segmented_lora"],
                                  **moe_launches("segmented_lora", ("serve",)),
-                                 **stub_launches("segmented_lora", ("serve internvl",))},
+                                 **stub_launches("segmented_lora", ("serve internvl",)),
+                                 **meta_launches("segmented_lora")},
             "internvl_shapes": {name: pick(stub_shapes[f"segmented {name}"], proj_keys)
                                 for name in ("internvl q", "internvl v")},
             "hetlora_shapes": {name: pick(hetlora[f"segmented n{n}"], proj_keys) for name, n in (("q", 2048),
@@ -4603,7 +4965,8 @@ def main() -> int:
                                  "5h_generate_jamba": served["jamba-v0.1-52b"]["flash_decode"],
                                  **moe_launches("flash_decode", ("serve", "generate")),
                                  **stub_launches("flash_decode", ("generate whisper", "serve internvl",
-                                                                  "generate internvl"))},
+                                                                  "generate internvl")),
+                                 **meta_launches("flash_decode")},
             "moe_shapes": {short: pick(moe_shapes[f"decode_{short}"], fwd_keys) for short in moe_paths},
             "stub_frontend_shapes": {key: pick(stub_shapes[key], fwd_keys) for key in stub_shape_keys["flash_decode"]},
             "sharded_decode_yardstick": {  # phase 5k: the whole cache beside its 2-rank sequence-sharded decode
@@ -4631,7 +4994,7 @@ def main() -> int:
                                  **stub_launches("flash_attention", ("train whisper", "generate whisper",
                                                                      "federated whisper", "train internvl",
                                                                      "generate internvl")),
-                                 **cli_launches("flash_attention")},
+                                 **cli_launches("flash_attention"), **meta_launches("flash_attention")},
             "train_cli_shape": pick(cli_shape["attention"], fwd_keys),
             "moe_shapes": {short: pick(moe_shapes[f"attention_{short}"], fwd_keys) for short in moe_paths},
             "whisper_shapes": {key: pick(stub_shapes[key], fwd_keys) for key in stub_shape_keys["flash_attention"]},
@@ -4661,7 +5024,7 @@ def main() -> int:
                                  "5i_federated_granite": moe_runs["federated"]["flash_attention_bwd"],
                                  **stub_launches("flash_attention_bwd", ("train whisper", "federated whisper",
                                                                          "train internvl")),
-                                 **cli_launches("flash_attention_bwd")},
+                                 **cli_launches("flash_attention_bwd"), **meta_launches("flash_attention_bwd")},
             "train_cli_shape": pick(cli_shape["attention"], ("shape",), **bwd_renamed),
             "whisper_shapes": {key: pick(stub_shapes[key], ("shape",), **bwd_renamed)
                                for key in stub_shape_keys["flash_attention"]},
@@ -4697,7 +5060,7 @@ def main() -> int:
                                  "5i_federated_granite": moe_runs["federated"]["lora_matmul"],
                                  **stub_launches("lora_matmul", ("train whisper", "federated whisper",
                                                                  "train internvl")),
-                                 **cli_launches("lora_matmul")},
+                                 **cli_launches("lora_matmul"), **meta_launches("lora_matmul")},
             "train_cli_grouped_shapes": {name: pick(cli_shape[name], proj_keys + ("route", "ungrouped_launches_ms"))
                                          for name in ("grouped q", "grouped v")},
             "stub_frontend_shapes": {name: pick(stub_shapes[f"lora {name}"],
@@ -4741,7 +5104,7 @@ def main() -> int:
             **{key: wkv[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "device_only_ms": wkv["kernel_ms"], "shape": "forward, " + wkv["shape"],
             "launches_by_path": {"local_round_rwkv6": rwkv_launches["wkv6"], "5h_serve_rwkv6": served["rwkv6-3b"]["wkv6"],
-                                 **cli_launches("wkv6")},
+                                 **cli_launches("wkv6"), **meta_launches("wkv6")},
             "decode_step_shape": {name.split()[-1]: pick(case, fwd_keys) for name, case in scans_h0.items()
                                   if name.startswith("wkv6")},
         },
@@ -4753,7 +5116,8 @@ def main() -> int:
             "max_abs_err": wkv["bwd_max_abs_err"], "ms": wkv["bwd_ms"], "plain_ms": wkv["plain_bwd_ms"],
             "bound_ms": wkv["bwd_bound_ms"], "bound_by": wkv["bwd_bound_by"], "library_ms": wkv["library_bwd_ms"],
             "device_only_ms": wkv["bwd_kernel_ms"], "kernels_ms": wkv["bwd_kernels_ms"],
-            "launches_by_path": {"local_round_rwkv6": rwkv_launches["wkv6_bwd"], **cli_launches("wkv6_bwd")},
+            "launches_by_path": {"local_round_rwkv6": rwkv_launches["wkv6_bwd"], **cli_launches("wkv6_bwd"),
+                                 **meta_launches("wkv6_bwd")},
             "shape": "backward (dr, dk, dv, dlogw, du), " + wkv["shape"],
         },
         {
@@ -4766,7 +5130,7 @@ def main() -> int:
             "bound_terms_ms": msc["bound_terms_ms"], "shape": "forward, " + msc["shape"],
             "launches_by_path": {"local_round_jamba": jamba_launches["mamba_scan"],
                                  "5h_serve_jamba": served["jamba-v0.1-52b"]["mamba_scan"],
-                                 **cli_launches("mamba_scan")},
+                                 **cli_launches("mamba_scan"), **meta_launches("mamba_scan")},
             "h0_shapes": {name.replace("mamba_scan ", ""): pick(case, fwd_keys) for name, case in scans_h0.items()
                           if name.startswith("mamba_scan")},
         },
@@ -4780,7 +5144,7 @@ def main() -> int:
             "device_only_ms": msc["bwd_kernel_ms"], "kernels_ms": msc["bwd_kernels_ms"],
             "scratch_bytes": msc["bwd_scratch_bytes"], "bound_terms_ms": msc["bwd_bound_terms_ms"],
             "launches_by_path": {"local_round_jamba": jamba_launches["mamba_scan_bwd"],
-                                 **cli_launches("mamba_scan_bwd")},
+                                 **cli_launches("mamba_scan_bwd"), **meta_launches("mamba_scan_bwd")},
             "shape": "backward (d_dt, dx, dB, dC, dA, dD), " + msc["shape"],
         },
     ]

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 
@@ -182,6 +182,24 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class InputShape:
+    """One of the four assigned workload shapes."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+
+@dataclass(frozen=True)
 class PEFTConfig:
     """Parameter-efficient fine-tuning configuration (paper §2.2)."""
 
@@ -247,3 +265,14 @@ class TrainConfig:
     warmup_steps: int = 20
     schedule: str = "cosine"  # cosine | linear | constant
     total_steps: int = 1000
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """Top-level bundle handed to launchers."""
+
+    model: ModelConfig
+    peft: PEFTConfig = field(default_factory=PEFTConfig)
+    stld: STLDConfig = field(default_factory=STLDConfig)
+    federated: FederatedConfig = field(default_factory=FederatedConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)

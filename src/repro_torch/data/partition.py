@@ -37,7 +37,7 @@ def dirichlet_partition(
             props = rng.dirichlet(np.full(num_devices, alpha))
             cuts = (np.cumsum(props) * len(idx)).astype(int)[:-1]
             for dev, part in enumerate(np.split(idx, cuts)):
-                device_idx[dev].extend(part.tolist())
+                device_idx[dev].extend(part.tolist())  # repro-lint: disable=TXH002 — a numpy array, on the host
         if min(len(d) for d in device_idx) >= min_per_device:
             break
     out = []

@@ -200,6 +200,7 @@ def serialize_compressed(tree, config="int8+topk") -> list:
     cfg = resolve_compression(config) or CompressionConfig(kind="none")
     buffers = []
     for x in sorted_leaves(tree):
+        # repro-lint: disable=TXH002 — the host's wire buffers are what this builds: one read a leaf
         arr = x.detach().float().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
         flat = np.asarray(arr, dtype=np.float32).reshape(-1)
         n = flat.size

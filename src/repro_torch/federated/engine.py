@@ -219,6 +219,7 @@ class CohortEngine:
             for start in range(0, len(devs), chunk):
                 part = devs[start:start + chunk]
                 peft_stack = stack_trees([device_peft.get(dev, global_peft) for dev in part])
+                # repro-lint: disable=TXH002 — one read of a chunk's accuracies
                 accs += self.client.cohort_evaluate(self.base_params, peft_stack, *self._val_stack(part),
                                                     num_classes).tolist()
             return float(np.mean(accs))

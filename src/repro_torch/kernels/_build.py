@@ -6,6 +6,13 @@ checkout.  The file name carries a hash of the sources and the flags, so an
 edited source builds anew and an unchanged one loads what is there.  All
 missing libraries build in parallel, one ``nvcc`` each.  Nothing here runs
 at import time: this module imports on machines without a CUDA toolkit.
+
+Every one-time set-up the kernels need at first use is reported to
+``setup_listeners`` as ``(kind, what)``: ``"build"`` and ``"load"`` here
+for a library compiled or loaded, ``"entry"`` and ``"plan"`` from
+``ops`` for an entry point's first lookup and a launch-plan cache's miss.
+``repro_torch.analysis.recompile_guard`` counts them: a steady-state run
+does none.
 """
 from __future__ import annotations
 
@@ -16,7 +23,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable, List
 
 KERNELS = (
     "segmented_lora", "flash_decode", "flash_attention", "flash_attention_bwd", "lora_matmul", "wkv6", "wkv6_bwd",
@@ -35,6 +42,13 @@ NVCC_FLAGS = (
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+setup_listeners: List[Callable[[str, str], None]] = []
+
+
+def fire_setup(kind: str, what: str):
+    """Tell every listener of a one-time set-up (see the module docstring)."""
+    for listener in list(setup_listeners):
+        listener(kind, what)
 
 
 def nvcc_path() -> str:
@@ -102,6 +116,8 @@ def load(name: str) -> ctypes.CDLL:
         path = library_path(name)
         if not path.exists():
             build([name])
+            fire_setup("build", name)
         lib = ctypes.CDLL(str(path))
         _loaded[name] = lib
+        fire_setup("load", name)
     return lib

@@ -384,12 +384,10 @@ int launch(const void* q, const void* k, const void* v, const int* qpos, const i
 
 }  // namespace
 
-// The splits of a cache of S slots on the current card: the wrapper sizes
-// the partials' scratch, (B, H, splits, D + 2) float32, with it.
-extern "C" int flash_decode_splits(int S) { return S > 0 ? splits_for(S) : -1; }
-
 // Returns 0 on a good launch, the cudaError_t of a refused launch, or -1 for
-// arguments the kernel does not take (splits must be flash_decode_splits(S)).
+// arguments the kernel does not take (splits must be splits_for(S), which
+// ops.flash_decode_splits_for mirrors: the wrapper sizes the partials'
+// scratch, (B, H, splits, D + 2) float32, with it).
 // Shapes, dtypes and devices are checked by the Python wrapper
 // (repro_torch/kernels/ops.py) before this.
 extern "C" int flash_decode_launch(int q_dtype, int cache_dtype, const void* q, const void* k,

@@ -285,7 +285,7 @@ template <typename T>
 int launch(const void* x, const void* w, const void* a, const void* b, const int* idx, const int* ranks, float* t,
            float* part, int* tickets, void* y, int M, int K, int N, int R, int splits, cudaStream_t stream) {
   const Plan p = make_plan(sizeof(T), K, N, sm_count());
-  if (p.splits != splits) return -1;  // the caller sized part by segmented_lora_splits
+  if (p.splits != splits) return -1;  // the caller sized part by its own plan (ops.segmented_lora_plan)
   const int vec_a = R % RT == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0;
   const int vec_w = N % (16 / sizeof(T)) == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
   segmented_bottleneck_kernel<T><<<M, THREADS, 0, stream>>>(static_cast<const T*>(x), static_cast<const T*>(a), idx,
@@ -307,19 +307,6 @@ int elt_size(int dtype) { return dtype == kFloat32 ? 4 : dtype == kBFloat16 ? 2 
 
 }  // namespace
 
-// The K-splits of a call with these (dtype, K, N) on the current device
-// (the first dimension of part), or -1 for arguments not taken.
-extern "C" int segmented_lora_splits(int dtype, int K, int N) {
-  if (!elt_size(dtype) || K <= 0 || N <= 0) return -1;
-  return make_plan(elt_size(dtype), K, N, sm_count()).splits;
-}
-
-// Column tiles of a call (the length of tickets).
-extern "C" int segmented_lora_tiles(int dtype, int N) {
-  if (!elt_size(dtype) || N <= 0) return -1;
-  return (N + UNITS * 16 / elt_size(dtype) - 1) / (UNITS * 16 / elt_size(dtype));
-}
-
 // Dynamic shared memory of the stream kernel at (dtype, K, N), for reports.
 extern "C" int segmented_lora_smem_bytes(int dtype, int K, int N) {
   if (!elt_size(dtype) || K <= 0 || N <= 0) return -1;
@@ -329,8 +316,9 @@ extern "C" int segmented_lora_smem_bytes(int dtype, int K, int N) {
 
 // Returns 0 on a good launch, the cudaError_t of a refused launch, or -1 for
 // arguments the kernel does not take.  Scratch from the caller: t (M, R)
-// float32; part (splits, M, N) float32, splits = segmented_lora_splits;
-// tickets (segmented_lora_tiles,) int32, zero before the first call on a
+// float32; part (splits, M, N) float32, splits = make_plan's (mirrored by
+// ops.segmented_lora_plan, a launch with other splits is refused); tickets
+// (make_plan's tiles or more,) int32, zero before the first call on a
 // stream and left zero by each call.  Shapes, dtypes and devices are
 // checked by the Python wrapper (repro_torch/kernels/ops.py) before this.
 extern "C" int segmented_lora_launch(int dtype, const void* x, const void* w, const void* a, const void* b,

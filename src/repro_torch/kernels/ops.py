@@ -1,18 +1,28 @@
 """Dispatch to the port's CUDA kernels, or to their plain twins on the CPU.
 
-Each wrapper chooses by the device of the tensors it is given: a CPU tensor
-runs the plain twin in ``ref``; a CUDA tensor launches the hand-written
-kernel, or raises.  A kernel that fails to build or launch is an error,
-never a silent fall back to the twin.  ``wkv6`` and ``mamba_scan`` run
-their CPU path inside their ``autograd.Function``: forward ``wkv6_plain``
-and ``mamba_scan_plain``, backward ``wkv6_bwd_plain`` and
-``mamba_scan_bwd_plain``, so the CPU tests hold the backward twins too.
+Each wrapper chooses by the device of the tensors it is given (``_on_cpu``):
+a CPU tensor runs the plain twin in ``ref``; a CUDA tensor launches the
+hand-written kernel, or raises; a ``meta`` tensor (the dry run,
+``repro_torch.launch.dryrun``) runs the CUDA path's argument checks and
+allocations (outputs and scratch, shapes and dtypes only) and counts the
+launch without one; any other device raises ``no kernel for device``.  A
+kernel that fails to build or launch is an error, never a silent fall back
+to the twin.  ``wkv6`` and ``mamba_scan`` run their CPU path inside their
+``autograd.Function``: forward ``wkv6_plain`` and ``mamba_scan_plain``,
+backward ``wkv6_bwd_plain`` and ``mamba_scan_bwd_plain``, so the CPU tests
+hold the backward twins too.
 
-``launch_counts`` counts the kernel launches of each wrapper (the CPU twin
-is not counted), so a run can show that its main path went through the
-kernels: ``reset_launch_counts()`` before it, read the counts after.
-``lora_matmul_routes`` counts ``lora_matmul``'s launches by route; a
-grouped ``lora_matmul`` (one adapter per group of rows) is one launch.
+``launch_counts`` counts the kernel launches of each wrapper on the card
+and nothing else (neither the CPU twin nor a ``meta`` call), so a run can
+show that its main path went through the kernels: ``reset_launch_counts()``
+before it, read the counts after.  ``lora_matmul_routes`` counts
+``lora_matmul``'s launches on the card by route; a grouped ``lora_matmul``
+(one adapter per group of rows) is one launch.  ``meta_calls`` counts the
+``meta`` calls that stand for a launch, and ``kernel_work`` sums, per
+kernel, their FLOPs and bytes: each call's products in full (masked
+products included, as XLA's ``cost_analysis`` counts the reference's
+attention) and its inputs read once and outputs written once; each
+launcher's docstring says what its count includes.
 """
 from __future__ import annotations
 
@@ -39,9 +49,20 @@ MAMBA_BWD_CHUNK = 8
 MAMBA_LANE_STATES = 4
 MAMBA_LANE_CHANNELS = 2
 
+# csrc/segmented_lora.cu make_plan: threads a block, 16-byte units of a
+# block's slice of a row of W, cp.async stages, the largest K-slab, blocks
+# an SM; csrc/flash_decode.cu SLAB: the cache slots a block aims for.  The
+# launch plans below are made from these on every device; each kernel
+# recomputes its plan and refuses a launch whose splits differ.
+SEGMENTED_THREADS, SEGMENTED_UNITS, SEGMENTED_STAGES, SEGMENTED_MAX_SLAB, SEGMENTED_BLOCKS_PER_SM = 256, 8, 4, 512, 2
+DECODE_SLAB = 64
+META_SM_COUNT = 132  # an H100 SXM's SMs: the launch plans of a meta call
+
 launch_counts: Dict[str, int] = {name: 0 for name in _build.KERNELS}
 LORA_ROUTES = ("fma", "wmma", "wgmma")  # csrc/lora_matmul.cu LoraRoute
 lora_matmul_routes: Dict[str, int] = {route: 0 for route in LORA_ROUTES}
+meta_calls: Dict[str, int] = {name: 0 for name in _build.KERNELS}
+kernel_work: Dict[str, Dict[str, float]] = {name: {"flops": 0.0, "bytes": 0.0} for name in _build.KERNELS}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -83,9 +104,13 @@ _entry_points: Dict[str, ctypes._CFuncPtr] = {}
 
 
 def reset_launch_counts():
-    for counts in (launch_counts, lora_matmul_routes):
+    """Zero ``launch_counts``, ``lora_matmul_routes``, ``meta_calls`` and
+    ``kernel_work``."""
+    for counts in (launch_counts, lora_matmul_routes, meta_calls):
         for name in counts:
             counts[name] = 0
+    for work in kernel_work.values():
+        work["flops"] = work["bytes"] = 0.0
 
 
 def _entry(name: str):
@@ -96,19 +121,46 @@ def _entry(name: str):
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _entry_points[name] = fn
+        _build.fire_setup("entry", name)
     return fn
 
 
+def _plan(cache: dict, key, make, what: str):
+    """``cache[key]``, made by ``make()`` on a miss, which is reported to
+    the set-up listeners as a ``"plan"`` (``_build.fire_setup``)."""
+    if key not in cache:
+        cache[key] = make()
+        _build.fire_setup("plan", f"{what} {key}")
+    return cache[key]
+
+
 def _on_cpu(*tensors) -> bool:
+    """True for CPU tensors (the plain twin), False for CUDA or ``meta``
+    tensors (the kernel's path); raises for tensors on several devices or
+    on any other device."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"all tensors must lie on one device, got {sorted(map(str, devices))}")
     device = devices.pop()
     if device.type == "cpu":
         return True
-    if device.type != "cuda":
+    if device.type not in ("cuda", "meta"):
         raise ValueError(f"no kernel for device {device}")
     return False
+
+
+def _launch(name: str, device, launch, flops: float, *tensors):
+    """Launch kernel ``name``: ``launch()`` calls its entry point and returns
+    the error code.  On the ``meta`` device nothing is called: the call is
+    counted in ``meta_calls``, with ``flops`` and the bytes of ``tensors``
+    (its inputs and outputs; None skipped) added to ``kernel_work``."""
+    if device.type == "meta":
+        work = kernel_work[name]
+        work["flops"] += flops
+        work["bytes"] += sum(t.numel() * t.element_size() for t in tensors if t is not None)
+        meta_calls[name] += 1
+        return
+    _check_launch(name, launch())
 
 
 def _require(cond: bool, msg: str):
@@ -128,7 +180,8 @@ def segmented_lora(x, w, a, b, idx, ranks):
     x: (M, K); w: (K, N); a: (NA, K, r_max); b: (NA, r_max, N) with the
     alpha/rank scale folded in; idx: (M,) int32 slots in ``[0, NA)`` (the
     adapter pool hands out only such slots); ranks: (NA,) int32.
-    Returns (M, N) in ``x.dtype``.
+    Returns (M, N) in ``x.dtype``.  Work: 2·M·(K·N + K·r_max + r_max·N)
+    FLOPs (every row at the pool's rank).
     """
     if _on_cpu(x, w, a, b, idx, ranks):
         return ref.segmented_lora_plain(x, w, a, b, idx, ranks)
@@ -156,17 +209,21 @@ def segmented_lora(x, w, a, b, idx, ranks):
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0:
         return y
-    code, stream = _DTYPE_CODE[x.dtype], torch.cuda.current_stream(x.device).cuda_stream
+    code = _DTYPE_CODE[x.dtype]
     splits, tiles = _segmented_plan(code, k, n, x.device)
     # scratch, freed on return: the K-slabs' partial sums (splits, M, N), then
     # the rounded bottleneck t (M, r), float32
     scratch = torch.empty(splits * m * n + m * r, dtype=torch.float32, device=x.device)
-    err = _entry("segmented_lora")(
-        code, x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(), idx.data_ptr(), ranks.data_ptr(),
-        scratch.data_ptr() + 4 * splits * m * n, scratch.data_ptr(), _tickets(x.device, stream, tiles).data_ptr(),
-        y.data_ptr(), m, k, n, r, splits, stream,
-    )
-    _check_launch("segmented_lora", err)
+
+    def launch():
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        return _entry("segmented_lora")(
+            code, x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(), idx.data_ptr(), ranks.data_ptr(),
+            scratch.data_ptr() + 4 * splits * m * n, scratch.data_ptr(), _tickets(x.device, stream, tiles).data_ptr(),
+            y.data_ptr(), m, k, n, r, splits, stream,
+        )
+
+    _launch("segmented_lora", x.device, launch, 2 * m * (k * n + k * r + r * n), x, w, a, b, idx, ranks, y)
     return y
 
 
@@ -174,19 +231,30 @@ _segmented_plans: Dict[tuple, tuple] = {}
 _segmented_tickets: Dict[tuple, torch.Tensor] = {}
 
 
+def segmented_lora_plan(elt: int, k: int, n: int, sms: int) -> tuple:
+    """(K-splits, column tiles) of a ``segmented_lora`` call at element size
+    ``elt``, K, N on a card of ``sms`` SMs: ``csrc/segmented_lora.cu``'s
+    ``make_plan``."""
+    tn = SEGMENTED_UNITS * 16 // elt
+    tiles = -(-n // tn)
+    want = max(1, -(-SEGMENTED_BLOCKS_PER_SM * sms // tiles))
+    step = SEGMENTED_THREADS // SEGMENTED_UNITS * SEGMENTED_STAGES
+    slab = min(SEGMENTED_MAX_SLAB, -(-(-(-k // want)) // step) * step)
+    return -(-k // slab), tiles
+
+
+def _sm_count(device) -> int:
+    """The SMs of ``device``'s card; ``META_SM_COUNT`` on the ``meta`` device."""
+    return META_SM_COUNT if device.type == "meta" else torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _segmented_plan(code: int, k: int, n: int, device):
     """(K-splits, column tiles) of a ``segmented_lora`` call on ``device``:
-    from the dtype, K, N and the card's SM count alone (``csrc/segmented_lora.cu``)."""
-    key = (device.index, code, k, n)
-    if key not in _segmented_plans:
-        lib = _build.load("segmented_lora")
-        for fn in (lib.segmented_lora_splits, lib.segmented_lora_tiles):
-            fn.restype = ctypes.c_int
-        lib.segmented_lora_splits.argtypes, lib.segmented_lora_tiles.argtypes = [_I] * 3, [_I] * 2
-        with torch.cuda.device(device):
-            _segmented_plans[key] = (lib.segmented_lora_splits(code, k, n), lib.segmented_lora_tiles(code, n))
-        _require(min(_segmented_plans[key]) > 0, f"segmented_lora takes no K={k}, N={n}")
-    return _segmented_plans[key]
+    ``segmented_lora_plan`` from the dtype, K, N and the card's SM count."""
+    _require(k > 0 and n > 0, f"segmented_lora takes no K={k}, N={n}")
+    elt = 4 if code == _DTYPE_CODE[torch.float32] else 2
+    return _plan(_segmented_plans, (str(device), code, k, n),
+                 lambda: segmented_lora_plan(elt, k, n, _sm_count(device)), "segmented_lora")
 
 
 def _tickets(device, stream: int, tiles: int) -> torch.Tensor:
@@ -196,23 +264,24 @@ def _tickets(device, stream: int, tiles: int) -> torch.Tensor:
     t = _segmented_tickets.get(key)
     if t is None or t.numel() < tiles:
         t = _segmented_tickets[key] = torch.zeros(max(tiles, 256), dtype=torch.int32, device=device)
+        _build.fire_setup("plan", f"segmented_lora tickets {key}")
     return t
 
 
 _splits: Dict[tuple, int] = {}
 
 
+def flash_decode_splits_for(s: int, sms: int) -> int:
+    """How many blocks share a row's cache of ``s`` slots on a card of
+    ``sms`` SMs: ``csrc/flash_decode.cu``'s ``splits_for``."""
+    return max(1, min(-(-s // DECODE_SLAB), sms))
+
+
 def _decode_splits(s: int, device) -> int:
     """How many blocks share a row's cache of ``s`` slots on ``device``:
-    from ``s`` and the card's SM count alone (``csrc/flash_decode.cu``)."""
-    key = (device.index, s)
-    if key not in _splits:
-        fn = _build.load("flash_decode").flash_decode_splits
-        fn.argtypes, fn.restype = [_I], ctypes.c_int
-        with torch.cuda.device(device):
-            _splits[key] = fn(s)
-        _require(_splits[key] > 0, f"flash_decode takes no cache of {s} slots")
-    return _splits[key]
+    ``flash_decode_splits_for`` from ``s`` and the card's SM count."""
+    _require(s > 0, f"flash_decode takes no cache of {s} slots")
+    return _plan(_splits, (str(device), s), lambda: flash_decode_splits_for(s, _sm_count(device)), "flash_decode")
 
 
 def flash_decode(q, k_cache, v_cache, q_positions, k_positions, *, window: Optional[int] = None):
@@ -221,7 +290,8 @@ def flash_decode(q, k_cache, v_cache, q_positions, k_positions, *, window: Optio
     q: (B, H, D); k_cache, v_cache: (B, S, KV, D); q_positions: (B,) int32;
     k_positions: (B, S) int32 absolute slot positions (INT32_MAX = never
     written).  Slot j of row b is live iff ``kpos <= qpos`` (and
-    ``kpos > qpos - window``).  Returns (B, H, D) in ``q.dtype``.
+    ``kpos > qpos - window``).  Returns (B, H, D) in ``q.dtype``.  Work:
+    4·B·H·S·D FLOPs (every slot, dead ones included).
     """
     if _on_cpu(q, k_cache, v_cache, q_positions, k_positions):
         return ref.decode_attention_plain(
@@ -254,13 +324,12 @@ def flash_decode(q, k_cache, v_cache, q_positions, k_positions, *, window: Optio
     splits = _decode_splits(s, q.device)
     # scratch, freed on return: each split's (m, l, acc[D]) per query
     part = torch.empty((bsz, h, splits, d + 2), dtype=torch.float32, device=q.device)
-    err = _entry("flash_decode")(
+    _launch("flash_decode", q.device, lambda: _entry("flash_decode")(
         _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_cache.dtype], q.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), q_positions.data_ptr(), k_positions.data_ptr(), out.data_ptr(), part.data_ptr(),
         bsz, h, kv, d, s, window or 0, d**-0.5, splits,
         torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _check_launch("flash_decode", err)
+    ), 4 * bsz * h * s * d, q, k_cache, v_cache, q_positions, k_positions, out)
     return out
 
 
@@ -295,30 +364,32 @@ def _check_attention(q, k, v, window):
 
 
 def _flash_attention_fwd(q, k, v, causal: bool, window: Optional[int]):
+    """Work: 4·B·H·S·S_kv·D FLOPs (QKᵀ and PV in full, the masked products
+    included)."""
     bsz, s, h, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((bsz, h, s), dtype=torch.float32, device=q.device)
-    err = _entry("flash_attention")(
+    _launch("flash_attention", q.device, lambda: _entry("flash_attention")(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
         bsz, s, k.shape[1], h, k.shape[2], d, int(causal), window or 0, d**-0.5, _stream(q),
-    )
-    _check_launch("flash_attention", err)
+    ), 4 * bsz * h * s * k.shape[1] * d, q, k, v, out, lse)
     return out, lse
 
 
 def _flash_attention_bwd(q, k, v, out, lse, dout, causal: bool, window: Optional[int], dkv: bool = True):
     """dQ, and with ``dkv`` dK and dV (else None, None: the dK/dV kernel is
-    not launched)."""
+    not launched).  Work: the gradient's products in full, dP = dO Vᵀ and
+    dQ = dS K, with ``dkv`` also dV = Pᵀ dO and dK = dSᵀ Q: 4 or 8
+    ·B·H·S·S_kv·D FLOPs (the kernel's recompute of QKᵀ not counted)."""
     bsz, s, h, d = q.shape
     dq = torch.empty_like(q)
     dk, dv = (torch.empty_like(k), torch.empty_like(v)) if dkv else (None, None)
     delta = torch.empty((bsz, h, s), dtype=torch.float32, device=q.device)  # rowsum(dO * O)
-    err = _entry("flash_attention_bwd")(
+    _launch("flash_attention_bwd", q.device, lambda: _entry("flash_attention_bwd")(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), _ptr(dk), _ptr(dv),
         bsz, s, k.shape[1], h, k.shape[2], d, int(causal), window or 0, d**-0.5, int(dkv), _stream(q),
-    )
-    _check_launch("flash_attention_bwd", err)
+    ), (8 if dkv else 4) * bsz * h * s * k.shape[1] * d, q, k, v, out, lse, dout, dq, dk, dv)
     return dq, dk, dv
 
 
@@ -402,7 +473,8 @@ def _lora_matmul_launch(x, w, a, b, alpha: float, route: Optional[str] = None):
     or grouped (G, K, r), b (r, N) or (G, r, N) may be strided views (the
     backward passes transposes).  ``route`` None takes
     ``lora_matmul_route``'s; a route given by name (for measurements)
-    raises if it cannot take the operands.  Returns (M, N) in ``x.dtype``."""
+    raises if it cannot take the operands.  Returns (M, N) in ``x.dtype``.
+    Work: 2·M·(K·N + K·r + r·N) FLOPs, grouped or not."""
     m, k = x.shape
     n, r = w.shape[1], a.shape[-1]
     groups, sag, sbg = (a.shape[0], a.stride(0), b.stride(0)) if a.ndim == 3 else (1, 0, 0)
@@ -412,13 +484,13 @@ def _lora_matmul_launch(x, w, a, b, alpha: float, route: Optional[str] = None):
         return y
     # the bf16 routes' scratch, freed on return: t = T(x @ A_g), (M, r rounded up to 8)
     t = torch.empty((m, -(-r // 8) * 8) if route != "fma" else (0,), dtype=x.dtype, device=x.device)
-    err = _entry("lora_matmul")(
+    _launch("lora_matmul", x.device, lambda: _entry("lora_matmul")(
         _DTYPE_CODE[x.dtype], LORA_ROUTES.index(route), x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
         y.data_ptr(), t.data_ptr(), m, k, n, r, groups, w.stride(0), w.stride(1), a.stride(-2), a.stride(-1), sag,
         b.stride(-2), b.stride(-1), sbg, alpha, _stream(x),
-    )
-    _check_launch("lora_matmul", err)
-    lora_matmul_routes[route] += 1
+    ), 2 * m * (k * n + k * r + r * n), x, w, a, b, y)
+    if x.device.type != "meta":
+        lora_matmul_routes[route] += 1
     return y
 
 
@@ -487,16 +559,17 @@ def _ptr(t) -> Optional[int]:
 
 
 def _wkv6_fwd(r, k, v, logw, u, s0):
+    """Work: 6·B·S·H·K² FLOPs, a token and head's rank-1 update k vᵀ, decay
+    w ⊙ S and sum (3·K²) and readout rᵀ(S + u ⊙ k vᵀ) (3·K²)."""
     r, k, v, logw = (_aligned16(t) for t in (r, k, v, logw))
     s0 = None if s0 is None else _aligned16(s0)
     bsz, s, h, kd = r.shape
     out = torch.empty(r.shape, dtype=torch.float32, device=r.device)
     state = torch.empty((bsz, h, kd, kd), dtype=torch.float32, device=r.device)
-    err = _entry("wkv6")(
+    _launch("wkv6", r.device, lambda: _entry("wkv6")(
         _DTYPE_CODE[r.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(), _ptr(s0),
         out.data_ptr(), state.data_ptr(), bsz, s, h, kd, _stream(r),
-    )
-    _check_launch("wkv6", err)
+    ), 6 * bsz * s * h * kd * kd, r, k, v, logw, u, s0, out, state)
     return out, state
 
 
@@ -507,6 +580,9 @@ def _aligned16(t):
 
 
 def _wkv6_bwd(r, k, v, logw, u, s0, dout, dstate):
+    """Work: 12·B·S·H·K² FLOPs, twice the forward's (each product's
+    gradient is two products of its size; the states' recompute not
+    counted)."""
     r, k, v, logw, dout = (_aligned16(t) for t in (r, k, v, logw, dout))
     bsz, s, h, kd = r.shape
     dr, dk, dv = (torch.empty_like(t) for t in (r, k, v))
@@ -518,12 +594,11 @@ def _wkv6_bwd(r, k, v, logw, u, s0, dout, dstate):
     # to work queued after these kernels on this stream
     states = torch.empty((bsz * h, n_chunks, kd, kd), dtype=torch.float32, device=r.device)
     du_part = torch.empty((bsz, h, kd), dtype=torch.float32, device=r.device)
-    err = _entry("wkv6_bwd")(
+    _launch("wkv6_bwd", r.device, lambda: _entry("wkv6_bwd")(
         _DTYPE_CODE[r.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(), _ptr(s0),
         dout.data_ptr(), _ptr(dstate), dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dlogw.data_ptr(),
         du.data_ptr(), _ptr(ds0), states.data_ptr(), du_part.data_ptr(), bsz, s, h, kd, _stream(r),
-    )
-    _check_launch("wkv6_bwd", err)
+    ), 12 * bsz * s * h * kd * kd, r, k, v, logw, u, s0, dout, dstate, dr, dk, dv, dlogw, du, ds0)
     return dr, dk, dv, dlogw, du, ds0
 
 
@@ -536,7 +611,7 @@ class _WKV6(torch.autograd.Function):
     def forward(ctx, r, k, v, logw, u, s0):
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(r, k, v, logw, u, s0)
-        if r.device.type == "cpu":
+        if _on_cpu(r, k, v, logw, u):
             return ref.wkv6_plain(r, k, v, logw, u, s0)
         return _wkv6_fwd(r, k, v, logw, u, s0)
 
@@ -547,7 +622,7 @@ class _WKV6(torch.autograd.Function):
             dout = torch.zeros(r.shape, dtype=torch.float32, device=r.device)
         dout = dout.float().contiguous()
         dstate = None if dstate is None else dstate.float().contiguous()
-        if r.device.type == "cpu":
+        if _on_cpu(r, k, v, logw, u, dout):
             grads = ref.wkv6_bwd_plain(r, k, v, logw, u, s0, dout, dstate)
         else:
             grads = _wkv6_bwd(r, k, v, logw, u, s0, dout, dstate)
@@ -583,16 +658,17 @@ def wkv6(r, k, v, logw, u, s0=None):
 
 
 def _mamba_fwd(dt, x, bmat, cmat, a, dvec, h0=None):
+    """Work: 7·B·S·D·N + 3·B·S·D FLOPs: a state's decay exp(dt·A) (2),
+    update a·h + (dt·x)·B (3) and readout C·h (2), a channel's dt·x and
+    D·x skip (3)."""
     bsz, s, d = x.shape
     n = a.shape[1]
     y = torch.empty_like(x)
     state = torch.empty((bsz, d, n), dtype=torch.float32, device=x.device)
-    err = _entry("mamba_scan")(
+    _launch("mamba_scan", x.device, lambda: _entry("mamba_scan")(
         _DTYPE_CODE[x.dtype], dt.data_ptr(), x.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), a.data_ptr(),
-        dvec.data_ptr(), None if h0 is None else h0.data_ptr(), y.data_ptr(), state.data_ptr(), bsz, s, d, n,
-        _stream(x),
-    )
-    _check_launch("mamba_scan", err)
+        dvec.data_ptr(), _ptr(h0), y.data_ptr(), state.data_ptr(), bsz, s, d, n, _stream(x),
+    ), 7 * bsz * s * d * n + 3 * bsz * s * d, dt, x, bmat, cmat, a, dvec, h0, y, state)
     return y, state
 
 
@@ -612,6 +688,8 @@ def mamba_bwd_scratch_shapes(bsz, s, d, n):
 
 
 def _mamba_bwd(dt, x, bmat, cmat, a, dvec, dy):
+    """Work: twice the forward's FLOPs (the states' recompute not
+    counted)."""
     bsz, s, d = x.shape
     n = a.shape[1]
     d_dt, dx = torch.empty_like(dt), torch.empty_like(x)
@@ -621,13 +699,12 @@ def _mamba_bwd(dt, x, bmat, cmat, a, dvec, dy):
     # only to work queued after these kernels on this stream
     scratch = {name: torch.empty(shape, dtype=torch.float32, device=x.device)
                for name, shape in mamba_bwd_scratch_shapes(bsz, s, d, n).items()}
-    err = _entry("mamba_scan_bwd")(
+    _launch("mamba_scan_bwd", x.device, lambda: _entry("mamba_scan_bwd")(
         _DTYPE_CODE[x.dtype], dt.data_ptr(), x.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), a.data_ptr(),
         dvec.data_ptr(), dy.data_ptr(), d_dt.data_ptr(), dx.data_ptr(), db.data_ptr(), dc.data_ptr(), da.data_ptr(),
         dd.data_ptr(), *(scratch[name].data_ptr() for name in ("states", "bc_part", "da_part", "dd_part")),
         bsz, s, d, n, _stream(x),
-    )
-    _check_launch("mamba_scan_bwd", err)
+    ), 14 * bsz * s * d * n + 6 * bsz * s * d, dt, x, bmat, cmat, a, dvec, dy, d_dt, dx, db, dc, da, dd)
     return d_dt, dx, db, dc, da, dd
 
 
@@ -643,7 +720,7 @@ class _MambaScan(torch.autograd.Function):
     def forward(ctx, dt, x, bmat, cmat, a, dvec, h0):
         ctx.save_for_backward(dt, x, bmat, cmat, a, dvec)
         ctx.has_h0 = h0 is not None
-        if x.device.type == "cpu":
+        if _on_cpu(dt, x, bmat, cmat, a, dvec):
             y, state = ref.mamba_scan_plain(dt, x, bmat, cmat, a, dvec, h0)
         else:
             y, state = _mamba_fwd(dt, x, bmat, cmat, a, dvec, h0)
@@ -656,7 +733,7 @@ class _MambaScan(torch.autograd.Function):
             raise NotImplementedError("mamba_scan takes no gradient through an entering state h0")
         dt, x, bmat, cmat, a, dvec = ctx.saved_tensors
         dy = dy.to(x.dtype).contiguous()
-        if x.device.type == "cpu":
+        if _on_cpu(dt, x, bmat, cmat, a, dvec, dy):
             grads = ref.mamba_scan_bwd_plain(dt, x, bmat, cmat, a, dvec, dy)
         else:
             grads = _mamba_bwd(dt, x, bmat, cmat, a, dvec, dy)

@@ -132,6 +132,7 @@ def _serve_multi_adapter(cfg, params, args, device):
     names = batcher.pool.registry.names()
     rng = np.random.default_rng(args.seed)
     for j in range(max(args.batch, len(names))):
+        # repro-lint: disable=TXH002 — a numpy draw, on the host
         batcher.submit(Request(prompt=rng.integers(0, cfg.vocab_size, args.prompt_len).tolist(),
                                adapter=names[j % len(names)], max_new_tokens=args.gen_len, uid=j))
     t0 = time.perf_counter()

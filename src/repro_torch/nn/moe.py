@@ -46,6 +46,8 @@ from repro_torch.nn.mlp import gelu, init_mlp, mlp_apply
 
 _DEFAULT_GROUP = 4096
 _WEIGHT_GATHER_MAX_TOKENS = 8  # repro/nn/moe.py: at or below, decode gathers expert weights
+# calls on the meta device that ran an upper bound of the work (the dry run reads it)
+meta_upper_bounds = {"weight_gather": 0}
 DISPATCH_MODES = ("einsum", "einsum_forced", "gather")
 
 
@@ -272,21 +274,29 @@ def _moe_weight_gather(params, cfg, x):
     token, with that expert's weight views (one host read of the routing a
     layer), and each choice picks its tokens' rows: only the routed
     experts' weights are read, none is copied, and a token's output does not
-    depend on which experts the other tokens chose."""
+    depend on which experts the other tokens chose.
+
+    On the ``meta`` device (the dry run) the routing cannot be read: every
+    expert runs on every token, the upper bound of the work and memory."""
     b, s, d = x.shape
     xt = x.reshape(-1, d)
     logits = (xt @ params["router"]["w"].to(x.dtype)).float()
     probs = torch.softmax(logits, dim=-1)  # (t, E)
     top_p, top_idx = torch.topk(probs, cfg.top_k, dim=-1)  # (t, k), descending
     gates = (top_p / (torch.sum(top_p, dim=-1, keepdim=True) + 1e-9)).to(x.dtype)
-    routed = top_idx.cpu()
-    chosen = torch.unique(routed)  # sorted
+    if x.device.type == "meta":
+        meta_upper_bounds["weight_gather"] += 1
+        experts, which = list(range(cfg.num_experts)), top_idx
+    else:
+        routed = top_idx.cpu()
+        chosen = torch.unique(routed)  # sorted
+        # (t, k): each choice's row of ys
+        experts, which = chosen.tolist(), torch.searchsorted(chosen, routed).to(x.device)
     ys = torch.stack([
         _expert_ffn({name: {key: v[e : e + 1] for key, v in node.items()} for name, node in params["experts"].items()},
                     xt[None])[0]
-        for e in chosen.tolist()
+        for e in experts
     ])  # (U, t, d)
-    which = torch.searchsorted(chosen, routed).to(x.device)  # (t, k): each choice's row of ys
     rows = torch.arange(xt.shape[0], device=x.device)
     out = torch.zeros_like(xt)
     for i in range(cfg.top_k):

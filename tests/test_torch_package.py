@@ -72,8 +72,8 @@ def test_serve_without_device_runs_on_the_card_or_raises():
 
 def test_scan_covers_the_training_modules():
     """The import and source checks above walk every module of the package,
-    the training slices' (qwen3-1.7b, rwkv6-3b, jamba) and the federated
-    slice's included."""
+    the training slices' (qwen3-1.7b, rwkv6-3b, jamba), the federated
+    slice's and the analysis and dry-run slice's included."""
     modules = set(_modules())
     for name in ("core.stld", "core.ptls", "core.schedules", "optim.adamw", "optim.schedules", "models.losses",
                  "data.synthetic", "federated.client", "launch.steps", "kernels.ops", "nn.rwkv", "nn.mamba",
@@ -81,8 +81,20 @@ def test_scan_covers_the_training_modules():
                  "federated.system_model", "federated.server", "federated.state", "federated.engine",
                  "federated.scheduler", "federated.runner", "federated.algorithms", "federated.algorithms.base",
                  "federated.algorithms.droppeft", "federated.algorithms.baselines", "api", "launch.train",
-                 "launch.mesh", "federated.simulator", "sharding.specs", "serving.decode"):
+                 "launch.mesh", "federated.simulator", "sharding.specs", "serving.decode", "analysis",
+                 "analysis.__main__", "analysis.contracts", "analysis.fixtures", "analysis.lint_torch",
+                 "analysis.recompile_guard", "analysis.report", "analysis.trace", "launch.dryrun",
+                 "launch.input_specs"):
         assert f"repro_torch.{name}" in modules, name
+
+
+def test_package_boundary_lint_is_clean():
+    """The port's own lint rule TXH006 (an import of jax, jaxlib or repro)
+    finds nothing in the package, nor in ``chip_smoke.py``."""
+    from repro_torch.analysis import lint_torch
+
+    found = lint_torch.lint_paths((str(PACKAGE), str(ROOT / "chip_smoke.py")), rules=("TXH006",))
+    assert found == [], [v.render() for v in found]
 
 
 def _train_cli(tmp_path):
