@@ -117,7 +117,8 @@ Phases, one line each before the last:
    checkpoint serves the global and two clients' adapters with the tokens
    of ``api.serve`` given the same trees;
 5e. full-width glm4-9b, h2o-danube-1.8b and yi-6b, each served as phase 4
-   (and its smoke model on the card against the CPU twins) and trained
+   (glm4-9b and yi-6b at half their depth, ``DENSE_SERVE_LAYERS``; and its
+   smoke model on the card against the CPU twins) and trained
    for one local round as phase 5, at full depth where the round fits the
    card (else at three quarters of the layers, again, until it fits; the
    cut printed), with the smoke round on the card against the CPU twins;
@@ -247,6 +248,26 @@ Phases, one line each before the last:
    (set-ups within ``DEFAULT_BUDGETS``, the allocator's new segments
    reported); (d) ``python -m repro_torch.analysis`` and ``--self-test``,
    each a process, exit 0;
+5m. ``remat``, per-layer recomputation of the train step (``remat_full``):
+   the four ``examples/torch_*.py``, each a process on the card, exit 0
+   (the quickstart's remat steps equal to its plain ones); full-width
+   qwen3-1.7b at full depth, two ``make_train_step`` steps at 16 x 512 at
+   rates 0.0 and 0.5 with and without ``remat``: the same PEFT tree and
+   metrics bit for bit, each step's launches as ``remat_step_launches``
+   derives them (every forward kernel of an active layer twice under
+   ``remat``), every lora_matmul on wgmma, the remat peak below the plain
+   one at both rates, the remat step on ``meta`` with the card's launches
+   and its peak within 10 %, seconds a step, idle share and peaks;
+   rwkv6-3b, jamba-v0.1-52b (layers 2-5 of its period: attention and two
+   MoE layers) and granite-moe-3b-a800m at full width cut to 4 layers, two
+   steps at rate 0.0 with and without ``remat``: bit identity, launches,
+   and every MoE layer's recomputed routing equal to its forward's bit
+   for bit; internvl2-76b (patches drawn from the seed: ``remat_batches``)
+   at the deepest cut whose ``remat`` step at rate 0.0 ``run_on_meta`` puts
+   under 76 GiB: one step on the card (one layer less at a time where the
+   card runs out: meta sees the allocated bytes, not the allocator's
+   fragmentation), deeper than phase 5j's 9 layers, its launches and peak
+   against meta's;
 6. the ``kernels`` JSON line: launches of each kernel in its own path's
    run (serving: phase 4's run; training: phase 5's round at rate 0.5,
    phase 5b's for wkv6 and wkv6_bwd, phase 5c's for mamba_scan and
@@ -254,7 +275,7 @@ Phases, one line each before the last:
    phase 5f's deadline rounds and gather round, phase 5g's runs, and for
    every kernel of the dense path phase 5e's runs, and phase 5h's serving
    runs for flash_decode, flash_attention, wkv6 and mamba_scan, and phases
-   5i's, 5j's, 5k's and 5l's (b) runs (``launches_by_path``), the other dense
+   5i's, 5j's, 5k's, 5l's (b) and 5m's runs (``launches_by_path``), the other dense
    decoders' shapes, FedHetLoRA's, the scans' from a state, the moe
    family's, the stub-frontend families' and the training CLI's beside.
 
@@ -1756,11 +1777,17 @@ def dense_round_launches(gates) -> dict:
 
 
 DENSE_ARCHS = ("glm4-9b", "h2o-danube-1.8b", "yi-6b")
+# glm4-9b's and yi-6b's serving runs half their depth, widths whole: their
+# decode steps are bound by the host (~3 500 and ~2 700 launches, 92 and 100
+# ms a step at full depth on an H100 beside a slow host), and the script has
+# to stay well inside its time limit; their training runs at full depth
+DENSE_SERVE_LAYERS = {"glm4-9b": 20, "yi-6b": 16}
 
 
 def dense_arch_full(api, ops, card, seed: int, arch: str):
     """Phase 5e for one of the other dense decoders: serving at full width
-    as phase 4 (and the smoke model on the card against the CPU twins),
+    as phase 4, at ``DENSE_SERVE_LAYERS`` where it names the arch (and the
+    smoke model on the card against the CPU twins),
     then one client's local round as phase 5, at full depth unless the
     round does not fit the card: each time it does not, three quarters of
     the layers are kept and the round is run again (the cut is returned
@@ -1768,10 +1795,12 @@ def dense_arch_full(api, ops, card, seed: int, arch: str):
     twins."""
     from repro_torch.configs import get_config
 
-    serve_stats, breakdown, serve_launches = serve_full(api, ops, card, seed, arch)
+    cfg = get_config(arch)
+    serve_cfg = cfg.replace(num_layers=DENSE_SERVE_LAYERS[arch]) if arch in DENSE_SERVE_LAYERS else None
+    serve_stats, breakdown, serve_launches = serve_full(api, ops, card, seed, arch, serve_cfg)
+    serve_stats["depth_cut"] = None if serve_cfg is None else {"layers": serve_cfg.num_layers, "of": cfg.num_layers}
     serve_stats["decode_step_profile"] = breakdown
     serve_stats["smoke_card_vs_cpu"] = smoke_cuda_vs_cpu(seed, arch)
-    cfg = get_config(arch)
     layers, cuts = cfg.num_layers, []
     while True:
         try:
@@ -1871,12 +1900,13 @@ def instrument_runner(runner, ops, clock: dict, rounds: list):
 
 def profile_fed_round(runner):
     """Device busy and idle share of one federated round (the next round of
-    ``runner``) under ``torch.profiler``, beside its host clock.  None when
-    the profiler sees no device time."""
+    ``runner``) under ``torch.profiler`` with the CUDA activity alone (the
+    host's op events doubled a sequential round's wall time), beside its
+    host clock.  None when the profiler sees no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         runner.scheduler._sync_round(runner.state.round_index + 1)
         torch.cuda.synchronize()
@@ -4475,6 +4505,428 @@ def dryrun_and_analysis_full(ops, api, card: str, seed: int) -> tuple:
     return stats, runs, time.perf_counter() - t0
 
 
+# -------------------------------------------------------------------- phase 5m
+REMAT_RATES = (0.0, 0.5)
+REMAT_STEPS = 2
+REMAT_TRAIN = {"batch": 16, "seq": 512}
+# rwkv6-3b, jamba-v0.1-52b and granite-moe-3b-a800m at 4 layers, widths
+# whole; jamba's 4 are layers 2-5 of its period (attention at layer 4, MoE
+# at 3 and 5), which the cut config gives with its attention offset at 2
+REMAT_FAMILIES = {"rwkv6-3b": {"num_layers": 4}, "jamba-v0.1-52b": {"num_layers": 4, "attn_offset": 2},
+                  "granite-moe-3b-a800m": {"num_layers": 4}}
+REMAT_META_LIMIT = 76 * 2**30  # internvl2-76b's depth: meta's peak of its remat step under this
+EXAMPLE_SCRIPTS = ("torch_quickstart.py", "torch_federated_finetune.py", "torch_serving_decode.py",
+                   "torch_bandit_configurator.py")
+
+
+def remat_step_launches(cfg, gates, remat: bool) -> dict:
+    """Each kernel's launches in train steps of ``gates`` (one list a step,
+    True = dropped), derived from the code.  An active layer launches its
+    forward kernels (an attention layer ``flash_attention`` and the q, v
+    ``lora_matmul``; RWKV6 ``wkv6`` and the channel-mix up, down; Mamba
+    ``mamba_scan`` and in, out), its backward kernels (attention and Mamba
+    always: their LoRA sits before them; ``wkv6_bwd`` in all but the step's
+    first active layer, whose WKV inputs come from frozen weights) and the
+    dX of its LoRA projections whose inputs take a gradient (none of the
+    first active layer's but RWKV6's down and Mamba's out, which follow the
+    layer's own LoRA).  Under ``remat`` the non-reentrant checkpoint runs
+    an active layer's forward again in the backward, up to its last saved
+    tensor, which follows every kernel of the layer: each forward kernel
+    twice.  Without ``remat`` this is phase 5's formulas
+    (``training_launches``, ``jamba_round_launches``)."""
+    from repro_torch.models.layers import layer_kind
+
+    fwd = {"attn": {"flash_attention": 1, "lora_matmul": 2}, "rwkv": {"wkv6": 1, "lora_matmul": 2},
+           "mamba": {"mamba_scan": 1, "lora_matmul": 2}}
+    bwd_first = {"attn": {"flash_attention_bwd": 1}, "rwkv": {"lora_matmul": 1},
+                 "mamba": {"mamba_scan_bwd": 1, "lora_matmul": 1}}
+    bwd_later = {"attn": {"flash_attention_bwd": 1, "lora_matmul": 2}, "rwkv": {"wkv6_bwd": 1, "lora_matmul": 2},
+                 "mamba": {"mamba_scan_bwd": 1, "lora_matmul": 2}}
+    counts = []
+    for step in gates:
+        active = [l for l, dropped in enumerate(step) if not dropped]
+        for j, l in enumerate(active):
+            kind = layer_kind(cfg, l)
+            counts += [fwd[kind], (bwd_later if j else bwd_first)[kind]] + ([fwd[kind]] if remat else [])
+    return add_launches(*counts)
+
+
+class RouteRecorder:
+    """Records the MoE routing (``nn.moe._route``'s outputs) of each call,
+    step by step, so that a ``remat`` step's recomputed routing can be held
+    to its forward's bit for bit."""
+
+    def __init__(self):
+        from repro_torch.nn import moe
+
+        self.moe, self.route, self.steps = moe, moe._route, []
+
+    def mark(self):
+        self.steps.append([])
+
+    def __enter__(self):
+        def recorded(*args, **kw):
+            out = self.route(*args, **kw)
+            self.steps[-1].append(tuple(t.detach().clone() for t in out))
+            return out
+
+        self.moe._route = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self.route
+        return False
+
+
+def remat_train_run(ops, cfg, params, peft, batches, rate: float, remat: bool, seed: int, routes=None) -> dict:
+    """``make_train_step(cfg, ..., stld_mode="cond", mean_rate=rate,
+    remat=remat)`` for a step on each batch from ``peft`` and a fresh AdamW
+    state, the gates drawn from generators seeded ``seed + i``; per step its
+    seconds, peak above what was allocated besides its arguments, launches
+    and ``lora_matmul`` routes.  ``routes`` (a ``RouteRecorder``) marks each
+    step.  Returns the last PEFT tree, every step's metrics and the gates;
+    ``meta_args``: the first step's arguments on ``meta``."""
+    from repro_torch.analysis.trace import meta_like
+    from repro_torch.configs import PEFTConfig, TrainConfig
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw_init
+
+    step = make_train_step(cfg, PEFTConfig(), TrainConfig(), stld_mode="cond", mean_rate=rate, remat=remat)
+    p, opt, out = peft, adamw_init(peft), {"steps": [], "metrics": []}
+    with GateReplay().record() as replay:
+        for i, batch in enumerate(batches):
+            args = (params, p, opt, batch, torch.Generator().manual_seed(seed + i))
+            if i == 0:
+                out["meta_args"] = meta_like(args)
+            if routes is not None:
+                routes.mark()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated() - tree_bytes(args)
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            p, opt, metrics = step(*args)
+            torch.cuda.synchronize()
+            out["steps"].append({"s": time.perf_counter() - t0, "peak_bytes": torch.cuda.max_memory_allocated() - base,
+                                 "launches": {k: v for k, v in ops.launch_counts.items() if v},
+                                 "routes": dict(ops.lora_matmul_routes)})
+            out["metrics"].append(metrics)
+            del args
+    out.update(peft=p, gates=[g.tolist() for g in replay.gates], step=step)
+    return out
+
+
+def check_remat_pair(cfg, runs: dict, what: str) -> dict:
+    """Phase 5m's checks of a ``remat`` run against the same run without it:
+    the same gates, PEFT tree and metrics bit for bit, each step's launches
+    as ``remat_step_launches`` gives them (and those of phase 5's formulas
+    without ``remat``), every ``lora_matmul`` on wgmma, every metric finite.
+    Returns each run's launches summed over its steps."""
+    plain, remat = runs[False], runs[True]
+    check(plain["gates"] == remat["gates"], f"5m {what}: gates {plain['gates']} and {remat['gates']}")
+    check(tree_equal(plain["peft"], remat["peft"]), f"5m {what}: the remat PEFT tree differs from the plain one")
+    for a, b in zip(plain["metrics"], remat["metrics"]):
+        check(all(torch.equal(a[k], b[k]) for k in a), f"5m {what}: metrics {a} and {b}")
+        check(all(math.isfinite(float(v)) for v in a.values()), f"5m {what}: non-finite metrics {a}")
+    active, steps = active_count(plain["gates"]), len(plain["gates"])
+    if cfg.family == "hybrid":
+        check(remat_step_launches(cfg, plain["gates"], False)
+              == {k: v for k, v in jamba_round_launches(cfg, plain["gates"]).items() if v},
+              "5m: the remat formula without remat is not phase 5c's")
+    elif cfg.family == "ssm":
+        check(remat_step_launches(cfg, plain["gates"], False)
+              == {"wkv6": active, "wkv6_bwd": active - steps, "lora_matmul": 4 * active - steps},
+              "5m: the remat formula without remat is not phase 5b's")
+    else:
+        check(remat_step_launches(cfg, plain["gates"], False)
+              == training_launches([g.count(False) for g in plain["gates"]]), "5m: the formula is not phase 5's")
+    summed = {}
+    for remat_on, run in runs.items():
+        for gates, st in zip(run["gates"], run["steps"]):
+            check_launches(st["launches"], remat_step_launches(cfg, [gates], remat_on), f"5m {what} remat={remat_on}")
+            check(st["routes"] == {"fma": 0, "wmma": 0, "wgmma": st["launches"].get("lora_matmul", 0)},
+                  f"5m {what}: lora_matmul routes {st['routes']}, every call expected on wgmma")
+        summed[remat_on] = add_launches(*(st["launches"] for st in run["steps"]))
+    return summed
+
+
+def check_recomputed_routing(routes: RouteRecorder, plain_steps: int, what: str) -> int:
+    """``routes`` holds a plain run's steps, then a ``remat`` run's: each
+    remat step routes every active MoE layer in its forward (as the plain
+    step, bit for bit), then again in the backward's recompute, last layer
+    first, bit for bit.  Returns the MoE layers checked."""
+    plain, remat = routes.steps[:plain_steps], routes.steps[plain_steps:]
+    checked = 0
+    for a, b in zip(plain, remat):
+        m = len(a)
+        check(len(b) == 2 * m, f"5m {what}: {len(b)} routings in a remat step of {m} MoE layers")
+        for x, y, z in zip(a, b[:m], reversed(b[m:])):
+            check(all(torch.equal(s, t) and torch.equal(t, u) for s, t, u in zip(x, y, z)),
+                  f"5m {what}: the recomputed MoE routing differs from the forward's")
+        checked += m
+    return checked
+
+
+def remat_meta_run(run: dict):
+    """The ``remat`` run's first step again on ``meta`` with its gates."""
+    from repro_torch.analysis.trace import run_on_meta
+
+    with GateReplay() as replay:
+        replay.gates = [torch.tensor(run["gates"][0])]
+        replay.replay()
+        meta = run_on_meta(run["step"], *run["meta_args"])
+    check(not meta.host_reads, f"5m: host reads on meta {meta.host_reads}")
+    return meta
+
+
+def profile_step(step, args) -> dict:
+    """Device busy and idle share of one step under ``torch.profiler`` (the
+    CUDA activity alone) beside its host clock."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(*args)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.self_device_time_total for e in device_kernels(prof)) / 1e3
+    return {"wall_ms_profiled": wall_ms, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / wall_ms if busy else None}
+
+
+def remat_batches(cfg, gen, steps: int, batch: int, seq: int) -> list:
+    """Phase 5m's batches: random tokens and, for a vision model, patches
+    drawn from ``gen`` at the token embeddings' scale (``normal_init``'s
+    0.02).  Not the zero patches of the reference's client (phase 5j):
+    a zero row stays zero through every layer, and the RMSNorm backward
+    of a zero row multiplies its gradient by 1 / sqrt(eps) (316), so the
+    gradient grows ~300x a layer down a random internvl2-76b and
+    overflows to inf at 19 layers, with or without ``remat``."""
+    from repro_torch.launch.steps import frontend_batch
+
+    out = []
+    for _ in range(steps):
+        tokens = torch.randint(0, cfg.vocab_size, (batch, seq + 1), generator=gen, device="cuda", dtype=torch.int32)
+        patches = None
+        if cfg.prefix_len:
+            patches = 0.02 * torch.randn((batch, cfg.frontend_seq, cfg.d_model), generator=gen, device="cuda")
+            patches = patches.to(getattr(torch, cfg.dtype))
+        out.append(frontend_batch(cfg, tokens, patches))
+    return out
+
+
+def remat_qwen3(ops, card, seed: int) -> tuple:
+    """Phase 5m's qwen3-1.7b, full width and depth: two steps at 16 x 512
+    with and without ``remat`` at each rate; bit identity, launches,
+    peaks (remat's below the plain run's), seconds a step, each variant's
+    idle share from a profiled step, and the remat step on ``meta``
+    (launches equal, peak within ``META_PEAK_TOLERANCE``)."""
+    from repro_torch.configs import PEFTConfig, get_config
+    from repro_torch.core.peft import init_peft
+    from repro_torch.models.registry import init_params
+    from repro_torch.optim import adamw_init
+
+    free_memory("cuda")
+    cfg = get_config("qwen3-1.7b")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    params = init_params(cfg, gen, place=True)
+    peft = init_peft(cfg, PEFTConfig(), gen)
+    batches = remat_batches(cfg, gen, REMAT_STEPS, REMAT_TRAIN["batch"], REMAT_TRAIN["seq"])
+    stats, launches = {}, {}
+    for rate in REMAT_RATES:
+        runs = {remat: remat_train_run(ops, cfg, params, peft, batches, rate, remat, seed) for remat in (False, True)}
+        summed = check_remat_pair(cfg, runs, f"qwen3-1.7b rate {rate}")
+        peaks = {remat: max(st["peak_bytes"] for st in run["steps"]) for remat, run in runs.items()}
+        check(peaks[True] < peaks[False], f"5m qwen3-1.7b rate {rate}: remat peak {peaks[True]} B, plain {peaks[False]}")
+        meta = remat_meta_run(runs[True])
+        card_first = runs[True]["steps"][0]
+        check(meta.kernel_launches == card_first["launches"],
+              f"5m qwen3-1.7b rate {rate}: launches on the card {card_first['launches']}, on meta {meta.kernel_launches}")
+        gap = meta.peak_bytes / card_first["peak_bytes"] - 1.0
+        check(abs(gap) <= META_PEAK_TOLERANCE, f"5m qwen3-1.7b rate {rate}: meta peak {meta.peak_bytes} B against the "
+                                               f"card's {card_first['peak_bytes']} B ({gap:+.3f})")
+        row = {"rate": rate, "gates": runs[True]["gates"], "meta_peak_bytes": meta.peak_bytes,
+               "card_peak_bytes_first_step": card_first["peak_bytes"], "meta_peak_gap": gap}
+        for remat, run in runs.items():
+            name = "remat" if remat else "plain"
+            args = (params, peft, adamw_init(peft), batches[0], torch.Generator().manual_seed(seed))
+            row[name] = {"s_per_step": [st["s"] for st in run["steps"]], "peak_gib": peaks[remat] / 2**30,
+                         "launches": summed[remat], "profile": profile_step(run["step"], args)}
+            launches[f"5m_qwen3_rate{rate}_{name}"] = summed[remat]
+        row["peak_saved_gib"] = (peaks[False] - peaks[True]) / 2**30
+        stats[f"rate {rate}"] = row
+        print(f"5m remat qwen3-1.7b {json.dumps(row)} [{card}]", flush=True)
+    return stats, launches
+
+
+def remat_family(ops, card, seed: int, arch: str) -> tuple:
+    """Phase 5m's other families at full width, cut to 4 layers
+    (``REMAT_FAMILIES``): two steps at 16 x 512 at rate 0.0 (every layer,
+    so every MoE layer's routing is recomputed) with and without
+    ``remat``, bit identity and launches, and each MoE layer's recomputed
+    routing bit for bit."""
+    from repro_torch.configs import PEFTConfig, get_config
+    from repro_torch.core.peft import init_peft
+    from repro_torch.models.layers import layer_kind
+    from repro_torch.models.registry import init_params
+
+    free_memory("cuda")
+    cfg = get_config(arch).replace(**REMAT_FAMILIES[arch])
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    params = init_params(cfg, gen, place=True)
+    peft = init_peft(cfg, PEFTConfig(), gen)
+    batches = remat_batches(cfg, gen, REMAT_STEPS, REMAT_TRAIN["batch"], REMAT_TRAIN["seq"])
+    with RouteRecorder() as routes:
+        runs = {remat: remat_train_run(ops, cfg, params, peft, batches, 0.0, remat, seed, routes)
+                for remat in (False, True)}
+    summed = check_remat_pair(cfg, runs, arch)
+    moe_layers = sum(cfg.is_moe_layer(l) for l in range(cfg.num_layers))
+    routed = check_recomputed_routing(routes, REMAT_STEPS, arch)
+    check(routed == REMAT_STEPS * moe_layers, f"5m {arch}: {routed} MoE routings checked, {moe_layers} a step")
+    stats = {"layers": cfg.num_layers, "of": get_config(arch).num_layers,
+             "kinds": [layer_kind(cfg, l) + ("+moe" if cfg.is_moe_layer(l) else "") for l in range(cfg.num_layers)],
+             "gates": runs[True]["gates"], "moe_routings_checked": routed,
+             **{("remat" if remat else "plain"): {"launches": summed[remat],
+                                                  "peak_gib": max(st["peak_bytes"] for st in run["steps"]) / 2**30}
+                for remat, run in runs.items()}}
+    print(f"5m remat {arch} {json.dumps(stats)} [{card}]", flush=True)
+    return stats, {f"5m_{arch.split('-')[0]}_{'remat' if remat else 'plain'}": summed[remat] for remat in runs}
+
+
+def internvl_meta_depth(seed: int) -> tuple:
+    """The deepest cut of internvl2-76b whose ``remat`` step at rate 0.0
+    (16 x (256 + 512) tokens) ``run_on_meta`` puts under
+    ``REMAT_META_LIMIT``: the peak is linear in the depth, so two traces
+    give the line, and the cut it gives is checked, one layer at a time, to
+    fit with the next one over.  Returns (layers, the meta runs by
+    depth)."""
+    from repro_torch.analysis.trace import run_on_meta
+    from repro_torch.configs import InputShape, PEFTConfig, TrainConfig, get_config
+    from repro_torch.launch import input_specs as ispec
+    from repro_torch.launch.steps import make_train_step
+
+    full, mesh, runs = get_config(INTERNVL), ispec.MeshShape({"data": 1, "model": 1}), {}
+
+    def peak(layers: int) -> int:
+        if layers not in runs:
+            cfg = full.replace(num_layers=layers)
+            args, _ = ispec.train_inputs(cfg, PEFTConfig(), InputShape("remat", REMAT_TRAIN["seq"],
+                                                                       REMAT_TRAIN["batch"], "train"),
+                                         mesh, weights_dtype="placed")
+            step = make_train_step(cfg, PEFTConfig(), TrainConfig(), stld_mode="cond", mean_rate=0.0, remat=True)
+            runs[layers] = run_on_meta(step, *args[:4], torch.Generator().manual_seed(seed))
+            check(not runs[layers].host_reads, f"5m internvl on meta: host reads {runs[layers].host_reads}")
+        return runs[layers].peak_bytes
+
+    lo, hi = 8, 16
+    slope = (peak(hi) - peak(lo)) / (hi - lo)
+    layers = min(full.num_layers, lo + int((REMAT_META_LIMIT - peak(lo)) // slope))
+    while layers > 1 and peak(layers) >= REMAT_META_LIMIT:
+        layers -= 1
+    while layers < full.num_layers and peak(layers + 1) < REMAT_META_LIMIT:
+        layers += 1
+    return layers, runs
+
+
+def remat_internvl(ops, card, seed: int, layers: int, meta_runs: dict) -> tuple:
+    """Phase 5m's internvl2-76b: one ``remat`` step at rate 0.0 on the card
+    at the depth ``internvl_meta_depth`` chose (one layer less at a time
+    where the card runs out, each cut printed): the depth beyond phase 5j's
+    9, launches as ``remat_step_launches`` and as on ``meta``, the card's
+    peak against meta's, seconds."""
+    from repro_torch.configs import PEFTConfig, get_config
+    from repro_torch.core.peft import init_peft
+    from repro_torch.models.registry import init_params
+
+    full, did_not_fit = get_config(INTERNVL), []
+    while True:
+        free_memory("cuda")
+        cfg = full.replace(num_layers=layers)
+        try:
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(seed)
+            torch.cuda.reset_peak_memory_stats()
+            m0 = torch.cuda.memory_allocated()
+            params = init_params(cfg, gen, place=True)
+            draw_peak = torch.cuda.max_memory_allocated() - m0
+            free_memory("cuda")  # the draws' cached blocks back to the card: the step's 3.9 GiB logits need room
+            peft = init_peft(cfg, PEFTConfig(), gen)
+            run = remat_train_run(ops, cfg, params, peft, remat_batches(cfg, gen, 1, REMAT_TRAIN["batch"],
+                                                                         REMAT_TRAIN["seq"]), 0.0, True, seed)
+            break
+        except torch.cuda.OutOfMemoryError as err:
+            did_not_fit.append({"layers": layers, "error": str(err).splitlines()[0][:200]})
+        layers -= 1
+        params = peft = None
+        check(layers > 9, f"5m internvl2-76b: a remat step does not fit beyond phase 5j's 9 layers: {did_not_fit}")
+    check(layers > 9, f"5m internvl2-76b trains under remat at {layers} layers, not beyond phase 5j's 9")
+    st = run["steps"][0]
+    check(all(math.isfinite(float(v)) for v in run["metrics"][0].values()), f"5m internvl: {run['metrics'][0]}")
+    check_launches(st["launches"], remat_step_launches(cfg, run["gates"], True), "5m internvl2-76b remat")
+    if layers not in meta_runs:
+        meta_runs[layers] = remat_meta_run(run)
+    meta = meta_runs[layers]
+    check(meta.kernel_launches == st["launches"], f"5m internvl: launches {st['launches']}, meta {meta.kernel_launches}")
+    gap = meta.peak_bytes / st["peak_bytes"] - 1.0
+    check(abs(gap) <= META_PEAK_TOLERANCE, f"5m internvl: meta peak {meta.peak_bytes} B, card {st['peak_bytes']} B")
+    stats = {"layers": layers, "of": full.num_layers, "phase_5j_layers": 9, "did_not_fit": did_not_fit or None,
+             "s_per_step": st["s"], "card_peak_gib": st["peak_bytes"] / 2**30, "meta_peak_gib": meta.peak_bytes / 2**30,
+             "meta_peak_gap": gap, "peak_gib_drawing_weights": draw_peak / 2**30,
+             "meta_limit_gib": REMAT_META_LIMIT / 2**30, "launches": st["launches"],
+             "metrics": {k: float(v) for k, v in run["metrics"][0].items()}}
+    print(f"5m remat internvl2-76b {json.dumps(stats)} [{card}]", flush=True)
+    return stats, {"5m_internvl_remat": st["launches"]}
+
+
+def start_examples() -> dict:
+    """The four ``examples/torch_*.py``, each a process of its own on the
+    card (their default device)."""
+    return {name: (subprocess.Popen([sys.executable, str(ROOT / "examples" / name)], cwd=ROOT, env=subprocess_env(),
+                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), time.perf_counter())
+            for name in EXAMPLE_SCRIPTS}
+
+
+def remat_full(ops, card, seed: int) -> tuple:
+    """Phase 5m: ``remat`` through every hand-written backward at full width.
+    The four examples start first, as processes; meanwhile internvl's depth
+    is chosen on ``meta`` and rwkv6-3b, jamba and granite run (untimed);
+    the examples are waited for before qwen3-1.7b's timed runs and
+    internvl's step, which takes the card's memory.  Returns (stats, the
+    card's launches by run, the phase's seconds)."""
+    from torch.utils.checkpoint import checkpoint
+
+    t0 = time.perf_counter()
+    examples = start_examples()
+    x = torch.ones(1, requires_grad=True)  # the first checkpoint call loads torch._dynamo (seconds): here, untimed
+    checkpoint(torch.sin, x, use_reentrant=False).backward()
+    stats, launches = {}, {}
+    t_meta = time.perf_counter()
+    layers, meta_runs = internvl_meta_depth(seed)
+    stats["internvl_meta_search"] = {"layers": layers, "s": time.perf_counter() - t_meta,
+                                     "peak_gib_by_layers": {n: r.peak_bytes / 2**30 for n, r in sorted(meta_runs.items())}}
+    print(f"5m internvl2-76b depth on meta {json.dumps(stats['internvl_meta_search'])}", flush=True)
+    for arch in REMAT_FAMILIES:
+        stats[arch], runs = remat_family(ops, card, seed, arch)
+        launches.update(runs)
+    done = finish(examples, timeout=300.0)
+    stats["examples"] = {}
+    for name, (rc, text, secs) in done.items():
+        lines = text.strip().splitlines()
+        print(f"5m example {name}: exit {rc}, {secs:.1f} s: {lines[-1] if lines else ''} [{card}]", flush=True)
+        check(rc == 0, f"5m example {name} exited {rc}:\n{text[-3000:]}")
+        stats["examples"][name] = {"exit": rc, "s": secs, "last_line": lines[-1] if lines else ""}
+    check("remat=True gives the same LoRA after 5 steps: True" in done["torch_quickstart.py"][1],
+          "5m: the quickstart's remat steps differ from its plain steps on the card")
+    stats["qwen3-1.7b"], runs = remat_qwen3(ops, card, seed)
+    launches.update(runs)
+    stats[INTERNVL], runs = remat_internvl(ops, card, seed, layers, meta_runs)
+    launches.update(runs)
+    return stats, launches, time.perf_counter() - t0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4878,6 +5330,19 @@ def main() -> int:
     def meta_launches(name):
         return {f"5l_{step}": counts[name] for step, counts in meta_runs.items() if counts.get(name)}
 
+    # 5m. remat: per-layer recomputation through every hand-written backward
+    #     (qwen3-1.7b at full depth, rwkv6-3b, jamba and granite at 4
+    #     layers, internvl2-76b at the depth meta chooses), and the examples
+    remat_stats, remat_runs, remat_s = remat_full(ops, card, args.seed)
+    print(f"phase 5m: {remat_s:.1f} s [{card}]", flush=True)
+    for path, names in (("5m_qwen3_rate0.5_remat", ("flash_attention", "flash_attention_bwd", "lora_matmul")),
+                        ("5m_rwkv6_remat", ("wkv6", "wkv6_bwd")), ("5m_jamba_remat", ("mamba_scan", "mamba_scan_bwd"))):
+        for name in names:
+            check(remat_runs[path].get(name, 0) > 0, f"{name} never launched in phase 5m's {path}: {remat_runs[path]}")
+
+    def remat_launches(name):
+        return {path: counts[name] for path, counts in remat_runs.items() if counts.get(name)}
+
     stub_shape_keys = {"flash_attention": ("attention_whisper_encoder", "attention_whisper_cross"),
                        "flash_decode": ("decode_whisper_self", "decode_whisper_cross", "decode_internvl")}
 
@@ -4994,7 +5459,8 @@ def main() -> int:
                                  **stub_launches("flash_attention", ("train whisper", "generate whisper",
                                                                      "federated whisper", "train internvl",
                                                                      "generate internvl")),
-                                 **cli_launches("flash_attention"), **meta_launches("flash_attention")},
+                                 **cli_launches("flash_attention"), **meta_launches("flash_attention"),
+                                 **remat_launches("flash_attention")},
             "train_cli_shape": pick(cli_shape["attention"], fwd_keys),
             "moe_shapes": {short: pick(moe_shapes[f"attention_{short}"], fwd_keys) for short in moe_paths},
             "whisper_shapes": {key: pick(stub_shapes[key], fwd_keys) for key in stub_shape_keys["flash_attention"]},
@@ -5024,7 +5490,8 @@ def main() -> int:
                                  "5i_federated_granite": moe_runs["federated"]["flash_attention_bwd"],
                                  **stub_launches("flash_attention_bwd", ("train whisper", "federated whisper",
                                                                          "train internvl")),
-                                 **cli_launches("flash_attention_bwd"), **meta_launches("flash_attention_bwd")},
+                                 **cli_launches("flash_attention_bwd"), **meta_launches("flash_attention_bwd"),
+                                 **remat_launches("flash_attention_bwd")},
             "train_cli_shape": pick(cli_shape["attention"], ("shape",), **bwd_renamed),
             "whisper_shapes": {key: pick(stub_shapes[key], ("shape",), **bwd_renamed)
                                for key in stub_shape_keys["flash_attention"]},
@@ -5060,7 +5527,8 @@ def main() -> int:
                                  "5i_federated_granite": moe_runs["federated"]["lora_matmul"],
                                  **stub_launches("lora_matmul", ("train whisper", "federated whisper",
                                                                  "train internvl")),
-                                 **cli_launches("lora_matmul"), **meta_launches("lora_matmul")},
+                                 **cli_launches("lora_matmul"), **meta_launches("lora_matmul"),
+                                 **remat_launches("lora_matmul")},
             "train_cli_grouped_shapes": {name: pick(cli_shape[name], proj_keys + ("route", "ungrouped_launches_ms"))
                                          for name in ("grouped q", "grouped v")},
             "stub_frontend_shapes": {name: pick(stub_shapes[f"lora {name}"],
@@ -5104,7 +5572,7 @@ def main() -> int:
             **{key: wkv[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "device_only_ms": wkv["kernel_ms"], "shape": "forward, " + wkv["shape"],
             "launches_by_path": {"local_round_rwkv6": rwkv_launches["wkv6"], "5h_serve_rwkv6": served["rwkv6-3b"]["wkv6"],
-                                 **cli_launches("wkv6"), **meta_launches("wkv6")},
+                                 **cli_launches("wkv6"), **meta_launches("wkv6"), **remat_launches("wkv6")},
             "decode_step_shape": {name.split()[-1]: pick(case, fwd_keys) for name, case in scans_h0.items()
                                   if name.startswith("wkv6")},
         },
@@ -5117,7 +5585,7 @@ def main() -> int:
             "bound_ms": wkv["bwd_bound_ms"], "bound_by": wkv["bwd_bound_by"], "library_ms": wkv["library_bwd_ms"],
             "device_only_ms": wkv["bwd_kernel_ms"], "kernels_ms": wkv["bwd_kernels_ms"],
             "launches_by_path": {"local_round_rwkv6": rwkv_launches["wkv6_bwd"], **cli_launches("wkv6_bwd"),
-                                 **meta_launches("wkv6_bwd")},
+                                 **meta_launches("wkv6_bwd"), **remat_launches("wkv6_bwd")},
             "shape": "backward (dr, dk, dv, dlogw, du), " + wkv["shape"],
         },
         {
@@ -5130,7 +5598,8 @@ def main() -> int:
             "bound_terms_ms": msc["bound_terms_ms"], "shape": "forward, " + msc["shape"],
             "launches_by_path": {"local_round_jamba": jamba_launches["mamba_scan"],
                                  "5h_serve_jamba": served["jamba-v0.1-52b"]["mamba_scan"],
-                                 **cli_launches("mamba_scan"), **meta_launches("mamba_scan")},
+                                 **cli_launches("mamba_scan"), **meta_launches("mamba_scan"),
+                                 **remat_launches("mamba_scan")},
             "h0_shapes": {name.replace("mamba_scan ", ""): pick(case, fwd_keys) for name, case in scans_h0.items()
                           if name.startswith("mamba_scan")},
         },
@@ -5144,7 +5613,8 @@ def main() -> int:
             "device_only_ms": msc["bwd_kernel_ms"], "kernels_ms": msc["bwd_kernels_ms"],
             "scratch_bytes": msc["bwd_scratch_bytes"], "bound_terms_ms": msc["bwd_bound_terms_ms"],
             "launches_by_path": {"local_round_jamba": jamba_launches["mamba_scan_bwd"],
-                                 **cli_launches("mamba_scan_bwd"), **meta_launches("mamba_scan_bwd")},
+                                 **cli_launches("mamba_scan_bwd"), **meta_launches("mamba_scan_bwd"),
+                                 **remat_launches("mamba_scan_bwd")},
             "shape": "backward (d_dt, dx, dB, dC, dA, dD), " + msc["shape"],
         },
     ]

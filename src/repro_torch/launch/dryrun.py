@@ -141,10 +141,10 @@ def _local_args(kind: str, args, specs, mesh, sharded_seq: bool):
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool, stld_mode: str = "off", stack_mode: str = "unroll",
              extra_tags: str = "", moe_dispatch: str = "einsum", weights_dtype: str = "float32", fsdp: bool = False,
              mean_rate: float = 0.5, expert_shard: str = "auto") -> dict:
-    """Run one cell's step on ``meta``; returns its record.  The port's
-    steps run every ``stack_mode`` on one Python layer loop, so
-    ``stack_mode`` is recorded and changes nothing (kept for the
-    reference's CLI).  ``weights_dtype`` casts the served weights as the
+    """Run one cell's step on ``meta``; returns its record.  ``stack_mode``
+    goes to the step factories, as the reference's does: the port runs
+    every stack mode on one Python layer loop, raising where the
+    reference raises, so it changes no count.  ``weights_dtype`` casts the served weights as the
     reference's does; the train step takes the float32 tree as the
     reference's does, unless ``placed`` asks for the card's placement
     (``models.registry.place_params``), which every step then takes."""
@@ -153,14 +153,15 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool, stld_mode: str = "o
     mesh = ispec.production_mesh(multi_pod=multi_pod)
     peft_cfg = PEFTConfig(method="lora", lora_rank=8)
     if shape.kind == "train":
-        step = make_train_step(cfg, peft_cfg, TrainConfig(), stld_mode=stld_mode, mean_rate=mean_rate)
+        step = make_train_step(cfg, peft_cfg, TrainConfig(), stld_mode=stld_mode, stack_mode=stack_mode,
+                               mean_rate=mean_rate)
         args, specs = ispec.train_inputs(cfg, peft_cfg, shape, mesh, fsdp=fsdp,
                                          weights_dtype="placed" if weights_dtype == "placed" else "float32")
     elif shape.kind == "prefill":
-        step = make_prefill_step(cfg)
+        step = make_prefill_step(cfg, stack_mode=stack_mode)
         args, specs = ispec.prefill_inputs(cfg, shape, mesh, weights_dtype=weights_dtype)
     else:
-        step = make_serve_step(cfg)
+        step = make_serve_step(cfg, stack_mode=stack_mode)
         args, specs = ispec.serve_inputs(cfg, shape, mesh, weights_dtype=weights_dtype, expert_shard=expert_shard)
     sharded_seq = shape.kind == "decode" and shape.global_batch < ispec._batch_axes_size(mesh)
     local = _local_args(shape.kind, args, specs, mesh, sharded_seq)
@@ -205,7 +206,8 @@ def main(argv=None) -> int:
     ap.add_argument("--multi-pod", action="store_true", help="2x16x16 mesh (else 16x16)")
     ap.add_argument("--stld", default="off", choices=["off", "cond", "gather"])
     ap.add_argument("--stack-mode", default="unroll", choices=["unroll", "scan", "group", "auto"],
-                    help="recorded only: the port runs every stack mode on one Python layer loop")
+                    help="the steps' stack mode ('auto': group for a hybrid stack, else scan); the port runs "
+                         "every stack mode on one Python layer loop")
     ap.add_argument("--out-dir", default="results/dryrun_torch")
     ap.add_argument("--tag", default="")
     ap.add_argument("--moe-dispatch", default="einsum", choices=["einsum", "gather"])

@@ -21,6 +21,7 @@ from repro_torch.models.losses import softmax_xent
 from repro_torch.models import encdec
 from repro_torch.models.registry import model_apply, params_device
 from repro_torch.models.stacking import tree_leaves, tree_map
+from repro_torch.models.transformer import check_stack_mode
 from repro_torch.optim import adamw_update, clip_by_global_norm
 
 
@@ -85,7 +86,8 @@ def token_logits(cfg, logits, num_tokens: int):
 
 
 def make_train_step(cfg, peft_cfg, train_cfg, *, stld_mode: str = "off", mean_rate: float = 0.5,
-                    distribution: str = "incremental", shape=None, gather_bucket: int = 4):
+                    distribution: str = "incremental", stack_mode: str = "unroll", shape=None,
+                    gather_bucket: int = 4, remat: bool = False):
     """Next-token LM fine-tuning step over the PEFT params.
 
     ``(base_params, peft_params, opt_state, batch, rng) -> (peft_params,
@@ -102,9 +104,18 @@ def make_train_step(cfg, peft_cfg, train_cfg, *, stld_mode: str = "off", mean_ra
     the same rates.  For ``normal`` that noise is not the reference's
     ``PRNGKey(0)`` draw: pass the JAX package's ``unit_shape("normal", L)``
     to get its rates.
+
+    ``stack_mode`` is the reference's (``unroll``, ``scan``, ``group``),
+    run on the one layer loop; with ``stld_mode="gather"`` the step runs
+    ``gather``, as the reference's does.  ``remat`` recomputes each active
+    layer's forward in the backward (``transformer.stack_apply``): the
+    same step, bit for bit, holding one layer's activations at a time.
+    The reference's ``regather_specs`` (an FSDP all-gather of the base
+    params) has no counterpart: the port runs no sharded step.
     """
     if stld_mode not in ("off", "cond", "gather"):
         raise ValueError(f"stld_mode must be 'off', 'cond' or 'gather', got {stld_mode!r}")
+    check_stack_mode(stack_mode)
     lora_sc = peft_lib.lora_scale(peft_cfg) if peft_cfg.method == "lora" else 1.0
     rates = None
     if stld_mode != "off":
@@ -115,8 +126,8 @@ def make_train_step(cfg, peft_cfg, train_cfg, *, stld_mode: str = "off", mean_ra
 
     def loss_fn(peft_params, base_params, inputs, targets, drops, active_idx=None):
         logits, aux, _ = model_apply(base_params, cfg, inputs, drops=drops, peft=peft_params,
-                                     lora_scale=lora_sc, stack_mode="unroll" if active_idx is None else "gather",
-                                     active_idx=active_idx)
+                                     lora_scale=lora_sc, stack_mode=stack_mode if active_idx is None else "gather",
+                                     active_idx=active_idx, remat=remat)
         loss, metrics = softmax_xent(token_logits(cfg, logits, targets.shape[1]), targets)
         return loss + cfg.router_aux_coef * aux, metrics
 
@@ -142,7 +153,7 @@ def make_train_step(cfg, peft_cfg, train_cfg, *, stld_mode: str = "off", mean_ra
     return train_step
 
 
-def make_prefill_step(cfg):
+def make_prefill_step(cfg, *, stack_mode: str = "unroll"):
     """The prompt into the decode caches, as the reference's
     ``make_prefill_step``: ``(params, batch, caches) -> (last_logits (B, V),
     caches)`` with ``batch = {"tokens": (B, S)}`` (numpy or tensors; they
@@ -152,23 +163,28 @@ def make_prefill_step(cfg):
     encoder-decoder's ``frames`` (B, S_enc, d) run the encoder once, and
     the step returns ``(last_logits, caches, enc_kvs)``, each decoder
     layer's cross K/V for ``make_serve_step``.  The caches
-    (``init_caches``) are updated as ``stack_apply`` says."""
+    (``init_caches``) are updated as ``stack_apply`` says, under
+    ``stack_mode`` (the encoder-decoder's stacks too, as the reference
+    passes it)."""
+    check_stack_mode(stack_mode)
 
     @torch.no_grad()
     def prefill_step(params, batch, caches):
         device = params_device(params)
         inputs = model_batch(cfg, batch, as_device_tensor(batch["tokens"], device), device)
         if cfg.is_encoder_decoder:
-            enc_kvs = encdec.encoder_cross_kvs(params, cfg, encdec.encode(params, cfg, inputs["frames"]))
-            logits, _, caches = encdec.decode(params, cfg, inputs["tokens"], enc_kvs, caches=caches)
+            enc_out = encdec.encode(params, cfg, inputs["frames"], stack_mode=stack_mode)
+            enc_kvs = encdec.encoder_cross_kvs(params, cfg, enc_out)
+            logits, _, caches = encdec.decode(params, cfg, inputs["tokens"], enc_kvs, caches=caches,
+                                              stack_mode=stack_mode)
             return logits[:, -1], caches, enc_kvs
-        logits, _, caches = model_apply(params, cfg, inputs, caches=caches)
+        logits, _, caches = model_apply(params, cfg, inputs, caches=caches, stack_mode=stack_mode)
         return logits[:, -1], caches
 
     return prefill_step
 
 
-def make_serve_step(cfg):
+def make_serve_step(cfg, *, stack_mode: str = "unroll"):
     """Single-token decode against a cache.
 
     ``(params, token (B, 1), pos, caches, enc_kvs=None, peft=None) ->
@@ -180,8 +196,10 @@ def make_serve_step(cfg):
     ``generate`` drives them) or ``(B,)`` (the batched serving cache, where
     every row decodes at its own position); ``peft`` is a tree of
     per-projection :class:`~repro_torch.nn.linear.AdapterPool` nodes (or
-    plain LoRA).  The caches are updated as ``stack_apply`` says.
+    plain LoRA).  The caches are updated as ``stack_apply`` says, under
+    ``stack_mode`` as in ``make_prefill_step``.
     """
+    check_stack_mode(stack_mode)
 
     @torch.no_grad()
     def serve_step(params, token, pos, caches, enc_kvs=None, peft=None):
@@ -191,10 +209,10 @@ def make_serve_step(cfg):
             positions = torch.full((1,), int(pos), dtype=torch.int64, device=token.device)
         if cfg.is_encoder_decoder:
             logits, _, caches = encdec.decode(params, cfg, token, enc_kvs, positions=positions, caches=caches,
-                                              peft=peft)
+                                              peft=peft, stack_mode=stack_mode)
         else:
             logits, _, caches = model_apply(params, cfg, {"tokens": token}, positions=positions, caches=caches,
-                                            peft=peft)
+                                            peft=peft, stack_mode=stack_mode)
         logits = logits[:, -1]
         next_token = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
         return logits, next_token, caches

@@ -58,14 +58,15 @@ def init_encdec(cfg, generator: torch.Generator, place=None):
     return {"encoder": encoder, "decoder": decoder}
 
 
-def encode(params, cfg, frames):
+def encode(params, cfg, frames, *, stack_mode: str = "unroll"):
     """frames: (B, S_enc, d) stub embeddings -> (B, S_enc, d) encoder
-    states: bidirectional, every layer, no PEFT."""
+    states: bidirectional, every layer, no PEFT (``stack_mode`` as
+    ``stack_apply`` takes it)."""
     compute_dtype = getattr(torch, cfg.dtype)
     s = frames.shape[1]
     h = frames.to(compute_dtype) + sinusoidal_positions(s, cfg.d_model, frames.device).to(compute_dtype)
     h, _, _ = stack_apply(params["encoder"]["layers"], cfg, h, positions=torch.arange(s, device=h.device),
-                          causal=False)
+                          causal=False, stack_mode=stack_mode)
     return apply_norm(params["encoder"]["final_norm"], h, cfg.norm_eps)
 
 
@@ -81,11 +82,12 @@ def encoder_cross_kvs(params, cfg, enc_out):
 
 
 def decode(params, cfg, tokens, enc_kvs, *, positions=None, drops=None, caches=None, peft=None,
-           lora_scale: float = 1.0, devices=None):
+           lora_scale: float = 1.0, devices=None, stack_mode: str = "unroll"):
     """tokens: (B, S_dec) (or (N, B, S_dec) for a cohort of ``devices`` N,
     with enc_kvs of N * B rows).  Returns (logits, aux, new_caches): learned
     positions ``pos_embed[positions]`` (0 .. S_dec-1 when None), the
-    decoder stack, then the head tied to ``embed``."""
+    decoder stack (``stack_mode`` as ``stack_apply`` takes it), then the
+    head tied to ``embed``."""
     compute_dtype = getattr(torch, cfg.dtype)
     dec = params["decoder"]
     if devices is not None:
@@ -96,7 +98,7 @@ def decode(params, cfg, tokens, enc_kvs, *, positions=None, drops=None, caches=N
     h = h + dec["pos_embed"][positions.to(h.device)].to(compute_dtype)
     h, aux, new_caches = stack_apply(dec["layers"], cfg, h, positions=positions, causal=True, drops=drops,
                                      caches=caches, enc_kvs=enc_kvs, peft=peft, lora_scale=lora_scale,
-                                     devices=devices)
+                                     devices=devices, stack_mode=stack_mode)
     h = apply_norm(dec["final_norm"], h, cfg.norm_eps)
     return h @ dec["embed"].T.to(compute_dtype), aux, new_caches
 

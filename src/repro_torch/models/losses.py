@@ -41,3 +41,8 @@ def cohort_softmax_xent(logits, labels, mask=None):
     loss = torch.sum(nll * mask, dim=dims) / denom
     acc = torch.sum((torch.argmax(logits, dim=-1) == labels).float() * mask, dim=dims) / denom
     return loss, {"loss": loss, "accuracy": acc, "tokens": denom}
+
+
+def lm_shift_labels(tokens):
+    """Next-token prediction: inputs ``tokens[:, :-1]``, labels ``tokens[:, 1:]``."""
+    return tokens[:, :-1], tokens[:, 1:]

@@ -30,6 +30,13 @@ def _check_family(cfg):
         raise NotImplementedError(f"the port runs the {FAMILIES} families, not {cfg.family!r}")
 
 
+def build_model(cfg):
+    """``(init_params, model_apply)`` for the architecture family, as the
+    reference's ``build_model``."""
+    _check_family(cfg)
+    return init_params, model_apply
+
+
 def init_params(cfg, generator: torch.Generator, place: bool = False):
     """Random parameters for ``cfg``, drawn from ``generator`` on its device.
 
@@ -125,7 +132,7 @@ def _frontend(cfg, batch, devices: Optional[int]):
 
 def model_apply(params, cfg, batch, *, drops=None, caches=None, enc_kvs=None, positions=None, peft=None,
                 lora_scale: float = 1.0, devices: Optional[int] = None, stack_mode: str = "unroll",
-                active_idx=None):
+                active_idx=None, remat: bool = False):
     """``devices`` N: a cohort, ``batch["tokens"]`` (N, B, S) (frames or
     patches (N, B, ...)), drops (N, L), the PEFT tree a per-layer list of
     (N, ...) leaves (``lm_apply``).  ``stack_mode`` is one of the
@@ -138,7 +145,10 @@ def model_apply(params, cfg, batch, *, drops=None, caches=None, enc_kvs=None, po
     the encoder).  As the reference's registry maps every ``stack_mode``
     but ``unroll`` and ``scan`` to ``unroll`` there and drops
     ``active_idx``, a ``gather`` call (whose caller passes no gates) runs
-    every decoder layer."""
+    every decoder layer.  ``remat`` (per-layer recomputation,
+    ``stack_apply``) reaches the decoder-only stacks; an encoder-decoder
+    takes it and runs without it, as the reference's registry never passes
+    it to ``encdec.decode``."""
     _check_family(cfg)
     if cfg.is_encoder_decoder:
         if stack_mode == "gather":
@@ -152,4 +162,5 @@ def model_apply(params, cfg, batch, *, drops=None, caches=None, enc_kvs=None, po
     return transformer.lm_apply(
         params, cfg, batch["tokens"], positions=positions, prefix_embeds=prefix, drops=drops, caches=caches,
         peft=peft, lora_scale=lora_scale, devices=devices, stack_mode=stack_mode, active_idx=active_idx,
+        remat=remat,
     )

@@ -98,6 +98,30 @@ def select_layers(mask, take_tree, keep_tree, axis: int = 0):
     return tree_map(pick, take_tree, keep_tree)
 
 
+def stack_params(layers: Sequence):
+    """The list layout into the stacked layout (``from_layer_list``), as the
+    reference's ``stack_params``: a stacked tree comes back as it is, and a
+    heterogeneous list raises ``ValueError``."""
+    if is_stacked(layers):
+        return layers
+    if not is_stackable(layers):
+        raise ValueError("cannot stack a heterogeneous layer list (per-layer structures or shapes differ); keep "
+                         "the list layout for this stack")
+    return from_layer_list(layers, stacked=True)
+
+
+def unstack_params(layers, num_layers: Optional[int] = None) -> list:
+    """The stacked layout into the list layout (``layer_list``), as the
+    reference's ``unstack_params``; ``num_layers`` is needed only for a
+    leafless stacked tree."""
+    if not is_stacked(layers):
+        return list(layers)
+    n = num_layers if num_layers is not None else stack_size(layers)
+    if n is None:
+        raise ValueError("cannot infer layer count of a leafless stacked tree")
+    return layer_list(layers, n)
+
+
 def layer_list(tree, num_layers: int, axis: int = 0) -> list:
     """A tree in either layout as a per-layer list: the list layout as it
     is, the stacked layout's layer ``axis`` (1 for a cohort's ``(N, L,

@@ -34,6 +34,7 @@ returns its new state, and a dropped layer passes its cache through, as
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core import stld
 from repro_torch.models import stacking
@@ -187,6 +188,13 @@ def _write_layer_cache(caches, l: int, new):
 STACK_MODES = ("unroll", "scan", "group", "gather")
 
 
+def check_stack_mode(stack_mode: str):
+    """``ValueError`` for a ``stack_mode`` that is not one of
+    ``STACK_MODES``."""
+    if stack_mode not in STACK_MODES:
+        raise ValueError(f"unknown stack_mode {stack_mode!r}")
+
+
 def _mode_gates(layers, cfg, stack_mode: str, drops, active_idx, devices):
     """The gates a ``stack_mode`` runs: ``drops`` as given, or for
     ``gather`` the complement of ``active_idx`` (one index tensor, or one
@@ -194,8 +202,7 @@ def _mode_gates(layers, cfg, stack_mode: str, drops, active_idx, devices):
     ``ValueError`` where the reference's ``stack_apply`` does: ``scan`` and
     ``gather`` on a heterogeneous stack, ``group`` when the layer pattern's
     period does not divide the depth."""
-    if stack_mode not in STACK_MODES:
-        raise ValueError(f"unknown stack_mode {stack_mode!r}")
+    check_stack_mode(stack_mode)
     num_layers = stacking.stack_size(layers)
     if stack_mode in ("scan", "gather") and not (stacking.is_stacked(layers) or stacking.is_stackable(list(layers))):
         raise ValueError(f"stack_mode={stack_mode!r} requires a homogeneous stack")
@@ -250,8 +257,17 @@ def _cohort_stack_apply(layers, cfg, h, *, positions, causal, drops, peft, lora_
     return h, aux_sum, None
 
 
+def _run_layer(h, params_l, enc_kv_l, peft_l, cfg, positions, causal: bool, lora_scale: float):
+    """One cache-free layer for ``torch.utils.checkpoint`` (``remat``): the
+    layer's tensors come in as arguments, none closed over, so the
+    recompute in the backward takes the ones the forward took."""
+    return layer_apply(params_l, cfg, h, positions=positions, causal=causal, enc_kv=enc_kv_l, peft=peft_l,
+                       lora_scale=lora_scale)
+
+
 def stack_apply(layers, cfg, h, *, positions, causal: bool = True, drops=None, caches=None, enc_kvs=None,
-                peft=None, lora_scale: float = 1.0, devices=None, stack_mode: str = "unroll", active_idx=None):
+                peft=None, lora_scale: float = 1.0, devices=None, stack_mode: str = "unroll", active_idx=None,
+                remat: bool = False):
     """Run the layer stack (either layout).  Returns (h, the MoE aux loss
     summed over the active layers, new_caches).  ``caches`` in the stacked
     layout are updated in place and returned; in the list layout a new
@@ -266,9 +282,20 @@ def stack_apply(layers, cfg, h, *, positions, causal: bool = True, drops=None, c
     ``devices`` N: a cohort (``_cohort_stack_apply``), with (N, L) gates
     (or N index tensors), no caches and a per-layer list PEFT tree; the aux
     loss is then (N,).
+
+    ``remat``: each active layer runs under ``torch.utils.checkpoint``
+    (non-reentrant: ``torch.autograd.grad`` takes the gradients), as the
+    reference wraps ``layer_apply`` in ``jax.checkpoint``.  Autograd then
+    keeps only the layer's input, and the backward runs the layer's
+    forward again, its kernels included, up to the last tensor it saved.
+    A dropped layer stays a skip; without gradients (``torch.no_grad``) or
+    with decode caches it changes nothing.  A cohort (``devices``) takes no
+    ``remat``: the reference's vmapped client step never passes it.
     """
     drops = _mode_gates(layers, cfg, stack_mode, drops, active_idx, devices)
     if devices is not None:
+        if remat:
+            raise ValueError("a cohort (devices) runs without remat, as the reference's client step does")
         if caches is not None:
             raise ValueError("a cohort runs without decode caches")
         return _cohort_stack_apply(layers, cfg, h, positions=positions, causal=causal, drops=drops, peft=peft,
@@ -278,15 +305,21 @@ def stack_apply(layers, cfg, h, *, positions, causal: bool = True, drops=None, c
     if len(gates) != num_layers:
         raise ValueError(f"{len(gates)} gates for {num_layers} layers")
     stacked_caches = caches is not None and stacking.is_stacked(caches)
+    remat = remat and caches is None and torch.is_grad_enabled()
     aux_sum, new_caches = 0.0, []
     for l in range(num_layers):
         cache_l = stacking.layer_view(caches, l) if caches is not None else None
         if not gates[l]:
-            h, aux, cache_l = layer_apply(
-                stacking.layer_view(layers, l), cfg, h, positions=positions, causal=causal,
-                cache=cache_l, enc_kv=stacking.layer_view(enc_kvs, l) if enc_kvs is not None else None,
-                peft=stacking.layer_view(peft, l) if peft is not None else None, lora_scale=lora_scale,
-            )
+            params_l = stacking.layer_view(layers, l)
+            enc_kv_l = stacking.layer_view(enc_kvs, l) if enc_kvs is not None else None
+            peft_l = stacking.layer_view(peft, l) if peft is not None else None
+            if remat:  # the layers draw no random numbers: no RNG state to stash
+                h, aux, _ = torch.utils.checkpoint.checkpoint(
+                    _run_layer, h, params_l, enc_kv_l, peft_l, cfg, positions, causal, lora_scale,
+                    use_reentrant=False, preserve_rng_state=False)
+            else:
+                h, aux, cache_l = layer_apply(params_l, cfg, h, positions=positions, causal=causal, cache=cache_l,
+                                              enc_kv=enc_kv_l, peft=peft_l, lora_scale=lora_scale)
             aux_sum = aux_sum + aux
         if stacked_caches:
             _write_layer_cache(caches, l, cache_l)
@@ -297,7 +330,8 @@ def stack_apply(layers, cfg, h, *, positions, causal: bool = True, drops=None, c
 
 
 def lm_apply(params, cfg, tokens, *, positions=None, prefix_embeds=None, drops=None, caches=None, peft=None,
-             lora_scale: float = 1.0, devices=None, stack_mode: str = "unroll", active_idx=None):
+             lora_scale: float = 1.0, devices=None, stack_mode: str = "unroll", active_idx=None,
+             remat: bool = False):
     """Decoder-only LM forward.  tokens: (B, S) int.  Returns (logits, the
     MoE aux loss, new_caches); the caches' K/V tensors are updated in place.
     ``prefix_embeds`` (B, P, d) (the VLM's patch embeddings) go before the
@@ -306,7 +340,7 @@ def lm_apply(params, cfg, tokens, *, positions=None, prefix_embeds=None, drops=N
 
     ``devices`` N: a cohort, tokens (N, B, S) (and a prefix of N * B rows,
     device-major); the logits come back (N * B, S, V), device-major, and
-    the aux loss (N,) (``stack_apply``)."""
+    the aux loss (N,) (``stack_apply``, as is ``remat``)."""
     compute_dtype = getattr(torch, cfg.dtype)
     if devices is not None:
         tokens = tokens.reshape(-1, tokens.shape[-1])
@@ -318,6 +352,7 @@ def lm_apply(params, cfg, tokens, *, positions=None, prefix_embeds=None, drops=N
     h, aux, new_caches = stack_apply(
         params["layers"], cfg, h, positions=positions, causal=True, drops=drops, caches=caches,
         peft=peft, lora_scale=lora_scale, devices=devices, stack_mode=stack_mode, active_idx=active_idx,
+        remat=remat,
     )
     h = apply_norm(params["final_norm"], h, cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]

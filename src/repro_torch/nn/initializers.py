@@ -23,3 +23,8 @@ def truncated_lecun(generator: torch.Generator, shape, fan_in_axis: int = 0, dty
     std = (1.0 / max(1, fan_in)) ** 0.5
     out = torch.empty(shape, dtype=dtype, device=generator.device)
     return torch.nn.init.trunc_normal_(out, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+def zeros_init(generator: torch.Generator, shape, dtype=torch.float32):
+    """Zeros on the generator's device (nothing is drawn)."""
+    return torch.zeros(shape, dtype=dtype, device=generator.device)

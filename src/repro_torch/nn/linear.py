@@ -21,6 +21,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.nn.initializers import truncated_lecun
 
 
 @dataclass(frozen=True)
@@ -40,6 +41,21 @@ class AdapterPool:
     b: torch.Tensor
     idx: torch.Tensor
     ranks: torch.Tensor
+
+
+def init_linear(generator: torch.Generator, d_in: int, d_out: int, bias: bool = False, dtype=torch.float32):
+    """``{"w": (d_in, d_out)}`` (truncated LeCun), and a zero ``b`` with
+    ``bias``, on the generator's device."""
+    p = {"w": truncated_lecun(generator, (d_in, d_out), dtype=dtype)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=generator.device)
+    return p
+
+
+def lora_delta(x, lora, scale: float):
+    """``scale * (x @ a) @ b``, the LoRA contribution alone (plain
+    products; ``apply_linear`` fuses it with ``x @ w`` in one kernel)."""
+    return scale * ((x @ lora["a"].to(x.dtype)) @ lora["b"].to(x.dtype))
 
 
 def _pooled_linear(params, x, pool: AdapterPool):

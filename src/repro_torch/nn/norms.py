@@ -5,6 +5,15 @@ from __future__ import annotations
 import torch
 
 
+def init_rmsnorm(dim: int, dtype=torch.float32, device=None):
+    return {"scale": torch.ones((dim,), dtype=dtype, device=device)}
+
+
+def init_layernorm(dim: int, dtype=torch.float32, device=None):
+    return {"scale": torch.ones((dim,), dtype=dtype, device=device),
+            "bias": torch.zeros((dim,), dtype=dtype, device=device)}
+
+
 def apply_rmsnorm(params, x, eps: float = 1e-5):
     orig = x.dtype
     x = x.float()

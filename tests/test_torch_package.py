@@ -54,7 +54,11 @@ def test_import_loads_neither_jax_nor_the_jax_package():
     assert out.returncode == 0, out.stderr
 
 
-@pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"], ids=lambda p: p.name)
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
+
+
+@pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES,
+                         ids=lambda p: p.name)
 def test_sources_never_import_jax_or_the_jax_package(path):
     assert not _FORBIDDEN.findall(path.read_text()), path
 
@@ -90,10 +94,12 @@ def test_scan_covers_the_training_modules():
 
 def test_package_boundary_lint_is_clean():
     """The port's own lint rule TXH006 (an import of jax, jaxlib or repro)
-    finds nothing in the package, nor in ``chip_smoke.py``."""
+    finds nothing in the package, nor in ``chip_smoke.py`` and the port's
+    examples."""
     from repro_torch.analysis import lint_torch
 
-    found = lint_torch.lint_paths((str(PACKAGE), str(ROOT / "chip_smoke.py")), rules=("TXH006",))
+    found = lint_torch.lint_paths((str(PACKAGE), str(ROOT / "chip_smoke.py"), *map(str, EXAMPLES)),
+                                  rules=("TXH006",))
     assert found == [], [v.render() for v in found]
 
 
