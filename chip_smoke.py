@@ -268,6 +268,26 @@ Phases, one line each before the last:
    card runs out: meta sees the allocated bytes, not the allocator's
    fragmentation), deeper than phase 5j's 9 layers, its launches and peak
    against meta's;
+5n. the last of the reference's public names (``public_names_full``):
+   ``multi_head_attention`` at qwen3-1.7b's heads (batch 8, bf16) in its
+   four cases, each against ``plain_mha`` (3e-2 + 1e-2 |ref| and a
+   relative L2 of 6e-3) with its launches exactly: (a) a causal run of 512
+   with window 256 and (b) 512 queries over 1 500 keys bidirectional, one
+   ``flash_attention`` each, whose backward is one ``flash_attention_bwd``
+   against the plain version's autograd; (c) 16 queries at 496-511 over
+   512 keys and (d) per-row positions with window 128, one ``flash_decode``
+   a query, raising for an input that requires a gradient; whisper-tiny's
+   encoder uncut (16 x 1 500 frames) through ``encode`` with gates at rate
+   0.5 and a LoRA of rank 8 on q and v: launches from the kept layers (a
+   dropped layer launches nothing and its adapter's gradient is zero),
+   every lora_matmul on wgmma, states and LoRA gradients against the plain
+   twins on the card in bf16 and float32; ``api.serve("qwen3-1.7b",
+   smoke=False, model_overrides={"sliding_window": 256, "num_layers": 8},
+   stack_mode="unroll")`` over requests that outgrow the 256-slot ring,
+   token for token as ``api.serve(cfg=...)``, its launches as phase 4's;
+   full-width qwen3-1.7b's local round (16 x 512, rate 0.5, 2 steps) from
+   ``layout="list"`` trees under ``unroll`` and ``scan``, bit for bit the
+   stacked round, launches from its gates;
 6. the ``kernels`` JSON line: launches of each kernel in its own path's
    run (serving: phase 4's run; training: phase 5's round at rate 0.5,
    phase 5b's for wkv6 and wkv6_bwd, phase 5c's for mamba_scan and
@@ -275,7 +295,7 @@ Phases, one line each before the last:
    phase 5f's deadline rounds and gather round, phase 5g's runs, and for
    every kernel of the dense path phase 5e's runs, and phase 5h's serving
    runs for flash_decode, flash_attention, wkv6 and mamba_scan, and phases
-   5i's, 5j's, 5k's, 5l's (b) and 5m's runs (``launches_by_path``), the other dense
+   5i's, 5j's, 5k's, 5l's (b), 5m's and 5n's runs (``launches_by_path``), the other dense
    decoders' shapes, FedHetLoRA's, the scans' from a state, the moe
    family's, the stub-frontend families' and the training CLI's beside.
 
@@ -286,6 +306,7 @@ script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import math
@@ -4927,6 +4948,367 @@ def remat_full(ops, card, seed: int) -> tuple:
     return stats, launches, time.perf_counter() - t0
 
 
+# -------------------------------------------------------------------- phase 5n
+MHA_WIDTHS = {"b": 8, "h": 16, "kv": 8, "d": 128}  # qwen3-1.7b's heads at serving's batch 8
+MHA_DECODE_QUERIES = 16
+SERVE_WINDOW, SERVE_LAYERS = 256, 8  # the override phase 5n serves with, and its depth cut
+ENCODE_BATCH, ENCODE_RATE, ENCODE_RANK = 16, 0.5, 8
+# phase 5n's encoder against the twins, each output's largest error as a
+# share of its largest element: bf16 as ``grads_close``'s bf16 rule; float32
+# at 1e-4, the float32 kernels' sums over 24 000 rows in another order
+# (a wrong mask or a dropped term moves whole percents)
+ENCODE_TOLERANCE = {"bfloat16": 2e-2, "float32": 1e-4}
+
+
+def plain_mha(q, k, v, q_positions, k_positions, causal: bool, window):
+    """The reference's masked attention (``_mask_bias``, then ``_sdpa``) in
+    float32 over absolute positions, broadcast over the rows: the plain
+    version ``multi_head_attention`` is held to, whichever kernel a case
+    takes.  Differentiable by autograd."""
+    b, sq, h, d = q.shape
+    skv, kv = k.shape[1], k.shape[2]
+    qe = q_positions.long().expand(b, sq)[:, :, None]
+    ke = k_positions.long().expand(b, skv)[:, None, :]
+    ok = torch.ones((b, sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        ok = ok & (ke <= qe)
+    if window is not None:
+        ok = ok & (ke > qe - window)
+    scores = torch.einsum("bqgrd,bkgd->bgrqk", q.float().reshape(b, sq, kv, h // kv, d), k.float()) * d**-0.5
+    scores = torch.where(ok[:, None, None], scores, torch.full((), -1e30, device=q.device))
+    out = torch.einsum("bgrqk,bkgd->bqgrd", torch.softmax(scores, dim=-1), v.float())
+    return out.reshape(b, sq, h, d).to(q.dtype)
+
+
+def mha_cases(gen):
+    """Phase 5n's ``multi_head_attention`` cases at qwen3-1.7b's widths:
+    name -> (Sq, Skv, q_positions, k_positions, causal, window, kernel,
+    launches).  (d)'s rows sit at depths of their own, each row's keys past
+    its depth never written (INT32_MAX)."""
+    from repro_torch.nn.attention import INT32_MAX
+
+    b, sq = MHA_WIDTHS["b"], 4
+    run = lambda n, offset=0: torch.arange(n, dtype=torch.int32, device="cuda") + offset  # noqa: E731
+    depth = torch.randint(64, 512 - sq, (b,), generator=gen, device="cuda", dtype=torch.int32)
+    q_rows = depth[:, None] + run(sq)
+    slots = run(512)[None, :].expand(b, 512)
+    k_rows = torch.where(slots <= q_rows[:, -1:], slots, torch.full_like(slots, INT32_MAX)).contiguous()
+    return {
+        "a causal run, window 256": (512, 512, run(512), run(512), True, 256, "flash_attention", 1),
+        "b bidirectional, 512 x 1500": (512, 1500, run(512), run(1500), False, None, "flash_attention", 1),
+        "c 16 queries over 512 keys": (MHA_DECODE_QUERIES, 512, run(MHA_DECODE_QUERIES, 512 - MHA_DECODE_QUERIES),
+                                       run(512), True, None, "flash_decode", MHA_DECODE_QUERIES),
+        "d per-row positions, window 128": (sq, 512, q_rows, k_rows, True, 128, "flash_decode", sq),
+    }
+
+
+def mha_full(ops, timer, card: str, seed: int) -> tuple:
+    """Phase 5n (a)-(d): ``multi_head_attention`` at qwen3-1.7b's widths in
+    bf16 against ``plain_mha`` (3e-2 + 1e-2 |ref| and a relative L2 of
+    ``BF16_REL_L2``), each case's launches exactly: one ``flash_attention``
+    for (a) and (b), whose backward runs one ``flash_attention_bwd`` held
+    to the plain version's autograd (``grads_close`` and the relative L2),
+    one ``flash_decode`` a query column for (c) and (d), which raise for an
+    input that requires a gradient.  Times beside the plain version's."""
+    from repro_torch.nn.attention import multi_head_attention
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 31)
+    b, h, kv, d = (MHA_WIDTHS[key] for key in ("b", "h", "kv", "d"))
+    stats, launches = {}, {}
+    for name, (sq, skv, qpos, kpos, causal, window, kernel, count) in mha_cases(gen).items():
+        q, k, v, g = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                      for shape in ((b, sq, h, d), (b, skv, kv, d), (b, skv, kv, d), (b, sq, h, d)))
+        pos = {"q_positions": qpos, "k_positions": kpos, "causal": causal, "window": window}
+        train = kernel == "flash_attention"
+        leaves = [t.clone().requires_grad_(train) for t in (q, k, v)]
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        with torch.set_grad_enabled(train):
+            out = multi_head_attention(*leaves, **pos)
+        torch.cuda.synchronize()
+        fwd = {key: n for key, n in ops.launch_counts.items() if n}
+        check(fwd == {kernel: count}, f"5n mha {name}: launches {fwd}, expected {{{kernel!r}: {count}}}")
+        twins = [t.clone().requires_grad_(train) for t in (q, k, v)]
+        want = plain_mha(*twins, qpos, kpos, causal, window)
+        err, rel = (out.float() - want.float()).abs().max().item(), rel_l2(out, want)
+        check(torch.allclose(out.float(), want.float(), atol=3e-2, rtol=1e-2) and rel <= BF16_REL_L2,
+              f"5n mha {name}: max abs err {err}, relative L2 {rel} (limit {BF16_REL_L2})")
+        case = {"shape": f"B={b} Sq={sq} Skv={skv} H={h} KV={kv} D={d} causal={causal} window={window} bf16",
+                "kernel": kernel, "launches": fwd, "max_abs_err": err, "rel_l2_err": rel}
+        if train:
+            ops.reset_launch_counts()
+            grads = torch.autograd.grad(out, leaves, g)
+            torch.cuda.synchronize()
+            bwd = {key: n for key, n in ops.launch_counts.items() if n}
+            check(bwd == {"flash_attention_bwd": 1}, f"5n mha {name}: backward launches {bwd}")
+            want_grads = torch.autograd.grad(want, twins, g)
+            ok, grad_errs = grads_close(grads, want_grads, torch.bfloat16)
+            rels = [rel_l2(x, y) for x, y in zip(grads, want_grads)]
+            check(ok and max(rels) <= BF16_REL_L2,
+                  f"5n mha {name}: dq/dk/dv max abs errs {grad_errs}, relative L2 {rels} (limit {BF16_REL_L2})")
+            case.update(bwd_launches=bwd, bwd_max_abs_err=max(grad_errs), bwd_rel_l2_err=max(rels))
+            launches[f"5n_mha_{name.split()[0]}"] = {**fwd, **bwd}
+        else:
+            try:
+                multi_head_attention(q.clone().requires_grad_(True), k, v, **pos)
+                raise AssertionError(f"5n mha {name}: a query that requires a gradient did not raise")
+            except ValueError:
+                pass
+            launches[f"5n_mha_{name.split()[0]}"] = fwd
+        with torch.no_grad():
+            case["ms"] = timer(lambda: multi_head_attention(q, k, v, **pos), repeats=10)
+            case["plain_ms"] = timer(lambda: plain_mha(q, k, v, qpos, kpos, causal, window), repeats=10)
+        stats[name] = case
+        print(f"5n multi_head_attention {name} {json.dumps(case)} [{card}]", flush=True)
+    return stats, launches
+
+
+class plain_twins:
+    """Within the block, the attention and LoRA wrappers the models call
+    run their plain twins, on any device: the comparison that holds a path
+    to its twins on the card.  Nothing run inside counts as a launch."""
+
+    def __init__(self, ops, ref):
+        self.ops, self.swap = ops, {
+            "flash_attention": lambda q, k, v, *, causal=True, window=None: ref.attention_plain(
+                q, k, v, causal=causal, window=window),
+            "lora_matmul": lambda x, w, a, b, *, alpha=1.0: ref.lora_matmul_plain(x, w, a, b, alpha=alpha)}
+
+    def __enter__(self):
+        self.saved = {name: getattr(self.ops, name) for name in self.swap}
+        for name, fn in self.swap.items():
+            setattr(self.ops, name, fn)
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.ops, name, fn)
+
+
+def encode_full(ops, ref, card: str, seed: int) -> tuple:
+    """Phase 5n: whisper-tiny's encoder uncut (4 layers, 16 x 1 500 frames)
+    through ``encdec.encode`` with STLD gates drawn at rate 0.5 (a draw
+    with a layer dropped and one kept) and a LoRA of rank 8 on q and v
+    (``b`` off zero), in bf16: ``flash_attention`` launches equal the kept
+    layers, as do ``flash_attention_bwd``'s, ``lora_matmul``'s follow from
+    them (q and v a kept layer, and their dX in all but the first), all on
+    wgmma, and a dropped layer's adapter takes an exact zero gradient.  The
+    states and the LoRA's gradients are held to the same encode on the
+    plain twins on the card, in bf16 and in float32 (the float32 kernels,
+    the same draws), each within ``ENCODE_TOLERANCE`` of its largest
+    element."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import stld
+    from repro_torch.models import encdec, stacking
+    from repro_torch.models.registry import init_params
+    from repro_torch.nn.linear import init_lora
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    layers = get_config(WHISPER).num_encoder_layers
+    host = torch.Generator().manual_seed(seed + 32)
+    drops = stld.sample_drops(host, torch.full((layers,), ENCODE_RATE))
+    while bool(drops.all()) or not bool(drops.any()):
+        drops = stld.sample_drops(host, torch.full((layers,), ENCODE_RATE))
+    kept = int((~drops).sum())
+
+    def inputs(dtype: str):
+        cfg = get_config(WHISPER).replace(dtype=dtype)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed + 32)
+        params = init_params(cfg, gen, place=True)
+        width = cfg.num_heads * cfg.resolved_head_dim
+        peft = {"attn": {t: init_lora(gen, cfg.d_model, width, ENCODE_RANK, lead=(layers,)) for t in ("q", "v")}}
+        for node in peft["attn"].values():
+            node["b"].normal_(0.0, 0.02, generator=gen)
+        shape = (ENCODE_BATCH, cfg.frontend_seq, cfg.d_model)
+        frames = torch.randn(shape, generator=gen, device="cuda").to(getattr(torch, dtype))
+        return cfg, params, peft, frames, torch.randn(shape, generator=gen, device="cuda")
+
+    def run(cfg, params, peft, frames, probe, twins: bool = False):
+        leaves = stacking.tree_map(lambda t: t.clone().requires_grad_(True), peft)
+        with plain_twins(ops, ref) if twins else contextlib.nullcontext():
+            out = encdec.encode(params, cfg, frames, drops=drops, peft=leaves, lora_scale=2.0)
+            grads = torch.autograd.grad(torch.sum(out.float() * probe), stacking.tree_leaves(leaves))
+        torch.cuda.synchronize()
+        return out, grads
+
+    bf16 = inputs("bfloat16")
+    run(*bf16)  # warm
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out, grads = run(*bf16)
+    run_s = time.perf_counter() - t0
+    launches = dict(ops.launch_counts)
+    routes = {key: n for key, n in ops.lora_matmul_routes.items() if n}
+    want_launches = {"flash_attention": kept, "flash_attention_bwd": kept, "lora_matmul": 4 * kept - 2}
+    check_launches(launches, want_launches, f"5n encode with gates {drops.tolist()}")
+    check(routes == {"wgmma": want_launches["lora_matmul"]}, f"5n encode: lora_matmul routes {routes}")
+    check(bool(torch.isfinite(out).all()), "5n encode: non-finite states")
+    for l, dropped in enumerate(drops.tolist()):
+        check(all(bool(torch.any(g[l] != 0)) != dropped for g in grads),
+              f"5n encode: layer {l} (dropped: {dropped}) and its adapter's gradient disagree")
+    errs = {}
+    for dtype in ("bfloat16", "float32"):
+        args = bf16 if dtype == "bfloat16" else inputs(dtype)
+        got, got_grads = (out, grads) if dtype == "bfloat16" else run(*args)
+        want, want_grads = run(*args, twins=True)
+        pairs = list(zip([got, *got_grads], [want, *want_grads]))
+        grad_errs = [(g.float() - w.float()).abs().max().item() for g, w in pairs]
+        limits = [ENCODE_TOLERANCE[dtype] * w.float().abs().max().item() for _, w in pairs]
+        check(all(e <= lim for e, lim in zip(grad_errs, limits)),
+              f"5n encode {dtype}: states' and LoRA gradients' max abs errs {grad_errs} against the twins, "
+              f"limits {limits}")
+        errs[dtype] = {"max_abs_err": grad_errs[0], "rel_l2_err": rel_l2(got, want), "grad_max_abs_errs": grad_errs[1:],
+                       "limits": limits}
+    stats = {"shape": f"{WHISPER} encoder, {layers} layers, B={ENCODE_BATCH} S={bf16[0].frontend_seq} "
+                      f"d={bf16[0].d_model}, LoRA r={ENCODE_RANK} on q and v",
+             "gates": drops.tolist(), "launches": {key: n for key, n in launches.items() if n}, "routes": routes,
+             "against_twins": errs, "bf16_fwd_bwd_s": run_s}
+    print(f"5n encode {json.dumps(stats)} [{card}]", flush=True)
+    return stats, {"5n_encode_whisper": stats["launches"]}
+
+
+def serve_overrides_full(api, ops, card: str, seed: int) -> tuple:
+    """Phase 5n: ``api.serve("qwen3-1.7b", smoke=False, model_overrides=
+    {"sliding_window": 256, "num_layers": 8}, stack_mode="unroll")`` (full
+    width, depth cut to 8 layers) serves 8 tenants' requests whose
+    positions outgrow the 256-slot ring, token for token as ``api.serve(
+    cfg=<the full config>.replace(...))`` (the default ``scan``); its
+    launches as phase 4's: a ``flash_decode`` a layer a step and a
+    ``segmented_lora`` for q and v."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.batcher import Request
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    overrides = {"sliding_window": SERVE_WINDOW, "num_layers": SERVE_LAYERS}
+    cfg = get_config("qwen3-1.7b").replace(**overrides)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 33)
+    tenants = make_tenants(cfg, gen)
+    rng = np.random.default_rng(seed + 33)
+    requests = [(rng.integers(0, cfg.vocab_size, int(rng.integers(250, 291))).tolist(), f"tenant{j % 4}")
+                for j in range(8)]
+    out = {}
+    for name, kw in (("overrides", {"model_overrides": overrides, "stack_mode": "unroll"}), ("cfg", {"cfg": cfg})):
+        batcher = api.serve("qwen3-1.7b", smoke=False, adapters=tenants, batch=8, max_len=512, seed=seed, **kw)
+        check(batcher.cfg.sliding_window == SERVE_WINDOW and batcher.caches["k"].shape[2] == SERVE_WINDOW,
+              f"5n serve {name}: window {batcher.cfg.sliding_window}, ring of {batcher.caches['k'].shape[2]} slots")
+        steps, step = [], batcher.serve_step
+
+        def counted(*args, _step=step, **kwargs):
+            steps.append(1)
+            return _step(*args, **kwargs)
+
+        batcher.serve_step = counted
+        for uid, (prompt, adapter) in enumerate(requests):
+            batcher.submit(Request(prompt=prompt, adapter=adapter, max_new_tokens=16, uid=uid))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        done = batcher.run()
+        torch.cuda.synchronize()
+        out[name] = {"tokens": {c.uid: c.tokens for c in done}, "steps": len(steps), "s": time.perf_counter() - t0,
+                     "launches": dict(ops.launch_counts)}
+        del batcher
+    got, want = out["overrides"], out["cfg"]
+    check(got["tokens"] == want["tokens"] and len(got["tokens"]) == 8, "5n serve: the overrides' tokens differ")
+    n = got["steps"]
+    check_launches(got["launches"], {"flash_decode": SERVE_LAYERS * n, "segmented_lora": 2 * SERVE_LAYERS * n},
+                   f"5n serve in {n} steps")
+    stats = {"model": cfg.name, "layers": SERVE_LAYERS, "window": SERVE_WINDOW, "steps": n,
+             "longest_position": max(len(p) for p, _ in requests) + 15,
+             "launches": {key: n for key, n in got["launches"].items() if n},
+             "s_overrides_unroll": got["s"], "s_cfg_scan": want["s"], "ms_per_step": got["s"] / n * 1e3,
+             "tokens_equal": True}
+    print(f"5n serve with overrides {json.dumps(stats)} [{card}]", flush=True)
+    return stats, {"5n_serve_overrides": stats["launches"]}
+
+
+def list_layout_round_full(ops, card: str, seed: int) -> tuple:
+    """Phase 5n: full-width qwen3-1.7b's local round (phase 5's batch 16 x
+    512 and rate 0.5, 2 steps) from ``layout="list"`` trees, under
+    ``unroll`` and under ``scan`` (``default_stack_mode``), gives the
+    stacked round's PEFT tree, metrics and importances bit for bit, each
+    with the launches the gates give."""
+    from repro_torch.configs import FederatedConfig, PEFTConfig, STLDConfig, TrainConfig, get_config
+    from repro_torch.core import stld
+    from repro_torch.core.peft import init_peft
+    from repro_torch.data.synthetic import make_task
+    from repro_torch.federated.client import make_client_fns
+    from repro_torch.models.registry import default_stack_mode, init_params
+    from repro_torch.models.stacking import in_layout
+    from repro_torch.optim import adamw_init
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, batch, steps = get_config("qwen3-1.7b"), FederatedConfig().batch_size, 2
+    task = make_task(vocab_size=cfg.vocab_size, seq_len=512, num_examples=steps * batch, seed=seed)
+    batches = train_batches(task, steps, batch)
+    trees = {}
+    for layout in ("auto", "list"):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed + 34)
+        trees[layout] = (init_params(cfg, gen, layout, place=True), init_peft(cfg, PEFTConfig(), gen, layout))
+    check(isinstance(trees["list"][0]["layers"], list) and isinstance(trees["list"][1], list),
+          "5n: layout='list' gave a stacked tree")
+    runs, sample_drops = {}, stld.sample_drops
+    for layout, mode in (("auto", "unroll"), ("list", "unroll"), ("list", default_stack_mode(cfg))):
+        fns = make_client_fns(cfg, PEFTConfig(), STLDConfig(), TrainConfig(), stack_mode=mode)
+        params, peft = trees[layout]
+        gates = []
+
+        def recorded(*args, **kw):
+            drops = sample_drops(*args, **kw)
+            gates.append(drops.tolist())
+            return drops
+
+        stld.sample_drops = recorded
+        try:
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = fns.local_round(params, peft, adamw_init(peft), batches, 0.5, torch.Generator().manual_seed(seed + 7),
+                                  0)
+            torch.cuda.synchronize()
+        finally:
+            stld.sample_drops = sample_drops
+        launches = dict(ops.launch_counts)
+        check_launches(launches, training_launches([g.count(False) for g in gates]), f"5n {layout} round {mode}")
+        runs[layout, mode] = {"out": out, "gates": gates, "s": time.perf_counter() - t0, "launches": launches}
+    want = runs["auto", "unroll"]["out"]
+    for key, run in runs.items():
+        got = run["out"]
+        check(run["gates"] == runs["auto", "unroll"]["gates"], f"5n {key}: gates {run['gates']}")
+        check(tree_equal(in_layout(got[0], "list", cfg.num_layers), in_layout(want[0], "list", cfg.num_layers)),
+              f"5n {key}: the PEFT tree differs from the stacked round's")
+        check(all(torch.equal(got[2][k], want[2][k]) for k in want[2]) and torch.equal(got[3], want[3]),
+              f"5n {key}: metrics or importances differ from the stacked round's")
+        check(all(math.isfinite(float(v)) for v in got[2].values()), f"5n {key}: non-finite metrics {got[2]}")
+    stats = {"model": cfg.name, "steps": steps, "batch": f"{batch} x 512", "rate": 0.5,
+             "gates": runs["auto", "unroll"]["gates"], "bit_identical": True,
+             "s": {f"{layout} {mode}": run["s"] for (layout, mode), run in runs.items()},
+             "metrics": {k: float(v) for k, v in want[2].items()}}
+    print(f"5n list-layout local round {json.dumps(stats)} [{card}]", flush=True)
+    return stats, {"5n_list_round": {k: n for k, n in runs["list", "unroll"]["launches"].items() if n}}
+
+
+def public_names_full(api, ops, ref, timer, card: str, seed: int) -> tuple:
+    """Phase 5n: the last of the reference's public names on the card
+    (``multi_head_attention``, ``encode(drops, peft)``, ``api.serve(
+    model_overrides, stack_mode)``, ``layout="list"``).  Returns (stats,
+    the card's launches by run, the phase's seconds)."""
+    t0 = time.perf_counter()
+    stats, launches = {}, {}
+    for name, (st, runs) in (("multi_head_attention", mha_full(ops, timer, card, seed)),
+                             ("encode", encode_full(ops, ref, card, seed)),
+                             ("serve_overrides", serve_overrides_full(api, ops, card, seed)),
+                             ("list_layout_round", list_layout_round_full(ops, card, seed))):
+        stats[name] = st
+        launches.update(runs)
+    return stats, launches, time.perf_counter() - t0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5343,6 +5725,21 @@ def main() -> int:
     def remat_launches(name):
         return {path: counts[name] for path, counts in remat_runs.items() if counts.get(name)}
 
+    # 5n. the last of the reference's public names: multi_head_attention on
+    #     both attention kernels, encode with gates and LoRA, api.serve with
+    #     model_overrides and stack_mode, and a round from layout="list" trees
+    names_stats, names_runs, names_s = public_names_full(api, ops, ref, timer, card, args.seed)
+    print(f"phase 5n: {names_s:.1f} s [{card}]", flush=True)
+    for path, names in (("5n_mha_a", ("flash_attention", "flash_attention_bwd")), ("5n_mha_c", ("flash_decode",)),
+                        ("5n_encode_whisper", ("flash_attention", "flash_attention_bwd", "lora_matmul")),
+                        ("5n_serve_overrides", ("flash_decode", "segmented_lora")),
+                        ("5n_list_round", ("flash_attention", "flash_attention_bwd", "lora_matmul"))):
+        for name in names:
+            check(names_runs[path].get(name, 0) > 0, f"{name} never launched in phase 5n's {path}: {names_runs[path]}")
+
+    def names_launches(name):
+        return {path: counts[name] for path, counts in names_runs.items() if counts.get(name)}
+
     stub_shape_keys = {"flash_attention": ("attention_whisper_encoder", "attention_whisper_cross"),
                        "flash_decode": ("decode_whisper_self", "decode_whisper_cross", "decode_internvl")}
 
@@ -5402,7 +5799,7 @@ def main() -> int:
                                  "5g_serve_hetlora_checkpoint": grid_launches["segmented_lora"],
                                  **moe_launches("segmented_lora", ("serve",)),
                                  **stub_launches("segmented_lora", ("serve internvl",)),
-                                 **meta_launches("segmented_lora")},
+                                 **meta_launches("segmented_lora"), **names_launches("segmented_lora")},
             "internvl_shapes": {name: pick(stub_shapes[f"segmented {name}"], proj_keys)
                                 for name in ("internvl q", "internvl v")},
             "hetlora_shapes": {name: pick(hetlora[f"segmented n{n}"], proj_keys) for name, n in (("q", 2048),
@@ -5431,7 +5828,7 @@ def main() -> int:
                                  **moe_launches("flash_decode", ("serve", "generate")),
                                  **stub_launches("flash_decode", ("generate whisper", "serve internvl",
                                                                   "generate internvl")),
-                                 **meta_launches("flash_decode")},
+                                 **meta_launches("flash_decode"), **names_launches("flash_decode")},
             "moe_shapes": {short: pick(moe_shapes[f"decode_{short}"], fwd_keys) for short in moe_paths},
             "stub_frontend_shapes": {key: pick(stub_shapes[key], fwd_keys) for key in stub_shape_keys["flash_decode"]},
             "sharded_decode_yardstick": {  # phase 5k: the whole cache beside its 2-rank sequence-sharded decode
@@ -5460,7 +5857,7 @@ def main() -> int:
                                                                      "federated whisper", "train internvl",
                                                                      "generate internvl")),
                                  **cli_launches("flash_attention"), **meta_launches("flash_attention"),
-                                 **remat_launches("flash_attention")},
+                                 **remat_launches("flash_attention"), **names_launches("flash_attention")},
             "train_cli_shape": pick(cli_shape["attention"], fwd_keys),
             "moe_shapes": {short: pick(moe_shapes[f"attention_{short}"], fwd_keys) for short in moe_paths},
             "whisper_shapes": {key: pick(stub_shapes[key], fwd_keys) for key in stub_shape_keys["flash_attention"]},
@@ -5491,7 +5888,7 @@ def main() -> int:
                                  **stub_launches("flash_attention_bwd", ("train whisper", "federated whisper",
                                                                          "train internvl")),
                                  **cli_launches("flash_attention_bwd"), **meta_launches("flash_attention_bwd"),
-                                 **remat_launches("flash_attention_bwd")},
+                                 **remat_launches("flash_attention_bwd"), **names_launches("flash_attention_bwd")},
             "train_cli_shape": pick(cli_shape["attention"], ("shape",), **bwd_renamed),
             "whisper_shapes": {key: pick(stub_shapes[key], ("shape",), **bwd_renamed)
                                for key in stub_shape_keys["flash_attention"]},
@@ -5528,7 +5925,7 @@ def main() -> int:
                                  **stub_launches("lora_matmul", ("train whisper", "federated whisper",
                                                                  "train internvl")),
                                  **cli_launches("lora_matmul"), **meta_launches("lora_matmul"),
-                                 **remat_launches("lora_matmul")},
+                                 **remat_launches("lora_matmul"), **names_launches("lora_matmul")},
             "train_cli_grouped_shapes": {name: pick(cli_shape[name], proj_keys + ("route", "ungrouped_launches_ms"))
                                          for name in ("grouped q", "grouped v")},
             "stub_frontend_shapes": {name: pick(stub_shapes[f"lora {name}"],

@@ -193,14 +193,14 @@ def trace_program(where: str, fn, *args, stacked_shapes=frozenset(), count_ops: 
     )
 
 
-def stacked_leaf_shapes(layers) -> frozenset:
+def stacked_leaf_shapes(tree) -> frozenset:
     """Shapes of the stacked leaves of a layer tree: its leaves where it is
     stacked, else each leaf of a layer with a leading layer count."""
     from repro_torch.models import stacking
 
-    if stacking.is_stacked(layers):
-        return frozenset(tuple(x.shape) for x in stacking.tree_leaves(layers))
-    return frozenset((len(layers), *x.shape) for x in stacking.tree_leaves(layers[0]))
+    if stacking.is_stacked(tree):
+        return frozenset(tuple(x.shape) for x in stacking.tree_leaves(tree))
+    return frozenset((len(tree), *x.shape) for x in stacking.tree_leaves(tree[0]))
 
 
 # -------------------------------------------------------------- rule checks
@@ -479,10 +479,11 @@ def decode_trace(*, where="serving/decode", num_tokens=4) -> ProgramTrace:
     return _retag(_trace_cache[key], where)
 
 
-def batched_decode_trace(*, where="serving/batched_decode", num_layers=4) -> ProgramTrace:
+def batched_decode_trace(*, where="serving/batched_decode", num_layers=4, num_tokens=4) -> ProgramTrace:
     """One multi-tenant batched decode step: pooled mixed-rank adapters
-    (the segmented kernel), stacked batched caches, per-row positions."""
-    key = ("batched_decode", num_layers)
+    (the segmented kernel), stacked batched caches, per-row positions.
+    ``num_tokens`` keys the cache only, as the reference's does."""
+    key = ("batched_decode", num_layers, num_tokens)
     if key not in _trace_cache:
         from repro_torch.configs import PEFTConfig
         from repro_torch.launch.steps import make_serve_step

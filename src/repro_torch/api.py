@@ -218,6 +218,7 @@ def serve(
     *,
     smoke: bool = True,
     cfg=None,
+    model_overrides: Optional[dict] = None,
     params=None,
     checkpoint_dir: Optional[str] = None,
     adapters: Optional[dict] = None,
@@ -225,6 +226,7 @@ def serve(
     batch: int = 4,
     max_len: int = 256,
     n_slots: Optional[int] = None,
+    stack_mode: str = "scan",
     cache_dtype: str = "bfloat16",
     seed: int = 0,
     device=None,
@@ -243,15 +245,22 @@ def serve(
     ``{name: LoRA tree}`` dict.  ``params=None`` draws random weights from
     ``seed`` on the device, each part cast to ``cfg.dtype`` as it is drawn;
     given weights are cast once here.  The float32 masters are not kept.
+    ``model_overrides`` replace fields of the config, as ``build``'s do;
+    ``stack_mode`` is the serve step's (``check_stack_mode``; every mode
+    runs the one layer loop).
     """
     from repro_torch.launch.steps import make_serve_step
     from repro_torch.models.registry import init_params, place_params
+    from repro_torch.models.transformer import check_stack_mode
     from repro_torch.serving.adapters import AdapterPoolCache, AdapterRegistry
     from repro_torch.serving.batcher import ContinuousBatcher
 
+    check_stack_mode(stack_mode)
     device = torch.device("cuda" if device is None else device)
     if cfg is None:
         cfg = get_config(model, smoke=smoke)
+    if model_overrides:
+        cfg = cfg.replace(**model_overrides)
     if cfg.family in ("ssm", "hybrid"):
         # the reference's batcher resets only a recycled row's position, so
         # the row would carry the previous request's recurrent state
@@ -285,7 +294,7 @@ def serve(
         device=device,
     )
     return ContinuousBatcher(
-        make_serve_step(cfg),
+        make_serve_step(cfg, stack_mode=stack_mode),
         params,
         cfg,
         pool,

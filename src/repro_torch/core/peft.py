@@ -31,7 +31,7 @@ import torch
 
 from repro_torch.models import stacking
 from repro_torch.models.layers import layer_kind
-from repro_torch.nn.initializers import truncated_lecun
+from repro_torch.nn.linear import init_lora
 from repro_torch.nn.mlp import init_adapter
 
 _ATTN_DIMS = {
@@ -51,13 +51,6 @@ def lora_scale(peft_cfg) -> float:
     return peft_cfg.lora_alpha / peft_cfg.lora_rank
 
 
-def _lora(generator, lead, d_in, d_out, r):
-    return {
-        "a": truncated_lecun(generator, (*lead, d_in, r), fan_in_axis=len(lead)),
-        "b": torch.zeros((*lead, r, d_out), device=generator.device),
-    }
-
-
 def _targets(cfg, peft_cfg, generator, lead, with_mlp: bool, with_cross: bool = False):
     tree = {}
     for group, dims in (("attn", _ATTN_DIMS), ("mlp", _MLP_DIMS), ("cross", _ATTN_DIMS)):
@@ -65,23 +58,23 @@ def _targets(cfg, peft_cfg, generator, lead, with_mlp: bool, with_cross: bool = 
             continue
         for t in peft_cfg.lora_targets:
             if t in dims:
-                tree.setdefault(group, {})[t] = _lora(generator, lead, *dims[t](cfg), peft_cfg.lora_rank)
+                tree.setdefault(group, {})[t] = init_lora(generator, *dims[t](cfg), peft_cfg.lora_rank, lead=lead)
     return tree
 
 
 def _hybrid_lora_layer(cfg, peft_cfg, generator, l: int):
     if layer_kind(cfg, l) == "mamba":
         d_in, r = cfg.mamba.expand * cfg.d_model, peft_cfg.lora_rank
-        return {"mamba": {"in": _lora(generator, (), cfg.d_model, 2 * d_in, r),
-                          "out": _lora(generator, (), d_in, cfg.d_model, r)}}
+        return {"mamba": {"in": init_lora(generator, cfg.d_model, 2 * d_in, r),
+                          "out": init_lora(generator, d_in, cfg.d_model, r)}}
     return _targets(cfg, peft_cfg, generator, (), with_mlp=not cfg.is_moe_layer(l))
 
 
 def _init_lora(cfg, peft_cfg, generator):
     L, r = cfg.num_layers, peft_cfg.lora_rank
     if cfg.family == "ssm":
-        return {"cm": {"up": _lora(generator, (L,), cfg.d_model, cfg.d_ff, r),
-                       "down": _lora(generator, (L,), cfg.d_ff, cfg.d_model, r)}}
+        return {"cm": {"up": init_lora(generator, cfg.d_model, cfg.d_ff, r, lead=(L,)),
+                       "down": init_lora(generator, cfg.d_ff, cfg.d_model, r, lead=(L,))}}
     if cfg.family == "hybrid":
         return [_hybrid_lora_layer(cfg, peft_cfg, generator, l) for l in range(L)]
     return _targets(cfg, peft_cfg, generator, (L,), with_mlp=not cfg.is_moe_layer(0),
@@ -105,17 +98,17 @@ def init_layer_peft(cfg, peft_cfg, generator, l: int) -> dict:
     raise ValueError(f"unknown PEFT method {method!r}")
 
 
-def init_peft(cfg, peft_cfg, generator: torch.Generator):
+def init_peft(cfg, peft_cfg, generator: torch.Generator, layout: str = "auto"):
     """The PEFT tree of ``peft_cfg.method`` (module docstring), drawn on
-    the generator's device, stacked exactly when the reference's
-    ``layout="auto"`` stacks."""
+    the generator's device, in the reference's ``layout``: ``auto``
+    stacks exactly when the reference's stacks, ``stacked`` raises for a
+    heterogeneous stack, ``list`` keeps one tree a layer (the same draws
+    in every layout)."""
     if peft_cfg.method == "lora":
-        tree = _init_lora(cfg, peft_cfg, generator)
-        if stacking.is_stacked(tree):  # LoRA of a homogeneous stack, drawn stacked
-            return tree
+        tree = _init_lora(cfg, peft_cfg, generator)  # LoRA of a homogeneous stack, drawn stacked
     else:
         tree = [init_layer_peft(cfg, peft_cfg, generator, l) for l in range(cfg.num_layers)]
-    return stacking.maybe_stack(tree)
+    return stacking.in_layout(tree, layout, cfg.num_layers)
 
 
 def count_params(tree) -> int:

@@ -23,7 +23,8 @@ def layer_grad_norms(peft_grads, devices: Optional[int] = None, num_layers: int 
     """L2 norm of each layer's PEFT gradient, shape ``(L,)`` float32.
 
     Stacked layout: per-leaf trailing-axis sums of squares, added over the
-    leaves.  Per-layer list (a heterogeneous hybrid stack), as the
+    leaves; a per-layer list of one structure (``layout="list"``) is
+    stacked first.  Per-layer list of a heterogeneous hybrid stack, as the
     reference's list branch: each layer's per-leaf sums of squares added
     in leaf order (0 for a layer without leaves), stacked.
 
@@ -40,6 +41,8 @@ def layer_grad_norms(peft_grads, devices: Optional[int] = None, num_layers: int 
             sq = sum(torch.sum(torch.square(x.float()), dim=tuple(range(1, x.ndim))) for x in leaves)
             norms.append(torch.sqrt(sq) if leaves else torch.zeros((devices,), dtype=torch.float32, device=device))
         return torch.stack(norms, dim=1)
+    if not stacking.is_stacked(peft_grads) and stacking.is_stackable(peft_grads):
+        peft_grads = stacking.from_layer_list(peft_grads, stacked=True)  # the stacked sums, bit for bit
     if not stacking.is_stacked(peft_grads):
         device = next((x.device for x in stacking.tree_leaves(peft_grads)), None)
         norms = []

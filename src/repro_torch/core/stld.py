@@ -11,7 +11,7 @@ Two samplers, both on the host from a CPU ``torch.Generator``:
   layers (``static_active_count``), drawn without replacement with
   inclusion weighted by the keep-probability ``1 - P_l`` (Gumbel top-k).
 
-The layer loop branches on the gates in Python
+The layer loop branches on each gate in Python through ``gate``
 (``models.transformer.stack_apply``): a dropped layer launches no kernel,
 saves no activation for the backward pass and forces no device sync; a
 gathered step is a step whose drops are the complement of its indices.
@@ -19,6 +19,8 @@ Each call consumes its generator once, as ``repro.core.stld`` consumes its
 key once.
 """
 from __future__ import annotations
+
+from typing import Callable
 
 import torch
 
@@ -90,3 +92,15 @@ def sample_drops_block(generator: torch.Generator, rates, block_size: int, min_a
     block_drops = sample_drops(generator, block_rates, min_active=1)
     drops = torch.repeat_interleave(block_drops, block_size)[:num_layers]
     return _force_min_active(drops, rates, min_active)
+
+
+def gate(block_fn: Callable, drop, h, cache=None):
+    """The STLD gate, as the reference's ``lax.cond(drop, identity,
+    block_fn)``: ``block_fn(h, cache) -> (h', aux, cache')`` runs only when
+    the layer is kept; a dropped layer passes ``h`` and ``cache`` through
+    with a 0-d float32 aux of 0.0 and calls nothing.  ``drop`` is a host
+    bool or a 0-d CPU tensor (the gates are drawn on the host), so the
+    branch reads no device."""
+    if bool(drop):
+        return h, torch.zeros((), dtype=torch.float32), cache
+    return block_fn(h, cache)

@@ -41,6 +41,7 @@ from repro_torch.launch.steps import as_device_tensor, frontend_batch, token_log
 from repro_torch.models.losses import cohort_softmax_xent, softmax_xent
 from repro_torch.models.registry import model_apply
 from repro_torch.models.stacking import from_layer_list, is_stacked, layer_list
+from repro_torch.models.transformer import check_stack_mode
 from repro_torch.optim import adamw_init, adamw_update, clip_by_global_norm, make_lr_schedule
 
 METRICS = ("loss", "accuracy", "grad_norm", "active_layers")
@@ -54,9 +55,16 @@ class ClientFns(NamedTuple):
     cohort_round_eval: Callable
 
 
-def make_client_fns(cfg, peft_cfg, stld_cfg, train_cfg, *, device=None, shape=None) -> ClientFns:
+def make_client_fns(cfg, peft_cfg, stld_cfg, train_cfg, *, stack_mode: str = "unroll", device=None,
+                    shape=None) -> ClientFns:
     """Build one client's round programs; their tensors live on ``device``
     (None = the card).
+
+    ``stack_mode`` (``check_stack_mode``) is every step's, as the
+    reference's: a step with gather-mode indices runs ``gather`` instead.
+    Each mode runs the one layer loop, and a step raises ``ValueError``
+    where the reference's raises (``scan`` of a hybrid stack, ``group``
+    off the layer period).
 
     ``shape`` is the (L,) per-layer rate shape (mean 1.0, unclipped) that a
     round scales by its mean rate.  None takes ``unit_shape`` of
@@ -104,6 +112,7 @@ def make_client_fns(cfg, peft_cfg, stld_cfg, train_cfg, *, device=None, shape=No
     """
     if stld_cfg.mode not in ("cond", "gather"):
         raise ValueError(f"STLD mode must be 'cond' or 'gather', got {stld_cfg.mode!r}")
+    check_stack_mode(stack_mode)
     device = torch.device("cuda" if device is None else device)
     num_layers = cfg.num_layers
     lora_sc = peft_lib.lora_scale(peft_cfg) if peft_cfg.method == "lora" else 1.0
@@ -117,7 +126,7 @@ def make_client_fns(cfg, peft_cfg, stld_cfg, train_cfg, *, device=None, shape=No
 
     def loss_fn(peft_params, base_params, tokens, targets, mask, drops, active_idx=None):
         logits, aux, _ = model_apply(base_params, cfg, frontend_batch(cfg, tokens), drops=drops, peft=peft_params,
-                                     lora_scale=lora_sc, stack_mode="unroll" if active_idx is None else "gather",
+                                     lora_scale=lora_sc, stack_mode=stack_mode if active_idx is None else "gather",
                                      active_idx=active_idx)
         loss, metrics = softmax_xent(token_logits(cfg, logits, tokens.shape[-1]), targets, mask)
         return loss + cfg.router_aux_coef * aux, metrics  # the metrics' loss stays the cross-entropy
@@ -173,7 +182,7 @@ def make_client_fns(cfg, peft_cfg, stld_cfg, train_cfg, *, device=None, shape=No
         n = tokens.shape[0]
         logits, aux, _ = model_apply(base_params, cfg, frontend_batch(cfg, tokens), drops=drops, peft=layers,
                                      lora_scale=lora_sc, devices=n,
-                                     stack_mode="unroll" if active_idx is None else "gather", active_idx=active_idx)
+                                     stack_mode=stack_mode if active_idx is None else "gather", active_idx=active_idx)
         logits = token_logits(cfg, logits, tokens.shape[-1])
         loss, metrics = cohort_softmax_xent(logits.view(n, -1, *logits.shape[1:]), targets, mask)
         return torch.sum(loss + cfg.router_aux_coef * aux), metrics

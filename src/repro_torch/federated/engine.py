@@ -43,6 +43,7 @@ from repro_torch.federated import server as server_lib
 from repro_torch.federated.client import METRICS, make_client_fns
 from repro_torch.federated.state import split_key
 from repro_torch.models import stacking
+from repro_torch.models.registry import default_stack_mode
 from repro_torch.optim import adamw_init
 
 
@@ -65,7 +66,9 @@ class CohortEngine:
         self.cohort_mode = cohort_mode
         self.stld_enabled = stld_enabled
         self.device = torch.device("cuda" if device is None else device)
-        self.client = make_client_fns(cfg, peft_cfg, stld_cfg, train_cfg, device=self.device)
+        self.stack_mode = default_stack_mode(cfg)
+        self.client = make_client_fns(cfg, peft_cfg, stld_cfg, train_cfg, stack_mode=self.stack_mode,
+                                      device=self.device)
         self.local_round, self.evaluate = self.client.local_round, self.client.evaluate
         # one validation pad size for every device, as the reference's
         self._val_pad = max(len(d.val_batch()["labels"]) for d in devices)
@@ -80,7 +83,8 @@ class CohortEngine:
         self.device_rank = list(device_rank)
         for r in sorted(set(self.device_rank)):
             peft_cfg = dataclasses.replace(self.peft_cfg, lora_rank=r)
-            self._het_fns[r] = make_client_fns(self.cfg, peft_cfg, self.stld_cfg, self.train_cfg, device=self.device)
+            self._het_fns[r] = make_client_fns(self.cfg, peft_cfg, self.stld_cfg, self.train_cfg,
+                                               stack_mode=self.stack_mode, device=self.device)
 
     def _device_fns(self, dev: int):
         """(local_round, evaluate) of device ``dev``: its rank's under

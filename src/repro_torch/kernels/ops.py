@@ -27,6 +27,7 @@ launcher's docstring says what its count includes.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, Optional
 
 import torch
@@ -149,9 +150,42 @@ def _on_cpu(*tensors) -> bool:
     return False
 
 
+_libcuda = None  # opened at the first launch
+_thread = threading.local()
+
+
+def _bind_context(device):
+    """Make the card's primary context current on the calling thread when
+    none is.  The launchers encode their TMA maps through libcuda, which
+    needs a current context; PyTorch's autograd thread sets its
+    device without binding one until its first runtime call, so a backward
+    whose first work is one of these kernels would find none."""
+    if getattr(_thread, "bound", False):
+        return
+    global _libcuda
+    if _libcuda is None:
+        _libcuda = ctypes.CDLL("libcuda.so.1")
+        for name, argtypes in (("cuCtxGetCurrent", [ctypes.POINTER(_P)]), ("cuDeviceGet", [ctypes.POINTER(_I), _I]),
+                               ("cuDevicePrimaryCtxRetain", [ctypes.POINTER(_P), _I]), ("cuCtxSetCurrent", [_P])):
+            fn = getattr(_libcuda, name)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    ctx = ctypes.c_void_p()
+    err = _libcuda.cuCtxGetCurrent(ctypes.byref(ctx))
+    if err == 0 and not ctx.value:
+        dev = ctypes.c_int()
+        err = _libcuda.cuDeviceGet(ctypes.byref(dev), device.index if device.index is not None
+                                   else torch.cuda.current_device())
+        err = err or _libcuda.cuDevicePrimaryCtxRetain(ctypes.byref(ctx), dev)
+        err = err or _libcuda.cuCtxSetCurrent(ctx)
+    if err != 0:
+        raise RuntimeError(f"no CUDA context for {device} on this thread (libcuda error {err})")
+    _thread.bound = True
+
+
 def _launch(name: str, device, launch, flops: float, *tensors):
     """Launch kernel ``name``: ``launch()`` calls its entry point and returns
-    the error code.  On the ``meta`` device nothing is called: the call is
+    the error code, on a thread whose context ``_bind_context`` made
+    current.  On the ``meta`` device nothing is called: the call is
     counted in ``meta_calls``, with ``flops`` and the bytes of ``tensors``
     (its inputs and outputs; None skipped) added to ``kernel_work``."""
     if device.type == "meta":
@@ -160,6 +194,7 @@ def _launch(name: str, device, launch, flops: float, *tensors):
         work["bytes"] += sum(t.numel() * t.element_size() for t in tensors if t is not None)
         meta_calls[name] += 1
         return
+    _bind_context(device)
     _check_launch(name, launch())
 
 

@@ -5,6 +5,10 @@ ordinary tensor operations (the attention twin keeps its probabilities in
 float32 where the bf16 kernel rounds them to bf16 for the tensor cores).  ``ops`` runs a twin for tensors on the CPU
 (the tests), and ``chip_smoke.py`` holds each kernel against its twin on
 the card.  The twins are no yardstick of speed.
+
+The reference's oracle names (``attention_ref``, ``wkv6_ref``,
+``mamba_scan_ref``, ``lora_matmul_ref``, ``segmented_lora_ref``) keep its
+signatures, layouts and return values, each over its twin.
 """
 from __future__ import annotations
 
@@ -238,3 +242,35 @@ def mamba_scan_bwd_plain(dt, x, bmat, cmat, a, dvec, dy):
         g = a_t * g
     dd = torch.sum(dyf * xf, dim=(0, 1))
     return d_dt.to(dt.dtype), dx.to(x.dtype), db, dc, da, dd
+
+
+# ------------------------------------------------------------- the reference's oracle names
+def attention_ref(q, k, v, *, causal: bool = True, window=None):
+    """q, k, v: (B, H, S, D) -> (B, H, S, D), the reference's naive masked
+    softmax attention (``attention_plain`` in the heads-second layout)."""
+    out = attention_plain(*(t.transpose(1, 2) for t in (q, k, v)), causal=causal, window=window)
+    return out.transpose(1, 2)
+
+
+def wkv6_ref(r, k, v, logw, u):
+    """The sequential WKV6 recurrence from a zero state: r, k, v, logw (B,
+    S, H, K), u (H, K) -> (B, S, H, V) in ``r.dtype``."""
+    return wkv6_plain(r, k, v, logw, u)[0].to(r.dtype)
+
+
+def mamba_scan_ref(dt, x, bmat, cmat, a, dvec):
+    """The sequential selective scan from a zero state -> y (B, S, D) in
+    ``x.dtype``."""
+    return mamba_scan_plain(dt, x, bmat, cmat, a, dvec)[0]
+
+
+def lora_matmul_ref(x, w, a, b, *, alpha: float = 1.0):
+    """``x @ W + alpha (x @ A) @ B`` with every product in float32 (the
+    bottleneck not rounded), one cast to ``x.dtype``."""
+    return lora_matmul_plain(x.float(), w, a, b, alpha=alpha).to(x.dtype)
+
+
+def segmented_lora_ref(x, w, a, b, idx, ranks):
+    """Row i through pool slot ``idx[i]``'s adapter (its true rank masked,
+    the scale folded into ``b``), in ``x.dtype``."""
+    return segmented_lora_plain(x, w, a, b, idx, ranks)

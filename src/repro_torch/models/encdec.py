@@ -3,11 +3,13 @@ frontend is a stub), as ``repro.models.encdec``.
 
 The encoder takes frame embeddings (B, frontend_seq, d_model) (zeros from
 the stub) plus sinusoidal positions and runs bidirectional ``attn`` layers
-with a GELU MLP, no PEFT and no gates.  Each decoder layer (``encdec``)
+with a GELU MLP; the model's own paths give it no PEFT and no gates, as
+the reference's do, and ``encode`` takes both.  Each decoder layer (``encdec``)
 runs causal self-attention, cross-attention over its encoder K/V
 (``encoder_cross_kvs``, computed once a sequence) and a GELU MLP; the
 decoder adds learned positions and ties its head to the token embedding.
-Both stacks keep the reference's stacked ``(L, ...)`` layout::
+Both stacks keep the reference's stacked ``(L, ...)`` layout (or with
+``layout="list"`` one tree a layer)::
 
     {"encoder": {"layers", "final_norm"},
      "decoder": {"embed", "pos_embed", "layers", "final_norm"}}
@@ -19,8 +21,8 @@ import math
 import torch
 
 from repro_torch.models import stacking
-from repro_torch.models.layers import init_layer_cache
-from repro_torch.models.transformer import _init_attention, _init_attn_layers, _model_norm, stack_apply
+from repro_torch.models.layers import init_layer, init_layer_cache, model_norm
+from repro_torch.models.transformer import stack_apply
 from repro_torch.nn.attention import cross_slot_positions, encode_cross_kv
 from repro_torch.nn.initializers import normal_init
 from repro_torch.nn.norms import apply_norm
@@ -37,36 +39,42 @@ def sinusoidal_positions(length: int, dim: int, device=None):
     return pe
 
 
-def init_encdec(cfg, generator: torch.Generator, place=None):
+def init_encdec(cfg, generator: torch.Generator, layout: str = "auto", place=None):
     """Parameters with the shapes and dtypes of the reference's
-    ``init_encdec`` (float32, both stacks stacked), drawn on the
-    generator's device.  ``place(name, tree)``, when given, takes each part
-    as soon as it is drawn and returns what to keep (``init_lm``'s
-    contract)."""
+    ``init_encdec`` (float32), drawn on the generator's device: the
+    encoder's layers by ``init_layer(..., force_kind="attn")`` and the
+    decoder's (``encdec``) each drawn stacked, in ``layout``
+    (``stacking.in_layout``; both stacks are homogeneous, so ``auto`` and
+    ``stacked`` stack them and ``list`` cuts the same draws into one tree a
+    layer).  ``place(name, tree)``, when given, takes each part as soon as
+    it is drawn and returns what to keep (``init_lm``'s contract)."""
+    stacking.check_layout(layout)
     place = place or (lambda name, tree: tree)
-    enc_cfg = cfg.replace(num_layers=cfg.num_encoder_layers)
-    encoder = {"layers": place("layers", _init_attn_layers(enc_cfg, generator)),
-               "final_norm": place("final_norm", _model_norm(cfg, generator, ()))}
-    lead = (cfg.num_layers,)
-    layers = _init_attn_layers(cfg, generator)
-    layers["cross"] = _init_attention(cfg, generator, lead)
-    layers["norm_cross"] = _model_norm(cfg, generator, lead)
+    L_enc, L = cfg.num_encoder_layers, cfg.num_layers
+    enc_layers = init_layer(cfg, 0, generator, force_kind="attn", lead=(L_enc,))
+    encoder = {"layers": stacking.in_layout(place("layers", enc_layers), layout, L_enc),
+               "final_norm": place("final_norm", model_norm(cfg, generator))}
+    layers = init_layer(cfg, 0, generator, lead=(L,))
     decoder = {"embed": place("embed", normal_init(generator, (cfg.vocab_size, cfg.d_model))),
                "pos_embed": place("pos_embed", normal_init(generator, (cfg.max_seq_len, cfg.d_model))),
-               "layers": place("layers", layers),
-               "final_norm": place("final_norm", _model_norm(cfg, generator, ()))}
+               "layers": stacking.in_layout(place("layers", layers), layout, L),
+               "final_norm": place("final_norm", model_norm(cfg, generator))}
     return {"encoder": encoder, "decoder": decoder}
 
 
-def encode(params, cfg, frames, *, stack_mode: str = "unroll"):
+def encode(params, cfg, frames, *, drops=None, peft=None, lora_scale: float = 1.0, stack_mode: str = "unroll"):
     """frames: (B, S_enc, d) stub embeddings -> (B, S_enc, d) encoder
-    states: bidirectional, every layer, no PEFT (``stack_mode`` as
-    ``stack_apply`` takes it)."""
+    states, bidirectional, as the reference's ``encode``: ``drops`` (the
+    encoder layers' STLD gates) skip layers, and a ``peft`` tree laid out
+    like the encoder's layers adds its LoRA to their projections
+    (``lora_matmul``, forward and backward) at ``lora_scale``;
+    ``stack_mode`` as ``stack_apply`` takes it.  The registry passes
+    neither gates nor PEFT, as the reference's does."""
     compute_dtype = getattr(torch, cfg.dtype)
     s = frames.shape[1]
     h = frames.to(compute_dtype) + sinusoidal_positions(s, cfg.d_model, frames.device).to(compute_dtype)
     h, _, _ = stack_apply(params["encoder"]["layers"], cfg, h, positions=torch.arange(s, device=h.device),
-                          causal=False, stack_mode=stack_mode)
+                          causal=False, drops=drops, peft=peft, lora_scale=lora_scale, stack_mode=stack_mode)
     return apply_norm(params["encoder"]["final_norm"], h, cfg.norm_eps)
 
 

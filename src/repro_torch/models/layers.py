@@ -15,12 +15,13 @@ from typing import Optional
 
 import torch
 
-from repro_torch.nn.attention import attention_apply, cross_attention_apply
-from repro_torch.nn.mamba import init_mamba_state, mamba_apply
-from repro_torch.nn.mlp import adapter_apply, mlp_apply
-from repro_torch.nn.moe import moe_apply
+from repro_torch.nn.attention import attention_apply, cross_attention_apply, init_attention, init_cross_attention
+from repro_torch.nn.mamba import init_mamba, init_mamba_state, mamba_apply
+from repro_torch.nn.mlp import adapter_apply, init_mlp, mlp_apply
+from repro_torch.nn.moe import init_moe, moe_apply
 from repro_torch.nn.norms import apply_norm
-from repro_torch.nn.rwkv import channel_mix_apply, init_rwkv_state, time_mix_apply
+from repro_torch.nn.rwkv import (channel_mix_apply, init_rwkv_channel_mix, init_rwkv_state, init_rwkv_time_mix,
+                                 time_mix_apply)
 
 
 def layer_kind(cfg, l: int) -> str:
@@ -42,6 +43,51 @@ def params_kind(params) -> str:
     if "cross" in params:
         return "encdec"
     return "attn"
+
+
+def model_norm(cfg, generator: torch.Generator, lead=()):
+    """A layer's or the final norm: a unit RMSNorm ``scale``, or a
+    LayerNorm (with a zero ``bias``) for a GELU config, as the reference's
+    ``_norm_pair``; ``lead`` (L,) stacks L of them."""
+    p = {"scale": torch.ones((*lead, cfg.d_model), device=generator.device)}
+    if cfg.activation == "gelu":
+        p["bias"] = torch.zeros((*lead, cfg.d_model), device=generator.device)
+    return p
+
+
+def init_layer(cfg, l: int, generator: torch.Generator, force_kind: Optional[str] = None, *, lead=(), place=None):
+    """Parameters of layer ``l`` (float32, on the generator's device), as
+    ``repro.models.layers.init_layer``: RWKV6 time-mix and channel-mix, or
+    a Mamba or attention mixer (an ``encdec`` layer adds the
+    cross-attention and its norm), then MoE or an MLP.  ``force_kind``
+    overrides ``layer_kind`` (``"attn"``: whisper's encoder layers).
+
+    ``lead`` (L,) draws L layers of one kind stacked (a homogeneous stack:
+    the dense and RWKV6 decoders, whisper's two stacks), each leaf drawn
+    whole in turn; ``place(proj)``, when given, takes each attention and
+    MLP projection as soon as it is drawn.  An ``encdec`` layer draws its
+    cross-attention after the MLP: the port's draw order, which a seed's
+    weights depend on."""
+    kind = force_kind or layer_kind(cfg, l)
+    if lead and (kind == "mamba" or cfg.is_moe_layer(l)):
+        raise ValueError("Mamba and MoE layers are drawn one at a time (no lead)")
+    p = {"norm1": model_norm(cfg, generator, lead), "norm2": model_norm(cfg, generator, lead)}
+    if kind == "rwkv":
+        p["time_mix"] = init_rwkv_time_mix(cfg, generator, lead)
+        p["channel_mix"] = init_rwkv_channel_mix(cfg, generator, lead)
+        return p
+    if kind == "mamba":
+        p["mamba"] = init_mamba(cfg, generator)
+    else:
+        p["attn"] = init_attention(cfg, generator, lead=lead, place=place)
+    if cfg.is_moe_layer(l):
+        p["moe"] = init_moe(cfg, generator)
+    else:
+        p["mlp"] = init_mlp(cfg, generator, lead=lead, place=place)
+    if kind == "encdec":
+        p["cross"] = init_cross_attention(cfg, generator, lead=lead)
+        p["norm_cross"] = model_norm(cfg, generator, lead)
+    return p
 
 
 def init_layer_cache(cfg, l: int, batch: int, max_len: int, dtype=torch.bfloat16, device=None):

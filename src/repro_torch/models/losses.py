@@ -4,8 +4,17 @@ from __future__ import annotations
 import torch
 
 
-def softmax_xent(logits, labels, mask=None):
-    """Token-level cross entropy in float32.
+def _nll(logits, labels, z_loss_coef: float):
+    """Per-token ``lse - logit[label]`` in float32, plus ``z_loss_coef ·
+    lse²`` (the z-loss) when the coefficient is positive."""
+    lse = torch.logsumexp(logits, dim=-1)
+    nll = lse - torch.gather(logits, -1, labels[..., None])[..., 0]
+    return nll + z_loss_coef * torch.square(lse) if z_loss_coef > 0.0 else nll
+
+
+def softmax_xent(logits, labels, mask=None, z_loss_coef: float = 0.0):
+    """Token-level cross entropy in float32, with the reference's optional
+    z-loss (``nll += z_loss_coef · lse²``).
 
     logits: (..., V); labels: (...) integer; mask: (...) {0, 1} or None.
     Returns (mean loss, {"loss", "accuracy", "tokens"}), all 0-d float32
@@ -13,9 +22,7 @@ def softmax_xent(logits, labels, mask=None):
     """
     logits = logits.float()
     labels = labels.long()
-    lse = torch.logsumexp(logits, dim=-1)
-    label_logit = torch.gather(logits, -1, labels[..., None])[..., 0]
-    nll = lse - label_logit
+    nll = _nll(logits, labels, z_loss_coef)
     mask = torch.ones_like(nll) if mask is None else mask.float()
     denom = torch.clamp(torch.sum(mask), min=1.0)
     loss = torch.sum(nll * mask) / denom
@@ -23,8 +30,8 @@ def softmax_xent(logits, labels, mask=None):
     return loss, {"loss": loss, "accuracy": acc, "tokens": denom}
 
 
-def cohort_softmax_xent(logits, labels, mask=None):
-    """``softmax_xent`` of each device of a cohort apart.
+def cohort_softmax_xent(logits, labels, mask=None, z_loss_coef: float = 0.0):
+    """``softmax_xent`` (with its z-loss) of each device of a cohort apart.
 
     logits: (N, B, S, V); labels: (N, B, S); mask: (N, B, S) or None.
     Returns ((N,) mean losses, {"loss", "accuracy", "tokens"}: (N,) each),
@@ -32,9 +39,7 @@ def cohort_softmax_xent(logits, labels, mask=None):
     """
     logits = logits.float()
     labels = labels.long()
-    lse = torch.logsumexp(logits, dim=-1)
-    label_logit = torch.gather(logits, -1, labels[..., None])[..., 0]
-    nll = lse - label_logit
+    nll = _nll(logits, labels, z_loss_coef)
     mask = torch.ones_like(nll) if mask is None else mask.float()
     dims = tuple(range(1, nll.ndim))
     denom = torch.clamp(torch.sum(mask, dim=dims), min=1.0)

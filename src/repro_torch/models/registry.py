@@ -37,8 +37,18 @@ def build_model(cfg):
     return init_params, model_apply
 
 
-def init_params(cfg, generator: torch.Generator, place: bool = False):
-    """Random parameters for ``cfg``, drawn from ``generator`` on its device.
+def default_stack_mode(cfg) -> str:
+    """The training ``stack_mode`` of the reference's federated engine for
+    ``cfg``'s family: ``group`` for a hybrid stack, ``scan`` otherwise (each
+    runs the port's one layer loop, and raises where the reference's
+    does)."""
+    return "group" if cfg.family == "hybrid" else "scan"
+
+
+def init_params(cfg, generator: torch.Generator, layout: str = "auto", place: bool = False):
+    """Random parameters for ``cfg``, drawn from ``generator`` on its device,
+    the layer stacks in the reference's ``layout`` (``auto``, ``stacked``
+    or ``list``; the same draws in each).
 
     With ``place``, each part is placed as soon as it is drawn, giving
     ``place_params(init_params(cfg, generator), cfg, generator.device)``
@@ -48,9 +58,9 @@ def init_params(cfg, generator: torch.Generator, place: bool = False):
     _check_family(cfg)
     init = encdec.init_encdec if cfg.is_encoder_decoder else transformer.init_lm
     if not place:
-        return init(cfg, generator)
+        return init(cfg, generator, layout)
     dtype = getattr(torch, cfg.dtype)
-    return init(cfg, generator,
+    return init(cfg, generator, layout,
                 place=lambda name, tree: _cast_matmul_weights({name: tree}, dtype, generator.device)[name])
 
 
@@ -151,13 +161,14 @@ def model_apply(params, cfg, batch, *, drops=None, caches=None, enc_kvs=None, po
     it to ``encdec.decode``."""
     _check_family(cfg)
     if cfg.is_encoder_decoder:
-        if stack_mode == "gather":
+        if stack_mode in transformer.GATHER_MODES:
             drops = None
+        stack_mode = stack_mode if stack_mode in ("unroll", "scan") else "unroll"
         if enc_kvs is None:
-            enc_out = encdec.encode(params, cfg, _frontend(cfg, batch, devices))
+            enc_out = encdec.encode(params, cfg, _frontend(cfg, batch, devices), stack_mode=stack_mode)
             enc_kvs = encdec.encoder_cross_kvs(params, cfg, enc_out)
         return encdec.decode(params, cfg, batch["tokens"], enc_kvs, positions=positions, drops=drops, caches=caches,
-                             peft=peft, lora_scale=lora_scale, devices=devices)
+                             peft=peft, lora_scale=lora_scale, devices=devices, stack_mode=stack_mode)
     prefix = _frontend(cfg, batch, devices) if cfg.prefix_len and cfg.frontend_key in batch else None
     return transformer.lm_apply(
         params, cfg, batch["tokens"], positions=positions, prefix_embeds=prefix, drops=drops, caches=caches,

@@ -57,10 +57,39 @@ def _stack(trees: Sequence):
     return torch.stack(list(trees))
 
 
-def maybe_stack(trees: Sequence):
-    """A freshly built per-layer list in the layout of ``maybe_stack(...,
-    "auto")``: stacked when homogeneous, the list otherwise."""
-    return _stack(trees) if trees and is_stackable(trees) else list(trees)
+LAYOUTS = ("auto", "stacked", "list")
+
+
+def check_layout(layout: str):
+    """``ValueError`` for a layer layout that is not one of ``LAYOUTS``."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown layer layout {layout!r}")
+
+
+def maybe_stack(layers: Sequence, layout: str = "auto"):
+    """A freshly built per-layer list in an init-time ``layout``, as the
+    reference's ``maybe_stack``: ``auto`` stacked when homogeneous and the
+    list otherwise, ``stacked`` stacked (``ValueError`` for a heterogeneous
+    list), ``list`` the list; any other layout raises ``ValueError``."""
+    if layout == "list":
+        return list(layers)
+    if layout == "stacked":
+        return stack_params(layers)
+    check_layout(layout)
+    return _stack(layers) if layers and is_stackable(layers) else list(layers)
+
+
+def in_layout(layers, layout: str, num_layers: int):
+    """A stack of ``num_layers`` drawn in either layout, in ``layout``
+    (``maybe_stack``'s policy): a stacked draw stays as it is under
+    ``auto`` and ``stacked`` and is cut into per-layer copies under
+    ``list``, so every layout holds the same numbers."""
+    if not is_stacked(layers):
+        return maybe_stack(layers, layout)
+    check_layout(layout)
+    if layout != "list":
+        return layers
+    return [tree_map(lambda x: x[l].clone(), layers) for l in range(num_layers)]
 
 
 def is_stacked(layers) -> bool:

@@ -13,9 +13,10 @@ of the JAX package: ``unroll``, ``scan`` (a ``lax.scan`` over the stacked
 layers), ``group`` (a ``lax.scan`` over periods of the layer pattern) and
 ``gather`` (gather-mode STLD: the active layers' indices) compute the same
 thing there, and each raises here where it raises there.  STLD gates
-(``drops``) are host-side booleans: a dropped layer is skipped by a Python
-branch, so it launches no kernel and saves no activation; a gathered step
-is the step whose gates drop every layer outside its indices.
+(``drops``) are host-side booleans: a dropped layer is skipped by
+``stld.gate``'s Python branch, so it launches no kernel and saves no
+activation; a gathered step is the step whose gates drop every layer
+outside its indices.
 
 A cohort of N devices (``devices``) folds its devices into the batch: the
 gates are (N, L), and each layer runs once, on the rows of the devices
@@ -38,84 +39,9 @@ import torch.utils.checkpoint
 
 from repro_torch.core import stld
 from repro_torch.models import stacking
-from repro_torch.models.layers import init_layer_cache, layer_apply, layer_kind
-from repro_torch.nn.initializers import normal_init, truncated_lecun
-from repro_torch.nn.mamba import init_mamba
-from repro_torch.nn.mlp import init_mlp
-from repro_torch.nn.moe import init_moe
+from repro_torch.models.layers import init_layer, init_layer_cache, layer_apply, model_norm
+from repro_torch.nn.initializers import normal_init
 from repro_torch.nn.norms import apply_norm
-from repro_torch.nn.rwkv import init_rwkv_channel_mix, init_rwkv_time_mix
-
-
-def _init_rwkv_layers(cfg, generator: torch.Generator):
-    """The stacked ``(L, ...)`` layers of an ``ssm`` (RWKV6) stack."""
-    lead = (cfg.num_layers,)
-    return {
-        "norm1": _model_norm(cfg, generator, lead),
-        "norm2": _model_norm(cfg, generator, lead),
-        "time_mix": init_rwkv_time_mix(cfg, generator, lead),
-        "channel_mix": init_rwkv_channel_mix(cfg, generator, lead),
-    }
-
-
-def _proj(generator, lead, d_in, d_out, place=None):
-    proj = {"w": truncated_lecun(generator, (*lead, d_in, d_out), fan_in_axis=len(lead))}
-    return place(proj) if place is not None else proj
-
-
-def _norm(generator, lead, dim):
-    return {"scale": torch.ones((*lead, dim), device=generator.device)}
-
-
-def _model_norm(cfg, generator, lead):
-    """A layer's or the final norm: RMSNorm, or LayerNorm (with a zero
-    ``bias``) for a GELU config, as the reference's ``_norm_init``."""
-    p = _norm(generator, lead, cfg.d_model)
-    if cfg.activation == "gelu":
-        p["bias"] = torch.zeros((*lead, cfg.d_model), device=generator.device)
-    return p
-
-
-def _init_attention(cfg, generator, lead, place=None):
-    d, hd = cfg.d_model, cfg.resolved_head_dim
-    h, kv = cfg.num_heads, cfg.num_kv_heads
-    attn = {"wq": _proj(generator, lead, d, h * hd, place), "wk": _proj(generator, lead, d, kv * hd, place),
-            "wv": _proj(generator, lead, d, kv * hd, place), "wo": _proj(generator, lead, h * hd, d, place)}
-    if cfg.attention_bias:
-        for name, width in (("wq", h * hd), ("wk", kv * hd), ("wv", kv * hd)):
-            attn[name]["b"] = torch.zeros((*lead, width), device=generator.device)
-    if cfg.qk_norm:
-        attn["q_norm"] = _norm(generator, lead, hd)
-        attn["k_norm"] = _norm(generator, lead, hd)
-    return attn
-
-
-def _init_attn_layers(cfg, generator: torch.Generator, place=None):
-    """The stacked ``(L, ...)`` layers of a dense decoder; ``place(proj)``,
-    when given, takes each projection as soon as it is drawn."""
-    lead = (cfg.num_layers,)
-    return {
-        "norm1": _model_norm(cfg, generator, lead),
-        "norm2": _model_norm(cfg, generator, lead),
-        "attn": _init_attention(cfg, generator, lead, place),
-        "mlp": init_mlp(cfg, generator, lead=lead, place=place),
-    }
-
-
-def init_layer(cfg, l: int, generator: torch.Generator):
-    """Layer ``l`` of a hybrid, ``moe`` or ``vlm`` stack (float32), as
-    ``repro.models.layers.init_layer``: a Mamba or attention mixer, then
-    MoE or an MLP."""
-    p = {"norm1": _model_norm(cfg, generator, ()), "norm2": _model_norm(cfg, generator, ())}
-    if layer_kind(cfg, l) == "mamba":
-        p["mamba"] = init_mamba(cfg, generator)
-    else:
-        p["attn"] = _init_attention(cfg, generator, ())
-    if cfg.is_moe_layer(l):
-        p["moe"] = init_moe(cfg, generator)
-    else:
-        p["mlp"] = init_mlp(cfg, generator)
-    return p
 
 
 def _stack_layers(layers, num_layers: int):
@@ -130,30 +56,35 @@ def _stack_layers(layers, num_layers: int):
     return stack
 
 
-def init_lm(cfg, generator: torch.Generator, place=None):
+def init_lm(cfg, generator: torch.Generator, layout: str = "auto", place=None):
     """Parameters with the shapes and dtypes of ``transformer.init_lm``
-    (float32; stacked layout, or a per-layer list for a heterogeneous
-    hybrid stack), drawn on the generator's device.  ``place(name, tree)``,
-    when given, takes each top-level entry (``embed``, ``lm_head``,
-    ``final_norm``, and ``layers`` whole or, for a hybrid or ``moe``
-    stack, layer by layer) as soon as it is drawn and returns what to keep,
-    so that the float32 draws of a large hybrid, MoE or VLM model are never
-    held whole: a ``moe`` or ``vlm`` stack's placed layers go one by one
-    into a stack allocated at the first (a stacked float32 draw of one of
-    internvl2-76b's MLP projections is ~0.9 GB a layer)."""
+    (float32), drawn on the generator's device, in the reference's
+    ``layout`` (``stacking.in_layout``: ``auto`` stacks a homogeneous stack
+    and keeps a hybrid stack's per-layer list, ``stacked`` raises for a
+    hybrid stack, ``list`` keeps one tree a layer; every layout holds the
+    same draws).  ``place(name, tree)``, when given, takes each top-level
+    entry (``embed``, ``lm_head``, ``final_norm``, and ``layers`` whole or,
+    for a hybrid or ``moe`` stack, layer by layer) as soon as it is drawn
+    and returns what to keep, so that the float32 draws of a large hybrid,
+    MoE or VLM model are never held whole: a ``moe`` or ``vlm`` stack's
+    placed layers go one by one into a stack allocated at the first (a
+    stacked float32 draw of one of internvl2-76b's MLP projections is
+    ~0.9 GB a layer)."""
+    stacking.check_layout(layout)
     place = place or (lambda name, tree: tree)
+    L = cfg.num_layers
     params = {"embed": place("embed", normal_init(generator, (cfg.vocab_size, cfg.d_model)))}
-    if cfg.family == "hybrid":
-        layers = [place("layers", init_layer(cfg, l, generator)) for l in range(cfg.num_layers)]
-        params["layers"] = stacking.maybe_stack(layers)
+    if cfg.family == "hybrid" or (cfg.family in ("moe", "vlm") and layout == "list"):
+        layers = [place("layers", init_layer(cfg, l, generator)) for l in range(L)]
+        params["layers"] = stacking.maybe_stack(layers, layout)
     elif cfg.family in ("moe", "vlm"):
-        layers = (place("layers", init_layer(cfg, l, generator)) for l in range(cfg.num_layers))
-        params["layers"] = _stack_layers(layers, cfg.num_layers)
-    elif layer_kind(cfg, 0) == "rwkv":
-        params["layers"] = place("layers", _init_rwkv_layers(cfg, generator))
+        params["layers"] = _stack_layers((place("layers", init_layer(cfg, l, generator)) for l in range(L)), L)
+    elif cfg.family == "ssm":
+        params["layers"] = stacking.in_layout(place("layers", init_layer(cfg, 0, generator, lead=(L,))), layout, L)
     else:  # each stacked projection placed as drawn, then the rest of the stack
-        params["layers"] = place("layers", _init_attn_layers(cfg, generator, lambda tree: place("layers", tree)))
-    params["final_norm"] = place("final_norm", _model_norm(cfg, generator, ()))
+        layers = init_layer(cfg, 0, generator, lead=(L,), place=lambda tree: place("layers", tree))
+        params["layers"] = stacking.in_layout(place("layers", layers), layout, L)
+    params["final_norm"] = place("final_norm", model_norm(cfg, generator))
     if not cfg.tie_embeddings:
         params["lm_head"] = place("lm_head", normal_init(generator, (cfg.d_model, cfg.vocab_size)))
     return params
@@ -185,7 +116,11 @@ def _write_layer_cache(caches, l: int, new):
             dst.copy_(t)
 
 
-STACK_MODES = ("unroll", "scan", "group", "gather")
+# ``gather_unroll`` is the reference's gather over a Python loop (its
+# ``make_train_step`` picks it for a gathered step under ``unroll``): here
+# it is ``gather``
+STACK_MODES = ("unroll", "scan", "group", "gather", "gather_unroll")
+GATHER_MODES = ("gather", "gather_unroll")
 
 
 def check_stack_mode(stack_mode: str):
@@ -200,15 +135,16 @@ def _mode_gates(layers, cfg, stack_mode: str, drops, active_idx, devices):
     ``gather`` the complement of ``active_idx`` (one index tensor, or one
     per device of a cohort; their counts may differ).  Raises
     ``ValueError`` where the reference's ``stack_apply`` does: ``scan`` and
-    ``gather`` on a heterogeneous stack, ``group`` when the layer pattern's
-    period does not divide the depth."""
+    the gather modes on a heterogeneous stack, ``group`` when the layer
+    pattern's period does not divide the depth."""
     check_stack_mode(stack_mode)
     num_layers = stacking.stack_size(layers)
-    if stack_mode in ("scan", "gather") and not (stacking.is_stacked(layers) or stacking.is_stackable(list(layers))):
+    if stack_mode in ("scan", *GATHER_MODES) and not (stacking.is_stacked(layers)
+                                                      or stacking.is_stackable(list(layers))):
         raise ValueError(f"stack_mode={stack_mode!r} requires a homogeneous stack")
     if stack_mode == "group" and num_layers % cfg.layer_period:
         raise ValueError("group mode requires num_layers % layer_period == 0")
-    if stack_mode != "gather":
+    if stack_mode not in GATHER_MODES:
         return drops
     if active_idx is None:
         raise ValueError("gather mode needs active_idx")
@@ -309,7 +245,8 @@ def stack_apply(layers, cfg, h, *, positions, causal: bool = True, drops=None, c
     aux_sum, new_caches = 0.0, []
     for l in range(num_layers):
         cache_l = stacking.layer_view(caches, l) if caches is not None else None
-        if not gates[l]:
+
+        def block(h, cache_l):
             params_l = stacking.layer_view(layers, l)
             enc_kv_l = stacking.layer_view(enc_kvs, l) if enc_kvs is not None else None
             peft_l = stacking.layer_view(peft, l) if peft is not None else None
@@ -317,9 +254,12 @@ def stack_apply(layers, cfg, h, *, positions, causal: bool = True, drops=None, c
                 h, aux, _ = torch.utils.checkpoint.checkpoint(
                     _run_layer, h, params_l, enc_kv_l, peft_l, cfg, positions, causal, lora_scale,
                     use_reentrant=False, preserve_rng_state=False)
-            else:
-                h, aux, cache_l = layer_apply(params_l, cfg, h, positions=positions, causal=causal, cache=cache_l,
-                                              enc_kv=enc_kv_l, peft=peft_l, lora_scale=lora_scale)
+                return h, aux, cache_l
+            return layer_apply(params_l, cfg, h, positions=positions, causal=causal, cache=cache_l, enc_kv=enc_kv_l,
+                               peft=peft_l, lora_scale=lora_scale)
+
+        h, aux, cache_l = stld.gate(block, gates[l], h, cache_l)
+        if not gates[l]:  # a dropped layer's aux is 0: the sum keeps the type of the kept layers'
             aux_sum = aux_sum + aux
         if stacked_caches:
             _write_layer_cache(caches, l, cache_l)

@@ -20,6 +20,11 @@
   position p sits in slot ``p % cache_len``.  The scalar ``pos`` lives on
   the host (a CPU tensor), so reading it syncs nothing.
 
+``multi_head_attention`` is the reference's position-masked attention as a
+public function: q (B, Sq, H, hd) over k, v (B, Skv, KV, hd) with the mask
+of ``repro.nn.attention._mask_bias`` over absolute positions, each case on
+a kernel (its docstring lists them).
+
 Cross-attention (whisper's decoder over its encoder's output,
 ``cross_attention_apply``) takes K/V that ``encode_cross_kv`` computed once
 a sequence: no rotary and no mask, queries at positions 0..S-1 over every
@@ -32,11 +37,97 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.nn.initializers import truncated_lecun
 from repro_torch.nn.linear import apply_linear
 from repro_torch.nn.norms import apply_rmsnorm
 from repro_torch.nn.rotary import apply_rotary
 
 INT32_MAX = 2**31 - 1
+
+
+def _proj(generator, lead, d_in, d_out, place=None):
+    proj = {"w": truncated_lecun(generator, (*lead, d_in, d_out), fan_in_axis=len(lead))}
+    return place(proj) if place is not None else proj
+
+
+def init_attention(cfg, generator: torch.Generator, *, lead=(), place=None):
+    """``{"wq", "wk", "wv", "wo"}`` (truncated LeCun, drawn in that order;
+    zero biases on q/k/v with ``attention_bias``) and with ``qk_norm`` the
+    unit ``q_norm``/``k_norm`` scales, as the reference's
+    ``init_attention``, on the generator's device.  ``lead`` (L,) draws L
+    layers stacked; ``place(proj)``, when given, takes each projection as
+    soon as it is drawn."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+    attn = {"wq": _proj(generator, lead, d, h * hd, place), "wk": _proj(generator, lead, d, kv * hd, place),
+            "wv": _proj(generator, lead, d, kv * hd, place), "wo": _proj(generator, lead, h * hd, d, place)}
+    if cfg.attention_bias:
+        for name, width in (("wq", h * hd), ("wk", kv * hd), ("wv", kv * hd)):
+            attn[name]["b"] = torch.zeros((*lead, width), device=generator.device)
+    if cfg.qk_norm:
+        attn["q_norm"] = {"scale": torch.ones((*lead, hd), device=generator.device)}
+        attn["k_norm"] = {"scale": torch.ones((*lead, hd), device=generator.device)}
+    return attn
+
+
+def init_cross_attention(cfg, generator: torch.Generator, *, lead=(), place=None):
+    """Whisper's cross-attention (queries from the decoder, K/V from the
+    encoder): ``init_attention``'s tree, as the reference's."""
+    return init_attention(cfg, generator, lead=lead, place=place)
+
+
+def _one_run(q_positions, k_positions) -> bool:
+    """True when both 1-D position vectors are one and the same run p0,
+    p0+1, ..., p0+S-1: the mask then depends on index differences alone.
+    Reads the positions on the host."""
+    if q_positions.shape != k_positions.shape or not torch.equal(q_positions, k_positions):
+        return False
+    run = torch.arange(q_positions.shape[0], device=q_positions.device) + q_positions[:1]
+    return torch.equal(q_positions.long(), run.long())
+
+
+def multi_head_attention(q, k, v, *, q_positions, k_positions, causal: bool = True, window=None):
+    """Masked GQA attention over absolute positions, as the reference's
+    ``multi_head_attention``: query i sees key j iff ``kpos_j <= qpos_i``
+    (causal) and ``kpos_j > qpos_i - window`` (window).  q: (B, Sq, H,
+    hd); k, v: (B, Skv, KV, hd); positions (Sq,) and (Skv,), or per row
+    (B, Sq) and (B, Skv) (either broadcast over the rows).  Returns (B, Sq,
+    H, hd) in ``q.dtype``.  Each case runs a kernel:
+
+    * ``causal=False`` with no window, any positions (the mask keeps every
+      key): one ``flash_attention`` launch, bidirectional, K/V of their
+      own length;
+    * 1-D ``q_positions`` equal to ``k_positions``, one contiguous run:
+      one ``flash_attention`` launch with ``causal`` and ``window`` (the
+      mask depends only on differences, so the run's offset drops out);
+    * ``causal=True`` with any other positions: one ``flash_decode`` launch
+      a query column, each with its rows' positions.
+
+    The first two train through ``flash_attention``'s backward kernels.
+    ``flash_decode`` has no backward, so the third raises ``ValueError``
+    when an input requires a gradient; so does ``causal=False`` with a
+    window over positions that are not one run, which no kernel takes.
+    The reference reaches neither: its callers attend causally over a
+    run or a decode cache, and whisper's encoder and cross-attention
+    without a mask."""
+    q_positions = torch.as_tensor(q_positions)
+    k_positions = torch.as_tensor(k_positions)
+    if not causal and window is None:
+        return ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=False)
+    if q_positions.ndim == 1 and k_positions.ndim == 1 and _one_run(q_positions, k_positions):
+        return ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal, window=window)
+    if not causal:
+        raise ValueError("non-causal attention with a window takes positions that are one run, the same for "
+                         "queries and keys: no kernel takes another mask")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise ValueError("masked attention at positions that are not one run decodes query by query through "
+                         "flash_decode, which has no backward: call it without a gradient")
+    b, sq = q.shape[:2]
+    q_positions = q_positions.to(device=q.device, dtype=torch.int32).expand(b, sq)
+    k_positions = k_positions.to(device=q.device, dtype=torch.int32).expand(b, k.shape[1]).contiguous()
+    k, v = k.contiguous(), v.contiguous()
+    return torch.stack([ops.flash_decode(q[:, t].contiguous(), k, v, q_positions[:, t].contiguous(), k_positions,
+                                         window=window) for t in range(sq)], dim=1)
 
 
 def ring_positions(pos, cache_len: int):

@@ -52,6 +52,17 @@ def init_linear(generator: torch.Generator, d_in: int, d_out: int, bias: bool = 
     return p
 
 
+def init_lora(generator: torch.Generator, d_in: int, d_out: int, rank: int, dtype=torch.float32, *, lead=()):
+    """LoRA per Hu et al., as the reference's ``init_lora``: ``{"a": (d_in,
+    r)}`` truncated LeCun and a zero ``{"b": (r, d_out)}`` (the delta
+    starts at zero), on the generator's device.  ``lead`` (L,) draws L
+    layers' adapters stacked."""
+    return {
+        "a": truncated_lecun(generator, (*lead, d_in, rank), fan_in_axis=len(lead), dtype=dtype),
+        "b": torch.zeros((*lead, rank, d_out), dtype=dtype, device=generator.device),
+    }
+
+
 def lora_delta(x, lora, scale: float):
     """``scale * (x @ a) @ b``, the LoRA contribution alone (plain
     products; ``apply_linear`` fuses it with ``x @ w`` in one kernel)."""

@@ -20,7 +20,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.nn.initializers import normal_init, truncated_lecun
 from repro_torch.nn.linear import apply_linear
 
@@ -153,6 +153,14 @@ def channel_mix_apply(params, cfg, x, state: Optional[dict] = None, peft: Option
     kv = apply_linear(params["wv"], k, peft.get("down"), lora_scale)
     out = torch.sigmoid(apply_linear(params["wr"], xr)) * kv
     return out, {"shift_cm": x[:, -1].float()}
+
+
+def wkv_sequential_ref(r, k, v, logw, u):
+    """The oracle, as the reference's: the WKV recurrence token by token in
+    plain torch (``kernels.ref.wkv6_plain``), r, k, v, logw (B, S, H, K)
+    and u (H, K) -> (out (B, S, H, V) float32, final state (B, H, K, V)
+    float32) from a zero state."""
+    return ref.wkv6_plain(r, k, v, logw, u)
 
 
 def init_rwkv_state(cfg, batch: int, device=None):

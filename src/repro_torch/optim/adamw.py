@@ -16,16 +16,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.models.stacking import is_stacked, tree_leaves, tree_map
+from repro_torch.models.stacking import from_layer_list, is_stackable, is_stacked, tree_leaves, tree_map
 
 
 def _global_sq_sum(grads, devices=None):
     """Sum of squares over every element, in the reference's order.
     Stacked layout: per-leaf trailing-axis sums give (L,) partials,
     arranged (L, leaves) and summed as one flat vector (layer-major).  A
-    per-layer list (a heterogeneous stack): one scalar sum per leaf, stacked
-    and summed.  A cohort (``devices`` N): each leaf's (N,) sums, arranged
+    per-layer list of one structure (``layout="list"``) is stacked first,
+    so it sums as the stacked layout does; a heterogeneous stack's list:
+    one scalar sum per leaf, stacked and summed.  A cohort (``devices`` N): each leaf's (N,) sums, arranged
     (N, layers x leaves) layer-major and summed per device."""
+    if not is_stacked(grads) and devices is None and is_stackable(grads):
+        grads = from_layer_list(grads, stacked=True)  # a homogeneous list: the stacked sums, bit for bit
     leaves = [g.float() for g in tree_leaves(grads)]
     if not leaves:  # PEFT method none: on the host, as no leaf names a device
         return torch.zeros(() if devices is None else (devices,), dtype=torch.float32)

@@ -562,6 +562,40 @@ def test_cuda_lora_matmul_matches_twin(cuda, dtype, m, k, n, r):
 
 
 @pytest.mark.cuda
+def test_cuda_tma_kernels_launch_from_a_thread_without_a_context(cuda):
+    """A thread that has made no CUDA runtime call holds no current context
+    (as PyTorch's autograd thread before its first one), and the wgmma
+    lora_matmul and the bf16 attention encode their TMA maps through
+    libcuda: launched there, they bind the card's context and give the
+    main thread's bits."""
+    import ctypes
+    import threading
+
+    x, w, a, b, _ = _lora(np.random.default_rng(20), 256, 512, 264, 8, "bfloat16", cuda)
+    q, k, v = (torch.randn(shape, device=cuda).to(torch.bfloat16) for shape in ((2, 128, 4, 64), (2, 128, 2, 64),
+                                                                                (2, 128, 2, 64)))
+    run = lambda: (ops.lora_matmul(x, w, a, b, alpha=2.0), ops.flash_attention(q, k, v, causal=True))  # noqa: E731
+    want = run()
+    got, errors, context = [], [], ctypes.c_void_p(1)
+
+    def worker():
+        try:
+            ctypes.CDLL("libcuda.so.1").cuCtxGetCurrent(ctypes.byref(context))
+            got.extend(run())
+            torch.cuda.synchronize()
+        except Exception as err:  # raised in the thread, reported by the test
+            errors.append(err)
+
+    thread = threading.Thread(target=worker)
+    thread.start()
+    thread.join(timeout=120)
+    assert not thread.is_alive()
+    assert context.value is None  # the thread started without a current context
+    assert not errors, errors
+    assert all(torch.equal(g, w_) for g, w_ in zip(got, want))
+
+
+@pytest.mark.cuda
 def test_cuda_lora_matmul_takes_no_gradient_for_w(cuda):
     x, w, a, b, _ = _lora(np.random.default_rng(15), 8, 32, 16, 4, "float32", cuda)
     with pytest.raises(ValueError, match="frozen"):

@@ -1,6 +1,9 @@
 """The reference's public surface in the port: every name of the JAX
-package's ``__all__``s, the step factories' ``stack_mode``, the dry run
-passing it through, and the examples' counterparts, on the CPU.
+package's ``__all__``s; every public function and class defined in each of
+its modules, with every keyword and public method, in the port's module of
+the same path (the signature walk, with its table of deliberate absences);
+the step factories' ``stack_mode``, the dry run passing it through, and the
+examples' counterparts, on the CPU.
 
 The stack modes run on one Python layer loop in the port, so a step under
 ``scan`` or ``group`` is the ``unroll`` step bit for bit; where the
@@ -9,6 +12,7 @@ period does not divide the depth, gather-mode STLD of a heterogeneous
 stack) the port raises ``ValueError`` too, each checked on both.
 """
 import importlib
+import inspect
 import os
 import re
 import subprocess
@@ -50,13 +54,100 @@ ABSENT = {
 }
 
 
-def _reference_modules():
-    """Every module of the JAX package that assigns ``__all__``."""
+# the reference's modules whose counterpart in the port lies at another path
+PORT_MODULE = {
+    "repro.analysis.jaxpr_contracts": (
+        "repro_torch.analysis.contracts", "checks a jaxpr's equations: the port's contracts check the aten ops a "
+                                          "step records on meta (ROADMAP §3, the dry run has no HLO)"),
+    "repro.analysis.lint_jax": (
+        "repro_torch.analysis.lint_torch", "lints JAX idioms: the port lints its own (no JXH003; TXH005 and TXH006 "
+                                           "take JXH005's place, ROADMAP §3)"),
+    **{f"repro.kernels.{name}": ("repro_torch.kernels.ops", "a Pallas kernel's module: the port's kernel is CUDA "
+                                                             "under kernels/csrc, launched from kernels.ops")
+       for name in ("flash_attention", "flash_decode", "lora_matmul", "mamba_scan", "rwkv6_scan", "segmented_lora")},
+}
+
+# public names defined in the reference's modules that the port leaves out on purpose
+ABSENT_NAMES = {
+    **{(f"repro.kernels.{module}", f"{name}_pallas"): f"the Pallas kernel itself: the port launches csrc/{cu} "
+                                                       f"through kernels.ops.{name}"
+       for module, name, cu in (("flash_attention", "flash_attention", "flash_attention.cu"),
+                                ("flash_decode", "flash_decode", "flash_decode.cu"),
+                                ("lora_matmul", "lora_matmul", "lora_matmul.cu"),
+                                ("mamba_scan", "mamba_scan", "mamba_scan.cu"),
+                                ("segmented_lora", "segmented_lora", "segmented_lora.cu"))},
+    ("repro.kernels.rwkv6_scan", "wkv6_pallas"): "the Pallas kernel itself: the port launches csrc/wkv6.cu through "
+                                                 "kernels.ops.wkv6",
+    ("repro.kernels.ops", "is_cpu_backend"): "asks JAX's default backend: the port chooses by each tensor's device",
+    ("repro.analysis.jaxpr_contracts", "walk_eqns"): ABSENT[("repro.analysis", "walk_eqns")],
+    ("repro.analysis.jaxpr_contracts", "estimate_flops"): ABSENT[("repro.analysis", "estimate_flops")],
+    ("repro.analysis.jaxpr_contracts", "make_trace"): "makes a trace from a jaxpr: the port's trace_program records "
+                                                      "the step itself on meta",
+    **{("repro.analysis.fixtures", name): "a JAX-only fixture: its fault (a reused PRNG key, jit's static "
+                                          "arguments, an env query or a host callback inside jit) has no torch "
+                                          "counterpart for the port's lint to catch"
+       for name in ("key_reuse", "stale_static_argnames", "env_query_in_jit", "host_callback_in_body",
+                    "static_arg_churn")},
+    ("repro.launch.dryrun", "lower_cell"): "lowers a cell to HLO: the port lowers nothing, and run_cell has its "
+                                           "signature and record (ROADMAP §3)",
+}
+
+# keywords of the reference's signatures that the port leaves out on purpose;
+# "*" stands for every function of the module
+ABSENT_KEYWORDS = {
+    ("repro.federated.client", "make_client_fns", "donate"): "XLA buffer donation: eager torch frees a round's "
+                                                             "buffers when their last reference goes",
+    ("repro.launch.steps", "make_train_step", "regather_specs"): "the port runs no sharded train step (ROADMAP §3)",
+    ("repro.launch.dryrun", "collective_bytes", "hlo_text"): "the dry run has no HLO: a cell's collectives are what "
+                                                             "the port itself sends (ROADMAP §3)",
+    **{("repro.analysis.jaxpr_contracts", "stacking_concats", kw): "walks a jaxpr's concatenates against the "
+                                                                   "shapes given: the port's takes a ProgramTrace, "
+                                                                   "whose stacked_shapes are the targets"
+       for kw in ("jaxpr", "target_shapes")},
+    ("repro.kernels.ops", "*", "impl"): "Pallas or XLA: the port chooses by the tensors' device",
+    **{("repro.kernels.ops", "*", tile): "a Pallas tile: each CUDA kernel plans its own tiles"
+       for tile in ("block_q", "block_k", "block_m", "block_n", "chunk", "d_block")},
+}
+
+# a JAX PRNG key: the port draws from a torch generator, given as ``generator``
+# (ROADMAP §3, "Random streams")
+KEY_KEYWORDS = ("key", "_key")
+
+
+def _reference_modules(with_all: bool = True):
+    """Every module of the JAX package (``with_all``: those that assign
+    ``__all__``)."""
     src = ROOT / "src"
     return sorted(
         ".".join(p.relative_to(src).with_suffix("").parts).removesuffix(".__init__")
-        for p in (src / "repro").rglob("*.py") if re.search(r"^__all__\s*=", p.read_text(), re.M)
+        for p in (src / "repro").rglob("*.py")
+        if not with_all or re.search(r"^__all__\s*=", p.read_text(), re.M)
     )
+
+
+def _defined(module):
+    """The public functions and classes a module defines (jitted and cached
+    functions included), by name."""
+    return {name: obj for name, obj in vars(module).items()
+            if not name.startswith("_") and callable(obj) and not inspect.ismodule(obj)
+            and getattr(obj, "__module__", None) == module.__name__}
+
+
+def _missing_keywords(module: str, name: str, ref_fn, port_fn) -> list:
+    """The keywords of ``ref_fn`` that ``port_fn`` lacks and the table does
+    not name; a ``key`` needs a ``generator`` in its place."""
+    port_params = inspect.signature(port_fn).parameters
+    if any(p.kind == p.VAR_KEYWORD for p in port_params.values()):
+        return []
+    missing = []
+    for kw, p in inspect.signature(ref_fn).parameters.items():
+        if kw in port_params or p.kind in (p.VAR_POSITIONAL, p.VAR_KEYWORD):
+            continue
+        if kw in KEY_KEYWORDS and "generator" in port_params:
+            continue
+        if (module, name, kw) not in ABSENT_KEYWORDS and (module, "*", kw) not in ABSENT_KEYWORDS:
+            missing.append(f"{name}({kw})")
+    return missing
 
 
 def test_the_walk_covers_the_subpackages():
@@ -75,6 +166,45 @@ def test_every_reference_export_resolves_in_the_port(module):
                if (module, name) not in ABSENT and not (hasattr(port, name) and name in port.__all__)]
     assert not missing, missing
     assert all(not hasattr(port, name) for (mod, name) in ABSENT if mod == module)
+
+
+def test_the_signature_walk_covers_every_module():
+    modules = _reference_modules(with_all=False)
+    assert set(_reference_modules()) < set(modules) and len(modules) > 80
+    assert set(PORT_MODULE) <= set(modules)
+    assert {mod for mod, _ in ABSENT_NAMES} | {mod for mod, _, _ in ABSENT_KEYWORDS} <= set(modules)
+
+
+@pytest.mark.parametrize("module", _reference_modules(with_all=False))
+def test_every_reference_name_and_keyword_is_in_the_port(module):
+    """Each public function and class defined in the reference module
+    resolves in the port's module of the same path (or the one
+    ``PORT_MODULE`` names) with every keyword of its signature, and each
+    class with every public method and the methods' keywords, unless
+    ``ABSENT_NAMES`` or ``ABSENT_KEYWORDS`` gives the reason it is not."""
+    ref = importlib.import_module(module)
+    port_name = PORT_MODULE.get(module, ("repro_torch" + module.removeprefix("repro"),))[0]
+    port = importlib.import_module(port_name)
+    missing = []
+    for name, obj in _defined(ref).items():
+        if (module, name) in ABSENT_NAMES:
+            assert not hasattr(port, name), f"{port_name}.{name} exists: take it out of ABSENT_NAMES"
+            continue
+        if not hasattr(port, name):
+            missing.append(name)
+            continue
+        counterpart = getattr(port, name)
+        if not inspect.isclass(obj):
+            missing += _missing_keywords(module, name, obj, counterpart)
+            continue
+        for meth, fn in vars(obj).items():
+            if meth.startswith("_"):
+                continue
+            if not hasattr(counterpart, meth):
+                missing.append(f"{name}.{meth}")
+            elif inspect.isfunction(fn) and callable(getattr(counterpart, meth)):
+                missing += _missing_keywords(module, f"{name}.{meth}", fn, getattr(counterpart, meth))
+    assert not missing, f"{port_name} lacks {missing}"
 
 
 def test_stacking_converters_round_trip():
