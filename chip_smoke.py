@@ -288,6 +288,19 @@ Phases, one line each before the last:
    full-width qwen3-1.7b's local round (16 x 512, rate 0.5, 2 steps) from
    ``layout="list"`` trees under ``unroll`` and ``scan``, bit for bit the
    stacked round, launches from its gates;
+5o. the sharded train step (``tensor_parallel_full``): full-width
+   qwen3-1.7b (28 layers, cond at rate 0.5, LoRA r 8 on q and v, bf16,
+   16 x 512) through ``make_train_step(mesh=...)`` on gloo ranks spawned
+   on the one card, a 1 x 2 mesh (model 2) and a 2 x 2 mesh (data 2 x
+   model 2, FSDP with ``regather_specs``), each rank's part cut from the
+   same draws, 2 steps twice, against the one-rank step on the card:
+   losses within 3e-2, the PEFT trees within 2·Σlr + 1e-6, the first
+   step's gradients in float32 within 1e-4 of each leaf's largest element
+   and in bf16 within 1.5 x the one-rank bf16 step's distance from its
+   float32 step's, every rank bit-identical, a
+   second run bit-identical, launches a, a and 4a − 2s all on wgmma, and
+   the dry run's path on meta: launches and collective bytes exactly,
+   peaks within 10 %;
 6. the ``kernels`` JSON line: launches of each kernel in its own path's
    run (serving: phase 4's run; training: phase 5's round at rate 0.5,
    phase 5b's for wkv6 and wkv6_bwd, phase 5c's for mamba_scan and
@@ -295,7 +308,7 @@ Phases, one line each before the last:
    phase 5f's deadline rounds and gather round, phase 5g's runs, and for
    every kernel of the dense path phase 5e's runs, and phase 5h's serving
    runs for flash_decode, flash_attention, wkv6 and mamba_scan, and phases
-   5i's, 5j's, 5k's, 5l's (b), 5m's and 5n's runs (``launches_by_path``), the other dense
+   5i's, 5j's, 5k's, 5l's (b), 5m's, 5n's and 5o's runs (``launches_by_path``), the other dense
    decoders' shapes, FedHetLoRA's, the scans' from a state, the moe
    family's, the stub-frontend families' and the training CLI's beside.
 
@@ -5309,6 +5322,343 @@ def public_names_full(api, ops, ref, timer, card: str, seed: int) -> tuple:
     return stats, launches, time.perf_counter() - t0
 
 
+# -------------------------------------------------------------------- phase 5o
+TP_ARCH = "qwen3-1.7b"
+TP_TRAIN = {"batch": 16, "seq": 512, "rate": 0.5, "steps": 2}
+TP_MESHES = (((1, 2), False), ((2, 2), True))  # (data, model), FSDP with regather_specs
+TP_AXES = ("data", "model")
+TP_LOSS_RTOL = 3e-2
+# the first step's gradients, of each leaf's largest element, in float32
+# (phase 5n's float32 rule): in bf16 the one-rank step's own gradients lie
+# 2.2 % from its float32 step's at full depth (PERF.md §6), so the
+# bf16 rule of 2 % cannot tell the sharded step's rounding from the
+# one-rank step's
+TP_GRAD_TOL = 1e-4
+# the sharded bf16 step's first gradients may lie from the one-rank float32
+# step's at most this many times the one-rank bf16 step's own distance from
+# it (measured 2.2 % one rank, 2.6 % and 2.8 % sharded: PERF.md §6)
+TP_BF16_GRAD_RATIO = 1.5
+
+
+def tp_draws(cfg, pcfg, seed: int, device: str):
+    """The base params (placed) and the PEFT tree drawn from ``seed`` on
+    ``device``'s generator: the same bits in every process on one card."""
+    from repro_torch.core.peft import init_peft
+    from repro_torch.models.registry import init_params
+
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return init_params(cfg, g, place=True), init_peft(cfg, pcfg, g)
+
+
+def tp_tokens(cfg, seed: int, batch: int, seq: int):
+    """The global batch's tokens (B, S+1), drawn on the CPU from ``seed``."""
+    return torch.randint(0, cfg.vocab_size, (batch, seq + 1), generator=torch.Generator().manual_seed(seed),
+                         dtype=torch.int32)
+
+
+def tp_float32(tree):
+    """``tree`` with every floating leaf in float32 (the bf16 draws, exactly)."""
+    from repro_torch.models.stacking import tree_map
+
+    return tree_map(lambda t: t.float() if t.is_floating_point() else t, tree)
+
+
+def tp_digest(tree) -> float:
+    """A float64 sum over every leaf: the same cut of the same draws gives
+    the same number."""
+    from repro_torch.models.stacking import tree_leaves
+
+    return sum(float(t.double().sum()) for t in tree_leaves(tree))
+
+
+def tp_cpu(tree):
+    from repro_torch.models.stacking import tree_map
+
+    return tree_map(lambda t: t.detach().cpu(), tree)
+
+
+def tp_two_steps(ops, step, base, peft, batch, seed: int, device: str, peak: bool = False) -> dict:
+    """Two steps from one state, the gates from a generator seeded
+    ``seed``: each step's metrics, seconds and PEFT and AdamW trees, the
+    launches (and ``lora_matmul``'s routes), the collectives' counts and
+    seconds, and with ``peak`` the card's ``max_memory_allocated`` over the
+    first step."""
+    from repro_torch.optim import adamw_init
+
+    p, opt, rng = peft, adamw_init(peft), torch.Generator().manual_seed(seed)
+    ops.reset_launch_counts()
+    if step.comm is not None:
+        step.comm.reset()
+    out = {"metrics": [], "s": [], "trees": []}
+    for k in range(TP_TRAIN["steps"]):
+        if device == "cuda":
+            torch.cuda.synchronize()
+            if peak and k == 0:
+                torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        p, opt, m = step(base, p, opt, batch, rng)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            if peak and k == 0:
+                out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        out["s"].append(time.perf_counter() - t0)
+        out["metrics"].append({key: float(v) for key, v in m.items()})
+        out["trees"].append(tp_cpu({"peft": p, "m": opt["m"], "v": opt["v"]}))
+    out["launches"] = {k: v for k, v in ops.launch_counts.items() if v}
+    out["routes"] = {k: v for k, v in ops.lora_matmul_routes.items() if v}
+    if step.comm is not None:
+        out["counts"], out["comm_s"] = dict(step.comm.counts), step.comm.seconds
+    return out
+
+
+def tp_rank(rank: int, world: int, port: int, shape, fsdp: bool, seed: int, out_path: str, device: str,
+            smoke: bool):
+    """One rank of phase 5o (``torch.multiprocessing.spawn``): a gloo group
+    of ``world`` ranks on the one card (or the CPU), the mesh ``shape``
+    (data, model).  The rank draws the whole trees from ``seed`` as the
+    one-rank step did, cuts its part (``sharding.specs.shard_tree``: the
+    base params by ``param_specs`` with ``fsdp_axes``, the PEFT tree
+    whole), takes its rows of the batch, runs two steps twice from one
+    state and the first step's gradients, and saves what the parent
+    checks."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import PEFTConfig, TrainConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding import specs as S
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank, world_size=world)
+    try:
+        cfg = get_config(TP_ARCH, smoke=smoke)
+        pcfg = PEFTConfig()
+        mesh = make_mesh(shape, TP_AXES, device_type=device)
+        sizes, coords = dict(zip(TP_AXES, shape)), dict(zip(TP_AXES, mesh.get_coordinate()))
+        S.set_mesh_axis_sizes(mesh)
+        whole, peft = tp_draws(cfg, pcfg, seed, device)
+        regather = S.param_specs(whole, sizes["model"]) if fsdp else None
+        base = S.shard_tree(whole, S.param_specs(whole, sizes["model"], fsdp_axes=("data",) if fsdp else ()), sizes,
+                            coords)
+        digest = tp_digest(base)
+        del whole
+        free_memory(device)
+        b, s = (4, 16) if smoke else (TP_TRAIN["batch"], TP_TRAIN["seq"])
+        rows = b // sizes["data"]
+        tokens = tp_tokens(cfg, seed, b, s)[coords["data"] * rows:(coords["data"] + 1) * rows]
+        batch = {"tokens": tokens.to(device)}
+        step = make_train_step(cfg, pcfg, TrainConfig(), stld_mode="cond", mean_rate=TP_TRAIN["rate"], mesh=mesh,
+                               regather_specs=regather)
+        runs = [tp_two_steps(ops, step, base, peft, batch, seed, device, peak=(i == 0)) for i in range(2)]
+        _, grads = step.loss_and_grads(base, peft, batch, torch.Generator().manual_seed(seed))
+        arg_bytes = tree_bytes((base, peft, adamw_init(peft), batch))
+        base = tp_float32(base)
+        step32 = make_train_step(cfg.replace(dtype="float32"), pcfg, TrainConfig(), stld_mode="cond",
+                                 mean_rate=TP_TRAIN["rate"], mesh=mesh, regather_specs=regather)
+        _, grads32 = step32.loss_and_grads(base, peft, batch, torch.Generator().manual_seed(seed))
+        torch.save({"coords": coords, "digest": digest, "runs": runs, "grads": tp_cpu(grads),
+                    "grads32": tp_cpu(grads32), "argument_bytes": arg_bytes}, f"{out_path}.rank{rank}")
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_meta(cfg, shape, fsdp: bool, gates, batch: int, seq: int) -> dict:
+    """Phase 5o's cell on ``meta`` through the dry run's path
+    (``launch.input_specs.rank_train_inputs``: rank 0's part at the mesh's
+    axis sizes): the two steps with the card's gates, their launches and
+    collective bytes summed, and the first step's peak."""
+    from repro_torch.analysis.trace import run_on_meta
+    from repro_torch.configs import InputShape, PEFTConfig, TrainConfig
+    from repro_torch.launch import input_specs as ispec
+    from repro_torch.launch.steps import make_train_step
+
+    mesh = ispec.MeshShape(dict(zip(TP_AXES, shape)))
+    pcfg = PEFTConfig()
+    _, _, local, regather = ispec.rank_train_inputs(cfg, pcfg, InputShape("5o", seq, batch, "train"), mesh,
+                                                    fsdp=fsdp, weights_dtype="placed")
+    step = make_train_step(cfg, pcfg, TrainConfig(), stld_mode="cond", mean_rate=TP_TRAIN["rate"], mesh=mesh,
+                           regather_specs=regather)
+    local = list(local)
+    replay = GateReplay()
+    replay.gates = list(gates)
+    launches, runs = {}, []
+    with replay.replay():
+        for _ in range(TP_TRAIN["steps"]):
+            run = run_on_meta(step, *local)
+            check(not run.host_reads, f"5o meta {shape}: host reads {run.host_reads}")
+            runs.append(run)
+            local[1], local[2] = run.out[0], run.out[1]
+            for k, v in run.kernel_launches.items():
+                launches[k] = launches.get(k, 0) + v
+    return {"launches": launches, "counts": dict(step.comm.counts), "peak_bytes": runs[0].peak_bytes,
+            "argument_bytes": runs[0].argument_bytes, "s": sum(r.seconds for r in runs)}
+
+
+def tp_close_after_steps(got, want, lr_sum: float) -> float:
+    """The largest difference of two PEFT trees, checked within 2·Σlr + 1e-6."""
+    from repro_torch.models.stacking import tree_leaves
+
+    worst = max((g.float() - w.float()).abs().max().item() for g, w in zip(tree_leaves(got), tree_leaves(want)))
+    check(worst <= 2 * lr_sum + 1e-6, f"5o PEFT trees after {TP_TRAIN['steps']} steps differ by {worst}")
+    return worst
+
+
+def tp_grads_close(got, want) -> float:
+    """The worst gradient error over its leaf's largest element."""
+    from repro_torch.models.stacking import tree_leaves
+
+    worst = 0.0
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        scale = w.float().abs().max().item()
+        worst = max(worst, (g.float() - w.float()).abs().max().item() / max(scale, 1e-30))
+    return worst
+
+
+def tensor_parallel_full(ops, card: str, seed: int, device: str = "cuda", smoke: bool = False) -> tuple:
+    """Phase 5o: qwen3-1.7b's train step sharded over a ``(data, model)``
+    mesh of gloo ranks spawned on the one card (NCCL takes one rank a GPU):
+    ``1 x 2`` (tensor parallelism over ``model``) and ``2 x 2`` (with FSDP
+    and ``regather_specs``), full width and depth, LoRA r 8 on q and v,
+    bf16, STLD ``cond`` at rate 0.5, a global batch of 16 x 512, against
+    the one-rank step on the card from the same draws, batch and gates:
+    losses within ``TP_LOSS_RTOL``, the PEFT trees after two steps within
+    2·Σlr + 1e-6, the first step's gradients in float32 (the same draws cast
+    up, both steps again) within ``TP_GRAD_TOL`` of each leaf's largest
+    element, the bf16 gradients from the one-rank float32 step's within
+    ``TP_BF16_GRAD_RATIO`` times the one-rank bf16 step's own distance from
+    it; every rank's trees bit-identical after
+    each step, a second run bit-identical to the first; launches
+    ``flash_attention`` a, its backward a and ``lora_matmul`` 4a − 2s, all
+    on ``wgmma``; the dry run's path on ``meta`` (``tp_meta``) gives each
+    rank's launches and collective bytes exactly and its peak within
+    ``META_PEAK_TOLERANCE``.  With ``device="cpu", smoke=True`` it
+    rehearses on the CPU (the twins; launches and peaks not compared).
+    Returns (stats, launches by path, seconds)."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import PEFTConfig, TrainConfig, get_config
+    from repro_torch.launch import input_specs as ispec
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.sharding import specs as S
+
+    t_phase = time.perf_counter()
+    cfg, pcfg, tcfg = get_config(TP_ARCH, smoke=smoke), PEFTConfig(), TrainConfig()
+    on_card = device == "cuda"
+    b, s = (4, 16) if smoke else (TP_TRAIN["batch"], TP_TRAIN["seq"])
+    stats, launches = {}, {}
+
+    # the one-rank step on the card: the reference of every mesh
+    free_memory(device)
+    base, peft = tp_draws(cfg, pcfg, seed, device)
+    batch = {"tokens": tp_tokens(cfg, seed, b, s).to(device)}
+    step = make_train_step(cfg, pcfg, tcfg, stld_mode="cond", mean_rate=TP_TRAIN["rate"])
+    replay = GateReplay().record()
+    with replay:
+        one = tp_two_steps(ops, step, base, peft, batch, seed, device, peak=True)
+    _, one_grads = step.loss_and_grads(base, peft, batch, torch.Generator().manual_seed(seed))
+    one_grads = tp_cpu(one_grads)
+    step32 = make_train_step(cfg.replace(dtype="float32"), pcfg, tcfg, stld_mode="cond", mean_rate=TP_TRAIN["rate"])
+    _, one_grads32 = step32.loss_and_grads(tp_float32(base), peft, batch, torch.Generator().manual_seed(seed))
+    one_grads32 = tp_cpu(one_grads32)
+    del step32
+    free_memory(device)
+    gates = list(replay.gates)
+    active = sum(int((~g.bool()).sum()) for g in gates)
+    whole_digest = {}
+    for shape, fsdp in TP_MESHES:  # each rank's cut, to hold the ranks' own draws against
+        sizes = dict(zip(TP_AXES, shape))
+        S.set_mesh_axis_sizes(ispec.MeshShape(sizes))
+        cut = S.param_specs(base, shape[1], fsdp_axes=("data",) if fsdp else ())
+        whole_digest[shape] = {coords: tp_digest(S.shard_tree(base, cut, sizes, dict(zip(TP_AXES, coords))))
+                               for coords in np.ndindex(*shape)}
+    del base, peft, step
+    free_memory(device)
+    stats["one_rank"] = {"s_per_step": one["s"], "losses": [m["loss"] for m in one["metrics"]],
+                         "peak_gib": one.get("peak_bytes", 0) / 2**30, "launches": one["launches"],
+                         "active_layers": active, "bf16_grad_err_vs_float32": tp_grads_close(one_grads, one_grads32)}
+    launches["5o_one_rank"] = one["launches"]
+    print(f"5o one rank {json.dumps(stats['one_rank'])} [{card}]", flush=True)
+
+    work = ROOT / "build" / "tp"
+    work.mkdir(parents=True, exist_ok=True)
+    lr_sum = TP_TRAIN["steps"] * tcfg.learning_rate
+    for shape, fsdp in TP_MESHES:
+        world = shape[0] * shape[1]
+        name = f"{shape[0]}x{shape[1]}" + (" fsdp" if fsdp else "")
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        path = str(work / name.replace(" ", "_"))
+        t0 = time.perf_counter()
+        mp.spawn(tp_rank, args=(world, port, shape, fsdp, seed, path, device, smoke), nprocs=world, join=True)
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(f"{path}.rank{r}") for r in range(world)]
+        first = ranks[0]
+        for r, rank in enumerate(ranks):
+            coords = tuple(rank["coords"][a] for a in TP_AXES)
+            check(rank["digest"] == whole_digest[shape][coords],
+                  f"5o {name} rank {r}: its cut of the draws differs from the one-rank step's")
+            for k in range(TP_TRAIN["steps"]):
+                check(tree_equal(rank["runs"][0]["trees"][k], first["runs"][0]["trees"][k]),
+                      f"5o {name}: rank {r}'s PEFT tree or AdamW state after step {k + 1} differs from rank 0's")
+            check(tree_equal(rank["runs"][1]["trees"][-1], rank["runs"][0]["trees"][-1])
+                  and rank["runs"][1]["metrics"] == rank["runs"][0]["metrics"],
+                  f"5o {name} rank {r}: a second run differs from the first")
+            check(rank["runs"][0]["metrics"] == first["runs"][0]["metrics"], f"5o {name}: rank {r}'s metrics differ")
+        run = first["runs"][0]
+        rel = [abs(m["loss"] - o["loss"]) / abs(o["loss"]) for m, o in zip(run["metrics"], one["metrics"])]
+        check(max(rel) <= TP_LOSS_RTOL, f"5o {name}: losses {run['metrics']} against one rank's {one['metrics']}")
+        grad_err = tp_grads_close(first["grads32"], one_grads32)
+        check(grad_err <= TP_GRAD_TOL, f"5o {name}: float32 first-step gradients off by {grad_err} of a leaf's "
+                                       "largest")
+        bf16_err = tp_grads_close(first["grads"], one_grads32)
+        check(bf16_err <= TP_BF16_GRAD_RATIO * stats["one_rank"]["bf16_grad_err_vs_float32"],
+              f"5o {name}: bf16 first-step gradients {bf16_err} of a leaf's largest from the one-rank float32 "
+              f"step's, above {TP_BF16_GRAD_RATIO} x the one-rank bf16 step's "
+              f"{stats['one_rank']['bf16_grad_err_vs_float32']}")
+        peft_err = tp_close_after_steps(run["trees"][-1]["peft"], one["trees"][-1]["peft"], lr_sum)
+        row = {"mesh": name, "spawn_s": spawn_s, "s_per_step": [r["runs"][0]["s"] for r in ranks],
+               "comm_s": [r["runs"][0]["comm_s"] for r in ranks], "counts": run["counts"],
+               "losses": [m["loss"] for m in run["metrics"]], "loss_rel_err": rel, "grad_err_float32": grad_err,
+               "bf16_grad_err": tp_grads_close(first["grads"], one_grads),
+               "bf16_grad_err_vs_float32": bf16_err,
+               "peft_max_abs_diff": peft_err, "launches": run["launches"], "routes": run["routes"]}
+        meta = tp_meta(cfg, shape, fsdp, gates, b, s)
+        row.update(meta_launches=meta["launches"], meta_counts=meta["counts"], meta_peak_gib=meta["peak_bytes"] / 2**30,
+                   meta_s=meta["s"])
+        for r, rank in enumerate(ranks):
+            check(rank["runs"][0]["counts"] == meta["counts"],
+                  f"5o {name} rank {r}: collectives {rank['runs'][0]['counts']}, on meta {meta['counts']}")
+            check(rank["argument_bytes"] == meta["argument_bytes"],
+                  f"5o {name} rank {r}: argument bytes {rank['argument_bytes']}, on meta {meta['argument_bytes']}")
+        if on_card:
+            want = {"flash_attention": active, "flash_attention_bwd": active,
+                    "lora_matmul": 4 * active - 2 * TP_TRAIN["steps"]}
+            row["peak_gib"] = [r["runs"][0]["peak_bytes"] / 2**30 for r in ranks]
+            for r, rank in enumerate(ranks):
+                got = rank["runs"][0]
+                check(got["launches"] == want, f"5o {name} rank {r}: launches {got['launches']}, want {want}")
+                check(got["routes"] == {"wgmma": want["lora_matmul"]}, f"5o {name} rank {r}: routes {got['routes']}")
+                check(got["launches"] == meta["launches"], f"5o {name} rank {r}: launches {got['launches']} on the "
+                                                           f"card, {meta['launches']} on meta")
+                gap = meta["peak_bytes"] / got["peak_bytes"] - 1.0
+                check(abs(gap) <= META_PEAK_TOLERANCE, f"5o {name} rank {r}: meta peak {meta['peak_bytes']} B "
+                                                       f"against the card's {got['peak_bytes']} B ({gap:+.3f})")
+            row["meta_peak_gap"] = [meta["peak_bytes"] / r["runs"][0]["peak_bytes"] - 1.0 for r in ranks]
+        stats[name] = row
+        launches[f"5o_{name.replace(' ', '_')}"] = run["launches"]
+        print(f"5o {name} {json.dumps(row)} [{card}]", flush=True)
+    return stats, launches, time.perf_counter() - t_phase
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5740,6 +6090,17 @@ def main() -> int:
     def names_launches(name):
         return {path: counts[name] for path, counts in names_runs.items() if counts.get(name)}
 
+    # 5o. qwen3-1.7b's train step sharded over (data, model) meshes of gloo
+    #     ranks on the one card, against the one-rank step and the dry run
+    tp_stats, tp_runs, tp_s = tensor_parallel_full(ops, card, args.seed)
+    print(f"phase 5o: {tp_s:.1f} s [{card}]", flush=True)
+    for path, counts in tp_runs.items():
+        for name in ("flash_attention", "flash_attention_bwd", "lora_matmul"):
+            check(counts.get(name, 0) > 0, f"{name} never launched in phase 5o's {path}: {counts}")
+
+    def tp_launches(name):
+        return {path: counts[name] for path, counts in tp_runs.items() if counts.get(name)}
+
     stub_shape_keys = {"flash_attention": ("attention_whisper_encoder", "attention_whisper_cross"),
                        "flash_decode": ("decode_whisper_self", "decode_whisper_cross", "decode_internvl")}
 
@@ -5857,7 +6218,8 @@ def main() -> int:
                                                                      "federated whisper", "train internvl",
                                                                      "generate internvl")),
                                  **cli_launches("flash_attention"), **meta_launches("flash_attention"),
-                                 **remat_launches("flash_attention"), **names_launches("flash_attention")},
+                                 **remat_launches("flash_attention"), **names_launches("flash_attention"),
+                                 **tp_launches("flash_attention")},
             "train_cli_shape": pick(cli_shape["attention"], fwd_keys),
             "moe_shapes": {short: pick(moe_shapes[f"attention_{short}"], fwd_keys) for short in moe_paths},
             "whisper_shapes": {key: pick(stub_shapes[key], fwd_keys) for key in stub_shape_keys["flash_attention"]},
@@ -5888,7 +6250,8 @@ def main() -> int:
                                  **stub_launches("flash_attention_bwd", ("train whisper", "federated whisper",
                                                                          "train internvl")),
                                  **cli_launches("flash_attention_bwd"), **meta_launches("flash_attention_bwd"),
-                                 **remat_launches("flash_attention_bwd"), **names_launches("flash_attention_bwd")},
+                                 **remat_launches("flash_attention_bwd"), **names_launches("flash_attention_bwd"),
+                                 **tp_launches("flash_attention_bwd")},
             "train_cli_shape": pick(cli_shape["attention"], ("shape",), **bwd_renamed),
             "whisper_shapes": {key: pick(stub_shapes[key], ("shape",), **bwd_renamed)
                                for key in stub_shape_keys["flash_attention"]},
@@ -5925,7 +6288,8 @@ def main() -> int:
                                  **stub_launches("lora_matmul", ("train whisper", "federated whisper",
                                                                  "train internvl")),
                                  **cli_launches("lora_matmul"), **meta_launches("lora_matmul"),
-                                 **remat_launches("lora_matmul"), **names_launches("lora_matmul")},
+                                 **remat_launches("lora_matmul"), **names_launches("lora_matmul"),
+                                 **tp_launches("lora_matmul")},
             "train_cli_grouped_shapes": {name: pick(cli_shape[name], proj_keys + ("route", "ungrouped_launches_ms"))
                                          for name in ("grouped q", "grouped v")},
             "stub_frontend_shapes": {name: pick(stub_shapes[f"lora {name}"],

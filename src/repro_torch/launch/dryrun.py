@@ -15,16 +15,24 @@ one JSON per cell under ``--out-dir``:
   outputs plus the kernels' bytes;
 * ``memory``: ``argument_bytes`` per device, from each argument leaf's
   ``PartitionSpec`` and the mesh's axis sizes; ``peak_bytes``, the peak of
-  live ``meta`` bytes during the step on one data rank's slice of the
-  batch (and, at ``long_500k``, of the cache's sequence) with the weights
-  whole, since the port's steps are not tensor-parallel; ``output_bytes``
-  and ``temp_bytes`` (the peak of the step's allocations less its
-  outputs);
-* ``collectives``: the bytes the port itself communicates: for
-  sequence-sharded long-context decode, ``serving.decode
-  .sharded_decode_attention``'s three ``all_reduce``s (max, sum, sum of
-  (B, H), (B, H), (B, H, D) float32) per attention layer, counted from the
-  shapes; elsewhere 0 (there is no HLO to parse);
+  live ``meta`` bytes during one rank's step; ``output_bytes`` and
+  ``temp_bytes`` (the peak of the step's allocations less its outputs).
+  A ``dense`` arch's train cell runs rank 0 of the mesh's sharded step
+  (``make_train_step(mesh=...)``: its part of the weights, tensor-parallel
+  over ``model``, and its rows of the batch; ``--fsdp`` cuts the weights
+  over the data axes too and the step gathers them back, as the
+  reference's ``regather_specs``).  The other cells run one data rank's
+  slice of the batch (and, at ``long_500k``, of the cache's sequence)
+  with the weights whole, and their ``notes`` say so: the sharded
+  prefill, decode and other families' steps are later slices;
+* ``collectives``: the bytes the port itself communicates, by the
+  reference's kinds: a sharded train step's, as its
+  ``sharding.collectives.Comm`` counted them (each collective's bytes, not
+  one run on the card more or less); for sequence-sharded long-context
+  decode, ``serving.decode.sharded_decode_attention``'s three
+  ``all_reduce``s (max, sum, sum of (B, H), (B, H), (B, H, D) float32)
+  per attention layer, counted from the shapes; elsewhere 0 (there is no
+  HLO to parse);
 * ``kernel_launches`` and ``trace_s`` (the step's seconds on ``meta``).
 
 A step that reads device data on the host (``.item()``, ``.cpu()``: on
@@ -38,6 +46,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import time
 import traceback
@@ -47,22 +56,12 @@ import torch
 from repro_torch.analysis.trace import run_on_meta, tree_tensors
 from repro_torch.configs import ARCH_IDS, INPUT_SHAPES, PEFTConfig, TrainConfig, get_config, shape_applicable
 from repro_torch.launch import input_specs as ispec
-from repro_torch.launch.mesh import axis_sizes, data_axes
+from repro_torch.launch.mesh import axis_sizes
 from repro_torch.launch.steps import make_prefill_step, make_serve_step, make_train_step
 from repro_torch.models.layers import layer_kind
 from repro_torch.nn import moe
-from repro_torch.sharding.specs import PartitionSpec
-
-COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all", "collective-permute")
-
-
-def _shards(entry, sizes: dict, axes=None) -> int:
-    """How many ways a spec entry splits its dim (only ``axes``, if given)."""
-    n = 1
-    for axis in (entry if isinstance(entry, tuple) else (entry,)):
-        if axis is not None and (axes is None or axis in axes):
-            n *= sizes[axis]
-    return n
+from repro_torch.sharding.collectives import COLLECTIVES
+from repro_torch.sharding.specs import PartitionSpec, ways
 
 
 def _pairs(tree, spec_tree):
@@ -82,26 +81,8 @@ def argument_bytes(args, specs, mesh) -> int:
     sizes = axis_sizes(mesh)
     total = 0
     for t, spec in _pairs(args, specs):
-        ways = 1
-        for entry in spec:
-            ways *= _shards(entry, sizes)
-        total += t.numel() * t.element_size() // ways
+        total += t.numel() * t.element_size() // math.prod(ways(entry, sizes) for entry in spec)
     return total
-
-
-def data_rank_slice(tree, spec_tree, mesh):
-    """``tree`` as one data rank holds it: every dim that its spec shards
-    over the data axes divided by their sizes; the ``model`` axis is not
-    applied (the port's steps are not tensor-parallel)."""
-    sizes, axes = axis_sizes(mesh), data_axes(mesh)
-    if isinstance(spec_tree, PartitionSpec):
-        if tree.device.type != "meta":  # a scalar position, on the host
-            return tree
-        shape = [d // _shards(e, sizes, axes) for d, e in zip(tree.shape, spec_tree)]
-        return torch.empty(shape, dtype=tree.dtype, device="meta")
-    if isinstance(tree, dict):
-        return {k: data_rank_slice(v, spec_tree[k], mesh) for k, v in tree.items()}
-    return [data_rank_slice(v, s, mesh) for v, s in zip(tree, spec_tree)]
 
 
 def collective_bytes(cfg, sharded_seq: bool, batch: int) -> dict:
@@ -124,13 +105,13 @@ def _local_args(kind: str, args, specs, mesh, sharded_seq: bool):
     decodes at the last slot of its slice of the caches."""
     if kind == "train":
         base, peft, opt, batch, rng = args
-        return base, peft, opt, data_rank_slice(batch, specs[3], mesh), rng
+        return base, peft, opt, ispec.rank_slice(batch, specs[3], mesh), rng
     if kind == "prefill":
         params, batch, caches = args
-        return params, data_rank_slice(batch, specs[1], mesh), data_rank_slice(caches, specs[2], mesh)
+        return params, ispec.rank_slice(batch, specs[1], mesh), ispec.rank_slice(caches, specs[2], mesh)
     params, token, pos, caches, *enc = args
-    token, caches = data_rank_slice(token, specs[1], mesh), data_rank_slice(caches, specs[3], mesh)
-    enc = [data_rank_slice(e, s, mesh) for e, s in zip(enc, specs[4:])]
+    token, caches = ispec.rank_slice(token, specs[1], mesh), ispec.rank_slice(caches, specs[3], mesh)
+    enc = [ispec.rank_slice(e, s, mesh) for e, s in zip(enc, specs[4:])]
     kv_lens = [t.shape[1] for t in tree_tensors(caches) if t.ndim == 4]
     if sharded_seq and kv_lens:  # the last slot of the rank's (B, S, KV, hd) caches
         pos = max(kv_lens) - 1
@@ -149,14 +130,30 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool, stld_mode: str = "o
     reference's does, unless ``placed`` asks for the card's placement
     (``models.registry.place_params``), which every step then takes."""
     cfg = get_config(arch).replace(moe_dispatch=moe_dispatch)
-    shape = INPUT_SHAPES[shape_name]
-    mesh = ispec.production_mesh(multi_pod=multi_pod)
+    rec = run_config(cfg, INPUT_SHAPES[shape_name], ispec.production_mesh(multi_pod=multi_pod), stld_mode=stld_mode,
+                     stack_mode=stack_mode, weights_dtype=weights_dtype, fsdp=fsdp, mean_rate=mean_rate,
+                     expert_shard=expert_shard)
+    return {"arch": arch, "shape": shape_name, "mesh": "2x16x16" if multi_pod else "16x16", **rec,
+            "tags": extra_tags}
+
+
+def run_config(cfg, shape, mesh, *, stld_mode: str = "off", stack_mode: str = "unroll",
+               weights_dtype: str = "float32", fsdp: bool = False, mean_rate: float = 0.5,
+               expert_shard: str = "auto") -> dict:
+    """``run_cell``'s record (less the cell's names) for any config, input
+    shape and mesh (``input_specs.MeshShape``)."""
     peft_cfg = PEFTConfig(method="lora", lora_rank=8)
+    sharded = shape.kind == "train" and cfg.family == "dense"
     if shape.kind == "train":
+        train_dtype = "placed" if weights_dtype == "placed" else "float32"
+        regather = None
+        if sharded:
+            args, specs, local, regather = ispec.rank_train_inputs(cfg, peft_cfg, shape, mesh, fsdp=fsdp,
+                                                                   weights_dtype=train_dtype)
+        else:
+            args, specs = ispec.train_inputs(cfg, peft_cfg, shape, mesh, fsdp=fsdp, weights_dtype=train_dtype)
         step = make_train_step(cfg, peft_cfg, TrainConfig(), stld_mode=stld_mode, stack_mode=stack_mode,
-                               mean_rate=mean_rate)
-        args, specs = ispec.train_inputs(cfg, peft_cfg, shape, mesh, fsdp=fsdp,
-                                         weights_dtype="placed" if weights_dtype == "placed" else "float32")
+                               mean_rate=mean_rate, mesh=mesh if sharded else None, regather_specs=regather)
     elif shape.kind == "prefill":
         step = make_prefill_step(cfg, stack_mode=stack_mode)
         args, specs = ispec.prefill_inputs(cfg, shape, mesh, weights_dtype=weights_dtype)
@@ -164,7 +161,8 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool, stld_mode: str = "o
         step = make_serve_step(cfg, stack_mode=stack_mode)
         args, specs = ispec.serve_inputs(cfg, shape, mesh, weights_dtype=weights_dtype, expert_shard=expert_shard)
     sharded_seq = shape.kind == "decode" and shape.global_batch < ispec._batch_axes_size(mesh)
-    local = _local_args(shape.kind, args, specs, mesh, sharded_seq)
+    if not sharded:
+        local = _local_args(shape.kind, args, specs, mesh, sharded_seq)
     if shape.kind == "train":
         local[4].manual_seed(0)
     moe.meta_upper_bounds["weight_gather"] = 0
@@ -177,16 +175,20 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool, stld_mode: str = "o
                      "token (the routing cannot be read on meta): an upper bound")
     if sharded_seq:
         notes.append("the cache's sequence is sharded over the data axes: each rank's step decodes over its slice")
+    if sharded:
+        collectives = dict(step.comm.counts, total=sum(step.comm.counts[k] for k in COLLECTIVES))
+    else:
+        notes.append("the weights are whole on one data rank: this step does not yet run sharded over model")
+        collectives = collective_bytes(cfg, sharded_seq, local[1].shape[0] if shape.kind == "decode" else 0)
     n_chips = 1
     for v in axis_sizes(mesh).values():
         n_chips *= v
     return {
-        "arch": arch, "shape": shape_name, "mesh": "2x16x16" if multi_pod else "16x16", "chips": n_chips,
-        "stld_mode": stld_mode, "stack_mode": stack_mode, "tags": extra_tags, "ok": True,
+        "chips": n_chips, "stld_mode": stld_mode, "stack_mode": stack_mode, "ok": True,
         "trace_s": round(run.seconds, 2),
         "flops": run.flops, "aten_flops": run.aten_flops, "kernel_flops": run.kernel_flops,
         "bytes_accessed": run.bytes_accessed,
-        "collectives": collective_bytes(cfg, sharded_seq, local[1].shape[0] if shape.kind == "decode" else 0),
+        "collectives": collectives,
         "memory": {
             "argument_bytes": argument_bytes(args, specs, mesh),
             "local_argument_bytes": run.argument_bytes,

@@ -127,6 +127,37 @@ def train_inputs(cfg, peft_cfg, shape: InputShape, mesh, *, fsdp: bool = False,
     return (base, peft, opt, batch, rng), (base_s, peft_s, opt_s, batch_s, P())
 
 
+def rank_slice(tree, spec_tree, mesh, axes=None):
+    """``tree`` (``meta`` leaves) as one rank holds it: every dim that its
+    spec shards over ``axes`` (default the data axes) divided by their
+    sizes; a leaf off ``meta`` (a scalar position on the host) as it is."""
+    sizes = axis_sizes(mesh)
+    axes = data_axes(mesh) if axes is None else axes
+    if isinstance(spec_tree, P):
+        if tree.device.type != "meta":
+            return tree
+        return _empty([d // sharding_specs.ways(e, sizes, axes) for d, e in zip(tree.shape, spec_tree)], tree.dtype)
+    if isinstance(tree, dict):
+        return {k: rank_slice(v, spec_tree[k], mesh, axes) for k, v in tree.items()}
+    return [rank_slice(v, s, mesh, axes) for v, s in zip(tree, spec_tree)]
+
+
+def rank_train_inputs(cfg, peft_cfg, shape: InputShape, mesh, *, fsdp: bool = False,
+                      weights_dtype: str = "float32"):
+    """One rank's arguments of the sharded train step
+    (``make_train_step(mesh=...)``; every rank's have these shapes):
+    ``train_inputs``' trees with the base params cut over every axis of the
+    mesh by their specs and the batch over the data axes, the PEFT tree and
+    optimizer state whole.  Returns (args, specs, the rank's args, the
+    TP-only ``regather_specs`` with ``fsdp``, else None)."""
+    args, specs = train_inputs(cfg, peft_cfg, shape, mesh, fsdp=fsdp, weights_dtype=weights_dtype)
+    base, peft, opt, batch, rng = args
+    local = (rank_slice(base, specs[0], mesh, tuple(axis_sizes(mesh))), peft, opt, rank_slice(batch, specs[3], mesh),
+             rng)
+    regather = sharding_specs.param_specs(base, axis_sizes(mesh)["model"]) if fsdp else None
+    return args, specs, local, regather
+
+
 def set_cache_position(caches, pos: int):
     """``caches`` (``init_caches``' list) with every scalar-position ring
     at ``pos``, the position of the token a serve step decodes: the ring

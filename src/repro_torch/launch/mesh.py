@@ -11,9 +11,12 @@ tensor and expert parallelism (``repro_torch.sharding.specs``).
 The meshes are ``torch.distributed.device_mesh.DeviceMesh`` objects over the
 default process group, which the caller initializes with the mesh's world
 size (``torch.distributed.init_process_group``); ``make_host_mesh``
-initializes a one-process group itself when there is none.
+initializes a one-process group itself when there is none, and
+``make_mesh`` takes any small shape over a started group.
 """
 from __future__ import annotations
+
+import math
 
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
@@ -36,6 +39,20 @@ def make_host_mesh(device_type: str = "cuda"):
     if not dist.is_initialized():
         dist.init_process_group(store=dist.HashStore(), rank=0, world_size=1)
     return init_device_mesh(device_type, (1, 1), mesh_dim_names=("data", "model"))
+
+
+def make_mesh(shape, axes=("data", "model"), device_type: str = "cuda"):
+    """A small ``DeviceMesh`` of ``shape`` (``axes``, ``model`` last) over
+    the default process group, which the caller has started with as many
+    ranks (e.g. ``init_process_group("gloo", ...)``: gloo ranks share one
+    card, where NCCL takes one rank a GPU): the mesh of the sharded train
+    step (``launch.steps.make_train_step(mesh=...)``) on a few ranks."""
+    shape, axes = tuple(shape), tuple(axes)
+    if not dist.is_initialized():
+        raise RuntimeError("start the default process group first (torch.distributed.init_process_group)")
+    if len(shape) != len(axes) or math.prod(shape) != dist.get_world_size():
+        raise ValueError(f"a mesh {shape} over {axes} in a world of {dist.get_world_size()} ranks")
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 
 def axis_sizes(mesh) -> dict:

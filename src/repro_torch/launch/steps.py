@@ -19,10 +19,12 @@ from repro_torch.core import stld
 from repro_torch.core.schedules import unit_shape
 from repro_torch.models.losses import softmax_xent
 from repro_torch.models import encdec
-from repro_torch.models.registry import model_apply, params_device
-from repro_torch.models.stacking import tree_leaves, tree_map
+from repro_torch.models.registry import model_apply, param_shapes, params_device
+from repro_torch.models.stacking import is_stacked, tree_leaves, tree_map
 from repro_torch.models.transformer import check_stack_mode
 from repro_torch.optim import adamw_update, clip_by_global_norm
+from repro_torch.sharding import collectives
+from repro_torch.sharding import specs as sharding_specs
 
 
 def value_and_grad(fn):
@@ -85,9 +87,40 @@ def token_logits(cfg, logits, num_tokens: int):
     return logits[:, -num_tokens:] if cfg.prefix_len else logits
 
 
+def _tp_layout(comm, base_params, regather_specs, full_shapes):
+    """This rank's base params as its tensor-parallel step reads them,
+    from the part it holds between steps: with ``regather_specs`` (the
+    TP-only specs) each leaf that the FSDP specs also cut over the data
+    axes gathered over them, once a step (the reference's
+    ``with_sharding_constraint`` to ``regather_specs``); then, where
+    ``wk`` and ``wv``'s column shards cut a KV head, the head gathered
+    from the ranks that share it (``Comm.kv_cols``)."""
+    if regather_specs is not None:
+        sizes = comm.sizes
+
+        def regather(path, t, spec, full):
+            want = [n // sharding_specs.ways(e, sizes) for n, e in zip(full.shape, spec)]
+            cut = [d for d, (n, w) in enumerate(zip(t.shape, want)) if n != w]
+            if not cut:
+                return t
+            if len(cut) > 1 or t.shape[cut[0]] * comm.n_data != want[cut[0]]:
+                raise ValueError(f"{'/'.join(map(str, path))}: a part of shape {tuple(t.shape)} for the "
+                                 f"tensor-parallel shape {tuple(want)} over {comm.n_data} data ranks")
+            return comm.all_gather(t, "data", cut[0])
+
+        base_params = sharding_specs.map_with_path(regather, base_params, regather_specs, full_shapes)
+    if comm.head_share > 1:
+        def heads(path, t):
+            return comm.all_gather(t, "heads", -1) if path[-3:-1] in (("attn", "wk"), ("attn", "wv")) and \
+                path[-1] == "w" else t
+
+        base_params = sharding_specs.map_with_path(heads, base_params)
+    return base_params
+
+
 def make_train_step(cfg, peft_cfg, train_cfg, *, stld_mode: str = "off", mean_rate: float = 0.5,
                     distribution: str = "incremental", stack_mode: str = "unroll", shape=None,
-                    gather_bucket: int = 4, remat: bool = False):
+                    gather_bucket: int = 4, remat: bool = False, mesh=None, regather_specs=None):
     """Next-token LM fine-tuning step over the PEFT params.
 
     ``(base_params, peft_params, opt_state, batch, rng) -> (peft_params,
@@ -110,8 +143,34 @@ def make_train_step(cfg, peft_cfg, train_cfg, *, stld_mode: str = "off", mean_ra
     ``gather``, as the reference's does.  ``remat`` recomputes each active
     layer's forward in the backward (``transformer.stack_apply``): the
     same step, bit for bit, holding one layer's activations at a time.
-    The reference's ``regather_specs`` (an FSDP all-gather of the base
-    params) has no counterpart: the port runs no sharded step.
+
+    ``mesh`` runs the step sharded, as the reference's step compiled over a
+    mesh: a ``DeviceMesh`` with dims (``pod``,) (``data``,) ``model`` (each
+    rank of it calls the step with its own arguments), or a mesh's axis
+    sizes alone (``launch.input_specs.MeshShape``: rank 0 of that mesh on
+    ``meta``, communicating nothing, for the dry run).  Between steps a
+    rank holds its part of each tree under the reference's specs
+    (``sharding.specs``, cut by ``shard_tree``): the base params by
+    ``param_specs(base, tp, fsdp_axes=...)``, the PEFT params and the AdamW
+    state whole (``peft_specs``), the batch its rows over the data axes.
+    The dense family runs Megatron tensor parallelism over ``model``
+    (``sharding.collectives``; ``attention_apply``, ``mlp_apply``,
+    ``lm_apply``, ``softmax_xent``), its LoRA gradients summed over
+    ``model`` and averaged over the data axes in one ``all_reduce``, so
+    that every rank clips and steps the same full gradients and its PEFT
+    tree stays bit-identical to every other rank's; the loss and metrics
+    are the global batch's.  ``regather_specs`` (the TP-only specs, the
+    port's counterpart of the reference's ``NamedSharding`` tree) takes
+    base params sharded over the data axes too (FSDP) and gathers them over
+    the data axes once, at the step's start.  Each rank draws its gates (or
+    gather indices) from its own ``rng``, seeded alike on every rank; the
+    step raises where the ranks' gates differ.  Another family, or a PEFT
+    method other than LoRA (or none), raises ``NotImplementedError``.
+
+    The step carries ``loss_and_grads`` (``(base, peft, batch, rng) ->
+    (metrics, grads)``: the gradients it clips, each rank's full) and
+    ``comm`` (the mesh's ``Comm``, or None), whose ``counts`` add up the
+    bytes the step communicates.
     """
     if stld_mode not in ("off", "cond", "gather"):
         raise ValueError(f"stld_mode must be 'off', 'cond' or 'gather', got {stld_mode!r}")
@@ -123,26 +182,53 @@ def make_train_step(cfg, peft_cfg, train_cfg, *, stld_mode: str = "off", mean_ra
             shape = unit_shape(distribution, cfg.num_layers, generator=torch.Generator().manual_seed(0))
         rates = torch.clamp(torch.as_tensor(shape, dtype=torch.float32) * mean_rate, 0.0, 0.95)
     num_active = stld.static_active_count(mean_rate, cfg.num_layers, gather_bucket) if stld_mode == "gather" else None
+    comm = full_shapes = None
+    if mesh is not None:
+        if cfg.family != "dense":
+            raise NotImplementedError(f"the sharded train step runs the dense family, not {cfg.family!r}")
+        if peft_cfg.method not in ("lora", "none"):
+            raise NotImplementedError(f"the sharded train step trains LoRA, not {peft_cfg.method!r}")
+        comm = collectives.comm_for(mesh)
+        comm.set_heads(cfg)
+        if regather_specs is not None:
+            # the whole shapes in both layer layouts, by whether the stack is stacked; drawn here on meta,
+            # so that the step allocates none
+            full_shapes = {is_stacked(t["layers"]): t for t in (param_shapes(cfg), param_shapes(cfg, "list"))}
+    elif regather_specs is not None:
+        raise ValueError("regather_specs gathers a sharded step's base params: pass the mesh")
 
     def loss_fn(peft_params, base_params, inputs, targets, drops, active_idx=None):
         logits, aux, _ = model_apply(base_params, cfg, inputs, drops=drops, peft=peft_params,
                                      lora_scale=lora_sc, stack_mode=stack_mode if active_idx is None else "gather",
-                                     active_idx=active_idx, remat=remat)
-        loss, metrics = softmax_xent(token_logits(cfg, logits, targets.shape[1]), targets)
+                                     active_idx=active_idx, remat=remat, tp=comm)
+        loss, metrics = softmax_xent(token_logits(cfg, logits, targets.shape[1]), targets, tp=comm)
         return loss + cfg.router_aux_coef * aux, metrics
 
     grad_fn = value_and_grad(loss_fn)
 
-    def train_step(base_params, peft_params, opt_state, batch, rng):
+    def loss_and_grads(base_params, peft_params, batch, rng):
         device = params_device(base_params)
+        if comm is not None:
+            shapes = None if full_shapes is None else full_shapes[is_stacked(base_params["layers"])]
+            base_params = _tp_layout(comm, base_params, regather_specs, shapes)
         tokens = as_device_tensor(batch["tokens"], device)
         drops = active_idx = None
         if stld_mode == "cond":
             drops = stld.sample_drops(rng, rates, 1)
         elif stld_mode == "gather":
             active_idx = stld.sample_active_indices(rng, rates, num_active)
+        if comm is not None:
+            comm.check_gates(drops if active_idx is None else active_idx)
         (_, metrics), grads = grad_fn(peft_params, base_params, model_batch(cfg, batch, tokens[:, :-1], device),
                                       tokens[:, 1:], drops, active_idx)
+        if comm is not None:
+            leaves = iter(comm.mean_grads(tree_leaves(grads)))
+            grads = tree_map(lambda _: next(leaves), grads)
+            metrics = comm.global_metrics(metrics)
+        return metrics, grads
+
+    def train_step(base_params, peft_params, opt_state, batch, rng):
+        metrics, grads = loss_and_grads(base_params, peft_params, batch, rng)
         grads, gnorm = clip_by_global_norm(grads, train_cfg.grad_clip)
         peft_params, opt_state = adamw_update(
             grads, opt_state, peft_params, lr=train_cfg.learning_rate, beta1=train_cfg.beta1,
@@ -150,6 +236,7 @@ def make_train_step(cfg, peft_cfg, train_cfg, *, stld_mode: str = "off", mean_ra
         )
         return peft_params, opt_state, dict(metrics, grad_norm=gnorm)
 
+    train_step.loss_and_grads, train_step.comm = loss_and_grads, comm
     return train_step
 
 

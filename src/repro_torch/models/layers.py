@@ -135,7 +135,7 @@ def _peft_out(out, peft, devices: Optional[int], *, bias: str, adapter: Optional
 
 def layer_apply(params, cfg, h, *, positions, causal=True, cache: Optional[dict] = None,
                 enc_kv: Optional[dict] = None, peft: Optional[dict] = None, lora_scale: float = 1.0,
-                devices: Optional[int] = None):
+                devices: Optional[int] = None, tp=None):
     """One residual block: RWKV6 time-mix + channel-mix (LoRA on the
     channel-mix ``up`` and ``down``), or a pre-norm mixer (attention, or
     Mamba with LoRA on ``in`` and ``out``) followed by a pre-norm MoE or
@@ -153,9 +153,17 @@ def layer_apply(params, cfg, h, *, positions, causal=True, cache: Optional[dict]
     ``devices`` N: ``h`` folds N devices' equal row blocks into its batch
     and every PEFT node holds one adapter or bias per device (``(N, in,
     r)``, ``(N, d)``); the MoE routes each device's tokens apart and its
-    aux loss is (N,)."""
+    aux loss is (N,).
+
+    ``tp`` (a ``sharding.collectives.Comm``) runs this rank's part of a
+    tensor-parallel step (``attention_apply``, ``mlp_apply``): an ``attn``
+    layer with an MLP, the dense family's; other layers raise
+    ``NotImplementedError``."""
     peft = peft or {}
     kind = params_kind(params)
+    if tp is not None and (kind != "attn" or "moe" in params):
+        raise NotImplementedError(f"the tensor-parallel step runs attention + MLP layers, not {kind!r}"
+                                  + (" with MoE" if "moe" in params else ""))
     if kind == "rwkv":
         tm_out, tm_state = time_mix_apply(
             params["time_mix"], cfg, apply_norm(params["norm1"], h, cfg.norm_eps), state=cache
@@ -174,7 +182,7 @@ def layer_apply(params, cfg, h, *, positions, causal=True, cache: Optional[dict]
         out = _peft_out(out, peft, devices, bias="bias_attn")
     else:
         out, new_cache = attention_apply(params["attn"], cfg, x, positions, causal=causal, cache=cache,
-                                         peft=peft.get("attn"), lora_scale=lora_scale)
+                                         peft=peft.get("attn"), lora_scale=lora_scale, tp=tp)
         out = _peft_out(out, peft, devices, adapter="adapter_attn", bias="bias_attn")
     h = h + out
     if kind == "encdec" and enc_kv is not None:
@@ -185,5 +193,5 @@ def layer_apply(params, cfg, h, *, positions, causal=True, cache: Optional[dict]
     if "moe" in params:
         out, aux = moe_apply(params["moe"], cfg, x, devices=devices)
     else:
-        out = mlp_apply(params["mlp"], cfg, x, peft.get("mlp"), lora_scale)
+        out = mlp_apply(params["mlp"], cfg, x, peft.get("mlp"), lora_scale, tp=tp)
     return h + _peft_out(out, peft, devices, adapter="adapter_mlp", bias="bias_mlp"), aux, new_cache

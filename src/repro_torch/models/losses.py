@@ -12,21 +12,54 @@ def _nll(logits, labels, z_loss_coef: float):
     return nll + z_loss_coef * torch.square(lse) if z_loss_coef > 0.0 else nll
 
 
-def softmax_xent(logits, labels, mask=None, z_loss_coef: float = 0.0):
+def _vocab_parallel(logits, labels, z_loss_coef: float, tp):
+    """``_nll`` and the argmax of logits sharded on the vocabulary: each
+    rank holds its (..., V / tp) slice.  The max over ``model`` (no
+    gradient: the log-sum-exp does not depend on it), then the sums of the
+    exponentials and of the target's logit (each from the rank that holds
+    it) in one sum over ``model``; the prediction is the first index of the
+    global max, as ``torch.argmax`` gives it (the least index among the
+    ranks that hold the max).  The float32 logits are never whole."""
+    v_local = logits.shape[-1]
+    lo = tp.tp_rank * v_local
+    local = labels - lo
+    held = (local >= 0) & (local < v_local)
+    with torch.no_grad():
+        local_max = torch.amax(logits, dim=-1)
+        arg = torch.argmax(logits, dim=-1) + lo
+        m = tp.all_reduce(local_max, "model", "max")
+        vocab = v_local * tp.tp
+        pred = tp.all_reduce(torch.where(local_max == m, arg, vocab), "model", "min")
+    target = torch.gather(logits, -1, torch.where(held, local, 0)[..., None])[..., 0]
+    sums = tp.reduce(torch.stack([torch.exp(logits - m[..., None]).sum(-1), torch.where(held, target, 0.0)]))
+    lse = m + torch.log(sums[0])
+    nll = lse - sums[1]
+    return (nll + z_loss_coef * torch.square(lse) if z_loss_coef > 0.0 else nll), pred
+
+
+def softmax_xent(logits, labels, mask=None, z_loss_coef: float = 0.0, *, tp=None):
     """Token-level cross entropy in float32, with the reference's optional
     z-loss (``nll += z_loss_coef · lse²``).
 
     logits: (..., V); labels: (...) integer; mask: (...) {0, 1} or None.
     Returns (mean loss, {"loss", "accuracy", "tokens"}), all 0-d float32
     tensors on the logits' device (no host sync).
+
+    ``tp`` (a ``sharding.collectives.Comm``): the logits are this rank's
+    (..., V / tp) slice of the vocabulary (``transformer.lm_apply``'s
+    tensor-parallel head), and the loss and accuracy those of the whole
+    vocabulary, the same on every ``model`` rank (``_vocab_parallel``).
     """
     logits = logits.float()
     labels = labels.long()
-    nll = _nll(logits, labels, z_loss_coef)
+    if tp is None:
+        nll, pred = _nll(logits, labels, z_loss_coef), torch.argmax(logits, dim=-1)
+    else:
+        nll, pred = _vocab_parallel(logits, labels, z_loss_coef, tp)
     mask = torch.ones_like(nll) if mask is None else mask.float()
     denom = torch.clamp(torch.sum(mask), min=1.0)
     loss = torch.sum(nll * mask) / denom
-    acc = torch.sum((torch.argmax(logits, dim=-1) == labels).float() * mask) / denom
+    acc = torch.sum((pred == labels).float() * mask) / denom
     return loss, {"loss": loss, "accuracy": acc, "tokens": denom}
 
 

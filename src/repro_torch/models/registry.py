@@ -113,11 +113,11 @@ class _MetaGenerator(torch.Generator):
         return torch.device("meta")
 
 
-def param_shapes(cfg):
-    """The tree of ``init_params(cfg, ...)`` on the ``meta`` device: every
-    leaf's shape and dtype at no memory, at any width (the sharding specs
-    read them)."""
-    return init_params(cfg, _MetaGenerator())
+def param_shapes(cfg, layout: str = "auto"):
+    """The tree of ``init_params(cfg, ..., layout)`` on the ``meta``
+    device: every leaf's shape and dtype at no memory, at any width (the
+    sharding specs read them)."""
+    return init_params(cfg, _MetaGenerator(), layout)
 
 
 def peft_shapes(cfg, peft_cfg):
@@ -142,7 +142,7 @@ def _frontend(cfg, batch, devices: Optional[int]):
 
 def model_apply(params, cfg, batch, *, drops=None, caches=None, enc_kvs=None, positions=None, peft=None,
                 lora_scale: float = 1.0, devices: Optional[int] = None, stack_mode: str = "unroll",
-                active_idx=None, remat: bool = False):
+                active_idx=None, remat: bool = False, tp=None):
     """``devices`` N: a cohort, ``batch["tokens"]`` (N, B, S) (frames or
     patches (N, B, ...)), drops (N, L), the PEFT tree a per-layer list of
     (N, ...) leaves (``lm_apply``).  ``stack_mode`` is one of the
@@ -158,8 +158,15 @@ def model_apply(params, cfg, batch, *, drops=None, caches=None, enc_kvs=None, po
     every decoder layer.  ``remat`` (per-layer recomputation,
     ``stack_apply``) reaches the decoder-only stacks; an encoder-decoder
     takes it and runs without it, as the reference's registry never passes
-    it to ``encdec.decode``."""
+    it to ``encdec.decode``.
+
+    ``tp`` (a ``sharding.collectives.Comm``) runs one rank's part of the
+    tensor-parallel forward of a ``dense`` model (``transformer.lm_apply``:
+    the logits are the rank's slice of the vocabulary); another family
+    raises ``NotImplementedError``."""
     _check_family(cfg)
+    if tp is not None and cfg.family != "dense":
+        raise NotImplementedError(f"the tensor-parallel step runs the dense family, not {cfg.family!r}")
     if cfg.is_encoder_decoder:
         if stack_mode in transformer.GATHER_MODES:
             drops = None
@@ -173,5 +180,5 @@ def model_apply(params, cfg, batch, *, drops=None, caches=None, enc_kvs=None, po
     return transformer.lm_apply(
         params, cfg, batch["tokens"], positions=positions, prefix_embeds=prefix, drops=drops, caches=caches,
         peft=peft, lora_scale=lora_scale, devices=devices, stack_mode=stack_mode, active_idx=active_idx,
-        remat=remat,
+        remat=remat, tp=tp,
     )

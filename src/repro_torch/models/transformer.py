@@ -193,17 +193,17 @@ def _cohort_stack_apply(layers, cfg, h, *, positions, causal, drops, peft, lora_
     return h, aux_sum, None
 
 
-def _run_layer(h, params_l, enc_kv_l, peft_l, cfg, positions, causal: bool, lora_scale: float):
+def _run_layer(h, params_l, enc_kv_l, peft_l, cfg, positions, causal: bool, lora_scale: float, tp=None):
     """One cache-free layer for ``torch.utils.checkpoint`` (``remat``): the
     layer's tensors come in as arguments, none closed over, so the
     recompute in the backward takes the ones the forward took."""
     return layer_apply(params_l, cfg, h, positions=positions, causal=causal, enc_kv=enc_kv_l, peft=peft_l,
-                       lora_scale=lora_scale)
+                       lora_scale=lora_scale, tp=tp)
 
 
 def stack_apply(layers, cfg, h, *, positions, causal: bool = True, drops=None, caches=None, enc_kvs=None,
                 peft=None, lora_scale: float = 1.0, devices=None, stack_mode: str = "unroll", active_idx=None,
-                remat: bool = False):
+                remat: bool = False, tp=None):
     """Run the layer stack (either layout).  Returns (h, the MoE aux loss
     summed over the active layers, new_caches).  ``caches`` in the stacked
     layout are updated in place and returned; in the list layout a new
@@ -227,8 +227,14 @@ def stack_apply(layers, cfg, h, *, positions, causal: bool = True, drops=None, c
     A dropped layer stays a skip; without gradients (``torch.no_grad``) or
     with decode caches it changes nothing.  A cohort (``devices``) takes no
     ``remat``: the reference's vmapped client step never passes it.
+
+    ``tp`` (a ``sharding.collectives.Comm``) runs each layer's part of a
+    tensor-parallel step (``layer_apply``), ``remat`` included (the
+    recompute runs the layer's collectives again); a cohort takes none.
     """
     drops = _mode_gates(layers, cfg, stack_mode, drops, active_idx, devices)
+    if devices is not None and tp is not None:
+        raise ValueError("a cohort (devices) runs unsharded, as the reference's vmapped client step does")
     if devices is not None:
         if remat:
             raise ValueError("a cohort (devices) runs without remat, as the reference's client step does")
@@ -252,11 +258,11 @@ def stack_apply(layers, cfg, h, *, positions, causal: bool = True, drops=None, c
             peft_l = stacking.layer_view(peft, l) if peft is not None else None
             if remat:  # the layers draw no random numbers: no RNG state to stash
                 h, aux, _ = torch.utils.checkpoint.checkpoint(
-                    _run_layer, h, params_l, enc_kv_l, peft_l, cfg, positions, causal, lora_scale,
+                    _run_layer, h, params_l, enc_kv_l, peft_l, cfg, positions, causal, lora_scale, tp,
                     use_reentrant=False, preserve_rng_state=False)
                 return h, aux, cache_l
             return layer_apply(params_l, cfg, h, positions=positions, causal=causal, cache=cache_l, enc_kv=enc_kv_l,
-                               peft=peft_l, lora_scale=lora_scale)
+                               peft=peft_l, lora_scale=lora_scale, tp=tp)
 
         h, aux, cache_l = stld.gate(block, gates[l], h, cache_l)
         if not gates[l]:  # a dropped layer's aux is 0: the sum keeps the type of the kept layers'
@@ -271,7 +277,7 @@ def stack_apply(layers, cfg, h, *, positions, causal: bool = True, drops=None, c
 
 def lm_apply(params, cfg, tokens, *, positions=None, prefix_embeds=None, drops=None, caches=None, peft=None,
              lora_scale: float = 1.0, devices=None, stack_mode: str = "unroll", active_idx=None,
-             remat: bool = False):
+             remat: bool = False, tp=None):
     """Decoder-only LM forward.  tokens: (B, S) int.  Returns (logits, the
     MoE aux loss, new_caches); the caches' K/V tensors are updated in place.
     ``prefix_embeds`` (B, P, d) (the VLM's patch embeddings) go before the
@@ -280,11 +286,22 @@ def lm_apply(params, cfg, tokens, *, positions=None, prefix_embeds=None, drops=N
 
     ``devices`` N: a cohort, tokens (N, B, S) (and a prefix of N * B rows,
     device-major); the logits come back (N * B, S, V), device-major, and
-    the aux loss (N,) (``stack_apply``, as is ``remat``)."""
+    the aux loss (N,) (``stack_apply``, as is ``remat``).
+
+    ``tp`` (a ``sharding.collectives.Comm``) runs this rank's part of a
+    tensor-parallel forward: ``embed`` (and ``lm_head``) hold the rank's
+    V / tp rows (columns), the lookup is ``Comm.embed``'s, the layers are
+    ``stack_apply``'s, and the logits come back as the rank's (B, S, V /
+    tp) slice of the vocabulary (``losses.softmax_xent`` takes them so)."""
     compute_dtype = getattr(torch, cfg.dtype)
     if devices is not None:
         tokens = tokens.reshape(-1, tokens.shape[-1])
-    h = params["embed"][tokens].to(compute_dtype)
+    if tp is not None:
+        if prefix_embeds is not None or caches is not None:
+            raise NotImplementedError("the tensor-parallel forward takes no prefix and no decode caches")
+        h = tp.embed(params["embed"], tokens, compute_dtype)
+    else:
+        h = params["embed"][tokens].to(compute_dtype)
     if prefix_embeds is not None:
         h = torch.cat([prefix_embeds.to(device=h.device, dtype=compute_dtype), h], dim=1)
     if positions is None:
@@ -292,8 +309,10 @@ def lm_apply(params, cfg, tokens, *, positions=None, prefix_embeds=None, drops=N
     h, aux, new_caches = stack_apply(
         params["layers"], cfg, h, positions=positions, causal=True, drops=drops, caches=caches,
         peft=peft, lora_scale=lora_scale, devices=devices, stack_mode=stack_mode, active_idx=active_idx,
-        remat=remat,
+        remat=remat, tp=tp,
     )
     h = apply_norm(params["final_norm"], h, cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    if tp is not None:
+        h = tp.enter(h)
     return h @ head.to(compute_dtype), aux, new_caches

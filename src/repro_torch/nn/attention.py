@@ -41,6 +41,7 @@ from repro_torch.nn.initializers import truncated_lecun
 from repro_torch.nn.linear import apply_linear
 from repro_torch.nn.norms import apply_rmsnorm
 from repro_torch.nn.rotary import apply_rotary
+from repro_torch.sharding.collectives import Shard
 
 INT32_MAX = 2**31 - 1
 
@@ -180,7 +181,7 @@ def _scalar_cache_attention(cfg, q, k, v, positions, cache):
     return out, {"k": ck, "v": cv, "pos": pos + s}
 
 
-def attention_apply(params, cfg, x, positions, *, causal=True, cache=None, peft=None, lora_scale=1.0):
+def attention_apply(params, cfg, x, positions, *, causal=True, cache=None, peft=None, lora_scale=1.0, tp=None):
     """Self-attention over ``x`` (B, S, d).  Returns (out, new_cache).
 
     ``cache``: ``{"k": (B, S_max, KV, hd), "v": ..., "pos": ...}``, the
@@ -188,15 +189,31 @@ def attention_apply(params, cfg, x, positions, *, causal=True, cache=None, peft=
     scalar-position cache (``pos`` (), a CPU tensor; S tokens written at
     ``pos``).  Its K/V tensors are updated in place and returned in
     ``new_cache`` with ``pos + S``.
+
+    ``tp`` (a ``sharding.collectives.Comm``; cache-free only) runs the
+    rank's heads of a tensor-parallel step: ``wq``, ``wk`` and ``wv`` are
+    column-parallel (this rank's H / tp query heads and the KV heads they
+    read, whole: ``Comm.kv_cols``, gathered by the step where a spec cuts
+    a head), ``wo`` row-parallel, and ``flash_attention`` runs on the
+    local heads.
     """
     peft = peft or {}
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     h, kvh = cfg.num_heads, cfg.num_kv_heads
+    sq = skv = so = None
+    if tp is not None:
+        if cache is not None:
+            raise NotImplementedError("the tensor-parallel attention runs without a decode cache")
+        x = tp.enter(x)
+        sq = Shard(tp, "col", *tp.cols(h * hd))
+        skv = Shard(tp, "col", *tp.kv_cols(cfg))
+        so = Shard(tp, "row", sq.lo, sq.hi)
+        h, kvh = h // tp.tp, (skv.hi - skv.lo) // hd
 
-    q = apply_linear(params["wq"], x, peft.get("q"), lora_scale).reshape(b, s, h, hd)
-    k = apply_linear(params["wk"], x, peft.get("k"), lora_scale).reshape(b, s, kvh, hd)
-    v = apply_linear(params["wv"], x, peft.get("v"), lora_scale).reshape(b, s, kvh, hd)
+    q = apply_linear(params["wq"], x, peft.get("q"), lora_scale, shard=sq).reshape(b, s, h, hd)
+    k = apply_linear(params["wk"], x, peft.get("k"), lora_scale, shard=skv).reshape(b, s, kvh, hd)
+    v = apply_linear(params["wv"], x, peft.get("v"), lora_scale, shard=skv).reshape(b, s, kvh, hd)
 
     if cfg.qk_norm:
         q = apply_rmsnorm(params["q_norm"], q, cfg.norm_eps)
@@ -208,7 +225,7 @@ def attention_apply(params, cfg, x, positions, *, causal=True, cache=None, peft=
     if cache is None:
         # positions only rotate q and k; the mask is over sequence indices
         out = ops.flash_attention(q, k, v.contiguous(), causal=causal, window=cfg.sliding_window)
-        out = apply_linear(params["wo"], out.reshape(b, s, h * hd), peft.get("o"), lora_scale)
+        out = apply_linear(params["wo"], out.reshape(b, s, h * hd), peft.get("o"), lora_scale, shard=so)
         return out, None
 
     pos = cache["pos"]

@@ -87,16 +87,35 @@ def _pooled_linear(params, x, pool: AdapterPool):
     return y
 
 
-def apply_linear(params, x, lora: Optional[dict] = None, lora_scale: float = 1.0):
+def apply_linear(params, x, lora: Optional[dict] = None, lora_scale: float = 1.0, *, shard=None):
+    """``x @ w`` (plus the LoRA branch, plus the bias).
+
+    ``shard`` (a ``sharding.collectives.Shard``) runs the projection
+    tensor-parallel over ``model``, ``params["w"]`` being this rank's part
+    and the bias and the LoRA whole (replicated): ``col``, the rank's output
+    columns ``lo:hi`` (B's and the bias's columns cut alike); ``row``, its
+    input rows ``lo:hi`` of ``x``'s features (A's rows cut alike, B whole),
+    the output summed over ``model`` (the LoRA term with the product) and
+    the bias added once after the sum."""
     if isinstance(lora, AdapterPool):
         return _pooled_linear(params, x, lora)
     w = params["w"].to(x.dtype)
+    bias = params.get("b")
+    if shard is not None and lora is not None:
+        if shard.kind == "col":
+            lora = {"a": lora["a"], "b": lora["b"][..., shard.lo:shard.hi].contiguous()}
+        else:
+            lora = {"a": lora["a"][..., shard.lo:shard.hi, :], "b": lora["b"]}
+    if shard is not None and shard.kind == "col" and bias is not None:
+        bias = bias[..., shard.lo:shard.hi]
     if lora is None:
         y = x @ w
     else:
         xm = x.reshape(-1, x.shape[-1]).contiguous()
         y = ops.lora_matmul(xm, w, lora["a"].to(x.dtype), lora["b"].to(x.dtype), alpha=lora_scale)
         y = y.reshape(*x.shape[:-1], w.shape[-1])
-    if "b" in params:
-        y = y + params["b"].to(x.dtype)
+    if shard is not None and shard.kind == "row":
+        y = shard.comm.reduce(y)
+    if bias is not None:
+        y = y + bias.to(x.dtype)
     return y

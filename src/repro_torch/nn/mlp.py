@@ -14,6 +14,7 @@ import torch.nn.functional as F
 
 from repro_torch.nn.initializers import truncated_lecun
 from repro_torch.nn.linear import apply_linear
+from repro_torch.sharding.collectives import Shard
 
 
 def gelu(x):
@@ -40,15 +41,24 @@ def init_mlp(cfg, generator: torch.Generator, d_ff: Optional[int] = None, lead: 
     return {"up": linear(d, ff, bias=True), "down": linear(ff, d, bias=True)}
 
 
-def mlp_apply(params, cfg, x, peft: Optional[dict] = None, lora_scale: float = 1.0):
+def mlp_apply(params, cfg, x, peft: Optional[dict] = None, lora_scale: float = 1.0, tp=None):
+    """The MLP of ``x``.  ``tp`` (a ``sharding.collectives.Comm``) runs the
+    rank's part of a tensor-parallel step: ``gate`` and ``up``
+    column-parallel over its ``d_ff / tp`` columns, ``down`` row-parallel
+    over the same rows."""
     peft = peft or {}
+    sc = sr = None
+    if tp is not None:
+        x = tp.enter(x)
+        sc = Shard(tp, "col", *tp.cols(params["up"]["w"].shape[-1] * tp.tp))
+        sr = Shard(tp, "row", sc.lo, sc.hi)
     if "gate" in params:
-        g = apply_linear(params["gate"], x, peft.get("gate"), lora_scale)
-        u = apply_linear(params["up"], x, peft.get("up"), lora_scale)
+        g = apply_linear(params["gate"], x, peft.get("gate"), lora_scale, shard=sc)
+        u = apply_linear(params["up"], x, peft.get("up"), lora_scale, shard=sc)
         h = F.silu(g) * u
     else:
-        h = gelu(apply_linear(params["up"], x, peft.get("up"), lora_scale))
-    return apply_linear(params["down"], h, peft.get("down"), lora_scale)
+        h = gelu(apply_linear(params["up"], x, peft.get("up"), lora_scale, shard=sc))
+    return apply_linear(params["down"], h, peft.get("down"), lora_scale, shard=sr)
 
 
 # ----------------------------------------------------------------- adapters

@@ -26,6 +26,8 @@ from __future__ import annotations
 
 import math
 
+import torch
+
 
 class PartitionSpec(tuple):
     """One entry per tensor dim: an axis name, a tuple of names, or None."""
@@ -142,13 +144,14 @@ def _spec_for_inner(parts, shape, tp: int, extra_leading: int, expert_shard: str
     return _replicated(len(shape))
 
 
-def _map_with_path(fn, tree, path=()):
-    """``fn(path, leaf)`` over a tree of dicts (keys sorted) and lists."""
+def map_with_path(fn, tree, *rest, path=()):
+    """``fn(path, leaf, *other_leaves)`` over a tree of dicts (keys sorted)
+    and lists, and the trees of the same structure in ``rest``."""
     if isinstance(tree, dict):
-        return {k: _map_with_path(fn, tree[k], path + (k,)) for k in sorted(tree)}
+        return {k: map_with_path(fn, tree[k], *(r[k] for r in rest), path=path + (k,)) for k in sorted(tree)}
     if isinstance(tree, (list, tuple)):
-        return [_map_with_path(fn, t, path + (i,)) for i, t in enumerate(tree)]
-    return fn(path, tree)
+        return [map_with_path(fn, t, *(r[i] for r in rest), path=path + (i,)) for i, t in enumerate(tree)]
+    return fn(path, tree, *rest)
 
 
 def param_specs(params, tp: int, extra_leading: int = 0, fsdp_axes: tuple = (), expert_shard: str = "auto"):
@@ -176,12 +179,12 @@ def param_specs(params, tp: int, extra_leading: int = 0, fsdp_axes: tuple = (), 
                 break
         return P(*spec_list)
 
-    return _map_with_path(leaf_spec, params)
+    return map_with_path(leaf_spec, params)
 
 
 def peft_specs(peft_tree):
     """PEFT params replicate (see the module docstring)."""
-    return _map_with_path(lambda path, leaf: _replicated(len(leaf.shape)), peft_tree)
+    return map_with_path(lambda path, leaf: _replicated(len(leaf.shape)), peft_tree)
 
 
 def batch_spec(batch_axes: tuple, ndim: int, *, batch_dim: int = 0) -> PartitionSpec:
@@ -230,7 +233,7 @@ def cache_specs(caches, batch_axes: tuple, tp: int, *, shard_seq_on_data: bool =
                 break
         return P(*spec)
 
-    return _map_with_path(leaf_spec, caches)
+    return map_with_path(leaf_spec, caches)
 
 
 _MESH_AXES_SIZES = {}
@@ -275,3 +278,81 @@ def to_shardings(mesh, spec_tree):
     if isinstance(spec_tree, dict):
         return {k: to_shardings(mesh, v) for k, v in spec_tree.items()}
     return [to_shardings(mesh, v) for v in spec_tree]
+
+
+def entry_axes(entry) -> tuple:
+    """The mesh axes of one spec entry, major to minor."""
+    return tuple(a for a in (entry if isinstance(entry, tuple) else (entry,)) if a is not None)
+
+
+def ways(entry, sizes: dict, axes=None) -> int:
+    """How many ways a spec entry splits its dim over the mesh of axis
+    ``sizes`` (only over ``axes``, if given)."""
+    return math.prod(sizes[a] for a in entry_axes(entry) if axes is None or a in axes)
+
+
+def _shard_index(axes: tuple, sizes: dict, coords: dict) -> int:
+    """This rank's index along a dim split over ``axes``, the first major
+    (as a tuple of mesh axes shards a dim)."""
+    i = 0
+    for a in axes:
+        i = i * sizes[a] + coords[a]
+    return i
+
+
+def _spec_walk(fn, tree, spec_tree):
+    if isinstance(spec_tree, PartitionSpec):
+        return fn(tree, spec_tree)
+    if isinstance(spec_tree, dict):
+        return {k: _spec_walk(fn, tree[k], spec_tree[k]) for k in tree}
+    return [_spec_walk(fn, t, s) for t, s in zip(tree, spec_tree)]
+
+
+def shard_tree(tree, spec_tree, sizes: dict, coords: dict):
+    """One rank's part of a whole ``tree`` under ``spec_tree``: each leaf
+    cut along every dim its spec splits, at the rank's ``coords`` (axis
+    name -> index; ``sizes`` axis name -> size), as ``distribute_tensor``
+    places it.  Every part is a tensor of its own (a ``meta`` leaf gives a
+    ``meta`` part), so the whole tree can be freed."""
+
+    def cut(t, spec):
+        index = [slice(None)] * t.ndim
+        for d, entry in enumerate(spec):
+            n = ways(entry, sizes)
+            if n > 1:
+                part = t.shape[d] // n
+                i = _shard_index(entry_axes(entry), sizes, coords)
+                index[d] = slice(i * part, (i + 1) * part)
+        return t[tuple(index)].clone(memory_format=torch.contiguous_format)
+
+    return _spec_walk(cut, tree, spec_tree)
+
+
+def unshard_tree(parts: dict, spec_tree, sizes: dict):
+    """The whole tree from every rank's part: ``parts`` maps each rank's
+    coordinates (a tuple of indices in the order of ``sizes``) to its
+    tree, ``shard_tree``'s inverse."""
+    names = tuple(sizes)
+
+    def join(spec, by_coords):
+        out = None
+        for coords, leaf in by_coords.items():
+            coord = dict(zip(names, coords))
+            if out is None:
+                shape = [n * ways(e, sizes) for n, e in zip(leaf.shape, spec)]
+                out = torch.empty(shape, dtype=leaf.dtype, device=leaf.device)
+            index = []
+            for d, entry in enumerate(spec):
+                i = _shard_index(entry_axes(entry), sizes, coord)
+                index.append(slice(i * leaf.shape[d], (i + 1) * leaf.shape[d]))
+            out[tuple(index)] = leaf
+        return out
+
+    def walk(spec_tree, subtrees):
+        if isinstance(spec_tree, PartitionSpec):
+            return join(spec_tree, subtrees)
+        if isinstance(spec_tree, dict):
+            return {k: walk(spec_tree[k], {c: t[k] for c, t in subtrees.items()}) for k in spec_tree}
+        return [walk(s, {c: t[i] for c, t in subtrees.items()}) for i, s in enumerate(spec_tree)]
+
+    return walk(spec_tree, parts)

@@ -1,0 +1,130 @@
+"""One gloo rank of the port's sharded train step on the CPU, for
+``tests/test_torch_tp.py`` and ``tests/test_torch_dryrun.py``::
+
+    python tests/_torch_tp_rank.py RANK WORLD PORT INPUTS.npz OUT.npz
+
+``INPUTS.npz`` holds each case's whole trees (``<case>/params/<path>``,
+``<case>/peft/<path>``), its tokens (``<case>/tokens``, (B, S+1)) and the
+STLD gates of its two steps (``<case>/gates``, (2, L)), and ``runs``, a
+JSON list of ``{"case", "arch", "d_ff", "mesh": [data, model], "fsdp",
+"stld", "targets", "layout"}`` (the LoRA targets, default the config's; the
+base tree's layer layout, default stacked).  The rank runs every run whose mesh has ``WORLD`` ranks: the
+first step's gradients (``loss_and_grads``) and two steps from the whole
+trees cut to its part (``sharding.specs.shard_tree``), the gates fed to
+``stld.sample_drops`` in turn, and saves per run (``<i>/...``) the
+gradients, the PEFT tree and AdamW state after the two steps, each step's
+metrics and the collectives' counts of each step.  With ``"mismatch": true`` a run feeds
+each rank other gates and saves whether the step raised.
+"""
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+
+from repro_torch.configs import PEFTConfig, TrainConfig, get_config  # noqa: E402
+from repro_torch.core import stld  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.launch.steps import make_train_step  # noqa: E402
+from repro_torch.models.stacking import in_layout, tree_leaves  # noqa: E402
+from repro_torch.optim import adamw_init  # noqa: E402
+from repro_torch.sharding import specs as S  # noqa: E402
+
+AXES = ("data", "model")
+METRICS = ("loss", "accuracy", "grad_norm", "tokens")
+
+
+def flatten(tree, prefix: str, out: dict):
+    """A tree of dicts of arrays (or tensors) into ``out[prefix + path]``,
+    the keys sorted (the order of ``jax.tree.leaves``)."""
+    for k, v in sorted(tree.items()):
+        if isinstance(v, dict):
+            flatten(v, f"{prefix}{k}/", out)
+        else:
+            out[prefix + k] = np.asarray(v.detach().numpy() if isinstance(v, torch.Tensor) else v)
+    return out
+
+
+def unflatten(data, prefix: str) -> dict:
+    """The tree of tensors under ``prefix`` of an npz."""
+    tree = {}
+    for key in data.files:
+        if key.startswith(prefix):
+            node, *path = key[len(prefix):].split("/")
+            parts = [node, *path]
+            at = tree
+            for p in parts[:-1]:
+                at = at.setdefault(p, {})
+            at[parts[-1]] = torch.from_numpy(np.array(data[key]))
+    return tree
+
+
+def case_config(run: dict):
+    cfg = get_config(run["arch"], smoke=True).replace(num_layers=2, dtype="float32")
+    return cfg.replace(d_ff=run["d_ff"]) if run.get("d_ff") else cfg
+
+
+def run_one(data, run: dict, rank: int, out: dict, i: int):
+    cfg = case_config(run)
+    case = run["case"]
+    params, peft = unflatten(data, f"{case}/params/"), unflatten(data, f"{case}/peft/")
+    if run.get("layout"):
+        params["layers"] = in_layout(params["layers"], run["layout"], cfg.num_layers)
+    tokens, gates = torch.from_numpy(data[f"{case}/tokens"]), data[f"{case}/gates"]
+    shape = tuple(run["mesh"])
+    mesh = make_mesh(shape, AXES, device_type="cpu")
+    sizes, coords = dict(zip(AXES, shape)), dict(zip(AXES, mesh.get_coordinate()))
+    S.set_mesh_axis_sizes(mesh)
+    tp = sizes["model"]
+    local = S.shard_tree(params, S.param_specs(params, tp, fsdp_axes=("data",) if run["fsdp"] else ()), sizes, coords)
+    regather = S.param_specs(params, tp) if run["fsdp"] else None
+    pcfg = PEFTConfig(lora_targets=tuple(run["targets"])) if run.get("targets") else PEFTConfig()
+    step = make_train_step(cfg, pcfg, TrainConfig(), stld_mode=run.get("stld", "cond"), mesh=mesh,
+                           regather_specs=regather)
+    rows = tokens.shape[0] // sizes["data"]
+    batch = {"tokens": tokens[coords["data"] * rows:(coords["data"] + 1) * rows]}
+    if run.get("mismatch"):
+        stld.sample_drops = lambda generator, rates, min_active=1: torch.from_numpy(gates[rank % 2].copy())
+        try:
+            step(local, peft, adamw_init(peft), batch, torch.Generator())
+            out[f"{i}/raised"] = np.array(False)
+        except RuntimeError as e:
+            out[f"{i}/raised"] = np.array("different STLD gates" in str(e))
+        return
+    feed = iter([gates[0], gates[0], gates[1]])
+    stld.sample_drops = lambda generator, rates, min_active=1: torch.from_numpy(next(feed).copy())
+    _, grads = step.loss_and_grads(local, peft, batch, torch.Generator())
+    p, opt = peft, adamw_init(peft)
+    metrics, counts = [], []
+    for _ in range(2):
+        step.comm.reset()
+        p, opt, m = step(local, p, opt, batch, torch.Generator())
+        metrics.append([float(m[k]) for k in METRICS])
+        counts.append(step.comm.counts)
+    for name, tree in (("grads", grads), ("peft", p), ("m", opt["m"]), ("v", opt["v"])):
+        for j, leaf in enumerate(tree_leaves(tree)):
+            out[f"{i}/{name}/{j}"] = leaf.detach().numpy()
+    out[f"{i}/metrics"] = np.array(metrics)
+    out[f"{i}/counts"] = np.array(json.dumps(counts))
+
+
+def main():
+    rank, world, port = (int(a) for a in sys.argv[1:4])
+    inputs, out_path = sys.argv[4:6]
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank, world_size=world)
+    data = np.load(inputs)
+    out = {}
+    for i, run in enumerate(json.loads(str(data["runs"]))):
+        if run["mesh"][0] * run["mesh"][1] == world:
+            run_one(data, run, rank, out, i)
+    np.savez(out_path, **out)
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()

@@ -29,8 +29,13 @@
   and the autograd function's backward) and never reaches ``_build``.
 * the dry run at full width on ``meta``: qwen3 ``train_4k`` 16x16, jamba
   ``decode_32k``, granite ``prefill_32k`` are ``ok`` with each kernel's
-  launches as ``PERF.md`` §2's formulas give; a ``long_500k`` cell of a
+  launches as ``PERF.md`` §2's formulas give (qwen3's train cell is rank 0
+  of the sharded step, its collectives counted; the others say in
+  ``notes`` that their weights are whole); a ``long_500k`` cell of a
   full-attention arch writes the reference's skip record.
+* the sharded step's dry run against 4 gloo ranks on the CPU: a smoke
+  train cell on a 2 x 2 mesh with FSDP counts the collective bytes the
+  ranks count, kind by kind.
 """
 import dataclasses
 import json
@@ -409,7 +414,12 @@ def test_full_width_cells_run_on_meta(arch, shape, expected):
     assert rec["flops"] > rec["kernel_flops"] > 0 and rec["bytes_accessed"] > 0
     mem = rec["memory"]
     assert mem["peak_bytes"] >= mem["local_argument_bytes"] > 0 and mem["argument_bytes"] > 0
-    assert rec["collectives"]["total"] == 0
+    if shape == "train_4k":  # a dense train cell: rank 0 of the sharded step, its collectives counted
+        assert rec["collectives"]["total"] == sum(rec["collectives"][k] for k in dryrun.COLLECTIVES) > 0
+        assert mem["local_argument_bytes"] == mem["argument_bytes"] and not rec["notes"]
+    else:
+        assert rec["collectives"]["total"] == 0
+        assert any("weights are whole" in note for note in rec["notes"])
     if arch == "jamba-v0.1-52b":  # its decode's MoE weight gather ran every expert: the record says so
         assert any("upper bound" in note for note in rec["notes"])
 
@@ -429,3 +439,58 @@ def test_long_context_decode_counts_the_sharded_combine():
     attn = sum(layer_kind(cfg, l) == "attn" for l in range(cfg.num_layers))
     assert rec["collectives"]["count"] == 3 * attn
     assert rec["collectives"]["all-reduce"] == attn * 4 * cfg.num_heads * (2 + cfg.resolved_head_dim)
+
+
+def test_sharded_smoke_cell_counts_what_its_gloo_run_counts(tmp_path):
+    """A smoke train cell (qwen3-1.7b at 2 layers, ``d_ff`` 4 096 so that
+    FSDP cuts leaves, float32, 4 x 16 tokens) on a 2 x 2 mesh with
+    ``fsdp``: the dry run's collective bytes, kind by kind, equal those
+    that 4 gloo ranks count running the same step on the CPU
+    (``tests/_torch_tp_rank.py``); its ``argument_bytes`` are the
+    whole-weights record's, and its peak lies below it."""
+    import socket
+    import subprocess
+    import sys
+
+    from _torch_tp_rank import case_config, flatten
+    from repro_torch.analysis.trace import run_on_meta
+    from repro_torch.configs import PEFTConfig, TrainConfig
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.core.peft import init_peft
+    from repro_torch.models.registry import init_params
+
+    run = {"case": "c", "arch": "qwen3-1.7b", "d_ff": 4096, "mesh": [2, 2], "fsdp": True, "stld": "off"}
+    cfg = case_config(run)
+    gen = torch.Generator().manual_seed(0)
+    data = {"runs": np.array(json.dumps([run])), "c/tokens": np.zeros((4, 17), np.int32),
+            "c/gates": np.zeros((2, 2), bool)}
+    flatten(init_params(cfg, gen), "c/params/", data)
+    flatten(init_peft(cfg, PEFTConfig(), gen), "c/peft/", data)
+    np.savez(tmp_path / "in.npz", **data)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = str(sock.getsockname()[1])
+    root = Path(__file__).resolve().parents[1]
+    env = {"PYTHONPATH": str(root / "src"), "PATH": "/usr/bin:/bin", "OMP_NUM_THREADS": "1"}
+    procs = [subprocess.Popen([sys.executable, str(root / "tests" / "_torch_tp_rank.py"), str(r), "4", port,
+                               str(tmp_path / "in.npz"), str(tmp_path / f"r{r}.npz")], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(4)]
+    mesh, shape = ispec.MeshShape({"data": 2, "model": 2}), configs.InputShape("smoke_train", 16, 4, "train")
+    rec = dryrun.run_config(cfg, shape, mesh, fsdp=True)
+    # the whole-weights record: the unsharded step on one data rank's rows
+    pcfg = PEFTConfig(method="lora", lora_rank=8)
+    args, specs = ispec.train_inputs(cfg, pcfg, shape, mesh, fsdp=True)
+    base, peft, opt, batch, rng = args
+    rng.manual_seed(0)
+    whole = run_on_meta(make_train_step(cfg, pcfg, TrainConfig()), base, peft, opt,
+                        ispec.rank_slice(batch, specs[3], mesh), rng)
+    logs = [p.communicate(timeout=180)[0] for p in procs]
+    assert all(p.returncode == 0 for p in procs), [log[-2000:] for log in logs]
+    for r in range(4):
+        counts = json.loads(str(np.load(tmp_path / f"r{r}.npz")["0/counts"]))
+        assert all(c == counts[0] for c in counts)
+        assert {k: rec["collectives"][k] for k in counts[0]} == counts[0], (rec["collectives"], counts[0])
+    assert rec["collectives"]["all-gather"] > 0 and rec["collectives"]["all-reduce"] > 0
+    assert rec["memory"]["argument_bytes"] == dryrun.argument_bytes(args, specs, mesh)
+    assert rec["memory"]["peak_bytes"] < whole.peak_bytes
+    assert rec["kernel_launches"] == whole.kernel_launches

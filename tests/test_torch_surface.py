@@ -97,7 +97,6 @@ ABSENT_NAMES = {
 ABSENT_KEYWORDS = {
     ("repro.federated.client", "make_client_fns", "donate"): "XLA buffer donation: eager torch frees a round's "
                                                              "buffers when their last reference goes",
-    ("repro.launch.steps", "make_train_step", "regather_specs"): "the port runs no sharded train step (ROADMAP §3)",
     ("repro.launch.dryrun", "collective_bytes", "hlo_text"): "the dry run has no HLO: a cell's collectives are what "
                                                              "the port itself sends (ROADMAP §3)",
     **{("repro.analysis.jaxpr_contracts", "stacking_concats", kw): "walks a jaxpr's concatenates against the "
