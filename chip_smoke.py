@@ -97,10 +97,10 @@ Phases, one line each before the last:
    its interleave: 7 Mamba and 1 attention layer, 4 MoE and 4 MLP layers;
    LoRA on the Mamba in and out and the attention q and v), drawn and
    placed layer by layer, whose Mamba layers run the mamba_scan kernels;
-5d. three federated rounds of droppeft on full-width qwen3-1.7b through
+5d. two federated rounds of droppeft on full-width qwen3-1.7b through
    ``repro_torch.api.build`` at its defaults (100 devices with their
    Dirichlet shards, 10 a round, 4 local steps of batch 16 x 32 tokens,
-   the rate bandit, PTLS), in its default batched cohort mode: 3 finite
+   the rate bandit, PTLS), in its default batched cohort mode: 2 finite
    history rows, the first round's rates the bandit's start-up arms
    round-robin, 14 shared layers per device, layers shared by nobody kept
    bit for bit, each kernel launched as often as the gates say (per cohort
@@ -112,8 +112,8 @@ Phases, one line each before the last:
    round, peak memory and final_accuracy's seconds; and smoke-size runs
    of qwen3-1.7b, rwkv6-3b and jamba, batched on the card against
    sequential on the card and batched on the CPU twins; and checkpoints:
-   the batched run saved after 2 rounds and resumed by a fresh runner to
-   round 3 gives the uninterrupted run's bits, and ``api.serve`` from the
+   the batched run saved after 1 round and resumed by a fresh runner to
+   round 2 gives the uninterrupted run's bits, and ``api.serve`` from the
    checkpoint serves the global and two clients' adapters with the tokens
    of ``api.serve`` given the same trees;
 5e. full-width glm4-9b, h2o-danube-1.8b and yi-6b, each served as phase 4
@@ -137,7 +137,7 @@ Phases, one line each before the last:
    smoke-size deadline, carry with compression and faults, and async runs
    on the card against the CPU twins;
 5g. the rest of the paper's method grid on full-width qwen3-1.7b at
-   ``api.build``'s defaults (3 rounds, then ``final_accuracy``): FedHetLoRA
+   ``api.build``'s defaults (2 rounds, then ``final_accuracy``): FedHetLoRA
    (sequential; device ranks by tier, each device's tree at its rank,
    launches from the gates, all on wgmma) checkpointed, then 12 requests
    served from its checkpoint over tenants of rank 4, 8 and 16 and the
@@ -146,7 +146,7 @@ Phases, one line each before the last:
    (batched, no lora_matmul, two runs bit-identical); fedadapter (every
    layer every step); droppeft with ``compression="auto"`` (the joint
    bandit's start-up arms round-robin, each device's uplink ratio 1 at
-   ``none`` and below 1 otherwise, saved after round 2 and resumed
+   ``none`` and below 1 otherwise, saved after round 1 and resumed
    bit-identical with the bandit's state); ``merge_lora_into_base`` on
    its global LoRA and on that LoRA amplified past the tolerance
    (``merge_check``); seconds a round, idle share and peak
@@ -301,6 +301,22 @@ Phases, one line each before the last:
    second run bit-identical, launches a, a and 4a − 2s all on wgmma, and
    the dry run's path on meta: launches and collective bytes exactly,
    peaks within 10 %;
+5p. the sharded prefill and decode steps (``tensor_parallel_serve_full``):
+   ``make_prefill_step``/``make_serve_step`` with ``mesh=...``, bf16 and
+   float32, a prompt then greedy tokens: qwen3-1.7b inside 5o's ranks
+   (8 x 512, 16 tokens; 1 x 2 with a pool of 4 tenants through
+   ``segmented_lora``, 2 x 2 with rows over data), then 8 tokens of
+   glm4-9b at 8 of 40 layers on 1 x 4 (its caches cut on the head dim, 32
+   a rank: ``flash_decode_scores`` and ``flash_decode_combine``) and of
+   h2o-danube-1.8b at 8 of 24 layers on 2 x 2 at batch 1 (its 4 096-slot
+   window ring cut over data, ``flash_decode``'s log-sum-exp combined),
+   each against the one-rank steps on the card from the same draws:
+   float32 tokens equal and logits within 1e-4 of the largest, bf16's
+   first decode step within 1.5 x the one-rank bf16 step's gap (both fed
+   the float32 run's tokens), every model rank's tokens alike, launches
+   and collective bytes as the dry run's path on meta gives them, peaks
+   within 10 %; the split pair and the log-sum-exp against their twins
+   at the runs' shapes, timed;
 6. the ``kernels`` JSON line: launches of each kernel in its own path's
    run (serving: phase 4's run; training: phase 5's round at rate 0.5,
    phase 5b's for wkv6 and wkv6_bwd, phase 5c's for mamba_scan and
@@ -308,7 +324,8 @@ Phases, one line each before the last:
    phase 5f's deadline rounds and gather round, phase 5g's runs, and for
    every kernel of the dense path phase 5e's runs, and phase 5h's serving
    runs for flash_decode, flash_attention, wkv6 and mamba_scan, and phases
-   5i's, 5j's, 5k's, 5l's (b), 5m's, 5n's and 5o's runs (``launches_by_path``), the other dense
+   5i's, 5j's, 5k's, 5l's (b), 5m's, 5n's, 5o's and 5p's runs (``launches_by_path``; the
+   head-dim split's two entries from 5p's glm4-9b run), the other dense
    decoders' shapes, FedHetLoRA's, the scans' from a state, the moe
    family's, the stub-frontend families' and the training CLI's beside.
 
@@ -406,18 +423,26 @@ def device_kernels(prof) -> list:
     return list(by_name.values())
 
 
+SPIN_KERNELS = 64
+
+
 def device_ms(fn, flush, keys=None, repeats: int = 10):
     """Mean device time per call of ``fn`` from ``torch.profiler`` over
     ``repeats`` calls, each after an L2 flush (left out of the sums): of
     every kernel ``fn`` launches, or with ``keys`` a dict of the kernels
-    whose names match each key (a regular expression).  None where the
-    profiler saw no device time."""
+    whose names match each key (a regular expression).  ``SPIN_KERNELS``
+    spin kernels go first in the window (what the profiler drops at a
+    window's start falls on them; left out too), and each kernel's time is
+    its mean over the launches recorded times its launches a call.  None
+    where the profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(SPIN_KERNELS):
+            torch.cuda._sleep(1000)
         for _ in range(repeats):
             flush.zero_()
             fn()
@@ -429,11 +454,12 @@ def device_ms(fn, flush, keys=None, repeats: int = 10):
           and all(abs(e.self_device_time_total - averaged[e.key][1]) <= 1e-3 * averaged[e.key][1] + 1e-3
                   for e in events),
           "device_kernels disagrees with the profiler's key_averages")
-    events = [e for e in events if "fill" not in e.key.lower()]
-    mean = lambda us: us / 1e3 / repeats if us > 0 else None  # noqa: E731
+    events = [e for e in events if e.count and not re.search("fill|spin", e.key.lower())]
+    per_call = lambda e: e.self_device_time_total / e.count * max(1, round(e.count / repeats))  # noqa: E731
+    mean = lambda us: us / 1e3 if us > 0 else None  # noqa: E731
     if keys is None:
-        return mean(sum(e.self_device_time_total for e in events))
-    return {key: mean(sum(e.self_device_time_total for e in events if re.search(key, e.key))) for key in keys}
+        return mean(sum(per_call(e) for e in events))
+    return {key: mean(sum(per_call(e) for e in events if re.search(key, e.key))) for key in keys}
 
 
 def device_span_ms(fn, flush, repeats: int = 10):
@@ -1443,9 +1469,6 @@ def serve_full(api, ops, card, seed: int, arch: str = "qwen3-1.7b", cfg=None):
     }, breakdown, launches
 
 
-SPIN_KERNELS = 64
-
-
 def kernel_calls(batcher, keys) -> dict:
     """Launches of the kernels named by ``keys`` (substrings) in one step of
     ``batcher``, as ``torch.profiler`` records them, beside its count of
@@ -1855,6 +1878,16 @@ def dense_arch_full(api, ops, card, seed: int, arch: str):
 
 
 FED_ROUNDS = 3
+# phase 5p's time came out of phases 5d and 5g, each run keeping its
+# checks: 5d's batched runs take 2 rounds (3 before; the save after round 1,
+# resumed to 2) and its sequential run, for the comparison, 1; 5g takes 2
+# rounds a method (the joint bandit saved after round 1), FedHetLoRA 1 (at
+# seed 0 its first round trains a device of every tier, ranks 4, 8 and 16,
+# which its served checkpoint needs) and no profiled round after it (phase
+# 5d profiles the sequential mode); 5g's smoke runs keep 2 rounds, as the
+# second is the first whose rates the bandit picks from the kernels' rewards
+FEDERATED_ROUNDS, SEQUENTIAL_ROUNDS = 2, 1
+GRID_ROUNDS, HETLORA_ROUNDS, GRID_SMOKE_ROUNDS = 2, 1, 2
 STARTUP_RATES = (0.2, 0.5, 0.7)  # the bandit's start-up arms (OnlineConfigurator's default)
 
 
@@ -2082,9 +2115,10 @@ def federated_run(api, ops, seed: int, cohort_mode: str, arch: str = "qwen3-1.7b
 
 
 def resume_and_serve(api, seed: int, global_leaves, hist, final_accuracy):
-    """Phase 5d's checkpoints: the batched run saved after round 2
-    (``checkpoint_dir``), a fresh runner resumed from it (``resume=True``)
-    and run to round 3 gives the uninterrupted run's global LoRA, history
+    """Phase 5d's checkpoints: the batched run saved after round
+    ``FEDERATED_ROUNDS - 1`` (``checkpoint_dir``), a fresh runner resumed
+    from it (``resume=True``) and run to round ``FEDERATED_ROUNDS`` gives
+    the uninterrupted run's global LoRA, history
     and final accuracy bit for bit; then ``api.serve(checkpoint_dir=...)``
     serves the global adapter and two clients' with the tokens of
     ``api.serve(adapters=...)`` given the resumed runner's own trees."""
@@ -2097,20 +2131,20 @@ def resume_and_serve(api, seed: int, global_leaves, hist, final_accuracy):
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     t0 = time.perf_counter()
     runner = api.build("droppeft", "qwen3-1.7b", smoke=False, seed=seed, checkpoint_dir=str(ckpt_dir))
-    runner.run(rounds=2)
+    runner.run(rounds=FEDERATED_ROUNDS - 1)
     del runner
     gc.collect()
     saved = sorted(p.name for p in ckpt_dir.iterdir())
-    check(saved == ["step_00000001", "step_00000002"], f"checkpoints {saved}")
+    check(saved == [f"step_{r:08d}" for r in range(1, FEDERATED_ROUNDS)], f"checkpoints {saved}")
     save_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     runner = api.build("droppeft", "qwen3-1.7b", smoke=False, seed=seed, checkpoint_dir=str(ckpt_dir), resume=True)
-    check(runner.state.round_index == 2, f"resumed at round {runner.state.round_index}")
-    result = runner.run(rounds=FED_ROUNDS)
+    check(runner.state.round_index == FEDERATED_ROUNDS - 1, f"resumed at round {runner.state.round_index}")
+    result = runner.run(rounds=FEDERATED_ROUNDS)
     resume_s = time.perf_counter() - t0
     check(all(torch.equal(a, b) for a, b in zip(global_leaves, tree_leaves(runner.state.global_peft)))
           and list(runner.state.history) == hist and result.final_accuracy == final_accuracy,
-          "the run resumed at round 2 differs from the uninterrupted run")
+          f"the run resumed at round {FEDERATED_ROUNDS - 1} differs from the uninterrupted run")
     clients = sorted(runner.state.device_peft)[:2]
     trees = {"client_global": runner.state.global_peft,
              **{f"client{d}": runner.state.device_peft[d] for d in clients}}
@@ -2135,7 +2169,8 @@ def resume_and_serve(api, seed: int, global_leaves, hist, final_accuracy):
     check(tokens["checkpoint"] == tokens["trees"] and len(tokens["trees"]) == 6,
           f"served from the checkpoint {tokens['checkpoint']} vs from the same trees {tokens['trees']}")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
-    return {"saved_rounds": 2, "resumed_to": FED_ROUNDS, "bit_identical": True, "save_run_s": save_s,
+    return {"saved_rounds": FEDERATED_ROUNDS - 1, "resumed_to": FEDERATED_ROUNDS, "bit_identical": True,
+            "save_run_s": save_s,
             "resume_run_s": resume_s, "adapters_in_checkpoint": registered, "served": names,
             "requests": len(requests), "tokens_equal": True}
 
@@ -2144,21 +2179,21 @@ def federated_full(api, ops, card, seed: int):
     """Phase 5d: ``api.build("droppeft", "qwen3-1.7b", smoke=False)`` on the
     card at the defaults (100 devices, 10 a round, 4 local steps of batch
     16 x 32 tokens, LoRA r 8 on q and v, 28 layers), batched (its default
-    mode): 3 rounds, a second run from the same seed that must give the
+    mode): ``FEDERATED_ROUNDS`` rounds, a second run from the same seed that must give the
     same bits, and one profiled round after it; then the sequential mode
-    from the same seed, 3 rounds and a profiled round, for the
-    comparison."""
+    from the same seed, ``SEQUENTIAL_ROUNDS`` round(s) and a profiled
+    round, for the comparison."""
     from repro_torch.models.stacking import tree_leaves
 
     phase_t0 = time.perf_counter()
-    runner, batched, hist, global1, launches = federated_run(api, ops, seed, "batched")
+    runner, batched, hist, global1, launches = federated_run(api, ops, seed, "batched", rounds=FEDERATED_ROUNDS)
     cfg, fed = runner.ctx.cfg, runner.ctx.fed_cfg
     seq = runner.ctx.task.seq_len
     del runner
     gc.collect()
 
     runner = api.build("droppeft", "qwen3-1.7b", smoke=False, seed=seed)
-    result2 = runner.run(rounds=FED_ROUNDS)
+    result2 = runner.run(rounds=FEDERATED_ROUNDS)
     check(all(torch.equal(a, b) for a, b in zip(global1, tree_leaves(runner.state.global_peft)))
           and list(runner.state.history) == hist and result2.final_accuracy == batched["final_accuracy"],
           "two batched runs from one seed differ")
@@ -2167,7 +2202,7 @@ def federated_full(api, ops, card, seed: int):
     gc.collect()
     batched["resume"] = resume_and_serve(api, seed, global1, hist, batched["final_accuracy"])
 
-    runner, sequential, _, _, _ = federated_run(api, ops, seed, "sequential")
+    runner, sequential, _, _, _ = federated_run(api, ops, seed, "sequential", rounds=SEQUENTIAL_ROUNDS)
     sequential["profile"] = profile_fed_round(runner)
     del runner
     gc.collect()
@@ -2178,7 +2213,8 @@ def federated_full(api, ops, card, seed: int):
     return {
         "model": cfg.name, "layers": cfg.num_layers, "devices": fed.num_devices,
         "devices_per_round": fed.devices_per_round, "local_steps": fed.local_steps, "batch": fed.batch_size,
-        "seq": seq, "rounds": FED_ROUNDS, "deterministic_rounds": FED_ROUNDS, "batched": batched,
+        "seq": seq, "rounds": FEDERATED_ROUNDS, "sequential_rounds": SEQUENTIAL_ROUNDS,
+        "deterministic_rounds": FEDERATED_ROUNDS, "batched": batched,
         "sequential": sequential, "phase_s": time.perf_counter() - phase_t0, "card": card,
     }, launches
 
@@ -2630,14 +2666,16 @@ def device_busy_round(runner, round_s: float):
             "device_idle_share_profiled": 1.0 - busy / wall_ms}
 
 
-def grid_run(api, ops, seed: int, method: str, kind: str, *, prepare=None, after_run=None, **kw):
+def grid_run(api, ops, seed: int, method: str, kind: str, *, prepare=None, after_run=None, n_rounds=GRID_ROUNDS,
+             profile=True, **kw):
     """One run of phase 5g: ``api.build(method, "qwen3-1.7b", smoke=False)``
-    for 3 rounds (``prepare(runner)`` before them and ``after_run(runner)``
+    for ``n_rounds`` rounds (``prepare(runner)`` before them and ``after_run(runner)``
     after them, when given), instrumented as
     phase 5d's: finite history, launches per round from the gates
     (``grid_round_launches``), every lora_matmul on wgmma,
-    ``final_accuracy``'s launches; seconds a round, peak memory, and the
-    device time of one more round (``device_busy_round``: the idle share).
+    ``final_accuracy``'s launches; seconds a round, peak memory, and, with
+    ``profile``, the device time of one more round (``device_busy_round``:
+    the idle share).
     Returns (runner, stats, the per-round records, the run's bits with the
     bandit's state, the summed launches)."""
     gc.collect()
@@ -2655,7 +2693,7 @@ def grid_run(api, ops, seed: int, method: str, kind: str, *, prepare=None, after
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    result = runner.run(rounds=FED_ROUNDS)
+    result = runner.run(rounds=n_rounds)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
@@ -2664,7 +2702,7 @@ def grid_run(api, ops, seed: int, method: str, kind: str, *, prepare=None, after
     bits["configurator"] = json.dumps(runner.state.configurator.state_dict() if runner.state.configurator else None)
     hist = bits["history"]
     what = f"5g {method} peft={kind} {mode}"
-    check(len(hist) == FED_ROUNDS and all(np.isfinite(v) for row in hist for v in row.values()),
+    check(len(hist) == n_rounds and all(np.isfinite(v) for row in hist for v in row.values()),
           f"{what}: history {hist}")
     check(np.isfinite(result.final_accuracy), f"{what}: final accuracy {result.final_accuracy}")
     for j, r in enumerate(rounds):
@@ -2679,7 +2717,7 @@ def grid_run(api, ops, seed: int, method: str, kind: str, *, prepare=None, after
                    f"{what} final_accuracy")
     per_round = [r["seconds"] for r in rounds]
     stats = {"method": method, "peft": kind, "cohort_mode": mode, "setup_s": setup_s, "run_s": run_s,
-             "s_per_round": per_round, "s_per_round_mean": sum(per_round) / FED_ROUNDS,
+             "s_per_round": per_round, "s_per_round_mean": sum(per_round) / n_rounds,
              "final_accuracy_s": run_s - sum(per_round),
              "resident_gib": resident / 2**30, "peak_gib": peak / 2**30,
              "peft_mib": sum(t.numel() * t.element_size() for t in bits["peft"]) / 2**20,
@@ -2687,7 +2725,7 @@ def grid_run(api, ops, seed: int, method: str, kind: str, *, prepare=None, after
              "rates": [r["rates"] for r in rounds], "history": hist, "final_accuracy": result.final_accuracy}
     if after_run is not None:
         after_run(runner)
-    stats["profile"] = prof = device_busy_round(runner, stats["s_per_round_mean"])
+    stats["profile"] = prof = device_busy_round(runner, stats["s_per_round_mean"]) if profile else None
     stats["device_idle_share"] = None if prof is None else prof["device_idle_share"]
     launches = {name: sum(r["launches"][name] for r in rounds) + final_launches[name] for name in final_launches}
     return runner, stats, rounds, bits, launches
@@ -2832,15 +2870,15 @@ def merge_check(ops, runner, seed: int):
 def method_grid_full(api, ops, card, seed: int):
     """Phase 5g: the rest of the paper's method grid on full-width
     qwen3-1.7b at ``api.build``'s defaults (100 devices, 10 a round, 4
-    local steps of 16 x 32 tokens, 3 rounds, then ``final_accuracy`` over
-    the 100 devices): ``fedhetlora`` (sequential; device ranks by tier,
+    local steps of 16 x 32 tokens, ``GRID_ROUNDS`` rounds, then
+    ``final_accuracy`` over the 100 devices): ``fedhetlora`` (sequential; device ranks by tier,
     each device's tree at its rank) checkpointed and served from its
     checkpoint over tenants of rank 4, 8 and 16; ``droppeft`` with adapter
     and with BitFit (batched, zero lora_matmul, two runs bit-identical);
     ``fedadapter`` with adapter (full depth: every layer every step);
     ``droppeft`` with ``compression="auto"`` (the joint bandit's start-up
     arms round-robin, each device's uplink ratio from its level, saved
-    after round 2 and resumed bit-identical with the bandit's state); and
+    after round 1 and resumed bit-identical with the bandit's state); and
     ``merge_lora_into_base`` on that run's global LoRA, and amplified
     (``merge_check``)."""
     import shutil
@@ -2875,6 +2913,7 @@ def method_grid_full(api, ops, card, seed: int):
         tenants["client_global"] = runner.state.global_peft
 
     runner, stats, rounds, _, counts = grid_run(api, ops, seed, "fedhetlora", "lora", after_run=hetlora_checks,
+                                                n_rounds=HETLORA_ROUNDS, profile=False,
                                                 checkpoint_dir=str(ckpt_dir))
     add(counts)
     del runner
@@ -2898,13 +2937,13 @@ def method_grid_full(api, ops, card, seed: int):
             del runner
             gc.collect()
             again = api.build(method, "qwen3-1.7b", smoke=False, seed=seed, peft=kind)
-            check(same_bits(run_bits(again, again.run(rounds=FED_ROUNDS)), bits), f"{name}: two runs from one seed differ")
+            check(same_bits(run_bits(again, again.run(rounds=GRID_ROUNDS)), bits), f"{name}: two runs from one seed differ")
             stats["bit_identical_runs"] = True
             runner = again
         del runner
         out[name] = stats
 
-    # 5. the joint (rate x compression level) bandit, saved after round 2 and resumed
+    # 5. the joint (rate x compression level) bandit, saved after round 1 and resumed
     uplinks = []
 
     def record_uplinks(runner):
@@ -2923,7 +2962,7 @@ def method_grid_full(api, ops, card, seed: int):
                                                    compression="auto")
     add(counts)
     del runner
-    uplinks = uplinks[:FED_ROUNDS]  # the profiled round's follow
+    uplinks = uplinks[:GRID_ROUNDS]  # the profiled round's follow
     n = len(uplinks[0][0])
     first = list(zip(rounds[0]["rates"], uplinks[0][0]))
     check(first == [JOINT_STARTUP[i % 3] for i in range(n)], f"the joint bandit's first arms {first}")
@@ -2936,14 +2975,14 @@ def method_grid_full(api, ops, card, seed: int):
     jdir = ROOT / "build" / "chip_smoke_checkpoints_5g_joint"
     shutil.rmtree(jdir, ignore_errors=True)
     api.build("droppeft", "qwen3-1.7b", smoke=False, seed=seed, compression="auto", checkpoint_dir=str(jdir)).run(
-        rounds=2)
+        rounds=GRID_ROUNDS - 1)
     gc.collect()
     runner = api.build("droppeft", "qwen3-1.7b", smoke=False, seed=seed, compression="auto", checkpoint_dir=str(jdir),
                        resume=True)
-    check(runner.state.round_index == 2, f"the joint run resumed at round {runner.state.round_index}")
-    resumed = run_bits(runner, runner.run(rounds=FED_ROUNDS))
+    check(runner.state.round_index == GRID_ROUNDS - 1, f"the joint run resumed at round {runner.state.round_index}")
+    resumed = run_bits(runner, runner.run(rounds=GRID_ROUNDS))
     check(same_bits(resumed, bits) and json.dumps(runner.state.configurator.state_dict()) == bits["configurator"],
-          "the joint-bandit run resumed at round 2 differs from the uninterrupted run")
+          "the joint-bandit run resumed at round 1 differs from the uninterrupted run")
     stats["resumed_bit_identical"] = True
     stats["configurator"] = json.loads(bits["configurator"])
     shutil.rmtree(jdir, ignore_errors=True)
@@ -2959,7 +2998,7 @@ def method_grid_full(api, ops, card, seed: int):
 
 
 def method_grid_smoke_cuda_vs_cpu(seed: int):
-    """Phase 5g at smoke size in float32, 2 rounds on the card and on the
+    """Phase 5g at smoke size in float32, ``GRID_SMOKE_ROUNDS`` on the card and on the
     CPU twins from the same weights and seed: FedHetLoRA (sequential), the
     joint bandit, and droppeft with adapter and with BitFit on qwen3-1.7b,
     rwkv6-3b and jamba (batched): dispatches (cohorts, rates, levels),
@@ -2993,7 +3032,7 @@ def method_grid_smoke_cuda_vs_cpu(seed: int):
                 return report(state, results)
 
             runner.algorithm.report = recorded
-            runner.run(rounds=2)
+            runner.run(rounds=GRID_SMOKE_ROUNDS)
             runs[device] = (plans, [dict(row) for row in runner.state.history], list(runner.scheduler.event_log),
                             [t.cpu() for t in tree_leaves(runner.state.global_peft)], runner.state.global_step)
         (pc, hc, ec, tc, steps), (pp, hp, ep, tp, _) = runs["cuda"], runs["cpu"]
@@ -4485,7 +4524,7 @@ def meta_vs_card_steps(ops, api, seed: int, card: str = "", device: str = "cuda"
         device=device, fresh_args=False)
     if device == "cuda":
         seen = set().union(*(set(r) for r in runs.values()))
-        check(seen == set(ops.launch_counts), f"5l (b) launched {sorted(seen)}, not every kernel")
+        check(seen == set(ops._build.KERNELS), f"5l (b) launched {sorted(seen)}, not every kernel library")
     for name, row in stats.items():
         print(f"5l meta vs card {json.dumps(row)} [{card}]", flush=True)
     return stats, runs
@@ -5458,12 +5497,25 @@ def tp_rank(rank: int, world: int, port: int, shape, fsdp: bool, seed: int, out_
         runs = [tp_two_steps(ops, step, base, peft, batch, seed, device, peak=(i == 0)) for i in range(2)]
         _, grads = step.loss_and_grads(base, peft, batch, torch.Generator().manual_seed(seed))
         arg_bytes = tree_bytes((base, peft, adamw_init(peft), batch))
+        grads = tp_cpu(grads)
         base = tp_float32(base)
         step32 = make_train_step(cfg.replace(dtype="float32"), pcfg, TrainConfig(), stld_mode="cond",
                                  mean_rate=TP_TRAIN["rate"], mesh=mesh, regather_specs=regather)
         _, grads32 = step32.loss_and_grads(base, peft, batch, torch.Generator().manual_seed(seed))
-        torch.save({"coords": coords, "digest": digest, "runs": runs, "grads": tp_cpu(grads),
-                    "grads32": tp_cpu(grads32), "argument_bytes": arg_bytes}, f"{out_path}.rank{rank}")
+        grads32 = tp_cpu(grads32)
+        # phase 5p: the sharded serving steps from the same draws cut by the
+        # serving specs (no FSDP), everything of the train steps freed first
+        del base, peft, batch, step, step32
+        free_memory(device)
+        whole, _ = tp_draws(cfg, pcfg, seed, device)
+        serve_base = S.shard_tree(whole, S.param_specs(whole, sizes["model"]), sizes, coords)
+        del whole
+        free_memory(device)
+        serving = TP_SERVE_SMOKE if smoke else TP_SERVE
+        serve = tp_serve_rank_runs(ops, cfg, serve_base, mesh, False, seed, device, serving["batch"],
+                                   serving["prompt"], serving["new"], pool=shape == (1, 2))
+        torch.save({"coords": coords, "digest": digest, "runs": runs, "grads": grads, "grads32": grads32,
+                    "argument_bytes": arg_bytes, "serve": serve}, f"{out_path}.rank{rank}")
     finally:
         dist.destroy_process_group()
 
@@ -5539,7 +5591,11 @@ def tensor_parallel_full(ops, card: str, seed: int, device: str = "cuda", smoke:
     rank's launches and collective bytes exactly and its peak within
     ``META_PEAK_TOLERANCE``.  With ``device="cpu", smoke=True`` it
     rehearses on the CPU (the twins; launches and peaks not compared).
-    Returns (stats, launches by path, seconds)."""
+    Its ranks and the one-rank step's draws also run phase 5p's qwen3-1.7b
+    serving (``tp_serve_rank_runs``, ``tp_serve_one_rank``), checked by
+    ``tensor_parallel_serve_full``.  Returns (stats, launches by path, the
+    seconds less 5p's part, 5p's part: the ranks' and the one-rank serving
+    records and their seconds)."""
     import socket
 
     import torch.multiprocessing as mp
@@ -5570,6 +5626,13 @@ def tensor_parallel_full(ops, card: str, seed: int, device: str = "cuda", smoke:
     one_grads32 = tp_cpu(one_grads32)
     del step32
     free_memory(device)
+    # phase 5p's one-rank serving runs from the same draws, with and without the pool
+    t_serve = time.perf_counter()
+    serving = TP_SERVE_SMOKE if smoke else TP_SERVE
+    serve_one = tp_serve_one_rank(ops, cfg, base, seed, device, serving["batch"], serving["prompt"], serving["new"],
+                                  pools=(False, True))
+    serve_s = time.perf_counter() - t_serve
+    free_memory(device)
     gates = list(replay.gates)
     active = sum(int((~g.bool()).sum()) for g in gates)
     whole_digest = {}
@@ -5590,6 +5653,7 @@ def tensor_parallel_full(ops, card: str, seed: int, device: str = "cuda", smoke:
     work = ROOT / "build" / "tp"
     work.mkdir(parents=True, exist_ok=True)
     lr_sum = TP_TRAIN["steps"] * tcfg.learning_rate
+    serve_ranks = {}
     for shape, fsdp in TP_MESHES:
         world = shape[0] * shape[1]
         name = f"{shape[0]}x{shape[1]}" + (" fsdp" if fsdp else "")
@@ -5601,6 +5665,8 @@ def tensor_parallel_full(ops, card: str, seed: int, device: str = "cuda", smoke:
         mp.spawn(tp_rank, args=(world, port, shape, fsdp, seed, path, device, smoke), nprocs=world, join=True)
         spawn_s = time.perf_counter() - t0
         ranks = [torch.load(f"{path}.rank{r}") for r in range(world)]
+        serve_ranks[name] = [rank.pop("serve") for rank in ranks]
+        serve_s += max(r["s"] for r in serve_ranks[name])
         first = ranks[0]
         for r, rank in enumerate(ranks):
             coords = tuple(rank["coords"][a] for a in TP_AXES)
@@ -5656,7 +5722,565 @@ def tensor_parallel_full(ops, card: str, seed: int, device: str = "cuda", smoke:
         stats[name] = row
         launches[f"5o_{name.replace(' ', '_')}"] = run["launches"]
         print(f"5o {name} {json.dumps(row)} [{card}]", flush=True)
-    return stats, launches, time.perf_counter() - t_phase
+    # phase 5p's part (the one-rank serving runs, the ranks' serving runs) is counted as 5p's
+    return stats, launches, time.perf_counter() - t_phase - serve_s, {"ranks": serve_ranks, "one": serve_one,
+                                                                        "s": serve_s}
+
+
+# -------------------------------------------------------------------- phase 5p
+# the sharded serving steps: qwen3-1.7b's inside phase 5o's ranks (1 x 2 with
+# a pool of tenants, 2 x 2 with rows over data), and two spawns of their own
+TP_SERVE = {"batch": 8, "prompt": 512, "new": 16}
+TP_SERVE_SMOKE = {"batch": 2, "prompt": 16, "new": 4}
+TP_SERVE_POOL_RANKS = (4, 8, 4, 8)  # the 1 x 2 decode's tenants on q and v, r_max 8
+# (arch, (data, model), layers, batch, prompt, sequence over data): glm4-9b's
+# caches cut on the head dim (KV 2 under model 4: 32 dims a rank); danube's
+# 4 096-slot window ring cut over data at batch 1 (2 048 slots a rank), its
+# prompt past the window and its decode crossing from data rank 0's slots
+# to rank 1's (6 140 % 4 096 = 2 044)
+TP_SERVE_SPAWNS = (("glm4-9b", (1, 4), 8, 8, 512, False), ("h2o-danube-1.8b", (2, 2), 8, 1, 6140, True))
+TP_SERVE_SPAWN_NEW = 8  # the spawns' new tokens: danube's decode crosses to data rank 1's slots at the fifth
+TP_SERVE_SPAWNS_SMOKE = (("glm4-9b", (1, 4), 2, 2, 16, False), ("h2o-danube-1.8b", (2, 2), 2, 1, 94, True))
+TP_SERVE_SHORT = {"glm4-9b": "glm4", "h2o-danube-1.8b": "danube"}  # the runs' names in launches_by_path
+TP_SERVE_F32_TOL = 1e-4  # float32 logits, of the largest |logit|: sums over ranks in another order
+
+
+def tp_serve_pool(cfg, seed: int, batch: int, device: str):
+    """Stacked tenant pools on ``q`` and ``v`` (``TP_SERVE_POOL_RANKS``,
+    each rank's tail zero, the scale folded into b), drawn on the CPU from
+    ``seed``; row i at tenant i % 4."""
+    from repro_torch.nn.linear import AdapterPool
+
+    g = torch.Generator().manual_seed(seed + 11)
+    hd, layers, n, r_max = cfg.resolved_head_dim, cfg.num_layers, len(TP_SERVE_POOL_RANKS), max(TP_SERVE_POOL_RANKS)
+    pools = {}
+    for name, width in (("q", cfg.num_heads * hd), ("v", cfg.num_kv_heads * hd)):
+        a = torch.randn((layers, n, cfg.d_model, r_max), generator=g) * cfg.d_model**-0.5
+        b = torch.randn((layers, n, r_max, width), generator=g) * 0.05
+        for t, r in enumerate(TP_SERVE_POOL_RANKS):
+            a[:, t, :, r:] = 0
+            b[:, t, r:] = 0
+        idx = (torch.arange(batch, dtype=torch.int32) % n).expand(layers, batch).contiguous()
+        ranks = torch.tensor(TP_SERVE_POOL_RANKS, dtype=torch.int32).expand(layers, n).contiguous()
+        pools[name] = AdapterPool(a.to(device), b.to(device), idx.to(device), ranks.to(device))
+    return {"attn": pools}
+
+
+def tp_serve_prompt(cfg, seed: int, batch: int, prompt: int):
+    return torch.randint(0, cfg.vocab_size, (batch, prompt), generator=torch.Generator().manual_seed(seed + 12),
+                         dtype=torch.int32)
+
+
+def tp_serve_run(ops, cfg, params, prompt, new: int, device: str, *, mesh=None, seq: bool = False, peft=None,
+                 feed=None, measure: bool = False) -> dict:
+    """The prefill of ``prompt`` (this rank's rows) into fresh caches
+    (``init_caches`` in ``cfg.dtype``, cut by ``cache_specs`` for a mesh),
+    then ``new`` decode steps at the scalar position: greedy, or fed the
+    tokens ``feed`` (new, B) (the float32 run's, so that bf16 logits are
+    compared on one token stream).  Returns each step's last logits
+    (float32, on the CPU), the next tokens, and with ``measure`` the
+    seconds, collective seconds and counts (the prefill's, each decode
+    step's), launches and peaks of the prefill and of the decode steps."""
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.losses import vocab_parallel_argmax
+    from repro_torch.models.transformer import init_caches
+    from repro_torch.sharding import specs as S
+
+    b_rows, p_len = prompt.shape
+    batch = b_rows if mesh is None or seq else b_rows * dict(zip(TP_AXES, mesh.mesh.shape))["data"]
+    caches = init_caches(cfg, batch, p_len + new, dtype=getattr(torch, cfg.dtype), device=device)
+    prefill = make_prefill_step(cfg, mesh=mesh, shard_seq=seq)
+    serve = make_serve_step(cfg, mesh=mesh, shard_seq=seq)
+    comm = prefill.comm
+    if mesh is not None:
+        sizes = dict(zip(TP_AXES, mesh.mesh.shape))
+        coords = dict(zip(TP_AXES, mesh.get_coordinate()))
+        caches = S.shard_tree(caches, S.cache_specs(caches, ("data",), sizes["model"], shard_seq_on_data=seq),
+                              sizes, coords)
+        serve.comm.reset()
+    on_card = device == "cuda"
+    out = {"logits": [], "tokens": [], "counts": [], "comm_s": 0.0}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    free_memory(device)
+    sync()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, {"tokens": prompt.to(device)}, caches)
+    sync()
+    out["prefill_s"] = time.perf_counter() - t0
+    out["prefill_launches"] = {k: v for k, v in ops.launch_counts.items() if v}
+    if on_card:
+        out["prefill_peak_bytes"] = torch.cuda.max_memory_allocated()
+    if comm is not None:
+        out["counts"].append(dict(comm.counts))
+        out["comm_s"] += comm.seconds
+    token = (torch.argmax(logits, -1) if comm is None else vocab_parallel_argmax(logits, comm))[:, None].to(torch.int32)
+    out["logits"].append(logits.float().cpu())
+    out["first_token"] = token[:, 0].cpu()
+    if feed is not None:
+        token = feed[0][:, None].to(device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for k in range(new):
+        if comm is not None:
+            serve.comm.reset()
+        logits, nxt, caches = serve(params, token, p_len + k, caches, peft=peft)
+        if comm is not None:
+            out["counts"].append(dict(serve.comm.counts))
+            out["comm_s"] += serve.comm.seconds
+        out["logits"].append(logits.float().cpu())
+        out["tokens"].append(nxt[:, 0].cpu())
+        token = nxt if feed is None or k + 1 >= new else feed[k + 1][:, None].to(device)
+    sync()
+    out["decode_s"] = time.perf_counter() - t0
+    out["s_per_token"] = out["decode_s"] / new
+    out["decode_launches"] = {k: v for k, v in ops.launch_counts.items() if v}
+    if on_card:
+        out["decode_peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["tokens"] = torch.stack(out["tokens"])
+    out["fed"] = torch.cat([out["first_token"][None], out["tokens"][:-1]]) if feed is None else feed
+    if not measure:
+        for key in ("prefill_launches", "decode_launches", "counts"):
+            out.pop(key)
+    return out
+
+
+def tp_serve_dtypes(ops, cfg, params, prompt, new: int, device: str, **kw) -> dict:
+    """``tp_serve_run`` in float32 (the same draws cast up, the pool's
+    float32 as drawn; greedy), then in ``cfg.dtype`` fed the float32 run's
+    tokens and measured."""
+    f32 = tp_serve_run(ops, cfg.replace(dtype="float32"), tp_float32(params), prompt, new, device, **kw)
+    free_memory(device)
+    return {"float32": f32, "bf16": tp_serve_run(ops, cfg, params, prompt, new, device, feed=f32["fed"],
+                                                 measure=True, **kw)}
+
+
+def tp_serve_rank_runs(ops, cfg, base, mesh, seq: bool, seed: int, device: str, batch: int, prompt_len: int,
+                       new: int, pool: bool) -> dict:
+    """A rank's sharded serving runs (``tp_serve_dtypes``) from its part of
+    the weights ``base``: its rows of the prompt (all of them with ``seq``)
+    and, with ``pool``, the tenant pools, their slot maps cut to its rows."""
+    from repro_torch.nn.linear import AdapterPool
+
+    sizes, coords = dict(zip(TP_AXES, mesh.mesh.shape)), dict(zip(TP_AXES, mesh.get_coordinate()))
+    rows = batch if seq else batch // sizes["data"]
+    lo = 0 if seq else coords["data"] * rows
+    prompt = tp_serve_prompt(cfg, seed, batch, prompt_len)[lo:lo + rows]
+    peft = None
+    if pool:
+        whole = tp_serve_pool(cfg, seed, batch, device)
+        peft = {"attn": {k: AdapterPool(v.a, v.b, v.idx[..., lo:lo + rows].contiguous(), v.ranks)
+                         for k, v in whole["attn"].items()}}
+    t0 = time.perf_counter()
+    runs = tp_serve_dtypes(ops, cfg, base, prompt, new, device, mesh=mesh, seq=seq, peft=peft)
+    return {"coords": coords, "rows": (lo, lo + rows), "runs": runs, "s": time.perf_counter() - t0,
+            "argument_bytes": tree_bytes(base)}
+
+
+def tp_serve_one_rank(ops, cfg, base, seed: int, device: str, batch: int, prompt_len: int, new: int,
+                      pools=(False,)) -> dict:
+    """The one-rank serving steps on the card from the whole draws: the
+    reference of every mesh, in float32 and bf16, with and without the
+    tenant pool."""
+    prompt = tp_serve_prompt(cfg, seed, batch, prompt_len)
+    out = {}
+    for pool in pools:
+        peft = tp_serve_pool(cfg, seed, batch, device) if pool else None
+        out[pool] = tp_serve_dtypes(ops, cfg, base, prompt, new, device, peft=peft)
+    return out
+
+
+def tp_serve_rank(rank: int, world: int, port: int, arch: str, shape, layers: int, batch: int, prompt_len: int,
+                  seq: bool, seed: int, out_path: str, device: str, smoke: bool):
+    """One rank of phase 5p's own spawns (``TP_SERVE_SPAWNS``): the whole
+    draws of ``arch`` cut to ``layers`` (as the one-rank steps drew them),
+    its part cut by ``param_specs``, the sharded serving runs; saves them."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import PEFTConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding import specs as S
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank, world_size=world)
+    try:
+        cfg = get_config(arch, smoke=smoke).replace(num_layers=layers)
+        mesh = make_mesh(shape, TP_AXES, device_type=device)
+        sizes, coords = dict(zip(TP_AXES, shape)), dict(zip(TP_AXES, mesh.get_coordinate()))
+        S.set_mesh_axis_sizes(mesh)
+        whole, _ = tp_draws(cfg, PEFTConfig(), seed, device)
+        base = S.shard_tree(whole, S.param_specs(whole, sizes["model"]), sizes, coords)
+        digest = tp_digest(base)
+        del whole
+        free_memory(device)
+        new = TP_SERVE_SMOKE["new"] if smoke else TP_SERVE_SPAWN_NEW
+        serve = tp_serve_rank_runs(ops, cfg, base, mesh, seq, seed, device, batch, prompt_len, new, False)
+        torch.save({"coords": coords, "digest": digest, "serve": serve}, f"{out_path}.rank{rank}")
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_serve_meta(cfg, shape, batch: int, prompt_len: int, new: int, seq: bool, pool) -> dict:
+    """Phase 5p's run on ``meta`` through the dry run's path
+    (``launch.input_specs.rank_serve_inputs``: rank 0's part at the mesh's
+    axis sizes, the weights as placed, caches of prompt + new slots): the
+    prefill (from position 0), then one decode step; each one's launches,
+    collective bytes and peak."""
+    from repro_torch.analysis.trace import meta_like, run_on_meta
+    from repro_torch.configs import InputShape
+    from repro_torch.launch import input_specs as ispec
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+
+    mesh = ispec.MeshShape(dict(zip(TP_AXES, shape)))
+    _, _, (params, token, pos, caches) = ispec.rank_serve_inputs(
+        cfg, InputShape("5p", prompt_len + new, batch, "decode"), mesh, weights_dtype="placed")
+    rows = batch if seq else batch // shape[0]
+    prefill = make_prefill_step(cfg, mesh=mesh, shard_seq=seq)
+    run = run_on_meta(prefill, params, {"tokens": torch.empty((rows, prompt_len), dtype=torch.int32, device="meta")},
+                      ispec.set_cache_position(caches, 0))
+    check(not run.host_reads, f"5p meta prefill {cfg.name} {shape}: host reads {run.host_reads}")
+    out = {"prefill": {"launches": run.kernel_launches, "counts": dict(prefill.comm.counts),
+                       "peak_bytes": run.peak_bytes, "argument_bytes": run.argument_bytes}}
+    serve = make_serve_step(cfg, mesh=mesh, shard_seq=seq)
+    caches = ispec.set_cache_position(caches, pos)
+    if pool is not None:  # rank 0's rows of the slot maps
+        from repro_torch.nn.linear import AdapterPool
+
+        pool = {"attn": {k: AdapterPool(v.a, v.b, v.idx[..., :rows].contiguous(), v.ranks)
+                         for k, v in pool["attn"].items()}}
+        run = run_on_meta(serve, params, token, pos, caches, None, meta_like(pool))
+    else:
+        run = run_on_meta(serve, params, token, pos, caches)
+    check(not run.host_reads, f"5p meta decode {cfg.name} {shape}: host reads {run.host_reads}")
+    out["decode"] = {"launches": run.kernel_launches, "counts": dict(serve.comm.counts), "peak_bytes": run.peak_bytes,
+                     "argument_bytes": run.argument_bytes}
+    return out
+
+
+def tp_logit_err(got, want) -> float:
+    """The largest |difference| over the largest |logit| of ``want``."""
+    return (got.float() - want.float()).abs().max().item() / want.float().abs().max().item()
+
+
+def tp_serve_check(name: str, cfg, ranks: list, one: dict, meta, shape, seq: bool, new: int, on_card: bool,
+                   pool: bool) -> dict:
+    """Phase 5p's checks of one mesh's ranks (their ``serve`` records)
+    against the one-rank runs ``one`` (``tp_serve_dtypes``' pair) and the
+    meta runs: float32 tokens equal and logits within
+    ``TP_SERVE_F32_TOL``; bf16 first decode step within
+    ``TP_BF16_GRAD_RATIO`` times the one-rank bf16 step's distance from
+    its float32 step; every model rank's tokens bit-identical; on the card
+    launches, collective bytes and peaks against meta's."""
+    sizes = dict(zip(TP_AXES, shape))
+    vocab = cfg.vocab_size
+
+    def gathered(dtype: str, k: int, key="logits"):
+        """Step k's logits (or tokens), put together from the ranks' rows
+        and vocabulary slices."""
+        if key == "tokens":
+            out = torch.empty_like(one[dtype]["tokens"])
+            for r in ranks:
+                lo, hi = r["rows"]
+                out[:, lo:hi] = r["runs"][dtype]["tokens"]
+            return out
+        out = torch.empty((one[dtype]["logits"][k].shape[0], vocab))
+        for r in ranks:
+            lo, hi = r["rows"]
+            part = r["runs"][dtype]["logits"][k]
+            m = r["coords"]["model"]
+            out[lo:hi, m * part.shape[1]:(m + 1) * part.shape[1]] = part
+        return out
+
+    row = {"mesh": name}
+    # float32: the tokens, the prefill's argmax included, and every step's logits
+    f32_one = one["float32"]
+    f32_tokens = gathered("float32", 0, "tokens")
+    check(torch.equal(f32_tokens, f32_one["tokens"]), f"5p {name}: float32 tokens {f32_tokens.tolist()}, one rank "
+                                                      f"{f32_one['tokens'].tolist()}")
+    errs = [tp_logit_err(gathered("float32", k), f32_one["logits"][k]) for k in range(new + 1)]
+    check(max(errs) <= TP_SERVE_F32_TOL, f"5p {name}: float32 logits off by {max(errs)} of the largest |logit|")
+    row["float32_logit_err"] = max(errs)
+    # bf16, fed the float32 tokens: the first decode step against the one-rank float32 step
+    one_bf16 = tp_logit_err(one["bf16"]["logits"][1], f32_one["logits"][1])
+    got_bf16 = tp_logit_err(gathered("bf16", 1), f32_one["logits"][1])
+    check(got_bf16 <= TP_BF16_GRAD_RATIO * one_bf16, f"5p {name}: bf16 first decode logits {got_bf16} of the largest "
+                                                     f"|logit| from float32's, above {TP_BF16_GRAD_RATIO} x the "
+                                                     f"one-rank bf16 step's {one_bf16}")
+    bf16_tokens = gathered("bf16", 0, "tokens")
+    row.update(bf16_first_decode_err=got_bf16, one_rank_bf16_first_decode_err=one_bf16,
+               bf16_token_agreement=float((bf16_tokens == one["bf16"]["tokens"]).float().mean()),
+               bf16_prefill_err=tp_logit_err(gathered("bf16", 0), one["bf16"]["logits"][0]))
+    for dtype in ("float32", "bf16"):  # every model rank's next tokens and logits' rows alike
+        for r in ranks:
+            twin = next(o for o in ranks if o["rows"] == r["rows"])
+            check(torch.equal(r["runs"][dtype]["tokens"], twin["runs"][dtype]["tokens"]),
+                  f"5p {name} {dtype}: model ranks' tokens differ")
+    bf = [r["runs"]["bf16"] for r in ranks]
+    row.update(s_per_token=[b["s_per_token"] for b in bf], prefill_s=[b["prefill_s"] for b in bf],
+               comm_s=[b["comm_s"] for b in bf], one_rank_s_per_token=one["bf16"]["s_per_token"],
+               one_rank_prefill_s=one["bf16"]["prefill_s"], counts_prefill=bf[0]["counts"][0],
+               counts_decode_step=bf[0]["counts"][1], launches_prefill=bf[0]["prefill_launches"],
+               launches_decode=bf[0]["decode_launches"], rank_s=[r["s"] for r in ranks],
+               meta_launches=meta["prefill"]["launches"] | {f"decode_{k}": v for k, v in
+                                                            meta["decode"]["launches"].items()})
+    for b in bf:
+        check(b["counts"][0] == meta["prefill"]["counts"], f"5p {name}: prefill collectives {b['counts'][0]}, on "
+                                                           f"meta {meta['prefill']['counts']}")
+        for c in b["counts"][1:]:
+            check(c == meta["decode"]["counts"], f"5p {name}: decode collectives {c}, on meta "
+                                                 f"{meta['decode']['counts']}")
+    if on_card:
+        layers = cfg.num_layers
+        dim_cut = cfg.num_kv_heads % sizes["model"] != 0
+        want_decode = ({"flash_decode_scores": layers * new, "flash_decode_combine": layers * new} if dim_cut
+                       else {"flash_decode": layers * new})
+        if pool:
+            want_decode["segmented_lora"] = 2 * layers * new
+        for b in bf:
+            check(b["prefill_launches"] == {"flash_attention": layers} == meta["prefill"]["launches"],
+                  f"5p {name}: prefill launches {b['prefill_launches']}, meta {meta['prefill']['launches']}")
+            per_step = {k: v * new for k, v in meta["decode"]["launches"].items()}
+            check(b["decode_launches"] == want_decode == per_step,
+                  f"5p {name}: decode launches {b['decode_launches']}, want {want_decode}, meta x {new} {per_step}")
+        row["peak_gib"] = {"prefill": [b["prefill_peak_bytes"] / 2**30 for b in bf],
+                           "decode": [b["decode_peak_bytes"] / 2**30 for b in bf]}
+        row["one_rank_peak_gib"] = {"prefill": one["bf16"]["prefill_peak_bytes"] / 2**30,
+                                    "decode": one["bf16"]["decode_peak_bytes"] / 2**30}
+        row["meta_peak_gib"] = {"prefill": meta["prefill"]["peak_bytes"] / 2**30,
+                                "decode": meta["decode"]["peak_bytes"] / 2**30}
+        for phase in ("prefill", "decode"):
+            for b in bf:
+                gap = meta[phase]["peak_bytes"] / b[f"{phase}_peak_bytes"] - 1.0
+                check(abs(gap) <= META_PEAK_TOLERANCE, f"5p {name} {phase}: meta peak {meta[phase]['peak_bytes']} B "
+                                                       f"against the card's {b[f'{phase}_peak_bytes']} B ({gap:+.3f})")
+    return row
+
+
+def split_pair_case(ops, ref, ring_positions, timer, gen, *, b: int, h: int, kv: int, dr: int, hd: int, s: int,
+                    window=None) -> dict:
+    """The head-dim split's two kernels at a rank's shape of phase 5p's
+    decode (every query head, ``dr`` of each KV head's ``hd`` dims, bf16,
+    every row at the ring's last slot), each against its twin: the scores
+    within 1e-4 + 1e-4 |ref| (float32 sums of Dr bf16 products in another
+    order), the output within bf16's 3e-2 + 1e-2 |ref|, the log-sum-exp
+    within 1e-4; again on the same draws cast up to float32, the scores
+    within 1e-5 + 1e-5 |ref| and the output within 2e-5 + 1e-5 |ref|, a
+    bound that a wrong P V cannot meet; timed in bf16 beside the twins,
+    the bounds and, for the scores, one ``torch.einsum`` of the same
+    products (the combine has no single library call)."""
+    q = torch.randn((b, h, dr), generator=gen, device="cuda").to(torch.bfloat16)
+    kc = torch.randn((b, s, kv, dr), generator=gen, device="cuda").to(torch.bfloat16)
+    vc = torch.randn((b, s, kv, dr), generator=gen, device="cuda").to(torch.bfloat16)
+    pos = torch.full((b,), s - 1, dtype=torch.int32, device="cuda")
+    kpos = ring_positions(pos, s)
+    scale = hd**-0.5
+    scores_fn = lambda: ops.flash_decode_scores(q, kc, scale=scale)  # noqa: E731
+    scores = scores_fn()
+    want = ref.decode_scores_plain(q, kc, scale=scale)
+    combine_fn = lambda: ops.flash_decode_combine(scores, vc, pos, kpos, window=window, dtype=q.dtype)  # noqa: E731
+    out, lse = combine_fn()
+    want_out, want_lse = ref.decode_combine_plain(scores, vc, pos, kpos, window=window, dtype=q.dtype)
+    torch.cuda.synchronize()
+    what = f"B={b} H={h} KV={kv} Dr={dr} S={s}"
+    check(torch.allclose(scores, want, atol=1e-4, rtol=1e-4), f"flash_decode_scores {what}: off its twin by "
+                                                              f"{(scores - want).abs().max().item()}")
+    check(torch.allclose(out.float(), want_out.float(), atol=3e-2, rtol=1e-2),
+          f"flash_decode_combine {what}: off its twin by {(out.float() - want_out.float()).abs().max().item()}")
+    check(torch.allclose(lse, want_lse, atol=1e-4, rtol=1e-5), f"flash_decode_combine {what}: log-sum-exp off by "
+                                                              f"{(lse - want_lse).abs().max().item()}")
+    q32, kc32, vc32 = q.float(), kc.float(), vc.float()
+    scores32 = ops.flash_decode_scores(q32, kc32, scale=scale)
+    want32 = ref.decode_scores_plain(q32, kc32, scale=scale)
+    out32, lse32 = ops.flash_decode_combine(scores32, vc32, pos, kpos, window=window, dtype=torch.float32)
+    want_out32, want_lse32 = ref.decode_combine_plain(scores32, vc32, pos, kpos, window=window, dtype=torch.float32)
+    torch.cuda.synchronize()
+    errs32 = {"scores": (scores32 - want32).abs().max().item(), "out": (out32 - want_out32).abs().max().item(),
+              "lse": (lse32 - want_lse32).abs().max().item()}
+    check(torch.allclose(scores32, want32, atol=1e-5, rtol=1e-5) and
+          torch.allclose(out32, want_out32, atol=2e-5, rtol=1e-5) and
+          torch.allclose(lse32, want_lse32, atol=1e-4, rtol=1e-5),
+          f"the split pair {what} in float32: off its twins by {errs32}")
+    live = ((kpos <= pos[:, None]) & ((kpos > pos[:, None] - window) if window else True)).sum(-1)
+    live_total = int(live.sum().item())  # live slots summed over the rows
+    qg = q.view(b, kv, h // kv, dr)
+    scores_bytes = q.numel() * 2 + kc.numel() * 2 + b * h * s * 4
+    combine_bytes = h * live_total * 4 + live_total * kv * dr * 2 + 4 * (b + b * s) + b * h * dr * 2 + b * h * 4
+    sb, sby = bound(scores_bytes, 2 * b * h * s * dr, "float32")
+    cb, cby = bound(combine_bytes, 2 * h * dr * live_total + 4 * h * live_total, "float32")
+    shape = f"{what} hd={hd} window={window} bf16 q and cache, float32 scores, {live_total} live slots over {b} rows"
+    return {
+        "scores": {"shape": shape, "max_abs_err": (scores - want).abs().max().item(), "ms": timer(scores_fn),
+                   "plain_ms": timer(lambda: ref.decode_scores_plain(q, kc, scale=scale)), "bound_ms": sb,
+                   "bound_by": sby,
+                   "library_ms": timer(lambda: torch.einsum("bgrd,bsgd->bgrs", qg, kc)),
+                   "kernel_ms": device_ms(scores_fn, timer.flush)},
+        "combine": {"shape": shape, "max_abs_err": (out.float() - want_out.float()).abs().max().item(),
+                    "lse_max_abs_err": (lse - want_lse).abs().max().item(), "float32_max_abs_err": errs32,
+                    "ms": timer(combine_fn),
+                    "plain_ms": timer(lambda: ref.decode_combine_plain(scores, vc, pos, kpos, window=window,
+                                                                       dtype=q.dtype)),
+                    "bound_ms": cb, "bound_by": cby, "library_ms": None,
+                    "kernel_ms": device_ms(combine_fn, timer.flush)},
+    }
+
+
+def decode_lse_case(ops, ref, ring_positions, timer, gen, *, h: int, kv: int, d: int, slots: int, ring: int, pos: int,
+                    window) -> dict:
+    """``flash_decode`` with its log-sum-exp at a data rank's slice of a
+    sequence-sharded ring (batch 1: rank 0's ``slots`` of ``ring``, the
+    query at ``pos``), bf16, against its twin (the output as
+    ``decode_case``'s rule, the log-sum-exp within 1e-4), timed with and
+    without the log-sum-exp, beside the twin and the bound."""
+    q = torch.randn((1, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+    kc = torch.randn((1, slots, kv, d), generator=gen, device="cuda").to(torch.bfloat16)
+    vc = torch.randn((1, slots, kv, d), generator=gen, device="cuda").to(torch.bfloat16)
+    qpos = torch.tensor([pos], dtype=torch.int32, device="cuda")
+    kpos = ring_positions(qpos, ring, 0, slots)
+    fn = lambda: ops.flash_decode(q, kc, vc, qpos, kpos, window=window, return_lse=True)  # noqa: E731
+    out, lse = fn()
+    want, want_lse = ref.decode_attention_plain(q, kc, vc, qpos, kpos, window=window, return_lse=True)
+    torch.cuda.synchronize()
+    check(torch.allclose(out.float(), want.float(), atol=3e-2, rtol=1e-2) and
+          torch.allclose(lse, want_lse, atol=1e-4, rtol=1e-5),
+          f"flash_decode with its log-sum-exp: off its twin by {(out.float() - want.float()).abs().max().item()}, "
+          f"{(lse - want_lse).abs().max().item()}")
+    live = int(((kpos <= qpos[:, None]) & (kpos > qpos[:, None] - window)).sum().item())
+    nbytes = q.numel() * 2 * 2 + live * kv * d * 2 * 2 + 4 * (1 + slots) + h * 4
+    b_ms, b_by = bound(nbytes, 4 * live * h * d, "bfloat16")
+    return {"shape": f"B=1 H={h} KV={kv} D={d} S={slots} of a ring of {ring}, query at {pos}, window={window}, bf16, "
+                     f"{live} live slots",
+            "max_abs_err": (out.float() - want.float()).abs().max().item(),
+            "lse_max_abs_err": (lse - want_lse).abs().max().item(), "ms": timer(fn),
+            "ms_without_lse": timer(lambda: ops.flash_decode(q, kc, vc, qpos, kpos, window=window)),
+            "kernel_ms": device_ms(fn, timer.flush),
+            "kernel_ms_without_lse": device_ms(lambda: ops.flash_decode(q, kc, vc, qpos, kpos, window=window),
+                                                    timer.flush),
+            "plain_ms": timer(lambda: ref.decode_attention_plain(q, kc, vc, qpos, kpos, window=window,
+                                                                 return_lse=True)),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def tensor_parallel_serve_full(ops, ref, timer, card: str, seed: int, qwen3: dict, device: str = "cuda",
+                               smoke: bool = False) -> tuple:
+    """Phase 5p: the dense family's sharded prefill and decode steps
+    (``make_prefill_step``/``make_serve_step`` with ``mesh=...``) on gloo
+    ranks on the one card, full width, bf16: qwen3-1.7b inside phase 5o's
+    ranks (``qwen3``: ``tensor_parallel_full``'s serving records and
+    one-rank runs; 1 x 2 with a pool of tenants through
+    ``segmented_lora``, 2 x 2 with rows over ``data``; the KV heads over
+    ``model``), then ``TP_SERVE_SPAWNS`` (glm4-9b on 1 x 4, its caches cut
+    on the head dim: the split pair; h2o-danube-1.8b on 2 x 2 at batch 1,
+    its window ring cut over ``data``: ``flash_decode``'s log-sum-exp and
+    the combine), each depth-cut (printed), against the one-rank steps on
+    the card from the same draws and prompts (``tp_serve_check``) and the
+    dry run's path on meta (``tp_serve_meta``); then the split pair and the
+    log-sum-exp at the runs' shapes against their twins, timed.  With
+    ``device="cpu", smoke=True`` it rehearses on the CPU (the twins;
+    launches, peaks and timings not compared).  Returns (stats, launches by
+    path, the kernel cases, seconds)."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import PEFTConfig, get_config
+    from repro_torch.launch import input_specs as ispec
+    from repro_torch.nn.attention import ring_positions
+    from repro_torch.sharding import specs as S
+
+    t_phase = time.perf_counter()
+    on_card = device == "cuda"
+    shapes = TP_SERVE_SMOKE if smoke else TP_SERVE
+    new = shapes["new"]
+    stats, launches = {}, {}
+
+    def record(key, ranks):
+        bf = ranks[0]["runs"]["bf16"]
+        launches[key] = {k: bf["prefill_launches"].get(k, 0) + bf["decode_launches"].get(k, 0)
+                         for k in set(bf["prefill_launches"]) | set(bf["decode_launches"])}
+
+    cfg = get_config(TP_ARCH, smoke=smoke)
+    for (shape, _), name in zip(TP_MESHES, qwen3["ranks"]):  # 5o's names; the serving cut takes no FSDP
+        pool, label = shape == (1, 2), name.split()[0]
+        meta = tp_serve_meta(cfg, shape, shapes["batch"], shapes["prompt"], new, False,
+                             tp_serve_pool(cfg, seed, shapes["batch"], "cpu") if pool else None)
+        row = tp_serve_check(f"qwen3 {label}", cfg, qwen3["ranks"][name], qwen3["one"][pool], meta, shape, False,
+                             new, on_card, pool)
+        stats[f"qwen3 {label}"] = row
+        record(f"5p_qwen3_{label}", qwen3["ranks"][name])
+        print(f"5p qwen3 {label} {json.dumps(row)} [{card}]", flush=True)
+
+    work = ROOT / "build" / "tp_serve"
+    work.mkdir(parents=True, exist_ok=True)
+    new = TP_SERVE_SMOKE["new"] if smoke else TP_SERVE_SPAWN_NEW
+    for arch, shape, layers, batch, prompt_len, seq in (TP_SERVE_SPAWNS_SMOKE if smoke else TP_SERVE_SPAWNS):
+        full = get_config(arch, smoke=smoke)
+        c = full.replace(num_layers=layers)
+        name = f"{arch} {shape[0]}x{shape[1]}" + (" seq" if seq else "")
+        print(f"5p {name}: depth cut to {layers} of {full.num_layers} layers, widths whole, batch {batch}, "
+              f"prompt {prompt_len}, {new} new tokens [{card}]", flush=True)
+        free_memory(device)
+        t0 = time.perf_counter()
+        whole, _ = tp_draws(c, PEFTConfig(), seed, device)
+        sizes = dict(zip(TP_AXES, shape))
+        S.set_mesh_axis_sizes(ispec.MeshShape(sizes))
+        spec = S.param_specs(whole, sizes["model"])
+        digest = {coords: tp_digest(S.shard_tree(whole, spec, sizes, dict(zip(TP_AXES, coords))))
+                  for coords in np.ndindex(*shape)}
+        one = tp_serve_one_rank(ops, c, whole, seed, device, batch, prompt_len, new)[False]
+        one_s = time.perf_counter() - t0
+        del whole
+        free_memory(device)
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        path = str(work / name.replace(" ", "_"))
+        t0 = time.perf_counter()
+        mp.spawn(tp_serve_rank, args=(shape[0] * shape[1], port, arch, shape, layers, batch, prompt_len, seq, seed,
+                                      path, device, smoke), nprocs=shape[0] * shape[1], join=True)
+        spawn_s = time.perf_counter() - t0
+        saved = [torch.load(f"{path}.rank{r}") for r in range(shape[0] * shape[1])]
+        for r, rank in enumerate(saved):
+            coords = tuple(rank["coords"][a] for a in TP_AXES)
+            check(rank["digest"] == digest[coords], f"5p {name} rank {r}: its cut of the draws differs from the "
+                                                    "one-rank steps'")
+        ranks = [rank["serve"] for rank in saved]
+        meta = tp_serve_meta(c, shape, batch, prompt_len, new, seq, None)
+        row = tp_serve_check(name, c, ranks, one, meta, shape, seq, new, on_card, False)
+        row.update(layers=layers, full_layers=full.num_layers, one_rank_s=one_s, spawn_s=spawn_s)
+        stats[name] = row
+        record(f"5p_{TP_SERVE_SHORT[arch]}_{shape[0]}x{shape[1]}" + ("_seq" if seq else ""), ranks)
+        print(f"5p {name} {json.dumps(row)} [{card}]", flush=True)
+
+    cases = {}
+    if on_card:  # the new kernel work at the runs' shapes: glm4-9b's rank of 1 x 4, danube's data rank 0
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed + 13)
+        glm4 = get_config("glm4-9b")
+        cases["split"] = split_pair_case(ops, ref, ring_positions, timer, gen, b=TP_SERVE_SPAWNS[0][3],
+                                         h=glm4.num_heads, kv=glm4.num_kv_heads, dr=glm4.resolved_head_dim // 4,
+                                         hd=glm4.resolved_head_dim, s=TP_SERVE_SPAWNS[0][4] + TP_SERVE_SPAWN_NEW)
+        danube = get_config("h2o-danube-1.8b")
+        prompt_len = TP_SERVE_SPAWNS[1][4]
+        cases["lse"] = decode_lse_case(ops, ref, ring_positions, timer, gen, h=danube.num_heads // 2,
+                                       kv=danube.num_kv_heads // 2, d=danube.resolved_head_dim,
+                                       slots=danube.sliding_window // 2, ring=danube.sliding_window,
+                                       pos=prompt_len + TP_SERVE_SPAWN_NEW - 1, window=danube.sliding_window)
+        for key, case in (("flash_decode_scores", cases["split"]["scores"]),
+                          ("flash_decode_combine", cases["split"]["combine"]), ("flash_decode lse", cases["lse"])):
+            print(f"5p {key} {json.dumps(case)} [{card}]", flush=True)
+    return stats, launches, cases, time.perf_counter() - t_phase
 
 
 def main() -> int:
@@ -5670,6 +6294,7 @@ def main() -> int:
                         help="with --scans-of, the kernels to time, a comma-separated subset of "
                              "wkv6,mamba_scan,flash_decode")
     args = parser.parse_args()
+    t_script = time.perf_counter()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5959,7 +6584,7 @@ def main() -> int:
 
     print(f"phases 5-5c: {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
 
-    # 5d. three federated rounds of droppeft on full-width qwen3-1.7b through
+    # 5d. two federated rounds of droppeft on full-width qwen3-1.7b through
     #     api.build: 100 devices, 10 a round, batch 16 x 32 tokens; batched
     #     (the default), then sequential for the comparison
     t_phase = time.perf_counter()
@@ -6092,11 +6717,26 @@ def main() -> int:
 
     # 5o. qwen3-1.7b's train step sharded over (data, model) meshes of gloo
     #     ranks on the one card, against the one-rank step and the dry run
-    tp_stats, tp_runs, tp_s = tensor_parallel_full(ops, card, args.seed)
+    tp_stats, tp_runs, tp_s, tp_serving = tensor_parallel_full(ops, card, args.seed)
     print(f"phase 5o: {tp_s:.1f} s [{card}]", flush=True)
     for path, counts in tp_runs.items():
         for name in ("flash_attention", "flash_attention_bwd", "lora_matmul"):
             check(counts.get(name, 0) > 0, f"{name} never launched in phase 5o's {path}: {counts}")
+
+    # 5p. the dense family's sharded prefill and decode steps: qwen3-1.7b in
+    #     5o's ranks, glm4-9b's head-dim cut and h2o-danube-1.8b's sequence
+    #     over data, against the one-rank steps and the dry run
+    serve_tp_stats, serve_tp_runs, serve_tp_cases, serve_tp_s = tensor_parallel_serve_full(
+        ops, ref, timer, card, args.seed, tp_serving)
+    print(f"phase 5p: {serve_tp_s + tp_serving['s']:.1f} s ({tp_serving['s']:.1f} of it in 5o's ranks) [{card}]",
+          flush=True)
+    tp_runs.update(serve_tp_runs)
+    for path, names in (("5p_qwen3_1x2", ("flash_attention", "flash_decode", "segmented_lora")),
+                        ("5p_glm4_1x4", ("flash_attention", "flash_decode_scores", "flash_decode_combine")),
+                        ("5p_danube_2x2_seq", ("flash_attention", "flash_decode"))):
+        for name in names:
+            check(serve_tp_runs[path].get(name, 0) > 0, f"{name} never launched in phase 5p's {path}: "
+                                                        f"{serve_tp_runs[path]}")
 
     def tp_launches(name):
         return {path: counts[name] for path, counts in tp_runs.items() if counts.get(name)}
@@ -6160,7 +6800,8 @@ def main() -> int:
                                  "5g_serve_hetlora_checkpoint": grid_launches["segmented_lora"],
                                  **moe_launches("segmented_lora", ("serve",)),
                                  **stub_launches("segmented_lora", ("serve internvl",)),
-                                 **meta_launches("segmented_lora"), **names_launches("segmented_lora")},
+                                 **meta_launches("segmented_lora"), **names_launches("segmented_lora"),
+                                 **tp_launches("segmented_lora")},
             "internvl_shapes": {name: pick(stub_shapes[f"segmented {name}"], proj_keys)
                                 for name in ("internvl q", "internvl v")},
             "hetlora_shapes": {name: pick(hetlora[f"segmented n{n}"], proj_keys) for name, n in (("q", 2048),
@@ -6189,7 +6830,9 @@ def main() -> int:
                                  **moe_launches("flash_decode", ("serve", "generate")),
                                  **stub_launches("flash_decode", ("generate whisper", "serve internvl",
                                                                   "generate internvl")),
-                                 **meta_launches("flash_decode"), **names_launches("flash_decode")},
+                                 **meta_launches("flash_decode"), **names_launches("flash_decode"),
+                                 **tp_launches("flash_decode")},
+            "lse_shape": serve_tp_cases["lse"],
             "moe_shapes": {short: pick(moe_shapes[f"decode_{short}"], fwd_keys) for short in moe_paths},
             "stub_frontend_shapes": {key: pick(stub_shapes[key], fwd_keys) for key in stub_shape_keys["flash_decode"]},
             "sharded_decode_yardstick": {  # phase 5k: the whole cache beside its 2-rank sequence-sharded decode
@@ -6325,6 +6968,16 @@ def main() -> int:
                    for key in ("ms", "plain_ms", "bound_ms", "cublas_x_at_w_ms", "kernel_ms")}},
             "shape": "q then v projection of one layer, forward: " + lq["shape"] + " + " + lv["shape"],
         },
+        *({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+            "replaces": "src/repro/kernels/flash_decode.py:78",
+            "launches": serve_tp_runs["5p_glm4_1x4"][name],
+            **{key: serve_tp_cases["split"][half][key]
+               for key in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "device_only_ms": serve_tp_cases["split"][half]["kernel_ms"],
+            "launches_by_path": tp_launches(name),
+        } for name, half in (("flash_decode_scores", "scores"), ("flash_decode_combine", "combine"))),
         {
             "name": "wkv6", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/wkv6.cu",
@@ -6379,6 +7032,7 @@ def main() -> int:
             "shape": "backward (d_dt, dx, dB, dC, dA, dD), " + msc["shape"],
         },
     ]
+    print(f"chip_smoke.py: {time.perf_counter() - t_script:.1f} s, the build included [{card}]", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

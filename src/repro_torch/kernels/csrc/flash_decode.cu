@@ -40,6 +40,20 @@
 // (exp(-1e30 - m) is 0 in float32), so skipping it changes no bit.  A row
 // whose slots are all dead gets the mean of V over all S slots, what the
 // finite mask gives: the merge computes it when no split had a live slot.
+// The merge also writes, when asked, each query's float32 log-sum-exp of
+// its scaled scores, m + log(l) (-1e30 for a row with no live slot): the
+// weight of this decode's output against another over other slots of the
+// same sequence (a cache whose sequence is cut over ranks).
+//
+// The head-dim split (a cache cut over ranks on its head dim, each rank
+// holding Dr of every KV head's D dims) runs two more kernels, each a plain
+// pass over the cache at one block per 128 slots or per (head, row):
+//  * flash_decode_scores: the rank's partial scores q[:, :, Dr] . k[Dr]
+//    times the whole head's scale, float32 (B, H, S), to be summed over
+//    the ranks;
+//  * flash_decode_split_combine: from the summed scores, the masked
+//    softmax (the live rule above; a row with no live slot weighs every
+//    slot alike) and P V over the rank's Dr dims, with the log-sum-exp.
 #include <cstdint>
 
 #include "common.cuh"
@@ -279,8 +293,8 @@ flash_decode_split_kernel(const TQ* __restrict__ q,      // (B, H, D)
 // multiplied: its acc was not written).
 template <typename TQ, typename TC>
 __global__ void __launch_bounds__(THREADS)
-flash_decode_combine_kernel(const float* __restrict__ part, const TC* __restrict__ v, TQ* __restrict__ out, int H,
-                            int KV, int D, int S, int splits) {
+flash_decode_combine_kernel(const float* __restrict__ part, const TC* __restrict__ v, TQ* __restrict__ out,
+                            float* __restrict__ lse, int H, int KV, int D, int S, int splits) {
   pdl_wait();  // the split kernel's partials are written
   const int h = blockIdx.x, row = blockIdx.y, tid = threadIdx.x;
   const int g = h / (H / KV);
@@ -314,6 +328,7 @@ flash_decode_combine_kernel(const float* __restrict__ part, const TC* __restrict
       }
       M = mc;
     }
+    if (lse != nullptr && d == 0) lse[(size_t)row * H + h] = l > 0.f ? M + logf(l) : NEG_INF;
     if (l > 0.f) {
       og[d] = from_float<TQ>(acc / l);
     } else {  // every slot dead: the finite mask weighs every slot alike
@@ -338,7 +353,8 @@ int splits_for(int S) { return max(1, min((S + SLAB - 1) / SLAB, sm_count())); }
 
 template <typename TQ, typename TC, int REP, int DPL>
 int launch_rep(const void* q, const void* k, const void* v, const int* qpos, const int* kpos, void* out, float* part,
-               int B, int H, int KV, int D, int S, int window, float scale, int splits, cudaStream_t stream) {
+               float* lse, int B, int H, int KV, int D, int S, int window, float scale, int splits,
+               cudaStream_t stream) {
   const int slab = (S + splits - 1) / splits;
   const int groups = (H / KV + REP - 1) / REP;
   // the chunk's K and V rows, which the warps' states reuse at the end
@@ -355,7 +371,7 @@ int launch_rep(const void* q, const void* k, const void* v, const int* qpos, con
   // overlaps the split kernel's tail
   return static_cast<int>(launch_dependent(flash_decode_combine_kernel<TQ, TC>, dim3(H, B), dim3(THREADS), 0, stream,
                                            static_cast<const float*>(part), static_cast<const TC*>(v),
-                                           static_cast<TQ*>(out), H, KV, D, S, splits));
+                                           static_cast<TQ*>(out), lse, H, KV, D, S, splits));
 }
 
 // A lane's dims of the head, DPL, rounded up from D / 32 to 2, 4 or 8.
@@ -364,7 +380,8 @@ int launch_rep(const void* q, const void* k, const void* v, const int* qpos, con
 // MAX_ACC / DPL: past it the group's queries split over blocks.
 template <typename TQ, typename TC, int DPL>
 int launch_dpl(const void* q, const void* k, const void* v, const int* qpos, const int* kpos, void* out, float* part,
-               int B, int H, int KV, int D, int S, int window, float scale, int splits, cudaStream_t stream) {
+               float* lse, int B, int H, int KV, int D, int S, int window, float scale, int splits,
+               cudaStream_t stream) {
   constexpr int CAP = MAX_ACC / DPL < MAX_REP ? MAX_ACC / DPL : MAX_REP;
   const int rep = H / KV;
   auto go = rep == 1   ? launch_rep<TQ, TC, 1, DPL>
@@ -372,15 +389,141 @@ int launch_dpl(const void* q, const void* k, const void* v, const int* qpos, con
             : rep <= 4 ? launch_rep<TQ, TC, 4, DPL>
             : rep <= 8 ? launch_rep<TQ, TC, 8, DPL>
                        : launch_rep<TQ, TC, CAP, DPL>;
-  return go(q, k, v, qpos, kpos, out, part, B, H, KV, D, S, window, scale, splits, stream);
+  return go(q, k, v, qpos, kpos, out, part, lse, B, H, KV, D, S, window, scale, splits, stream);
 }
 
 template <typename TQ, typename TC>
 int launch(const void* q, const void* k, const void* v, const int* qpos, const int* kpos, void* out, float* part,
-           int B, int H, int KV, int D, int S, int window, float scale, int splits, cudaStream_t stream) {
+           float* lse, int B, int H, int KV, int D, int S, int window, float scale, int splits, cudaStream_t stream) {
   auto go = D <= 64 ? launch_dpl<TQ, TC, 2> : D <= 128 ? launch_dpl<TQ, TC, 4> : launch_dpl<TQ, TC, 8>;
-  return go(q, k, v, qpos, kpos, out, part, B, H, KV, D, S, window, scale, splits, stream);
+  return go(q, k, v, qpos, kpos, out, part, lse, B, H, KV, D, S, window, scale, splits, stream);
 }
+
+// ---------------------------------------------------------------- head-dim split
+// Scores of row blockIdx.y's slots blockIdx.x * THREADS + tid: a thread a
+// slot, every query head of each KV head in turn over the Dr dims (the
+// queries of the row staged in shared memory as float32, read by every
+// thread alike).  A warp's loads of one dim stride over 32 slots' rows,
+// which lie in the lines that its next dims read.
+template <typename TQ, typename TC>
+__global__ void __launch_bounds__(THREADS)
+flash_decode_scores_kernel(const TQ* __restrict__ q,  // (B, H, D)
+                           const TC* __restrict__ k,  // (B, S, KV, D)
+                           float* __restrict__ scores, int H, int KV, int D, int S, float scale) {
+  extern __shared__ float qs[];  // (H, D)
+  const int row = blockIdx.y, tid = threadIdx.x, j = blockIdx.x * THREADS + tid;
+  const TQ* qg = q + (size_t)row * H * D;
+  for (int i = tid; i < H * D; i += THREADS) qs[i] = to_float(qg[i]);
+  __syncthreads();
+  if (j >= S) return;
+  const int rep = H / KV;
+  const TC* kr = k + ((size_t)row * S + j) * KV * D;
+  float* sg = scores + (size_t)row * H * S + j;
+  for (int g = 0; g < KV; ++g) {
+    float acc[MAX_REP];
+#pragma unroll
+    for (int r = 0; r < MAX_REP; ++r) acc[r] = 0.f;
+    for (int d = 0; d < D; ++d) {
+      const float kd = to_float(kr[g * D + d]);
+#pragma unroll
+      for (int r = 0; r < MAX_REP; ++r)
+        if (r < rep) acc[r] += qs[(g * rep + r) * D + d] * kd;
+    }
+#pragma unroll
+    for (int r = 0; r < MAX_REP; ++r)
+      if (r < rep) sg[(size_t)(g * rep + r) * S] = acc[r] * scale;
+  }
+}
+
+// The block's max (is_max) or sum of v, on every thread.
+__device__ __forceinline__ float block_reduce(float v, float* red_s, bool is_max) {
+  v = is_max ? warp_max(v) : warp_sum(v);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __syncthreads();  // red_s is free
+  if (lane == 0) red_s[warp] = v;
+  __syncthreads();
+  float out = red_s[0];
+#pragma unroll
+  for (int w = 1; w < WARPS; ++w) out = is_max ? fmaxf(out, red_s[w]) : out + red_s[w];
+  return out;
+}
+
+// out[b, h, :Dr] and lse[b, h] from the summed scores of head h, row b: the
+// max over the live slots, then chunk by chunk each slot's probability in
+// shared memory and P V by THREADS / Dr phases of Dr threads (a thread a dim
+// and every phase-th slot of the chunk; past Dr 128 a thread holds dims d
+// and d + 128), the phases summed in order at the end.
+template <typename TO, typename TC>
+__global__ void __launch_bounds__(THREADS)
+flash_decode_split_combine_kernel(const float* __restrict__ scores,  // (B, H, S), summed over the ranks
+                                  const TC* __restrict__ v,          // (B, S, KV, D)
+                                  const int* __restrict__ qpos, const int* __restrict__ kpos,
+                                  TO* __restrict__ out, float* __restrict__ lse, int H, int KV, int D, int S,
+                                  int window) {
+  __shared__ float p_s[THREADS];
+  __shared__ float acc_s[THREADS];
+  __shared__ float red_s[WARPS];
+  const int h = blockIdx.x, row = blockIdx.y, tid = threadIdx.x;
+  const int g = h / (H / KV);
+  const float* sg = scores + ((size_t)row * H + h) * S;
+  const int* kp = kpos + (size_t)row * S;
+  const int qp = qpos[row];
+
+  float mx = NEG_INF;
+  int any = 0;
+  for (int j = tid; j < S; j += THREADS) {
+    const int p = kp[j];
+    if (p <= qp && (window <= 0 || p > qp - window)) {
+      mx = fmaxf(mx, sg[j]);
+      any = 1;
+    }
+  }
+  any = __syncthreads_or(any);
+  mx = block_reduce(mx, red_s, true);
+
+  const bool wide = D > THREADS;
+  const int nph = wide ? 1 : THREADS / D, ph = wide ? 0 : tid / D, d0 = wide ? tid : tid % D;
+  const bool active = wide || tid < nph * D;
+  float acc0 = 0.f, acc1 = 0.f, lsum = 0.f;
+  for (int j0 = 0; j0 < S; j0 += THREADS) {
+    const int j = j0 + tid;
+    float p = 0.f;
+    if (j < S) {
+      const int kpj = kp[j];
+      const bool live = kpj <= qp && (window <= 0 || kpj > qp - window);
+      p = any ? (live ? expf(sg[j] - mx) : 0.f) : 1.f;  // no live slot: every slot alike
+    }
+    lsum += p;
+    __syncthreads();  // the chunk before is read
+    p_s[tid] = p;
+    __syncthreads();
+    const int nb = min(THREADS, S - j0);
+    if (active) {
+      for (int jj = ph; jj < nb; jj += nph) {
+        const TC* vr = v + (((size_t)row * S + j0 + jj) * KV + g) * D;
+        acc0 += p_s[jj] * to_float(vr[d0]);
+        if (wide && d0 + THREADS < D) acc1 += p_s[jj] * to_float(vr[d0 + THREADS]);
+      }
+    }
+  }
+  const float l = block_reduce(lsum, red_s, false);
+  TO* og = out + ((size_t)row * H + h) * D;
+  if (wide) {
+    og[d0] = from_float<TO>(acc0 / l);
+    if (d0 + THREADS < D) og[d0 + THREADS] = from_float<TO>(acc1 / l);
+  } else {
+    if (active) acc_s[tid] = acc0;
+    __syncthreads();
+    if (tid < D) {
+      float sum = 0.f;
+      for (int i = 0; i < nph; ++i) sum += acc_s[i * D + tid];
+      og[tid] = from_float<TO>(sum / l);
+    }
+  }
+  if (tid == 0) lse[(size_t)row * H + h] = any ? mx + logf(l) : NEG_INF;
+}
+
+int scores_smem_bytes(int H, int D) { return H * D * static_cast<int>(sizeof(float)); }
 
 }  // namespace
 
@@ -390,10 +533,11 @@ int launch(const void* q, const void* k, const void* v, const int* qpos, const i
 // scratch, (B, H, splits, D + 2) float32, with it).
 // Shapes, dtypes and devices are checked by the Python wrapper
 // (repro_torch/kernels/ops.py) before this.
+// lse, when not null: (B, H) float32, each query's log-sum-exp.
 extern "C" int flash_decode_launch(int q_dtype, int cache_dtype, const void* q, const void* k,
                                    const void* v, const int* qpos, const int* kpos, void* out, void* part,
-                                   int B, int H, int KV, int D, int S, int window, float scale, int splits,
-                                   void* stream) {
+                                   void* lse, int B, int H, int KV, int D, int S, int window, float scale,
+                                   int splits, void* stream) {
   if (B <= 0 || KV <= 0 || S <= 0 || H % KV != 0 || H / KV > MAX_REP || D <= 0 || D > MAX_D || D % 16)
     return -1;
   if (B > 65535 || H > 65535 || splits != splits_for(S)) return -1;
@@ -401,12 +545,65 @@ extern "C" int flash_decode_launch(int q_dtype, int cache_dtype, const void* q, 
   if (reinterpret_cast<uintptr_t>(k) % 16 || reinterpret_cast<uintptr_t>(v) % 16) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(part);
+  float* ls = static_cast<float*>(lse);
   if (q_dtype == kBFloat16 && cache_dtype == kBFloat16)
-    return launch<__nv_bfloat16, __nv_bfloat16>(q, k, v, qpos, kpos, out, p, B, H, KV, D, S, window, scale,
+    return launch<__nv_bfloat16, __nv_bfloat16>(q, k, v, qpos, kpos, out, p, ls, B, H, KV, D, S, window, scale,
                                                 splits, st);
   if (q_dtype == kFloat32 && cache_dtype == kBFloat16)
-    return launch<float, __nv_bfloat16>(q, k, v, qpos, kpos, out, p, B, H, KV, D, S, window, scale, splits, st);
+    return launch<float, __nv_bfloat16>(q, k, v, qpos, kpos, out, p, ls, B, H, KV, D, S, window, scale, splits,
+                                        st);
   if (q_dtype == kFloat32 && cache_dtype == kFloat32)
-    return launch<float, float>(q, k, v, qpos, kpos, out, p, B, H, KV, D, S, window, scale, splits, st);
+    return launch<float, float>(q, k, v, qpos, kpos, out, p, ls, B, H, KV, D, S, window, scale, splits, st);
   return -1;
+}
+
+// The head-dim split's scores: q (B, H, Dr), k (B, S, KV, Dr), scores (B,
+// H, S) float32 = scale * q . k over the Dr dims (scale the whole head's).
+// Returns 0, a cudaError_t, or -1 for arguments the kernel does not take.
+extern "C" int flash_decode_scores_launch(int q_dtype, int cache_dtype, const void* q, const void* k, void* scores,
+                                          int B, int H, int KV, int D, int S, float scale, void* stream) {
+  if (B <= 0 || B > 65535 || KV <= 0 || S <= 0 || H % KV != 0 || H / KV > MAX_REP || D <= 0 || D > MAX_D) return -1;
+  const int smem = scores_smem_bytes(H, D);
+  if (smem > 48 * 1024) return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* sc = static_cast<float*>(scores);
+  const dim3 grid((S + THREADS - 1) / THREADS, B);
+  if (q_dtype == kBFloat16 && cache_dtype == kBFloat16)
+    flash_decode_scores_kernel<__nv_bfloat16, __nv_bfloat16><<<grid, THREADS, smem, st>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k), sc, H, KV, D, S, scale);
+  else if (q_dtype == kFloat32 && cache_dtype == kBFloat16)
+    flash_decode_scores_kernel<float, __nv_bfloat16><<<grid, THREADS, smem, st>>>(
+        static_cast<const float*>(q), static_cast<const __nv_bfloat16*>(k), sc, H, KV, D, S, scale);
+  else if (q_dtype == kFloat32 && cache_dtype == kFloat32)
+    flash_decode_scores_kernel<float, float><<<grid, THREADS, smem, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), sc, H, KV, D, S, scale);
+  else
+    return -1;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The head-dim split's softmax and P V: scores (B, H, S) float32 summed
+// over the ranks, v (B, S, KV, Dr), positions as flash_decode_launch's;
+// out (B, H, Dr) in out_dtype, lse (B, H) float32.
+extern "C" int flash_decode_combine_launch(int out_dtype, int cache_dtype, const void* scores, const void* v,
+                                           const int* qpos, const int* kpos, void* out, void* lse, int B, int H,
+                                           int KV, int D, int S, int window, void* stream) {
+  if (B <= 0 || B > 65535 || H > 65535 || KV <= 0 || S <= 0 || H % KV != 0 || D <= 0 || D > MAX_D) return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* sc = static_cast<const float*>(scores);
+  float* ls = static_cast<float*>(lse);
+  const dim3 grid(H, B);
+  if (out_dtype == kBFloat16 && cache_dtype == kBFloat16)
+    flash_decode_split_combine_kernel<__nv_bfloat16, __nv_bfloat16><<<grid, THREADS, 0, st>>>(
+        sc, static_cast<const __nv_bfloat16*>(v), qpos, kpos, static_cast<__nv_bfloat16*>(out), ls, H, KV, D, S,
+        window);
+  else if (out_dtype == kFloat32 && cache_dtype == kBFloat16)
+    flash_decode_split_combine_kernel<float, __nv_bfloat16><<<grid, THREADS, 0, st>>>(
+        sc, static_cast<const __nv_bfloat16*>(v), qpos, kpos, static_cast<float*>(out), ls, H, KV, D, S, window);
+  else if (out_dtype == kFloat32 && cache_dtype == kFloat32)
+    flash_decode_split_combine_kernel<float, float><<<grid, THREADS, 0, st>>>(
+        sc, static_cast<const float*>(v), qpos, kpos, static_cast<float*>(out), ls, H, KV, D, S, window);
+  else
+    return -1;
+  return static_cast<int>(cudaGetLastError());
 }

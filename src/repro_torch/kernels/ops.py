@@ -13,9 +13,11 @@ backward ``wkv6_bwd_plain`` and ``mamba_scan_bwd_plain``, so the CPU tests
 hold the backward twins too.
 
 ``launch_counts`` counts the kernel launches of each wrapper on the card
-and nothing else (neither the CPU twin nor a ``meta`` call), so a run can
-show that its main path went through the kernels: ``reset_launch_counts()``
-before it, read the counts after.  ``lora_matmul_routes`` counts
+(``ENTRIES``: one a kernel library, and one each for the head-dim split's
+two entries of ``csrc/flash_decode.cu``) and nothing else (neither the CPU
+twin nor a ``meta`` call), so a run can show that its main path went
+through the kernels: ``reset_launch_counts()`` before it, read the counts
+after.  ``lora_matmul_routes`` counts
 ``lora_matmul``'s launches on the card by route; a grouped ``lora_matmul``
 (one adapter per group of rows) is one launch.  ``meta_calls`` counts the
 ``meta`` calls that stand for a launch, and ``kernel_work`` sums, per
@@ -59,11 +61,15 @@ SEGMENTED_THREADS, SEGMENTED_UNITS, SEGMENTED_STAGES, SEGMENTED_MAX_SLAB, SEGMEN
 DECODE_SLAB = 64
 META_SM_COUNT = 132  # an H100 SXM's SMs: the launch plans of a meta call
 
-launch_counts: Dict[str, int] = {name: 0 for name in _build.KERNELS}
+# the wrappers' names: a kernel library's, and the head-dim split's two
+# entries, which live in the flash_decode library (``_LIBRARY``)
+_LIBRARY = {"flash_decode_scores": "flash_decode", "flash_decode_combine": "flash_decode"}
+ENTRIES = _build.KERNELS + tuple(_LIBRARY)
+launch_counts: Dict[str, int] = {name: 0 for name in ENTRIES}
 LORA_ROUTES = ("fma", "wmma", "wgmma")  # csrc/lora_matmul.cu LoraRoute
 lora_matmul_routes: Dict[str, int] = {route: 0 for route in LORA_ROUTES}
-meta_calls: Dict[str, int] = {name: 0 for name in _build.KERNELS}
-kernel_work: Dict[str, Dict[str, float]] = {name: {"flops": 0.0, "bytes": 0.0} for name in _build.KERNELS}
+meta_calls: Dict[str, int] = {name: 0 for name in ENTRIES}
+kernel_work: Dict[str, Dict[str, float]] = {name: {"flops": 0.0, "bytes": 0.0} for name in ENTRIES}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -76,7 +82,12 @@ _SIGNATURES = {
     ),
     "flash_decode": (
         "flash_decode_launch",
-        [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+        [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    ),
+    "flash_decode_scores": ("flash_decode_scores_launch", [_I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
+    "flash_decode_combine": (
+        "flash_decode_combine_launch",
+        [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     ),
     "flash_attention": (
         "flash_attention_fwd_launch",
@@ -118,7 +129,7 @@ def _entry(name: str):
     fn = _entry_points.get(name)
     if fn is None:
         symbol, argtypes = _SIGNATURES[name]
-        fn = getattr(_build.load(name), symbol)
+        fn = getattr(_build.load(_LIBRARY.get(name, name)), symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _entry_points[name] = fn
@@ -319,19 +330,22 @@ def _decode_splits(s: int, device) -> int:
     return _plan(_splits, (str(device), s), lambda: flash_decode_splits_for(s, _sm_count(device)), "flash_decode")
 
 
-def flash_decode(q, k_cache, v_cache, q_positions, k_positions, *, window: Optional[int] = None):
+def flash_decode(q, k_cache, v_cache, q_positions, k_positions, *, window: Optional[int] = None,
+                 return_lse: bool = False):
     """Single-query GQA attention over a batched ring cache.
 
     q: (B, H, D); k_cache, v_cache: (B, S, KV, D); q_positions: (B,) int32;
     k_positions: (B, S) int32 absolute slot positions (INT32_MAX = never
     written).  Slot j of row b is live iff ``kpos <= qpos`` (and
-    ``kpos > qpos - window``).  Returns (B, H, D) in ``q.dtype``.  Work:
-    4·B·H·S·D FLOPs (every slot, dead ones included).
+    ``kpos > qpos - window``).  Returns (B, H, D) in ``q.dtype``, and with
+    ``return_lse`` also each query's log-sum-exp of its scaled scores over
+    the live slots, (B, H) float32 (-1e30 where none is live): the weight
+    of the output against a decode over other slots of the sequence.
+    Work: 4·B·H·S·D FLOPs (every slot, dead ones included).
     """
     if _on_cpu(q, k_cache, v_cache, q_positions, k_positions):
-        return ref.decode_attention_plain(
-            q, k_cache, v_cache, q_positions, k_positions, window=window
-        )
+        return ref.decode_attention_plain(q, k_cache, v_cache, q_positions, k_positions, window=window,
+                                          return_lse=return_lse)
     bsz, h, d = q.shape
     _, s, kv, _ = k_cache.shape
     _require(
@@ -359,13 +373,88 @@ def flash_decode(q, k_cache, v_cache, q_positions, k_positions, *, window: Optio
     splits = _decode_splits(s, q.device)
     # scratch, freed on return: each split's (m, l, acc[D]) per query
     part = torch.empty((bsz, h, splits, d + 2), dtype=torch.float32, device=q.device)
+    lse = torch.empty((bsz, h), dtype=torch.float32, device=q.device) if return_lse else None
     _launch("flash_decode", q.device, lambda: _entry("flash_decode")(
         _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_cache.dtype], q.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), q_positions.data_ptr(), k_positions.data_ptr(), out.data_ptr(), part.data_ptr(),
-        bsz, h, kv, d, s, window or 0, d**-0.5, splits,
+        _ptr(lse), bsz, h, kv, d, s, window or 0, d**-0.5, splits,
         torch.cuda.current_stream(q.device).cuda_stream,
-    ), 4 * bsz * h * s * d, q, k_cache, v_cache, q_positions, k_positions, out)
-    return out
+    ), 4 * bsz * h * s * d, q, k_cache, v_cache, q_positions, k_positions, out, lse)
+    return (out, lse) if return_lse else out
+
+
+def _check_split(q_or_scores, cache, name: str, out_dtype):
+    """The dtype pair and contiguity rules of the head-dim split's two
+    kernels (``flash_decode``'s pairs)."""
+    _require((out_dtype, cache.dtype)
+             in ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16), (torch.float32, torch.float32)),
+             f"{name} takes (q, cache) dtypes bf16/bf16, f32/bf16 or f32/f32, got {out_dtype}/{cache.dtype}")
+    for t in (q_or_scores, cache):
+        _require(t.is_contiguous(), f"{name} takes contiguous tensors")
+
+
+def flash_decode_scores(q, k_cache, *, scale: float):
+    """The head-dim split's first half: each query's partial scores over
+    this rank's slice of the head dim, ``scale · q · k`` in float32.
+
+    q: (B, H, Dr); k_cache: (B, S, KV, Dr), any Dr > 0 (the rank's dims of
+    every KV head: a cache cut over ``model`` on its head dim); ``scale``
+    the whole head's ``hd ** -0.5``; the KV head of query head h is ``h //
+    (H // KV)``.  Returns (B, H, S) float32, which summed over the ranks
+    gives the scores.  Work: 2·B·H·S·Dr FLOPs."""
+    if _on_cpu(q, k_cache):
+        return ref.decode_scores_plain(q, k_cache, scale=scale)
+    bsz, h, d = q.shape
+    s, kv = k_cache.shape[1], k_cache.shape[2]
+    _check_split(q, k_cache, "flash_decode_scores", q.dtype)
+    _require(tuple(k_cache.shape) == (bsz, s, kv, d), f"k_cache must be ({bsz}, S, KV, {d}), got "
+                                                      f"{tuple(k_cache.shape)}")
+    _require(s > 0 and h % kv == 0 and h // kv <= MAX_GQA_REP, f"{h} heads over {kv} kv heads not supported")
+    _require(0 < d <= MAX_HEAD_DIM and h * d * 4 <= 48 * 1024, f"head-dim slice {d} at {h} heads not supported")
+    scores = torch.empty((bsz, h, s), dtype=torch.float32, device=q.device)
+    _launch("flash_decode_scores", q.device, lambda: _entry("flash_decode_scores")(
+        _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_cache.dtype], q.data_ptr(), k_cache.data_ptr(), scores.data_ptr(),
+        bsz, h, kv, d, s, scale, _stream(q),
+    ), 2 * bsz * h * s * d, q, k_cache, scores)
+    return scores
+
+
+def flash_decode_combine(scores, v_cache, q_positions, k_positions, *, window: Optional[int] = None,
+                         dtype=None):
+    """The head-dim split's second half: from the scores summed over the
+    ranks, the masked softmax of ``flash_decode`` and P V over this rank's
+    slice of the head dim.
+
+    scores: (B, H, S) float32 (``flash_decode_scores``' summed); v_cache:
+    (B, S, KV, Dr); positions and ``window`` as ``flash_decode``'s; a row
+    with no live slot weighs every slot alike, as there.  Returns (out (B,
+    H, Dr) in ``dtype``, default ``v_cache``'s; lse (B, H) float32, as
+    ``flash_decode``'s ``return_lse``).  Work: 2·B·H·S·Dr + 4·B·H·S FLOPs
+    (P V; the max, the exponentials and the sum)."""
+    dtype = v_cache.dtype if dtype is None else dtype
+    if _on_cpu(scores, v_cache, q_positions, k_positions):
+        return ref.decode_combine_plain(scores, v_cache, q_positions, k_positions, window=window, dtype=dtype)
+    bsz, h, s = scores.shape
+    kv, d = v_cache.shape[2], v_cache.shape[3]
+    _check_split(scores, v_cache, "flash_decode_combine", dtype)
+    _require(scores.dtype == torch.float32, f"flash_decode_combine takes float32 scores, got {scores.dtype}")
+    _require(tuple(v_cache.shape) == (bsz, s, kv, d), f"v_cache must be ({bsz}, {s}, KV, Dr), got "
+                                                      f"{tuple(v_cache.shape)}")
+    _require(h % kv == 0 and 0 < d <= MAX_HEAD_DIM, f"{h} heads over {kv} kv heads at Dr {d} not supported")
+    _require(tuple(q_positions.shape) == (bsz,) and tuple(k_positions.shape) == (bsz, s)
+             and q_positions.dtype == k_positions.dtype == torch.int32,
+             f"positions must be ({bsz},) and ({bsz}, {s}) int32")
+    _require(window is None or window > 0, f"window must be None or positive, got {window}")
+    for t in (q_positions, k_positions):
+        _require(t.is_contiguous(), "flash_decode_combine takes contiguous tensors")
+    out = torch.empty((bsz, h, d), dtype=dtype, device=scores.device)
+    lse = torch.empty((bsz, h), dtype=torch.float32, device=scores.device)
+    _launch("flash_decode_combine", scores.device, lambda: _entry("flash_decode_combine")(
+        _DTYPE_CODE[dtype], _DTYPE_CODE[v_cache.dtype], scores.data_ptr(), v_cache.data_ptr(),
+        q_positions.data_ptr(), k_positions.data_ptr(), out.data_ptr(), lse.data_ptr(), bsz, h, kv, d, s,
+        window or 0, _stream(scores),
+    ), 2 * bsz * h * s * d + 4 * bsz * h * s, scores, v_cache, q_positions, k_positions, out, lse)
+    return out, lse
 
 
 # ------------------------------------------------------------- training path

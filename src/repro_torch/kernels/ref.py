@@ -39,8 +39,19 @@ def segmented_lora_plain(x, w, a, b, idx, ranks):
     return (main + side).to(x.dtype)
 
 
+def _decode_bias(q_positions, k_positions, window: Optional[int]):
+    """(B, S) float32: 0 at the live slots (``kpos <= qpos``, and ``kpos >
+    qpos - window``), -1e30 elsewhere (``_mask_bias``'s finite mask)."""
+    qp = q_positions.long()[:, None]
+    kp = k_positions.long()
+    ok = kp <= qp
+    if window is not None:
+        ok = ok & (kp > qp - window)
+    return torch.where(ok, 0.0, NEG_INF).to(torch.float32)
+
+
 def decode_attention_plain(
-    q, k_cache, v_cache, q_positions, k_positions, *, window: Optional[int] = None
+    q, k_cache, v_cache, q_positions, k_positions, *, window: Optional[int] = None, return_lse: bool = False
 ):
     """Single-query GQA attention over a batched ring cache, as ``_sdpa``
     with the bias of ``_mask_bias`` (``repro/nn/attention.py:48-83``) but
@@ -48,21 +59,39 @@ def decode_attention_plain(
 
     q: (B, H, D); k_cache, v_cache: (B, S, KV, D); q_positions: (B,);
     k_positions: (B, S) absolute slot positions (INT32_MAX = never written).
-    Returns (B, H, D) in ``q.dtype``.
+    Returns (B, H, D) in ``q.dtype``, and with ``return_lse`` the (B, H)
+    float32 log-sum-exp of the masked scaled scores.
     """
     b, h, d = q.shape
     kv = k_cache.shape[2]
     qg = q.float().reshape(b, kv, h // kv, d)
     scores = torch.einsum("bgrd,bsgd->bgrs", qg, k_cache.float()) * (d**-0.5)
-    qp = q_positions.long()[:, None]
-    kp = k_positions.long()
-    ok = kp <= qp
-    if window is not None:
-        ok = ok & (kp > qp - window)
-    bias = torch.where(ok, 0.0, NEG_INF).to(torch.float32)  # (B, S)
-    probs = torch.softmax(scores + bias[:, None, None, :], dim=-1)
-    out = torch.einsum("bgrs,bsgd->bgrd", probs, v_cache.float())
-    return out.reshape(b, h, d).to(q.dtype)
+    scores = scores + _decode_bias(q_positions, k_positions, window)[:, None, None, :]
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bgrs,bsgd->bgrd", probs, v_cache.float()).reshape(b, h, d).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(scores, dim=-1).reshape(b, h)
+    return out
+
+
+def decode_scores_plain(q, k_cache, *, scale: float):
+    """``flash_decode_scores``' twin: q (B, H, Dr) against k_cache (B, S,
+    KV, Dr) -> (B, H, S) float32, ``scale · q · k`` over the Dr dims."""
+    b, h, d = q.shape
+    kv = k_cache.shape[2]
+    scores = torch.einsum("bgrd,bsgd->bgrs", q.float().reshape(b, kv, h // kv, d), k_cache.float()) * scale
+    return scores.reshape(b, h, -1)
+
+
+def decode_combine_plain(scores, v_cache, q_positions, k_positions, *, window: Optional[int] = None, dtype=None):
+    """``flash_decode_combine``'s twin: the masked softmax of the summed
+    scores (B, H, S) and P V over v_cache (B, S, KV, Dr).  Returns (out (B,
+    H, Dr) in ``dtype`` (default ``v_cache``'s), lse (B, H) float32)."""
+    b, h, s = scores.shape
+    kv, d = v_cache.shape[2], v_cache.shape[3]
+    masked = (scores.float() + _decode_bias(q_positions, k_positions, window)[:, None, :]).reshape(b, kv, h // kv, s)
+    out = torch.einsum("bgrs,bsgd->bgrd", torch.softmax(masked, dim=-1), v_cache.float()).reshape(b, h, d)
+    return out.to(v_cache.dtype if dtype is None else dtype), torch.logsumexp(masked, dim=-1).reshape(b, h)
 
 
 def attention_plain(q, k, v, *, causal: bool = True, window: Optional[int] = None):

@@ -14,25 +14,30 @@ one JSON per cell under ``--out-dir``:
 * ``bytes_accessed``: the bytes of each recorded device op's inputs and
   outputs plus the kernels' bytes;
 * ``memory``: ``argument_bytes`` per device, from each argument leaf's
-  ``PartitionSpec`` and the mesh's axis sizes; ``peak_bytes``, the peak of
+  ``PartitionSpec`` and the mesh's axis sizes; ``local_argument_bytes``,
+  those of the arguments the rank's step took (equal to ``argument_bytes``
+  where the step is sharded); ``peak_bytes``, the peak of
   live ``meta`` bytes during one rank's step; ``output_bytes`` and
   ``temp_bytes`` (the peak of the step's allocations less its outputs).
-  A ``dense`` arch's train cell runs rank 0 of the mesh's sharded step
-  (``make_train_step(mesh=...)``: its part of the weights, tensor-parallel
-  over ``model``, and its rows of the batch; ``--fsdp`` cuts the weights
-  over the data axes too and the step gathers them back, as the
-  reference's ``regather_specs``).  The other cells run one data rank's
-  slice of the batch (and, at ``long_500k``, of the cache's sequence)
-  with the weights whole, and their ``notes`` say so: the sharded
-  prefill, decode and other families' steps are later slices;
+  A ``dense`` arch's cells run rank 0 of the mesh's sharded step
+  (``make_train_step``, ``make_prefill_step`` or ``make_serve_step`` with
+  ``mesh=...``: its part of the weights, tensor-parallel over ``model``,
+  its rows of the batch and its part of the caches by ``cache_specs``,
+  their sequence at ``long_500k``; ``--fsdp`` cuts the train step's
+  weights over the data axes too and the step gathers them back, as the
+  reference's ``regather_specs``).  The other families' cells run one
+  data rank's slice of the batch (and, at ``long_500k``, of the cache's
+  sequence) with the weights whole, and their ``notes`` say so: their
+  sharded steps are later slices;
 * ``collectives``: the bytes the port itself communicates, by the
-  reference's kinds: a sharded train step's, as its
+  reference's kinds: a sharded step's, as its
   ``sharding.collectives.Comm`` counted them (each collective's bytes, not
-  one run on the card more or less); for sequence-sharded long-context
-  decode, ``serving.decode.sharded_decode_attention``'s three
-  ``all_reduce``s (max, sum, sum of (B, H), (B, H), (B, H, D) float32)
-  per attention layer, counted from the shapes; elsewhere 0 (there is no
-  HLO to parse);
+  one run on the card more or less); for another family's
+  sequence-sharded long-context decode,
+  ``serving.decode.sharded_decode_attention``'s three ``all_reduce``s
+  (max, sum, sum of (B, H), (B, H), (B, H, D) float32) per attention
+  layer, counted from the shapes; elsewhere 0 (there is no HLO to
+  parse);
 * ``kernel_launches`` and ``trace_s`` (the step's seconds on ``meta``).
 
 A step that reads device data on the host (``.item()``, ``.cpu()``: on
@@ -143,7 +148,8 @@ def run_config(cfg, shape, mesh, *, stld_mode: str = "off", stack_mode: str = "u
     """``run_cell``'s record (less the cell's names) for any config, input
     shape and mesh (``input_specs.MeshShape``)."""
     peft_cfg = PEFTConfig(method="lora", lora_rank=8)
-    sharded = shape.kind == "train" and cfg.family == "dense"
+    sharded = cfg.family == "dense"
+    sharded_seq = shape.kind == "decode" and ispec.serve_shards_seq(shape, mesh)
     if shape.kind == "train":
         train_dtype = "placed" if weights_dtype == "placed" else "float32"
         regather = None
@@ -155,12 +161,20 @@ def run_config(cfg, shape, mesh, *, stld_mode: str = "off", stack_mode: str = "u
         step = make_train_step(cfg, peft_cfg, TrainConfig(), stld_mode=stld_mode, stack_mode=stack_mode,
                                mean_rate=mean_rate, mesh=mesh if sharded else None, regather_specs=regather)
     elif shape.kind == "prefill":
-        step = make_prefill_step(cfg, stack_mode=stack_mode)
-        args, specs = ispec.prefill_inputs(cfg, shape, mesh, weights_dtype=weights_dtype)
+        step = make_prefill_step(cfg, stack_mode=stack_mode, mesh=mesh if sharded else None)
+        if sharded:
+            args, specs, local = ispec.rank_prefill_inputs(cfg, shape, mesh, weights_dtype=weights_dtype)
+        else:
+            args, specs = ispec.prefill_inputs(cfg, shape, mesh, weights_dtype=weights_dtype)
     else:
-        step = make_serve_step(cfg, stack_mode=stack_mode)
-        args, specs = ispec.serve_inputs(cfg, shape, mesh, weights_dtype=weights_dtype, expert_shard=expert_shard)
-    sharded_seq = shape.kind == "decode" and shape.global_batch < ispec._batch_axes_size(mesh)
+        step = make_serve_step(cfg, stack_mode=stack_mode, mesh=mesh if sharded else None,
+                               shard_seq=sharded and sharded_seq)
+        if sharded:
+            args, specs, local = ispec.rank_serve_inputs(cfg, shape, mesh, weights_dtype=weights_dtype,
+                                                         expert_shard=expert_shard)
+        else:
+            args, specs = ispec.serve_inputs(cfg, shape, mesh, weights_dtype=weights_dtype,
+                                             expert_shard=expert_shard)
     if not sharded:
         local = _local_args(shape.kind, args, specs, mesh, sharded_seq)
     if shape.kind == "train":
@@ -191,7 +205,9 @@ def run_config(cfg, shape, mesh, *, stld_mode: str = "off", stack_mode: str = "u
         "collectives": collectives,
         "memory": {
             "argument_bytes": argument_bytes(args, specs, mesh),
-            "local_argument_bytes": run.argument_bytes,
+            # with the caches' scalar positions, which live on the host, as argument_bytes counts them
+            "local_argument_bytes": run.argument_bytes + sum(t.numel() * t.element_size() for t in tree_tensors(local)
+                                                             if t.device.type == "cpu"),
             "output_bytes": run.output_bytes,
             "temp_bytes": run.temp_bytes,
             "peak_bytes": run.peak_bytes,

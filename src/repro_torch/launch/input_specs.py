@@ -191,6 +191,37 @@ def prefill_inputs(cfg, shape: InputShape, mesh, *, weights_dtype: str = "float3
     return (params, batch, caches), (params_s, batch_s, caches_s)
 
 
+def rank_prefill_inputs(cfg, shape: InputShape, mesh, *, weights_dtype: str = "float32"):
+    """One rank's arguments of the sharded prefill step
+    (``make_prefill_step(mesh=...)``): ``prefill_inputs``' trees, each leaf
+    cut over every axis its spec names (the weights over ``model``, the
+    batch's rows over the data axes, the caches by ``cache_specs``).
+    Returns (args, specs, the rank's args)."""
+    args, specs = prefill_inputs(cfg, shape, mesh, weights_dtype=weights_dtype)
+    every = tuple(axis_sizes(mesh))
+    return args, specs, tuple(rank_slice(a, s, mesh, every) for a, s in zip(args, specs))
+
+
+def serve_shards_seq(shape: InputShape, mesh) -> bool:
+    """Whether a decode's caches cut their sequence over the data axes: at
+    a batch smaller than the data axes (``long_500k``), as the reference's
+    ``serve_inputs`` decides."""
+    return shape.global_batch < _batch_axes_size(mesh)
+
+
+def rank_serve_inputs(cfg, shape: InputShape, mesh, *, weights_dtype: str = "float32", expert_shard: str = "auto"):
+    """One rank's arguments of the sharded serve step
+    (``make_serve_step(mesh=..., shard_seq=serve_shards_seq(shape,
+    mesh))``): ``serve_inputs``' trees, each leaf cut over every axis its
+    spec names (the weights over ``model``, the token's rows and the
+    caches' rows or, at ``long_500k``, their sequence over the data axes,
+    the caches' KV heads or head dim over ``model``); ``pos`` is the
+    global position.  Returns (args, specs, the rank's args)."""
+    args, specs = serve_inputs(cfg, shape, mesh, weights_dtype=weights_dtype, expert_shard=expert_shard)
+    every = tuple(axis_sizes(mesh))
+    return args, specs, tuple(a if isinstance(a, int) else rank_slice(a, s, mesh, every) for a, s in zip(args, specs))
+
+
 def serve_inputs(cfg, shape: InputShape, mesh, *, weights_dtype: str = "float32",
                  expert_shard: str = "auto") -> Tuple[tuple, tuple]:
     """(args, specs) of ``make_serve_step``'s step: ``(params, token, pos,
@@ -201,7 +232,7 @@ def serve_inputs(cfg, shape: InputShape, mesh, *, weights_dtype: str = "float32"
     tp = axis_sizes(mesh)["model"]
     b_axes = data_axes(mesh)
     b = shape.global_batch
-    shard_seq = b < _batch_axes_size(mesh)
+    shard_seq = serve_shards_seq(shape, mesh)
 
     cache_len = _cache_len(cfg, shape)
     pos = cache_len - 1

@@ -17,7 +17,7 @@ import torch
 from repro_torch.core import peft as peft_lib
 from repro_torch.core import stld
 from repro_torch.core.schedules import unit_shape
-from repro_torch.models.losses import softmax_xent
+from repro_torch.models.losses import softmax_xent, vocab_parallel_argmax
 from repro_torch.models import encdec
 from repro_torch.models.registry import model_apply, param_shapes, params_device
 from repro_torch.models.stacking import is_stacked, tree_leaves, tree_map
@@ -240,7 +240,22 @@ def make_train_step(cfg, peft_cfg, train_cfg, *, stld_mode: str = "off", mean_ra
     return train_step
 
 
-def make_prefill_step(cfg, *, stack_mode: str = "unroll"):
+def _serve_comm(cfg, mesh, shard_seq: bool):
+    """The ``Comm`` of a sharded serving step (None without a mesh), with
+    ``seq_shard``; the dense family only."""
+    if mesh is None:
+        if shard_seq:
+            raise ValueError("shard_seq cuts a sharded step's caches over the data axes: pass the mesh")
+        return None
+    if cfg.family != "dense":
+        raise NotImplementedError(f"the sharded serving steps run the dense family, not {cfg.family!r}")
+    comm = collectives.comm_for(mesh)
+    comm.set_heads(cfg)
+    comm.seq_shard = shard_seq
+    return comm
+
+
+def make_prefill_step(cfg, *, stack_mode: str = "unroll", mesh=None, shard_seq: bool = False):
     """The prompt into the decode caches, as the reference's
     ``make_prefill_step``: ``(params, batch, caches) -> (last_logits (B, V),
     caches)`` with ``batch = {"tokens": (B, S)}`` (numpy or tensors; they
@@ -252,13 +267,36 @@ def make_prefill_step(cfg, *, stack_mode: str = "unroll"):
     layer's cross K/V for ``make_serve_step``.  The caches
     (``init_caches``) are updated as ``stack_apply`` says, under
     ``stack_mode`` (the encoder-decoder's stacks too, as the reference
-    passes it)."""
+    passes it).
+
+    ``mesh`` runs the step sharded, as the reference's step compiled over a
+    mesh (``make_train_step``'s ``mesh``: a ``DeviceMesh`` of (``pod``,)
+    (``data``,) ``model``, each rank calling the step with its own part, or
+    a ``launch.input_specs.MeshShape`` for rank 0 on ``meta``): the weights
+    by ``param_specs(params, tp)`` (Megatron tensor parallelism over
+    ``model``, the vocabulary-parallel embedding and head), the batch's
+    rows over the data axes, each cache by ``cache_specs`` (the KV heads
+    over ``model`` where they divide, else the head dim, else whole; with
+    ``shard_seq``, at batch 1, the sequence over the data axes, as
+    ``cache_specs(shard_seq_on_data=True)``), and the caches stay so between
+    steps (``nn.attention``).  The logits returned are the rank's (B, V /
+    tp) slice of the vocabulary.  The dense family only; another raises
+    ``NotImplementedError``.  The step carries ``comm`` (the mesh's
+    ``Comm``, or None), whose ``counts`` add up the bytes it sends.
+    A sharded prefill starts at position 0, as the reference's does.
+    """
     check_stack_mode(stack_mode)
+    comm = _serve_comm(cfg, mesh, shard_seq)
 
     @torch.no_grad()
     def prefill_step(params, batch, caches):
         device = params_device(params)
         inputs = model_batch(cfg, batch, as_device_tensor(batch["tokens"], device), device)
+        if comm is not None:
+            logits, _, caches = model_apply(_tp_layout(comm, params, None, None), cfg, inputs, caches=caches,
+                                            stack_mode=stack_mode, tp=comm)
+            # a copy, so that the whole sequence's logits are freed on return
+            return logits[:, -1].clone(), caches
         if cfg.is_encoder_decoder:
             enc_out = encdec.encode(params, cfg, inputs["frames"], stack_mode=stack_mode)
             enc_kvs = encdec.encoder_cross_kvs(params, cfg, enc_out)
@@ -268,10 +306,11 @@ def make_prefill_step(cfg, *, stack_mode: str = "unroll"):
         logits, _, caches = model_apply(params, cfg, inputs, caches=caches, stack_mode=stack_mode)
         return logits[:, -1], caches
 
+    prefill_step.comm = comm
     return prefill_step
 
 
-def make_serve_step(cfg, *, stack_mode: str = "unroll"):
+def make_serve_step(cfg, *, stack_mode: str = "unroll", mesh=None, shard_seq: bool = False):
     """Single-token decode against a cache.
 
     ``(params, token (B, 1), pos, caches, enc_kvs=None, peft=None) ->
@@ -285,23 +324,33 @@ def make_serve_step(cfg, *, stack_mode: str = "unroll"):
     per-projection :class:`~repro_torch.nn.linear.AdapterPool` nodes (or
     plain LoRA).  The caches are updated as ``stack_apply`` says, under
     ``stack_mode`` as in ``make_prefill_step``.
-    """
+
+    ``mesh`` and ``shard_seq`` run the step sharded, as
+    ``make_prefill_step``'s; ``next_token`` is then the first index of the
+    global maximum, the same on every ``model`` rank
+    (``losses.vocab_parallel_argmax``); ``peft`` (pools or plain LoRA,
+    replicated, a pool's ``idx`` the rank's rows) is cut as the
+    projections are (``nn.linear``)."""
     check_stack_mode(stack_mode)
+    comm = _serve_comm(cfg, mesh, shard_seq)
 
     @torch.no_grad()
     def serve_step(params, token, pos, caches, enc_kvs=None, peft=None):
         if isinstance(pos, torch.Tensor) and pos.ndim == 1:
-            positions = pos[:, None]  # (B, 1)
+            positions = pos[:, None] if comm is None else comm.rows(pos, token.shape[0])[:, None]  # (B, 1)
         else:
             positions = torch.full((1,), int(pos), dtype=torch.int64, device=token.device)
         if cfg.is_encoder_decoder:
             logits, _, caches = encdec.decode(params, cfg, token, enc_kvs, positions=positions, caches=caches,
                                               peft=peft, stack_mode=stack_mode)
         else:
+            if comm is not None:
+                params = _tp_layout(comm, params, None, None)
             logits, _, caches = model_apply(params, cfg, {"tokens": token}, positions=positions, caches=caches,
-                                            peft=peft, stack_mode=stack_mode)
+                                            peft=peft, stack_mode=stack_mode, tp=comm)
         logits = logits[:, -1]
-        next_token = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
-        return logits, next_token, caches
+        pred = torch.argmax(logits, dim=-1) if comm is None else vocab_parallel_argmax(logits, comm)
+        return logits, pred[:, None].to(torch.int32), caches
 
+    serve_step.comm = comm
     return serve_step

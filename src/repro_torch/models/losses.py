@@ -12,24 +12,38 @@ def _nll(logits, labels, z_loss_coef: float):
     return nll + z_loss_coef * torch.square(lse) if z_loss_coef > 0.0 else nll
 
 
+@torch.no_grad()
+def _max_and_argmax(logits, tp):
+    """The global max of logits sharded on the vocabulary (each rank's
+    (..., V / tp) slice) and its first index, as ``torch.argmax`` gives it:
+    the max over ``model``, then the least index among the ranks that hold
+    it (a second ``all_reduce``, of the min)."""
+    v_local = logits.shape[-1]
+    local_max = torch.amax(logits, dim=-1)
+    arg = torch.argmax(logits, dim=-1) + tp.tp_rank * v_local
+    m = tp.all_reduce(local_max, "model", "max")
+    return m, tp.all_reduce(torch.where(local_max == m, arg, v_local * tp.tp), "model", "min")
+
+
+def vocab_parallel_argmax(logits, tp):
+    """``torch.argmax(logits, -1)`` of logits sharded on the vocabulary
+    (this rank's (..., V / tp) slice), the same on every ``model`` rank; the
+    logits are compared in float32, as the reference's argmax of bf16
+    logits compares their values."""
+    return _max_and_argmax(logits.float(), tp)[1]
+
+
 def _vocab_parallel(logits, labels, z_loss_coef: float, tp):
     """``_nll`` and the argmax of logits sharded on the vocabulary: each
     rank holds its (..., V / tp) slice.  The max over ``model`` (no
-    gradient: the log-sum-exp does not depend on it), then the sums of the
-    exponentials and of the target's logit (each from the rank that holds
-    it) in one sum over ``model``; the prediction is the first index of the
-    global max, as ``torch.argmax`` gives it (the least index among the
-    ranks that hold the max).  The float32 logits are never whole."""
+    gradient: the log-sum-exp does not depend on it) and the prediction
+    (``_max_and_argmax``), then the sums of the exponentials and of the
+    target's logit (each from the rank that holds it) in one sum over
+    ``model``.  The float32 logits are never whole."""
     v_local = logits.shape[-1]
-    lo = tp.tp_rank * v_local
-    local = labels - lo
+    local = labels - tp.tp_rank * v_local
     held = (local >= 0) & (local < v_local)
-    with torch.no_grad():
-        local_max = torch.amax(logits, dim=-1)
-        arg = torch.argmax(logits, dim=-1) + lo
-        m = tp.all_reduce(local_max, "model", "max")
-        vocab = v_local * tp.tp
-        pred = tp.all_reduce(torch.where(local_max == m, arg, vocab), "model", "min")
+    m, pred = _max_and_argmax(logits, tp)
     target = torch.gather(logits, -1, torch.where(held, local, 0)[..., None])[..., 0]
     sums = tp.reduce(torch.stack([torch.exp(logits - m[..., None]).sum(-1), torch.where(held, target, 0.0)]))
     lse = m + torch.log(sums[0])

@@ -292,13 +292,14 @@ def lm_apply(params, cfg, tokens, *, positions=None, prefix_embeds=None, drops=N
     tensor-parallel forward: ``embed`` (and ``lm_head``) hold the rank's
     V / tp rows (columns), the lookup is ``Comm.embed``'s, the layers are
     ``stack_apply``'s, and the logits come back as the rank's (B, S, V /
-    tp) slice of the vocabulary (``losses.softmax_xent`` takes them so)."""
+    tp) slice of the vocabulary (``losses.softmax_xent`` takes them so);
+    the decode caches are the rank's parts (``nn.attention``)."""
     compute_dtype = getattr(torch, cfg.dtype)
     if devices is not None:
         tokens = tokens.reshape(-1, tokens.shape[-1])
     if tp is not None:
-        if prefix_embeds is not None or caches is not None:
-            raise NotImplementedError("the tensor-parallel forward takes no prefix and no decode caches")
+        if prefix_embeds is not None:
+            raise NotImplementedError("the tensor-parallel forward takes no prefix")
         h = tp.embed(params["embed"], tokens, compute_dtype)
     else:
         h = params["embed"][tokens].to(compute_dtype)

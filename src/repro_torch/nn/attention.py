@@ -20,6 +20,11 @@
   position p sits in slot ``p % cache_len``.  The scalar ``pos`` lives on
   the host (a CPU tensor), so reading it syncs nothing.
 
+A tensor-parallel step (``tp``, a ``sharding.collectives.Comm``) runs the
+rank's heads with either cache, cut by the reference's ``cache_specs``
+(``_tp_cache_attention``): the KV heads over ``model``, else the head dim,
+else whole, and with ``Comm.seq_shard`` the sequence over the data axes.
+
 ``multi_head_attention`` is the reference's position-masked attention as a
 public function: q (B, Sq, H, hd) over k, v (B, Skv, KV, hd) with the mask
 of ``repro.nn.attention._mask_bias`` over absolute positions, each case on
@@ -131,12 +136,13 @@ def multi_head_attention(q, k, v, *, q_positions, k_positions, causal: bool = Tr
                                          window=window) for t in range(sq)], dim=1)
 
 
-def ring_positions(pos, cache_len: int):
+def ring_positions(pos, cache_len: int, lo: int = 0, n=None):
     """Absolute position held by each ring slot after this step's write,
     per row: ``(B, cache_len)`` int32, INT32_MAX where the slot was not
-    written by the row's current request (never live)."""
+    written by the row's current request (never live); with ``lo`` and
+    ``n``, only slots ``lo .. lo + n - 1`` of the ring."""
     last_pos = pos[:, None]  # one new token per row: last_pos = pos
-    slots = torch.arange(cache_len, dtype=pos.dtype, device=pos.device)
+    slots = torch.arange(lo, lo + (cache_len if n is None else n), dtype=pos.dtype, device=pos.device)
     k_positions = last_pos - torch.remainder(last_pos - slots[None, :], cache_len)
     return torch.where(k_positions < 0, INT32_MAX, k_positions).to(torch.int32)
 
@@ -181,6 +187,116 @@ def _scalar_cache_attention(cfg, q, k, v, positions, cache):
     return out, {"k": ck, "v": cv, "pos": pos + s}
 
 
+def _cache_layout(cfg, cache) -> str:
+    """How ``cache_specs`` cut this rank's ring over ``model``, read off its
+    shape: ``dim`` (the head dim), ``heads`` (the KV heads) or ``whole``."""
+    if cache["k"].shape[3] != cfg.resolved_head_dim:
+        return "dim"
+    return "heads" if cache["k"].shape[2] != cfg.num_kv_heads else "whole"
+
+
+def _to_cache_layout(tp, layout: str, kv):
+    """New K and V of this rank's KV heads, ``kv`` (2, B, n, kv_l, hd), as
+    its cache holds them: as they are (``heads``), every head gathered over
+    ``model`` (``whole``: each block of ``head_share`` ranks computed one
+    head alike) or its slice of every head's dims (``dim``,
+    ``Comm.head_dim_cut``)."""
+    if layout == "heads":
+        return kv
+    if layout == "whole":
+        return tp.all_gather(kv, "model", 3)[:, :, :, ::tp.head_share]
+    return tp.head_dim_cut(kv[:, :, :, 0])
+
+
+def _tp_cache_attention(cfg, tp, q, k, v, positions, cache):
+    """A tensor-parallel step's attention with a decode cache: q (B, S,
+    H / tp, hd), k and v (B, S, kv_l, hd) of the rank's heads (``Comm
+    .kv_cols``), the rank's part of the ring in ``cache`` (``cache_specs``:
+    ``_cache_layout``; with ``tp.seq_shard`` its slots ``lo .. lo + L - 1``
+    of a ring of L times the data ranks).  Returns (out (B, S, H / tp, hd),
+    new_cache), the ring written in place.
+
+    * A prefill (scalar ``pos`` 0; a sharded prefill starts there, as the
+      reference's does, else ``NotImplementedError``): ``flash_attention``
+      on the local heads as the one-rank step runs it, then the ring's
+      written slots that are the rank's, in its layout
+      (``_to_cache_layout``).
+    * A decode step (one token; either ``pos``): the new token's K/V into
+      the rank's layout (``heads``: its own; ``whole``: gathered over
+      ``model``; ``dim``: q, k and v gathered over ``model`` in one call, the
+      rank's dims taken), written by the rank whose slots hold ``pos % ring``;
+      then ``flash_decode`` on the local heads (``whole``: its KV heads'
+      part of the ring), or for ``dim`` ``flash_decode_scores``, their sum
+      over ``model`` and ``flash_decode_combine`` over every head and the
+      rank's dims, gathered back to local heads; with ``seq_shard`` each
+      data rank's output over its slots weighed by its log-sum-exp
+      (``Comm.lse_combine``)."""
+    b, s, h_l, hd = q.shape
+    ck, cv, pos = cache["k"], cache["v"], cache["pos"]
+    layout, window = _cache_layout(cfg, cache), cfg.sliding_window
+    n_slots = ck.shape[1]
+    ring = n_slots * (tp.n_data if tp.seq_shard else 1)
+    lo = tp.data_index * n_slots if tp.seq_shard else 0
+    if pos.ndim == 0 and (s > 1 or int(pos) == 0):
+        if int(pos) != 0:
+            raise NotImplementedError(f"a sharded prefill starts at position 0, as the reference's does, not at "
+                                      f"{int(pos)}")
+        if s >= ring:  # attention over the sequence's own K/V; the ring keeps the last `ring`, rolled
+            out = ops.flash_attention(q, k, v.contiguous(), causal=True, window=window)
+            kv = torch.roll(torch.stack([k[:, -ring:], v[:, -ring:]]).to(ck.dtype), s % ring, dims=2)
+        else:
+            kv = torch.stack([k, v]).to(ck.dtype)
+            kk, vv = (t.to(q.dtype).contiguous() for t in kv)
+            out = ops.flash_attention(q, kk, vv, causal=True, window=window)
+        end = min(lo + n_slots, kv.shape[2])
+        if end > lo:  # the written slots that are this rank's
+            kv = _to_cache_layout(tp, layout, kv[:, :, lo:end])
+            ck[:, :end - lo] = kv[0]
+            cv[:, :end - lo] = kv[1]
+        return out, {"k": ck, "v": cv, "pos": pos + s}
+    if pos.ndim > 1 or s != 1:
+        raise ValueError(f"a decode step writes one token a row at pos () or (B,), got S={s}, pos "
+                         f"{tuple(pos.shape)}")
+    row_pos = tp.rows(pos, b) if pos.ndim else torch.full((b,), int(pos), dtype=torch.int64, device=q.device)
+    q_pos = positions.expand(b, 1)[:, 0].to(torch.int32).contiguous()
+    q_new = q[:, 0]
+    if layout == "dim":  # q, k and v of every head, and this rank's dims of them
+        got = tp.all_gather(torch.cat([q[:, 0], k[:, 0], v[:, 0]], dim=1), "model", 1).view(b, tp.tp, h_l + 2, hd)
+        d0, d1 = tp.tp_rank * ck.shape[3], (tp.tp_rank + 1) * ck.shape[3]
+        q_new = got[:, :, :h_l, d0:d1].reshape(b, h_l * tp.tp, d1 - d0).contiguous()
+        k_new, v_new = got[:, ::tp.head_share, h_l, d0:d1], got[:, ::tp.head_share, h_l + 1, d0:d1]
+    elif layout == "whole":
+        got = tp.all_gather(torch.stack([k[:, 0, 0], v[:, 0, 0]], dim=1), "model", 1).view(b, tp.tp, 2, hd)
+        k_new, v_new = got[:, ::tp.head_share, 0], got[:, ::tp.head_share, 1]
+    else:
+        k_new, v_new = k[:, 0], v[:, 0]
+    rows = torch.arange(b, device=q.device)
+    slot = torch.remainder(row_pos, ring).long() - lo
+    if tp.seq_shard:  # only the rank whose slots hold the position writes; the others write back what they hold
+        mine = ((slot >= 0) & (slot < n_slots))[:, None, None]
+        slot = slot.clamp(0, n_slots - 1)
+        k_new, v_new = torch.where(mine, k_new.to(ck.dtype), ck[rows, slot]), torch.where(mine, v_new.to(cv.dtype),
+                                                                                         cv[rows, slot])
+    ck[rows, slot] = k_new.to(ck.dtype)
+    cv[rows, slot] = v_new.to(cv.dtype)
+    k_pos = ring_positions(row_pos, ring, lo, n_slots)
+    if layout == "dim":
+        scores = tp.all_reduce(ops.flash_decode_scores(q_new, ck, scale=hd**-0.5), "model")
+        out, lse = ops.flash_decode_combine(scores, cv, q_pos, k_pos, window=window, dtype=q.dtype)
+    else:
+        kk, vv = ck, cv
+        if layout == "whole":  # this rank's KV heads of the ring
+            h0, h1 = (c // hd for c in tp.kv_cols(cfg))
+            kk, vv = ck[:, :, h0:h1].contiguous(), cv[:, :, h0:h1].contiguous()
+        out = ops.flash_decode(q_new.contiguous(), kk, vv, q_pos, k_pos, window=window, return_lse=tp.seq_shard)
+        out, lse = out if tp.seq_shard else (out, None)
+    if tp.seq_shard:
+        out = tp.lse_combine(out, lse)
+    if layout == "dim":  # every head's dims back, then this rank's heads
+        out = tp.all_gather(out, "model", 2)[:, tp.tp_rank * h_l:(tp.tp_rank + 1) * h_l]
+    return out[:, None], {"k": ck, "v": cv, "pos": pos + s}
+
+
 def attention_apply(params, cfg, x, positions, *, causal=True, cache=None, peft=None, lora_scale=1.0, tp=None):
     """Self-attention over ``x`` (B, S, d).  Returns (out, new_cache).
 
@@ -190,12 +306,12 @@ def attention_apply(params, cfg, x, positions, *, causal=True, cache=None, peft=
     ``pos``).  Its K/V tensors are updated in place and returned in
     ``new_cache`` with ``pos + S``.
 
-    ``tp`` (a ``sharding.collectives.Comm``; cache-free only) runs the
-    rank's heads of a tensor-parallel step: ``wq``, ``wk`` and ``wv`` are
-    column-parallel (this rank's H / tp query heads and the KV heads they
-    read, whole: ``Comm.kv_cols``, gathered by the step where a spec cuts
-    a head), ``wo`` row-parallel, and ``flash_attention`` runs on the
-    local heads.
+    ``tp`` (a ``sharding.collectives.Comm``) runs the rank's heads of a
+    tensor-parallel step: ``wq``, ``wk`` and ``wv`` are column-parallel
+    (this rank's H / tp query heads and the KV heads they read, whole:
+    ``Comm.kv_cols``, gathered by the step where a spec cuts a head),
+    ``wo`` row-parallel, and ``flash_attention`` runs on the local heads;
+    with a cache, ``_tp_cache_attention``.
     """
     peft = peft or {}
     b, s, _ = x.shape
@@ -203,8 +319,6 @@ def attention_apply(params, cfg, x, positions, *, causal=True, cache=None, peft=
     h, kvh = cfg.num_heads, cfg.num_kv_heads
     sq = skv = so = None
     if tp is not None:
-        if cache is not None:
-            raise NotImplementedError("the tensor-parallel attention runs without a decode cache")
         x = tp.enter(x)
         sq = Shard(tp, "col", *tp.cols(h * hd))
         skv = Shard(tp, "col", *tp.kv_cols(cfg))
@@ -228,6 +342,9 @@ def attention_apply(params, cfg, x, positions, *, causal=True, cache=None, peft=
         out = apply_linear(params["wo"], out.reshape(b, s, h * hd), peft.get("o"), lora_scale, shard=so)
         return out, None
 
+    if tp is not None:
+        out, new_cache = _tp_cache_attention(cfg, tp, q, k, v, positions, cache)
+        return apply_linear(params["wo"], out.reshape(b, s, h * hd), peft.get("o"), lora_scale, shard=so), new_cache
     pos = cache["pos"]
     if pos.ndim == 0 and (s > 1 or int(pos) == 0):
         out, new_cache = _scalar_cache_attention(cfg, q, k, v, positions, cache)

@@ -69,21 +69,32 @@ def lora_delta(x, lora, scale: float):
     return scale * ((x @ lora["a"].to(x.dtype)) @ lora["b"].to(x.dtype))
 
 
-def _pooled_linear(params, x, pool: AdapterPool):
+def _pooled_linear(params, x, pool: AdapterPool, shard=None):
     """Segmented multi-adapter projection: row i applies adapter
-    ``pool.idx[i]``; main product and gathered LoRA branch in one kernel."""
+    ``pool.idx[i]``; main product and gathered LoRA branch in one kernel.
+    ``shard`` as ``apply_linear``'s: the pool's ``b`` cut to the rank's
+    columns (``col``), or its ``a`` to the rank's rows and the output
+    summed over ``model`` (``row``)."""
     w = params["w"].to(x.dtype)
+    bias = params.get("b")
     lead = x.shape[:-1]
     xm = x.reshape(-1, x.shape[-1]).contiguous()
     idx = pool.idx
     if x.ndim == 3 and x.shape[1] != 1:
         idx = torch.repeat_interleave(idx, x.shape[1])  # every token of a row shares its adapter
-    y = ops.segmented_lora(
-        xm, w, pool.a.to(x.dtype), pool.b.to(x.dtype), idx.contiguous(), pool.ranks
-    )
+    a, b = pool.a, pool.b
+    if shard is not None and shard.kind == "col":
+        b = b[..., shard.lo:shard.hi]
+        bias = None if bias is None else bias[..., shard.lo:shard.hi]
+    elif shard is not None:
+        a = a[..., shard.lo:shard.hi, :]
+    y = ops.segmented_lora(xm, w, a.to(x.dtype).contiguous(), b.to(x.dtype).contiguous(), idx.contiguous(),
+                           pool.ranks)
     y = y.reshape(*lead, w.shape[-1])
-    if "b" in params:
-        y = y + params["b"].to(x.dtype)
+    if shard is not None and shard.kind == "row":
+        y = shard.comm.reduce(y)
+    if bias is not None:
+        y = y + bias.to(x.dtype)
     return y
 
 
@@ -96,9 +107,10 @@ def apply_linear(params, x, lora: Optional[dict] = None, lora_scale: float = 1.0
     columns ``lo:hi`` (B's and the bias's columns cut alike); ``row``, its
     input rows ``lo:hi`` of ``x``'s features (A's rows cut alike, B whole),
     the output summed over ``model`` (the LoRA term with the product) and
-    the bias added once after the sum."""
+    the bias added once after the sum; an :class:`AdapterPool` is cut
+    alike (``_pooled_linear``)."""
     if isinstance(lora, AdapterPool):
-        return _pooled_linear(params, x, lora)
+        return _pooled_linear(params, x, lora, shard)
     w = params["w"].to(x.dtype)
     bias = params.get("b")
     if shard is not None and lora is not None:

@@ -1,9 +1,10 @@
-"""The collectives of the port's sharded train step, and one rank's place
-in its mesh.
+"""The collectives of the port's sharded steps, and one rank's place in
+its mesh.
 
-The reference compiles its train step over a mesh and GSPMD inserts the
-collectives; the port's step (``launch.steps.make_train_step(mesh=...)``)
-calls them itself, all through this module:
+The reference compiles its steps over a mesh and GSPMD inserts the
+collectives; the port's steps (``launch.steps.make_train_step``,
+``make_prefill_step`` and ``make_serve_step``, each with ``mesh=...``) call
+them itself, all through this module:
 
 * Megatron's two operators, as ``torch.autograd.Function``s: ``enter``
   (the identity forward, an ``all_reduce`` over ``model`` backward) in
@@ -14,7 +15,12 @@ calls them itself, all through this module:
 * plain ``all_reduce`` (sum, max, min) and ``all_gather`` over a mesh axis
   (``model``, the data axes taken together as ``data``, every rank of the
   mesh as ``world``, or the ranks that share a KV head as ``heads``);
-* the vocabulary-parallel embedding lookup (``embed``).
+* the vocabulary-parallel embedding lookup (``embed``);
+* the serving steps' own (``nn.attention``'s cache paths): the
+  ``all_to_all`` of a prefill's new K/V into a cache cut on its head dim
+  (``head_dim_cut``), the log-sum-exp combine of decodes over slices of a
+  sequence cut over the data axes (``lse_combine``), and the
+  vocabulary-parallel argmax (``models.losses.vocab_parallel_argmax``).
 
 A :class:`Comm` holds the group handles (``from_mesh``: a
 ``torch.distributed`` ``DeviceMesh``), or none at all on ``meta``
@@ -72,6 +78,7 @@ class Comm:
         self.data_axes = tuple(a for a in DATA_AXES if a in sizes)
         self.n_data = math.prod(sizes[a] for a in self.data_axes)
         self.head_share = 1  # ranks that share one KV head (``set_heads``)
+        self.seq_shard = False  # the serving caches' sequence is cut over the data axes
         self.reset()
 
     # ------------------------------------------------------------ building
@@ -163,6 +170,23 @@ class Comm:
             return head * hd, (head + 1) * hd
         return self.cols(kv * hd)
 
+    @property
+    def data_index(self) -> int:
+        """This rank's index over the data axes taken together, the first
+        major (as a spec's tuple of data axes cuts a dim)."""
+        i = 0
+        for a in self.data_axes:
+            i = i * self.sizes[a] + self.coords[a]
+        return i
+
+    def rows(self, t: torch.Tensor, batch: int) -> torch.Tensor:
+        """This rank's ``batch`` rows of ``t``, which its spec replicates
+        over the data axes (the serving caches' (B,) positions), where the
+        batch's rows are cut over them."""
+        if t.shape[0] == batch:
+            return t
+        return t[self.data_index * batch:(self.data_index + 1) * batch]
+
     def axis_size(self, axis: str) -> int:
         return {"model": self.tp, "data": self.n_data, "world": self.tp * self.n_data,
                 "heads": self.head_share}[axis]
@@ -210,6 +234,39 @@ class Comm:
             dist.all_gather(parts, t, group=self.groups[axis])
             self.seconds += time.perf_counter() - t0
         return torch.cat(parts, dim=dim)
+
+    def head_dim_cut(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` (..., hd), this rank's KV head (with ``head_share`` > 1
+        each block of that many ranks holds one head alike), as a cache cut
+        on its head dim holds it: (..., KV, hd / tp), this rank's slice of
+        every KV head.  One ``all_to_all`` over ``model``: rank (k, i), the
+        i-th of head k's block, sends slice j of its head to each rank j
+        with j % head_share == i, so each rank receives its slice of every
+        head once, in head order."""
+        share, tp = self.head_share, self.tp
+        i = self.tp_rank % share
+        send = x.reshape(*x.shape[:-1], tp, x.shape[-1] // tp)[..., i::share, :].movedim(-2, 0).contiguous()
+        recv = torch.empty_like(send)
+        self._record("all-to-all", _nbytes(send))
+        if not self.is_meta:
+            import torch.distributed as dist
+
+            splits = [send[0].numel() if j % share == i else 0 for j in range(tp)]
+            t0 = time.perf_counter()
+            dist.all_to_all_single(recv.reshape(-1), send.reshape(-1), splits, splits, group=self.groups["model"])
+            self.seconds += time.perf_counter() - t0
+        return recv.movedim(0, -2)
+
+    def lse_combine(self, out: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+        """The attention output over the whole sequence from each data
+        rank's over its slice of it (``out`` (B, H, D), ``lse`` (B, H) its
+        log-sum-exp): the max over the data axes, then one sum of the
+        weighted outputs and weights together.  In ``out.dtype``."""
+        if self.n_data == 1:
+            return out
+        w = torch.exp(lse - self.all_reduce(lse, "data", "max"))
+        both = self.all_reduce(torch.cat([out.float() * w[..., None], w[..., None]], dim=-1), "data")
+        return (both[..., :-1] / both[..., -1:]).to(out.dtype)
 
     # ------------------------------------------------------------ Megatron's operators
     def enter(self, x: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""One gloo rank of the port's sharded train step on the CPU, for
-``tests/test_torch_tp.py`` and ``tests/test_torch_dryrun.py``::
+"""One gloo rank of the port's sharded train step, or of its sharded
+prefill and decode steps, on the CPU, for ``tests/test_torch_tp.py``,
+``tests/test_torch_tp_serve.py`` and ``tests/test_torch_dryrun.py``::
 
     python tests/_torch_tp_rank.py RANK WORLD PORT INPUTS.npz OUT.npz
 
@@ -15,6 +16,17 @@ trees cut to its part (``sharding.specs.shard_tree``), the gates fed to
 gradients, the PEFT tree and AdamW state after the two steps, each step's
 metrics and the collectives' counts of each step.  With ``"mismatch": true`` a run feeds
 each rank other gates and saves whether the step raised.
+
+A run with ``"kind": "serve"`` (``serve_one``) takes the case's whole
+params, its prompt (``<case>/prompt``, (B, P)) and, with ``"peft"``, its
+plain LoRA tree (``<case>/peft/...``) or its tenant pools
+(``<case>/pool/<proj>/{a,b,idx,ranks}``, stacked), cuts them and the
+caches (``init_caches``, float32 or ``"cache_dtype"``) by the reference's specs
+(``cache_specs``, the sequence over ``data`` with ``"seq"``), runs the
+sharded prefill and ``"steps"`` greedy decode steps (``"pos": "rows"``
+turns the caches' scalar positions into one a row after the prefill and
+decodes at ``(B,)`` positions) and saves the rank's last logits of each
+step, its tokens, its caches and each step's counts.
 """
 import json
 import sys
@@ -29,7 +41,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 from repro_torch.configs import PEFTConfig, TrainConfig, get_config  # noqa: E402
 from repro_torch.core import stld  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
-from repro_torch.launch.steps import make_train_step  # noqa: E402
+from repro_torch.launch.steps import make_prefill_step, make_serve_step, make_train_step  # noqa: E402
+from repro_torch.models.losses import vocab_parallel_argmax  # noqa: E402
+from repro_torch.models.transformer import init_caches  # noqa: E402
+from repro_torch.nn.linear import AdapterPool  # noqa: E402
 from repro_torch.models.stacking import in_layout, tree_leaves  # noqa: E402
 from repro_torch.optim import adamw_init  # noqa: E402
 from repro_torch.sharding import specs as S  # noqa: E402
@@ -65,7 +80,67 @@ def unflatten(data, prefix: str) -> dict:
 
 def case_config(run: dict):
     cfg = get_config(run["arch"], smoke=True).replace(num_layers=2, dtype="float32")
+    if run.get("head_dim"):
+        cfg = cfg.replace(head_dim=run["head_dim"])
     return cfg.replace(d_ff=run["d_ff"]) if run.get("d_ff") else cfg
+
+
+def serve_peft(data, case: str, kind):
+    """The serve run's PEFT tree: None, the plain LoRA tree, or a tree of
+    :class:`AdapterPool` nodes (``<case>/pool/<proj>/...``)."""
+    if kind == "lora":
+        return unflatten(data, f"{case}/peft/")
+    if kind == "pool":
+        pools = unflatten(data, f"{case}/pool/")
+        return {"attn": {name: AdapterPool(**{f: node[f] for f in ("a", "b", "idx", "ranks")})
+                         for name, node in pools["attn"].items()}}
+    return None
+
+
+def serve_one(data, run: dict, out: dict, i: int):
+    """A serve run (the module docstring), its outputs under ``<i>/``."""
+    cfg = case_config(run)
+    case = run["case"]
+    params = unflatten(data, f"{case}/params/")
+    prompt = torch.from_numpy(data[f"{case}/prompt"])
+    b, p = prompt.shape
+    shape = tuple(run["mesh"])
+    mesh = make_mesh(shape, AXES, device_type="cpu")
+    sizes, coords = dict(zip(AXES, shape)), dict(zip(AXES, mesh.get_coordinate()))
+    S.set_mesh_axis_sizes(mesh)
+    seq = bool(run.get("seq"))
+    local = S.shard_tree(params, S.param_specs(params, sizes["model"]), sizes, coords)
+    caches = init_caches(cfg, b, p + run["steps"], dtype=getattr(torch, run.get("cache_dtype", "float32")))
+    cache_spec = S.cache_specs(caches, ("data",), sizes["model"], shard_seq_on_data=seq)
+    caches = S.shard_tree(caches, cache_spec, sizes, coords)
+    rows = b if seq else b // sizes["data"]
+    lo = 0 if seq else coords["data"] * rows
+    peft = serve_peft(data, case, run.get("peft"))
+    if isinstance(peft, dict) and run.get("peft") == "pool":  # the rank's rows of each pool's slot map
+        peft = {"attn": {k: AdapterPool(v.a, v.b, v.idx[..., lo:lo + rows].contiguous(), v.ranks)
+                         for k, v in peft["attn"].items()}}
+    prefill = make_prefill_step(cfg, mesh=mesh, shard_seq=seq)
+    serve = make_serve_step(cfg, mesh=mesh, shard_seq=seq)
+    counts = []
+    logits, caches = prefill(local, {"tokens": prompt[lo:lo + rows]}, caches)
+    counts.append(dict(prefill.comm.counts))
+    token = vocab_parallel_argmax(logits, prefill.comm)[:, None].to(torch.int32)
+    out[f"{i}/logits/0"], tokens = logits.numpy(), []
+    if run.get("pos") == "rows":
+        for cache in caches:
+            cache["pos"] = torch.full((b,), p, dtype=torch.int32)
+    for k in range(run["steps"]):
+        serve.comm.reset()
+        pos = torch.full((b,), p + k, dtype=torch.int32) if run.get("pos") == "rows" else p + k
+        logits, token, caches = serve(local, token, pos, caches, peft=peft)
+        counts.append(dict(serve.comm.counts))
+        out[f"{i}/logits/{k + 1}"] = logits.numpy()
+        tokens.append(token[:, 0].numpy())
+    out[f"{i}/tokens"] = np.stack(tokens)
+    for l, cache in enumerate(caches):
+        out[f"{i}/caches/{l}/k"], out[f"{i}/caches/{l}/v"] = cache["k"].float().numpy(), cache["v"].float().numpy()
+    out[f"{i}/coords"] = np.array([coords[a] for a in AXES])
+    out[f"{i}/counts"] = np.array(json.dumps(counts))
 
 
 def run_one(data, run: dict, rank: int, out: dict, i: int):
@@ -120,7 +195,11 @@ def main():
     data = np.load(inputs)
     out = {}
     for i, run in enumerate(json.loads(str(data["runs"]))):
-        if run["mesh"][0] * run["mesh"][1] == world:
+        if run["mesh"][0] * run["mesh"][1] != world:
+            continue
+        if run.get("kind") == "serve":
+            serve_one(data, run, out, i)
+        else:
             run_one(data, run, rank, out, i)
     np.savez(out_path, **out)
     dist.destroy_process_group()

@@ -209,6 +209,91 @@ def test_cuda_flash_decode_all_masked_row_is_guarded(cuda):
     torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-5)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,cache_dtype", [("bfloat16", "bfloat16"), ("float32", "bfloat16"), ("float32", "float32")])
+@pytest.mark.parametrize("window", [None, 40])
+def test_cuda_flash_decode_lse_matches_twin(cuda, q_dtype, cache_dtype, window):
+    """The log-sum-exp output (the merge's m + log l) against the twin's,
+    within 1e-4 (float32 sums in another order); -1e30 for a row with no
+    live slot; the output bit for bit the call's without it."""
+    b, h, kv, d, s = 6, 8, 2, 128, 100
+    q, k, v = _decode_inputs(np.random.default_rng(12), b, h, kv, d, s)
+    q = torch.from_numpy(q).to(cuda, getattr(torch, q_dtype))
+    kc, vc = (torch.from_numpy(t).to(cuda, getattr(torch, cache_dtype)) for t in (k, v))
+    pos = torch.tensor([0, 7, 99, 150, 333, 3], dtype=torch.int32, device=cuda)
+    kpos = ring_positions(pos, s)
+    kpos[5] = INT32_MAX
+    ops.reset_launch_counts()
+    got, lse = ops.flash_decode(q, kc, vc, pos, kpos, window=window, return_lse=True)
+    assert ops.launch_counts["flash_decode"] == 1
+    _, want = ref.decode_attention_plain(q, kc, vc, pos, kpos, window=window, return_lse=True)
+    torch.cuda.synchronize()
+    assert lse.dtype == torch.float32 and (lse[5] == -1e30).all()
+    torch.testing.assert_close(lse, want, atol=1e-4, rtol=1e-5)
+    assert torch.equal(got, ops.flash_decode(q, kc, vc, pos, kpos, window=window))
+
+
+SPLIT_CASES = [  # (B, H, KV, Dr, S): the head-dim slices of the dense archs' caches
+    (8, 16, 8, 8, 512),  # qwen3-1.7b at model 16: hd 128 / 16
+    (8, 32, 8, 5, 300),  # h2o-danube-1.8b at model 16: hd 80 / 16
+    (4, 32, 2, 32, 512),  # glm4-9b at model 4: rep 16
+    (2, 4, 2, 8, 77),  # the smoke configs, S off the 128-slot block
+    (2, 8, 1, 160, 130),  # Dr past 128 threads: two dims a thread
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,cache_dtype", [("bfloat16", "bfloat16"), ("float32", "bfloat16"), ("float32", "float32")])
+@pytest.mark.parametrize("b,h,kv,dr,s", SPLIT_CASES)
+def test_cuda_flash_decode_split_pair_matches_twins(cuda, q_dtype, cache_dtype, b, h, kv, dr, s):
+    """``flash_decode_scores`` and ``flash_decode_combine`` against their
+    twins, with and without a window, a wrapped ring and a row with no
+    live slot: the scores within 1e-5 + 1e-5 |ref| (float32 sums of Dr
+    products in another order), the output as ``flash_decode``'s rule, the
+    log-sum-exp within 1e-4."""
+    rng = np.random.default_rng(40 + dr)
+    q, k, v = _decode_inputs(rng, b, h, kv, dr, s)
+    q = torch.from_numpy(q).to(cuda, getattr(torch, q_dtype))
+    kc, vc = (torch.from_numpy(t).to(cuda, getattr(torch, cache_dtype)) for t in (k, v))
+    pos = torch.tensor([0, 3, s - 1, 2 * s + 17, s // 2, 5, 40, 9][:b], dtype=torch.int32, device=cuda)
+    kpos = ring_positions(pos, s)
+    kpos[b - 1] = INT32_MAX
+    scale = (dr * 16) ** -0.5
+    ops.reset_launch_counts()
+    scores = ops.flash_decode_scores(q, kc, scale=scale)
+    torch.testing.assert_close(scores, ref.decode_scores_plain(q, kc, scale=scale), atol=1e-5, rtol=1e-5)
+    atol, rtol = (3e-2, 1e-2) if q_dtype == "bfloat16" else (2e-5, 1e-5)
+    for window in (None, 40):
+        got, lse = ops.flash_decode_combine(scores, vc, pos, kpos, window=window, dtype=q.dtype)
+        want, want_lse = ref.decode_combine_plain(scores, vc, pos, kpos, window=window, dtype=q.dtype)
+        torch.cuda.synchronize()
+        assert got.dtype == q.dtype and torch.isfinite(got).all()
+        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+        torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+    assert ops.launch_counts["flash_decode_scores"] == 1 and ops.launch_counts["flash_decode_combine"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dr", [5, 8, 32])
+def test_cuda_flash_decode_split_pair_sums_to_flash_decode(cuda, dr):
+    """Over the head dim's slices (hd 160): the scores summed, each
+    slice's combine, concatenated, give ``flash_decode``'s output on the
+    whole head within 2e-5 in float32, and each slice's log-sum-exp its."""
+    b, h, kv, hd, s = 4, 16, 8, 160, 300
+    q, k, v = (torch.from_numpy(t).to(cuda) for t in _decode_inputs(np.random.default_rng(50), b, h, kv, hd, s))
+    pos = torch.tensor([0, 3, 299, 617], dtype=torch.int32, device=cuda)
+    kpos = ring_positions(pos, s)
+    want, want_lse = ops.flash_decode(q, k, v, pos, kpos, window=100, return_lse=True)
+    cuts = [(lo, lo + dr) for lo in range(0, hd, dr)]
+    scores = sum(ops.flash_decode_scores(q[..., lo:hi].contiguous(), k[..., lo:hi].contiguous(), scale=hd**-0.5)
+                 for lo, hi in cuts)
+    parts = [ops.flash_decode_combine(scores, v[..., lo:hi].contiguous(), pos, kpos, window=100) for lo, hi in cuts]
+    torch.cuda.synchronize()
+    torch.testing.assert_close(torch.cat([o for o, _ in parts], -1), want, atol=2e-5, rtol=1e-5)
+    for _, lse in parts:
+        torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+
+
 DECODE_CASES = [  # (B, H, KV, D, S, window)
     (3, 8, 8, 64, 1000, None),  # rep 1, D 64, S off the split (16 splits of 62-63 slots)
     (4, 16, 8, 128, 512, None),  # rep 2, the decode step's heads

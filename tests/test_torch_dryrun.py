@@ -494,3 +494,66 @@ def test_sharded_smoke_cell_counts_what_its_gloo_run_counts(tmp_path):
     assert rec["memory"]["argument_bytes"] == dryrun.argument_bytes(args, specs, mesh)
     assert rec["memory"]["peak_bytes"] < whole.peak_bytes
     assert rec["kernel_launches"] == whole.kernel_launches
+
+
+@pytest.mark.parametrize("arch,shape", [("qwen3-1.7b", "decode_32k"), ("qwen3-1.7b", "prefill_32k"),
+                                        ("h2o-danube-1.8b", "long_500k")])
+def test_dense_serving_cells_run_the_sharded_step(arch, shape):
+    """A dense arch's serving cells run rank 0 of the sharded step at 16 x
+    16: its part of the weights and caches (the head dim cut, 8 and 5 a
+    rank; danube's sequence over ``data`` at ``long_500k``), every byte the
+    specs give a device, collectives counted by ``Comm``; a decode runs the
+    head-dim split pair once an attention layer, a prefill
+    ``flash_attention``."""
+    rec = dryrun.run_cell(arch, shape, multi_pod=False)
+    cfg = configs.get_config(arch)
+    mem = rec["memory"]
+    assert rec["ok"] and not any("weights are whole" in note for note in rec["notes"])
+    assert mem["local_argument_bytes"] == mem["argument_bytes"] > 0
+    assert rec["collectives"]["total"] == sum(rec["collectives"][k] for k in dryrun.COLLECTIVES) > 0
+    if shape == "prefill_32k":
+        assert rec["kernel_launches"] == {"flash_attention": cfg.num_layers}
+        assert rec["collectives"]["all-to-all"] > 0
+    else:
+        assert rec["kernel_launches"] == {"flash_decode_scores": cfg.num_layers, "flash_decode_combine": cfg.num_layers}
+    assert (shape == "long_500k") == any("sequence is sharded" in note for note in rec["notes"])
+
+
+def test_sharded_serving_smoke_cells_count_what_their_gloo_runs_count(tmp_path):
+    """Smoke prefill and decode cells (qwen3-1.7b at 2 layers, float32,
+    batch 4, a 12-token prompt and a 16-slot cache) on a 1 x 4 mesh, whose
+    caches are cut on the head dim: the dry run's collective bytes, kind by
+    kind, equal those that 4 gloo ranks count running the same steps on
+    the CPU (``tests/_torch_tp_rank.py``'s ``serve_one``, bf16 caches as the
+    dry run's), the prefill's and the first decode step's."""
+    import socket
+    import subprocess
+    import sys
+
+    from _torch_tp_rank import case_config, flatten
+    from repro_torch.models.registry import init_params
+
+    run = {"kind": "serve", "case": "c", "arch": "qwen3-1.7b", "mesh": [1, 4], "steps": 4, "cache_dtype": "bfloat16"}
+    cfg = case_config(run)
+    data = {"runs": np.array(json.dumps([run])), "c/prompt": np.zeros((4, 12), np.int32)}
+    flatten(init_params(cfg, torch.Generator().manual_seed(0)), "c/params/", data)
+    np.savez(tmp_path / "in.npz", **data)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = str(sock.getsockname()[1])
+    root = Path(__file__).resolve().parents[1]
+    env = {"PYTHONPATH": str(root / "src"), "PATH": "/usr/bin:/bin", "OMP_NUM_THREADS": "1"}
+    procs = [subprocess.Popen([sys.executable, str(root / "tests" / "_torch_tp_rank.py"), str(r), "4", port,
+                               str(tmp_path / "in.npz"), str(tmp_path / f"r{r}.npz")], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(4)]
+    mesh = ispec.MeshShape({"data": 1, "model": 4})
+    prefill = dryrun.run_config(cfg, configs.InputShape("smoke_prefill", 12, 4, "prefill"), mesh)
+    decode = dryrun.run_config(cfg, configs.InputShape("smoke_decode", 16, 4, "decode"), mesh)
+    logs = [p.communicate(timeout=180)[0] for p in procs]
+    assert all(p.returncode == 0 for p in procs), [log[-2000:] for log in logs]
+    for r in range(4):
+        counts = json.loads(str(np.load(tmp_path / f"r{r}.npz")["0/counts"]))
+        for rec, got in ((prefill, counts[0]), (decode, counts[1])):
+            assert {k: rec["collectives"][k] for k in got} == got, (rec["collectives"], got)
+    assert prefill["collectives"]["all-to-all"] > 0 and decode["collectives"]["all-gather"] > 0
+    assert decode["kernel_launches"] == {"flash_decode_scores": 2, "flash_decode_combine": 2}
